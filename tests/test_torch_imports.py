@@ -1,0 +1,80 @@
+"""The PyTorch port stands alone: it loads neither jax nor the JAX package,
+and its entry points refuse to start on the CPU unless asked to."""
+
+import pkgutil
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import kakveda_tpu_torch
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = ROOT / "kakveda_tpu_torch"
+
+
+def _modules():
+    return sorted(
+        m.name for m in pkgutil.walk_packages([str(PKG)], prefix="kakveda_tpu_torch.")
+    )
+
+
+def test_import_loads_no_jax_in_fresh_interpreter():
+    mods = _modules()
+    assert "kakveda_tpu_torch.platform" in mods and "kakveda_tpu_torch.ops.fused_topk" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))"
+        " or m == 'kakveda_tpu' or m.startswith('kakveda_tpu.')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    r = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
+    )
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_sources_name_no_jax():
+    # `kakveda_tpu.` never appears (the port's own name continues with
+    # `_torch`), nor an import of jax or of the bare JAX package.
+    pat = re.compile(r"import jax|from jax|\bkakveda_tpu\.|import kakveda_tpu\b(?!_)")
+    hits = [
+        f"{path.relative_to(ROOT)}: {m.group(0)}"
+        for path in [*PKG.rglob("*.py"), ROOT / "chip_smoke.py"]
+        for m in pat.finditer(path.read_text())
+    ]
+    assert not hits, hits
+
+
+@pytest.mark.parametrize("entry", ["platform", "gfkb", "knn"])
+def test_entry_points_default_to_cuda(entry, tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from kakveda_tpu_torch.index.gfkb import GFKB
+    from kakveda_tpu_torch.ops.knn import Knn
+    from kakveda_tpu_torch.platform import Platform
+
+    make = {
+        "platform": lambda: Platform(data_dir=tmp_path, capacity=16, dim=64),
+        "gfkb": lambda: GFKB(data_dir=tmp_path, capacity=16, dim=64),
+        "knn": lambda: Knn(16, 64),
+    }[entry]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make()
+
+
+def test_cpu_wrapper_never_builds(monkeypatch):
+    # On a CPU tensor the wrapper takes the plain version: no nvcc, no launch.
+    from kakveda_tpu_torch.ops import _build, fused_topk as ft
+
+    monkeypatch.setattr(_build, "load", lambda name: pytest.fail("built on CPU"))
+    before = ft.fused_topk.launches
+    emb = torch.eye(4, 16)
+    v, i = ft.fused_topk(emb, torch.ones(4, dtype=torch.bool), emb[:2], 2)
+    assert ft.fused_topk.launches == before
+    assert i[:, 0].tolist() == [0, 1]
+    assert kakveda_tpu_torch.__version__
