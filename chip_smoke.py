@@ -15,12 +15,36 @@ JAX package). Phases, each of which raises on failure (exit code != 0):
    scores of neighbouring ranks differ by more than 1e-4, exact
    lowest-index ties on duplicated rows; warm times from CUDA events beside
    the bound and one PyTorch yardstick call (never used by the port);
-4. the main path, with launch counts zeroed just before and read just
-   after: ``Platform(capacity=2^20, dim=2048)`` on the card runs the demo
-   flow (warn → ingest for app-A/app-B, repeats that degrade app-A, a
-   follow-up warn), then ``ingest_batch`` of 4096 traces in batches of 512
-   and ``warn_batch`` of 64, whose matches are checked against the plain
-   top-k of the same index.
+4. the failure-memory main path, with launch counts zeroed just before and
+   read just after: ``Platform(capacity=2^20, dim=2048)`` on the card runs
+   the demo flow (warn → ingest for app-A/app-B, repeats that degrade
+   app-A, a follow-up warn), then ``ingest_batch`` of 4096 traces in batches
+   of 512 and ``warn_batch`` of 64, whose matches are checked against the
+   plain top-k of the same index;
+5. ``flash_gqa_cache`` (bf16 cache and int8 cache) against its plain
+   version at the model plane's shapes (H = 32, KV = 8, D = 128): decode
+   (B = 8, S = 1, L = 512, per-slot ``kv_valid``, one slot that sees nothing
+   and must give exact zeros), admission (B = 1, S = 64, L = 512, 13 left-pad
+   slots) and a long cache (B = 8, S = 1, L = 8192); bf16 output within
+   2e-2; device times from a CUDA graph of many calls replayed between
+   CUDA events (so the wrappers' host time is not counted; one eager call's
+   time is printed beside), cycling enough copies of the cache to defeat
+   the 50 MB L2, beside the bound and one PyTorch yardstick call
+   (``scaled_dot_product_attention``, never used by the port);
+6. the model plane's main path: ``LlamaRuntime(LlamaConfig.llama3_8b())``
+   (random bf16 weights from seed 0, 16.06 GB, 32 layers) serves
+   ``generate_batch`` of 8 prompts × 32 tokens through the engine (8 slots,
+   window 512, chunk 8), once with a bf16 cache and once with an int8
+   cache, launch counts zeroed just before and read just after each run:
+   the run's kernel launches 32 × (forward passes) times, the other kernel
+   0. Each prompt's tokens equal a solo ``generate_tokens`` up to the first
+   step whose solo top-2 logit margin is below 0.25 (bf16 noise between
+   batch shapes can flip a nearer tie), and every engine token lies within
+   0.25 of the solo argmax on the engine's own prefix (one teacher-forced
+   pass, so all 32 steps are checked); the int8 cache's first-step logits
+   keep a cosine ≥ 0.99 to the bf16 cache's. Admission ms, decode step p50
+   ms (host clock) and the step's device time (graph replay) against the
+   4.8 ms weight-read bound, and tokens/s.
 
 Prints a ``{"kernels": [...]}`` line, the card line, and last
 ``{"ok": true, "device": {...}}``.
@@ -29,7 +53,9 @@ Prints a ``{"kernels": [...]}`` line, the card line, and last
 from __future__ import annotations
 
 import asyncio
+import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -44,6 +70,13 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12  # dense bf16 tensor-core peak
 ROWS, DIM = 1 << 20, 2048
 ATOL = 1e-4  # bf16 inputs, f32 sums taken in another order than the plain version
+# Flash: bf16 output of |out| <~ 3, where one bf16 step is <= 1.6e-2; f32 sums
+# in another order may flip the rounding of a probability or of the output.
+FLASH_ATOL = 2e-2
+H, KV, HD = 32, 8, 128  # Llama-3-8B attention heads, kv heads, head_dim
+L2_BYTES = 50e6
+MARGIN_TOL = 0.25  # solo top-2 logit margin below which a batched token may flip
+INT8_COS_MIN = 0.99  # first-step logits, int8 cache vs bf16 cache
 STUB_RESPONSE = (
     "Here is a summary with references.\n\n"
     "References:\n"
@@ -69,6 +102,34 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def graph_ms(fn, n: int = 20) -> float:
+    """Device time per call: ``n`` calls captured in one CUDA graph and
+    replayed between CUDA events, so the host's time between launches (the
+    wrappers' Python) is not counted. Median of three replays."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm up on a side stream before capture
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(n):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        g.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    del g
     return statistics.median(times)
 
 
@@ -252,6 +313,288 @@ def phase_platform(data_dir: Path, fused_topk, fused_topk_reference) -> dict:
     return out
 
 
+FLASH_SHAPES = [
+    # (name, B, S, L, pos0, kv_valid)
+    ("decode", 8, 1, 512, 512, "slots"),
+    ("admission", 1, 64, 512, 0, "leftpad"),
+    ("long_cache", 8, 1, 8192, 8192, None),
+]
+
+
+def flash_inputs(gen, b, s, l, kind, kv8, copies):
+    """q, ``copies`` replicas of the cache (cycled so timed launches find it
+    cold in L2, as the 32 layers of a real step do), scales, kv_valid."""
+    from kakveda_tpu_torch.models.llama import _kv_quant_rows
+
+    q = torch.randn(b, s, H, HD, device="cuda", generator=gen).to(torch.bfloat16)
+    ks = vs = None
+    k = torch.randn(copies, b, KV, l, HD, device="cuda", generator=gen).to(torch.bfloat16)
+    v = torch.randn(copies, b, KV, l, HD, device="cuda", generator=gen).to(torch.bfloat16)
+    if kv8:
+        k, ks = _kv_quant_rows(k)
+        v, vs = _kv_quant_rows(v)
+    ar = torch.arange(l, device="cuda")
+    valid = None
+    if kind == "slots":  # the serving decode regime: a band per slot
+        lo = torch.randint(0, 64, (b, 1), device="cuda", generator=gen)
+        hi = torch.randint(64, l + 1, (b, 1), device="cuda", generator=gen)
+        valid = ((ar >= lo) & (ar < hi)).contiguous()
+        valid[b - 1] = False  # a slot that sees nothing
+    elif kind == "leftpad":  # admission: 13 left-pad rows, the prompt bucket of 64
+        valid = ((ar >= 13) & (ar < s)).expand(b, l).contiguous()
+    return q, k, v, ks, vs, valid
+
+
+def flash_bound_ms(b, s, l, kv8):
+    """Each input read once, the output written once, over 3.35 TB/s; the
+    two products' flops over 989 TFLOP/s bf16. Returns (ms, bound_by)."""
+    r = H // KV
+    kv_bytes = 2 * l * (HD + 4) if kv8 else 2 * l * HD * 2
+    nbytes = b * KV * (2 * s * r * HD * 2 + kv_bytes) + b * l
+    flops = 4 * b * KV * s * r * l * HD
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_flash(card: str) -> dict:
+    """Both flash bodies against the plain version at the main path's shapes."""
+    import torch.nn.functional as F
+
+    from kakveda_tpu_torch.models.attention import flash_gqa_cache, flash_gqa_cache_reference
+    from kakveda_tpu_torch.models.llama import _kv_dequant
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = {}
+    for kv8 in (False, True):
+        name = "flash_gqa_cache_kv8" if kv8 else "flash_gqa_cache"
+        row = {"max_abs_err": 0.0}
+        for shape, b, s, l, pos0, kind in FLASH_SHAPES:
+            kv_bytes = b * KV * l * (2 * (HD + 4) if kv8 else 4 * HD)
+            copies = max(1, math.ceil(2.5 * L2_BYTES / kv_bytes))
+            q, k, v, ks, vs, valid = flash_inputs(gen, b, s, l, kind, kv8, copies)
+
+            def args(i):
+                i %= copies
+                return dict(q=q, k=k[i], v=v[i], pos0=pos0, kv_valid=valid,
+                            k_scale=None if ks is None else ks[i], v_scale=None if vs is None else vs[i])
+
+            a = args(0)
+            out = flash_gqa_cache(a["q"], a["k"], a["v"], pos0, valid, k_scale=a["k_scale"], v_scale=a["v_scale"])
+            torch.cuda.synchronize()
+            ref = flash_gqa_cache_reference(a["q"], a["k"], a["v"], pos0, valid,
+                                            k_scale=a["k_scale"], v_scale=a["v_scale"])
+            err = (out.float() - ref.float()).abs().max().item()
+            if not torch.isfinite(out).all() or err > FLASH_ATOL:
+                raise AssertionError(f"{name} {shape}: max |kernel - plain| = {err} > {FLASH_ATOL}")
+            if kind == "slots" and not torch.equal(out[b - 1], torch.zeros_like(out[b - 1])):
+                raise AssertionError(f"{name} {shape}: the slot that sees nothing is not zeros")
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+
+            it = iter(range(1 << 30))
+
+            def kern():
+                a = args(next(it))
+                flash_gqa_cache(a["q"], a["k"], a["v"], pos0, a["kv_valid"],
+                                k_scale=a["k_scale"], v_scale=a["v_scale"])
+
+            def plain():
+                a = args(next(it))
+                flash_gqa_cache_reference(a["q"], a["k"], a["v"], pos0, a["kv_valid"],
+                                          k_scale=a["k_scale"], v_scale=a["v_scale"])
+
+            # Yardstick: one library call on the same inputs (int8 dequantized
+            # first), q heads-major, the same boolean mask.
+            q_pos = pos0 + torch.arange(s, device="cuda")
+            mask = (q_pos[:, None] >= torch.arange(l, device="cuda")[None, :])[None, None]
+            if valid is not None:
+                mask = mask & valid[:, None, None, :]
+            qh = q.transpose(1, 2)
+
+            def library():
+                a = args(next(it))
+                kk, vv = a["k"], a["v"]
+                if kv8:
+                    kk = _kv_dequant(kk, a["k_scale"], torch.bfloat16)
+                    vv = _kv_dequant(vv, a["v_scale"], torch.bfloat16)
+                F.scaled_dot_product_attention(qh, kk, vv, attn_mask=mask, enable_gqa=True)
+
+            ms = graph_ms(kern, n=4 * copies)
+            plain_ms = graph_ms(plain, n=2)
+            lib_ms = graph_ms(library, n=4 * copies)
+            call_ms = cuda_ms(kern, iters=50, warmup=5)  # one eager call, wrapper included
+            bound_ms, bound_by = flash_bound_ms(b, s, l, kv8)
+            log(f"{name} {shape} (B={b} S={s} L={l}): max_abs_err={err:.3g} kernel_ms={ms:.4f} "
+                f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms={bound_ms:.4f} "
+                f"({bound_by}) eager_call_ms={call_ms:.4f} [{card}]")
+            if shape == "decode":  # the main path's most frequent shape
+                row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
+            del q, k, v, ks, vs
+        rows[name] = row
+    torch.cuda.empty_cache()
+    return rows
+
+
+class RecordingTokenizer:
+    """The byte tokenizer, remembering the ids each ``decode`` was given, so
+    the tokens behind ``generate_batch``'s texts can be checked."""
+
+    def __init__(self):
+        from kakveda_tpu_torch.models.tokenizer import ByteTokenizer
+
+        self._tok = ByteTokenizer()
+        self.PAD, self.BOS, self.EOS = self._tok.PAD, self._tok.BOS, self._tok.EOS
+        self.vocab_size = self._tok.vocab_size
+        self.decoded = []
+
+    def encode(self, text, **kw):
+        return self._tok.encode(text, **kw)
+
+    def decode(self, ids):
+        self.decoded.append(list(ids))
+        return self._tok.decode(ids)
+
+
+PROMPTS = [  # 8 distinct prompts of 48-52 tokens: one admission bucket of 64
+    f"Incident {i}: the {what} failed; summarize why."
+    for i, what in enumerate(
+        ["checkout API", "search index", "login flow", "payments batch",
+         "image resizer", "mail relay", "audit export", "cache warmer"]
+    )
+]
+
+
+def phase_model(card: str) -> dict:
+    from kakveda_tpu_torch.models.attention import flash_gqa_cache
+    from kakveda_tpu_torch.models.generate import LlamaRuntime, generate_tokens
+    from kakveda_tpu_torch.models.llama import LlamaConfig, decode_step, init_cache, mask_pad_vocab
+    from kakveda_tpu_torch.models.serving import ContinuousBatcher, _forward_wide
+
+    cfg = LlamaConfig.llama3_8b()
+    t0 = time.perf_counter()
+    tok = RecordingTokenizer()
+    rt = LlamaRuntime(cfg=cfg, seed=0, tokenizer=tok)
+    torch.cuda.synchronize()
+    n_bytes = sum(t.numel() * t.element_size()
+                  for t in [rt.params["embed"], rt.params["lm_head"], rt.params["final_norm"]]
+                  + [w for layer in rt.params["layers"] for w in layer.values()])
+    log(f"Llama-3-8B width and depth: {cfg.n_layers} layers, {n_bytes / 1e9:.2f} GB of weights "
+        f"on {rt.device}, drawn in {time.perf_counter() - t0:.1f} s")
+    if rt.device.type != "cuda" or abs(n_bytes - 16.06e9) > 0.01e9:
+        raise AssertionError(f"model on {rt.device} with {n_bytes} bytes")
+    ids = [tok.encode(p) for p in PROMPTS]
+    if len({tuple(i) for i in ids}) != 8 or not all(33 <= len(i) <= 64 for i in ids):
+        raise AssertionError("prompts must be 8 distinct, of one admission bucket")
+
+    out = {}
+    first_logits = {}
+    for kvq in ("", "int8"):
+        tag = kvq or "bf16"
+        rq = rt if not kvq else LlamaRuntime(cfg=dataclasses.replace(rt.cfg, kv_quant=kvq),
+                                             params=rt.params, tokenizer=tok)
+        eng = rq.engine()
+        if (eng.cb.B, eng.cb.max_len, eng.cb.chunk_steps) != (8, 512, 8):
+            raise AssertionError("engine is not 8 slots, window 512, chunk 8")
+        rq.generate_batch(PROMPTS[:2], max_tokens=8)  # warm-up: cuBLAS heuristics, allocator
+        tok.decoded.clear()
+        flash_gqa_cache.launches = 0
+        flash_gqa_cache.launches_kv8 = 0
+        f0 = eng.cb.forwards
+        t = time.perf_counter()
+        res = rq.generate_batch(PROMPTS, max_tokens=32)
+        wall = time.perf_counter() - t
+        n_fwd = eng.cb.forwards - f0
+        mine, other = flash_gqa_cache.launches, flash_gqa_cache.launches_kv8
+        if kvq:
+            mine, other = other, mine
+        got = list(tok.decoded)
+        rq.close()
+        if mine != cfg.n_layers * n_fwd or other != 0:
+            raise AssertionError(f"{tag}: {mine} launches for {n_fwd} forwards (want {cfg.n_layers} each), "
+                                 f"{other} of the other kernel")
+        if len(res) != 8 or not all(r.meta.get("continuous") for r in res) or len(got) != 8:
+            raise AssertionError(f"{tag}: generate_batch did not run through the engine")
+        n_tok = sum(len(g) for g in got)
+
+        def forced(p_ids, toks):
+            """Solo logits [len(toks) + 1, V] along prompt + toks, one pass."""
+            seq = torch.tensor([p_ids + toks], device="cuda")
+            cache = init_cache(rq.cfg, batch=1, max_len=seq.shape[1], device="cuda")
+            logits, _ = decode_step(rq.params, rq.cfg, seq, cache)
+            lg = mask_pad_vocab(logits[0, len(p_ids) - 1:], rq.cfg)
+            if not torch.isfinite(lg[:, : tok.vocab_size]).all():
+                raise AssertionError(f"{tag}: non-finite logits")
+            return lg
+
+        compared, deficit = [], 0.0
+        for p_ids, eng_ids in zip(ids, got):
+            # Equal to solo generate_tokens up to its first low-margin step.
+            solo = generate_tokens(rq.params, rq.cfg, p_ids, max_new_tokens=32, eos_id=tok.EOS)
+            lg = forced(p_ids, solo)
+            first_logits.setdefault(tag, []).append(lg[0, : tok.vocab_size].double())
+            top2 = lg.topk(2, dim=-1).values
+            margin = (top2[:, 0] - top2[:, 1]).tolist()
+            n = min(len(solo), next((j for j, m in enumerate(margin) if m < MARGIN_TOL), len(solo)))
+            if eng_ids[:n] != solo[:n]:
+                raise AssertionError(f"{tag}: engine {eng_ids[:n]} != solo {solo[:n]} within {n} steps")
+            compared.append(n)
+            # Every engine token (and its EOS stop) within MARGIN_TOL of the
+            # solo argmax on the engine's own prefix.
+            picks = eng_ids + ([tok.EOS] if len(eng_ids) < 32 else [])
+            lg = forced(p_ids, eng_ids)[: len(picks)]
+            d = lg.max(dim=-1).values - lg[torch.arange(len(picks)), torch.tensor(picks)]
+            deficit = max(deficit, d.max().item())
+            if deficit > MARGIN_TOL:
+                raise AssertionError(f"{tag}: an engine token is {deficit} below the solo argmax")
+        log(f"{tag} cache: engine == solo generate_tokens on {sum(compared)} of {n_tok} tokens "
+            f"(per prompt {compared}); every engine token within {deficit:.4f} of the solo argmax "
+            f"on its own prefix; {n_fwd} forwards, {mine} launches")
+        out[tag] = dict(launches=mine, forwards=n_fwd, tokens=n_tok, wall_s=wall,
+                        tokens_per_s=n_tok / wall, compared=sum(compared), max_deficit=deficit)
+
+    cos = [torch.nn.functional.cosine_similarity(a, b, dim=0).item()
+           for a, b in zip(first_logits["bf16"], first_logits["int8"])]
+    log(f"int8 cache vs bf16 cache, first-step logits cosine min {min(cos):.6f} (bound {INT8_COS_MIN})")
+    if min(cos) < INT8_COS_MIN:
+        raise AssertionError(f"int8-cache logits drift: cosine {min(cos)}")
+
+    # Admission and decode-step times on a batcher of the engine's shape.
+    for kvq in ("", "int8"):
+        tag = kvq or "bf16"
+        cb = ContinuousBatcher(rt.params, dataclasses.replace(rt.cfg, kv_quant=kvq),
+                               batch_slots=8, max_len=512, chunk_steps=8, eos_id=None)
+        adm = []
+        for p_ids in ids:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            cb.admit(p_ids, max_new_tokens=400)
+            torch.cuda.synchronize()
+            adm.append((time.perf_counter() - t) * 1e3)
+        cb.step()  # warm
+        steps = []
+        for _ in range(6):
+            t = time.perf_counter()
+            cb.step()  # ends in the tokens' device->host copy
+            steps.append((time.perf_counter() - t) * 1e3 / cb.chunk_steps)
+        if cb.active != 8:
+            raise AssertionError("a slot retired early")
+        # The same step's device time, its launches replayed from a graph.
+        dev_args = (torch.zeros((8, 1), dtype=torch.long, device="cuda"),
+                    torch.from_numpy(cb._pos_np.copy()).to("cuda"),
+                    torch.from_numpy(cb._kv_np.copy()).to("cuda"),
+                    torch.from_numpy(cb._off_np.copy()).to("cuda"))
+        step_dev = graph_ms(lambda: _forward_wide(cb.params, cb.cfg, cb.cache, *dev_args), n=4)
+        del cb
+        torch.cuda.empty_cache()
+        weight_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        out[tag].update(admission_ms_p50=statistics.median(adm), decode_step_ms_p50=statistics.median(steps),
+                        decode_step_device_ms=step_dev, weight_read_bound_ms=weight_ms)
+        log(f"{tag} cache: admission p50 {statistics.median(adm):.2f} ms (B=1, S=64), decode step p50 "
+            f"{statistics.median(steps):.2f} ms at 8 slots (device time {step_dev:.2f} ms) vs the "
+            f"weight-read bound {weight_ms:.2f} ms, engine {out[tag]['tokens_per_s']:.1f} tokens/s [{card}]")
+    log("model plane: " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -288,6 +631,10 @@ def main() -> int:
     if launches <= 0:
         raise AssertionError("the main path never launched fused_topk")
     log(f"fused_topk launches on the main path: {launches}")
+    torch.cuda.empty_cache()  # the 2^20 x 2048 index is gone; the model needs the room
+
+    flash = phase_flash(card)
+    model = phase_model(card)
 
     kernels = [dict(
         name="fused_topk", route="cuda", source="kakveda_tpu_torch/csrc/fused_topk.cu",
@@ -295,6 +642,14 @@ def main() -> int:
         max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
         bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=row["library_ms"],
     )]
+    for kname, tag in (("flash_gqa_cache", "bf16"), ("flash_gqa_cache_kv8", "int8")):
+        r = flash[kname]
+        kernels.append(dict(
+            name=kname, route="cuda", source="kakveda_tpu_torch/csrc/flash_gqa_cache.cu",
+            replaces="kakveda_tpu/models/attention.py:284", launches=model[tag]["launches"],
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
+        ))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,0 +1,309 @@
+"""Sampling loops and the Llama runtime over the in-tree model.
+
+Counterpart of ``kakveda_tpu/models/generate.py``. ``decode_step`` runs
+eagerly (PyTorch needs no jit), so the loops here are plain Python over it.
+Greedy decoding is exact against the JAX package; temperature sampling
+draws from a ``torch.Generator``, whose numbers differ from ``jax.random``
+by design.
+
+``LlamaRuntime`` serves ``generate``/``generate_batch`` through the shared
+continuous-batching engine (``models/serving.py``) and falls back to a solo
+batch decode when the engine is off or a request does not fit its window.
+Without weights it serves a model drawn from a seed, as the JAX runtime
+does without a checkpoint.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import threading
+import time
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from kakveda_tpu_torch.models.llama import (
+    LlamaConfig,
+    Params,
+    decode_step,
+    init_cache,
+    init_params,
+    mask_pad_vocab,
+)
+from kakveda_tpu_torch.models.runtime import GenerateResult
+from kakveda_tpu_torch.models.tokenizer import ByteTokenizer
+from kakveda_tpu_torch.ops.device import resolve_device
+from kakveda_tpu_torch.ops.knn import pow2_bucket
+
+
+def _last_logits(logits: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
+    """[B, S, V] -> [B, V] of the final position, padded vocab masked."""
+    return mask_pad_vocab(logits[:, -1, :], cfg)
+
+
+def _sample(last: torch.Tensor, temperature: float, generator) -> torch.Tensor:
+    """[B] next ids: argmax (first maximum) at temperature 0, else a draw
+    from softmax(last / temperature)."""
+    if temperature <= 0.0:
+        return last.argmax(dim=-1)
+    return torch.multinomial(torch.softmax(last / temperature, dim=-1), 1, generator=generator)[:, 0]
+
+
+def _bucket_len(need: int, cap: int) -> int:
+    """Power-of-two cache window ≥ need (floor 64, capped)."""
+    return pow2_bucket(need, floor=64, cap=cap)
+
+
+def _pack_prompts(prompts: List[List[int]], ml: int):
+    """Left-pad a ragged prompt batch: (tokens [B, plen] int64, kv_valid
+    [B, ml] bool, pos_offset [B] int64, plen) as numpy arrays. Sequence i's
+    real tokens occupy columns [off_i, plen); its cache rows [off_i, …) are
+    valid and its RoPE positions are slot − off_i."""
+    plen = max(len(p) for p in prompts)
+    toks = np.zeros((len(prompts), plen), np.int64)
+    valid = np.zeros((len(prompts), ml), bool)
+    offsets = np.zeros((len(prompts),), np.int64)
+    for i, p in enumerate(prompts):
+        off = plen - len(p)
+        toks[i, off:] = p
+        offsets[i] = off
+        valid[i, off:] = True  # real prompt slots + all future decode slots
+    return toks, valid, offsets, plen
+
+
+def prefill(params: Params, cfg: LlamaConfig, prompt, cache, kv_valid, pos_offset):
+    """Prefill the cache for a left-padded prompt batch [B, P] in one step;
+    returns (last logits [B, V] vocab-masked, cache). The JAX package's
+    chunked prefill is not ported yet."""
+    logits, cache = decode_step(
+        params, cfg, prompt, cache, kv_valid=kv_valid, pos_offset=pos_offset, last_only=True
+    )
+    return _last_logits(logits, cfg), cache
+
+
+def generate_tokens(
+    params: Params,
+    cfg: LlamaConfig,
+    prompt_ids: List[int],
+    *,
+    max_new_tokens: int = 64,
+    temperature: float = 0.0,
+    generator: Optional[torch.Generator] = None,
+    eos_id: Optional[int] = None,
+    max_len: Optional[int] = None,
+) -> List[int]:
+    """Autoregressive decode of one prompt; returns only the new ids."""
+    dev = params["embed"].device
+    ml = max_len or _bucket_len(len(prompt_ids) + max_new_tokens + 1, cfg.max_seq_len)
+    cache = init_cache(cfg, batch=1, max_len=ml, device=dev)
+    prompt = torch.tensor([prompt_ids], dtype=torch.long, device=dev)
+    logits, cache = decode_step(params, cfg, prompt, cache, last_only=True)
+    last = _last_logits(logits, cfg)
+    out: List[int] = []
+    for _ in range(max_new_tokens):
+        nxt = _sample(last, temperature, generator)
+        tok = int(nxt[0])
+        if eos_id is not None and tok == eos_id:
+            break
+        out.append(tok)
+        if len(prompt_ids) + len(out) >= ml:
+            break
+        logits, cache = decode_step(params, cfg, nxt[:, None], cache)
+        last = _last_logits(logits, cfg)
+    return out
+
+
+def generate_tokens_batch(
+    params: Params,
+    cfg: LlamaConfig,
+    prompts: List[List[int]],
+    *,
+    max_new_tokens: int = 64,
+    temperature: float = 0.0,
+    generator: Optional[torch.Generator] = None,
+    eos_id: Optional[int] = None,
+) -> List[List[int]]:
+    """Batched decode over variable-length prompts: left-padded to the
+    longest, with per-sequence position offsets and a validity mask, so each
+    sequence's tokens equal its solo :func:`generate_tokens` (the cache
+    window is sized for the longest prompt)."""
+    bsz = len(prompts)
+    if bsz == 0:
+        return []
+    plen = max(len(p) for p in prompts)
+    if plen + 1 > cfg.max_seq_len:
+        raise ValueError(
+            f"longest prompt ({plen} tokens) leaves no room in the cache window "
+            f"(max_seq_len={cfg.max_seq_len}); truncate prompts before calling"
+        )
+    dev = params["embed"].device
+    ml = _bucket_len(plen + max_new_tokens + 1, cfg.max_seq_len)
+    toks, valid, offsets, _ = _pack_prompts(prompts, ml)
+    cache = init_cache(cfg, batch=bsz, max_len=ml, device=dev)
+    kv_valid = torch.from_numpy(valid).to(dev)
+    pos_offset = torch.from_numpy(offsets).to(dev)
+    last, cache = prefill(params, cfg, torch.from_numpy(toks).to(dev), cache, kv_valid, pos_offset)
+
+    outs: List[List[int]] = [[] for _ in range(bsz)]
+    done = [False] * bsz
+    for _ in range(max_new_tokens):
+        nxt = _sample(last, temperature, generator)
+        for i, tok in enumerate(nxt.tolist()):  # one device->host copy a step
+            if done[i]:
+                continue
+            if eos_id is not None and tok == eos_id:
+                done[i] = True
+                continue
+            outs[i].append(tok)
+        if all(done) or plen + max(len(o) for o in outs) >= ml:
+            break
+        logits, cache = decode_step(
+            params, cfg, nxt[:, None], cache, kv_valid=kv_valid, pos_offset=pos_offset
+        )
+        last = _last_logits(logits, cfg)
+    return outs
+
+
+class LlamaRuntime:
+    """On-device Llama generation with the shared ``GenerateResult`` meta
+    shape. Runs on the card unless ``device`` names another; the card serves
+    bf16 models only."""
+
+    name = "torch"
+
+    def __init__(
+        self,
+        cfg: Optional[LlamaConfig] = None,
+        params: Optional[Params] = None,
+        seed: int = 0,
+        tokenizer=None,
+        model_label: Optional[str] = None,
+        quant: Optional[str] = None,
+        device=None,
+    ):
+        self.device = resolve_device(device)
+        self.cfg = cfg or LlamaConfig.tiny()
+        self.tokenizer = tokenizer if tokenizer is not None else ByteTokenizer()
+        if self.cfg.vocab_size < self.tokenizer.vocab_size:
+            raise ValueError("model vocab smaller than tokenizer vocab")
+        if quant not in (None, "none"):
+            raise NotImplementedError(f"weight quant {quant!r} (models/quant.py) is not ported yet")
+        if self.device.type == "cuda" and self.cfg.dtype != torch.bfloat16:
+            raise ValueError(
+                f"the card serves bf16 models; cfg.dtype={self.cfg.dtype} on the card is not ported"
+            )
+        kvq = os.environ.get("KAKVEDA_KV_QUANT", "")
+        if kvq and kvq != "none":
+            if kvq != "int8":
+                raise ValueError(f"unknown KAKVEDA_KV_QUANT={kvq!r} (int8|none)")
+            self.cfg = dataclasses.replace(self.cfg, kv_quant="int8")
+        if self.cfg.effective_vocab is None and self.tokenizer.vocab_size < self.cfg.vocab_size:
+            # A table padded past the tokenizer: mask the pad columns so no
+            # decode path can emit an id the tokenizer cannot decode.
+            self.cfg = dataclasses.replace(self.cfg, effective_vocab=self.tokenizer.vocab_size)
+        if params is None:
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            params = init_params(gen, self.cfg, self.device)
+        self.params = params
+        self.model_label = model_label or f"llama-{self.cfg.n_layers}L-{self.cfg.d_model}d"
+        self._engine = None
+        self._engine_lock = threading.Lock()
+
+    @classmethod
+    def from_env(cls, device=None) -> "LlamaRuntime":
+        """``KAKVEDA_LLAMA_PRESET`` (``tiny`` or ``8b``), ``KAKVEDA_KV_QUANT``
+        and the ``KAKVEDA_SERVE_*`` engine knobs, as the JAX runtime reads
+        them. Checkpoints and weight quant are not ported and raise."""
+        for var in ("KAKVEDA_HF_CKPT", "KAKVEDA_HF_DIR", "KAKVEDA_LLAMA_CKPT"):
+            if os.environ.get(var):
+                raise NotImplementedError(f"{var}: loading checkpoints is not ported yet")
+        preset = os.environ.get("KAKVEDA_LLAMA_PRESET", "tiny").lower()
+        cfg = LlamaConfig.llama3_8b() if preset in ("8b", "llama3-8b") else LlamaConfig.tiny()
+        return cls(cfg=cfg, quant=os.environ.get("KAKVEDA_QUANT") or None, device=device)
+
+    def engine(self):
+        """The shared online ServingEngine, built at first use, or None when
+        ``KAKVEDA_SERVE_CONTINUOUS=0``. ``KAKVEDA_SERVE_SLOTS`` /
+        ``_WINDOW`` / ``_CHUNK`` size the pool (8 slots, window
+        min(512, max_seq_len), chunk 8)."""
+        if os.environ.get("KAKVEDA_SERVE_CONTINUOUS", "1") == "0":
+            return None
+        with self._engine_lock:
+            if self._engine is None:
+                from kakveda_tpu_torch.models.serving import ServingEngine
+
+                window = int(os.environ.get("KAKVEDA_SERVE_WINDOW", min(512, self.cfg.max_seq_len)))
+                self._engine = ServingEngine(
+                    self.params, self.cfg,
+                    batch_slots=int(os.environ.get("KAKVEDA_SERVE_SLOTS", "8")),
+                    max_len=min(window, self.cfg.max_seq_len),
+                    chunk_steps=int(os.environ.get("KAKVEDA_SERVE_CHUNK", "8")),
+                    eos_id=self.tokenizer.EOS,
+                )
+            return self._engine
+
+    def close(self) -> None:
+        """Stop the engine's loop thread (pending requests fail)."""
+        with self._engine_lock:
+            if self._engine is not None:
+                self._engine.close()
+                self._engine = None
+
+    def _encode(self, prompt: str) -> List[int]:
+        return self.tokenizer.encode(prompt)[-self.cfg.max_seq_len // 2 :]
+
+    def _generate_ids(self, ids: List[List[int]], max_tokens: int):
+        """Token lists for ``ids``: through the engine when every request
+        fits its window, else (or when the engine closed meanwhile) one solo
+        batch decode. Returns (ids, meta extras)."""
+        eng = self.engine()
+        if eng is not None and all(eng.fits(len(i), max_tokens) for i in ids):
+            try:
+                futs = [eng.submit(i, max_new_tokens=max_tokens) for i in ids]
+                return [f.result() for f in futs], {"continuous": True}
+            except RuntimeError:
+                pass  # engine closed or died between fits() and the results
+        out = generate_tokens_batch(
+            self.params, self.cfg, ids, max_new_tokens=max_tokens, eos_id=self.tokenizer.EOS
+        )
+        return out, {}
+
+    def generate(self, prompt: str, *, model: Optional[str] = None, max_tokens: int = 64) -> GenerateResult:
+        started = time.perf_counter()
+        (new_ids,), extra = self._generate_ids([self._encode(prompt)], max_tokens)
+        return GenerateResult(
+            text=self.tokenizer.decode(new_ids),
+            meta={
+                "provider": self.name,
+                "model": model or self.model_label,
+                "latency_ms": int((time.perf_counter() - started) * 1000),
+                "tokens_generated": len(new_ids),
+                **extra,
+            },
+        )
+
+    def generate_batch(self, prompts: list, *, model: Optional[str] = None, max_tokens: int = 64) -> list:
+        """Batched generation: the whole list joins the shared slot pool, with
+        exact per-sequence parity with :meth:`generate`."""
+        started = time.perf_counter()
+        if not prompts:
+            return []
+        new_ids, extra = self._generate_ids([self._encode(p) for p in prompts], max_tokens)
+        latency_ms = int((time.perf_counter() - started) * 1000)
+        label = model or self.model_label
+        return [
+            GenerateResult(
+                text=self.tokenizer.decode(out),
+                meta={
+                    "provider": self.name,
+                    "model": label,
+                    "latency_ms": latency_ms,
+                    "tokens_generated": len(out),
+                    "batched": len(prompts),
+                    **extra,
+                },
+            )
+            for out in new_ids
+        ]

@@ -8,7 +8,11 @@ conftest):
 
 Tolerance: scores within 1e-4 of ``fused_topk_reference`` (bf16 inputs,
 f32 sums in another order); ids identical on these inputs, whose separated
-scores and exact duplicate rows leave no near-ties.
+scores and exact duplicate rows leave no near-ties. The flash kernel's bf16
+output within 2e-2 of ``flash_gqa_cache_reference`` (|out| ≲ 3, where one
+bf16 step is ≤ 1.6e-2, and f32 sums taken in another order may flip the
+rounding of a probability or of the output), and exact zeros for a slot
+that sees nothing.
 """
 
 import asyncio
@@ -17,6 +21,8 @@ from datetime import datetime, timezone
 import pytest
 import torch
 
+from kakveda_tpu_torch.models.attention import flash_gqa_cache, flash_gqa_cache_reference
+from kakveda_tpu_torch.models.llama import _kv_quant_rows
 from kakveda_tpu_torch.ops.fused_topk import fused_topk, fused_topk_reference
 
 pytestmark = pytest.mark.cuda
@@ -117,3 +123,119 @@ def test_platform_on_the_card(gen, tmp_path):
     assert [r.references[0].failure_id for r in res] == ["F-0001", "F-0151", "F-0300"]
     assert all(r.pattern_id == "FP-0001" and r.confidence > 0.99 for r in res)
     plat.close()
+
+
+FLASH_ATOL = 2e-2
+
+
+def _flash_case(gen, b, s, h, kv, l, d, pos0, valid, kv8):
+    q = torch.randn(b, s, h, d, device="cuda", generator=gen).to(torch.bfloat16)
+    k = torch.randn(b, kv, l, d, device="cuda", generator=gen).to(torch.bfloat16)
+    v = torch.randn(b, kv, l, d, device="cuda", generator=gen).to(torch.bfloat16)
+    ks = vs = None
+    if kv8:
+        k, ks = _kv_quant_rows(k)
+        v, vs = _kv_quant_rows(v)
+    kv_valid = None
+    ar = torch.arange(l, device="cuda")
+    if valid == "slots":  # decode regime: a per-slot band, slot 0 sees nothing
+        lo = torch.randint(0, l // 2, (b, 1), device="cuda", generator=gen)
+        hi = torch.randint(l // 2, l + 1, (b, 1), device="cuda", generator=gen)
+        kv_valid = (ar >= lo) & (ar < hi)
+        kv_valid[0] = False
+    elif valid == "leftpad":  # admission regime: left-pad rows invalid
+        off = torch.randint(0, max(1, s // 2), (b, 1), device="cuda", generator=gen)
+        kv_valid = ar >= off
+    return q, k, v, pos0, kv_valid.contiguous() if kv_valid is not None else None, ks, vs
+
+
+@pytest.mark.parametrize("kv8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize(
+    "b,s,h,kv,l,d,pos0,valid,window",
+    [
+        (8, 1, 32, 8, 512, 128, 512, "slots", 0),  # serving decode
+        (1, 64, 32, 8, 512, 128, 0, "leftpad", 0),  # admission
+        (2, 3, 8, 8, 100, 64, 40, None, 0),  # R = 1, ragged L, D = 64
+        (2, 5, 16, 2, 77, 64, 0, "leftpad", 0),  # R = 8, ragged L
+        (2, 9, 32, 4, 300, 128, 0, None, 0),  # R = 8, S*R past one q block
+        (3, 1, 32, 8, 2000, 128, 2000, "slots", 0),  # long ragged cache
+        (2, 16, 8, 2, 96, 128, 30, None, 7),  # window, prefill at pos0 > 0
+        (4, 1, 8, 2, 130, 64, 130, "slots", 16),  # window, decode regime
+    ],
+)
+def test_flash_kernel_matches_plain(gen, b, s, h, kv, l, d, pos0, valid, window, kv8):
+    q, k, v, pos0, kv_valid, ks, vs = _flash_case(gen, b, s, h, kv, l, d, pos0, valid, kv8)
+    counter = "launches_kv8" if kv8 else "launches"
+    before = getattr(flash_gqa_cache, counter)
+    out = flash_gqa_cache(q, k, v, pos0, kv_valid, k_scale=ks, v_scale=vs, window=window)
+    torch.cuda.synchronize()
+    assert getattr(flash_gqa_cache, counter) == before + 1
+    ref = flash_gqa_cache_reference(q, k, v, pos0, kv_valid, k_scale=ks, v_scale=vs, window=window)
+    assert out.shape == ref.shape and out.dtype == torch.bfloat16
+    assert torch.isfinite(out).all()
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= FLASH_ATOL, err
+    if valid == "slots":
+        assert torch.equal(out[0], torch.zeros_like(out[0]))  # the slot that sees nothing
+
+
+def test_flash_wrapper_rejects_what_the_kernel_does_not_take(gen):
+    q = torch.zeros(1, 1, 8, 128, dtype=torch.bfloat16, device="cuda")
+    k = torch.zeros(1, 2, 64, 128, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="bf16"):
+        flash_gqa_cache(q.float(), k.float(), k.float(), 64, None)  # f32 model on the card
+    with pytest.raises(ValueError):
+        flash_gqa_cache(q[..., :96].contiguous(), k[..., :96].contiguous(), k[..., :96].contiguous(), 64, None)
+    with pytest.raises(ValueError):
+        flash_gqa_cache(q, k.to(torch.int8), k.to(torch.int8), 64, None)  # int8 without scales
+
+
+def _small_bf16_model(gen, kv_quant=""):
+    from kakveda_tpu_torch.models.llama import LlamaConfig, init_params
+
+    cfg = LlamaConfig(vocab_size=264, d_model=512, n_layers=3, n_heads=8, n_kv_heads=2,
+                      d_ff=1024, max_seq_len=256, effective_vocab=259, kv_quant=kv_quant)
+    return cfg, init_params(gen, cfg)
+
+
+@pytest.mark.parametrize("kv_quant", ["", "int8"])
+def test_batcher_on_the_card_runs_the_kernel(gen, kv_quant):
+    """Continuous batching on the card: every forward launches the kernel
+    once a layer, the other body never; every engine token is within one
+    bf16 step of the solo argmax on its own prefix (teacher-forced)."""
+    from kakveda_tpu_torch.models.llama import decode_step, init_cache, mask_pad_vocab
+    from kakveda_tpu_torch.models.serving import ContinuousBatcher
+
+    cfg, params = _small_bf16_model(gen, kv_quant)
+    prompts = [[5, 6, 7], [10, 11, 12, 13, 14], [42], [9, 8], [100, 101, 102, 103, 104, 105]]
+    mine = "launches_kv8" if kv_quant else "launches"
+    other = "launches" if kv_quant else "launches_kv8"
+    before = (getattr(flash_gqa_cache, mine), getattr(flash_gqa_cache, other))
+    cb = ContinuousBatcher(params, cfg, batch_slots=2, max_len=128, chunk_steps=4)
+    outs = cb.run_all(prompts, max_new_tokens=10)
+    torch.cuda.synchronize()
+    assert getattr(flash_gqa_cache, mine) - before[0] == cfg.n_layers * cb.forwards
+    assert getattr(flash_gqa_cache, other) == before[1]
+    for p, out in zip(prompts, outs):
+        assert len(out) == 10
+        seq = torch.tensor([p + out], device="cuda")
+        logits, _ = decode_step(params, cfg, seq, init_cache(cfg, 1, seq.shape[1]))
+        lg = mask_pad_vocab(logits[0, len(p) - 1 : -1], cfg)
+        deficit = lg.max(dim=-1).values - lg[torch.arange(len(out)), torch.tensor(out)]
+        assert deficit.max().item() <= 0.05, deficit
+
+
+def test_runtime_on_the_card_serves_bf16_only(gen):
+    from kakveda_tpu_torch.models.generate import LlamaRuntime
+
+    cfg, params = _small_bf16_model(gen)
+    rt = LlamaRuntime(cfg=cfg, params=params)
+    try:
+        res = rt.generate_batch(["hello", "world!"], max_tokens=6)
+        assert all(r.meta["continuous"] and r.meta["tokens_generated"] <= 6 for r in res)
+    finally:
+        rt.close()
+    import dataclasses
+
+    with pytest.raises(ValueError, match="bf16"):
+        LlamaRuntime(cfg=dataclasses.replace(cfg, dtype=torch.float32), params=params)

@@ -25,6 +25,8 @@ def _modules():
 def test_import_loads_no_jax_in_fresh_interpreter():
     mods = _modules()
     assert "kakveda_tpu_torch.platform" in mods and "kakveda_tpu_torch.ops.fused_topk" in mods
+    for m in ("serving", "generate", "llama", "attention", "tokenizer", "runtime"):
+        assert f"kakveda_tpu_torch.models.{m}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -51,10 +53,14 @@ def test_sources_name_no_jax():
     assert not hits, hits
 
 
-@pytest.mark.parametrize("entry", ["platform", "gfkb", "knn"])
+@pytest.mark.parametrize(
+    "entry", ["platform", "gfkb", "knn", "llama_runtime", "llama_init_params", "llama_init_cache"]
+)
 def test_entry_points_default_to_cuda(entry, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     from kakveda_tpu_torch.index.gfkb import GFKB
+    from kakveda_tpu_torch.models.generate import LlamaRuntime
+    from kakveda_tpu_torch.models.llama import LlamaConfig, init_cache, init_params
     from kakveda_tpu_torch.ops.knn import Knn
     from kakveda_tpu_torch.platform import Platform
 
@@ -62,6 +68,9 @@ def test_entry_points_default_to_cuda(entry, tmp_path, monkeypatch):
         "platform": lambda: Platform(data_dir=tmp_path, capacity=16, dim=64),
         "gfkb": lambda: GFKB(data_dir=tmp_path, capacity=16, dim=64),
         "knn": lambda: Knn(16, 64),
+        "llama_runtime": lambda: LlamaRuntime(),
+        "llama_init_params": lambda: init_params(torch.Generator(), LlamaConfig.tiny()),
+        "llama_init_cache": lambda: init_cache(LlamaConfig.tiny(), batch=1, max_len=8),
     }[entry]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         make()
@@ -78,3 +87,12 @@ def test_cpu_wrapper_never_builds(monkeypatch):
     assert ft.fused_topk.launches == before
     assert i[:, 0].tolist() == [0, 1]
     assert kakveda_tpu_torch.__version__
+
+
+def test_port_keeps_its_own_tokenizer():
+    from kakveda_tpu_torch.models.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    ids = tok.encode("héllo", eos=True)
+    assert ids[0] == tok.BOS and ids[-1] == tok.EOS and tok.vocab_size == 259
+    assert tok.decode(ids) == "héllo"
