@@ -22,14 +22,22 @@ JAX package). Phases, each of which raises on failure (exit code != 0):
    of 512 and ``warn_batch`` of 64, whose matches are checked against the
    plain top-k of the same index;
 5. ``flash_gqa_cache`` (bf16 cache and int8 cache) against its plain
-   version at the model plane's shapes (H = 32, KV = 8, D = 128): decode
-   (B = 8, S = 1, L = 512, per-slot ``kv_valid``, one slot that sees nothing
-   and must give exact zeros), admission (B = 1, S = 64, L = 512, 13 left-pad
-   slots) and a long cache (B = 8, S = 1, L = 8192); bf16 output within
-   2e-2; device times from a CUDA graph of many calls replayed between
-   CUDA events (so the wrappers' host time is not counted; one eager call's
-   time is printed beside), cycling enough copies of the cache to defeat
-   the 50 MB L2, beside the bound and one PyTorch yardstick call
+   versions, the split schedule's (``flash_gqa_cache_split_reference`` with
+   the kernel's ``n_split``) and the unsplit one, at the model plane's
+   shapes (H = 32, KV = 8, D = 128): decode (B = 8, S = 1, L = 512,
+   per-slot ``kv_valid``, one slot that sees nothing and must give exact
+   zeros), decode under the engine's own mask (``_forward_wide`` at phase
+   6's last step: rows [left pad, 95] of every slot, a left pad of 10-16,
+   ``pos0`` = 512, with the engine's ``reach`` hint of 96 and, timed beside
+   it, without), admission (B = 1, S = 64, L = 512, 13 left-pad slots) and
+   a long cache (B = 8, S = 1, L = 8192); every bf16 output row within two
+   bf16 steps of its largest plain value (2^-6 of it) and within 2e-2;
+   each shape's ``n_split`` and live-tile fraction; device
+   times from a CUDA graph of many calls replayed between CUDA events (so
+   the wrappers' host time is not counted; one eager call's time is printed
+   beside), cycling enough copies of the cache to defeat the 50 MB L2,
+   beside the bound in two forms (every cache row, and only the rows some
+   query sees) and one PyTorch yardstick call
    (``scaled_dot_product_attention``, never used by the port);
 6. the model plane's main path: ``LlamaRuntime(LlamaConfig.llama3_8b())``
    (random bf16 weights from seed 0, 16.06 GB, 32 layers) serves
@@ -43,8 +51,9 @@ JAX package). Phases, each of which raises on failure (exit code != 0):
    0.25 of the solo argmax on the engine's own prefix (one teacher-forced
    pass, so all 32 steps are checked); the int8 cache's first-step logits
    keep a cosine ≥ 0.99 to the bf16 cache's. Admission ms, decode step p50
-   ms (host clock) and the step's device time (graph replay) against the
-   4.8 ms weight-read bound, and tokens/s.
+   ms (host clock) and the step's device time (graph replay, with the
+   engine's ``reach`` hint) against the 4.8 ms weight-read bound, and
+   tokens/s.
 
 Prints a ``{"kernels": [...]}`` line, the card line, and last
 ``{"ok": true, "device": {...}}``.
@@ -70,8 +79,12 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12  # dense bf16 tensor-core peak
 ROWS, DIM = 1 << 20, 2048
 ATOL = 1e-4  # bf16 inputs, f32 sums taken in another order than the plain version
-# Flash: bf16 output of |out| <~ 3, where one bf16 step is <= 1.6e-2; f32 sums
-# in another order may flip the rounding of a probability or of the output.
+# Flash: bf16 outputs from f32 sums taken in another order than the plain
+# version's, so a probability's or an output's bf16 rounding may fall the
+# other way. One bf16 step of x is at most 2^-7 |x|: each output row must lie
+# within two steps of its largest plain value (FLASH_REL of it), and never
+# past FLASH_ATOL (the largest outputs, |out| <~ 3, have steps of 1.6e-2).
+FLASH_REL = 2.0**-6
 FLASH_ATOL = 2e-2
 H, KV, HD = 32, 8, 128  # Llama-3-8B attention heads, kv heads, head_dim
 L2_BYTES = 50e6
@@ -313,11 +326,21 @@ def phase_platform(data_dir: Path, fused_topk, fused_topk_reference) -> dict:
     return out
 
 
+def flash_check(out, ref):
+    """(max |out - ref|, its worst share of the tolerance): every row within
+    FLASH_REL of its largest |ref| and within FLASH_ATOL; a share > 1 fails."""
+    diff = (out.float() - ref.float()).abs()
+    tol = (ref.float().abs().amax(dim=-1, keepdim=True) * FLASH_REL).clamp(max=FLASH_ATOL)
+    return diff.max().item(), (diff / tol.clamp_min(1e-30)).max().item()
+
+
+ENGINE_POS = 95  # phase 6's last decode row: prompts in the 64 bucket + 32 new tokens
 FLASH_SHAPES = [
-    # (name, B, S, L, pos0, kv_valid)
-    ("decode", 8, 1, 512, 512, "slots"),
-    ("admission", 1, 64, 512, 0, "leftpad"),
-    ("long_cache", 8, 1, 8192, 8192, None),
+    # (name, B, S, L, pos0, kv_valid, reach hint)
+    ("decode", 8, 1, 512, 512, "slots", None),
+    ("decode_engine", 8, 1, 512, 512, "engine", ENGINE_POS + 1),
+    ("admission", 1, 64, 512, 0, "leftpad", None),
+    ("long_cache", 8, 1, 8192, 8192, None, None),
 ]
 
 
@@ -340,27 +363,57 @@ def flash_inputs(gen, b, s, l, kind, kv8, copies):
         hi = torch.randint(64, l + 1, (b, 1), device="cuda", generator=gen)
         valid = ((ar >= lo) & (ar < hi)).contiguous()
         valid[b - 1] = False  # a slot that sees nothing
+    elif kind == "engine":  # _forward_wide's mask: rows [left pad, slot_pos], one slot_pos for all
+        off = torch.randint(10, 17, (b, 1), device="cuda", generator=gen)  # 48-54-token prompts
+        valid = ((ar >= off) & (ar <= ENGINE_POS)).contiguous()
     elif kind == "leftpad":  # admission: 13 left-pad rows, the prompt bucket of 64
         valid = ((ar >= 13) & (ar < s)).expand(b, l).contiguous()
     return q, k, v, ks, vs, valid
 
 
-def flash_bound_ms(b, s, l, kv8):
+def flash_bound_ms(b, s, l, kv8, seen_rows=None):
     """Each input read once, the output written once, over 3.35 TB/s; the
-    two products' flops over 989 TFLOP/s bf16. Returns (ms, bound_by)."""
+    two products' flops over 989 TFLOP/s bf16. Returns (ms, bound_by).
+    With ``seen_rows`` (cache rows, summed over the batch, that at least one
+    query row can see) only those rows' K/V count, in bytes and flops: the
+    least a kernel that skips what no query sees must still read."""
     r = H // KV
-    kv_bytes = 2 * l * (HD + 4) if kv8 else 2 * l * HD * 2
-    nbytes = b * KV * (2 * s * r * HD * 2 + kv_bytes) + b * l
-    flops = 4 * b * KV * s * r * l * HD
+    rows = b * l if seen_rows is None else seen_rows
+    kv_bytes = 2 * rows * (HD + 4) if kv8 else 2 * rows * HD * 2
+    nbytes = KV * (b * 2 * s * r * HD * 2 + kv_bytes) + b * l
+    flops = 4 * KV * s * r * rows * HD
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def flash_schedule(b, s, l, pos0, valid, reach=None):
+    """The kernel's schedule at this shape: (n_split, live-tile fraction
+    over all its (b·kv, q block) tile visits, cache rows some query sees)."""
+    from kakveda_tpu_torch.models.attention import flash_live_tiles, flash_split_count, kernel_q_rows
+
+    r = H // KV
+    sr = s * r
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    hint = pos0 + s if reach is None else min(pos0 + s, reach)
+    n_split = flash_split_count(b * KV, sr, l, sms, reach=hint)
+    qb = kernel_q_rows(sr)
+    live = [flash_live_tiles(l, pos0, r, r0, min(sr, r0 + qb), valid).expand(b, -1).float().mean().item()
+            for r0 in range(0, sr, qb)]
+    seen = torch.arange(l, device="cuda")[None, :] <= pos0 + s - 1
+    if valid is not None:
+        seen = seen & valid
+    return n_split, statistics.mean(live), int(seen.expand(b, l).sum())
 
 
 def phase_flash(card: str) -> dict:
     """Both flash bodies against the plain version at the main path's shapes."""
     import torch.nn.functional as F
 
-    from kakveda_tpu_torch.models.attention import flash_gqa_cache, flash_gqa_cache_reference
+    from kakveda_tpu_torch.models.attention import (
+        flash_gqa_cache,
+        flash_gqa_cache_reference,
+        flash_gqa_cache_split_reference,
+    )
     from kakveda_tpu_torch.models.llama import _kv_dequant
 
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -368,10 +421,14 @@ def phase_flash(card: str) -> dict:
     for kv8 in (False, True):
         name = "flash_gqa_cache_kv8" if kv8 else "flash_gqa_cache"
         row = {"max_abs_err": 0.0}
-        for shape, b, s, l, pos0, kind in FLASH_SHAPES:
+        for shape, b, s, l, pos0, kind, reach in FLASH_SHAPES:
             kv_bytes = b * KV * l * (2 * (HD + 4) if kv8 else 4 * HD)
             copies = max(1, math.ceil(2.5 * L2_BYTES / kv_bytes))
             q, k, v, ks, vs, valid = flash_inputs(gen, b, s, l, kind, kv8, copies)
+            n_split, live_frac, seen_rows = flash_schedule(b, s, l, pos0, valid, reach)
+            # Without the hint, the split count pos0 alone gives (what the
+            # engine's decode took before it passed one).
+            n_split_bare = flash_schedule(b, s, l, pos0, valid)[0]
 
             def args(i):
                 i %= copies
@@ -379,23 +436,30 @@ def phase_flash(card: str) -> dict:
                             k_scale=None if ks is None else ks[i], v_scale=None if vs is None else vs[i])
 
             a = args(0)
-            out = flash_gqa_cache(a["q"], a["k"], a["v"], pos0, valid, k_scale=a["k_scale"], v_scale=a["v_scale"])
-            torch.cuda.synchronize()
-            ref = flash_gqa_cache_reference(a["q"], a["k"], a["v"], pos0, valid,
-                                            k_scale=a["k_scale"], v_scale=a["v_scale"])
-            err = (out.float() - ref.float()).abs().max().item()
-            if not torch.isfinite(out).all() or err > FLASH_ATOL:
-                raise AssertionError(f"{name} {shape}: max |kernel - plain| = {err} > {FLASH_ATOL}")
-            if kind == "slots" and not torch.equal(out[b - 1], torch.zeros_like(out[b - 1])):
-                raise AssertionError(f"{name} {shape}: the slot that sees nothing is not zeros")
+            kw = dict(k_scale=a["k_scale"], v_scale=a["v_scale"])
+            err = use = 0.0
+            for hint, ns in ((reach, n_split), (None, n_split_bare)):
+                out = flash_gqa_cache(a["q"], a["k"], a["v"], pos0, valid, reach=hint, **kw)
+                torch.cuda.synchronize()
+                for ref in (flash_gqa_cache_split_reference(a["q"], a["k"], a["v"], pos0, valid, n_split=ns, **kw),
+                            flash_gqa_cache_reference(a["q"], a["k"], a["v"], pos0, valid, **kw)):
+                    e, u = flash_check(out, ref)
+                    err, use = max(err, e), max(use, u)
+                if not torch.isfinite(out).all() or use > 1.0:
+                    raise AssertionError(f"{name} {shape} (reach {hint}): max |kernel - plain| = {err}, "
+                                         f"{use:.3g} of the tolerance (FLASH_REL {FLASH_REL}, FLASH_ATOL {FLASH_ATOL})")
+                if kind == "slots" and not torch.equal(out[b - 1], torch.zeros_like(out[b - 1])):
+                    raise AssertionError(f"{name} {shape}: the slot that sees nothing is not zeros")
+                if reach is None:
+                    break
             row["max_abs_err"] = max(row["max_abs_err"], err)
 
             it = iter(range(1 << 30))
 
-            def kern():
+            def kern(hint=reach):
                 a = args(next(it))
                 flash_gqa_cache(a["q"], a["k"], a["v"], pos0, a["kv_valid"],
-                                k_scale=a["k_scale"], v_scale=a["v_scale"])
+                                k_scale=a["k_scale"], v_scale=a["v_scale"], reach=hint)
 
             def plain():
                 a = args(next(it))
@@ -419,15 +483,23 @@ def phase_flash(card: str) -> dict:
                 F.scaled_dot_product_attention(qh, kk, vv, attn_mask=mask, enable_gqa=True)
 
             ms = graph_ms(kern, n=4 * copies)
+            bare = ""
+            if reach is not None:  # the same launches without the hint, in the same run
+                bare = (f" without the reach hint: n_split={n_split_bare} "
+                        f"kernel_ms={graph_ms(lambda: kern(None), n=4 * copies):.6f};")
             plain_ms = graph_ms(plain, n=2)
             lib_ms = graph_ms(library, n=4 * copies)
             call_ms = cuda_ms(kern, iters=50, warmup=5)  # one eager call, wrapper included
             bound_ms, bound_by = flash_bound_ms(b, s, l, kv8)
-            log(f"{name} {shape} (B={b} S={s} L={l}): max_abs_err={err:.3g} kernel_ms={ms:.4f} "
-                f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms={bound_ms:.4f} "
-                f"({bound_by}) eager_call_ms={call_ms:.4f} [{card}]")
+            seen_ms, _ = flash_bound_ms(b, s, l, kv8, seen_rows)
+            log(f"{name} {shape} (B={b} S={s} L={l} reach={reach}): n_split={n_split} live_tiles={live_frac:.4f} "
+                f"max_abs_err={err:.3g} ({use:.3f} of the tolerance) kernel_ms={ms:.6f};{bare} "
+                f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.6f} "
+                f"bound_ms={bound_ms:.6f} ({bound_by}) bound_seen_ms={seen_ms:.6f} "
+                f"({seen_rows} of {b * l} rows seen) eager_call_ms={call_ms:.4f} [{card}]")
             if shape == "decode":  # the main path's most frequent shape
-                row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
+                row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
+                           bound_seen_ms=seen_ms)
             del q, k, v, ks, vs
         rows[name] = row
     torch.cuda.empty_cache()
@@ -582,7 +654,8 @@ def phase_model(card: str) -> dict:
                     torch.from_numpy(cb._pos_np.copy()).to("cuda"),
                     torch.from_numpy(cb._kv_np.copy()).to("cuda"),
                     torch.from_numpy(cb._off_np.copy()).to("cuda"))
-        step_dev = graph_ms(lambda: _forward_wide(cb.params, cb.cfg, cb.cache, *dev_args), n=4)
+        reach = int(cb._pos_np.max()) + 1  # the hint step_async passes
+        step_dev = graph_ms(lambda: _forward_wide(cb.params, cb.cfg, cb.cache, *dev_args, reach=reach), n=4)
         del cb
         torch.cuda.empty_cache()
         weight_ms = n_bytes / HBM_BYTES_PER_S * 1e3
@@ -649,6 +722,7 @@ def main() -> int:
             replaces="kakveda_tpu/models/attention.py:284", launches=model[tag]["launches"],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
+            bound_seen_ms=r["bound_seen_ms"],
         ))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

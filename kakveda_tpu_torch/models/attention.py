@@ -17,6 +17,11 @@ Counterpart of ``kakveda_tpu/models/attention.py``, same contract:
   (built by ``nvcc`` for ``sm_90a`` at first use) or raises; on a CPU tensor
   it runs :func:`flash_gqa_cache_reference`, the plain version with the
   kernel's own semantics, which is also the kernel's oracle on the card.
+  The kernel splits the cache across blocks (:func:`flash_split_count`,
+  :func:`flash_split_plan`) and skips tiles that no query row of a block
+  can see (:func:`flash_live_tiles`);
+  :func:`flash_gqa_cache_split_reference` is the plain version of that
+  split schedule, with the same combine.
 * :func:`gqa_grouped` is the twin of ``_gqa_xla``: it serves only softcap
   and per-query ``full_mask`` attention, neither of which is on the serving
   path ported so far, and neither runs on the card yet.
@@ -38,6 +43,8 @@ from kakveda_tpu_torch.ops import _build
 
 NEG_INF = -1e30
 KERNEL_L_BLK = 64  # the CUDA kernel's cache tile
+KERNEL_MAX_TILES_PER_SPLIT = 256  # the kernel's live-tile list holds this many
+KERNEL_MAX_SPLITS = 64  # the kernel's combine keeps this many splits' weights
 
 
 def gqa_grouped(
@@ -135,13 +142,200 @@ def flash_gqa_cache_reference(
     return out.reshape(b, kv, s, r, d).permute(0, 2, 1, 3, 4).reshape(b, s, h, d)
 
 
+def kernel_q_rows(sr: int) -> int:
+    """Folded q rows of one kernel block: one 16-row tile when S·R ≤ 16
+    (every decode step), where the 4 warps split each cache tile, else 64
+    (16 a warp)."""
+    return 16 if sr <= 16 else 64
+
+
+def flash_split_count(bkv: int, sr: int, l: int, sm_count: int, reach: Optional[int] = None) -> int:
+    """How many blocks split one (b·kv, q block)'s cache: as many as keep
+    the grid within two resident blocks per SM (one wave), at least two
+    64-row tiles a split, at most ``KERNEL_MAX_SPLITS`` splits (unless a
+    cache longer than that many times ``KERNEL_MAX_TILES_PER_SPLIT`` tiles
+    needs more, which the wrapper refuses), no empty split and no one-tile
+    last split where the caps allow. ``reach`` is one past the last cache
+    row any query can see (``pos0 + S``): tiles past it are dead for every
+    block, so only the tiles before it ask for splits (an admission at
+    ``pos0 = 0`` takes one). A pure function of Python ints: the wrapper
+    calls it in the decode loop without touching the device."""
+    n_tiles = -(-l // KERNEL_L_BLK)
+    reached = n_tiles if reach is None else max(1, min(n_tiles, -(-reach // KERNEL_L_BLK)))
+    blocks = bkv * -(-sr // kernel_q_rows(sr))
+    n = max(1, min(2 * sm_count // blocks, reached // 2, KERNEL_MAX_SPLITS))
+    n = max(n, -(-n_tiles // KERNEL_MAX_TILES_PER_SPLIT))
+    tps = -(-n_tiles // n)
+    n = -(-n_tiles // tps)
+    while n > 1 and n_tiles - (n - 1) * tps < 2:
+        wider = -(-n_tiles // (n - 1))
+        if wider > KERNEL_MAX_TILES_PER_SPLIT:
+            break
+        tps = wider
+        n = -(-n_tiles // tps)
+    return n
+
+
+def flash_split_plan(l: int, n_split: int, tile: int = KERNEL_L_BLK) -> list:
+    """The cache row ranges ``[(l0, l1), ...]`` of the splits, in order: each
+    split takes ``ceil(tiles / n_split)`` whole tiles, the last one what is
+    left, and a count that would leave a split empty is cut to the splits
+    that have rows (the count the kernel is given)."""
+    n_tiles = -(-l // tile)
+    tps = -(-n_tiles // max(1, n_split))
+    return [(z * tps * tile, min(l, (z + 1) * tps * tile)) for z in range(-(-n_tiles // tps))]
+
+
+def flash_live_tiles(
+    l: int,
+    pos0: int,
+    r: int,
+    row0: int,
+    row1: int,
+    kv_valid: Optional[torch.Tensor],
+    window: int = 0,
+    tile: int = KERNEL_L_BLK,
+) -> torch.Tensor:
+    """``[B, tiles]`` bool (``[1, tiles]`` without ``kv_valid``): which cache
+    tiles at least one folded q row of ``[row0, row1)`` can see. The kernel
+    makes this test for its block's rows before it loads a tile: a valid
+    slot at or before the last row's position and, with a window, inside
+    the first row's window. A tile it fails holds no slot any row keeps, so
+    dropping it leaves (m, l, acc) exactly as they were."""
+    dev = kv_valid.device if kv_valid is not None else torch.device("cpu")
+    qmin = pos0 + row0 // r
+    qmax = pos0 + (row1 - 1) // r
+    col = torch.arange(l, device=dev)
+    ok = col <= qmax
+    if window:
+        ok &= (qmin - col) < window
+    ok = ok[None] if kv_valid is None else ok[None] & kv_valid
+    n_tiles = -(-l // tile)
+    ok = torch.nn.functional.pad(ok, (0, n_tiles * tile - l))
+    return ok.reshape(ok.shape[0], n_tiles, tile).any(dim=-1)
+
+
+def _online_softmax(qf, kt, vt, q_pos, kv_valid, window, l0, l1, tile, live=None):
+    """(m, l, acc) of an f32 online softmax over cache rows ``[l0, l1)`` in
+    ``tile``-row steps, from the "sees nothing" state (−1e30, 0, 0). With
+    ``live`` [B, tiles] a tile that is not live leaves a batch row's state
+    as it was (the kernel never loads it)."""
+    b, kv, sr, d = qf.shape
+    dev = qf.device
+    m = torch.full((b, kv, sr, 1), NEG_INF, device=dev)
+    lsum = torch.zeros((b, kv, sr, 1), device=dev)
+    acc = torch.zeros((b, kv, sr, d), device=dev)
+    scale = d**-0.5
+    for t0 in range(l0, l1, tile):
+        t1 = min(l1, t0 + tile)
+        sc = qf @ kt[:, :, t0:t1].float().transpose(-1, -2) * scale
+        l_pos = torch.arange(t0, t1, device=dev)
+        keep = q_pos[:, None] >= l_pos[None, :]
+        if window:
+            keep &= (q_pos[:, None] - l_pos[None, :]) < window
+        keep = keep[None, None]
+        if kv_valid is not None:
+            keep = keep & kv_valid[:, None, None, t0:t1]
+        sc = torch.where(keep, sc, torch.full_like(sc, NEG_INF))
+        m_new = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
+        p = torch.where(keep, torch.exp(sc - m_new), torch.zeros_like(sc))
+        corr = torch.exp(m - m_new)
+        l_new = lsum * corr + p.sum(dim=-1, keepdim=True)
+        acc_new = acc * corr + p.to(vt.dtype).float() @ vt[:, :, t0:t1].float()
+        if live is not None:
+            on = live[:, t0 // tile].reshape(-1, 1, 1, 1)
+            m_new = torch.where(on, m_new, m)
+            l_new = torch.where(on, l_new, lsum)
+            acc_new = torch.where(on, acc_new, acc)
+        m, lsum, acc = m_new, l_new, acc_new
+    return m, lsum, acc
+
+
+def flash_gqa_cache_split_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    pos0: int,
+    kv_valid: Optional[torch.Tensor],
+    *,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+    window: int = 0,
+    n_split: int = 1,
+    tile: int = KERNEL_L_BLK,
+) -> torch.Tensor:
+    """Plain PyTorch version of the kernel's split schedule: an f32 online
+    softmax per split over the row ranges of :func:`flash_split_plan`, then
+    the combine ``m* = max mᵢ``, ``l* = Σ lᵢ·e^(mᵢ−m*)``,
+    ``out = Σ accᵢ·e^(mᵢ−m*) / max(l*, 1e-20)`` in split order. A split that
+    sees nothing is (−1e30, 0, 0) and weighs nothing; a row that no split
+    sees is zeros. Everything else as :func:`flash_gqa_cache_reference`,
+    which this equals for ``n_split = 1``. Tile skipping is exact and not
+    modelled."""
+    b, s, h, d = q.shape
+    kv, l = k.shape[1], k.shape[2]
+    r = h // kv
+    sr = s * r
+    if k_scale is not None:
+        kt = k.to(q.dtype) * k_scale.to(q.dtype)[..., None]
+        vt = v.to(q.dtype) * v_scale.to(q.dtype)[..., None]
+        qt = q
+    else:
+        kt, vt, qt = k, v, q.to(k.dtype)
+    qf = qt.reshape(b, s, kv, r, d).permute(0, 2, 1, 3, 4).reshape(b, kv, sr, d).float()
+    q_pos = pos0 + torch.arange(sr, device=q.device) // r
+    parts = [
+        _online_softmax(qf, kt, vt, q_pos, kv_valid, window, l0, l1, tile)
+        for l0, l1 in flash_split_plan(l, n_split, tile)
+    ]
+    mx = parts[0][0]
+    for m, _, _ in parts[1:]:
+        mx = torch.maximum(mx, m)
+    lsum = torch.zeros_like(mx)
+    acc = torch.zeros_like(parts[0][2])
+    for m, ls, a in parts:
+        w = torch.exp(m - mx)
+        lsum = lsum + ls * w
+        acc = acc + a * w
+    out = (acc / lsum.clamp_min(1e-20)).to(q.dtype)
+    return out.reshape(b, kv, s, r, d).permute(0, 2, 1, 3, 4).reshape(b, s, h, d)
+
+
+_tickets: dict = {}  # device index -> every ticket buffer made there, newest last
+
+
+def _ticket_buffer(device: torch.device, n: int) -> torch.Tensor:
+    """The split combine's atomic tickets on ``device``: zeros that every
+    launch leaves zero again, kept across calls so that a captured CUDA
+    graph replays on the same buffer. A larger shape gets a new, larger
+    buffer, and the old ones are kept alive too: a graph captured before
+    the growth still points at its own, which nothing else may reuse. Calls
+    on one device share the newest, so they must not run at once on two
+    streams (the port launches on one). Grows outside capture only: run a
+    shape once before capturing it."""
+    bufs = _tickets.setdefault(device.index, [])
+    if not bufs or bufs[-1].numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "flash_gqa_cache: the split tickets must grow outside CUDA-graph capture; "
+                "call the kernel once at this shape before capturing it"
+            )
+        size = max(n, 2 * bufs[-1].numel() if bufs else 0)
+        bufs.append(torch.zeros(size, dtype=torch.int32, device=device))
+    return bufs[-1]
+
+
 def _lib():
-    fn = _build.load("flash_gqa_cache").kkv_flash_gqa_cache
+    lib = _build.load("flash_gqa_cache")
+    fn = lib.kkv_flash_gqa_cache
     if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, ctypes.c_float, p]
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [p, p, p, p, p, p, p, p, ll, p, i, i, i, i, i, i, i, i, i, ctypes.c_float, i, p]
         fn.restype = ctypes.c_int
-    return fn
+        size = lib.kkv_flash_gqa_cache_part_floats
+        size.argtypes = [i, i, i, i]
+        size.restype = ll
+    return lib
 
 
 def flash_gqa_cache(
@@ -154,14 +348,24 @@ def flash_gqa_cache(
     k_scale: Optional[torch.Tensor] = None,
     v_scale: Optional[torch.Tensor] = None,
     window: int = 0,
+    reach: Optional[int] = None,
 ) -> torch.Tensor:
     """Flash attention of ``q [B, S, H, D]`` over the head-major cache
     ``k, v [B, KV, L, D]``. A CPU tensor takes
     :func:`flash_gqa_cache_reference`; a CUDA tensor launches the kernel or
     raises. The card takes a bf16 ``q``, a bf16 cache or an int8 cache with
-    f32 ``k_scale``/``v_scale`` [B, KV, L], D ∈ {64, 128} and any L.
-    ``flash_gqa_cache.launches`` counts bf16-cache launches,
-    ``flash_gqa_cache.launches_kv8`` int8-cache launches."""
+    f32 ``k_scale``/``v_scale`` [B, KV, L], D ∈ {64, 128} and any L up to
+    ``KERNEL_MAX_SPLITS × KERNEL_MAX_TILES_PER_SPLIT`` tiles. One launch
+    whatever the split count (:func:`flash_split_count`); its workspace is
+    a ``torch.empty`` and the per-device tickets of :func:`_ticket_buffer`,
+    so calls can be captured in a CUDA graph once a shape has run eagerly.
+    ``reach`` is a host-side hint from a caller whose ``kv_valid`` hides
+    every row at or past it (the engine's decode step passes one past its
+    slots' last row): only the tiles before it ask for splits. It steers
+    the schedule alone, never the result — the kernel still masks and
+    skips by ``kv_valid`` — so a stale hint (one baked into a captured
+    graph) is exact too. ``flash_gqa_cache.launches`` counts bf16-cache
+    launches, ``flash_gqa_cache.launches_kv8`` int8-cache launches."""
     if q.device.type == "cpu":
         return flash_gqa_cache_reference(
             q, k, v, pos0, kv_valid, k_scale=k_scale, v_scale=v_scale, window=window
@@ -202,13 +406,28 @@ def flash_gqa_cache(
     out = torch.empty((b * kv, sr, d), dtype=torch.bfloat16, device=q.device)
     if any(t.data_ptr() % 16 for t in (qf, out, k, v)):
         raise ValueError("flash_gqa_cache: tensors must be 16-byte aligned")
-    fn = _lib()
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    hint = int(pos0) + s if reach is None else min(int(pos0) + s, int(reach))
+    n_split = flash_split_count(b * kv, sr, l, sms, reach=hint)
+    if n_split > KERNEL_MAX_SPLITS:
+        raise ValueError(f"flash_gqa_cache: a cache of L={l} rows is longer than the kernel takes")
+    lib = _lib()
+    part = tickets = None
+    if n_split > 1:  # the C side sizes the partials and checks both buffers
+        part = torch.empty(
+            lib.kkv_flash_gqa_cache_part_floats(b * kv, sr, d, n_split), dtype=torch.float32, device=q.device
+        )
+        tickets = _ticket_buffer(q.device, b * kv * -(-sr // kernel_q_rows(sr)))
     with torch.cuda.device(q.device):
-        rc = fn(
+        rc = lib.kkv_flash_gqa_cache(
             qf.data_ptr(), k.data_ptr(), v.data_ptr(),
             k_scale.data_ptr() if kv8 else None, v_scale.data_ptr() if kv8 else None,
             kv_valid.view(torch.uint8).data_ptr() if kv_valid is not None else None,
-            out.data_ptr(), b * kv, kv, sr, r, l, d, int(pos0), int(window), d**-0.5,
+            out.data_ptr(), part.data_ptr() if part is not None else None,
+            part.numel() if part is not None else 0,
+            tickets.data_ptr() if tickets is not None else None,
+            tickets.numel() if tickets is not None else 0,
+            b * kv, kv, sr, r, l, d, int(pos0), int(window), d**-0.5, n_split,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if rc != 0:
@@ -236,11 +455,13 @@ def gqa_cache_attention(
     k_scale: Optional[torch.Tensor] = None,
     v_scale: Optional[torch.Tensor] = None,
     full_mask: Optional[torch.Tensor] = None,
+    reach: Optional[int] = None,
 ) -> torch.Tensor:
     """Cached GQA attention: the flash kernel for every shape it takes (on
     the card there is no profitability gate — ``_flash_wins`` was measured
     on a TPU); softcap and ``full_mask`` take :func:`gqa_grouped`, on the
-    CPU only. ``window`` > 0 is sliding-window attention."""
+    CPU only. ``window`` > 0 is sliding-window attention; ``reach`` is
+    :func:`flash_gqa_cache`'s schedule hint."""
     if full_mask is not None or softcap:
         if q.device.type == "cuda":
             raise NotImplementedError(
@@ -250,4 +471,6 @@ def gqa_cache_attention(
             k = k.to(q.dtype) * k_scale.to(q.dtype)[..., None]
             v = v.to(q.dtype) * v_scale.to(q.dtype)[..., None]
         return gqa_grouped(q, k, v, pos0, kv_valid, window=window, softcap=softcap, full_mask=full_mask)
-    return flash_gqa_cache(q, k, v, pos0, kv_valid, k_scale=k_scale, v_scale=v_scale, window=window)
+    return flash_gqa_cache(
+        q, k, v, pos0, kv_valid, k_scale=k_scale, v_scale=v_scale, window=window, reach=reach
+    )

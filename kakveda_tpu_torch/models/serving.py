@@ -79,15 +79,17 @@ def _forward_wide(
     kv_valid: torch.Tensor,  # [B, L] bool
     pos_offset: torch.Tensor,  # [B]
     write_rows: Optional[torch.Tensor] = None,  # slots whose row is inside the window
+    reach: Optional[int] = None,  # host int: 1 + the largest slot_pos of an active slot
 ) -> torch.Tensor:
     """One decode token for every slot with PER-SLOT positions: slot b writes
     cache row ``slot_pos[b]`` (in place) and attends rows ``col <=
     slot_pos[b]`` within ``kv_valid`` (and the sliding-window band). The
     mask is a ``[B, L]`` ``kv_valid`` with ``pos0 = max_len``, so the flash
-    kernel's scalar causal term is a no-op. Slots whose row lies past the
-    window (overshoot, discarded on the host) are left out of
-    ``write_rows`` and write nothing — the JAX scatter's ``mode="drop"``.
-    Returns logits [B, 1, V] f32, vocab-masked."""
+    kernel's scalar causal term is a no-op; ``reach`` tells the kernel's
+    schedule which rows the mask can show (a hint, exact either way). Slots
+    whose row lies past the window (overshoot, discarded on the host) are
+    left out of ``write_rows`` and write nothing — the JAX scatter's
+    ``mode="drop"``. Returns logits [B, 1, V] f32, vocab-masked."""
     b, s = tokens.shape
     if s != 1:
         raise ValueError("_forward_wide: one token per slot (speculative chunks are not ported)")
@@ -130,7 +132,7 @@ def _forward_wide(
         mask = win_mask if cfg.layer_window(li) else base_mask
         attn = gqa_cache_attention(
             q, cache["k"][li], cache["v"][li], max_len, mask,
-            softcap=cfg.attn_softcap, k_scale=ks, v_scale=vs,
+            softcap=cfg.attn_softcap, k_scale=ks, v_scale=vs, reach=reach,
         )
         x = x + attn.reshape(b, s, cfg.n_heads * hd) @ wmat(layer["wo"], dt)
         x = x + mlp_block(rms_norm(x, layer["mlp_norm"], cfg.norm_eps), layer, cfg)
@@ -253,6 +255,7 @@ class ContinuousBatcher:
         temps = _h2d(self._temp_np, dev) if (self._temp_np > 0).any() else None
         toks = torch.empty((self.B, self.chunk_steps), dtype=torch.long, device=dev)
         last = self.last
+        top = int(pos_h[list(self.slots)].max())  # inactive slots see nothing
         for t in range(self.chunk_steps):
             nxt = last.argmax(dim=-1)
             if temps is not None:
@@ -263,7 +266,8 @@ class ContinuousBatcher:
             inside = pos_h + t < self.max_len
             rows = None if inside.all() else _h2d(np.flatnonzero(inside), dev)
             logits = _forward_wide(
-                self.params, self.cfg, self.cache, nxt[:, None], pos + t, kv_valid, pos_offset, rows
+                self.params, self.cfg, self.cache, nxt[:, None], pos + t, kv_valid, pos_offset, rows,
+                reach=top + t + 1,
             )
             last = logits[:, -1, :]
             self.forwards += 1

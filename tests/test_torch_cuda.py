@@ -12,7 +12,10 @@ scores and exact duplicate rows leave no near-ties. The flash kernel's bf16
 output within 2e-2 of ``flash_gqa_cache_reference`` (|out| ≲ 3, where one
 bf16 step is ≤ 1.6e-2, and f32 sums taken in another order may flip the
 rounding of a probability or of the output), and exact zeros for a slot
-that sees nothing.
+that sees nothing. Against the split schedule (and the plain version
+beside it) each output row within two bf16 steps of its largest plain
+value, 2^-6 of it, and within 2e-2: at a long cache, where outputs are
+~0.02, that is ~1e-3, tight enough to catch a wrong combine.
 """
 
 import asyncio
@@ -126,6 +129,17 @@ def test_platform_on_the_card(gen, tmp_path):
 
 
 FLASH_ATOL = 2e-2
+# Split schedule: every output row within two bf16 steps of its largest
+# plain value (one step of x is at most 2^-7 |x|) — f32 sums in another
+# order may round an output or a probability the other way — and within
+# FLASH_ATOL.
+FLASH_REL = 2.0**-6
+
+
+def _assert_flash_close(out, want):
+    diff = (out.float() - want.float()).abs()
+    tol = (want.float().abs().amax(dim=-1, keepdim=True) * FLASH_REL).clamp(max=FLASH_ATOL)
+    assert (diff <= tol).all(), (diff.max().item(), (diff / tol.clamp_min(1e-30)).max().item())
 
 
 def _flash_case(gen, b, s, h, kv, l, d, pos0, valid, kv8):
@@ -177,6 +191,148 @@ def test_flash_kernel_matches_plain(gen, b, s, h, kv, l, d, pos0, valid, window,
     assert err <= FLASH_ATOL, err
     if valid == "slots":
         assert torch.equal(out[0], torch.zeros_like(out[0]))  # the slot that sees nothing
+
+
+def _split_count(b, s, h, kv, l, pos0, reach=None):
+    from kakveda_tpu_torch.models.attention import flash_split_count
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    hint = pos0 + s if reach is None else min(pos0 + s, reach)
+    return flash_split_count(b * kv, s * (h // kv), l, sms, reach=hint)
+
+
+@pytest.mark.parametrize("kv8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize(
+    "b,s,h,kv,l,d,pos0,valid,window,reach,splits",
+    [
+        (8, 1, 32, 8, 512, 128, 512, "slots", 0, None, "many"),  # serving decode
+        # the engine's decode mask (rows [left pad, 95] of every slot), without
+        # and with the engine's reach hint
+        (8, 1, 32, 8, 512, 128, 512, "engine", 0, None, "many"),
+        (8, 1, 32, 8, 512, 128, 512, "engine", 0, 96, "one"),
+        (8, 1, 32, 8, 512, 128, 512, "slots", 0, 300, "many"),  # a hint that still leaves splits
+        (1, 64, 32, 8, 512, 128, 0, "leftpad", 0, None, "one"),  # admission: causal reach of one tile
+        (2, 1, 8, 2, 40, 64, 40, "slots", 0, None, "one"),  # L < 64, D = 64
+        (3, 2, 16, 4, 1000, 64, 1000, None, 0, None, "many"),  # ragged L, ragged last split
+        (64, 1, 32, 8, 256, 128, 256, None, 0, None, "one"),  # 512 blocks fill the card alone
+        (16, 1, 32, 8, 8192, 128, 8192, "slots", 0, None, "many"),  # long cache
+        (4, 1, 8, 2, 700, 128, 700, "slots", 16, None, "many"),  # window, decode regime
+        (2, 16, 8, 2, 300, 128, 250, "leftpad", 37, None, "many"),  # window, prefill at pos0 > 0
+    ],
+)
+def test_flash_kernel_matches_split_reference(gen, b, s, h, kv, l, d, pos0, valid, window, reach, splits, kv8):
+    from kakveda_tpu_torch.models.attention import flash_gqa_cache_split_reference
+
+    n_split = _split_count(b, s, h, kv, l, pos0, reach)
+    assert (n_split == 1) == (splits == "one"), n_split
+    q, k, v, pos0, kv_valid, ks, vs = _flash_case(
+        gen, b, s, h, kv, l, d, pos0, "slots" if valid == "engine" else valid, kv8
+    )
+    if valid == "engine":
+        off = torch.randint(10, 17, (b, 1), device="cuda", generator=gen)
+        ar = torch.arange(l, device="cuda")
+        kv_valid = ((ar >= off) & (ar <= 95)).contiguous()
+    elif reach is not None:  # the hint holds: nothing at or past it is valid
+        kv_valid[:, reach:] = False
+    counter = "launches_kv8" if kv8 else "launches"
+    before = getattr(flash_gqa_cache, counter)
+    out = flash_gqa_cache(q, k, v, pos0, kv_valid, k_scale=ks, v_scale=vs, window=window, reach=reach)
+    torch.cuda.synchronize()
+    assert getattr(flash_gqa_cache, counter) == before + 1
+    kw = dict(k_scale=ks, v_scale=vs, window=window)
+    split_ref = flash_gqa_cache_split_reference(q, k, v, pos0, kv_valid, n_split=n_split, **kw)
+    ref = flash_gqa_cache_reference(q, k, v, pos0, kv_valid, **kw)
+    assert torch.isfinite(out).all()
+    for want in (split_ref, ref):
+        _assert_flash_close(out, want)
+    if valid == "slots":
+        assert torch.equal(out[0], torch.zeros_like(out[0]))  # the slot that sees nothing
+
+
+@pytest.mark.parametrize("kv8", [False, True], ids=["bf16", "int8"])
+def test_flash_kernel_replays_from_a_cuda_graph(gen, kv8):
+    """Several split launches captured in one graph replay equal to eager
+    calls, twice in a row: the tickets are back at zero after every launch."""
+    cases = [_flash_case(gen, 8, 1, 32, 8, l, 128, l, "slots", kv8) for l in (512, 1000, 512)]
+    assert all(_split_count(8, 1, 32, 8, c[1].shape[2], c[3]) > 1 for c in cases)
+
+    def run():
+        return [flash_gqa_cache(q, k, v, p, m, k_scale=ks, v_scale=vs) for q, k, v, p, m, ks, vs in cases]
+
+    eager = run()  # also grows the tickets before the capture
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        captured = run()
+    for _ in range(2):
+        for o in captured:
+            o.fill_(float("nan"))
+        g.replay()
+        torch.cuda.synchronize()
+        for o, want in zip(captured, eager):
+            assert torch.equal(o, want)
+
+
+@pytest.mark.parametrize("kv8", [False, True], ids=["bf16", "int8"])
+def test_flash_graph_replays_after_the_tickets_grow(gen, kv8, monkeypatch):
+    """A graph captured before a larger shape grows the split tickets still
+    replays right: the buffer its launch holds is kept, never handed back
+    to the allocator for another tensor to take."""
+    from kakveda_tpu_torch.models import attention
+
+    monkeypatch.setattr(attention, "_tickets", {})
+    small = _flash_case(gen, 8, 1, 32, 8, 512, 128, 512, "slots", kv8)  # 64 tickets
+    big = _flash_case(gen, 16, 1, 32, 8, 2048, 128, 2048, "slots", kv8)  # 128 tickets
+    assert _split_count(8, 1, 32, 8, 512, 512) > 1 and _split_count(16, 1, 32, 8, 2048, 2048) > 1
+
+    def run(case):
+        q, k, v, p, m, ks, vs = case
+        return flash_gqa_cache(q, k, v, p, m, k_scale=ks, v_scale=vs)
+
+    want = run(small)  # also makes the tickets before the capture
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        captured = run(small)
+    held = attention._tickets[0][-1]
+    run(big)
+    torch.cuda.synchronize()
+    assert attention._tickets[0][-1].numel() > held.numel()
+    junk = torch.full((held.numel(),), 7, dtype=torch.int32, device="cuda")  # may take a freed block
+    for _ in range(2):
+        captured.fill_(float("nan"))
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, want)
+    assert torch.equal(held, torch.zeros_like(held)) and torch.equal(junk, torch.full_like(junk, 7))
+
+
+def test_flash_kernel_refuses_a_short_workspace(gen):
+    """The C entry sizes the split partials itself and refuses (cudaErrorInvalidValue)
+    a partials or ticket buffer shorter than the launch needs."""
+    from kakveda_tpu_torch.models import attention
+
+    lib = attention._lib()
+    q, k, v, pos0, m, _, _ = _flash_case(gen, 8, 1, 32, 8, 512, 128, 512, "slots", False)
+    qf = q.reshape(8, 1, 8, 4, 128).permute(0, 2, 1, 3, 4).reshape(64, 4, 128).contiguous()
+    out = torch.empty_like(qf)
+    need = lib.kkv_flash_gqa_cache_part_floats(64, 4, 128, 4)
+    assert need == 64 * 4 * 16 * (128 + 2)
+    part = torch.empty(need, device="cuda")
+    tickets = torch.zeros(64, dtype=torch.int32, device="cuda")
+
+    def call(n_part, n_tickets):
+        return lib.kkv_flash_gqa_cache(
+            qf.data_ptr(), k.data_ptr(), v.data_ptr(), None, None, m.view(torch.uint8).data_ptr(),
+            out.data_ptr(), part.data_ptr(), n_part, tickets.data_ptr(), n_tickets,
+            64, 8, 4, 4, 512, 128, pos0, 0, 128**-0.5, 4, torch.cuda.current_stream().cuda_stream,
+        )
+
+    assert call(need - 1, 64) == 1 and call(need, 63) == 1
+    assert call(need, 64) == 0
+    torch.cuda.synchronize()
+    want = flash_gqa_cache(q, k, v, pos0, m)
+    assert torch.equal(out.reshape(8, 8, 1, 4, 128).permute(0, 2, 1, 3, 4).reshape(8, 1, 32, 128), want)
 
 
 def test_flash_wrapper_rejects_what_the_kernel_does_not_take(gen):
