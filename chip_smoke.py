@@ -11,10 +11,14 @@ JAX package). Phases, each of which raises on failure (exit code != 0):
    in parallel);
 3. each kernel against its plain PyTorch version at the main path's shape —
    ``fused_topk`` over a 1,048,576 × 2048 bf16 index (~90 % valid) for
-   B ∈ {1, 64}, k ∈ {5, 8}: scores within 1e-4, ids equal wherever the plain
+   B ∈ {1, 64}, k ∈ {5, 8}, against ``fused_topk_reference`` and the
+   kernel's own schedule in plain PyTorch (``fused_topk_schedule_reference``
+   over one block per SM): scores within 1e-4, ids equal wherever the plain
    scores of neighbouring ranks differ by more than 1e-4, exact
    lowest-index ties on duplicated rows; warm times from CUDA events beside
-   the bound and one PyTorch yardstick call (never used by the port);
+   the bound, its share of HBM, the plain version and one PyTorch yardstick
+   call (never used by the port), eager and replayed from a CUDA graph; the kernel's registers, spills (ptxas),
+   shared memory and ring depth per wgmma width;
 4. the failure-memory main path, with launch counts zeroed just before and
    read just after: ``Platform(capacity=2^20, dim=2048)`` on the card runs
    the demo flow (warn → ingest for app-A/app-B, repeats that degrade
@@ -161,7 +165,10 @@ def check_topk(v, i, rv, ri, what: str) -> float:
     return err
 
 
-def phase_kernels(fused_topk, fused_topk_reference) -> dict:
+def phase_kernels(fused_topk, fused_topk_reference, card: str) -> dict:
+    from kakveda_tpu_torch.ops.fused_topk import fused_topk_schedule_reference, workspace_shape
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator(device="cuda").manual_seed(0)
     emb = torch.randn(ROWS, DIM, device="cuda", generator=gen)
     emb /= emb.norm(dim=1, keepdim=True)
@@ -171,35 +178,45 @@ def phase_kernels(fused_topk, fused_topk_reference) -> dict:
     q /= q.norm(dim=1, keepdim=True)
     log(f"index {ROWS} x {DIM} bf16, {int(valid.sum())} valid rows")
 
-    row = None
+    rows = {}
     max_err = 0.0
     for b in (1, 64):
         qb = q[:b].contiguous()
+        n_cta = workspace_shape(b, ROWS, sms)[1]
         for k in (5, 8):
             v, i = fused_topk(emb, valid, qb, k)
             torch.cuda.synchronize()
             rv, ri = fused_topk_reference(emb, valid, qb, k)
             err = check_topk(v, i, rv, ri, f"fused_topk B={b} k={k}")
+            sv, si = fused_topk_schedule_reference(emb, valid, qb, k, n_cta)
+            err = max(err, check_topk(v, i, sv, si, f"fused_topk B={b} k={k} (schedule, {n_cta} blocks)"))
             max_err = max(max_err, err)
             ms = cuda_ms(lambda: fused_topk(emb, valid, qb, k))
             plain_ms = cuda_ms(lambda: fused_topk_reference(emb, valid, qb, k), iters=3, warmup=1)
-            lib_ms = cuda_ms(
-                lambda: torch.topk(
-                    torch.where(valid, qb.to(torch.bfloat16) @ emb.T, -2.0), k, dim=1
-                )
-            )
+            def library():
+                return torch.topk(torch.where(valid, qb.to(torch.bfloat16) @ emb.T, -2.0), k, dim=1)
+
+            lib_ms = cuda_ms(library)
+            # Device time alone: launches replayed from a CUDA graph (the
+            # eager times above include the wrapper's host time).
+            dev_ms = graph_ms(lambda: fused_topk(emb, valid, qb, k), n=10)
+            lib_dev_ms = graph_ms(library, n=10)
             nbytes = ROWS * DIM * 2 + ROWS + b * DIM * 4 + b * k * 8
             flops = 2 * b * ROWS * DIM
             bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S) * 1e3
             bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOP_PER_S else "operations"
             log(
-                f"fused_topk B={b} k={k}: max_abs_err={err:.3g} kernel_ms={ms:.4f} "
-                f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by})"
+                f"fused_topk B={b} k={k} ({n_cta} blocks): max_abs_err={err:.3g} kernel_ms={ms:.4f} "
+                f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}) "
+                f"share_of_bound={bound_ms / ms:.3f} kernel/library={ms / lib_ms:.3f}; graph replay: "
+                f"kernel_ms={dev_ms:.4f} library_ms={lib_dev_ms:.4f} share_of_bound={bound_ms / dev_ms:.3f} [{card}]"
             )
-            if b == 64 and k == 5:  # the main path's warn_batch shape
-                row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
-                           bound_by=bound_by)
+            if k == 5:  # B = 1: the single warn, the main path's most frequent shape; 64: warn_batch
+                rows[b] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                               bound_by=bound_by, graph_ms=dev_ms, library_graph_ms=lib_dev_ms)
+    row = rows[1]
     row["max_abs_err"] = max_err
+    row["b64"] = rows[64]
 
     # Duplicated rows: exact ties across tiles resolve to the lowest row id.
     n_base = 4096
@@ -691,10 +708,14 @@ def main() -> int:
     log(f"built {names} in {time.perf_counter() - t0:.2f} s")
     for lib in libs.values():
         for line in lib.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            if "entry function" in line or "registers" in line or "spill" in line:
                 log("  ptxas: " + line.strip())
+    topk_lib = _build.load("fused_topk")
+    for width in (8, 16, 32, 64):
+        log(f"  fused_topk at wgmma N={width}: {topk_lib.kkv_fused_topk_stages(width)} ring stages, "
+            f"{topk_lib.kkv_fused_topk_smem_bytes(width)} bytes of dynamic shared memory")
 
-    row = phase_kernels(fused_topk, fused_topk_reference)
+    row = phase_kernels(fused_topk, fused_topk_reference, card)
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory(prefix="kakveda-smoke-") as d:
@@ -714,6 +735,7 @@ def main() -> int:
         replaces="kakveda_tpu/ops/pallas_knn.py:128", launches=launches,
         max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
         bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=row["library_ms"],
+        shape="B=1, k=5", b64=dict(shape="B=64, k=5", **row["b64"]),
     )]
     for kname, tag in (("flash_gqa_cache", "bf16"), ("flash_gqa_cache_kv8", "int8")):
         r = flash[kname]

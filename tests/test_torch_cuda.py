@@ -6,9 +6,10 @@ conftest):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerance: scores within 1e-4 of ``fused_topk_reference`` (bf16 inputs,
-f32 sums in another order); ids identical on these inputs, whose separated
-scores and exact duplicate rows leave no near-ties. The flash kernel's bf16
+Tolerance: scores within 1e-4 of ``fused_topk_reference`` and of the
+kernel's schedule in plain PyTorch, ``fused_topk_schedule_reference`` (bf16
+inputs, f32 sums in another order); ids identical on these inputs, whose
+separated scores and exact duplicate rows leave no near-ties. The flash kernel's bf16
 output within 2e-2 of ``flash_gqa_cache_reference`` (|out| ≲ 3, where one
 bf16 step is ≤ 1.6e-2, and f32 sums taken in another order may flip the
 rounding of a probability or of the output), and exact zeros for a slot
@@ -26,7 +27,12 @@ import torch
 
 from kakveda_tpu_torch.models.attention import flash_gqa_cache, flash_gqa_cache_reference
 from kakveda_tpu_torch.models.llama import _kv_quant_rows
-from kakveda_tpu_torch.ops.fused_topk import fused_topk, fused_topk_reference
+from kakveda_tpu_torch.ops.fused_topk import (
+    fused_topk,
+    fused_topk_reference,
+    fused_topk_schedule_reference,
+    workspace_shape,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -43,12 +49,18 @@ def _unit(x):
     return x / x.norm(dim=-1, keepdim=True)
 
 
+def _sms():
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
 def _check(emb, valid, q, k):
     v, i = fused_topk(emb, valid, q, k)
     torch.cuda.synchronize()
-    rv, ri = fused_topk_reference(emb, valid, q, k)
-    assert (v - rv).abs().max().item() < 1e-4
-    assert torch.equal(i, ri), (i[0].tolist(), ri[0].tolist())
+    n_cta = workspace_shape(q.shape[0], emb.shape[0], _sms())[1]
+    for rv, ri in (fused_topk_reference(emb, valid, q, k),
+                   fused_topk_schedule_reference(emb, valid, q, k, n_cta)):
+        assert (v - rv).abs().max().item() < 1e-4
+        assert torch.equal(i, ri), (i[0].tolist(), ri[0].tolist())
     return i
 
 
@@ -56,7 +68,14 @@ def _check(emb, valid, q, k):
     "rows,dim,b,k,frac",
     [(3000, 128, 3, 5, 0.9), (100, 128, 2, 5, 0.02), (5, 64, 1, 8, 0.9),
      (1500, 256, 17, 5, 0.5), (70000, 512, 100, 7, 0.9), (1030, 192, 64, 3, 0.0),
-     (129, 64, 16, 8, 1.0)],
+     (129, 64, 16, 8, 1.0)]
+    # every wgmma width (8, 16, 32, 64) and groups of 64, over more tiles
+    # than SMs and a ragged last tile
+    + [(200_077, 128, b, k, 0.9) for b in (1, 8, 9, 16, 32, 33, 64, 65, 128) for k in (5, 8)]
+    # rows under one tile, one short of a tile, one past it, and the main
+    # path's 2^20 (7-8 tiles a block), at every dim the layouts take
+    + [(rows, dim, b, k, 0.9) for rows in (5, 1023, 1025, 1 << 20) for dim in (64, 128, 192, 2048)
+       for b, k in ((1, 5), (33, 8))],
 )
 def test_kernel_matches_plain(gen, rows, dim, b, k, frac):
     emb = _unit(torch.randn(rows, dim, device="cuda", generator=gen)).to(torch.bfloat16)
@@ -79,13 +98,21 @@ def test_kernel_scores_below_sentinel(gen):
     _check(emb, valid, q[:1] * 5, 6)
 
 
-def test_kernel_duplicate_rows_tie_to_lowest_id(gen):
-    base = _unit(torch.randn(64, 256, device="cuda", generator=gen))
+@pytest.mark.parametrize("n_base,step,skip", [(64, 1, 0), (3000, 4, 7)])
+def test_kernel_duplicate_rows_tie_to_lowest_id(gen, n_base, step, skip):
+    """Exact ties resolve to the lowest row id; with 3000 × 100 rows (293
+    tiles) also across the persistent grid's blocks, and where a row's first
+    copy is invalid (it scores -2.0, so its second copy leads)."""
+    base = _unit(torch.randn(n_base, 256, device="cuda", generator=gen))
     emb = base.repeat(100, 1).to(torch.bfloat16)
     valid = torch.ones(emb.shape[0], dtype=torch.bool, device="cuda")
-    i = _check(emb, valid, emb[:4].float(), 8)
-    want = torch.arange(4, device="cuda")[:, None] + 64 * torch.arange(8, device="cuda")[None, :]
-    assert torch.equal(i.long(), want)
+    if skip:
+        valid[:n_base:skip] = False
+    rows = list(range(0, 4 * step, step))
+    i = _check(emb, valid, emb[rows].float(), 8)
+    ok = valid.cpu()
+    want = [[r + n_base * c for c in range(100) if ok[r + n_base * c]][:8] for r in rows]
+    assert i.tolist() == want
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(gen):
@@ -126,6 +153,75 @@ def test_platform_on_the_card(gen, tmp_path):
     assert [r.references[0].failure_id for r in res] == ["F-0001", "F-0151", "F-0300"]
     assert all(r.pattern_id == "FP-0001" and r.confidence > 0.99 for r in res)
     plat.close()
+
+
+def test_fused_topk_replays_from_a_cuda_graph(gen):
+    """A captured launch replays equal to eager calls, follows in-place
+    writes to the index it captured, and keeps doing so after a larger index
+    is allocated (as the GFKB grows) and captured in a second graph: the
+    tensor maps are encoded per call and held by value in each launch."""
+    def case(rows):
+        emb = _unit(torch.randn(rows, 256, device="cuda", generator=gen)).to(torch.bfloat16)
+        return emb, torch.rand(rows, device="cuda", generator=gen) < 0.9
+    q = _unit(torch.randn(9, 256, device="cuda", generator=gen))
+    emb, valid = case(50_000)
+    want = fused_topk(emb, valid, q, 5)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        got = fused_topk(emb, valid, q, 5)
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    emb[77] = q[0].to(torch.bfloat16)  # an in-place insert: the captured launch sees it
+    valid[77] = True
+    g.replay()
+    torch.cuda.synchronize()
+    assert got[1][0, 0].item() == 77
+    big, big_valid = case(130_000)  # a new, larger index tensor
+    big[:50_000] = emb
+    big_valid[:50_000] = valid
+    g2 = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g2):
+        got2 = fused_topk(big, big_valid, q, 5)
+    for graph in (g2, g):
+        graph.replay()
+    torch.cuda.synchronize()
+    for (v, i), (e, m) in ((got2, (big, big_valid)), (got, (emb, valid))):
+        rv, ri = fused_topk_reference(e, m, q, 5)
+        assert (v - rv).abs().max().item() < 1e-4 and torch.equal(i, ri)
+
+
+def test_fused_topk_c_entry_refuses_a_wrong_layout(gen):
+    """The C entry returns cudaErrorInvalidValue (1) for a query padding
+    that is not the kernel's, a short candidate buffer, or dim % 64 != 0;
+    the wrapper never calls it so (its own checks raise first)."""
+    from kakveda_tpu_torch.ops.fused_topk import _lib
+
+    fn = _lib()
+    rows, dim, b = 5000, 128, 3
+    emb = _unit(torch.randn(rows, dim, device="cuda", generator=gen)).to(torch.bfloat16)
+    valid = torch.ones(rows, dtype=torch.bool, device="cuda")
+    bpad, n_cta, lanes = workspace_shape(b, rows, _sms())
+    qb = torch.zeros(64, dim, dtype=torch.bfloat16, device="cuda")
+    cand_v = torch.empty(64 * n_cta * lanes, device="cuda")
+    cand_i = torch.empty(64 * n_cta * lanes, dtype=torch.int32, device="cuda")
+    out_v = torch.empty(b, 5, device="cuda")
+    out_i = torch.empty(b, 5, dtype=torch.int32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(pad, n_cand, d=dim):
+        return fn(emb.data_ptr(), valid.data_ptr(), qb.data_ptr(), rows, d, pad, b, 5, _sms(),
+                  cand_v.data_ptr(), cand_i.data_ptr(), n_cand, out_v.data_ptr(), out_i.data_ptr(), stream)
+
+    need = bpad * n_cta * lanes
+    assert call(16, 2 * need) == 1  # 3 queries run at width 8, not 16
+    assert call(bpad, need - 1) == 1
+    assert call(bpad, need, d=96) == 1
+    assert call(bpad, need) == 0
+    torch.cuda.synchronize()
+    rv, ri = fused_topk_reference(emb, valid, torch.zeros(b, dim, device="cuda"), 5)
+    assert torch.equal(out_i, ri)
 
 
 FLASH_ATOL = 2e-2
