@@ -24,7 +24,16 @@ JAX package). Phases, each of which raises on failure (exit code != 0):
    the demo flow (warn → ingest for app-A/app-B, repeats that degrade
    app-A, a follow-up warn), then ``ingest_batch`` of 4096 traces in batches
    of 512 and ``warn_batch`` of 64, whose matches are checked against the
-   plain top-k of the same index;
+   plain top-k of the same index. Mining on that ingest path: the cluster
+   state covers every row, never went stale, one delta top-k per 512-batch;
+   ``mine()`` serves incrementally, ``mine(mode="full")`` sweeps and
+   re-seeds (this stream is past the k-neighbour cap, where the streamed
+   partition is not the sweep's, in the JAX package too); a warned
+   signature's ingest attaches with no dispatch; the delta's device time
+   beside its bound. Then two more Platforms ingest one stream whose
+   clusters no neighbour list overflows: incremental patterns and
+   partition equal the full sweep's. Then ingest traces/s on fresh
+   Platforms with mining off, on, on, off;
 5. ``flash_gqa_cache`` (bf16 cache and int8 cache) against its plain
    versions, the split schedule's (``flash_gqa_cache_split_reference`` with
    the kernel's ``n_split``) and the unsplit one, at the model plane's
@@ -59,6 +68,17 @@ JAX package). Phases, each of which raises on failure (exit code != 0):
    engine's ``reach`` hint) against the 4.8 ms weight-read bound, and
    tokens/s.
 
+7. mining at the reference bench's size (``bench.py``'s corpus: 120
+   templates, seed 0, ~1,080 distinct texts expanded on the card): the full
+   sweep at 500,000 rows (projection tier) and 131,072 (exact tier), each
+   split into its stages (CUDA events) beside each stage's bound, purity ≥
+   0.99 against the templates; the first 20,000 rows streamed through the
+   delta top-k into a ``ClusterState`` in batches of 512, whose labels must
+   equal the full sweep's; the card's delta top-k of 64 rows against a
+   float64 host computation on the same bf16 rows (scores within 1e-4, ids
+   equal where the host's neighbouring scores differ by more, and on exact
+   ties, lowest row first).
+
 Prints a ``{"kernels": [...]}`` line, the card line, and last
 ``{"ok": true, "device": {...}}``.
 """
@@ -69,6 +89,7 @@ import asyncio
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -81,6 +102,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12  # dense bf16 tensor-core peak
+F32_FLOP_PER_S = 67e12  # float32 outside the tensor cores
 ROWS, DIM = 1 << 20, 2048
 ATOL = 1e-4  # bf16 inputs, f32 sums taken in another order than the plain version
 # Flash: bf16 outputs from f32 sums taken in another order than the plain
@@ -242,7 +264,7 @@ def _trace(TracePayload, i, app_id, prompt, response=STUB_RESPONSE):
     )
 
 
-def phase_platform(data_dir: Path, fused_topk, fused_topk_reference) -> dict:
+def phase_platform(data_dir: Path, fused_topk, fused_topk_reference, card: str) -> dict:
     from kakveda_tpu_torch.core.fingerprint import signature_text
     from kakveda_tpu_torch.core.schemas import TracePayload, WarningRequest
     from kakveda_tpu_torch.platform import Platform
@@ -321,6 +343,8 @@ def phase_platform(data_dir: Path, fused_topk, fused_topk_reference) -> dict:
         if separated and not (r.references and r.references[0].failure_id == want):
             raise AssertionError(f"warn {j}: top-1 differs from the plain top-k ({want})")
 
+    mining = check_mining(plat, card)
+
     one = [follow]
     warn1 = []
     for _ in range(50):
@@ -332,14 +356,444 @@ def phase_platform(data_dir: Path, fused_topk, fused_topk_reference) -> dict:
         t = time.perf_counter()
         plat.warn_batch(reqs)
         warn64.append((time.perf_counter() - t) * 1e3)
+    records = plat.gfkb.count
     plat.close()
+    del plat, gfkb
+    torch.cuda.empty_cache()
+    mining["parity"] = check_mining_parity(data_dir.parent, card)
+    torch.cuda.empty_cache()
+
+    ingest_ab = ingest_mining_off_on(data_dir.parent, traces)
     out = {
         "ingest_traces_per_s": 4096 / ingest_s,
+        "ingest_ab": ingest_ab,
         "warn_p50_ms": statistics.median(warn1),
         "warn_batch64_p50_ms": statistics.median(warn64),
-        "records": plat.gfkb.count,
+        "records": records,
+        "mining": mining,
     }
+    log("ingest of 4096 traces on fresh Platforms, mining off / on / on / off: "
+        + " / ".join(f"{r['traces_per_s']:.1f}" for r in ingest_ab) + " traces/s; host ms in the mining "
+        "attach per 512-batch (on): " + " / ".join(f"{r['attach_host_ms_per_batch']:.2f}" for r in ingest_ab
+                                                   if r["mining"]) + f" [{card}]")
     log("main path: " + json.dumps(out))
+    return out
+
+
+def ingest_mining_off_on(base: Path, traces) -> list:
+    """``ingest_batch`` of the same traces (batches of 512, after one warm-up
+    batch) on fresh Platforms with mining off, on, on, off
+    (``KAKVEDA_MINE_INCREMENTAL``), the card synchronized at both ends; with
+    mining on, the host wall spent in the attach (the delta's dispatch and
+    the match-cache reuse), per batch."""
+    from kakveda_tpu_torch.core.schemas import TracePayload
+    from kakveda_tpu_torch.platform import Platform
+
+    warm = [_trace(TracePayload, 90_000 + i, "app-w", f"Warm up batch {i} and include citations")
+            for i in range(512)]
+    out = []
+    for j, mining in enumerate((False, True, True, False)):
+        os.environ["KAKVEDA_MINE_INCREMENTAL"] = "1" if mining else "0"
+        try:
+            plat = Platform(data_dir=base / f"ingest-{j}", capacity=ROWS, dim=DIM)
+        finally:
+            del os.environ["KAKVEDA_MINE_INCREMENTAL"]
+        gfkb = plat.gfkb
+        attach = gfkb._mine_attach_new
+        spent = [0.0]
+
+        def timed(*a, attach=attach, spent=spent):
+            t = time.perf_counter()
+            try:
+                return attach(*a)
+            finally:
+                spent[0] += time.perf_counter() - t
+
+        gfkb._mine_attach_new = timed
+        asyncio.run(plat.ingest_batch(warm))
+        torch.cuda.synchronize()
+        spent[0] = 0.0
+        t0 = time.perf_counter()
+        for lo in range(0, len(traces), 512):
+            asyncio.run(plat.ingest_batch(traces[lo : lo + 512]))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = gfkb.mine_state_info()
+        if mining != st["enabled"] or (not mining and gfkb.mine_delta_dispatches):
+            raise AssertionError(f"KAKVEDA_MINE_INCREMENTAL={int(mining)}: {st}")
+        if mining and (st["stale"] or not st["covers_all_rows"]):
+            raise AssertionError(f"mining state after ingest: {st}")
+        out.append(dict(mining=mining, traces_per_s=len(traces) / wall,
+                        attach_host_ms_per_batch=spent[0] * 1e3 / (len(traces) // 512)))
+        plat.close()
+        del plat, gfkb
+        torch.cuda.empty_cache()
+    return out
+
+
+MINING_CALLS = {"delta": 0, "sweep": 0, "rescore": 0}
+
+
+def count_mining_calls() -> None:
+    """Count the calls of the mining device programs in ``MINING_CALLS``:
+    ``_block_topk`` as the ingest delta (bound into ``ops.incremental``) and
+    as the sweep (``ops.clustering``), and ``_rescore_pairs``."""
+    from kakveda_tpu_torch.ops import clustering, incremental
+
+    for mod, attr, name in ((incremental, "_block_topk", "delta"), (clustering, "_block_topk", "sweep"),
+                            (clustering, "_rescore_pairs", "rescore")):
+        def counted(*a, fn=getattr(mod, attr), name=name, **k):
+            MINING_CALLS[name] += 1
+            return fn(*a, **k)
+
+        setattr(mod, attr, counted)
+
+
+def _pattern_key(patterns):
+    return {(p.name, tuple(p.failure_ids), tuple(sorted(p.affected_apps)), p.description) for p in patterns}
+
+
+def check_mining(plat, card: str) -> dict:
+    """Mining on the ingest path (phase 4, after the batch ingest): the
+    streaming state covers every row and never went stale, one delta per
+    512-batch; ``mine()`` serves incrementally, then a full sweep re-seeds
+    it; a warned signature attaches with no dispatch; the delta's device
+    time beside its bound."""
+    import numpy as np
+
+    from kakveda_tpu_torch.core.fingerprint import signature_text
+    from kakveda_tpu_torch.core.schemas import TracePayload, WarningRequest
+    from kakveda_tpu_torch.ops.incremental import delta_topk_sparse
+
+    gfkb = plat.gfkb
+    st = gfkb.mine_state_info()
+    if not (st.get("enabled") and not st["stale"] and st["covers_all_rows"] and st["delta_dispatches"] >= 8):
+        raise AssertionError(f"mining state after ingest: {st}")
+    t = time.perf_counter()
+    inc, info = plat.mine()
+    inc_ms = (time.perf_counter() - t) * 1e3
+    if info["mode"] != "incremental" or not inc or info["stale"] or not info["covers_all_rows"]:
+        raise AssertionError(f"incremental mine: {info}, {len(inc)} patterns")
+    labels_inc = gfkb._mine.labels()
+    t = time.perf_counter()
+    full, finfo = plat.mine(mode="full")
+    full_ms = (time.perf_counter() - t) * 1e3
+    labels_full = gfkb._mine.labels()  # the sweep's, installed by the re-seed
+    if finfo["mode"] != "full" or not full:
+        raise AssertionError(f"full mine: {finfo}, {len(full)} patterns")
+    # "Summarize report {i}" rows each have thousands of neighbours above the
+    # threshold, so the k-neighbour cap binds (evictions) and the streamed
+    # graph is not the sweep's: the JAX package's partitions differ the same
+    # way on this stream (tests/test_torch_mining.py). Equality where no list
+    # evicts is check_mining_parity's.
+    same = bool(np.array_equal(labels_inc, labels_full))
+    if info["evictions"] == 0 and not same:
+        raise AssertionError("no list evicted, yet the incremental partition differs from the sweep's")
+    # A warned signature's ingest reuses the warn's neighbours: no dispatch.
+    prompt = "Summarize report 99999 and include citations"
+    d0 = gfkb.mine_delta_dispatches
+    plat.warn(WarningRequest(app_id="app-1", prompt=prompt, tools=[], env={"os": "linux"}))
+    asyncio.run(plat.ingest_batch([_trace(TracePayload, 99_999, "app-1", prompt)]))
+    if gfkb.mine_delta_dispatches != d0:
+        raise AssertionError("a warned signature's ingest dispatched a delta")
+    again, ainfo = plat.mine()
+    if ainfo["mode"] != "incremental" or ainfo["stale"] or not ainfo["covers_all_rows"]:
+        raise AssertionError(f"after the reused attach: {ainfo}")
+
+    calls = dict(MINING_CALLS)  # the main path's, before the timing below
+    # One 512-batch delta against the 2^20-row index, device time.
+    texts = [signature_text(f"Delta batch row {i} and include citations", [], {"os": "linux"})
+             for i in range(512)]
+    idx, val = gfkb.featurizer.encode_batch_sparse(texts)
+    k = gfkb._mine.k + 1
+    delta_ms = cuda_ms(lambda: delta_topk_sparse(gfkb._emb, gfkb._valid, idx, val, k), iters=5, warmup=1)
+    nbytes = ROWS * DIM * 2 + ROWS + 512 * DIM * 2 + 512 * 2 * k * 4
+    flops = 2 * 512 * ROWS * DIM
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+    bound_ms = max(t_bytes, t_ops) * 1e3
+    out = dict(
+        calls=calls, delta_dispatches=ainfo["delta_dispatches"], attached=ainfo["attached"],
+        evictions=info["evictions"],
+        clusters_incremental=int(len(np.unique(labels_inc))), clusters_full=int(len(np.unique(labels_full))),
+        partitions_equal=same, patterns=len(inc), mine_incremental_ms=inc_ms, mine_full_ms=full_ms,
+        mine_incremental_wall_ms=info["wall_ms"], mine_full_wall_ms=finfo["wall_ms"],
+        delta_ms_per_512=delta_ms, delta_bound_ms=bound_ms,
+        delta_bound_by="bytes" if t_bytes >= t_ops else "operations",
+    )
+    log(f"mining on the ingest path: {ainfo['delta_dispatches']} delta dispatches, {ainfo['attached']} rows "
+        f"attached, never stale; incremental mine {inc_ms:.2f} ms ({len(inc)} patterns, "
+        f"{out['clusters_incremental']} clusters, {info['evictions']} evictions), full sweep {full_ms:.2f} ms "
+        f"({len(full)} patterns, {out['clusters_full']} clusters), partitions equal: {same}; warned signature "
+        f"attached with 0 dispatches; delta top-k (k={k}) of 512 rows vs {ROWS} x {DIM} bf16: "
+        f"{delta_ms:.4f} ms, bound {bound_ms:.4f} ms ({out['delta_bound_by']}); calls on the main path "
+        f"{json.dumps(calls)} [{card}]")
+    return out
+
+
+def parity_corpus(n: int, seed: int = 1):
+    """(app, prompt) pairs of citation failures in clusters of 1-10 members
+    (thirteen random four-letter words, one of them changed per member):
+    about 0.85 cosine inside a cluster, under 0.45 across, so no row has
+    more than nine neighbours above 0.6 and no list ever evicts."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    out, c = [], 0
+    while len(out) < n:
+        words = ["".join(rng.choice(letters, 4)) for _ in range(13)]
+        for j in range(int(rng.integers(1, 11))):
+            w = list(words)
+            w[j] = "zz" + w[j][2:]
+            out.append((f"app-{(c + j) % 8}", f"Sources: {' '.join(w)}"))
+        c += 1
+    return out[:n]
+
+
+def check_mining_parity(data_dir: Path, card: str) -> dict:
+    """Incremental mining equals the full sweep where the reference promises
+    it (no neighbour list evicts): two Platforms at the GFKB's real size
+    ingest one stream of 4096 traces in batches of 512; one mines
+    incrementally, the other by a full sweep; the patterns (name, failure
+    ids, apps, description) and the partitions must be equal."""
+    import numpy as np
+
+    from kakveda_tpu_torch.core.schemas import TracePayload
+    from kakveda_tpu_torch.platform import Platform
+
+    traces = [_trace(TracePayload, 200_000 + i, app, prompt) for i, (app, prompt) in enumerate(parity_corpus(4096))]
+    plats = [Platform(data_dir=data_dir / name, capacity=ROWS, dim=DIM) for name in ("auto", "full")]
+    for p in plats:
+        for lo in range(0, len(traces), 512):
+            asyncio.run(p.ingest_batch(traces[lo : lo + 512]))
+    auto, full = plats
+    t = time.perf_counter()
+    inc, info = auto.mine()
+    inc_ms = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    swept, finfo = full.mine(mode="full")
+    full_ms = (time.perf_counter() - t) * 1e3
+    if info["mode"] != "incremental" or info["stale"] or info["evictions"] or finfo["mode"] != "full":
+        raise AssertionError(f"parity stream: {info} / {finfo}")
+    if not inc or _pattern_key(inc) != _pattern_key(swept):
+        raise AssertionError(f"incremental patterns ({len(inc)}) differ from the full sweep's ({len(swept)})")
+    labels = auto.gfkb._mine.labels()
+    if not np.array_equal(labels, full.gfkb._mine.labels()):
+        raise AssertionError("incremental partition differs from the full sweep's")
+    for p in plats:
+        p.close()
+    out = dict(rows=len(labels), clusters=int(len(np.unique(labels))), patterns=len(inc),
+               mine_incremental_ms=inc_ms, mine_full_ms=full_ms, delta_dispatches=info["delta_dispatches"])
+    log(f"incremental == full where no list evicts: {len(labels)} rows, {out['clusters']} clusters, "
+        f"{len(inc)} patterns equal; incremental mine {inc_ms:.2f} ms, full sweep {full_ms:.2f} ms "
+        f"({info['delta_dispatches']} delta dispatches) [{card}]")
+    return out
+
+
+VERBS = ["Summarize", "Explain", "Describe", "Review", "Outline"]
+OBJS = ["report", "paper", "contract", "dataset", "incident", "ticket"]
+TAILS = [
+    "and include citations even if not provided",
+    "and add references for every claim",
+    "listing all sources used",
+    "with a short bibliography",
+]
+MINE_N, MINE_EXACT_N, MINE_INC_N, MINE_BATCH, MINE_TEMPLATES = 500_000, 1 << 17, 20_000, 512, 120
+MINE_MIN_PURITY = 0.99
+
+
+def mine_corpus(n: int, n_templates: int, dim: int):
+    """``bench.py``'s mining corpus (seed 0): (template ids [n], bf16 rows
+    [n, dim] on the card, text id [n]). The ~1,080 distinct texts are
+    encoded once and expanded by index on the card."""
+    import numpy as np
+
+    from kakveda_tpu_torch.core.fingerprint import signature_text
+    from kakveda_tpu_torch.ops.featurizer import HashedNGramFeaturizer
+    from kakveda_tpu_torch.ops.knn import densify
+
+    rng = np.random.default_rng(0)
+    tmpl = rng.integers(0, n_templates, size=n)
+    item = rng.integers(0, 9, size=n)  # the same stream as one draw per row
+    combo = tmpl * 9 + item
+    uniq, text_id = np.unique(combo, return_inverse=True)
+    texts = [
+        signature_text(f"{VERBS[t % len(VERBS)]} the {OBJS[(t // len(VERBS)) % len(OBJS)]} "
+                       f"variant {t} {TAILS[t % len(TAILS)]} item {c % 9}", [], {"os": "linux"})
+        for c in uniq.tolist() for t in [c // 9]
+    ]
+    idx, val = HashedNGramFeaturizer(dim=dim).encode_batch_sparse(texts)
+    u = densify(torch.from_numpy(idx).cuda(), torch.from_numpy(val).cuda(), dim).to(torch.bfloat16)
+    return tmpl, u[torch.from_numpy(text_id).cuda()], text_id
+
+
+def purity(labels, truth) -> float:
+    """Majority-template share per cluster label (``bench.py``'s measure)."""
+    import numpy as np
+
+    order = np.argsort(labels, kind="stable")
+    sl, st = labels[order], truth[order]
+    bounds = np.flatnonzero(np.r_[True, sl[1:] != sl[:-1], True])
+    correct = sum(int(np.unique(st[a:b], return_counts=True)[1].max()) for a, b in zip(bounds[:-1], bounds[1:]))
+    return correct / len(labels)
+
+
+def sweep_bounds(n: int, tier: str, candidates: int) -> dict:
+    """The least device time of the sweep's stages at ``n`` rows: the
+    candidate sweep (every pair's product, bf16 on the tensor cores in the
+    exact tier, f32 over the projected rows otherwise; the rows read once,
+    the packed top-k written once) and, in the projection tier, the
+    projection and the f32 re-score of the ``candidates`` pairs."""
+    from kakveda_tpu_torch.ops import clustering
+
+    kk = clustering._KNN_K + 1
+    out = {}
+    if tier == "exact":
+        ops, nbytes = 2 * n * n * DIM / BF16_FLOP_PER_S, (n * DIM * 2 + n * kk * 8) / HBM_BYTES_PER_S
+    else:
+        m = clustering._MINE_DIM
+        ops, nbytes = 2 * n * n * m / F32_FLOP_PER_S, (n * m * 4 + n * kk * 8) / HBM_BYTES_PER_S
+        out["project_bound_ms"] = max(2 * n * DIM * m / F32_FLOP_PER_S, (n * DIM * 2 + n * m * 4) / HBM_BYTES_PER_S) * 1e3
+        out["rescore_bound_ms"] = max(candidates * 2 * DIM / F32_FLOP_PER_S,
+                                      (n * DIM * 2 + candidates * 20) / HBM_BYTES_PER_S) * 1e3
+    out["sweep_bound_ms"] = max(ops, nbytes) * 1e3
+    return out
+
+
+def sweep_block_split(v, text_id, card: str) -> dict:
+    """One block of the sweep at phase 7's shapes, its stages apart (CUDA
+    events): ``_QBLOCK`` query rows against a column block as wide as
+    ``_SCORE_BLOCK_BYTES`` of f32 scores allow; the product (bf16 on the
+    tensor cores over the full dim, f32 over the projected rows) and the
+    selection (``torch.topk`` alone, and the exact top-k with its tie
+    resolution that ``_block_topk`` runs). The block's duplicated rows
+    (``text_id``) must score bit-identically: the tie rule rests on it."""
+    import numpy as np
+
+    from kakveda_tpu_torch.ops import clustering
+
+    qn = clustering._QBLOCK
+    width = clustering._SCORE_BLOCK_BYTES // (4 * qn)
+    k = clustering._KNN_K + 1
+    proj = clustering._project(v[:width], clustering._MINE_DIM)
+    _, first = np.unique(text_id[:width], return_index=True)
+    first_of = torch.from_numpy(first[np.unique(text_id[:width], return_inverse=True)[1]]).cuda()
+    out = {}
+    for tier, rows in (("exact", v[:width]), ("projection", proj)):
+        q = rows[:qn]
+        product_ms = cuda_ms(lambda: clustering._scores(q, rows), iters=5, warmup=1)
+        s = clustering._scores(q, rows)
+        if not torch.equal(s, s[:, first_of]):
+            raise AssertionError(f"{tier}: duplicated rows score differently in one product")
+        topk_ms = cuda_ms(lambda: torch.topk(s, k, dim=1), iters=5, warmup=1)
+        select_ms = cuda_ms(lambda: clustering._exact_topk(s, k), iters=5, warmup=1)
+        out[tier] = dict(q=qn, width=width, dim=rows.shape[1], dtype=str(rows.dtype).replace("torch.", ""),
+                         product_ms=product_ms, topk_ms=topk_ms, exact_topk_ms=select_ms)
+        del s
+    log("one sweep block [" + f"{qn} x {width}" + "]: " + "; ".join(
+        f"{t} ({r['dtype']}, d={r['dim']}) product {r['product_ms']:.3f} ms, torch.topk {r['topk_ms']:.3f} ms, "
+        f"exact top-k with ties {r['exact_topk_ms']:.3f} ms" for t, r in out.items())
+        + f"; duplicated rows bit-identical in both products [{card}]")
+    return out
+
+
+def phase_mining(card: str) -> dict:
+    """Mining at the reference bench's size: the full sweep (projection
+    tier) at 500,000 rows and the exact tier at 131,072, each split into
+    its stages; the incremental arm on the first 20,000 rows, whose labels
+    must equal the full sweep's; and the card's delta top-k against a
+    float64 host computation on the same bf16 rows."""
+    import numpy as np
+
+    from kakveda_tpu_torch.ops import clustering
+    from kakveda_tpu_torch.ops.incremental import ClusterState, delta_topk_dense, unpack_topk
+
+    t0 = time.perf_counter()
+    tmpl, v, text_id = mine_corpus(MINE_N, MINE_TEMPLATES, DIM)
+    torch.cuda.synchronize()
+    log(f"mining corpus: {MINE_N} rows x {DIM} bf16 from {int(text_id.max()) + 1} distinct texts, "
+        f"{MINE_TEMPLATES} templates, built in {time.perf_counter() - t0:.2f} s (untimed)")
+    out = {}
+    for name, n in (("full_500k", MINE_N), ("exact_131k", MINE_EXACT_N)):
+        stats = {}
+        t = time.perf_counter()
+        labels = clustering.cluster_embeddings(v[:n], threshold=0.6, stats=stats)
+        wall = (time.perf_counter() - t) * 1e3
+        p = purity(labels, tmpl[:n])
+        n_cl = int(len(np.unique(labels)))
+        tier = "projection" if "rescore_ms" in stats else "exact"
+        bounds = sweep_bounds(n, tier, stats["candidates"])
+        out[name] = dict(n=n, tier=tier, wall_ms=wall, purity=p, clusters=n_cl, **stats, **bounds)
+        log(f"full sweep at {n} rows ({tier} tier): wall {wall:.1f} ms = " + ", ".join(
+            f"{key} {val:.1f}" for key, val in stats.items() if key.endswith("ms"))
+            + f"; {stats['edges']} edges of {stats['candidates']} candidates, {n_cl} clusters, purity {p:.4f}; "
+            + ", ".join(f"{key} {val:.2f}" for key, val in bounds.items()) + f" [{card}]")
+        if p < MINE_MIN_PURITY:
+            raise AssertionError(f"purity {p} below {MINE_MIN_PURITY} at {n} rows")
+        if name == "full_500k" and tier != "projection":
+            raise AssertionError("500,000 rows did not take the projection tier")
+
+    out["block_split"] = sweep_block_split(v, text_id, card)
+
+    # Incremental arm: the first 20,000 rows streamed in batches of 512.
+    n, bs, k = MINE_INC_N, MINE_BATCH, clustering._KNN_K
+    vv = v[:n]
+    t = time.perf_counter()
+    labels_sub = clustering.cluster_embeddings(vv, threshold=0.6)
+    full_sub_ms = (time.perf_counter() - t) * 1e3
+    state = ClusterState(threshold=0.6, k=k)
+    unpack_topk(delta_topk_dense(vv[:bs], vv, bs, k + 1), bs)  # warm-up, off the clock
+    t_stream = 0.0
+    for s in range(0, n, bs):
+        e = min(s + bs, n)
+        t = time.perf_counter()
+        sims, idx = unpack_topk(delta_topk_dense(vv[s:e], vv, e, k + 1), e - s)
+        for r in range(e - s):
+            state.add_row(s + r)
+        for r in range(e - s):
+            state.attach(s + r, idx[r], sims[r])
+        t_stream += time.perf_counter() - t
+    t = time.perf_counter()
+    inc_labels = state.labels()
+    refresh_ms = (time.perf_counter() - t) * 1e3
+    parity = bool(np.array_equal(inc_labels, labels_sub))
+    p_inc = purity(inc_labels, tmpl[:n])
+    out["incremental_20k"] = dict(n=n, batch=bs, stream_wall_s=t_stream, ms_per_row=t_stream * 1e3 / n,
+                                  refresh_ms=refresh_ms, full_sweep_ms=full_sub_ms, parity=parity,
+                                  purity=p_inc, clusters=state.n_clusters, evictions=state.evictions)
+    log(f"incremental arm: {n} rows in batches of {bs}, stream {t_stream:.3f} s "
+        f"({t_stream * 1e3 / n:.4f} ms/row), refresh {refresh_ms:.2f} ms vs full sweep {full_sub_ms:.1f} ms, "
+        f"parity {parity}, purity {p_inc:.4f}, {state.n_clusters} clusters, {state.evictions} evictions [{card}]")
+    if not parity or p_inc < MINE_MIN_PURITY:
+        raise AssertionError(f"incremental arm: parity {parity}, purity {p_inc}")
+
+    # Card against host: 64 rows' delta top-k vs float64 on the same bf16
+    # rows (computed per distinct text, so duplicated rows tie exactly).
+    q0 = 5000
+    sims, idx = unpack_topk(delta_topk_dense(vv[q0 : q0 + 64], vv, n, k + 1), 64)
+    u64 = v[:n].double().cpu().numpy()
+    first = np.unique(text_id[:n], return_index=True)[1]
+    tid = np.searchsorted(np.unique(text_id[:n]), text_id[:n])
+    host = (u64[first][tid[q0 : q0 + 64]] @ u64[first].T)[:, tid]  # [64, n]
+    # One rank past k + 1, so a near-tie across the boundary is seen.
+    order = np.lexsort((np.broadcast_to(np.arange(n), host.shape), -host), axis=1)[:, : k + 2]
+    hv = np.take_along_axis(host, order, 1)
+    err = float(np.abs(sims - hv[:, : k + 1]).max())
+    gap = np.abs(np.diff(hv, axis=1))
+    ok = (gap > ATOL) | (gap == 0)  # separated, or an exact tie (lowest row first)
+    sep = np.ones_like(hv, dtype=bool)
+    sep[:, :-1] &= ok
+    sep[:, 1:] &= ok
+    bad = (idx != order[:, : k + 1]) & sep[:, : k + 1]
+    if err > ATOL or bad.any():
+        raise AssertionError(f"delta top-k vs host: max |score| err {err}, {int(bad.sum())} ids differ")
+    ties = int((gap == 0).sum())
+    out["card_vs_host"] = dict(rows=64, k=k + 1, max_abs_err=err, exact_ties_checked=ties)
+    log(f"delta top-k of 64 rows vs float64 host on the same bf16 rows: max |score err| {err:.3g}, "
+        f"ids equal ({ties} exact ties, lowest row first) [{card}]")
+    del v, vv
+    torch.cuda.empty_cache()
+    log("mining: " + json.dumps(out))
     return out
 
 
@@ -719,13 +1173,17 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory(prefix="kakveda-smoke-") as d:
+        count_mining_calls()
         fused_topk.launches = 0
-        main_path = phase_platform(Path(d) / "data", fused_topk, fused_topk_reference)
+        MINING_CALLS.update(dict.fromkeys(MINING_CALLS, 0))
+        main_path = phase_platform(Path(d) / "data", fused_topk, fused_topk_reference, card)
         launches = fused_topk.launches
     if launches <= 0:
         raise AssertionError("the main path never launched fused_topk")
     log(f"fused_topk launches on the main path: {launches}")
     torch.cuda.empty_cache()  # the 2^20 x 2048 index is gone; the model needs the room
+
+    phase_mining(card)
 
     flash = phase_flash(card)
     model = phase_model(card)

@@ -9,6 +9,12 @@ JAX package wrote is the other half (``index/gfkb.py``).
 
 ``llama_params_from_jax`` takes the JAX Llama param tree as numpy arrays and
 returns the port's.
+
+``mine_projection_from_jax`` carries the mining sweep's projection across:
+the JAX package draws its [d, 256] Gaussian from ``PRNGKey(7)``, a stream the
+port cannot reproduce without jax, so a caller that needs the JAX partition
+of the projection tier passes that matrix in (``projection=`` of
+``ops/clustering.cluster_embeddings``).
 """
 
 from __future__ import annotations
@@ -24,6 +30,12 @@ from kakveda_tpu_torch.ops.device import resolve_device, store_dtype
 def physical_to_slot(phys: np.ndarray, n_shards: int, rows_per_shard: int) -> np.ndarray:
     """Physical row of the sharded ``[capacity, d]`` array → logical slot."""
     return (phys % rows_per_shard) * n_shards + phys // rows_per_shard
+
+
+def mine_projection_from_jax(r: np.ndarray, device: str | torch.device | None = None) -> torch.Tensor:
+    """The JAX mining projection (``np.asarray`` of the un-scaled [d, out]
+    Gaussian) as an f32 tensor on ``device``."""
+    return torch.from_numpy(np.array(r, dtype=np.float32)).to(resolve_device(device))
 
 
 def knn_state_from_jax(

@@ -9,9 +9,19 @@ and ``patterns.jsonl`` are written in the JAX package's line format and
 replayed at start-up, so a data dir written by either package opens in the
 other.
 
-Not yet ported (later slices): snapshots, tombstones and compaction,
-applied-event dedup and replication, the host tiers and degraded fallback,
-incremental mining.
+Incremental mining rides the ingest path as in the reference: each new
+record joins a streaming ``ClusterState`` (``ops/incremental.py``); after a
+batch's scatter its new rows get their neighbours either from a recent
+warn's match of the same signature (the match cache, no device work) or
+from ONE delta top-k of the batch against the index, drained lazily when
+mining reads the state. A fault there marks the state stale (one full
+sweep at the next mine) and never fails an ingest. A replayed log leaves
+the state stale, so the first mine after start-up is a full sweep.
+
+Not yet ported (later slices): snapshots (and the cluster state they carry),
+tombstones and compaction, applied-event dedup and replication, the host
+tiers and degraded fallback (so no tier attachment and no router re-seed
+from a mined partition).
 """
 
 from __future__ import annotations
@@ -20,6 +30,7 @@ import json
 import logging
 import os
 import threading
+from collections import OrderedDict, deque
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -34,6 +45,7 @@ from kakveda_tpu_torch.core.schemas import (
     utcnow,
 )
 from kakveda_tpu_torch.ops.featurizer import HashedNGramFeaturizer
+from kakveda_tpu_torch.ops.incremental import ClusterState, delta_topk_sparse, unpack_topk
 from kakveda_tpu_torch.ops.knn import MAX_CAPACITY, Knn
 
 log = logging.getLogger("kakveda.gfkb")
@@ -78,12 +90,34 @@ class GFKB:
         # (each line carries only the members new in that upsert).
         self._pattern_state: Dict[str, dict] = {}
         self._lock = threading.Lock()
+        # Records appended whose rows are not scattered yet: the sweep's
+        # records_and_embeddings waits for them.
+        self._pending_embeds = 0
+        self._embeds_cv = threading.Condition(self._lock)
         self._logs: Dict[Path, object] = {}
         # A torn final line tolerated at replay: truncate back to this
         # offset before the next append to that file.
         self._truncate_pending: Dict[Path, int] = {}
+
+        # Incremental mining state (KAKVEDA_MINE_INCREMENTAL=0: no state,
+        # no cache, no extra device dispatches — every mine is a full sweep).
+        self._mine: Optional[ClusterState] = None
+        # Dispatched delta top-ks not yet folded in: (capacity, slots, pending).
+        self._mine_pending: deque = deque()
+        self._mine_pending_max = int(os.environ.get("KAKVEDA_MINE_PENDING_MAX", "256"))
+        # signature_text -> (scores, slots): a warn's fetched neighbours,
+        # reused to attach the same signature at ingest with no dispatch.
+        self._match_cache: "OrderedDict[str, tuple]" = OrderedDict()
+        self._match_cache_max = int(os.environ.get("KAKVEDA_MINE_MATCH_CACHE", "4096"))
+        self.mine_delta_dispatches = 0
+        if os.environ.get("KAKVEDA_MINE_INCREMENTAL", "1") != "0":
+            self._mine = ClusterState(
+                threshold=float(os.environ.get("KAKVEDA_MINE_THRESHOLD", "0.6")),
+                k=int(os.environ.get("KAKVEDA_MINE_K", "32")),
+            )
         if persist:
             self._replay()
+        self._mine_after_replay()
 
     # ------------------------------------------------------------------
     # persistence
@@ -170,6 +204,13 @@ class GFKB:
             ):
                 self._merge_pattern_line(p)
 
+    def _mine_after_replay(self) -> None:
+        """The cluster state must cover exactly the replayed rows or be
+        stale: a replayed log leaves a gap that only a full sweep closes."""
+        m = self._mine
+        if m is not None and self._records and m.n_rows != len(self._records):
+            m.mark_stale("replayed rows not covered by restored cluster state")
+
     # ------------------------------------------------------------------
     # failures
     # ------------------------------------------------------------------
@@ -193,6 +234,22 @@ class GFKB:
                 lo = max(0, hi - limit)
                 return self._records[lo:hi][::-1]
             return self._records[offset : offset + limit]
+
+    def records_and_embeddings(self) -> Tuple[List[CanonicalFailureRecord], torch.Tensor]:
+        """Consistent (records, slot-aligned embedding rows): the rows are
+        the index's own ``emb[:n]`` on the device (slot = row), taken once
+        every appended record's scatter has landed. Rows below ``n`` never
+        change (the store is append-only), so the view stays valid."""
+        with self._lock:
+            self._drain_pending_embeds()
+            records = list(self._records)
+            return records, self._emb[: len(records)]
+
+    def _drain_pending_embeds(self) -> None:
+        """Wait (the lock held, released while waiting) until no appended
+        record is still awaiting its scatter."""
+        while self._pending_embeds > 0:
+            self._embeds_cv.wait(timeout=30.0)
 
     def get_failure(self, failure_id: str) -> Optional[CanonicalFailureRecord]:
         with self._lock:
@@ -245,17 +302,25 @@ class GFKB:
         self._emb, self._valid, self._types = emb, valid, types
 
     def _embed_new_slots(self, slots: List[int], texts: List[str], tids: List[int]) -> None:
-        """Embed new records (host work, off the lock) and scatter them in;
-        grows the index when the records outran its capacity."""
-        sp_idx, sp_val = self.featurizer.encode_batch_sparse(texts)
-        with self._lock:
-            if len(self._records) > self._knn.capacity:
-                self._rebuild(self._records)  # re-embeds these rows too
-                return
-            self._knn.insert_sparse(
-                self._emb, self._valid, self._types, sp_idx, sp_val,
-                np.asarray(slots, np.int32), np.asarray(tids, np.int32),
-            )
+        """Embed new records (host work, off the lock), scatter them in —
+        growing the index when the records outran its capacity — then
+        attach them to the mining state. Callers counted the batch in
+        ``_pending_embeds`` under the lock; it is released here."""
+        try:
+            sp_idx, sp_val = self.featurizer.encode_batch_sparse(texts)
+            with self._lock:
+                if len(self._records) > self._knn.capacity:
+                    self._rebuild(self._records)  # re-embeds these rows too
+                else:
+                    self._knn.insert_sparse(
+                        self._emb, self._valid, self._types, sp_idx, sp_val,
+                        np.asarray(slots, np.int32), np.asarray(tids, np.int32),
+                    )
+            self._mine_attach_new(slots, texts, sp_idx, sp_val)
+        finally:
+            with self._lock:
+                self._pending_embeds -= 1
+                self._embeds_cv.notify_all()
 
     def _new_record_locked(self, item: dict, now, validate: bool) -> CanonicalFailureRecord:
         fields = dict(
@@ -283,6 +348,8 @@ class GFKB:
         self._slot_by_id[rec.failure_id] = slot
         self._ids_by_type.setdefault(rec.failure_type, []).append(rec.failure_id)
         self._apps_by_type.setdefault(rec.failure_type, set()).add(item["app_id"])
+        if self._mine is not None and not self._mine.stale:
+            self._mine.add_row(slot, rec.failure_type, rec.failure_id, list(rec.affected_apps))
         return rec
 
     def _bump_record_locked(self, slot: int, item: dict, now) -> CanonicalFailureRecord:
@@ -290,10 +357,13 @@ class GFKB:
         rec.version += 1
         rec.updated_at = now
         rec.occurrences += 1
-        for app in item.get("affected_apps") or [item["app_id"]]:
+        apps = item.get("affected_apps") or [item["app_id"]]
+        for app in apps:
             if app not in rec.affected_apps:
                 rec.affected_apps.append(app)
             self._apps_by_type.setdefault(rec.failure_type, set()).add(app)
+        if self._mine is not None:
+            self._mine.note_apps(slot, apps)
         rec.root_cause = item.get("root_cause") or rec.root_cause
         rec.resolution = item.get("resolution") or rec.resolution
         rec.context_signature = item.get("context_signature") or rec.context_signature
@@ -335,6 +405,8 @@ class GFKB:
                 self.failures_path, json.dumps(rec.model_dump(mode="json"), ensure_ascii=False)
             )
             self._flush_logs()
+            if created:
+                self._pending_embeds += 1
         if created:
             self._embed_new_slots([slot], [signature_text], [tid])
         return rec, created
@@ -363,6 +435,8 @@ class GFKB:
                     out.append((rec, False))
                 self._append_line(self.failures_path, rec.model_dump_json())
             self._flush_logs()
+            if new_slots:
+                self._pending_embeds += 1
         if new_slots:
             self._embed_new_slots(new_slots, new_texts, new_tids)
         return out
@@ -412,6 +486,17 @@ class GFKB:
             records = list(records)
         scores, slots = self._knn.topk_result(packed)
 
+        if self._mine is not None and self._match_cache_max > 0 and failure_type is None:
+            # A pre-flight warn is usually followed by the SAME signature
+            # being ingested when the trace fails: these neighbours make its
+            # cluster attachment free (no delta dispatch).
+            with self._lock:
+                for i in range(b):
+                    self._match_cache[signature_texts[i]] = (scores[i], slots[i])
+                    self._match_cache.move_to_end(signature_texts[i])
+                while len(self._match_cache) > self._match_cache_max:
+                    self._match_cache.popitem(last=False)
+
         out: List[List[FailureMatch]] = []
         for i in range(b):
             row: List[FailureMatch] = []
@@ -433,6 +518,147 @@ class GFKB:
                 )
             out.append(row)
         return out, info
+
+    # ------------------------------------------------------------------
+    # incremental mining state
+    # ------------------------------------------------------------------
+
+    def _mine_attach_new(self, slots, texts, sp_idx, sp_val) -> None:
+        """Attach freshly inserted rows to the cluster state.
+
+        Rows whose signature a recent warn already scored reuse those
+        neighbours (zero device work); the rest share ONE delta top-k
+        dispatch against the index — O(ΔN·N) per batch — whose host copy
+        drains lazily (mining reads it), so ingest never waits for it. Any
+        failure marks the state stale (one full sweep at the next mine):
+        mining is derived state and never fails an ingest."""
+        m = self._mine
+        if m is None or m.stale:
+            return
+        try:
+            reused = []  # (slot, neighbour slots, sims)
+            with self._lock:
+                delta_rows: List[int] = []
+                for i, (s, t) in enumerate(zip(slots, texts)):
+                    hit = self._match_cache.get(t)
+                    if hit is not None:
+                        reused.append((s, hit[1], hit[0]))
+                    else:
+                        delta_rows.append(i)
+                if delta_rows:
+                    # Under the lock, like a match; +1 neighbour: each row's
+                    # top-1 against the post-insert index is itself.
+                    pending = delta_topk_sparse(
+                        self._emb, self._valid, sp_idx[delta_rows], sp_val[delta_rows], m.k + 1
+                    )
+                    self.mine_delta_dispatches += 1
+                    self._mine_pending.append(
+                        (self._knn.capacity, np.asarray([slots[i] for i in delta_rows], np.int32), pending)
+                    )
+            for s, nslots, nsims in reused:
+                m.attach(int(s), nslots, nsims)
+            if len(self._mine_pending) > self._mine_pending_max:
+                with self._lock:
+                    self._mine_drain_locked()
+        except Exception as e:  # noqa: BLE001 — degrade, never fail ingest
+            log.warning(
+                "incremental mining attach failed (%s: %s); state marked "
+                "stale — next mine runs a full sweep", type(e).__name__, e,
+            )
+            m.mark_stale(f"attach failed: {type(e).__name__}")
+            with self._lock:
+                self._mine_pending.clear()
+
+    def _mine_drain_locked(self) -> int:
+        """Fold every pending delta top-k into the cluster state (the lock
+        held); each waits for its own host copy. Returns rows attached."""
+        m = self._mine
+        if m is None:
+            return 0
+        drained = 0
+        while self._mine_pending:
+            capacity, d_slots, pending = self._mine_pending.popleft()
+            if m.stale:
+                continue
+            try:
+                sims, rows = unpack_topk(pending, len(d_slots))
+                for r in range(len(d_slots)):
+                    keep = np.isfinite(sims[r]) & (sims[r] >= m.threshold) & (rows[r] < capacity)
+                    m.attach(int(d_slots[r]), rows[r][keep], sims[r][keep])
+                drained += len(d_slots)
+            except Exception as e:  # noqa: BLE001 — degrade, never desync
+                log.warning(
+                    "incremental mining drain failed (%s: %s); state marked "
+                    "stale — next mine runs a full sweep", type(e).__name__, e,
+                )
+                m.mark_stale(f"drain failed: {type(e).__name__}")
+                self._mine_pending.clear()
+                break
+        return drained
+
+    def mine_drain(self) -> int:
+        """Apply pending deltas; returns the number of rows attached."""
+        with self._lock:
+            return self._mine_drain_locked()
+
+    def mine_state_info(self) -> dict:
+        """Freshness view of the incremental state: enabled flag,
+        row/cluster/dirty counts, staleness, the pending (not yet drained)
+        delta batches and the dispatches made."""
+        with self._lock:
+            if self._mine is None:
+                return {"enabled": False}
+            info = self._mine.info()
+            info.update(
+                enabled=True,
+                pending=len(self._mine_pending),
+                covers_all_rows=self._mine.n_rows == len(self._records),
+                delta_dispatches=self.mine_delta_dispatches,
+            )
+            return info
+
+    def mine_pop_dirty(self) -> List[dict]:
+        """Aggregates of the clusters touched since the last call (pending
+        deltas drained first, so 'dirty' is current)."""
+        with self._lock:
+            self._mine_drain_locked()
+            m = self._mine
+            if m is None or m.stale:
+                return []
+            return m.pop_dirty()
+
+    def mine_usable(self, threshold: float) -> bool:
+        """Can a mine be served incrementally? The state must be enabled,
+        not stale, cover every record and be built for this threshold (a
+        different threshold is a different graph)."""
+        with self._lock:
+            m = self._mine
+            return (
+                m is not None
+                and not m.stale
+                and m.n_rows == len(self._records)
+                and m.threshold == float(threshold)
+            )
+
+    def mine_reseed(self, labels: np.ndarray, threshold: float, n_records: int) -> bool:
+        """Install a full-sweep result as the new incremental baseline.
+        ``n_records`` is the record count the sweep covered; rows appended
+        during the sweep leave the state stale (the next sweep catches
+        them) rather than silently uncovered."""
+        with self._lock:
+            m = self._mine
+            if m is None:
+                return False
+            self._mine_pending.clear()
+            if n_records != len(self._records) or len(labels) != n_records:
+                m.mark_stale("records changed during the full sweep")
+                return False
+            m.seed(
+                labels,
+                [(r.failure_type, r.failure_id, r.affected_apps) for r in self._records],
+                threshold=threshold,
+            )
+            return True
 
     # ------------------------------------------------------------------
     # patterns

@@ -63,7 +63,7 @@ class Knn:
 
     def _rows(self, slots) -> torch.Tensor:
         """Logical slots → physical rows on the device (identity on one device)."""
-        return torch.as_tensor(np.asarray(slots, dtype=np.int64), device=self.device)
+        return to_device(slots, np.int64, self.device)
 
     def scatter_i32(self, arr: torch.Tensor, slots, values) -> torch.Tensor:
         """Write int32 ``values`` at ``slots`` in place (rows ≥ capacity dropped)."""
@@ -80,35 +80,38 @@ class Knn:
     # --- insert ----------------------------------------------------------
 
     def densify(self, idx: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
-        """[B, K] (bucket, weight) pairs → dense [B, dim] f32 rows by a
-        scatter-add (duplicate buckets accumulate); ``idx ≥ dim`` is dropped."""
-        b = idx.shape[0]
-        out = torch.zeros((b, self.dim + 1), dtype=torch.float32, device=idx.device)
-        out.scatter_add_(1, idx.long().clamp(0, self.dim), val.float())
-        return out[:, : self.dim]
+        return densify(idx, val, self.dim)
+
+    def _keep(self, slots) -> np.ndarray:
+        """Host mask of the slots inside the index (pad rows carry
+        ``capacity``): filtering here keeps the device writes free of a
+        boolean-mask index, which would wait for the stream."""
+        return np.asarray(slots, dtype=np.int64) < self.capacity
 
     def _write(self, emb, valid, types, rows: torch.Tensor, vecs: torch.Tensor, tids=None):
-        keep = rows < self.capacity  # pad rows carry capacity → dropped
-        rows = rows[keep]
-        emb[rows] = vecs[keep].to(emb.dtype)
+        emb[rows] = vecs.to(emb.dtype)
         valid[rows] = True
         if types is not None:
-            types[rows] = tids[keep]
+            types[rows] = tids
 
     def insert(self, emb: torch.Tensor, valid: torch.Tensor, vecs, slots):
         """Write dense rows at logical ``slots`` in place."""
-        vecs_d = torch.as_tensor(np.asarray(vecs, dtype=np.float32), device=self.device)
-        self._write(emb, valid, None, self._rows(slots), vecs_d)
+        keep = self._keep(slots)
+        vecs_d = to_device(np.asarray(vecs, dtype=np.float32)[keep], np.float32, self.device)
+        self._write(emb, valid, None, self._rows(np.asarray(slots)[keep]), vecs_d)
         return emb, valid
 
     def insert_sparse(self, emb, valid, types, idx, val, slots, tids):
         """Sparse-row insert: ship (idx, val) pairs, densify on the device,
         write rows, validity and type ids in place. Pad features carry
-        ``idx == dim``, pad rows ``slot == capacity``; both are dropped."""
-        idx_d = torch.as_tensor(np.ascontiguousarray(idx, dtype=np.int32), device=self.device)
-        val_d = torch.as_tensor(np.ascontiguousarray(val, dtype=np.float32), device=self.device)
-        tids_d = torch.as_tensor(np.asarray(tids, dtype=np.int32), device=self.device)
-        self._write(emb, valid, types, self._rows(slots), self.densify(idx_d, val_d), tids_d)
+        ``idx == dim``, pad rows ``slot == capacity``; both are dropped.
+        The uploads are asynchronous, so an insert never waits for work
+        queued before it (such as a mining delta)."""
+        keep = self._keep(slots)
+        idx_d = to_device(np.asarray(idx)[keep], np.int32, self.device)
+        val_d = to_device(np.asarray(val)[keep], np.float32, self.device)
+        tids_d = to_device(np.asarray(tids)[keep], np.int32, self.device)
+        self._write(emb, valid, types, self._rows(np.asarray(slots)[keep]), self.densify(idx_d, val_d), tids_d)
         return emb, valid, types
 
     def gather_slots(self, emb: torch.Tensor, slots) -> np.ndarray:
@@ -139,8 +142,8 @@ class Knn:
             pad_i[:b] = idx
             pad_v[:b] = val
             idx, val = pad_i, pad_v
-        idx_d = torch.as_tensor(np.ascontiguousarray(idx, dtype=np.int32), device=self.device)
-        val_d = torch.as_tensor(np.ascontiguousarray(val, dtype=np.float32), device=self.device)
+        idx_d = to_device(idx, np.int32, self.device)
+        val_d = to_device(val, np.float32, self.device)
         return self._topk_packed(emb, valid, self.densify(idx_d, val_d))
 
     def topk_result(self, packed: torch.Tensor) -> Tuple[np.ndarray, np.ndarray]:
@@ -148,6 +151,25 @@ class Knn:
         host = packed.cpu().numpy()
         kk = host.shape[1] // 2
         return host[:, :kk], host[:, kk:].astype(np.int64)
+
+
+def densify(idx: torch.Tensor, val: torch.Tensor, dim: int) -> torch.Tensor:
+    """[B, K] (bucket, weight) pairs → dense [B, dim] f32 rows by a
+    scatter-add (duplicate buckets accumulate); ``idx ≥ dim`` is dropped."""
+    out = torch.zeros((idx.shape[0], dim + 1), dtype=torch.float32, device=idx.device)
+    out.scatter_add_(1, idx.long().clamp(0, dim), val.float())
+    return out[:, :dim]
+
+
+def to_device(arr, dtype, device: torch.device) -> torch.Tensor:
+    """A host array as a tensor on ``device``. To the card it goes through
+    pinned memory without blocking: the caching host allocator keeps the
+    staging buffer until the copy is done, and the host does not wait for
+    the stream."""
+    t = torch.from_numpy(np.array(arr, dtype=dtype, copy=True, order="C"))
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 def pow2_bucket(n: int, *, floor: int = 1, cap: int | None = None) -> int:

@@ -1,12 +1,14 @@
 """The assembled intelligence core on PyTorch — one object, the whole loop.
 
-Port of ``kakveda_tpu/platform.py`` (without replication and mining):
+Port of ``kakveda_tpu/platform.py`` (without replication):
 
     ingest(trace)  → publish trace.ingested
-                   → rule classifier → GFKB upsert (featurize + device insert)
+                   → rule classifier → GFKB upsert (featurize + device insert
+                     + mining attach: one delta top-k per batch)
                    → pattern detector → pattern upsert
                    → health scorer    → health point append
     warn(request)  → fused_topk match on the device → policy decision
+    mine()         → incremental (dirty clusters) or full-sweep pattern mining
 
 ``ingest_batch`` is the streaming path: classify, embed and insert whole
 batches with one device scatter. The index lives on ``device`` — the CUDA
@@ -154,6 +156,13 @@ class Platform:
 
     def patterns_list(self) -> List[PatternEntity]:
         return self.gfkb.list_patterns()
+
+    def mine(self, threshold: float = 0.6, mode: str = "auto"):
+        """Pattern mining with freshness info: incremental (drain the
+        streaming cluster state, re-emit dirty clusters) when possible, the
+        full device sweep otherwise or on ``mode="full"``. Returns
+        (patterns, info) — see ``PatternDetector.mine_patterns_ex``."""
+        return self.patterns.mine_patterns_ex(threshold, mode)
 
     def health_history(self, app_id: str, limit: int = 50) -> List[dict]:
         return self.health.history(app_id, limit)

@@ -491,3 +491,132 @@ def test_runtime_on_the_card_serves_bf16_only(gen):
 
     with pytest.raises(ValueError, match="bf16"):
         LlamaRuntime(cfg=dataclasses.replace(cfg, dtype=torch.float32), params=params)
+
+
+# ---------------------------------------------------------------------------
+# mining on the card: the streaming top-k (torch.mm + exact ties), the delta
+# dispatch, and the Platform's mine
+# ---------------------------------------------------------------------------
+
+
+def _host_topk(q, emb, valid, k):
+    """The same top-k on the CPU in f32 over the bf16-rounded rows."""
+    from kakveda_tpu_torch.ops.clustering import _block_topk
+
+    out = _block_topk(q.to(emb.dtype).float().cpu(), emb.float().cpu(), valid.cpu(), k)
+    kk = out.shape[1] // 2
+    return out[:, :kk], out[:, kk:].long()
+
+
+def _assert_mining_topk(got, want_v, want_i):
+    """Scores within 1e-4 (bf16 products, f32 sums in another order); ids
+    equal where the host's neighbouring scores differ by more than 1e-4, and
+    on the host's exact ties (duplicated rows: lowest row first)."""
+    kk = got.shape[1] // 2
+    v, i = got[:, :kk].cpu(), got[:, kk:].long().cpu()
+    fin = torch.isfinite(want_v)
+    assert torch.equal(fin, torch.isfinite(v))
+    assert (v[fin] - want_v[fin]).abs().max().item() <= 1e-4
+    gap = (want_v[:, :-1] - want_v[:, 1:]).nan_to_num(0.0).abs()
+    near = (gap > 0) & (gap <= 1e-4)
+    loose = torch.zeros_like(fin)
+    loose[:, :-1] |= near
+    loose[:, 1:] |= near
+    bad = (i != want_i) & ~loose
+    assert not bad.any(), bad.nonzero()[:5].tolist()
+
+
+@pytest.mark.parametrize("rows,dim,b,k,blocks", [
+    (70_000, 2048, 64, 33, 1), (70_000, 256, 300, 33, 3), (5_003, 128, 7, 8, 4), (20, 64, 3, 33, 1)])
+def test_block_topk_on_the_card_matches_host(gen, monkeypatch, rows, dim, b, k, blocks):
+    """A bf16 index with every row duplicated four times across the index
+    (and so across column blocks, whose widths differ by one where the
+    index does not split evenly), 20 % invalid: the lowest valid copy
+    first on every tie."""
+    import kakveda_tpu_torch.ops.clustering as cl
+
+    base = _unit(torch.randn(-(-rows // 4), dim, device="cuda", generator=gen))
+    emb = base.repeat(4, 1)[:rows].to(torch.bfloat16)
+    valid = torch.rand(rows, device="cuda", generator=gen) >= 0.2
+    q = emb[torch.randint(0, rows, (b,), device="cuda", generator=gen)].float()
+    monkeypatch.setattr(cl, "_SCORE_BLOCK_BYTES", 4 * b * -(-rows // blocks))
+    got = cl._block_topk(q.to(torch.bfloat16), emb, valid, k)
+    torch.cuda.synchronize()
+    _assert_mining_topk(got, *_host_topk(q, emb, valid, k))
+    # A query's copies all score exactly its self-score, lowest row first.
+    kk = got.shape[1] // 2
+    same = got[:, :kk] == got[:, :1]
+    ids = got[:, kk:].long()
+    for r in range(b):
+        sel = ids[r][same[r]]
+        assert torch.equal(sel, sel.sort().values)
+
+
+def test_delta_topk_returns_before_its_host_copy(gen):
+    """The ingest-side dispatch synchronizes nothing (sync debug mode
+    raises on any synchronizing call) and returns while the card still
+    works; ``unpack_topk`` then waits on the event and gives the rows."""
+    import numpy as np
+
+    from kakveda_tpu_torch.ops.featurizer import HashedNGramFeaturizer
+    from kakveda_tpu_torch.ops.incremental import delta_topk_sparse, unpack_topk
+    from kakveda_tpu_torch.ops.knn import densify
+
+    rows, dim = 1 << 19, 2048
+    feat = HashedNGramFeaturizer(dim=dim)
+    idx, val = feat.encode_batch_sparse([f"timeout calling service {i} attempt {i % 3}" for i in range(300)])
+    emb = _unit(torch.randn(rows, dim, device="cuda", generator=gen)).to(torch.bfloat16)
+    dense = densify(torch.from_numpy(idx).cuda(), torch.from_numpy(val).cuda(), dim)
+    emb[1000:1300] = dense.to(torch.bfloat16)
+    valid = torch.ones(rows, dtype=torch.bool, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending = delta_topk_sparse(emb, valid, idx, val, 33)
+        running = not pending.event.query()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert running and pending.host.is_pinned()
+    sims, ids = unpack_topk(pending, 300)
+    assert sims.shape == (300, 33) and ids.dtype == np.int64
+    assert (ids[:, 0] == 1000 + np.arange(300)).all()  # each query's own row leads
+    want_v, want_i = _host_topk(dense, emb, valid, 33)
+    packed = torch.cat([torch.from_numpy(sims), torch.from_numpy(ids).float()], 1)
+    _assert_mining_topk(packed, want_v, want_i)
+
+
+def test_platform_mines_on_the_card(gen, tmp_path):
+    """Two batches, the second past the initial capacity (a growth rebuild),
+    in clusters too small for any neighbour list to evict: one delta per
+    batch, then an incremental mine whose partition is the sweep's on the
+    card, and a full mine that re-seeds it."""
+    import numpy as np
+
+    from kakveda_tpu_torch.core.schemas import TracePayload, WarningRequest
+    from kakveda_tpu_torch.ops.clustering import cluster_embeddings
+    from kakveda_tpu_torch.platform import Platform
+
+    rng = np.random.default_rng(0)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    prompts = []
+    while len(prompts) < 300:
+        words = ["".join(rng.choice(letters, 4)) for _ in range(13)]
+        prompts += [f"Sources: {' '.join(words[:j] + ['zz' + words[j][2:]] + words[j + 1:])}" for j in range(5)]
+    plat = Platform(data_dir=tmp_path, capacity=256, dim=1024)
+    ts = datetime.now(timezone.utc)
+    traces = [TracePayload(trace_id=f"t{i}", ts=ts, app_id=f"app-{i % 3}", prompt=p, response="See [1].")
+              for i, p in enumerate(prompts[:300])]
+    plat.warn(WarningRequest(app_id="z", prompt="Sources: an unrelated question"))
+    asyncio.run(plat.ingest_batch(traces[:100]))
+    asyncio.run(plat.ingest_batch(traces[100:]))
+    st = plat.gfkb.mine_state_info()
+    assert plat.gfkb._knn.capacity == 512 and plat.gfkb.count == 300
+    assert st["enabled"] and not st["stale"] and st["covers_all_rows"] and st["delta_dispatches"] == 2
+    inc, info = plat.mine()
+    assert info["mode"] == "incremental" and info["evictions"] == 0 and inc
+    _, vecs = plat.gfkb.records_and_embeddings()
+    assert vecs.is_cuda
+    assert np.array_equal(plat.gfkb._mine.labels(), cluster_embeddings(vecs, threshold=0.6))
+    full, info_full = plat.mine(mode="full")
+    assert info_full["mode"] == "full" and full and plat.gfkb.mine_usable(0.6)
+    plat.close()

@@ -27,6 +27,8 @@ def test_import_loads_no_jax_in_fresh_interpreter():
     assert "kakveda_tpu_torch.platform" in mods and "kakveda_tpu_torch.ops.fused_topk" in mods
     for m in ("serving", "generate", "llama", "attention", "tokenizer", "runtime"):
         assert f"kakveda_tpu_torch.models.{m}" in mods
+    for m in ("ops.clustering", "ops.incremental", "index.gfkb", "pipeline.patterns"):
+        assert f"kakveda_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

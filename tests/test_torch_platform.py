@@ -151,6 +151,69 @@ def test_batch_ingest_warn_batch_and_growth_match_jax(pair):
     assert port.get_failure("F-0007").signature_text == jax_p.get_failure("F-0007").signature_text
 
 
+def test_mine_matches_jax(pair):
+    """Both Platforms ingest one stream; mine() (auto, auto again, full, then
+    another threshold) gives equal patterns and equal mode / dirty counts."""
+    jax_p, port = pair
+
+    def traces(Trace, lo, hi):
+        return [Trace(**_trace_fields(i, f"app-{i % 5}", prompt)) for i, prompt in (
+            (i, [f"Summarize document {i % 40} and include citations",
+                 f"Explain topic {i % 30} and add references",
+                 "What's 2+2?"][i % 3]) for i in range(lo, hi))]
+
+    for lo, hi in [(0, 90), (90, 200)]:
+        asyncio.run(jax_p.ingest_batch(traces(JaxTrace, lo, hi)))
+        asyncio.run(port.ingest_batch(traces(TracePayload, lo, hi)))
+        jax_p.warn_batch([JaxRequest(**_req_fields("z", f"Summarize document {hi} and include citations"))])
+        port.warn_batch([WarningRequest(**_req_fields("z", f"Summarize document {hi} and include citations"))])
+    runs = [(0.6, "auto"), (0.6, "auto"), (0.6, "full"), (0.5, "auto"), (0.5, "incremental")]
+    for thr, mode in runs:
+        jp, ji = jax_p.mine(thr, mode)
+        pp, pi = port.mine(thr, mode)
+        assert [(p.pattern_id, p.name, p.failure_ids, p.affected_apps, p.description) for p in pp] == [
+            (p.pattern_id, p.name, p.failure_ids, p.affected_apps, p.description) for p in jp]
+        for key in ("mode", "dirty_clusters", "rows", "clusters", "delta_dispatches", "stale"):
+            assert pi[key] == ji[key], (thr, mode, key)
+    assert ji["mode"] == "incremental" and port.patterns_list()
+    _assert_same_state(jax_p, port, apps=[f"app-{i}" for i in range(5)])
+
+
+def test_capped_stream_differs_from_the_sweep_as_in_jax(tmp_path):
+    """The card smoke's phase-4 stream (the demo's rows, then near-identical
+    "Summarize report {i}" rows past the k-neighbour cap): the streamed
+    partition is not the sweep's, in the JAX package as in the port, and
+    both packages' partitions are equal, streamed and swept."""
+    jax_p = JaxPlatform(data_dir=tmp_path / "jax", mesh=create_mesh("data:1"), capacity=2048, dim=1024)
+    port = Platform(data_dir=tmp_path / "port", device="cpu", capacity=2048, dim=1024)
+    labels = []
+    for plat, Trace, Request in ((jax_p, JaxTrace, JaxRequest), (port, TracePayload, WarningRequest)):
+        n = 0
+        for app_id, prompt in SCENARIOS:
+            plat.warn(Request(**_req_fields(app_id, prompt)))
+            asyncio.run(plat.ingest(Trace(**_trace_fields(n, app_id, prompt))))
+            n += 1
+        for j in range(8):
+            prompt = "Summarize and add references" if j % 2 == 0 else "Short answer with citations"
+            asyncio.run(plat.ingest(Trace(**_trace_fields(n + j, "app-A", prompt))))
+        stream = [Trace(**_trace_fields(100 + i, f"app-{i % 8}", f"Summarize report {i} and include citations"))
+                  for i in range(1024)]
+        for lo in (0, 512):
+            asyncio.run(plat.ingest_batch(stream[lo : lo + 512]))
+        _, info = plat.mine()
+        streamed = plat.gfkb._mine.labels()
+        plat.mine(mode="full")
+        labels.append((streamed, plat.gfkb._mine.labels(), info["mode"], info["evictions"]))
+    (js, jf, jmode, jev), (ps, pf, pmode, pev) = labels
+    # Eviction counts may differ by a few: f32 scores of near-identical rows,
+    # summed in another order, can order a near-tie either way.
+    assert jmode == pmode == "incremental" and jev > 0 and pev > 0
+    assert (ps == js).all() and (pf == jf).all()
+    assert len(set(ps.tolist())) != len(set(pf.tolist()))  # the cap binds in both
+    port.close()
+    jax_p.gfkb.close()
+
+
 def test_single_upsert_matches_jax(pair):
     jax_p, port = pair
     from kakveda_tpu.core.schemas import Severity as JaxSeverity
