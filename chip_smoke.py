@@ -79,6 +79,38 @@ JAX package). Phases, each of which raises on failure (exit code != 0):
    equal where the host's neighbouring scores differ by more, and on exact
    ties, lowest row first).
 
+8. the service plane (``KAKVEDA_NATIVE=require`` holds for the whole run:
+   the native host tier must build with ``g++`` and load, and phase 4
+   already runs on it): ``make_app`` over a fresh
+   ``Platform(capacity=2^20, dim=2048)`` on a ``TCPSite`` at 127.0.0.1,
+   driven by an ``aiohttp.ClientSession`` in this process (aiohttp is
+   required: without it the phase fails). a. ``/ingest/batch`` of 8 × 512
+   traces, three in four failing: the summed failures equal the GFKB's
+   growth; traces/s. b. 256 ``/warn`` at concurrency 1, half of ingested
+   signatures: p50, p99. c. 64 clients × 16 ``/warn``: p50, p99, warns/s,
+   ``fused_topk`` launches (under 1024 and at least 16), requests per
+   launch, and the share of the arm's wall that each batch's device
+   dispatch spans (CUDA events). d. ``/failures/match``, ``/patterns``,
+   ``/health/app-A``, ``/readyz`` (native available, the card) agree with
+   the platform, and every answer of b and c equals a direct
+   ``warn_batch`` of the same requests (action, confidence within 1e-4,
+   the top-1 id wherever the direct top-2 differ by more). e.
+   ``/patterns/mine {"mode": "full"}`` equals ``plat.mine(mode="full")``;
+   after one more ingest ``/patterns/mine {}`` is incremental. The
+   ``fused_topk`` launches of the service's own requests (a–e, counter
+   zeroed before a; the direct calls that check them are left out) are
+   the kernel row's ``launches_service``. Then the
+   warn path's stages at B = 1 and 64 (signature text, featurize native
+   and Python, upload, densify and ``fused_topk`` with CUDA events, d2h,
+   the rest) beside the unsynchronized ``warn_batch`` wall, and one
+   512-trace ingest batch's (classify, featurize, insert, delta dispatch,
+   log append). Last ``python3 -m kakveda_tpu_torch.service`` as a
+   process on the card with a 2^20-row index: it answers ``/healthz``
+   within 120 s, ingests 8 × 512 traces, warns an ingested signature back
+   to itself, serves 64 clients × 16 warns from this process (so client
+   and server no longer share one event loop), exits 0 on SIGINT, and a
+   fresh ``Platform`` replays its data dir.
+
 Prints a ``{"kernels": [...]}`` line, the card line, and last
 ``{"ok": true, "device": {...}}``.
 """
@@ -86,6 +118,7 @@ Prints a ``{"kernels": [...]}`` line, the card line, and last
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import dataclasses
 import json
 import math
@@ -94,6 +127,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from datetime import datetime, timezone
 from pathlib import Path
@@ -1139,11 +1173,564 @@ def phase_model(card: str) -> dict:
     return out
 
 
+def _pct(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(round(q * (len(xs) - 1))))]
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _service_traces(TracePayload, lo: int, n: int):
+    """Phase 4's trace generator, failing and passing mixed: three in four
+    ask for citations and get a cited answer (a HALLUCINATION_CITATION each,
+    every signature new); the fourth gets an answer with no markers."""
+    return [
+        _trace(TracePayload, 200_000 + i, f"app-{'ABCDEFG'[i % 7]}", f"Summarize report {i} and include citations",
+               response=STUB_RESPONSE if i % 4 else "No sources were provided, so none are cited.")
+        for i in range(lo, lo + n)
+    ]
+
+
+def _warn_body(app_id: str, prompt: str) -> dict:
+    return {"app_id": app_id, "prompt": prompt, "tools": [], "env": {"os": "linux"}}
+
+
+class _Tally:
+    """``fused_topk`` launches of the service's own requests: the counter's
+    growth summed over spans of HTTP calls, so the direct calls that check
+    their answers stay out of the count."""
+
+    def __init__(self, fused_topk):
+        self.fn, self.n = fused_topk, 0
+
+    @contextlib.contextmanager
+    def span(self):
+        mark = self.fn.launches
+        try:
+            yield
+        finally:
+            self.n += self.fn.launches - mark
+
+
+class _DispatchSpans:
+    """CUDA events around every ``topk_async_sparse`` call of ``knn`` (one
+    warn batch's upload, densify, ``fused_topk`` and pack), from whichever
+    thread makes it. A span also holds the host's enqueue gaps inside the
+    call, so their sum bounds the card's busy time from above."""
+
+    def __init__(self, knn):
+        self.knn, self.pairs, self.lock = knn, [], threading.Lock()
+        fn = knn.topk_async_sparse
+
+        def timed(*a, **k):
+            ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            ev[0].record()
+            try:
+                return fn(*a, **k)
+            finally:
+                ev[1].record()
+                with self.lock:
+                    self.pairs.append(ev)
+
+        knn.topk_async_sparse = timed
+
+    def close(self) -> float:
+        """Unwrap and return the spans' summed device ms."""
+        del self.knn.topk_async_sparse  # the method again
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.pairs)
+
+
+class _Http:
+    """Phase 8's client over real TCP to ``make_app`` on a ``TCPSite``."""
+
+    def __init__(self, session, base: str):
+        self.s, self.base = session, base
+
+    async def _post(self, path, body):
+        async with self.s.post(self.base + path, json=body) as r:
+            out = await r.json()
+            if r.status != 200:
+                raise AssertionError(f"POST {path}: {r.status} {out}")
+            return out
+
+    async def get(self, path):
+        async with self.s.get(self.base + path) as r:
+            out = await r.json()
+            if r.status != 200:
+                raise AssertionError(f"GET {path}: {r.status} {out}")
+            return out
+
+    async def ingest_batch(self, traces):
+        return await self._post("/ingest/batch", {"traces": traces})
+
+    async def warn(self, body):
+        return await self._post("/warn", body)
+
+    async def mine(self, body):
+        return await self._post("/patterns/mine", body)
+
+    async def match(self, sig):
+        return await self._post("/failures/match", {"signature_text": sig})
+
+
+async def _service_arms(client, plat, fused_topk, card: str) -> dict:
+    """Steps a-e of phase 8 through ``client``; ``launches_service`` counts
+    the ``fused_topk`` launches of their HTTP requests alone."""
+    from kakveda_tpu_torch.core.fingerprint import signature_text
+    from kakveda_tpu_torch.core.schemas import TracePayload, WarningRequest
+
+    out = {}
+    # a. Ingest: 8 x 512 traces.
+    traces = [t.model_dump(mode="json") for t in _service_traces(TracePayload, 0, 4096)]
+    n0 = plat.gfkb.count
+    fused_topk.launches = 0
+    tally = _Tally(fused_topk)
+    t0 = time.perf_counter()
+    failures = 0
+    with tally.span():
+        for lo in range(0, 4096, 512):
+            failures += (await client.ingest_batch(traces[lo : lo + 512]))["failures"]
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    if failures != plat.gfkb.count - n0 or failures != 3072:
+        raise AssertionError(f"ingest: {failures} failures answered, GFKB grew {plat.gfkb.count - n0}")
+    out["ingest_traces_per_s"] = 4096 / ingest_s
+    log(f"phase 8 a: {failures} failures of 4096 traces in 8 batches of 512, "
+        f"{out['ingest_traces_per_s']:.1f} traces/s end to end [{card}]")
+
+    # b. One client: 256 warns, half of ingested signatures, half new.
+    seen = [i for i in range(4096) if i % 4][:128]
+    b_bodies = [_warn_body(f"app-{'ABCDEFGH'[j % 8]}", f"Summarize report {i} and include citations")
+                for j, i in enumerate(seen)]
+    b_bodies += [_warn_body(f"app-{'ABCDEFGH'[j % 8]}", f"Translate poem {j} into French verse")
+                 for j in range(128)]
+    order = [x for pair in zip(b_bodies[:128], b_bodies[128:]) for x in pair]
+    lat_b, res_b = [], []
+    with tally.span():
+        await client.warn(order[0])  # warm the handler path
+        for body in order:
+            t = time.perf_counter()
+            res_b.append(await client.warn(body))
+            lat_b.append((time.perf_counter() - t) * 1e3)
+    out["warn_c1_p50_ms"], out["warn_c1_p99_ms"] = _pct(lat_b, 0.5), _pct(lat_b, 0.99)
+    log(f"phase 8 b: /warn at concurrency 1, 256 requests: p50 {out['warn_c1_p50_ms']:.3f} ms, "
+        f"p99 {out['warn_c1_p99_ms']:.3f} ms [{card}]")
+
+    # c. 64 clients x 16 warns; fused_topk is the card's only caller here.
+    c_bodies = [[_warn_body(f"app-{'ABCDEFGH'[c % 8]}",
+                            f"Summarize report {(c * 16 + j) * 3 + 1} and include citations" if j % 2 == 0
+                            else f"Client {c} asks {j} about a new topic") for j in range(16)] for c in range(64)]
+    lat_c = [[] for _ in range(64)]
+    res_c = [[None] * 16 for _ in range(64)]
+
+    async def one_client(c):
+        for j, body in enumerate(c_bodies[c]):
+            t = time.perf_counter()
+            res_c[c][j] = await client.warn(body)
+            lat_c[c].append((time.perf_counter() - t) * 1e3)
+
+    spans = _DispatchSpans(plat.gfkb._knn)
+    mark = fused_topk.launches
+    try:
+        with tally.span():
+            t0 = time.perf_counter()
+            await asyncio.gather(*[one_client(c) for c in range(64)])
+            wall = time.perf_counter() - t0
+    finally:
+        span_ms = spans.close()
+    launches = fused_topk.launches - mark
+    flat = [x for xs in lat_c for x in xs]
+    if not (1024 // 64 <= launches < 1024) or len(spans.pairs) != launches:
+        raise AssertionError(f"1024 concurrent warns took {launches} fused_topk launches "
+                             f"in {len(spans.pairs)} dispatches")
+    out.update(warn_c64_p50_ms=_pct(flat, 0.5), warn_c64_p99_ms=_pct(flat, 0.99), warn_c64_per_s=1024 / wall,
+               warn_c64_launches=launches, warn_c64_requests_per_launch=1024 / launches,
+               warn_c64_dispatch_device_ms=span_ms, warn_c64_dispatch_span_share=span_ms / (wall * 1e3))
+    log(f"phase 8 c: /warn at concurrency 64, 64 x 16 requests: p50 {out['warn_c64_p50_ms']:.3f} ms, "
+        f"p99 {out['warn_c64_p99_ms']:.3f} ms, {out['warn_c64_per_s']:.1f} warns/s, {launches} fused_topk "
+        f"launches, {out['warn_c64_requests_per_launch']:.2f} requests per launch; the batches' device "
+        f"dispatches (upload, densify, fused_topk, pack; CUDA events) span {span_ms:.3f} ms of the arm's "
+        f"{wall * 1e3:.3f} ms ({100 * out['warn_c64_dispatch_span_share']:.2f} %) [{card}]")
+
+    # d. The read routes agree with the platform, then every answer equals
+    # a direct warn_batch of the same requests.
+    sig = signature_text(f"Summarize report {seen[0]} and include citations", [], {"os": "linux"})
+    with tally.span():
+        m = (await client.match(sig))["matches"]
+        pats = (await client.get("/patterns"))["patterns"]
+        pts = (await client.get("/health/app-A"))["points"]
+        ready = await client.get("/readyz")
+    want = plat.gfkb.match(sig)
+    if [x["failure_id"] for x in m[:1]] != [want[0].failure_id] or abs(m[0]["score"] - want[0].score) > ATOL:
+        raise AssertionError(f"/failures/match {m[:1]} vs {want[:1]}")
+    if _pattern_key_json(pats) != _pattern_key(plat.patterns_list()):
+        raise AssertionError("/patterns differs from the platform's")
+    if len(pts) != len(plat.health_history("app-A")) or not pts:
+        raise AssertionError("/health/app-A differs from the platform's")
+    if not (ready["native"]["available"] and ready["device"]["name"] == torch.cuda.get_device_name(0)
+            and ready["gfkb_count"] == plat.gfkb.count):
+        raise AssertionError(f"/readyz: {ready}")
+    bodies = order + [b for bs in c_bodies for b in bs]
+    answers = res_b + [r for rs in res_c for r in rs]
+    reqs = [WarningRequest.model_validate(b) for b in bodies]
+    direct, tops = [], []
+    for lo in range(0, len(reqs), 64):
+        chunk = reqs[lo : lo + 64]
+        direct += plat.warn_batch(chunk)
+        tops += plat.gfkb.match_batch([signature_text(r.prompt, r.tools, r.env) for r in chunk])
+    checked_ids = 0
+    for j, (a, d, top) in enumerate(zip(answers, direct, tops)):
+        if a["action"] != d.action or abs(a["confidence"] - d.confidence) > ATOL:
+            raise AssertionError(f"answer {j}: {a['action']} {a['confidence']} vs direct {d.action} {d.confidence}")
+        separated = len(top) < 2 or top[0].score - top[1].score > ATOL
+        if d.references and separated:
+            if not a["references"] or a["references"][0]["failure_id"] != d.references[0].failure_id:
+                raise AssertionError(f"answer {j}: reference differs from the direct warn")
+            checked_ids += 1
+    out["answers_checked"] = len(answers)
+    log(f"phase 8 d: /failures/match, /patterns, /health, /readyz agree with the platform; {len(answers)} "
+        f"answers equal a direct warn_batch (action, confidence within {ATOL}, reference id on {checked_ids} "
+        f"separated top-1s)")
+
+    # e. Mining through the route.
+    with tally.span():
+        body = await client.mine({"mode": "full"})
+    t = time.perf_counter()
+    direct_full, dinfo = plat.mine(mode="full")
+    direct_ms = (time.perf_counter() - t) * 1e3
+    if body["mining"]["mode"] != "full" or _pattern_key_json(body["patterns"]) != _pattern_key(direct_full):
+        raise AssertionError(f"/patterns/mine full differs from plat.mine(mode='full'): {body['mining']}")
+    more = [t.model_dump(mode="json") for t in _service_traces(TracePayload, 4096, 512)]
+    with tally.span():
+        await client.ingest_batch(more)
+        t = time.perf_counter()
+        inc = await client.mine({})
+        inc_ms = (time.perf_counter() - t) * 1e3
+    if inc["mining"]["mode"] != "incremental":
+        raise AssertionError(f"/patterns/mine after one more ingest: {inc['mining']}")
+    out.update(mine_full_route_wall_ms=body["mining"]["wall_ms"], mine_full_direct_ms=direct_ms,
+               mine_incremental_route_ms=inc_ms, patterns=len(direct_full))
+    log(f"phase 8 e: /patterns/mine full == plat.mine(mode='full') ({len(direct_full)} patterns, route wall "
+        f"{body['mining']['wall_ms']:.1f} ms, direct {direct_ms:.1f} ms); after 512 more traces /patterns/mine "
+        f"{{}} is incremental ({inc_ms:.1f} ms, {inc['mining'].get('attached')} rows attached) [{card}]")
+    out["launches_service"] = tally.n
+    return out
+
+
+def _pattern_key_json(patterns):
+    return {(p["name"], tuple(p["failure_ids"]), tuple(sorted(p["affected_apps"])), p["description"])
+            for p in patterns}
+
+
+class _Stages:
+    """Per-call stage times through wrappers on the real call path: a
+    stage's host time is taken with the card synchronized at both of its
+    boundaries (device stages also get CUDA events)."""
+
+    def __init__(self):
+        self.host, self.dev, self._undo = {}, {}, []
+
+    def wrap(self, obj, attr, name, sync=True, events=False):
+        fn = getattr(obj, attr)
+
+        def timed(*a, **k):
+            if sync:
+                torch.cuda.synchronize()
+            if events:
+                ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                ev[0].record()
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                if events:
+                    ev[1].record()
+                if sync:
+                    torch.cuda.synchronize()
+                self.host[name] = self.host.get(name, 0.0) + (time.perf_counter() - t) * 1e3
+                if events:
+                    self.dev[name] = self.dev.get(name, 0.0) + ev[0].elapsed_time(ev[1])
+
+        own = attr in vars(obj)
+        setattr(obj, attr, timed)
+        self._undo.append((obj, attr, fn if own else None))
+
+    def take(self):
+        out = dict(host=self.host, dev=self.dev)
+        self.host, self.dev = {}, {}
+        return out
+
+    def restore(self):
+        for obj, attr, fn in reversed(self._undo):
+            if fn is None:
+                delattr(obj, attr)  # a method again, not an instance attribute
+            else:
+                setattr(obj, attr, fn)
+        self._undo.clear()
+
+
+def host_split(plat, card: str) -> dict:
+    """The warn path's stages for B = 1 and B = 64, and one 512-trace
+    ingest batch's, at phase 8's index (medians over repeated calls)."""
+    from kakveda_tpu_torch import native
+    from kakveda_tpu_torch.core.schemas import TracePayload, WarningRequest
+    from kakveda_tpu_torch.ops import knn as knn_mod
+    from kakveda_tpu_torch.ops.featurizer import dense_rows_to_sparse
+    from kakveda_tpu_torch.pipeline import warning as warning_mod
+    from kakveda_tpu_torch.core.fingerprint import signature_text
+
+    gfkb, f, lib = plat.gfkb, plat.gfkb.featurizer, native.load()
+    out = {}
+    for b in (1, 64):
+        reqs = [WarningRequest(app_id="app-s", prompt=f"Summarize report {i * 7 + 1} and include citations",
+                               tools=[], env={"os": "linux"}) for i in range(b)]
+        sigs = [signature_text(r.prompt, r.tools, r.env) for r in reqs]
+        walls = []
+        for _ in range(3):
+            plat.warn_batch(reqs)
+        for _ in range(30):
+            t = time.perf_counter()
+            plat.warn_batch(reqs)
+            walls.append((time.perf_counter() - t) * 1e3)
+        torch.cuda.synchronize()
+        py_ms, nat_ms = [], []
+        for _ in range(30):
+            t = time.perf_counter()
+            dense_rows_to_sparse(f._encode_batch_py(sigs), f.dim)
+            py_ms.append((time.perf_counter() - t) * 1e3)
+            t = time.perf_counter()
+            f._encode_sparse_native(lib, sigs)
+            nat_ms.append((time.perf_counter() - t) * 1e3)
+        st = _Stages()
+        st.wrap(warning_mod, "signature_text", "signature_text", sync=False)
+        st.wrap(f, "encode_batch_sparse", "featurize (native)", sync=False)
+        st.wrap(knn_mod, "to_device", "upload (idx, val)")
+        st.wrap(gfkb._knn, "densify", "densify", events=True)
+        st.wrap(knn_mod, "fused_topk", "fused_topk", events=True)
+        st.wrap(gfkb._knn, "topk_result", "d2h + unpack")
+        st.wrap(plat.warning_policy, "warn_batch", "call")
+        calls = []
+        try:
+            for _ in range(30):
+                plat.warn_batch(reqs)
+                calls.append(st.take())
+        finally:
+            st.restore()
+        med = lambda key, kind="host": statistics.median(c[kind].get(key, 0.0) for c in calls)  # noqa: E731
+        stages = {k: med(k) for k in ("signature_text", "featurize (native)", "upload (idx, val)", "densify",
+                                      "fused_topk", "d2h + unpack")}
+        # The rest: the bucket pad, the lock, the packed cat, the match
+        # cache, FailureMatch and WarningResponse construction.
+        stages["pad + matches + responses (rest)"] = med("call") - sum(stages.values())
+        out[f"warn_b{b}"] = dict(
+            stages_host_ms=stages, densify_dev_ms=med("densify", "dev"), fused_topk_dev_ms=med("fused_topk", "dev"),
+            featurize_python_ms=statistics.median(py_ms), featurize_native_ms=statistics.median(nat_ms),
+            synced_call_ms=med("call"), warn_batch_wall_ms=statistics.median(walls),
+        )
+        log(f"warn host split, B = {b}: " + json.dumps(out[f"warn_b{b}"]) + f" [{card}]")
+
+    # One 512-trace ingest batch (after a warm-up batch).
+    traces = _service_traces(TracePayload, 10_000, 1024)
+    asyncio.run(plat.ingest_batch(traces[:512]))
+    batch = traces[512:]
+    texts = [signature_text(t.prompt, t.tools, t.env) for t in batch if t.response == STUB_RESPONSE]
+    t = time.perf_counter()
+    dense_rows_to_sparse(f._encode_batch_py(texts), f.dim)
+    py_ms = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    f._encode_sparse_native(lib, texts)
+    nat_ms = (time.perf_counter() - t) * 1e3
+    st = _Stages()
+    st.wrap(plat.classifier, "classify_batch", "classify", sync=False)
+    st.wrap(f, "encode_batch_sparse", "featurize (native)", sync=False)
+    st.wrap(gfkb._knn, "insert_sparse", "insert")
+    st.wrap(gfkb, "_mine_attach_new", "delta dispatch")
+    st.wrap(gfkb, "_append_line", "log append", sync=False)
+    st.wrap(gfkb, "_flush_logs", "log flush", sync=False)
+    torch.cuda.synchronize()
+    try:
+        t = time.perf_counter()
+        asyncio.run(plat.ingest_batch(batch))
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+        got = st.take()
+    finally:
+        st.restore()
+    stages = dict(got["host"])
+    stages["rest (records, health, patterns, event loop)"] = wall - sum(stages.values())
+    out["ingest_512"] = dict(stages_host_ms=stages, featurize_python_ms=py_ms, featurize_native_ms=nat_ms,
+                             failures=len(texts), wall_ms=wall)
+    log("ingest host split, 512 traces: " + json.dumps(out["ingest_512"]) + f" [{card}]")
+    return out
+
+
+async def _warn_clients(post, clients: int, per_client: int) -> dict:
+    """``clients`` concurrent clients, each sending ``per_client`` warns in
+    turn (half of ingested signatures, half new): p50, p99, warns/s."""
+    lat = []
+
+    async def one(c):
+        for j in range(per_client):
+            prompt = (f"Summarize report {(c * per_client + j) * 3 + 1} and include citations" if j % 2 == 0
+                      else f"Client {c} asks {j} about a new topic")
+            t = time.perf_counter()
+            body = await post("/warn", _warn_body(f"app-{'ABCDEFG'[c % 7]}", prompt))
+            lat.append((time.perf_counter() - t) * 1e3)
+            if body["action"] not in ("warn", "block", "silent"):
+                raise AssertionError(f"warn answer {body}")
+
+    t0 = time.perf_counter()
+    await asyncio.gather(*[one(c) for c in range(clients)])
+    wall = time.perf_counter() - t0
+    return dict(p50_ms=_pct(lat, 0.5), p99_ms=_pct(lat, 0.99), warns_per_s=clients * per_client / wall)
+
+
+def run_entry_point(base: Path, card: str) -> dict:
+    """``python3 -m kakveda_tpu_torch.service`` as its own process on the
+    card, its index at the GFKB's real size: it answers ``/healthz`` within
+    120 s, ingests a warm-up batch and 8 timed batches of 512 traces, warns
+    (one ingested signature must match itself; then 64 clients x 16 warns,
+    the client in this process and the server in its own), exits 0 on
+    SIGINT, and its data dir replays."""
+    import signal
+
+    import aiohttp
+
+    from kakveda_tpu_torch.core.schemas import TracePayload
+    from kakveda_tpu_torch.platform import Platform
+
+    root = Path(__file__).resolve().parent
+    data = base / "service-data"
+    port = _free_port()
+    env = dict(os.environ, PYTHONPATH=str(root), KAKVEDA_LOG_FORMAT="text", KAKVEDA_INDEX_CAPACITY=str(ROWS))
+    out_path = base / "service.log"
+    base_url = f"http://127.0.0.1:{port}"
+    t0 = time.perf_counter()
+    with open(out_path, "wb") as out_f:
+        proc = subprocess.Popen([sys.executable, "-m", "kakveda_tpu_torch.service", "--port", str(port),
+                                 "--data-dir", str(data)], cwd=root, env=env,
+                                stdout=out_f, stderr=subprocess.STDOUT)
+
+    async def drive():
+        async with aiohttp.ClientSession(connector=aiohttp.TCPConnector(limit=128)) as s:
+            async def post(path, body):
+                async with s.post(base_url + path, json=body) as r:
+                    out = await r.json()
+                    if r.status != 200:
+                        raise AssertionError(f"service POST {path}: {r.status} {out}")
+                    return out
+
+            while True:
+                if proc.poll() is not None:
+                    raise AssertionError("the service exited early:\n" + out_path.read_text()[-3000:])
+                if time.perf_counter() - t0 > 120:
+                    raise AssertionError("the service did not answer /healthz within 120 s")
+                try:
+                    async with s.get(base_url + "/healthz") as r:
+                        if r.status == 200:
+                            break
+                except aiohttp.ClientConnectionError:
+                    await asyncio.sleep(0.2)
+            up_s = time.perf_counter() - t0
+            # One warm-up batch first (the process's first device calls
+            # initialize cuBLAS and the allocator), then 8 timed batches.
+            warm = [t.model_dump(mode="json") for t in _service_traces(TracePayload, 100_000, 512)]
+            await post("/ingest/batch", {"traces": warm})
+            traces = [t.model_dump(mode="json") for t in _service_traces(TracePayload, 0, 4096)]
+            t = time.perf_counter()
+            failures = 0
+            for lo in range(0, 4096, 512):
+                failures += (await post("/ingest/batch", {"traces": traces[lo : lo + 512]}))["failures"]
+            ingest_s = time.perf_counter() - t
+            w = await post("/warn", _warn_body("app-z", "Summarize report 1 and include citations"))
+            async with s.get(base_url + "/readyz") as r:
+                ready = await r.json()
+            if failures != 3072 or not w["references"] or w["confidence"] < 0.99:
+                raise AssertionError(f"service answers: {failures} failures, {w}")
+            if not (ready["native"]["available"] and ready["device"]["type"] == "cuda"
+                    and ready["gfkb_count"] == 3072 + 384):
+                raise AssertionError(f"service /readyz: {ready}")
+            await post("/warn", _warn_body("app-z", "warm up"))
+            c64 = await _warn_clients(post, 64, 16)
+            return dict(start_s=up_s, ingest_traces_per_s=4096 / ingest_s, warn_c64=c64,
+                        confidence=w["confidence"], failure_id=w["references"][0]["failure_id"])
+
+    try:
+        out = asyncio.run(drive())
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if rc != 0:
+        raise AssertionError(f"service exit code {rc}:\n" + out_path.read_text()[-3000:])
+    rows = (data / "failures.jsonl").read_text().splitlines()
+    plat = Platform(data_dir=data, capacity=1 << 12, dim=DIM)
+    if len(rows) != 3072 + 384 or plat.gfkb.count != 3072 + 384 or plat.device.type != "cuda":
+        raise AssertionError(f"replay: {len(rows)} log rows, {plat.gfkb.count} records on {plat.device}")
+    out["replayed"] = plat.gfkb.count
+    plat.close()
+    c64 = out["warn_c64"]
+    log(f"python3 -m kakveda_tpu_torch.service ({ROWS} x {DIM} index): answered /healthz after "
+        f"{out['start_s']:.1f} s; /ingest/batch 8 x 512 (after one warm-up batch) at "
+        f"{out['ingest_traces_per_s']:.1f} traces/s; an ingested "
+        f"signature warned at {out['confidence']:.6f} ({out['failure_id']}); /warn at concurrency 64 (64 x 16, "
+        f"client in another process): p50 {c64['p50_ms']:.3f} ms, p99 {c64['p99_ms']:.3f} ms, "
+        f"{c64['warns_per_s']:.1f} warns/s; exited 0 on SIGINT; a fresh Platform on the card replayed "
+        f"{out['replayed']} records [{card}]")
+    return out
+
+
+def phase_service(base: Path, fused_topk, card: str) -> dict:
+    """Phase 8: the service plane on the card at the GFKB's real size."""
+    import aiohttp  # required: without it phase 8 fails
+    from aiohttp import web
+
+    from kakveda_tpu_torch.platform import Platform
+    from kakveda_tpu_torch.service.app import make_app
+
+    log(f"aiohttp {aiohttp.__version__}")
+    plat = Platform(data_dir=base / "service", capacity=ROWS, dim=DIM)
+    if plat.device.type != "cuda":
+        raise AssertionError(f"Platform on {plat.device}")
+
+    async def go():
+        runner = web.AppRunner(make_app(plat))
+        await runner.setup()
+        port = _free_port()
+        await web.TCPSite(runner, "127.0.0.1", port).start()
+        try:
+            async with aiohttp.ClientSession(connector=aiohttp.TCPConnector(limit=128)) as s:
+                return await _service_arms(_Http(s, f"http://127.0.0.1:{port}"), plat, fused_topk, card)
+        finally:
+            await runner.cleanup()
+
+    out = asyncio.run(go())
+    out["host_split"] = host_split(plat, card)
+    plat.close()
+    del plat
+    torch.cuda.empty_cache()
+    out["entry_point"] = run_entry_point(base, card)
+    log("phase 8: " + json.dumps({k: v for k, v in out.items() if k != "host_split"}))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent))
+    # The whole run on the native host tier: no silent Python fallback.
+    os.environ["KAKVEDA_NATIVE"] = "require"
+    from kakveda_tpu_torch import native
     from kakveda_tpu_torch.ops import _build
     from kakveda_tpu_torch.ops.fused_topk import fused_topk, fused_topk_reference
 
@@ -1158,8 +1745,14 @@ def main() -> int:
 
     t0 = time.perf_counter()
     names = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
+    g_plus = threading.Thread(target=native.load)  # g++ beside the nvcc builds
+    g_plus.start()
     libs = _build.build(names)
+    g_plus.join()
     log(f"built {names} in {time.perf_counter() - t0:.2f} s")
+    if native.load() is None:
+        raise AssertionError("KAKVEDA_NATIVE=require, yet the native library did not load")
+    log("native host tier: " + json.dumps(native.status()) + " (featurizer and GFKB logs run on it)")
     for lib in libs.values():
         for line in lib.with_suffix(".log").read_text().splitlines():
             if "entry function" in line or "registers" in line or "spill" in line:
@@ -1185,12 +1778,21 @@ def main() -> int:
 
     phase_mining(card)
 
+    with tempfile.TemporaryDirectory(prefix="kakveda-service-") as d:
+        service = phase_service(Path(d), fused_topk, card)
+    service_launches = service["launches_service"]
+    if service_launches <= 0:
+        raise AssertionError("the service path never launched fused_topk")
+    log(f"fused_topk launches of the service's requests (phase 8 a-e): {service_launches}")
+    torch.cuda.empty_cache()
+
     flash = phase_flash(card)
     model = phase_model(card)
 
     kernels = [dict(
         name="fused_topk", route="cuda", source="kakveda_tpu_torch/csrc/fused_topk.cu",
         replaces="kakveda_tpu/ops/pallas_knn.py:128", launches=launches,
+        launches_service=service_launches, launches_service_c64=service["warn_c64_launches"],
         max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
         bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=row["library_ms"],
         shape="B=1, k=5", b64=dict(shape="B=64, k=5", **row["b64"]),

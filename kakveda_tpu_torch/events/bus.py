@@ -43,6 +43,10 @@ class EventBus:
             subs.append(handler)
         return len(subs)
 
+    def topics(self) -> Dict[str, int]:
+        """Topic → subscriber count."""
+        return {k: len(v) for k, v in self._subs.items()}
+
     def has_subscribers(self, topic: str, exclude: Collection[Handler] = ()) -> bool:
         return any(s not in exclude for s in self._subs.get(topic, []))
 

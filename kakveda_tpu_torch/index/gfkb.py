@@ -5,9 +5,10 @@ persistence with versioning-by-append, dense ``F-%04d``/``FP-%04d`` id
 minting, identity by ``(failure_type, signature_text)``, one embedding row
 per canonical failure in a device-resident ``[capacity, dim]`` index, and a
 top-k match of one ``fused_topk`` launch per query batch. ``failures.jsonl``
-and ``patterns.jsonl`` are written in the JAX package's line format and
-replayed at start-up, so a data dir written by either package opens in the
-other.
+and ``patterns.jsonl`` are written in the JAX package's line format through
+the native group-commit writer (``native.AppendLog``, a Python file where
+the library is absent), flushed once per public mutation, and replayed at
+start-up, so a data dir written by either package opens in the other.
 
 Incremental mining rides the ingest path as in the reference: each new
 record joins a streaming ``ClusterState`` (``ops/incremental.py``); after a
@@ -37,6 +38,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from kakveda_tpu_torch import native
 from kakveda_tpu_torch.core.schemas import (
     CanonicalFailureRecord,
     FailureMatch,
@@ -94,7 +96,7 @@ class GFKB:
         # records_and_embeddings waits for them.
         self._pending_embeds = 0
         self._embeds_cv = threading.Condition(self._lock)
-        self._logs: Dict[Path, object] = {}
+        self._logs: Dict[Path, native.AppendLog] = {}
         # A torn final line tolerated at replay: truncate back to this
         # offset before the next append to that file.
         self._truncate_pending: Dict[Path, int] = {}
@@ -134,10 +136,10 @@ class GFKB:
                 f.close()
             os.truncate(path, pend)
             log.warning("truncated torn tail of %s to %d bytes", path, pend)
-        f = self._logs.get(path)
-        if f is None:
-            f = self._logs[path] = open(path, "ab")
-        f.write((line + "\n").encode("utf-8"))
+        alog = self._logs.get(path)
+        if alog is None:
+            alog = self._logs[path] = native.AppendLog(path)
+        alog.append((line + "\n").encode("utf-8"))
 
     def _flush_logs(self) -> None:
         for f in self._logs.values():

@@ -1,23 +1,32 @@
 """Hashed n-gram text featurizer — fixed-dimension failure embeddings.
 
-Port of ``kakveda_tpu/ops/featurizer.py`` (pure-Python path): signed
-feature hashing (crc32) of word uni+bigrams into ``dim`` buckets, with
-field-aware weights for the segments of a ``signature_text``, rows
-L2-normalized. The output is identical to the JAX package's, so an index
-built by either package matches queries embedded by the other. The C++
-encoder the JAX package can use is a host-side speed-up with the same
-output; the port runs the Python path only.
+Port of ``kakveda_tpu/ops/featurizer.py``: signed feature hashing (crc32)
+of word uni+bigrams into ``dim`` buckets, with field-aware weights for the
+segments of a ``signature_text``, rows L2-normalized.
+
+Two paths, as in the reference. ASCII batches go through the C++ encoder
+(``kakveda_tpu_torch/native``, a copy of the reference's library built with
+the same flags), whose output equals the JAX package's native encoder bit
+for bit. A batch holding any non-ASCII string, or a process without the
+library (``KAKVEDA_NATIVE=0``), takes the pure-Python path. The two paths
+are not bit-identical, in the reference either: the C++ L2 norm sums in
+double and Python's in float32, so a row may differ by an ulp or so
+(≤ 1e-7). Buckets, signs and sparse widths are the same on both, so an
+index built by either package matches queries embedded by the other.
 
 Host code: the vectors are numpy arrays, moved to the device by the index.
 """
 
 from __future__ import annotations
 
+import ctypes
 import re
 import zlib
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from kakveda_tpu_torch import native
 
 _TOKEN_RE = re.compile(r"[a-z0-9_]+")
 
@@ -82,12 +91,49 @@ class HashedNGramFeaturizer:
                 feats.extend((t, weight) for t in _terms(rest))
         return feats
 
+    def _native_spec(self) -> str:
+        """Field specs serialized for the C++ encoder ("name,weight,atomic;…")."""
+        return ";".join(
+            f"{name},{weight!r},{1 if atomic else 0}"
+            for name, (weight, atomic) in self.field_specs.items()
+        )
+
+    @staticmethod
+    def _native_for(texts: Sequence[str]):
+        """The library when this batch may take it (every text ASCII), else None."""
+        lib = native.load()
+        if lib is not None and all(isinstance(t, str) and t.isascii() for t in texts):
+            return lib
+        return None
+
     def encode(self, text: str) -> np.ndarray:
         """One L2-normalized float32 vector of shape [dim]."""
         return self.encode_batch([text])[0]
 
     def encode_batch(self, texts: Sequence[str]) -> np.ndarray:
-        """[B, dim] float32, rows L2-normalized (zero row for empty text)."""
+        """[B, dim] float32, rows L2-normalized (zero row for empty text).
+        ASCII batches take the C++ encoder when it is available; non-ASCII
+        strings take Python, where unicode lowercasing is defined."""
+        lib = self._native_for(texts)
+        if lib is not None:
+            out = self._encode_batch_native(lib, texts)
+            if out is not None:
+                return out
+        return self._encode_batch_py(texts)
+
+    def _encode_batch_native(self, lib, texts: Sequence[str]) -> Optional[np.ndarray]:
+        out = np.zeros((len(texts), self.dim), dtype=np.float32)
+        arr = (ctypes.c_char_p * len(texts))(*[t.encode("ascii") for t in texts])
+        rc = lib.kkv_encode_batch(
+            arr,
+            len(texts),
+            self.dim,
+            out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+            self._native_spec().encode("ascii"),
+        )
+        return out if rc == 0 else None
+
+    def _encode_batch_py(self, texts: Sequence[str]) -> np.ndarray:
         out = np.zeros((len(texts), self.dim), dtype=np.float32)
         mask = self.dim - 1
         for i, text in enumerate(texts):
@@ -103,8 +149,39 @@ class HashedNGramFeaturizer:
     def encode_batch_sparse(self, texts: Sequence[str]) -> Tuple[np.ndarray, np.ndarray]:
         """Sparse form of :meth:`encode_batch`: ``(idx [B,K] int32, val [B,K]
         f32)``, rows padded to a power-of-two K ≥ 64 with ``idx = dim`` (the
-        drop sentinel of the device densify) and ``val = 0``."""
-        return dense_rows_to_sparse(self.encode_batch(texts), self.dim)
+        drop sentinel of the device densify) and ``val = 0``. The C++
+        encoder emits the pairs directly; the Python path densifies, then
+        sparsifies."""
+        lib = self._native_for(texts)
+        if lib is not None:
+            out = self._encode_sparse_native(lib, texts)
+            if out is not None:
+                return out
+        return dense_rows_to_sparse(self._encode_batch_py(texts), self.dim)
+
+    def _encode_sparse_native(self, lib, texts: Sequence[str]) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+        b = len(texts)
+        arr = (ctypes.c_char_p * b)(*[t.encode("ascii") for t in texts])
+        spec = self._native_spec().encode("ascii")
+        k = 64
+        while True:
+            idx = np.full((b, k), self.dim, dtype=np.int32)
+            val = np.zeros((b, k), dtype=np.float32)
+            rc = lib.kkv_encode_sparse_batch(
+                arr,
+                b,
+                self.dim,
+                k,
+                idx.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+                val.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+                spec,
+            )
+            if rc == 0:
+                return idx, val
+            if rc < 0:
+                return None  # bad layout; the caller falls back to Python
+            while k < rc:  # rc = the K the widest row needs; re-encode with room
+                k <<= 1
 
 
 def dense_rows_to_sparse(dense: np.ndarray, dim: int) -> Tuple[np.ndarray, np.ndarray]:

@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import List, Tuple
 
 import torch
@@ -200,7 +201,8 @@ def fused_topk(
     ``emb [rows, dim]`` is the index (bf16 on the card), ``valid [rows]``
     bool occupancy, ``q [B, dim]`` float queries. A CPU tensor takes
     :func:`fused_topk_reference`; a CUDA tensor launches the kernel or
-    raises. ``fused_topk.launches`` counts kernel launches."""
+    raises. ``fused_topk.launches`` counts kernel launches (under a lock:
+    the service launches from executor threads)."""
     if emb.device.type == "cpu":
         return fused_topk_reference(emb, valid, q, k)
     if emb.device.type != "cuda":
@@ -240,8 +242,10 @@ def fused_topk(
         )
     if rc != 0:
         raise RuntimeError(f"fused_topk kernel launch failed: cudaError {rc}")
-    fused_topk.launches += 1
+    with _launches_lock:
+        fused_topk.launches += 1
     return out_v, out_i
 
 
 fused_topk.launches = 0
+_launches_lock = threading.Lock()

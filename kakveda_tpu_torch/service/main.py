@@ -1,0 +1,74 @@
+"""Server entry point: ``python -m kakveda_tpu_torch.service``.
+
+Port of ``kakveda_tpu/service/main.py`` without the dashboard (ROADMAP
+Queue 1 item 8), multi-host init, the compile ledger or start-up
+profiling. It reads ``data_dir`` and ``index_capacity`` from the runtime
+config (``KAKVEDA_DATA_DIR``, ``KAKVEDA_INDEX_CAPACITY``), loads the native
+library, builds the ``Platform`` on the card (or on ``device``) and serves
+the API until SIGINT or SIGTERM. On the way out it closes the GFKB so the
+buffered log lines reach the disk. It writes no snapshot (item 6): the
+next start replays the logs, and a replayed data dir's first mine is a
+full sweep.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import gc
+import logging
+import os
+import signal
+
+from aiohttp import web
+
+from kakveda_tpu_torch import native
+from kakveda_tpu_torch.core.runtime import get_runtime_config, setup_logging
+from kakveda_tpu_torch.platform import Platform
+from kakveda_tpu_torch.service.app import make_app
+
+log = logging.getLogger("kakveda.service")
+
+
+async def _serve(plat: Platform, host: str, port: int) -> None:
+    runner = web.AppRunner(make_app(plat))
+    await runner.setup()
+    try:
+        await web.TCPSite(runner, host, port).start()
+        log.info("platform API on http://%s:%d (gfkb entries: %d, device %s)",
+                 host, port, plat.gfkb.count, plat.device)
+        stop = asyncio.Event()
+        loop = asyncio.get_running_loop()
+        for sig in (signal.SIGINT, signal.SIGTERM):
+            loop.add_signal_handler(sig, stop.set)
+        await stop.wait()
+    finally:
+        await runner.cleanup()
+
+
+def run_server(
+    host: str = "127.0.0.1",
+    port: int = 8100,
+    data_dir: str | None = None,
+    device: str | None = None,
+) -> int:
+    """Serve until SIGINT/SIGTERM (from the main thread); returns 0."""
+    setup_logging(service_name="kakveda-tpu-torch")
+    cfg = get_runtime_config(service_name="kakveda-tpu-torch")
+    # Build the library before listening: never inside a request.
+    native.load()
+    plat = Platform(data_dir=data_dir or cfg.data_dir, capacity=cfg.index_capacity, device=device)
+    try:
+        # Generational-GC tuning for the streaming path: ingest allocates
+        # ~2k short-lived objects per 512-batch, which trips gen-2
+        # collections every ~13 batches. Freezing the start-up heap takes it
+        # out of every collection; raised thresholds amortize the rest.
+        # KAKVEDA_GC_TUNE=0 keeps CPython's defaults.
+        if os.environ.get("KAKVEDA_GC_TUNE", "1") != "0":
+            gc.collect()
+            gc.freeze()
+            gc.set_threshold(50_000, 20, 20)
+        asyncio.run(_serve(plat, host, port))
+    finally:
+        plat.close()
+        log.info("gfkb closed (%d entries)", plat.gfkb.count)
+    return 0

@@ -620,3 +620,46 @@ def test_platform_mines_on_the_card(gen, tmp_path):
     full, info_full = plat.mine(mode="full")
     assert info_full["mode"] == "full" and full and plat.gfkb.mine_usable(0.6)
     plat.close()
+
+
+def test_service_warn_burst_coalesces_on_the_card(gen, tmp_path):
+    """``make_app`` on the card: a concurrent /warn burst goes through the
+    micro-batcher in fewer ``fused_topk`` launches than requests, and each
+    answer equals a direct ``warn_batch`` of the same requests (action and
+    top-1 id; confidence within 1e-4, another batch shape sums in another
+    order)."""
+    pytest.importorskip("aiohttp", reason="the service plane needs aiohttp")
+    from aiohttp.test_utils import TestClient, TestServer
+
+    from kakveda_tpu_torch.core.schemas import TracePayload, WarningRequest
+    from kakveda_tpu_torch.platform import Platform
+    from kakveda_tpu_torch.service.app import make_app
+
+    plat = Platform(data_dir=tmp_path, capacity=4096, dim=1024)
+    ts = datetime.now(timezone.utc)
+    traces = [TracePayload(trace_id=f"t{i}", ts=ts, app_id=f"app-{i % 3}",
+                           prompt=f"Summarize doc {i} and include citations", response="See [1] and [2].")
+              for i in range(512)]
+    asyncio.run(plat.ingest_batch(traces))
+    bodies = [{"app_id": f"app-{i % 5}", "prompt": f"Summarize doc {i * 5} and include citations"}
+              for i in range(96)]
+
+    async def go():
+        client = TestClient(TestServer(make_app(plat)))
+        await client.start_server()
+        try:
+            before = fused_topk.launches
+            rs = await asyncio.gather(*[client.post("/warn", json=b) for b in bodies])
+            out = [await r.json() for r in rs]
+            assert all(r.status == 200 for r in rs)
+            return out, fused_topk.launches - before
+        finally:
+            await client.close()
+
+    answers, launches = asyncio.run(go())
+    assert 1 <= launches < len(bodies)
+    direct = plat.warn_batch([WarningRequest(**b) for b in bodies])
+    for a, d in zip(answers, direct):
+        assert a["action"] == d.action and abs(a["confidence"] - d.confidence) <= 1e-4
+        assert a["references"][0]["failure_id"] == d.references[0].failure_id
+    plat.close()

@@ -27,7 +27,8 @@ def test_import_loads_no_jax_in_fresh_interpreter():
     assert "kakveda_tpu_torch.platform" in mods and "kakveda_tpu_torch.ops.fused_topk" in mods
     for m in ("serving", "generate", "llama", "attention", "tokenizer", "runtime"):
         assert f"kakveda_tpu_torch.models.{m}" in mods
-    for m in ("ops.clustering", "ops.incremental", "index.gfkb", "pipeline.patterns"):
+    for m in ("ops.clustering", "ops.incremental", "index.gfkb", "pipeline.patterns", "native",
+              "core.runtime", "core.admission", "service.app", "service.batcher", "service.main"):
         assert f"kakveda_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -43,6 +44,32 @@ def test_import_loads_no_jax_in_fresh_interpreter():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+@pytest.mark.parametrize(
+    "module,aiohttp_allowed",
+    [
+        ("kakveda_tpu_torch", False),
+        ("kakveda_tpu_torch.platform", False),
+        ("kakveda_tpu_torch.native", False),
+        ("kakveda_tpu_torch.service.app", True),
+    ],
+)
+def test_module_loads_no_jax_and_only_the_service_loads_aiohttp(module, aiohttp_allowed):
+    # Each in a fresh interpreter: the library half never pulls in the
+    # HTTP stack, and nothing pulls in jax or the JAX package.
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module({module!r})\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))"
+        " or m == 'kakveda_tpu' or m.startswith('kakveda_tpu.')]\n"
+        "print(bad, 'aiohttp' in sys.modules)\n"
+    )
+    r = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
+    )
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.split() == ["[]", str(aiohttp_allowed)], r.stdout
+
+
 def test_sources_name_no_jax():
     # `kakveda_tpu.` never appears (the port's own name continues with
     # `_torch`), nor an import of jax or of the bare JAX package.
@@ -56,7 +83,7 @@ def test_sources_name_no_jax():
 
 
 @pytest.mark.parametrize(
-    "entry", ["platform", "gfkb", "knn", "llama_runtime", "llama_init_params", "llama_init_cache"]
+    "entry", ["platform", "gfkb", "knn", "llama_runtime", "llama_init_params", "llama_init_cache", "service_app"]
 )
 def test_entry_points_default_to_cuda(entry, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -65,6 +92,7 @@ def test_entry_points_default_to_cuda(entry, tmp_path, monkeypatch):
     from kakveda_tpu_torch.models.llama import LlamaConfig, init_cache, init_params
     from kakveda_tpu_torch.ops.knn import Knn
     from kakveda_tpu_torch.platform import Platform
+    from kakveda_tpu_torch.service.app import make_app
 
     make = {
         "platform": lambda: Platform(data_dir=tmp_path, capacity=16, dim=64),
@@ -73,6 +101,7 @@ def test_entry_points_default_to_cuda(entry, tmp_path, monkeypatch):
         "llama_runtime": lambda: LlamaRuntime(),
         "llama_init_params": lambda: init_params(torch.Generator(), LlamaConfig.tiny()),
         "llama_init_cache": lambda: init_cache(LlamaConfig.tiny(), batch=1, max_len=8),
+        "service_app": lambda: make_app(data_dir=tmp_path, capacity=16, dim=64),
     }[entry]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         make()
