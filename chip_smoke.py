@@ -111,7 +111,27 @@ JAX package). Phases, each of which raises on failure (exit code != 0):
    and server no longer share one event loop), exits 0 on SIGINT, and a
    fresh ``Platform`` replays its data dir.
 
-Prints a ``{"kernels": [...]}`` line, the card line, and last
+9. Mixtral-8x7B width and depth with int8 weight-only weights (the
+   published config.json's values in ``MIXTRAL_8X7B``; random weights from
+   seed 0). a. One 4096 × 14336 f32 matrix quantized on the card and on the
+   CPU: ``q`` and ``s`` bit-identical. b. Two layers of Mixtral's width in
+   bf16 (5.8 GB) and their int8 quantization on the same prompts:
+   first-step logits keep a cosine ≥ 0.99 (``hold_cosine``: a prompt whose
+   expert choice flipped across a router near-tie is printed, not held).
+   c. ``LlamaRuntime(quant="int8")`` draws each matrix in f32 and quantizes
+   it before the next: 46,872,802,304 bytes (int8 projections and experts,
+   a bf16 embedding, f32 scales, router and norms), the draw time and the
+   peak allocated. d. Layer 0's ``moe_mlp`` at T = 8 and 64 against a
+   per-token oracle (``moe_mlp_reference``): the same experts, each output
+   row within 2^-6 of its largest oracle value. e. Phase 6's engine runs
+   and checks, both caches (``KAKVEDA_KV_QUANT=int8``). f. Admission, decode
+   step p50, the step's device time from a CUDA-graph replay of one
+   ``_forward_wide`` (which a host sync in the MoE block would break) and
+   its split into dequantize, GEMMs and ``bmm``s, ``flash_gqa_cache``, and
+   router + dispatch + combine, beside the 14.0 ms weight-read bound.
+
+Prints a ``{"kernels": [...]}`` line (the flash rows with phase 9's
+launches beside phase 6's), the card line, and last
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -120,6 +140,7 @@ from __future__ import annotations
 import asyncio
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -148,8 +169,21 @@ FLASH_REL = 2.0**-6
 FLASH_ATOL = 2e-2
 H, KV, HD = 32, 8, 128  # Llama-3-8B attention heads, kv heads, head_dim
 L2_BYTES = 50e6
-MARGIN_TOL = 0.25  # solo top-2 logit margin below which a batched token may flip
-INT8_COS_MIN = 0.99  # first-step logits, int8 cache vs bf16 cache
+# Solo top-2 logit margin below which a batched token may flip. A router
+# logit is a logit: a gap between an expert kept and one left out below it
+# is a near-tie that noise may flip too (bf16 between batch shapes, int8
+# weights, an int8 cache through 32 layers).
+MARGIN_TOL = 0.25
+# Mixtral-8x7B-v0.1's published config.json (mistralai/Mixtral-8x7B-v0.1 on
+# the Hugging Face Hub) as LlamaConfig fields, written out: nothing is
+# downloaded. vocab 32000 (a multiple of 8, so no pad columns), 32 layers of
+# 32 heads over 8 KV heads, 8 experts of width 14336, top-2, rope theta 1e6.
+MIXTRAL_8X7B = dict(
+    vocab_size=32000, d_model=4096, n_layers=32, n_heads=32, n_kv_heads=8, d_ff=14336,
+    max_seq_len=32768, rope_theta=1e6, norm_eps=1e-5, sliding_window=0,
+    n_experts=8, n_experts_per_tok=2, router_aux_coef=0.02,
+)
+INT8_COS_MIN = 0.99  # first-step logits, int8 cache vs bf16 cache, int8 weights vs bf16
 STUB_RESPONSE = (
     "Here is a summary with references.\n\n"
     "References:\n"
@@ -1040,45 +1074,133 @@ PROMPTS = [  # 8 distinct prompts of 48-52 tokens: one admission bucket of 64
 ]
 
 
-def phase_model(card: str) -> dict:
+class RouterTrace:
+    """While on, records each ``moe.router_topk`` call of ``moe_mlp``: the
+    experts chosen, copied to the host (a sync: used only around the passes
+    that check, never on a timed path)."""
+
+    def __init__(self):
+        from kakveda_tpu_torch.models import moe
+
+        self._moe = moe
+        self.calls = []
+
+    @contextlib.contextmanager
+    def on(self):
+        real = self._moe.router_topk
+        self.calls = []
+
+        def traced(logits, k):
+            res = real(logits, k)
+            self.calls.append(res[1].cpu())
+            return res
+
+        self._moe.router_topk = traced
+        try:
+            yield self.calls
+        finally:
+            self._moe.router_topk = real
+
+    def table(self):
+        """The last traced pass's choices: ``{token: {layer: experts}}``."""
+        routes = {}
+        for layer, idx in enumerate(self.calls):
+            for n, experts in enumerate(idx.tolist()):
+                routes.setdefault(n, {})[layer] = tuple(experts)
+        return routes
+
+
+def first_steps(params, cfg, ids, tok, pin=None):
+    """Each prompt's first-step logits (the tokenizer's vocab, float64) from
+    one solo pass over it, with its expert choices ``{token: {layer:
+    experts}}``; or, given ``pin`` (another run's choices per prompt), each
+    token's experts pinned to them and the choices where this pass's own
+    top k differs (``pinned_forced``)."""
+    from kakveda_tpu_torch.models.llama import decode_step, init_cache, mask_pad_vocab
+
+    trace, out = RouterTrace(), []
+    for i, p_ids in enumerate(ids):
+        if pin is None:
+            cache = init_cache(cfg, batch=1, max_len=len(p_ids), device="cuda")
+            with trace.on():
+                logits, _ = decode_step(params, cfg, torch.tensor([p_ids], device="cuda"), cache,
+                                        last_only=True)
+            lg, extra = logits[0, -1], trace.table()
+        else:
+            logits, extra = pinned_forced(params, cfg, p_ids, pin[i])
+            lg = logits[-1]
+        lg = mask_pad_vocab(lg, cfg)[: tok.vocab_size].double()
+        if not torch.isfinite(lg).all():
+            raise AssertionError("non-finite first-step logits")
+        out.append((lg, extra))
+    return out
+
+
+def hold_cosine(ref, other, what: str) -> dict:
+    """First-step logits of two runs of each prompt, the second's expert
+    choices pinned to the first's (``first_steps``): cosine ≥ INT8_COS_MIN
+    for every prompt, and every expert choice where the second run's own
+    router differs from the pin lies across a gap under MARGIN_TOL. Pinned,
+    because an expert choice on a router near-tie may flip under the
+    perturbation and move the logits by design, and flips at other tokens
+    and layers compound through the cache."""
+    cos = [torch.nn.functional.cosine_similarity(la, lb, dim=0).item() for (la, _), (lb, _) in zip(ref, other)]
+    flips = [f for _, fl in other for f in fl]
+    worst = max((g for _, _, g in flips), default=0.0)
+    n_choices = sum(len(t) * len(t[0]) for _, t in ref if t)
+    log(f"{what}: first-step logits cosine min {min(cos):.6f} over {len(cos)} prompts (bound "
+        f"{INT8_COS_MIN}); {len(flips)} of {n_choices} expert choices differ from the reference's, the "
+        f"widest across a router gap of {worst:.4f} (bound {MARGIN_TOL})")
+    if min(cos) < INT8_COS_MIN or worst >= MARGIN_TOL:
+        raise AssertionError(f"{what}: cosine {cos}, expert flip across a router gap of {worst}")
+    return dict(cos_min=min(cos), expert_flips=len(flips), expert_choices=n_choices, widest_flip_gap=worst)
+
+
+def param_bytes(params) -> int:
+    leaves = [params["embed"], params["final_norm"], params["lm_head"]]
+    leaves += [w for layer in params["layers"] for w in layer.values()]
+    flat = [t for w in leaves for t in (w.values() if isinstance(w, dict) else [w])]
+    return sum(t.numel() * t.element_size() for t in flat)
+
+
+def serve_engine(rt, tok, ids, what: str) -> dict:
+    """The model plane's engine runs and checks (phases 6 and 9): ``rt``'s
+    weights serve ``generate_batch`` of 8 prompts × 32 tokens through the
+    engine (8 slots, window 512, chunk 8), once with a bf16 cache and once
+    with ``KAKVEDA_KV_QUANT=int8``, launch counts zeroed just before and read
+    just after each run: the run's kernel launches 32 × (forward passes)
+    times, the other kernel 0. Then the tokens (``check_dense_tokens`` or,
+    for a MoE model, ``check_moe_tokens``) and the two caches' first-step
+    logits (``hold_cosine``)."""
     from kakveda_tpu_torch.models.attention import flash_gqa_cache
-    from kakveda_tpu_torch.models.generate import LlamaRuntime, generate_tokens
-    from kakveda_tpu_torch.models.llama import LlamaConfig, decode_step, init_cache, mask_pad_vocab
-    from kakveda_tpu_torch.models.serving import ContinuousBatcher, _forward_wide
+    from kakveda_tpu_torch.models.generate import LlamaRuntime
 
-    cfg = LlamaConfig.llama3_8b()
-    t0 = time.perf_counter()
-    tok = RecordingTokenizer()
-    rt = LlamaRuntime(cfg=cfg, seed=0, tokenizer=tok)
-    torch.cuda.synchronize()
-    n_bytes = sum(t.numel() * t.element_size()
-                  for t in [rt.params["embed"], rt.params["lm_head"], rt.params["final_norm"]]
-                  + [w for layer in rt.params["layers"] for w in layer.values()])
-    log(f"Llama-3-8B width and depth: {cfg.n_layers} layers, {n_bytes / 1e9:.2f} GB of weights "
-        f"on {rt.device}, drawn in {time.perf_counter() - t0:.1f} s")
-    if rt.device.type != "cuda" or abs(n_bytes - 16.06e9) > 0.01e9:
-        raise AssertionError(f"model on {rt.device} with {n_bytes} bytes")
-    ids = [tok.encode(p) for p in PROMPTS]
-    if len({tuple(i) for i in ids}) != 8 or not all(33 <= len(i) <= 64 for i in ids):
-        raise AssertionError("prompts must be 8 distinct, of one admission bucket")
-
-    out = {}
-    first_logits = {}
+    cfg = rt.cfg
+    out, first = {}, {}
     for kvq in ("", "int8"):
         tag = kvq or "bf16"
-        rq = rt if not kvq else LlamaRuntime(cfg=dataclasses.replace(rt.cfg, kv_quant=kvq),
-                                             params=rt.params, tokenizer=tok)
+        rq = rt
+        if kvq:
+            os.environ["KAKVEDA_KV_QUANT"] = kvq
+            try:
+                rq = LlamaRuntime(cfg=cfg, params=rt.params, tokenizer=tok)
+            finally:
+                del os.environ["KAKVEDA_KV_QUANT"]
+        if rq.cfg.kv_quant != kvq:
+            raise AssertionError(f"KAKVEDA_KV_QUANT={kvq!r} gave a {rq.cfg.kv_quant!r} cache")
         eng = rq.engine()
         if (eng.cb.B, eng.cb.max_len, eng.cb.chunk_steps) != (8, 512, 8):
             raise AssertionError("engine is not 8 slots, window 512, chunk 8")
         rq.generate_batch(PROMPTS[:2], max_tokens=8)  # warm-up: cuBLAS heuristics, allocator
         tok.decoded.clear()
+        routes = EngineRoutes(eng.cb)
         flash_gqa_cache.launches = 0
         flash_gqa_cache.launches_kv8 = 0
         f0 = eng.cb.forwards
-        t = time.perf_counter()
-        res = rq.generate_batch(PROMPTS, max_tokens=32)
-        wall = time.perf_counter() - t
+        with routes.on() if cfg.n_experts else contextlib.nullcontext():
+            t = time.perf_counter()
+            res = rq.generate_batch(PROMPTS, max_tokens=32)
+            wall = time.perf_counter() - t
         n_fwd = eng.cb.forwards - f0
         mine, other = flash_gqa_cache.launches, flash_gqa_cache.launches_kv8
         if kvq:
@@ -1086,55 +1208,222 @@ def phase_model(card: str) -> dict:
         got = list(tok.decoded)
         rq.close()
         if mine != cfg.n_layers * n_fwd or other != 0:
-            raise AssertionError(f"{tag}: {mine} launches for {n_fwd} forwards (want {cfg.n_layers} each), "
-                                 f"{other} of the other kernel")
+            raise AssertionError(f"{what} {tag}: {mine} launches for {n_fwd} forwards (want {cfg.n_layers} "
+                                 f"each), {other} of the other kernel")
         if len(res) != 8 or not all(r.meta.get("continuous") for r in res) or len(got) != 8:
-            raise AssertionError(f"{tag}: generate_batch did not run through the engine")
+            raise AssertionError(f"{what} {tag}: generate_batch did not run through the engine")
         n_tok = sum(len(g) for g in got)
+        out[tag] = dict(launches=mine, forwards=n_fwd, tokens=n_tok, wall_s=wall, tokens_per_s=n_tok / wall)
+        if cfg.n_experts:
+            out[tag].update(check_moe_tokens(rq, tok, ids, got, routes, f"{what}, {tag} cache"))
+        else:
+            out[tag].update(check_dense_tokens(rq, tok, ids, got, f"{what}, {tag} cache"))
+        pin = [t for _, t in first["bf16"]] if kvq else None
+        first[tag] = first_steps(rq.params, rq.cfg, ids, tok, pin=pin)
+        log(f"{what}, {tag} cache: {n_fwd} forwards, {mine} launches")
+    out["kv_cache_cos"] = hold_cosine(first["bf16"], first["int8"], f"{what}, int8 cache vs bf16 cache")
+    return out
 
-        def forced(p_ids, toks):
-            """Solo logits [len(toks) + 1, V] along prompt + toks, one pass."""
-            seq = torch.tensor([p_ids + toks], device="cuda")
-            cache = init_cache(rq.cfg, batch=1, max_len=seq.shape[1], device="cuda")
-            logits, _ = decode_step(rq.params, rq.cfg, seq, cache)
-            lg = mask_pad_vocab(logits[0, len(p_ids) - 1:], rq.cfg)
-            if not torch.isfinite(lg[:, : tok.vocab_size]).all():
-                raise AssertionError(f"{tag}: non-finite logits")
-            return lg
 
-        compared, deficit = [], 0.0
-        for p_ids, eng_ids in zip(ids, got):
-            # Equal to solo generate_tokens up to its first low-margin step.
-            solo = generate_tokens(rq.params, rq.cfg, p_ids, max_new_tokens=32, eos_id=tok.EOS)
-            lg = forced(p_ids, solo)
-            first_logits.setdefault(tag, []).append(lg[0, : tok.vocab_size].double())
-            top2 = lg.topk(2, dim=-1).values
-            margin = (top2[:, 0] - top2[:, 1]).tolist()
-            n = min(len(solo), next((j for j, m in enumerate(margin) if m < MARGIN_TOL), len(solo)))
-            if eng_ids[:n] != solo[:n]:
-                raise AssertionError(f"{tag}: engine {eng_ids[:n]} != solo {solo[:n]} within {n} steps")
-            compared.append(n)
-            # Every engine token (and its EOS stop) within MARGIN_TOL of the
-            # solo argmax on the engine's own prefix.
-            picks = eng_ids + ([tok.EOS] if len(eng_ids) < 32 else [])
-            lg = forced(p_ids, eng_ids)[: len(picks)]
-            d = lg.max(dim=-1).values - lg[torch.arange(len(picks)), torch.tensor(picks)]
-            deficit = max(deficit, d.max().item())
-            if deficit > MARGIN_TOL:
-                raise AssertionError(f"{tag}: an engine token is {deficit} below the solo argmax")
-        log(f"{tag} cache: engine == solo generate_tokens on {sum(compared)} of {n_tok} tokens "
-            f"(per prompt {compared}); every engine token within {deficit:.4f} of the solo argmax "
-            f"on its own prefix; {n_fwd} forwards, {mine} launches")
-        out[tag] = dict(launches=mine, forwards=n_fwd, tokens=n_tok, wall_s=wall,
-                        tokens_per_s=n_tok / wall, compared=sum(compared), max_deficit=deficit)
+def check_dense_tokens(rq, tok, ids, got, what: str) -> dict:
+    """Each prompt's engine tokens equal a solo ``generate_tokens`` up to the
+    first step whose solo top-2 logit margin is below MARGIN_TOL (bf16 noise
+    between batch shapes can flip a nearer tie), and every engine token lies
+    within MARGIN_TOL of the solo argmax on the engine's own prefix (one
+    teacher-forced pass, so all 32 steps are checked)."""
+    from kakveda_tpu_torch.models.generate import generate_tokens
+    from kakveda_tpu_torch.models.llama import decode_step, init_cache, mask_pad_vocab
 
-    cos = [torch.nn.functional.cosine_similarity(a, b, dim=0).item()
-           for a, b in zip(first_logits["bf16"], first_logits["int8"])]
-    log(f"int8 cache vs bf16 cache, first-step logits cosine min {min(cos):.6f} (bound {INT8_COS_MIN})")
-    if min(cos) < INT8_COS_MIN:
-        raise AssertionError(f"int8-cache logits drift: cosine {min(cos)}")
+    def forced(p_ids, toks):
+        """Solo logits [len(toks) + 1, V] along prompt + toks, one pass."""
+        seq = torch.tensor([p_ids + toks], device="cuda")
+        cache = init_cache(rq.cfg, batch=1, max_len=seq.shape[1], device="cuda")
+        logits, _ = decode_step(rq.params, rq.cfg, seq, cache)
+        lg = mask_pad_vocab(logits[0, len(p_ids) - 1:], rq.cfg)
+        if not torch.isfinite(lg[:, : tok.vocab_size]).all():
+            raise AssertionError(f"{what}: non-finite logits")
+        return lg
 
-    # Admission and decode-step times on a batcher of the engine's shape.
+    compared, deficit = [], 0.0
+    for p_ids, eng_ids in zip(ids, got):
+        solo = generate_tokens(rq.params, rq.cfg, p_ids, max_new_tokens=32, eos_id=tok.EOS)
+        top2 = forced(p_ids, solo).topk(2, dim=-1).values
+        margin = (top2[:, 0] - top2[:, 1]).tolist()
+        n = min(len(solo), next((j for j, m in enumerate(margin) if m < MARGIN_TOL), len(solo)))
+        if eng_ids[:n] != solo[:n]:
+            raise AssertionError(f"{what}: engine {eng_ids[:n]} != solo {solo[:n]} within {n} steps")
+        compared.append(n)
+        picks = eng_ids + ([tok.EOS] if len(eng_ids) < 32 else [])
+        lg = forced(p_ids, eng_ids)[: len(picks)]
+        d = lg.max(dim=-1).values - lg[torch.arange(len(picks)), torch.tensor(picks)]
+        deficit = max(deficit, d.max().item())
+        if deficit > MARGIN_TOL:
+            raise AssertionError(f"{what}: an engine token is {deficit} below the solo argmax")
+    log(f"{what}: engine == solo generate_tokens on {sum(compared)} of {sum(map(len, got))} tokens "
+        f"(per prompt {compared}); every engine token within {deficit:.4f} of the solo argmax "
+        f"on its own prefix")
+    return dict(compared=sum(compared), max_deficit=deficit)
+
+
+def check_moe_tokens(rq, tok, ids, got, routes, what: str) -> dict:
+    """A MoE model's tokens. Its expert choices are discrete: bf16 noise
+    between the engine's batch shapes and a solo pass's flips a choice that
+    sits on a router near-tie, and the logits jump with it, so phase 6's
+    token rules are held on the engine's own choices. One teacher-forced
+    solo pass per prompt along the engine's tokens, each token's experts
+    pinned to the ones the engine chose (``pinned_forced``): every expert
+    choice of the engine that differs from the solo pass's own lies across
+    a router gap under MARGIN_TOL; every engine token (and its EOS stop) lies
+    within MARGIN_TOL of the solo argmax, and equals it wherever the solo
+    top-2 margin is MARGIN_TOL or more."""
+    from kakveda_tpu_torch.models.llama import mask_pad_vocab
+
+    table = routes.table()
+    rids = routes.admitted
+    if len(rids) != len(ids):
+        raise AssertionError(f"{what}: {len(rids)} admissions for {len(ids)} prompts")
+    compared, deficit, flips = 0, 0.0, []
+    for p_ids, eng_ids, rid in zip(ids, got, rids):
+        logits, pflips = pinned_forced(rq.params, rq.cfg, p_ids + eng_ids, table[rid])
+        flips += pflips
+        picks = eng_ids + ([tok.EOS] if len(eng_ids) < 32 else [])
+        lg = mask_pad_vocab(logits[len(p_ids) - 1:], rq.cfg)[: len(picks)]
+        if not torch.isfinite(lg[:, : tok.vocab_size]).all():
+            raise AssertionError(f"{what}: non-finite logits")
+        top2 = lg.topk(2, dim=-1)
+        sure = (top2.values[:, 0] - top2.values[:, 1] >= MARGIN_TOL).cpu()
+        pick = torch.tensor(picks)
+        if not torch.equal(top2.indices[:, 0].cpu()[sure], pick[sure]):
+            raise AssertionError(f"{what}: an engine token differs from a clear solo argmax")
+        compared += int(sure.sum())
+        d = lg.max(dim=-1).values - lg[torch.arange(len(picks)), pick.to(lg.device)]
+        deficit = max(deficit, d.max().item())
+    worst = max((g for _, _, g in flips), default=0.0)
+    n_choices = sum(len(p) + len(e) for p, e in zip(ids, got)) * rq.cfg.n_layers
+    log(f"{what}: on the engine's expert choices, engine == solo argmax on {compared} of "
+        f"{sum(map(len, got))} tokens (every solo margin >= {MARGIN_TOL}), every engine token within "
+        f"{deficit:.4f} of the solo argmax; {len(flips)} of {n_choices} engine expert choices differ "
+        f"from the solo pass's own, the widest across a router gap of {worst:.4f} (bound {MARGIN_TOL})")
+    if deficit > MARGIN_TOL or worst >= MARGIN_TOL:
+        raise AssertionError(f"{what}: deficit {deficit}, expert flip across a router gap of {worst}")
+    return dict(compared=compared, max_deficit=deficit, expert_flips=len(flips), expert_choices=n_choices,
+                widest_flip_gap=worst)
+
+
+class EngineRoutes:
+    """While on, records the experts the engine chose for every request's
+    tokens, per layer (device copies, read after the run): ``admit`` and
+    ``step_async`` are wrapped on the batcher to note which request and
+    token each row of a forward holds. ``table()`` gives ``{request id:
+    {token index: [experts per layer]}}`` and the admitted request ids."""
+
+    def __init__(self, cb):
+        from kakveda_tpu_torch.models import moe, serving
+
+        self._moe, self._serving, self._cb = moe, serving, cb
+        self.calls, self.admitted = [], []
+
+    @contextlib.contextmanager
+    def on(self):
+        moe, serving, cb = self._moe, self._serving, self._cb
+        real_topk, real_fw = moe.router_topk, serving._forward_wide
+        real_admit, real_step = cb.admit, cb.step_async
+        ctx = {"rows": None, "layer": 0}
+
+        def topk(logits, k):
+            res = real_topk(logits, k)
+            if ctx["rows"] is not None:
+                self.calls.append((ctx["rows"], ctx["layer"], res[1].clone()))
+                ctx["layer"] += 1
+            return res
+
+        def admit(prompt_ids, max_new_tokens=64, temperature=0.0):
+            p = len(prompt_ids)
+            off = cb.bucket_for(p, cb.max_len) - p
+            self.admitted.append(cb._next_id)
+            ctx.update(rows=[None] * off + [(cb._next_id, n) for n in range(p)], layer=0)
+            try:
+                return real_admit(prompt_ids, max_new_tokens, temperature)
+            finally:
+                ctx["rows"] = None
+
+        def step_async():
+            live = {slot: st.req_id for slot, st in cb.slots.items() if not st.done}
+            pos, off, step = cb._pos_np.copy(), cb._off_np.copy(), [0]
+
+            def forward(*a, **k):  # step t writes row pos + t: token pos + t - off
+                ctx.update(rows=[(live[b], int(pos[b] + step[0] - off[b])) if b in live else None
+                                 for b in range(cb.B)], layer=0)
+                step[0] += 1
+                try:
+                    return real_fw(*a, **k)
+                finally:
+                    ctx["rows"] = None
+
+            serving._forward_wide = forward
+            try:
+                return real_step()
+            finally:
+                serving._forward_wide = real_fw
+
+        moe.router_topk, cb.admit, cb.step_async = topk, admit, step_async
+        try:
+            yield self
+        finally:
+            moe.router_topk = real_topk
+            del cb.admit, cb.step_async
+
+    def table(self):
+        routes = {}
+        for rows, layer, idx in self.calls:
+            for key, experts in zip(rows, idx.cpu().tolist()):
+                if key is not None:
+                    routes.setdefault(key[0], {}).setdefault(key[1], {})[layer] = tuple(experts)
+        return routes
+
+
+def pinned_forced(params, cfg, seq_ids, routes):
+    """Solo logits [len(seq_ids), V] along ``seq_ids`` in one pass, each
+    token's experts pinned to ``routes[n][layer]`` (the engine's), their
+    weights from this pass's own router probabilities. Returns (logits,
+    expert choices where this pass's own top k differs from the pin: a list
+    of (token, layer, own router gap between its k-th and (k+1)-th
+    logits))."""
+    from kakveda_tpu_torch.models import moe
+    from kakveda_tpu_torch.models.llama import decode_step, init_cache
+
+    real, k, layer, flips = moe.router_topk, cfg.n_experts_per_tok, [0], []
+    s = len(seq_ids)
+
+    def pinned(logits, k_):
+        li = layer[0]
+        layer[0] += 1
+        _, own, probs = real(logits, k_)
+        pin = torch.tensor([routes[n][li] for n in range(s)], device=logits.device)
+        top = logits.float().sort(dim=-1, descending=True).values
+        gap = (top[:, k - 1] - top[:, k]).cpu()
+        differ = (own.sort(dim=-1).values != pin.sort(dim=-1).values).any(dim=-1).cpu()
+        flips.extend((n, li, gap[n].item()) for n in differ.nonzero()[:, 0].tolist())
+        w = probs.gather(1, pin)
+        return w / w.sum(dim=-1, keepdim=True).clamp_min(1e-20), pin, probs
+
+    moe.router_topk = pinned
+    try:
+        cache = init_cache(cfg, batch=1, max_len=s, device="cuda")
+        logits, _ = decode_step(params, cfg, torch.tensor([seq_ids], device="cuda"), cache)
+    finally:
+        moe.router_topk = real
+    return logits[0], flips
+
+
+def step_times(rt, ids, out: dict, n_bytes: int, what: str, card: str, split=None) -> None:
+    """Admission and decode-step times on a batcher of the engine's shape,
+    per cache type, into ``out``: admission p50 and decode step p50 on the
+    host clock, the step's device time from a CUDA graph of ``_forward_wide``
+    (with the engine's ``reach`` hint) beside the weight-read bound;
+    ``split(cb, dev_args, reach, step_ms)`` breaks the bf16-cache step up."""
+    from kakveda_tpu_torch.models.serving import ContinuousBatcher, _forward_wide
+
     for kvq in ("", "int8"):
         tag = kvq or "bf16"
         cb = ContinuousBatcher(rt.params, dataclasses.replace(rt.cfg, kv_quant=kvq),
@@ -1160,16 +1449,206 @@ def phase_model(card: str) -> dict:
                     torch.from_numpy(cb._kv_np.copy()).to("cuda"),
                     torch.from_numpy(cb._off_np.copy()).to("cuda"))
         reach = int(cb._pos_np.max()) + 1  # the hint step_async passes
-        step_dev = graph_ms(lambda: _forward_wide(cb.params, cb.cfg, cb.cache, *dev_args, reach=reach), n=4)
-        del cb
-        torch.cuda.empty_cache()
+        step_dev = graph_ms(lambda: _forward_wide(cb.params, cb.cfg, cb.cache, *dev_args, reach=reach),
+                            n=4 if split is None else 1)
         weight_ms = n_bytes / HBM_BYTES_PER_S * 1e3
         out[tag].update(admission_ms_p50=statistics.median(adm), decode_step_ms_p50=statistics.median(steps),
                         decode_step_device_ms=step_dev, weight_read_bound_ms=weight_ms)
-        log(f"{tag} cache: admission p50 {statistics.median(adm):.2f} ms (B=1, S=64), decode step p50 "
+        log(f"{what}, {tag} cache: admission p50 {statistics.median(adm):.2f} ms (B=1, S=64), decode step p50 "
             f"{statistics.median(steps):.2f} ms at 8 slots (device time {step_dev:.2f} ms) vs the "
             f"weight-read bound {weight_ms:.2f} ms, engine {out[tag]['tokens_per_s']:.1f} tokens/s [{card}]")
+        if split is not None and not kvq:
+            out[tag]["step_split"] = split(cb, dev_args, reach, step_dev)
+        del cb
+        torch.cuda.empty_cache()
+
+
+def phase_model(card: str) -> dict:
+    from kakveda_tpu_torch.models.generate import LlamaRuntime
+    from kakveda_tpu_torch.models.llama import LlamaConfig
+
+    cfg = LlamaConfig.llama3_8b()
+    t0 = time.perf_counter()
+    tok = RecordingTokenizer()
+    rt = LlamaRuntime(cfg=cfg, seed=0, tokenizer=tok)
+    torch.cuda.synchronize()
+    n_bytes = param_bytes(rt.params)
+    log(f"Llama-3-8B width and depth: {cfg.n_layers} layers, {n_bytes / 1e9:.2f} GB of weights "
+        f"on {rt.device}, drawn in {time.perf_counter() - t0:.1f} s")
+    if rt.device.type != "cuda" or abs(n_bytes - 16.06e9) > 0.01e9:
+        raise AssertionError(f"model on {rt.device} with {n_bytes} bytes")
+    ids = [tok.encode(p) for p in PROMPTS]
+    if len({tuple(i) for i in ids}) != 8 or not all(33 <= len(i) <= 64 for i in ids):
+        raise AssertionError("prompts must be 8 distinct, of one admission bucket")
+    out = serve_engine(rt, tok, ids, "Llama-3-8B")
+    step_times(rt, ids, out, n_bytes, "Llama-3-8B", card)
     log("model plane: " + json.dumps(out))
+    return out
+
+
+def moe_step_split(cb, dev_args, reach: int, step_ms: float, card: str) -> dict:
+    """One MoE decode step (B = 8, the bf16 cache) split into its parts, each
+    replayed from a CUDA graph between CUDA events at the step's shapes:
+    dequantize (every ``wmat`` of a step), the GEMMs and ``bmm``s on
+    dequantized weights (layer 0's, once per layer, and ``lm_head``; the
+    SwiGLU's silu and product included), ``flash_gqa_cache`` (every layer's
+    cache, the step's mask and ``reach``), and router + dispatch + combine
+    (every layer's router at T = 8). The rest (embedding, norms, rope, cache
+    writes, residual adds) is the step's device time less their sum. Bounds:
+    the bytes each part must move at the HBM rate."""
+    from kakveda_tpu_torch.models import moe
+    from kakveda_tpu_torch.models.attention import gqa_cache_attention
+    from kakveda_tpu_torch.models.llama import wmat
+
+    params, cfg, cache = cb.params, cb.cfg, cb.cache
+    b, d, dt, e, k = cb.B, cfg.d_model, cfg.dtype, cfg.n_experts, cfg.n_experts_per_tok
+    names = ("wq", "wk", "wv", "wo", "we_gate", "we_up", "we_down")
+    g = torch.Generator(device="cuda").manual_seed(5)
+
+    def rnd(*shape):
+        return torch.randn(shape, device="cuda", generator=g).to(dt)
+
+    def dequant():
+        for layer in params["layers"]:
+            for n in names:
+                wmat(layer[n], dt)
+        wmat(params["lm_head"], dt)
+
+    l0 = {n: wmat(params["layers"][0][n], dt) for n in names}
+    head = wmat(params["lm_head"], dt)
+    cap = moe.expert_capacity(b, cfg)
+    x, attn, xe, ye = rnd(b, 1, d), rnd(b, 1, cfg.n_heads * cfg.head_dim), rnd(e, cap, d), rnd(e, cap, d)
+    q = rnd(b, 1, cfg.n_heads, cfg.head_dim)
+
+    def gemms():
+        for _ in range(cfg.n_layers):
+            x @ l0["wq"], x @ l0["wk"], x @ l0["wv"], attn @ l0["wo"]
+            moe.expert_swiglu(xe, l0)
+        x @ head
+
+    _, pos, kv_valid, _ = dev_args
+    col = torch.arange(cb.max_len, device="cuda")[None, :]
+    mask = kv_valid & (col <= pos[:, None])
+
+    def flash():
+        for li in range(cfg.n_layers):
+            gqa_cache_attention(q, cache["k"][li], cache["v"][li], cb.max_len, mask, reach=reach)
+
+    xf = x.reshape(b, d)
+
+    def route():
+        for layer in params["layers"]:
+            w, idx, _ = moe.router_topk(xf.float() @ layer["router"].float(), k)
+            order, tok_sorted, slot, keep = moe.dispatch_slots(idx, cap, e)
+            moe.dispatch(xf, tok_sorted, slot, e, cap)
+            moe.combine(ye, w, order, slot, keep, b)
+
+    q_bytes = sum(layer[n]["q"].numel() for layer in params["layers"] for n in names)
+    q_bytes += params["lm_head"]["q"].numel()
+    parts = {
+        "dequantize": (graph_ms(dequant, n=1), 3 * q_bytes),  # read int8, write bf16
+        "gemms_and_bmms": (graph_ms(gemms, n=1), 2 * q_bytes),  # read bf16
+        "flash_gqa_cache": (graph_ms(flash, n=1), None),
+        "router_dispatch_combine": (graph_ms(route, n=1), None),
+    }
+    split = {name: dict(ms=ms, bound_ms=None if nb is None else nb / HBM_BYTES_PER_S * 1e3)
+             for name, (ms, nb) in parts.items()}
+    split["rest"] = dict(ms=step_ms - sum(p["ms"] for p in split.values()), bound_ms=None)
+    split["step"] = dict(ms=step_ms, bound_ms=param_bytes(params) / HBM_BYTES_PER_S * 1e3)
+    del l0, head
+    for name, p in split.items():
+        bound = "" if p["bound_ms"] is None else f" (bound {p['bound_ms']:.2f} ms)"
+        log(f"  MoE decode step split: {name} {p['ms']:.3f} ms{bound} [{card}]")
+    return split
+
+
+def phase_mixtral(card: str) -> dict:
+    """Phase 9: Mixtral-8x7B width and depth, int8 weight-only, on the card."""
+    from kakveda_tpu_torch.models import moe
+    from kakveda_tpu_torch.models.generate import LlamaRuntime
+    from kakveda_tpu_torch.models.llama import LlamaConfig
+    from kakveda_tpu_torch.models.quant import quantize_tensor_int8
+
+    held = torch.cuda.memory_allocated()
+    if held > 1e9:  # from earlier phases: name the largest tensors still alive
+        live = sorted(((o.numel() * o.element_size(), tuple(o.shape), str(o.dtype)) for o in gc.get_objects()
+                       if isinstance(o, torch.Tensor) and o.is_cuda), reverse=True)[:8]
+        log(f"phase 9: {held} bytes held from earlier phases; the largest live tensors: {live}")
+    cfg = LlamaConfig(**MIXTRAL_8X7B)
+    tok = RecordingTokenizer()
+    ids = [tok.encode(p) for p in PROMPTS]
+    out = {}
+
+    # a. The card's quantizer against the CPU's on one f32 expert matrix.
+    g = torch.Generator(device="cuda").manual_seed(9)
+    w = torch.randn((cfg.d_model, cfg.d_ff), device="cuda", generator=g).div_(math.sqrt(cfg.d_model))
+    on_card, on_host = quantize_tensor_int8(w), quantize_tensor_int8(w.cpu())
+    same = (torch.equal(on_card["q"].cpu(), on_host["q"]), torch.equal(on_card["s"].cpu(), on_host["s"]))
+    log(f"phase 9 a: int8 quantization of a {cfg.d_model} x {cfg.d_ff} f32 matrix, card == CPU: "
+        f"q {same[0]}, s {same[1]}")
+    if not all(same):
+        raise AssertionError("the card's int8 quantization differs from the CPU's")
+    del w, on_card
+
+    # b. int8 weights against bf16 weights at Mixtral's width, 2 layers.
+    bf = LlamaRuntime(cfg=dataclasses.replace(cfg, n_layers=2), seed=1, tokenizer=tok)
+    i8 = LlamaRuntime(cfg=bf.cfg, params=bf.params, quant="int8", tokenizer=tok)
+    log(f"phase 9 b: 2 layers of Mixtral's width, bf16 {param_bytes(bf.params) / 1e9:.2f} GB and its int8 "
+        f"quantization {param_bytes(i8.params) / 1e9:.2f} GB")
+    ref = first_steps(bf.params, bf.cfg, ids, tok)
+    out["int8_vs_bf16"] = hold_cosine(ref, first_steps(i8.params, i8.cfg, ids, tok, pin=[t for _, t in ref]),
+                                      "phase 9 b: int8 weights vs bf16 weights")
+    del bf, i8
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # c. The whole model, drawn on the card and quantized matrix by matrix.
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rt = LlamaRuntime(cfg=cfg, seed=0, quant="int8", tokenizer=tok)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    n_bytes = param_bytes(rt.params)
+    peak = torch.cuda.max_memory_allocated() - base
+    bad = [f"{li}.{n}" for li, layer in enumerate(rt.params["layers"]) for n, v in layer.items()
+           if (n.startswith("w") and v["q"].dtype != torch.int8) or (n == "router" and v.dtype != torch.float32)]
+    log(f"phase 9 c: Mixtral-8x7B width and depth: {cfg.n_layers} layers x {cfg.n_experts} experts, "
+        f"{n_bytes} bytes ({n_bytes / 1e9:.2f} GB) of int8 weight-only weights on {rt.device}, drawn and "
+        f"quantized in {draw_s:.1f} s, peak allocated by the draw {peak / 1e9:.2f} GB [{card}]")
+    if rt.device.type != "cuda" or abs(n_bytes - 46_872_802_304) > 0.01e9 or bad:
+        raise AssertionError(f"model on {rt.device} with {n_bytes} bytes; not int8 / f32: {bad}")
+    out.update(weight_bytes=n_bytes, draw_s=draw_s, init_peak_bytes=peak)
+
+    # d. Layer 0's moe_mlp against the per-token oracle at T = 8 and 64.
+    layer0 = rt.params["layers"][0]
+    trace = RouterTrace()
+    out["moe_vs_oracle"] = {}
+    for t in (8, 64):
+        x = torch.randn((1, t, cfg.d_model), device="cuda", generator=g).to(cfg.dtype)
+        with trace.on():
+            got = moe.moe_mlp(x, layer0, cfg)
+        want, experts = moe.moe_mlp_reference(x, layer0, cfg)
+        chosen = trace.calls[0]
+        diff = (got.float() - want.float()).abs()[0]
+        scale = want.float()[0].abs().amax(dim=-1, keepdim=True)
+        use = (diff / (FLASH_REL * scale)).max().item()
+        log(f"phase 9 d: layer 0 moe_mlp at T={t} vs the per-token oracle: experts equal "
+            f"{torch.equal(chosen, experts)}, max_abs_err {diff.max().item():.4g}, {use:.3f} of the "
+            f"per-row tolerance (2^-6 of the row's largest oracle value)")
+        if not torch.equal(chosen, experts) or use > 1.0 or not torch.isfinite(got).all():
+            raise AssertionError(f"phase 9 d: moe_mlp at T={t} disagrees with the oracle")
+        out["moe_vs_oracle"][t] = dict(max_abs_err=diff.max().item(), tolerance_used=use)
+
+    # e. Through the engine, both caches; f. times and the step's split.
+    out.update(serve_engine(rt, tok, ids, "phase 9 e: Mixtral-8x7B int8"))
+    step_times(rt, ids, out, n_bytes, "phase 9 f: Mixtral-8x7B int8", card,
+               split=lambda cb, a, r, ms: moe_step_split(cb, a, r, ms, card))
+    rt.close()
+    del rt
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("phase 9: " + json.dumps(out))
     return out
 
 
@@ -1723,6 +2202,12 @@ def phase_service(base: Path, fused_topk, card: str) -> dict:
     return out
 
 
+def log_held(after: str) -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"device memory still allocated after {after}: {torch.cuda.memory_allocated()} bytes")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1774,9 +2259,10 @@ def main() -> int:
     if launches <= 0:
         raise AssertionError("the main path never launched fused_topk")
     log(f"fused_topk launches on the main path: {launches}")
-    torch.cuda.empty_cache()  # the 2^20 x 2048 index is gone; the model needs the room
+    log_held("phase 4")  # the 2^20 x 2048 index should be gone; the models need the room
 
     phase_mining(card)
+    log_held("phase 7")
 
     with tempfile.TemporaryDirectory(prefix="kakveda-service-") as d:
         service = phase_service(Path(d), fused_topk, card)
@@ -1784,10 +2270,15 @@ def main() -> int:
     if service_launches <= 0:
         raise AssertionError("the service path never launched fused_topk")
     log(f"fused_topk launches of the service's requests (phase 8 a-e): {service_launches}")
-    torch.cuda.empty_cache()
+    log_held("phase 8")
 
     flash = phase_flash(card)
+    held = torch.cuda.memory_allocated()
     model = phase_model(card)
+    log_held("phase 6")
+    if torch.cuda.memory_allocated() > held + 0.5e9:  # phase 9 needs phase 6's 16 GB back
+        raise AssertionError(f"phase 6 left {torch.cuda.memory_allocated() - held} bytes allocated")
+    mixtral = phase_mixtral(card)
 
     kernels = [dict(
         name="fused_topk", route="cuda", source="kakveda_tpu_torch/csrc/fused_topk.cu",
@@ -1802,6 +2293,7 @@ def main() -> int:
         kernels.append(dict(
             name=kname, route="cuda", source="kakveda_tpu_torch/csrc/flash_gqa_cache.cu",
             replaces="kakveda_tpu/models/attention.py:284", launches=model[tag]["launches"],
+            launches_mixtral=mixtral[tag]["launches"],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
             bound_seen_ms=r["bound_seen_ms"],

@@ -62,27 +62,36 @@ def knn_state_from_jax(
 
 
 DENSE_LAYER_KEYS = {"attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate", "w_up", "w_down"}
+MOE_LAYER_KEYS = {"attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "router", "we_gate", "we_up", "we_down"}
 
 
 def llama_params_from_jax(params_np: Dict[str, Any], cfg, device=None) -> Dict[str, Any]:
     """The port's Llama params from the JAX tree (same keys and layouts, each
     leaf ``np.asarray``-ed). Matrices are cast to ``cfg.dtype`` — what
-    ``wmat`` does at every matmul of the JAX forward — and norm gains stay
-    f32. A tree the port does not run (MoE experts, int8 weight-only leaves,
-    biases or extra norms of other model families) raises."""
+    ``wmat`` does at every matmul of the JAX forward — and norm gains and the
+    MoE router stay f32. Int8 weight-only leaves ``{"q", "s"}`` cross bit for
+    bit (``q`` int8, ``s`` f32), never re-quantized or cast. A layer that is
+    neither dense nor MoE, or carries biases or extra norms of other model
+    families, raises."""
     dev = resolve_device(device)
 
-    def leaf(name: str, a) -> torch.Tensor:
+    def leaf(name: str, a):
         if isinstance(a, dict):
-            raise NotImplementedError(f"{name}: int8 weight-only leaves are not ported yet")
-        dt = torch.float32 if name.endswith("norm") else cfg.dtype
+            if set(a) != {"q", "s"}:
+                raise NotImplementedError(f"{name}: leaf keys {sorted(a)} are not ported")
+            return {
+                "q": torch.from_numpy(np.array(a["q"], dtype=np.int8)).to(dev),
+                "s": torch.from_numpy(np.array(a["s"], dtype=np.float32)).to(dev),
+            }
+        dt = torch.float32 if name.endswith("norm") or name == "router" else cfg.dtype
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(dev, dt)
 
     layers = []
     for layer in params_np["layers"]:
-        extra = set(layer) - DENSE_LAYER_KEYS
-        if extra:
-            raise NotImplementedError(f"layer params {sorted(extra)} are not ported yet")
+        keys = set(layer)
+        if keys not in (DENSE_LAYER_KEYS, MOE_LAYER_KEYS):
+            want = MOE_LAYER_KEYS if "router" in keys else DENSE_LAYER_KEYS
+            raise NotImplementedError(f"layer params {sorted(keys ^ want)} are not ported yet")
         layers.append({name: leaf(name, a) for name, a in layer.items()})
     return {
         "embed": leaf("embed", params_np["embed"]),

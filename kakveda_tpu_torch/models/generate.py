@@ -32,6 +32,7 @@ from kakveda_tpu_torch.models.llama import (
     init_params,
     mask_pad_vocab,
 )
+from kakveda_tpu_torch.models.quant import quantize_params_int8
 from kakveda_tpu_torch.models.runtime import GenerateResult
 from kakveda_tpu_torch.models.tokenizer import ByteTokenizer
 from kakveda_tpu_torch.ops.device import resolve_device
@@ -169,7 +170,10 @@ def generate_tokens_batch(
 class LlamaRuntime:
     """On-device Llama generation with the shared ``GenerateResult`` meta
     shape. Runs on the card unless ``device`` names another; the card serves
-    bf16 models only."""
+    bf16 models only. ``quant="int8"`` serves int8 weight-only weights
+    (``models/quant.py``): drawn from the seed, each matrix is quantized as
+    it is drawn, so no bf16 copy of the model ever exists; given ``params``,
+    they are quantized unless they already are."""
 
     name = "torch"
 
@@ -188,8 +192,8 @@ class LlamaRuntime:
         self.tokenizer = tokenizer if tokenizer is not None else ByteTokenizer()
         if self.cfg.vocab_size < self.tokenizer.vocab_size:
             raise ValueError("model vocab smaller than tokenizer vocab")
-        if quant not in (None, "none"):
-            raise NotImplementedError(f"weight quant {quant!r} (models/quant.py) is not ported yet")
+        if quant not in (None, "none", "int8"):
+            raise ValueError(f"unknown quant mode {quant!r} (int8|none)")
         if self.device.type == "cuda" and self.cfg.dtype != torch.bfloat16:
             raise ValueError(
                 f"the card serves bf16 models; cfg.dtype={self.cfg.dtype} on the card is not ported"
@@ -205,23 +209,30 @@ class LlamaRuntime:
             self.cfg = dataclasses.replace(self.cfg, effective_vocab=self.tokenizer.vocab_size)
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
-            params = init_params(gen, self.cfg, self.device)
+            params = init_params(gen, self.cfg, self.device, quant=quant)
+        elif quant == "int8":
+            params = quantize_params_int8(params)
         self.params = params
+        self.quant = quant
         self.model_label = model_label or f"llama-{self.cfg.n_layers}L-{self.cfg.d_model}d"
         self._engine = None
         self._engine_lock = threading.Lock()
 
     @classmethod
     def from_env(cls, device=None) -> "LlamaRuntime":
-        """``KAKVEDA_LLAMA_PRESET`` (``tiny`` or ``8b``), ``KAKVEDA_KV_QUANT``
-        and the ``KAKVEDA_SERVE_*`` engine knobs, as the JAX runtime reads
-        them. Checkpoints and weight quant are not ported and raise."""
+        """``KAKVEDA_LLAMA_PRESET`` (``tiny`` or ``8b``), ``KAKVEDA_QUANT``
+        (``int8`` or ``none``), ``KAKVEDA_KV_QUANT`` and the
+        ``KAKVEDA_SERVE_*`` engine knobs, as the JAX runtime reads them.
+        Checkpoints are not ported and raise."""
+        quant = os.environ.get("KAKVEDA_QUANT") or None
+        if quant not in (None, "none", "int8"):
+            raise ValueError(f"unknown KAKVEDA_QUANT={quant!r} (int8|none)")
         for var in ("KAKVEDA_HF_CKPT", "KAKVEDA_HF_DIR", "KAKVEDA_LLAMA_CKPT"):
             if os.environ.get(var):
                 raise NotImplementedError(f"{var}: loading checkpoints is not ported yet")
         preset = os.environ.get("KAKVEDA_LLAMA_PRESET", "tiny").lower()
         cfg = LlamaConfig.llama3_8b() if preset in ("8b", "llama3-8b") else LlamaConfig.tiny()
-        return cls(cfg=cfg, quant=os.environ.get("KAKVEDA_QUANT") or None, device=device)
+        return cls(cfg=cfg, quant=quant, device=device)
 
     def engine(self):
         """The shared online ServingEngine, built at first use, or None when

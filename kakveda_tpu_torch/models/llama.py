@@ -1,18 +1,20 @@
 """In-tree Llama: config, parameters, blocks and the KV-cache decode step.
 
-Counterpart of ``kakveda_tpu/models/llama.py`` for dense Llama-family
-models (Llama, Mistral's sliding window, Gemma-2's softcaps). Plain
-functions on tensors: params are a dict with the JAX package's keys and
-layouts (``x @ W`` with ``W [in, out]``), matrices stored in ``cfg.dtype``
-and norm gains in f32 (so ``rms_norm`` takes its f32-gain branch under
-bf16, as the JAX runtime does with its f32 params). The cache is updated in
-place, where the JAX version returns a new one.
+Counterpart of ``kakveda_tpu/models/llama.py`` for Llama-family models
+with a dense or a sparse-MoE MLP (Llama, Mistral's sliding window, Mixtral's
+experts in ``models/moe.py``, Gemma-2's softcaps). Plain functions on
+tensors: params are a dict with the JAX package's keys and layouts (``x @
+W`` with ``W [in, out]``), matrices stored in ``cfg.dtype`` or as int8
+weight-only ``{"q", "s"}`` pairs (``models/quant.py``), the MoE router and
+norm gains in f32 (so ``rms_norm`` takes its f32-gain branch under bf16, as
+the JAX runtime does with its f32 params). The cache is updated in place,
+where the JAX version returns a new one.
 
 Not ported yet (``convert.llama_params_from_jax`` refuses their params):
-MoE layers (``models/moe.py``), int8 weight-only leaves (``models/quant.py``),
 the other family flags (biases, GeGLU, embedding scale, query scale,
-sandwich and q/k norms, Gemma-2's alternating window, Phi-3 longrope), and
-the full-sequence ``forward``, ring attention and training.
+sandwich and q/k norms, Gemma-2's alternating window, Phi-3 longrope), the
+MoE load-balancing loss, and the full-sequence ``forward``, ring attention
+and training.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from kakveda_tpu_torch.models.attention import gqa_cache_attention
+from kakveda_tpu_torch.models.quant import _DENSE_KEYS, quantize_tensor_int8
 from kakveda_tpu_torch.ops.device import resolve_device
 
 Params = Dict[str, Any]
@@ -58,6 +61,14 @@ class LlamaConfig:
     final_softcap: float = 0.0
     # KV-cache quantization ("" | "int8"): int8 rows + per-row f32 scales.
     kv_quant: str = ""
+    # Sparse-MoE MLP (Mixtral; models/moe.py): 0 experts means dense. A
+    # capacity factor <= 0 means no-drop dispatch, a positive one caps each
+    # expert at ceil(T·k/E·factor) tokens. router_aux_coef is carried for
+    # the training objective, which is not ported.
+    n_experts: int = 0
+    n_experts_per_tok: int = 2
+    expert_capacity_factor: float = 0.0
+    router_aux_coef: float = 0.0
 
     def layer_window(self, li: int) -> int:
         """Effective sliding window for layer ``li`` (0 = full causal)."""
@@ -90,42 +101,62 @@ class LlamaConfig:
 # ---------------------------------------------------------------------------
 
 
-def init_params(generator: torch.Generator, cfg: LlamaConfig, device=None) -> Params:
+def init_params(generator: torch.Generator, cfg: LlamaConfig, device=None, quant: Optional[str] = None) -> Params:
     """Random weights with the JAX package's distribution: N(0, 1) / √fan_in
-    per matrix, ones for norm gains. Each matrix is drawn in f32 on
-    ``device`` and cast to ``cfg.dtype`` before the next is drawn, so no f32
-    copy of the whole model is ever held. ``generator`` must live on
+    per matrix, ones for norm gains; MoE layers (``cfg.n_experts``) carry a
+    ``router [D, E]`` and stacked ``we_gate`` / ``we_up [E, D, F]``,
+    ``we_down [E, F, D]`` in place of the dense MLP. Each matrix is drawn in
+    f32 on ``device`` and cast to ``cfg.dtype`` (the router stays f32) or,
+    with ``quant="int8"``, quantized as the JAX package quantizes its f32
+    params, before the next is drawn: no f32 copy of the whole model, and
+    no bf16 one under int8, is ever held. ``generator`` must live on
     ``device``; its draws differ from ``jax.random`` by design (carry JAX
     weights across with ``convert.llama_params_from_jax``)."""
+    if quant not in (None, "none", "int8"):
+        raise ValueError(f"unknown quant mode {quant!r} (int8|none)")
     dev = resolve_device(device)
     hd = cfg.head_dim
 
-    def dense(fan_in, shape):
+    def draw(fan_in, shape):
         w = torch.randn(shape, generator=generator, device=dev, dtype=torch.float32)
-        return w.div_(math.sqrt(fan_in)).to(cfg.dtype)
+        return w.div_(math.sqrt(fan_in))
+
+    def dense(name, fan_in, shape):
+        if quant == "int8" and (name in _DENSE_KEYS or name == "lm_head"):
+            return quantize_tensor_int8(draw(fan_in, shape), consume=True)
+        if name == "router":
+            return draw(fan_in, shape)
+        return draw(fan_in, shape).to(cfg.dtype)
 
     def gain(n):
         return torch.ones(n, dtype=torch.float32, device=dev)
 
-    layers = [
-        {
-            "attn_norm": gain(cfg.d_model),
-            "wq": dense(cfg.d_model, (cfg.d_model, cfg.n_heads * hd)),
-            "wk": dense(cfg.d_model, (cfg.d_model, cfg.n_kv_heads * hd)),
-            "wv": dense(cfg.d_model, (cfg.d_model, cfg.n_kv_heads * hd)),
-            "wo": dense(cfg.n_heads * hd, (cfg.n_heads * hd, cfg.d_model)),
-            "mlp_norm": gain(cfg.d_model),
-            "w_gate": dense(cfg.d_model, (cfg.d_model, cfg.d_ff)),
-            "w_up": dense(cfg.d_model, (cfg.d_model, cfg.d_ff)),
-            "w_down": dense(cfg.d_ff, (cfg.d_ff, cfg.d_model)),
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    layers = []
+    for _ in range(cfg.n_layers):
+        layer = {
+            "attn_norm": gain(d),
+            "wq": dense("wq", d, (d, cfg.n_heads * hd)),
+            "wk": dense("wk", d, (d, cfg.n_kv_heads * hd)),
+            "wv": dense("wv", d, (d, cfg.n_kv_heads * hd)),
+            "wo": dense("wo", cfg.n_heads * hd, (cfg.n_heads * hd, d)),
+            "mlp_norm": gain(d),
         }
-        for _ in range(cfg.n_layers)
-    ]
+        if e:
+            layer["router"] = dense("router", d, (d, e))
+            layer["we_gate"] = dense("we_gate", d, (e, d, f))
+            layer["we_up"] = dense("we_up", d, (e, d, f))
+            layer["we_down"] = dense("we_down", f, (e, f, d))
+        else:
+            layer["w_gate"] = dense("w_gate", d, (d, f))
+            layer["w_up"] = dense("w_up", d, (d, f))
+            layer["w_down"] = dense("w_down", f, (f, d))
+        layers.append(layer)
     return {
-        "embed": dense(cfg.d_model, (cfg.vocab_size, cfg.d_model)),
+        "embed": dense("embed", d, (cfg.vocab_size, d)),
         "layers": layers,
-        "final_norm": gain(cfg.d_model),
-        "lm_head": dense(cfg.d_model, (cfg.d_model, cfg.vocab_size)),
+        "final_norm": gain(d),
+        "lm_head": dense("lm_head", d, (d, cfg.vocab_size)),
     }
 
 
@@ -134,8 +165,13 @@ def init_params(generator: torch.Generator, cfg: LlamaConfig, device=None) -> Pa
 # ---------------------------------------------------------------------------
 
 
-def wmat(w: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
-    """A dense weight at compute dtype (no copy when it is stored so)."""
+def wmat(w, dt: torch.dtype) -> torch.Tensor:
+    """A weight at compute dtype: a tensor (no copy when it is stored so),
+    or an int8 ``{"q", "s"}`` pair dequantized as the JAX package does it,
+    the scale cast to ``dt`` first and the product rounded in ``dt``. 2-D
+    and stacked ``[E, in, out]`` alike (the scale broadcasts over ``in``)."""
+    if isinstance(w, dict):
+        return w["q"].to(dt) * w["s"].to(dt)[..., None, :]
     return w.to(dt)
 
 
@@ -213,7 +249,12 @@ def embed_tokens(params: Params, cfg: LlamaConfig, tokens: torch.Tensor) -> torc
 
 
 def mlp_block(x: torch.Tensor, layer: Params, cfg: LlamaConfig) -> torch.Tensor:
-    """Dense SwiGLU."""
+    """Dense SwiGLU, or the sparse-MoE MLP for a layer that carries a
+    ``router`` (``models/moe.py``)."""
+    if "router" in layer:
+        from kakveda_tpu_torch.models.moe import moe_mlp
+
+        return moe_mlp(x, layer, cfg)
     dt = x.dtype
     g = F.silu(x @ wmat(layer["w_gate"], dt))
     return (g * (x @ wmat(layer["w_up"], dt))) @ wmat(layer["w_down"], dt)

@@ -663,3 +663,130 @@ def test_service_warn_burst_coalesces_on_the_card(gen, tmp_path):
         assert a["action"] == d.action and abs(a["confidence"] - d.confidence) <= 1e-4
         assert a["references"][0]["failure_id"] == d.references[0].failure_id
     plat.close()
+
+
+# ---------------------------------------------------------------------------
+# the sparse-MoE MLP and int8 weight-only weights on the card
+# ---------------------------------------------------------------------------
+
+
+def _small_moe_model(gen, quant=None, d=512, n_layers=2):
+    from kakveda_tpu_torch.models.llama import LlamaConfig, init_params
+
+    cfg = LlamaConfig(vocab_size=264, d_model=d, n_layers=n_layers, n_heads=d // 128, n_kv_heads=2,
+                      d_ff=int(3.5 * d), max_seq_len=256, effective_vocab=259, n_experts=8,
+                      n_experts_per_tok=2)
+    return cfg, init_params(gen, cfg, quant=quant)
+
+
+@pytest.mark.parametrize("shape", [(4096, 14336), (8, 1024, 3584)], ids=["dense", "stacked"])
+def test_int8_quantization_on_the_card_equals_the_cpu(gen, shape):
+    """The card's quantizer gives the CPU's q and s bit for bit (IEEE
+    division, round half to even on both), on a draw with an all-zero
+    column and exact .5 ties."""
+    from kakveda_tpu_torch.models.quant import quantize_tensor_int8
+
+    w = torch.randn(shape, device="cuda", generator=gen) / 64
+    w[..., 3] = 0.0
+    w[..., :4, 5] = torch.tensor([127.0, 2.5, -0.5, 3.5], device="cuda")
+    w[..., 4:, 5] = 0.25  # column 5: scale exactly 1.0, so the values above are .5 ties
+    host = quantize_tensor_int8(w.cpu())
+    for consume in (False, True):
+        card = quantize_tensor_int8(w.clone(), consume=consume)
+        assert card["q"].device.type == "cuda" and card["q"].dtype == torch.int8
+        assert torch.equal(card["q"].cpu(), host["q"]) and torch.equal(card["s"].cpu(), host["s"])
+    assert host["q"][..., :4, 5].reshape(-1, 4)[0].tolist() == [127, 2, 0, 4]
+
+
+@pytest.mark.parametrize("quant", [None, "int8"])
+@pytest.mark.parametrize("t", [1, 8, 64])
+def test_moe_mlp_on_the_card_matches_the_per_token_oracle(gen, t, quant):
+    """moe_mlp (sort, dispatch, bmm, combine) against a per-token dense
+    SwiGLU on the same (dequantized) bf16 weights accumulated in f32: the
+    same experts, each output row within two bf16 steps of its largest
+    oracle value (2^-6 of it)."""
+    from kakveda_tpu_torch.models import moe
+
+    cfg, params = _small_moe_model(gen, quant, d=1024)
+    layer = params["layers"][0]
+    x = torch.randn((1, t, cfg.d_model), device="cuda", generator=gen).to(torch.bfloat16)
+    got = moe.moe_mlp(x, layer, cfg)
+    want, experts = moe.moe_mlp_reference(x, layer, cfg)
+    _, idx, _ = moe.router_topk(x.reshape(t, -1).float() @ layer["router"], 2)
+    assert torch.equal(idx.cpu(), experts)
+    diff = (got.float() - want.float()).abs()[0]
+    bound = 2.0**-6 * want.float()[0].abs().amax(dim=-1, keepdim=True)
+    assert (diff <= bound).all(), (diff / bound).max().item()
+
+
+@pytest.mark.parametrize("quant", [None, "int8"])
+def test_moe_forward_wide_replays_from_a_cuda_graph(gen, quant):
+    """A MoE decode step captures whole (no host sync in routing, dispatch
+    or combine), and a replay after an in-place write of new tokens equals
+    an eager step on those tokens."""
+    from kakveda_tpu_torch.models.serving import ContinuousBatcher, _forward_wide
+
+    cfg, params = _small_moe_model(gen, quant)
+    cb = ContinuousBatcher(params, cfg, batch_slots=4, max_len=128, chunk_steps=4)
+    for p in ([5, 6, 7], [10, 11, 12, 13, 14], [42], [9, 8, 7, 6]):
+        cb.admit(p, max_new_tokens=40)
+    cb.step()
+    cb._grow_valid(1)  # the rows the next step writes, as step_async does
+    tokens = torch.tensor([[11], [12], [13], [14]], device="cuda")
+    args = (torch.from_numpy(cb._pos_np.copy()).cuda(), torch.from_numpy(cb._kv_np.copy()).cuda(),
+            torch.from_numpy(cb._off_np.copy()).cuda())
+    reach = int(cb._pos_np.max()) + 1
+
+    def step():
+        return _forward_wide(cb.params, cb.cfg, cb.cache, tokens, *args, reach=reach)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = step()
+    g.replay()
+    first = out.clone()
+    tokens.copy_(torch.tensor([[50], [60], [70], [80]], device="cuda"))
+    g.replay()
+    eager = step()
+    torch.cuda.synchronize()
+    assert torch.isfinite(out[..., :259]).all() and not torch.equal(out, first)
+    torch.testing.assert_close(out, eager, atol=2e-2, rtol=0)
+    assert torch.equal(out.argmax(-1), eager.argmax(-1))
+
+
+def test_int8_runtime_never_holds_a_bf16_expert_stack(gen):
+    """quant="int8" at Mixtral's width (4 layers): each expert stack is drawn
+    in f32 and quantized before the next, so the peak during init stays
+    under the int8 model's bytes + 2 GB (one f32 stack is 1.88 GB; one bf16
+    copy of the three stacks of a layer would be 2.8 GB more)."""
+    from kakveda_tpu_torch.models.generate import LlamaRuntime
+    from kakveda_tpu_torch.models.llama import LlamaConfig
+
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = LlamaConfig(vocab_size=32000, d_model=4096, n_layers=4, n_heads=32, n_kv_heads=8, d_ff=14336,
+                      max_seq_len=4096, rope_theta=1e6, n_experts=8, n_experts_per_tok=2)
+    rt = LlamaRuntime(cfg=cfg, seed=0, quant="int8")
+    try:
+        peak = torch.cuda.max_memory_allocated() - base
+        leaves = [rt.params["embed"], rt.params["final_norm"], *rt.params["lm_head"].values()]
+        for layer in rt.params["layers"]:
+            for name, w in layer.items():
+                if name.startswith("we_") or name.startswith("w"):
+                    assert w["q"].dtype == torch.int8 and w["s"].dtype == torch.float32, name
+                    leaves += [w["q"], w["s"]]
+                else:
+                    assert w.dtype == torch.float32, name
+                    leaves.append(w)
+        n_bytes = sum(t.numel() * t.element_size() for t in leaves)
+        assert n_bytes < 6.3e9 and peak < n_bytes + 2e9, (n_bytes, peak)
+    finally:
+        rt.close()
+        del rt
+        torch.cuda.empty_cache()

@@ -25,7 +25,7 @@ def _modules():
 def test_import_loads_no_jax_in_fresh_interpreter():
     mods = _modules()
     assert "kakveda_tpu_torch.platform" in mods and "kakveda_tpu_torch.ops.fused_topk" in mods
-    for m in ("serving", "generate", "llama", "attention", "tokenizer", "runtime"):
+    for m in ("serving", "generate", "llama", "attention", "tokenizer", "runtime", "moe", "quant"):
         assert f"kakveda_tpu_torch.models.{m}" in mods
     for m in ("ops.clustering", "ops.incremental", "index.gfkb", "pipeline.patterns", "native",
               "core.runtime", "core.admission", "service.app", "service.batcher", "service.main"):
@@ -50,6 +50,8 @@ def test_import_loads_no_jax_in_fresh_interpreter():
         ("kakveda_tpu_torch", False),
         ("kakveda_tpu_torch.platform", False),
         ("kakveda_tpu_torch.native", False),
+        ("kakveda_tpu_torch.models.moe", False),
+        ("kakveda_tpu_torch.models.quant", False),
         ("kakveda_tpu_torch.service.app", True),
     ],
 )

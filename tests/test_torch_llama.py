@@ -84,13 +84,17 @@ def test_init_params_layout():
 
 
 def test_convert_refuses_what_the_port_does_not_run(params):
+    # MoE layers and int8 {"q", "s"} leaves now cross (tests/test_torch_moe.py,
+    # tests/test_torch_quant.py); biases, extra norms, a router on a dense
+    # layer and other leaf pairs still raise.
     jp, _ = params
     np_tree = jax.tree.map(np.asarray, jp)
-    for extra in ({"bq": np.zeros(64, np.float32)}, {"router": np.zeros((64, 4), np.float32)}):
+    for extra in ({"bq": np.zeros(64, np.float32)}, {"q_norm": np.ones(16, np.float32)},
+                  {"post_attn_norm": np.ones(64, np.float32)}, {"router": np.zeros((64, 4), np.float32)}):
         tree = dict(np_tree, layers=[dict(np_tree["layers"][0], **extra)])
         with pytest.raises(NotImplementedError):
             llama_params_from_jax(tree, TCFG, "cpu")
-    quant = dict(np_tree, lm_head={"q": np.zeros((64, 264), np.int8), "s": np.ones(264, np.float32)})
+    quant = dict(np_tree, lm_head={"q": np.zeros((64, 264), np.int8), "zero": np.ones(264, np.float32)})
     with pytest.raises(NotImplementedError):
         llama_params_from_jax(quant, TCFG, "cpu")
 
