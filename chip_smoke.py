@@ -42,8 +42,17 @@ JAX package). Phases, each of which raises on failure (exit code != 0):
    zeros), decode under the engine's own mask (``_forward_wide`` at phase
    6's last step: rows [left pad, 95] of every slot, a left pad of 10-16,
    ``pos0`` = 512, with the engine's ``reach`` hint of 96 and, timed beside
-   it, without), admission (B = 1, S = 64, L = 512, 13 left-pad slots) and
-   a long cache (B = 8, S = 1, L = 8192); every bf16 output row within two
+   it, without), admission (B = 1, S = 64, L = 512, 13 left-pad slots),
+   a long cache (B = 8, S = 1, L = 8192), and phase 10's two shapes with
+   S > 1 at pos0 > 0: a prefix-hit admission (B = 1, S = 512, L = 2048,
+   pos0 = 512, rows [464, 1024) valid: a 560-token judge prompt reusing the
+   69-token judge head) and chunked prefill (B = 64, S = 256, L = 1024,
+   pos0 = 256 and 512, per-row left pads); then the shapes phase 10's own
+   traffic gives, worked out from its judge prompts by the engine's and the
+   solo path's arithmetic with the exact ``kv_valid`` of the run (arm A's
+   heaviest whole admission, B = 1, S = 1024, pos0 = 0, L = 2048, and
+   heaviest prefix hit; arm B's DecodeSession pieces, B = 64, S = 256,
+   L = 2048, pos0 = 0, 256, 512, 768); every bf16 output row within two
    bf16 steps of its largest plain value (2^-6 of it) and within 2e-2;
    each shape's ``n_split`` and live-tile fraction; device
    times from a CUDA graph of many calls replayed between CUDA events (so
@@ -130,9 +139,33 @@ JAX package). Phases, each of which raises on failure (exit code != 0):
    its split into dequantize, GEMMs and ``bmm``s, ``flash_gqa_cache``, and
    router + dispatch + combine, beside the 14.0 ms weight-read bound.
 
-Prints a ``{"kernels": [...]}`` line (the flash rows with phase 9's
-launches beside phase 6's), the card line, and last
-``{"ok": true, "device": {...}}``.
+10. the LLM judge on the ingest path (after phase 6 frees its model):
+   ``KAKVEDA_CLASSIFIER=tiered KAKVEDA_MODEL_RUNTIME=torch`` puts
+   Llama-3-8B (``get_runtime``, random bf16 weights from seed 0) beside a
+   ``Platform(capacity=2^20, dim=2048)`` on the card. 4 × 512 traces from
+   a seed, 1 in 8 ambiguous (citations asked for, no marker; prompt +
+   response over 200-760 bytes), ingested rule-only on a fresh Platform
+   and then with the judge. The submitted prompts must be ``judge_batches``'s,
+   whose shapes phase 5 held. Arm A (``KAKVEDA_SERVE_WINDOW=2048``): every
+   judge result through the engine, the prefix stats equal to the matching
+   rules replayed over the submitted ids (``expected_prefix_stats``), flash
+   launches 32 × forwards (prefix prefills and admissions counted), the
+   signals the rule's plus ``parse_judge_verdict`` over the texts, the
+   GFKB, cluster state, patterns and health consistent, then a
+   ``warn_batch`` of 64 that launches ``fused_topk``. Arm B (window 512,
+   ``KAKVEDA_PREFILL_CHUNK=256``): the same judge prompts, none fits the
+   engine, one ``DecodeSession`` a batch, launches 32 × (pieces + steps),
+   tokens equal arm A's or departing at a near-tie (``margin_rule``). One
+   prefix-hit admission per cache type against the same prompt admitted
+   whole (``KAKVEDA_SERVE_PREFIX=0``). Prints ingest traces/s with and
+   without the judge, the judge's wall per batch, ``register_prefix`` ms,
+   admission ms with and without the prefix (host, CUDA events, and the
+   forward's graph replay), arm B's wall and prefill device time, and the
+   peak allocated with both planes resident.
+
+Prints a ``{"kernels": [...]}`` line (the flash rows with phase 9's and
+phase 10's launches beside phase 6's, and the judge shapes' times), the
+card line, and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -880,7 +913,56 @@ FLASH_SHAPES = [
     ("decode_engine", 8, 1, 512, 512, "engine", ENGINE_POS + 1),
     ("admission", 1, 64, 512, 0, "leftpad", None),
     ("long_cache", 8, 1, 8192, 8192, None, None),
+    # The LLM judge's shapes (phase 10): a 560-token judge prompt reusing the
+    # 69-token judge head at window 2048 (bucket 1024, left pad 464, sw 512,
+    # split 48), and DecodeSession's pieces for 64 judge prompts of <= 768
+    # tokens at KAKVEDA_PREFILL_CHUNK=256.
+    ("prefix_admission", 1, 512, 2048, 512, "prefix", None),
+    ("chunk_prefill_256", 64, 256, 1024, 256, "chunkpad", None),
+    ("chunk_prefill_512", 64, 256, 1024, 512, "chunkpad", None),
 ]
+JUDGE_SHAPES = ("prefix_admission", "chunk_prefill_256", "chunk_prefill_512")
+
+
+def judge_flash_shapes() -> list:
+    """The flash shapes phase 10's own traffic gives, from the arithmetic
+    the engine and the solo path apply to its judge prompts (so the checked
+    shapes and the run's cannot drift apart; phase 10 asserts its prompts
+    are these): arm A's heaviest whole admission (B = 1, S = its bucket,
+    pos0 = 0, L = the 2048 window) and heaviest prefix hit (S = sw at pos0 =
+    off + split), and each DecodeSession piece of arm B's widest batch (B =
+    its prompts, S = 256, pos0 = k·256, L = its cache rows), with the exact
+    ``kv_valid`` each runs with."""
+    from kakveda_tpu_torch.models import generate as G
+    from kakveda_tpu_torch.models.llama import LlamaConfig
+    from kakveda_tpu_torch.models.serving import ContinuousBatcher
+    from kakveda_tpu_torch.models.tokenizer import ByteTokenizer
+    from kakveda_tpu_torch.pipeline.classifier import _JUDGE_PROMPT
+
+    batches = judge_batches()
+    head = ByteTokenizer().encode(_JUDGE_PROMPT.split("{prompt}")[0])
+    admissions = []
+    expected_prefix_stats(head, batches, JUDGE_WINDOW, JUDGE_PREFIX_MAX, admissions)
+    ar = torch.arange(JUDGE_WINDOW)
+
+    def admission(name, p, sw, split):
+        bucket = ContinuousBatcher.bucket_for(p, JUDGE_WINDOW)
+        off = bucket - p
+        valid = ((ar >= off) & (ar < bucket))[None]
+        return (name, 1, sw or bucket, JUDGE_WINDOW, off + split if sw else 0, valid, None)
+
+    p = max(p for p, sw, _ in admissions if sw is None)
+    out = [admission("judge_whole_admission", p, None, 0)]
+    hit = max(((sw, p, split) for p, sw, split in admissions if sw is not None), default=None)
+    if hit is not None:
+        out.append(admission("judge_prefix_hit", hit[1], hit[0], hit[2]))
+    widths = [G._prefill_width(max(map(len, ids)), JUDGE_CHUNK) for ids in batches]
+    b = max(range(len(batches)), key=lambda i: (widths[i], i))
+    ml = G._bucket_len(widths[b] + JUDGE_MAX_TOKENS + 1, LlamaConfig.llama3_8b().max_seq_len)
+    valid = torch.from_numpy(G._pack_prompts(batches[b], ml, plen=widths[b])[1])
+    out += [(f"judge_chunk_{pos0}", len(batches[b]), JUDGE_CHUNK, ml, pos0, valid, None)
+            for pos0 in range(0, widths[b], JUDGE_CHUNK)]
+    return out
 
 
 def flash_inputs(gen, b, s, l, kind, kv8, copies):
@@ -907,6 +989,13 @@ def flash_inputs(gen, b, s, l, kind, kv8, copies):
         valid = ((ar >= off) & (ar <= ENGINE_POS)).contiguous()
     elif kind == "leftpad":  # admission: 13 left-pad rows, the prompt bucket of 64
         valid = ((ar >= 13) & (ar < s)).expand(b, l).contiguous()
+    elif kind == "prefix":  # the slot's prompt rows [off, bucket) of a prefix-hit admission
+        valid = ((ar >= 464) & (ar < 1024)).expand(b, l).contiguous()
+    elif kind == "chunkpad":  # DecodeSession: rows from each prompt's left pad on
+        off = torch.randint(0, 507, (b, 1), device="cuda", generator=gen)  # prompts of 262-768 tokens
+        valid = (ar >= off).contiguous()
+    elif torch.is_tensor(kind):  # the exact mask a run gives (judge_flash_shapes)
+        valid = kind.to("cuda").expand(b, l).contiguous()
     return q, k, v, ks, vs, valid
 
 
@@ -956,11 +1045,12 @@ def phase_flash(card: str) -> dict:
     from kakveda_tpu_torch.models.llama import _kv_dequant
 
     gen = torch.Generator(device="cuda").manual_seed(1)
+    judge_shapes = judge_flash_shapes()
     rows = {}
     for kv8 in (False, True):
         name = "flash_gqa_cache_kv8" if kv8 else "flash_gqa_cache"
         row = {"max_abs_err": 0.0}
-        for shape, b, s, l, pos0, kind, reach in FLASH_SHAPES:
+        for shape, b, s, l, pos0, kind, reach in FLASH_SHAPES + judge_shapes:
             kv_bytes = b * KV * l * (2 * (HD + 4) if kv8 else 4 * HD)
             copies = max(1, math.ceil(2.5 * L2_BYTES / kv_bytes))
             q, k, v, ks, vs, valid = flash_inputs(gen, b, s, l, kind, kv8, copies)
@@ -1031,7 +1121,7 @@ def phase_flash(card: str) -> dict:
             call_ms = cuda_ms(kern, iters=50, warmup=5)  # one eager call, wrapper included
             bound_ms, bound_by = flash_bound_ms(b, s, l, kv8)
             seen_ms, _ = flash_bound_ms(b, s, l, kv8, seen_rows)
-            log(f"{name} {shape} (B={b} S={s} L={l} reach={reach}): n_split={n_split} live_tiles={live_frac:.4f} "
+            log(f"{name} {shape} (B={b} S={s} L={l} pos0={pos0} reach={reach}): n_split={n_split} live_tiles={live_frac:.4f} "
                 f"max_abs_err={err:.3g} ({use:.3f} of the tolerance) kernel_ms={ms:.6f};{bare} "
                 f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.6f} "
                 f"bound_ms={bound_ms:.6f} ({bound_by}) bound_seen_ms={seen_ms:.6f} "
@@ -1039,6 +1129,11 @@ def phase_flash(card: str) -> dict:
             if shape == "decode":  # the main path's most frequent shape
                 row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
                            bound_seen_ms=seen_ms)
+            if shape in JUDGE_SHAPES or shape.startswith("judge_"):
+                row.setdefault("judge_shapes", {})[shape] = dict(
+                    shape=f"B={b} S={s} L={l} pos0={pos0}", n_split=n_split, live_tiles=live_frac, ms=ms,
+                    plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
+                    bound_seen_ms=seen_ms, max_abs_err=err, tolerance_share=use)
             del q, k, v, ks, vs
         rows[name] = row
     torch.cuda.empty_cache()
@@ -1649,6 +1744,490 @@ def phase_mixtral(card: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     log("phase 9: " + json.dumps(out))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the LLM judge on the ingest path
+# ---------------------------------------------------------------------------
+
+JUDGE_ASKS = [  # citation-asking prompts that start differently: the batch's common head is the judge head
+    "Summarize incident {i} and include citations.",
+    "Explain outage {i} with references to the sources.",
+    "Write a brief on service {i} and cite your sources.",
+    "List what caused failure {i}, with citations.",
+]
+FILLER = ("the system reported that latency rose after deploy while Smith noted a queue backlog and "
+          "operators restarted workers but errors persisted across regions for hours").split()
+
+
+def judge_traffic(TracePayload, n: int, seed: int = 10):
+    """``n`` traces from a seed: 1 in 8 ambiguous (a citation-asking prompt, a
+    response with no citation marker, prompt + response drawn over 200-760
+    bytes), 4 in 8 rule-positive (a citation-asking prompt answered with the
+    stub's citations), 3 in 8 benign. ASCII, so bytes are characters."""
+    import random
+
+    rng = random.Random(seed)
+    out = []
+    for i in range(n):
+        kind, app = i % 8, f"app-{i % 5}"
+        if kind == 7:
+            prompt = JUDGE_ASKS[rng.randrange(len(JUDGE_ASKS))].format(i=i)
+            total = rng.randint(200, 760)
+            words = []
+            while len(" ".join(words)) < total - len(prompt):
+                words.append(rng.choice(FILLER))
+            out.append(_trace(TracePayload, i, app, prompt, " ".join(words)[: total - len(prompt)]))
+        elif kind < 4:
+            out.append(_trace(TracePayload, i, app, f"Summarize report {i} and include citations"))
+        else:
+            out.append(_trace(TracePayload, i, app, f"What is the status of job {i}?", f"Job {i} is running."))
+    return out
+
+
+JUDGE_WINDOW = 2048  # arm A's KAKVEDA_SERVE_WINDOW
+JUDGE_PREFIX_MAX = 4  # KAKVEDA_SERVE_PREFIX_MAX
+JUDGE_CHUNK = 256  # arm B's KAKVEDA_PREFILL_CHUNK
+JUDGE_MAX_TOKENS = 4  # TieredClassifier's max_tokens
+
+
+def judge_batches() -> list:
+    """The token ids ``TieredClassifier`` submits per ingest batch of phase
+    10's traffic: the rule tier's ambiguous traces, each wrapped in the judge
+    template and encoded as ``LlamaRuntime`` encodes for Llama-3-8B."""
+    from kakveda_tpu_torch.core.schemas import TracePayload
+    from kakveda_tpu_torch.models.llama import LlamaConfig
+    from kakveda_tpu_torch.models.tokenizer import ByteTokenizer
+    from kakveda_tpu_torch.pipeline.classifier import _JUDGE_PROMPT, RuleClassifier, TieredClassifier, _wants_citations
+
+    tok, keep = ByteTokenizer(), LlamaConfig.llama3_8b().max_seq_len // 2
+    cut = TieredClassifier.max_judge_chars
+    traces, out = judge_traffic(TracePayload, 4 * 512), []
+    for b in range(4):
+        batch = traces[512 * b: 512 * (b + 1)]
+        rule = RuleClassifier().classify_batch(batch)
+        out.append([tok.encode(_JUDGE_PROMPT.format(prompt=t.prompt[:cut], response=t.response[:cut]))[-keep:]
+                    for t, sig in zip(batch, rule) if sig is None and _wants_citations(t.prompt)])
+    return out
+
+
+def expected_prefix_stats(head, batches, max_len: int, maxp: int, admissions=None) -> dict:
+    """``ContinuousBatcher``'s prefix rules replayed in plain Python over the
+    token ids the judge submitted: the judge head registered first, then per
+    ``generate_batch`` call its common head (two or more prompts, 16 or more
+    tokens), then each admission in submission order. A prefix registers when
+    8 <= len and len + 9 < the window; the longest registered prefix of a
+    prompt matches and moves to the end of the LRU order (KAKVEDA_SERVE_PREFIX_
+    MAX entries); the match reuses split = p - sw rows when positive, sw the
+    power of two (floor 8) >= p - len(prefix). ``admissions``, when given,
+    gets (p, sw, split) per admission, sw None for one admitted whole."""
+    from collections import OrderedDict
+
+    store, stats = OrderedDict(), dict(registered=0, hits=0, hit_tokens_saved=0)
+
+    def register(ids):
+        ids = tuple(ids)
+        if len(ids) < 8 or len(ids) + 9 >= max_len or ids in store:
+            return
+        while len(store) >= max(1, maxp):
+            store.popitem(last=False)
+        store[ids] = True
+        stats["registered"] += 1
+
+    register(head)
+    for ids_list in batches:
+        if len(ids_list) >= 2:
+            common = os.path.commonprefix(ids_list)
+            if len(common) >= 16:
+                register(common)
+        for ids in ids_list:
+            best = max((pe for pe in store if len(ids) >= len(pe) and tuple(ids[: len(pe)]) == pe),
+                       key=len, default=None)
+            sw = None
+            if best is not None:
+                store.move_to_end(best)
+                sw = 8
+                while sw < len(ids) - len(best):
+                    sw <<= 1
+                if len(ids) - sw > 0:
+                    stats["hits"] += 1
+                    stats["hit_tokens_saved"] += len(ids) - sw
+                else:
+                    sw = None
+            if admissions is not None:
+                admissions.append((len(ids), sw, len(ids) - sw if sw else 0))
+    return stats
+
+
+def margin_rule(params, cfg, tok, prompt_ids, ref, got, what: str):
+    """Phase 6's token rule: ``got`` equals ``ref`` (each closed with EOS when
+    it stopped early), or first departs from it at a step whose solo top-2
+    margin along ``ref`` (one teacher-forced pass) is under MARGIN_TOL.
+    Returns None when equal, else the margin at the departure."""
+    from kakveda_tpu_torch.models.llama import decode_step, init_cache, mask_pad_vocab
+
+    a = list(ref) + ([tok.EOS] if len(ref) < 4 else [])
+    b = list(got) + ([tok.EOS] if len(got) < 4 else [])
+    n = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+    if n is None:
+        return None
+    seq = torch.tensor([list(prompt_ids) + a[:n]], device="cuda")
+    logits, _ = decode_step(params, cfg, seq, init_cache(cfg, 1, seq.shape[1], device="cuda"), last_only=True)
+    top2 = mask_pad_vocab(logits[0, -1], cfg)[: tok.vocab_size].topk(2).values
+    margin = (top2[0] - top2[1]).item()
+    if margin >= MARGIN_TOL:
+        raise AssertionError(f"{what}: tokens {b} depart from {a} at step {n}, where the solo margin is "
+                             f"{margin:.4f} >= {MARGIN_TOL}")
+    return margin
+
+
+def ingest_timed(plat, traces, batch: int = 512):
+    """``ingest_batch`` in batches of ``batch``, the card synchronized at both
+    ends: (signals per batch, traces/s, wall per batch in s)."""
+    sigs, walls = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for lo in range(0, len(traces), batch):
+        t = time.perf_counter()
+        sigs.append(asyncio.run(plat.ingest_batch(traces[lo: lo + batch])))
+        walls.append(time.perf_counter() - t)
+    torch.cuda.synchronize()
+    return sigs, len(traces) / (time.perf_counter() - t0), walls
+
+
+def judge_admissions(rt, tok, head, card: str) -> dict:
+    """One prefix-hit admission per cache type against the same prompt
+    admitted whole (``KAKVEDA_SERVE_PREFIX=0``) on batchers of the engine's
+    window (2048): a 560-token judge prompt (bucket 1024, left pad 464, sw
+    512, split 48: phase 5's prefix_admission shape). Host ms (the card
+    synchronized) and device ms (CUDA events) per admission, medians of 4;
+    then 4 tokens each, held by ``margin_rule``."""
+    from kakveda_tpu_torch.models.attention import flash_gqa_cache
+    from kakveda_tpu_torch.models.serving import ContinuousBatcher
+    from kakveda_tpu_torch.pipeline.classifier import _JUDGE_PROMPT
+
+    prompt = "Summarize incident 7 and include citations."
+    text = _JUDGE_PROMPT.format(prompt=prompt, response="x" * (298 - len(prompt)))
+    ids = tok.encode(text)
+    if len(ids) != 560:
+        raise AssertionError(f"the admission prompt is {len(ids)} tokens, not 560")
+    out, launches = {}, {}
+    for kvq in ("", "int8"):
+        tag = kvq or "bf16"
+        toks, times = {}, {}
+        for use in ("1", "0"):
+            os.environ["KAKVEDA_SERVE_PREFIX"] = use
+            try:
+                counter = "launches_kv8" if kvq else "launches"
+                flash_gqa_cache.launches = 0
+                flash_gqa_cache.launches_kv8 = 0
+                cb = ContinuousBatcher(rt.params, dataclasses.replace(rt.cfg, kv_quant=kvq), batch_slots=4,
+                                       max_len=2048, chunk_steps=4, eos_id=None)
+                cb.register_prefix(head)
+                host, dev = [], []
+                for _ in range(4):
+                    torch.cuda.synchronize()
+                    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                    t = time.perf_counter()
+                    start.record()
+                    cb.admit(ids, max_new_tokens=4)
+                    end.record()
+                    torch.cuda.synchronize()
+                    host.append((time.perf_counter() - t) * 1e3)
+                    dev.append(start.elapsed_time(end))
+                want = (4, 4 * 48) if use == "1" else (0, 0)
+                got = (cb.prefix_stats["hits"], cb.prefix_stats["hit_tokens_saved"])
+                if got != want:
+                    raise AssertionError(f"{tag} KAKVEDA_SERVE_PREFIX={use}: hits, saved {got} != {want}")
+                while cb.active:
+                    cb.step()
+                launched = getattr(flash_gqa_cache, counter)
+                both = flash_gqa_cache.launches + flash_gqa_cache.launches_kv8
+                if launched != rt.cfg.n_layers * cb.forwards or both != launched:
+                    raise AssertionError(f"{tag}: {launched} flash launches for {cb.forwards} forwards")
+                launches[tag] = launches.get(tag, 0) + launched
+                fwd_ms = admission_forward_ms(cb, ids, use == "1")
+                rows = [cb.results[r] for r in sorted(cb.results)]
+                if any(r != rows[0] for r in rows):
+                    raise AssertionError(f"{tag}: four admissions of one prompt decoded differently: {rows}")
+                toks[use] = rows[0]
+                times[use] = (statistics.median(host), statistics.median(dev), fwd_ms)
+                del cb
+            finally:
+                del os.environ["KAKVEDA_SERVE_PREFIX"]
+        margin = margin_rule(rt.params, dataclasses.replace(rt.cfg, kv_quant=kvq), tok, ids, toks["0"], toks["1"],
+                             f"phase 10 prefix-hit admission, {tag} cache")
+        out[tag] = dict(hit_host_ms=times["1"][0], hit_events_ms=times["1"][1], hit_forward_graph_ms=times["1"][2],
+                        whole_host_ms=times["0"][0], whole_events_ms=times["0"][1],
+                        whole_forward_graph_ms=times["0"][2], tokens_equal=margin is None, departure_margin=margin)
+        log(f"phase 10 admission of a 560-token judge prompt, {tag} cache: with the prefix (S=512 at "
+            f"pos0=512) {times['1'][0]:.2f} ms host / {times['1'][1]:.2f} ms between CUDA events / "
+            f"{times['1'][2]:.2f} ms device in its forward's graph replay; whole (S=1024 at pos0=0) "
+            f"{times['0'][0]:.2f} / {times['0'][1]:.2f} / {times['0'][2]:.2f} ms (hit / whole: events "
+            f"{times['1'][1] / times['0'][1]:.3f}, graph {times['1'][2] / times['0'][2]:.3f}); tokens "
+            + ("equal" if margin is None else f"depart at a near-tie (margin {margin:.4f})") + f" [{card}]")
+        torch.cuda.empty_cache()
+    out["launches"] = launches
+    return out
+
+
+def admission_forward_ms(cb, ids, use_prefix: bool) -> float:
+    """Device time of one admission's forward alone, replayed from a CUDA
+    graph (so the eager wrappers' host time is not counted): the prompt
+    whole at its bucket from row 0, or with the matching prefix's slab in
+    the scratch cache and only the suffix from row off + split."""
+    from kakveda_tpu_torch.models.llama import decode_step, init_cache
+
+    p = len(ids)
+    bucket = cb.bucket_for(p, cb.max_len)
+    off = bucket - p
+    kv = torch.zeros((1, cb.max_len), dtype=torch.bool, device="cuda")
+    kv[0, off:bucket] = True
+    offs = torch.tensor([off], device="cuda")
+    scratch = init_cache(cb.cfg, batch=1, max_len=cb.max_len, device="cuda")
+    pos, toks = 0, [0] * off + list(ids)
+    if use_prefix:
+        pe, split, _ = cb._match_prefix(list(ids))
+        for key, slabs in pe.kv.items():
+            for sk, pk in zip(scratch[key], slabs):
+                sk[:, :, off: off + len(pe.ids)] = pk
+        pos, toks = off + split, list(ids[split:])
+    tt = torch.tensor([toks], device="cuda")
+
+    def fwd():
+        scratch["pos"] = pos
+        decode_step(cb.params, cb.cfg, tt, scratch, kv_valid=kv, pos_offset=offs, last_only=True)
+
+    ms = graph_ms(fwd, n=2)
+    del scratch
+    return ms
+
+
+def phase_judge(base: Path, fused_topk, card: str) -> dict:
+    """Phase 10: the LLM judge on the ingest path, the Platform's 2^20 x 2048
+    index and Llama-3-8B (random bf16 weights from seed 0) on one card."""
+    from kakveda_tpu_torch.core.schemas import TracePayload, WarningRequest
+    from kakveda_tpu_torch.models import generate as G
+    from kakveda_tpu_torch.models import runtime as R
+    from kakveda_tpu_torch.models.attention import flash_gqa_cache
+    from kakveda_tpu_torch.pipeline.classifier import (
+        _JUDGE_PROMPT, RuleClassifier, TieredClassifier, _wants_citations, parse_judge_verdict)
+    from kakveda_tpu_torch.platform import Platform
+
+    out = {}
+    traces = judge_traffic(TracePayload, 4 * 512)
+    torch.cuda.reset_peak_memory_stats()
+
+    # Rule-only, the same traces, on a fresh Platform: the comparison arm.
+    plat = Platform(data_dir=base / "rule", capacity=ROWS, dim=DIM)
+    if not isinstance(plat.classifier, RuleClassifier):
+        raise AssertionError("without KAKVEDA_CLASSIFIER the Platform must classify by rule")
+    rule_sigs, out["ingest_rule_only_traces_per_s"], _ = ingest_timed(plat, traces)
+    plat.close()
+    del plat
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    env = dict(KAKVEDA_CLASSIFIER="tiered", KAKVEDA_MODEL_RUNTIME="torch", KAKVEDA_LLAMA_PRESET="8b",
+               KAKVEDA_SERVE_WINDOW=str(JUDGE_WINDOW), KAKVEDA_SERVE_PREFIX_MAX=str(JUDGE_PREFIX_MAX))
+    saved = {k: os.environ.get(k) for k in (*env, "KAKVEDA_PREFILL_CHUNK")}
+    os.environ.update(env)
+    os.environ.pop("KAKVEDA_PREFILL_CHUNK", None)
+    R.clear_runtimes()
+    try:
+        t0 = time.perf_counter()
+        plat = Platform(data_dir=base / "judge", capacity=ROWS, dim=DIM)
+        torch.cuda.synchronize()
+        rt = plat.classifier.runtime
+        if not (isinstance(plat.classifier, TieredClassifier) and isinstance(rt, G.LlamaRuntime)
+                and rt.device == plat.device and rt.params["embed"].device.type == "cuda"
+                and rt.cfg.n_layers == 32 and abs(param_bytes(rt.params) - 16.06e9) < 0.01e9):
+            raise AssertionError("KAKVEDA_CLASSIFIER=tiered did not put Llama-3-8B beside the index")
+        log(f"phase 10: Platform(2^20 x 2048) and Llama-3-8B ({param_bytes(rt.params) / 1e9:.2f} GB) on "
+            f"{plat.device}, up in {time.perf_counter() - t0:.1f} s")
+        tok = rt.tokenizer = RecordingTokenizer()
+        head = tok.encode(_JUDGE_PROMPT.split("{prompt}")[0])
+        if len(head) != 69:
+            raise AssertionError(f"the judge head is {len(head)} tokens, not 69")
+        eng = rt.engine()
+        if (eng.cb.B, eng.cb.max_len) != (8, JUDGE_WINDOW):
+            raise AssertionError(f"engine of {eng.cb.B} slots, window {eng.cb.max_len}")
+
+        calls = []
+        real_batch, real_reg = rt.generate_batch, rt.register_prefix
+
+        def recorded_batch(prompts, **kw):
+            tok.decoded.clear()
+            t = time.perf_counter()
+            res = real_batch(prompts, **kw)
+            calls.append(dict(prompts=list(prompts), results=res, tokens=list(tok.decoded),
+                              wall_s=time.perf_counter() - t))
+            return res
+
+        reg_ms = []
+
+        def recorded_reg(prefix):
+            t = time.perf_counter()
+            ok = real_reg(prefix)
+            torch.cuda.synchronize()
+            reg_ms.append((time.perf_counter() - t) * 1e3)
+            return ok
+
+        rt.generate_batch, rt.register_prefix = recorded_batch, recorded_reg
+        flash_gqa_cache.launches = 0
+        flash_gqa_cache.launches_kv8 = 0
+        f0 = eng.cb.forwards
+        sigs, out["ingest_judge_traces_per_s"], walls = ingest_timed(plat, traces)
+        n_fwd = eng.cb.forwards - f0
+        launches, other = flash_gqa_cache.launches, flash_gqa_cache.launches_kv8
+        if launches != 32 * n_fwd or other != 0 or n_fwd == 0:
+            raise AssertionError(f"arm A: {launches} flash launches ({other} int8) for {n_fwd} forwards")
+        if len(calls) != 4 or len(reg_ms) != 1:
+            raise AssertionError(f"{len(calls)} judge calls, {len(reg_ms)} registrations")
+        ids_per_call = [[rt._encode(p) for p in c["prompts"]] for c in calls]
+        if ids_per_call != judge_batches():  # phase 5 held the kernel at the shapes these give
+            raise AssertionError("the judge's prompts are not the ones phase 5 took its flash shapes from")
+        stats = dict(eng.cb.prefix_stats)
+        want = expected_prefix_stats(head, ids_per_call, JUDGE_WINDOW, JUDGE_PREFIX_MAX)
+        if stats != want or stats["hits"] == 0 or stats["hits"] == sum(map(len, ids_per_call)):
+            raise AssertionError(f"prefix stats {stats} != {want} worked out from the prompt lengths")
+        if not all(r.meta.get("continuous") for c in calls for r in c["results"]):
+            raise AssertionError("a judge result of arm A did not come through the engine")
+        # The signals: the rule's verdicts plus parse_judge_verdict over the texts.
+        n_yes = 0
+        for b, (c, got) in enumerate(zip(calls, sigs)):
+            batch = traces[512 * b: 512 * (b + 1)]
+            rule = RuleClassifier().classify_batch(batch)
+            amb = [i for i, (t, s) in enumerate(zip(batch, rule)) if s is None and _wants_citations(t.prompt)]
+            if len(amb) != 64 or len(c["results"]) != 64 or len(c["tokens"]) != 64:
+                raise AssertionError(f"batch {b}: {len(amb)} ambiguous traces, {len(c['results'])} verdicts")
+            yes = {batch[i].trace_id for i, r in zip(amb, c["results"]) if parse_judge_verdict(r.text)}
+            n_yes += len(yes)
+            want_ids = {batch[i].trace_id for i, s in enumerate(rule) if s is not None} | yes
+            if {s.trace_id for s in got} != want_ids:
+                raise AssertionError(f"batch {b}: the judged signals are not the rule's plus the YES verdicts")
+        # The stream's end state (the phase 4 checks): one record per failure,
+        # the cluster state current, patterns and health for every app.
+        n_fail = sum(map(len, sigs))
+        st = plat.gfkb.mine_state_info()
+        if plat.gfkb.count != n_fail or n_fail != sum(map(len, rule_sigs)) + n_yes:
+            raise AssertionError(f"GFKB holds {plat.gfkb.count} records for {n_fail} failures")
+        if not (st.get("enabled") and not st["stale"] and st["covers_all_rows"] and st["delta_dispatches"] >= 4):
+            raise AssertionError(f"mining state after the judged stream: {st}")
+        pats, info = plat.mine()
+        if info["mode"] != "incremental" or not pats or not plat.patterns_list():
+            raise AssertionError(f"mine after the judged stream: {info}")
+        for app in sorted({t.app_id for t in traces}):
+            pts = plat.health_points(app)
+            if not pts or not all(0.0 <= p.score <= 100.0 for p in pts):
+                raise AssertionError(f"{app}: health {pts[-1:] if pts else 'missing'}")
+        # The warn that follows, on the same card.
+        fused_topk.launches = 0
+        reqs = [WarningRequest(app_id="z", prompt=f"Summarize report {i * 31} and include citations",
+                               tools=[], env={"os": "linux"}) for i in range(64)]
+        res = plat.warn_batch(reqs)
+        if len(res) != 64 or fused_topk.launches < 1 or not all(r.confidence > 0.5 for r in res):
+            raise AssertionError(f"warn_batch after the judged stream: {fused_topk.launches} launches")
+        # register_prefix once more, warm (the first one paid the first
+        # forward at S = 69): another head of the judge's length.
+        other = _JUDGE_PROMPT.split("{prompt}")[0].replace("applications", "applicationz")
+        t = time.perf_counter()
+        if not real_reg(other) or len(tok.encode(other)) != 69:
+            raise AssertionError("a second 69-token head did not register")
+        torch.cuda.synchronize()
+        reg_ms.append((time.perf_counter() - t) * 1e3)
+        out.update(
+            judge_launches=launches, judge_forwards=n_fwd, warn_fused_topk_launches=fused_topk.launches,
+            prefix_stats=stats, register_prefix_ms=reg_ms[0], register_prefix_warm_ms=reg_ms[1], judge_wall_s=[c["wall_s"] for c in calls],
+            ingest_batch_wall_s=walls, judged_yes=n_yes, failures=n_fail,
+            prompt_tokens=[min(map(len, i)) for i in ids_per_call] + [max(map(len, i)) for i in ids_per_call],
+        )
+        log(f"phase 10 arm A (engine, window 2048): 4 x 512 traces, {sum(map(len, ids_per_call))} judged in "
+            f"{len(calls)} generate_batch calls, every result through the engine; prefix stats {stats} == the "
+            f"arithmetic's; {n_fwd} forwards, {launches} flash launches; register_prefix {reg_ms[0]:.2f} ms "
+            f"(the first), {reg_ms[1]:.2f} ms (warm); "
+            f"judge wall per batch " + " / ".join(f"{c['wall_s']:.3f}" for c in calls) + " s; ingest "
+            f"{out['ingest_judge_traces_per_s']:.1f} traces/s with the judge, "
+            f"{out['ingest_rule_only_traces_per_s']:.1f} rule-only; {n_yes} YES verdicts, {n_fail} failures; "
+            f"warn_batch-64 after it: {fused_topk.launches} fused_topk launches [{card}]")
+
+        # Arm B: the same judge prompts at the default window (512), prefill in
+        # pieces of 256: none fits the engine, each batch one DecodeSession.
+        del os.environ["KAKVEDA_SERVE_WINDOW"]
+        os.environ["KAKVEDA_PREFILL_CHUNK"] = str(JUDGE_CHUNK)
+        tok_b = RecordingTokenizer()
+        rt_b = G.LlamaRuntime(cfg=rt.cfg, params=rt.params, tokenizer=tok_b)
+        try:
+            eng_b = rt_b.engine()
+            if eng_b.cb.max_len != 512 or any(eng_b.fits(len(i), 4) for ids in ids_per_call for i in ids):
+                raise AssertionError("arm B: a judge prompt fits the engine at window 512")
+            walls_b, departures, pieces, launches_b, other = [], [], 0, 0, 0
+            for c, ids in zip(calls, ids_per_call):
+                tok_b.decoded.clear()
+                flash_gqa_cache.launches = 0
+                flash_gqa_cache.launches_kv8 = 0
+                t = time.perf_counter()
+                res = rt_b.generate_batch(c["prompts"], max_tokens=JUDGE_MAX_TOKENS)
+                walls_b.append(time.perf_counter() - t)
+                # Read here: margin_rule's teacher-forced passes below launch it too.
+                launches_b += flash_gqa_cache.launches
+                other += flash_gqa_cache.launches_kv8
+                if any("continuous" in r.meta for r in res):
+                    raise AssertionError("arm B: a judge result came through the engine")
+                width = G._prefill_width(max(map(len, ids)), JUDGE_CHUNK)
+                ml = G._bucket_len(width + JUDGE_MAX_TOKENS + 1, rt.cfg.max_seq_len)
+                pieces += width // JUDGE_CHUNK + min(JUDGE_MAX_TOKENS, ml - 1 - width)
+                for p_ids, a, b_ in zip(ids, c["tokens"], tok_b.decoded):
+                    m = margin_rule(rt.params, rt.cfg, tok, p_ids, a, b_, "phase 10 arm B vs arm A")
+                    if m is not None:
+                        departures.append(m)
+            if launches_b != 32 * pieces or other != 0 or eng_b.cb.forwards != 0:
+                raise AssertionError(f"arm B: {launches_b} flash launches ({other} int8) for {pieces} forwards")
+            # Its prefill alone, in device time: the last batch, pieces of 256.
+            ids = ids_per_call[-1]
+            width = G._prefill_width(max(map(len, ids)), JUDGE_CHUNK)
+            ml = G._bucket_len(width + JUDGE_MAX_TOKENS + 1, rt.cfg.max_seq_len)
+            toks, valid, offs, _ = G._pack_prompts(ids, ml, plen=width)
+            cache = G.init_cache(rt.cfg, batch=len(ids), max_len=ml, device="cuda")
+            args = [torch.from_numpy(a).cuda() for a in (toks, valid, offs)]
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            G.prefill(rt.params, rt.cfg, args[0], cache, args[1], args[2], chunk=JUDGE_CHUNK)
+            end.record()
+            end.synchronize()
+            prefill_ms = start.elapsed_time(end)
+            del cache, args
+        finally:
+            rt_b.close()
+        out.update(arm_b_wall_s=walls_b, arm_b_prefill_device_ms=prefill_ms, arm_b_prefill_width=width,
+                   arm_b_cache_rows=ml, arm_b_forwards=pieces, arm_b_launches=launches_b,
+                   arm_b_departures=len(departures),
+                   arm_b_departure_margin_max=max(departures, default=None))
+        log(f"phase 10 arm B (window 512, KAKVEDA_PREFILL_CHUNK=256): no judge prompt fits the engine; "
+            f"{pieces} forwards, {launches_b} flash launches; wall per batch "
+            + " / ".join(f"{w:.3f}" for w in walls_b) + f" s; the last batch's prefill ({len(ids)} prompts at "
+            f"width {width}, cache {ml} rows) {prefill_ms:.2f} ms device; tokens == arm A's except "
+            f"{len(departures)} prompts that depart at a near-tie (margins up to "
+            f"{max(departures, default=0.0):.4f} < {MARGIN_TOL}) [{card}]")
+
+        out["admission"] = judge_admissions(rt, tok, head, card)
+        out["admission_launches"] = out["admission"].pop("launches")
+        out["peak_allocated_bytes"] = torch.cuda.max_memory_allocated()
+        log(f"phase 10: peak allocated with both planes resident {out['peak_allocated_bytes'] / 1e9:.2f} GB "
+            f"[{card}]")
+        plat.close()
+    finally:
+        R.clear_runtimes()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    del plat, rt
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("phase 10: " + json.dumps(out))
     return out
 
 
@@ -2276,8 +2855,13 @@ def main() -> int:
     held = torch.cuda.memory_allocated()
     model = phase_model(card)
     log_held("phase 6")
-    if torch.cuda.memory_allocated() > held + 0.5e9:  # phase 9 needs phase 6's 16 GB back
+    if torch.cuda.memory_allocated() > held + 0.5e9:  # phases 10 and 9 need phase 6's 16 GB back
         raise AssertionError(f"phase 6 left {torch.cuda.memory_allocated() - held} bytes allocated")
+    with tempfile.TemporaryDirectory(prefix="kakveda-judge-") as d:
+        judge = phase_judge(Path(d), fused_topk, card)
+    log_held("phase 10")
+    if torch.cuda.memory_allocated() > held + 0.5e9:  # phase 9 needs the card back
+        raise AssertionError(f"phase 10 left {torch.cuda.memory_allocated() - held} bytes allocated")
     mixtral = phase_mixtral(card)
 
     kernels = [dict(
@@ -2294,10 +2878,15 @@ def main() -> int:
             name=kname, route="cuda", source="kakveda_tpu_torch/csrc/flash_gqa_cache.cu",
             replaces="kakveda_tpu/models/attention.py:284", launches=model[tag]["launches"],
             launches_mixtral=mixtral[tag]["launches"],
+            launches_judge=judge["judge_launches"] if tag == "bf16" else None,
+            launches_judge_solo=judge["arm_b_launches"] if tag == "bf16" else None,
+            launches_judge_admissions=judge["admission_launches"][tag],
+            judge_shapes=r["judge_shapes"],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
             bound_seen_ms=r["bound_seen_ms"],
         ))
+    kernels[0]["launches_judge_warn"] = judge["warn_fused_topk_launches"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

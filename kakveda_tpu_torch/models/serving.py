@@ -1,16 +1,19 @@
 """Continuous batching — the online serving path.
 
-Counterpart of ``kakveda_tpu/models/serving.py`` (its core; see the ROADMAP
-for what is not ported yet: speculative chunks, the prefix cache, deadlines
-and cancel, the supervisor's restarts, and the admission, metrics, ledger
-and trace hooks).
+Counterpart of ``kakveda_tpu/models/serving.py`` (its core and the prefix
+cache; see the ROADMAP for what is not ported yet: speculative chunks and
+the prefix store's n-gram index they draft from, deadlines and cancel, the
+supervisor's restarts and its list of prefixes to register again, and the
+admission, metrics, ledger and trace hooks).
 
 A :class:`ContinuousBatcher` owns a fixed ``[B, KV, max_len, D]`` KV cache
 and treats the batch axis as B independent slots:
 
 * **admit** prefills one prompt, left-padded to a power-of-two bucket, into
   a ``[1, ...]`` scratch cache (so its attention sees only this prompt) and
-  copies the rows into its slot, in place;
+  copies the rows into its slot, in place. A prompt that starts with a
+  registered prefix (:meth:`ContinuousBatcher.register_prefix`) gets the
+  prefix's K/V slab in its scratch and prefills only a power-of-two tail;
 * **step** advances every active slot by ``chunk_steps`` tokens, one
   :func:`_forward_wide` per token with per-slot positions; inactive slots
   decode garbage into their own rows, masked from everyone by ``kv_valid``;
@@ -29,11 +32,12 @@ engine can enqueue chunk i+1 before it reads chunk i.
 from __future__ import annotations
 
 import logging
+import os
 import queue
 import threading
 from concurrent.futures import Future, InvalidStateError
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -143,6 +147,16 @@ def _forward_wide(
 
 
 @dataclass
+class _Prefix:
+    """One registered prompt prefix: its token ids and per-layer K/V slabs
+    ``[1, KV, plen, D]`` (int8 with f32 scales ``[1, KV, plen]`` under an
+    int8 cache)."""
+
+    ids: Tuple[int, ...]
+    kv: Dict[str, List[torch.Tensor]]
+
+
+@dataclass
 class _Slot:
     req_id: int
     prompt_len: int
@@ -183,15 +197,82 @@ class ContinuousBatcher:
         self.free = list(range(batch_slots))
         self.results: Dict[int, List[int]] = {}
         self._next_id = 0
-        # Forward passes run: one per admission, one per decode step. Each
-        # runs every layer's attention once.
+        # Forward passes run: one per admission, prefix registration and
+        # decode step. Each runs every layer's attention once.
         self.forwards = 0
+        # Registered prefixes, least recently used first.
+        self._prefixes: Dict[Tuple[int, ...], _Prefix] = {}
+        self.prefix_stats = {"registered": 0, "hits": 0, "hit_tokens_saved": 0}
 
     @staticmethod
     def bucket_for(prompt_len: int, max_len: int) -> int:
         """Admission pad width: power of two ≥ prompt (min 8), capped at the
         slot window. Shared by admit() and ServingEngine.fits()."""
         return pow2_bucket(prompt_len, floor=8, cap=max_len - 1)
+
+    def register_prefix(self, prefix_ids: List[int]) -> bool:
+        """Prefill a shared prompt prefix once and keep its K/V rows, so that
+        later admissions of prompts that start with it prefill only their
+        suffix. Refused (False) when shorter than 8 tokens, when len + 9
+        reaches the slot window, and under longrope (whose rotation depends
+        on the whole prompt's length); registering a held prefix again is a
+        no-op (True). ``KAKVEDA_SERVE_PREFIX_MAX`` (4) caps the store: the
+        least recently used prefix goes first."""
+        ids = tuple(int(t) for t in prefix_ids)
+        if len(ids) < 8 or len(ids) + 9 >= self.max_len:
+            return False
+        if getattr(self.cfg, "rope_dim_factors_long", None):
+            return False
+        if ids in self._prefixes:
+            return True
+        scratch = self._prefix_prefill(ids)
+        keys = ("k", "v") + (("ks", "vs") if self.cfg.kv_quant == "int8" else ())
+        maxp = int(os.environ.get("KAKVEDA_SERVE_PREFIX_MAX", "4"))
+        while len(self._prefixes) >= max(1, maxp):
+            self._prefixes.pop(next(iter(self._prefixes)))
+        self._prefixes[ids] = _Prefix(ids=ids, kv={k: scratch[k] for k in keys})
+        self.prefix_stats["registered"] += 1
+        return True
+
+    def _prefix_prefill(self, ids: Tuple[int, ...]) -> dict:
+        """One ``decode_step`` of the prefix into an exact-length ``[1, plen]``
+        cache; returns that cache."""
+        scratch = init_cache(self.cfg, batch=1, max_len=len(ids), device=self.device)
+        decode_step(
+            self.params, self.cfg, torch.tensor([list(ids)], dtype=torch.long, device=self.device),
+            scratch, last_only=True,
+        )
+        self.forwards += 1
+        return scratch
+
+    def _match_prefix(self, prompt_ids: List[int]):
+        """The longest registered prefix of ``prompt_ids`` and the split:
+        (entry, split, suffix width) or None. The suffix is a power-of-two
+        tail (floor 8) of width sw ≥ len(prompt) − len(prefix); ``split =
+        len(prompt) − sw`` rows come from the slab and the suffix recomputes
+        the overlap with the same values. None when split ≤ 0 (the suffix
+        covers the whole prompt); a match moves its entry to the end of the
+        LRU order either way."""
+        if not self._prefixes:
+            return None
+        best = None
+        for pe in self._prefixes.values():
+            pl_ = len(pe.ids)
+            if best is not None and pl_ <= len(best.ids):
+                continue
+            if len(prompt_ids) >= pl_ and tuple(prompt_ids[:pl_]) == pe.ids:
+                best = pe
+        if best is None:
+            return None
+        self._prefixes[best.ids] = self._prefixes.pop(best.ids)
+        p = len(prompt_ids)
+        sw = 8
+        while sw < p - len(best.ids):
+            sw <<= 1
+        split = p - sw
+        if split <= 0:
+            return None
+        return best, split, sw
 
     @property
     def has_capacity(self) -> bool:
@@ -202,7 +283,11 @@ class ContinuousBatcher:
         return len(self.slots)
 
     def admit(self, prompt_ids: List[int], max_new_tokens: int = 64, temperature: float = 0.0) -> int:
-        """Prefill into a free slot; returns a request id."""
+        """Prefill into a free slot; returns a request id. With a prefix
+        match (unless ``KAKVEDA_SERVE_PREFIX=0``) the slab goes to rows
+        ``[off, off + plen)`` of the scratch cache and one ``decode_step``
+        of the suffix runs from row ``off + split``: RoPE rotates by the
+        logical position (row − off), so one slab serves every bucket."""
         if not self.free:
             raise RuntimeError("no free slot; call step() until one retires")
         p = len(prompt_ids)
@@ -221,7 +306,19 @@ class ContinuousBatcher:
 
         dev = self.device
         scratch = init_cache(self.cfg, batch=1, max_len=self.max_len, device=dev)
-        prompt = torch.tensor([[0] * off + list(prompt_ids)], dtype=torch.long, device=dev)
+        m = self._match_prefix(list(prompt_ids)) if os.environ.get("KAKVEDA_SERVE_PREFIX", "1") != "0" else None
+        if m is not None:
+            pe, split, _ = m
+            self.prefix_stats["hits"] += 1
+            self.prefix_stats["hit_tokens_saved"] += split
+            plen = len(pe.ids)
+            for key, slabs in pe.kv.items():
+                for sk, pk in zip(scratch[key], slabs):
+                    sk[:, :, off : off + plen] = pk
+            scratch["pos"] = off + split
+            prompt = torch.tensor([list(prompt_ids[split:])], dtype=torch.long, device=dev)
+        else:
+            prompt = torch.tensor([[0] * off + list(prompt_ids)], dtype=torch.long, device=dev)
         logits, scratch = decode_step(
             self.params, self.cfg, prompt, scratch,
             kv_valid=_h2d(self._kv_np[slot : slot + 1], dev),
@@ -395,6 +492,17 @@ class ServingEngine:
             self._q.put((list(prompt_ids), max_new_tokens, temperature, fut))
             return fut
 
+    def register_prefix(self, prefix_ids: List[int], timeout: float = 120.0) -> bool:
+        """``ContinuousBatcher.register_prefix`` on the loop thread (the
+        batcher is the loop's, so a registration never races a chunk);
+        blocks for the answer."""
+        with self._lock:
+            if self._closed.is_set():
+                raise RuntimeError("ServingEngine is closed")
+            fut: Future = Future()
+            self._q.put(("prefix", list(prefix_ids), fut))
+        return bool(fut.result(timeout=timeout))
+
     def close(self) -> None:
         with self._lock:
             self._closed.set()
@@ -433,6 +541,15 @@ class ServingEngine:
                 if err is not None else RuntimeError("ServingEngine closed")
             )
 
+    def _register(self, item) -> None:
+        _, ids, fut = item
+        if not fut.set_running_or_notify_cancel():
+            return
+        try:
+            fut.set_result(self.cb.register_prefix(ids))
+        except Exception as e:  # noqa: BLE001 — a registration's error is its caller's
+            _fail(fut, e)
+
     def _admit_one(self, item) -> None:
         ids, max_new, temp, fut = item
         if not fut.set_running_or_notify_cancel():
@@ -445,12 +562,16 @@ class ServingEngine:
         self._pend[rid] = fut
 
     def _pump(self, block: bool) -> None:
-        """Move new submissions to the waiting list (blocking briefly when
-        idle), then admit while slots are free."""
+        """Run prefix registrations at once and move new submissions to the
+        waiting list (blocking briefly when idle), then admit while slots
+        are free."""
         try:
             while True:
                 item = self._q.get(timeout=0.1) if block else self._q.get_nowait()
                 block = False
+                if item[0] == "prefix":
+                    self._register(item)
+                    continue
                 with self._lock:
                     self._waiting.append(item)
         except queue.Empty:

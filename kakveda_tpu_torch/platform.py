@@ -3,7 +3,8 @@
 Port of ``kakveda_tpu/platform.py`` (without replication):
 
     ingest(trace)  → publish trace.ingested
-                   → rule classifier → GFKB upsert (featurize + device insert
+                   → classifier (rule, or rule + LLM judge)
+                   → GFKB upsert (featurize + device insert
                      + mining attach: one delta top-k per batch)
                    → pattern detector → pattern upsert
                    → health scorer    → health point append
@@ -12,12 +13,16 @@ Port of ``kakveda_tpu/platform.py`` (without replication):
 
 ``ingest_batch`` is the streaming path: classify, embed and insert whole
 batches with one device scatter. The index lives on ``device`` — the CUDA
-card by default; ``None`` with no card raises.
+card by default; ``None`` with no card raises. Without a ``classifier``,
+``KAKVEDA_CLASSIFIER=tiered`` puts an LLM judge behind the rule tier, over
+``get_runtime(device=...)``: the model (``KAKVEDA_MODEL_RUNTIME=torch``)
+then lives on the index's device.
 """
 
 from __future__ import annotations
 
 import asyncio
+import os
 from pathlib import Path
 from typing import List, Optional, Sequence
 
@@ -35,7 +40,8 @@ from kakveda_tpu_torch.core.schemas import (
 )
 from kakveda_tpu_torch.events.bus import TOPIC_FAILURE_DETECTED, TOPIC_TRACE_INGESTED, EventBus
 from kakveda_tpu_torch.index.gfkb import GFKB
-from kakveda_tpu_torch.pipeline.classifier import RuleClassifier
+from kakveda_tpu_torch.models.runtime import get_runtime
+from kakveda_tpu_torch.pipeline.classifier import RuleClassifier, TieredClassifier
 from kakveda_tpu_torch.pipeline.health_score import HealthScorer
 from kakveda_tpu_torch.pipeline.patterns import PatternDetector
 from kakveda_tpu_torch.pipeline.warning import WarningPolicy
@@ -66,7 +72,12 @@ class Platform:
             device=device,
         )
         self.device = self.gfkb.device
-        self.classifier = classifier or RuleClassifier()
+        if classifier is None:
+            if os.environ.get("KAKVEDA_CLASSIFIER", "rule") == "tiered":
+                classifier = TieredClassifier(runtime=get_runtime(device=self.device))
+            else:
+                classifier = RuleClassifier()
+        self.classifier = classifier
         self.patterns = PatternDetector(self.gfkb)
         self.warning_policy = WarningPolicy(self.gfkb, self.config)
         self.health = HealthScorer(self.data_dir, self.config, persist=persist)

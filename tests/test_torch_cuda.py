@@ -790,3 +790,157 @@ def test_int8_runtime_never_holds_a_bf16_expert_stack(gen):
         rt.close()
         del rt
         torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# the LLM judge's shapes: a prefix-hit admission and chunked prefill, where
+# the flash kernel runs S > 1 from pos0 > 0
+# ---------------------------------------------------------------------------
+
+# Solo top-2 logit margin below which bf16 noise between two computations of
+# the same function (a slab's rows vs a full admission's, one prefill piece
+# vs several) may flip a greedy token.
+MARGIN_TOL = 0.25
+
+
+@pytest.mark.parametrize("kv8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize(
+    "b,s,l,pos0,valid",
+    [
+        # A 560-token judge prompt at window 2048 hitting the 69-token judge
+        # head: bucket 1024, left pad 464, sw 512, split 48.
+        (1, 512, 2048, 512, (464, 1024)),
+        # DecodeSession's pieces of 64 judge prompts of <= 768 tokens at
+        # KAKVEDA_PREFILL_CHUNK=256, per-row left pads.
+        (64, 256, 1024, 256, "leftpad"),
+        (64, 256, 1024, 512, "leftpad"),
+    ],
+    ids=["prefix_admission", "chunk_1", "chunk_2"],
+)
+def test_flash_kernel_at_the_judge_shapes(gen, b, s, l, pos0, valid, kv8):
+    from kakveda_tpu_torch.models.attention import flash_gqa_cache_split_reference
+
+    q, k, v, _, _, ks, vs = _flash_case(gen, b, s, 32, 8, l, 128, pos0, None, kv8)
+    ar = torch.arange(l, device="cuda")
+    if valid == "leftpad":
+        off = torch.randint(0, 512, (b, 1), device="cuda", generator=gen)
+        off[0] = 0
+        off[1] = 511  # the first piece is all left pad for this row
+        kv_valid = (ar >= off).contiguous()
+    else:
+        kv_valid = ((ar >= valid[0]) & (ar < valid[1])).expand(b, l).contiguous()
+    n_split = _split_count(b, s, 32, 8, l, pos0)
+    counter = "launches_kv8" if kv8 else "launches"
+    before = getattr(flash_gqa_cache, counter)
+    out = flash_gqa_cache(q, k, v, pos0, kv_valid, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert getattr(flash_gqa_cache, counter) == before + 1
+    kw = dict(k_scale=ks, v_scale=vs)
+    assert torch.isfinite(out).all()
+    for want in (flash_gqa_cache_split_reference(q, k, v, pos0, kv_valid, n_split=n_split, **kw),
+                 flash_gqa_cache_reference(q, k, v, pos0, kv_valid, **kw)):
+        _assert_flash_close(out, want)
+
+
+def _agree_under_margin(params, cfg, prompt, ref, got):
+    """``got`` equals ``ref``, or first departs from it at a step where the
+    solo top-2 margin along ``ref`` is under MARGIN_TOL."""
+    from kakveda_tpu_torch.models.llama import decode_step, init_cache, mask_pad_vocab
+
+    n = next((j for j, (x, y) in enumerate(zip(ref, got)) if x != y), None)
+    if n is None:
+        return len(ref) == len(got)
+    seq = torch.tensor([prompt + ref[:n]], device="cuda")
+    logits, _ = decode_step(params, cfg, seq, init_cache(cfg, 1, seq.shape[1]), last_only=True)
+    top2 = mask_pad_vocab(logits[0, -1], cfg).topk(2).values
+    return (top2[0] - top2[1]).item() < MARGIN_TOL
+
+
+@pytest.mark.parametrize("kv_quant", ["", "int8"])
+def test_prefix_hit_admission_on_the_card(gen, kv_quant, monkeypatch):
+    """A prompt that reuses a registered prefix (split > 0, the suffix at
+    pos0 = off + split) decodes the tokens of the same prompt admitted whole
+    (KAKVEDA_SERVE_PREFIX=0), up to a near-tie; every forward (the prefix
+    prefill included) launches the kernel once a layer."""
+    from kakveda_tpu_torch.models.serving import ContinuousBatcher
+
+    cfg, params = _small_bf16_model(gen, kv_quant)
+    rng = torch.Generator().manual_seed(1)
+    head = torch.randint(3, 259, (40,), generator=rng).tolist()
+    prompts = [head + torch.randint(3, 259, (n,), generator=rng).tolist() for n in (60, 25, 7)]
+    mine = "launches_kv8" if kv_quant else "launches"
+    outs = {}
+    for use in ("1", "0"):
+        monkeypatch.setenv("KAKVEDA_SERVE_PREFIX", use)
+        cb = ContinuousBatcher(params, cfg, batch_slots=2, max_len=256, chunk_steps=4)
+        before = getattr(flash_gqa_cache, mine)
+        assert cb.register_prefix(head)
+        outs[use] = cb.run_all(prompts, max_new_tokens=12)
+        torch.cuda.synchronize()
+        assert getattr(flash_gqa_cache, mine) - before == cfg.n_layers * cb.forwards
+        # 100 tokens: sw 64, split 36; 65: sw 32, split 33; 47: sw 8, split 39.
+        want = {"registered": 1, "hits": 3, "hit_tokens_saved": 36 + 33 + 39} if use == "1" else \
+            {"registered": 1, "hits": 0, "hit_tokens_saved": 0}
+        assert cb.prefix_stats == want
+    for p, a, b in zip(prompts, outs["0"], outs["1"]):
+        assert len(a) == len(b) == 12 and _agree_under_margin(params, cfg, p, a, b), (a, b)
+
+
+def _session_logits(sess, cfg):
+    return sess._last[:, : cfg.effective_vocab].float()
+
+
+def test_decode_session_chunked_prefill_on_the_card(gen):
+    """Chunked prefill (pieces of 32 from pos0 = 0, 32, 64, 96) against the
+    one-piece prefill of the same batch: last logits within MARGIN_TOL, and
+    each row's greedy tokens equal up to a near-tie."""
+    from kakveda_tpu_torch.models.generate import DecodeSession
+
+    cfg, params = _small_bf16_model(gen)
+    rng = torch.Generator().manual_seed(2)
+    prompts = [torch.randint(3, 259, (n,), generator=rng).tolist() for n in (100, 37, 64, 90)]
+    before = flash_gqa_cache.launches
+    one = DecodeSession(params, cfg, prompts, chunk_steps=8, max_len=256)
+    assert flash_gqa_cache.launches - before == cfg.n_layers
+    before = flash_gqa_cache.launches
+    many = DecodeSession(params, cfg, prompts, chunk_steps=8, max_len=256, prefill_chunk=32)
+    assert flash_gqa_cache.launches - before == 4 * cfg.n_layers and many._pos == 128
+    diff = (_session_logits(one, cfg) - _session_logits(many, cfg)).abs().max().item()
+    assert diff < MARGIN_TOL, diff
+    a, b = one.step_chunk().tolist(), many.step_chunk().tolist()
+    for p, ra, rb in zip(prompts, a, b):
+        assert _agree_under_margin(params, cfg, p, ra, rb), (ra, rb)
+
+
+def test_get_runtime_puts_the_judge_on_the_platforms_card(gen, tmp_path, monkeypatch):
+    """KAKVEDA_CLASSIFIER=tiered with KAKVEDA_MODEL_RUNTIME=torch: the
+    Platform's judge is the in-tree Llama on the index's card, and an
+    ambiguous trace's ingest runs it there. The 8B preset (random weights):
+    the tiny preset's head_dim of 32 is not one the flash kernel takes."""
+    from kakveda_tpu_torch.core.schemas import TracePayload
+    from kakveda_tpu_torch.models import runtime as TR
+    from kakveda_tpu_torch.pipeline.classifier import TieredClassifier
+    from kakveda_tpu_torch.platform import Platform
+
+    TR.clear_runtimes()
+    monkeypatch.setenv("KAKVEDA_CLASSIFIER", "tiered")
+    monkeypatch.setenv("KAKVEDA_MODEL_RUNTIME", "torch")
+    monkeypatch.setenv("KAKVEDA_SERVE_WINDOW", "2048")
+    monkeypatch.setenv("KAKVEDA_LLAMA_PRESET", "8b")
+    plat = Platform(data_dir=tmp_path, capacity=1024, dim=256)
+    try:
+        rt = plat.classifier.runtime
+        assert isinstance(plat.classifier, TieredClassifier) and rt is TR.get_runtime(device="cuda")
+        assert plat.device.type == rt.device.type == rt.params["embed"].device.type == "cuda"
+        before = flash_gqa_cache.launches
+        trace = TracePayload(trace_id="t", ts=datetime.now(timezone.utc), app_id="a",
+                             prompt="Summarize the report and include citations.",
+                             response="As Smith showed in 2020, it works.", tools=[], env={})
+        asyncio.run(plat.ingest_batch([trace]))
+        torch.cuda.synchronize()
+        eng = rt.engine()
+        assert eng.cb.prefix_stats["registered"] == 1  # the judge head
+        assert flash_gqa_cache.launches - before == rt.cfg.n_layers * eng.cb.forwards > 0
+    finally:
+        plat.close()
+        TR.clear_runtimes()

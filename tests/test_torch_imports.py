@@ -52,6 +52,10 @@ def test_import_loads_no_jax_in_fresh_interpreter():
         ("kakveda_tpu_torch.native", False),
         ("kakveda_tpu_torch.models.moe", False),
         ("kakveda_tpu_torch.models.quant", False),
+        ("kakveda_tpu_torch.models.runtime", False),
+        ("kakveda_tpu_torch.models.generate", False),
+        ("kakveda_tpu_torch.models.serving", False),
+        ("kakveda_tpu_torch.pipeline.classifier", False),
         ("kakveda_tpu_torch.service.app", True),
     ],
 )
@@ -85,13 +89,16 @@ def test_sources_name_no_jax():
 
 
 @pytest.mark.parametrize(
-    "entry", ["platform", "gfkb", "knn", "llama_runtime", "llama_init_params", "llama_init_cache", "service_app"]
+    "entry",
+    ["platform", "gfkb", "knn", "llama_runtime", "llama_init_params", "llama_init_cache", "service_app",
+     "get_runtime", "tiered_platform"],
 )
 def test_entry_points_default_to_cuda(entry, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     from kakveda_tpu_torch.index.gfkb import GFKB
     from kakveda_tpu_torch.models.generate import LlamaRuntime
     from kakveda_tpu_torch.models.llama import LlamaConfig, init_cache, init_params
+    from kakveda_tpu_torch.models.runtime import get_runtime
     from kakveda_tpu_torch.ops.knn import Knn
     from kakveda_tpu_torch.platform import Platform
     from kakveda_tpu_torch.service.app import make_app
@@ -104,7 +111,12 @@ def test_entry_points_default_to_cuda(entry, tmp_path, monkeypatch):
         "llama_init_params": lambda: init_params(torch.Generator(), LlamaConfig.tiny()),
         "llama_init_cache": lambda: init_cache(LlamaConfig.tiny(), batch=1, max_len=8),
         "service_app": lambda: make_app(data_dir=tmp_path, capacity=16, dim=64),
+        "get_runtime": lambda: get_runtime("torch"),
+        "tiered_platform": lambda: Platform(data_dir=tmp_path, capacity=16, dim=64),
     }[entry]
+    if entry == "tiered_platform":
+        monkeypatch.setenv("KAKVEDA_CLASSIFIER", "tiered")
+        monkeypatch.setenv("KAKVEDA_MODEL_RUNTIME", "torch")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         make()
 

@@ -2,7 +2,7 @@
 identical in f32, for the float cache and the int8 cache.
 
 ``ContinuousBatcher.run_all`` (with retirement, slot reuse and late
-admission), an admission in mid-flight, ``generate_tokens_batch`` and
+admission), an admission in mid-flight, and
 ``LlamaRuntime.generate_batch`` through the engine, on the same weights
 (the JAX tree carried across by ``convert.llama_params_from_jax``). Pad
 rows are the one place the two differ (zeros here, a uniform average in the
@@ -80,13 +80,6 @@ def test_admit_mid_flight_matches_jax(weights, kv_quant):
     assert len(outs[1][0]) == 12 and len(outs[1][1]) == 6
 
 
-def test_generate_tokens_batch_matches_jax(weights):
-    jp, tp = weights
-    prompts = [[5, 6, 7], [10, 11, 12, 13, 14, 15, 16], [42]]
-    want = JG.generate_tokens_batch(jp, JCFG, prompts, max_new_tokens=9, eos_id=2)
-    assert TG.generate_tokens_batch(tp, TCFG, prompts, max_new_tokens=9, eos_id=2) == want
-
-
 @pytest.mark.parametrize("kv_quant", ["", "int8"])
 def test_runtime_generate_batch_matches_jax(weights, kv_quant, monkeypatch):
     jp, tp = weights
@@ -113,17 +106,25 @@ def test_runtime_generate_batch_matches_jax(weights, kv_quant, monkeypatch):
 
 def test_runtime_solo_fallback_matches_engine(weights):
     """A request whose bucket + budget overruns the engine window takes the
-    solo batch decode; its tokens equal a solo generate_tokens."""
-    _, tp = weights
+    solo path (the JAX runtime's chunked DecodeSession): its text equals the
+    JAX runtime's, and its tokens equal a solo generate_tokens up to the
+    session's last row (a DecodeSession keeps one row of its window free,
+    so it stops one token before generate_tokens at a full window)."""
+    jp, tp = weights
     trt = TG.LlamaRuntime(cfg=TCFG, params=tp, device="cpu")
+    jrt = JG.LlamaRuntime(cfg=JCFG, params=jp)
     try:
         ids = trt.tokenizer.encode("a prompt of some length")
         assert not trt.engine().fits(len(ids), 120)
         r = trt.generate("a prompt of some length", max_tokens=120)
         assert "continuous" not in r.meta
+        assert r.text == jrt.generate("a prompt of some length", max_tokens=120).text
         want = TG.generate_tokens(tp, trt.cfg, ids, max_new_tokens=120, eos_id=trt.tokenizer.EOS)
-        assert trt.tokenizer.decode(want) == r.text
+        got = trt._generate_ids_chunked([ids], 120)[0]
+        assert trt.tokenizer.decode(got) == r.text
+        assert got == want[: len(got)] and len(got) == min(len(want), TCFG.max_seq_len - 1 - len(ids))
     finally:
+        jrt.retire()
         trt.close()
 
 
