@@ -117,8 +117,31 @@ JAX package). Phases, each of which raises on failure (exit code != 0):
    process on the card with a 2^20-row index: it answers ``/healthz``
    within 120 s, ingests 8 × 512 traces, warns an ingested signature back
    to itself, serves 64 clients × 16 warns from this process (so client
-   and server no longer share one event loop), exits 0 on SIGINT, and a
-   fresh ``Platform`` replays its data dir.
+   and server no longer share one event loop), exits 0 on SIGINT leaving a
+   v5 snapshot, and a fresh ``Platform`` reopens its data dir; a second
+   start restores the snapshot (its log and ``/failures`` say so) and
+   answers the same ``/warn``.
+
+11. restart and lifecycle at real size (after phase 8, before the model
+   phases, which get the card back): 2^19 distinct signatures
+   (``restart_corpus``, clusters of 1-10, 1 in 64 spanning apps) through
+   ``upsert_failures_batch`` × 4096 into a 2^20 × 2048 GFKB with mining
+   on, beside ``crashsweep.run_sweep`` at the two fence sites with its
+   children on the card (0 corrupt recoveries), which is joined before the
+   first timed stage; ``snapshot()`` timed by
+   stage; a full replay (snapshot moved aside) and its first mine, a full
+   sweep; the restore, which must take the restore path, timed by stage;
+   the restored emb, valid and types bit-equal to the replay's, equal
+   records, 64 held-out warns equal (ids, ties, scores), labels equal to
+   the build's and the sweep's, a first mine that is incremental; aging
+   of the first 1/8 (no warn returns an aged row, held against a plain
+   top-k over the live rows), an organic resurrection whose row is
+   bit-equal to its pre-tombstone row, ``compact()`` (log bytes before and
+   after) and a reopen that is identical, tombstones kept; last, a full
+   mine's wall where every cluster spans apps, at 2^15 and 2^16 rows,
+   beside 1 in 64 at 2^16 (the pattern emission grows with the square of
+   the spread clusters). ``fused_topk``'s launches there are the kernel
+   row's ``launches_restart``.
 
 9. Mixtral-8x7B width and depth with int8 weight-only weights (the
    published config.json's values in ``MIXTRAL_8X7B``; random weights from
@@ -2650,15 +2673,60 @@ async def _warn_clients(post, clients: int, per_client: int) -> dict:
     return dict(p50_ms=_pct(lat, 0.5), p99_ms=_pct(lat, 0.99), warns_per_s=clients * per_client / wall)
 
 
+def _start_service(root: Path, data: Path, out_path: Path):
+    """``python3 -m kakveda_tpu_torch.service`` on the card at the GFKB's
+    real size, its output to ``out_path``; returns (process, base URL)."""
+    port = _free_port()
+    env = dict(os.environ, PYTHONPATH=str(root), KAKVEDA_LOG_FORMAT="text", KAKVEDA_INDEX_CAPACITY=str(ROWS))
+    with open(out_path, "wb") as out_f:
+        proc = subprocess.Popen([sys.executable, "-m", "kakveda_tpu_torch.service", "--port", str(port),
+                                 "--data-dir", str(data)], cwd=root, env=env,
+                                stdout=out_f, stderr=subprocess.STDOUT)
+    return proc, f"http://127.0.0.1:{port}"
+
+
+async def _wait_healthz(s, base_url: str, proc, out_path: Path, t0: float) -> float:
+    import aiohttp
+
+    while True:
+        if proc.poll() is not None:
+            raise AssertionError("the service exited early:\n" + out_path.read_text()[-3000:])
+        if time.perf_counter() - t0 > 120:
+            raise AssertionError("the service did not answer /healthz within 120 s")
+        try:
+            async with s.get(base_url + "/healthz") as r:
+                if r.status == 200:
+                    return time.perf_counter() - t0
+        except aiohttp.ClientConnectionError:
+            await asyncio.sleep(0.2)
+
+
+def _stop_service(proc, out_path: Path) -> str:
+    """SIGINT; the exit code must be 0. Returns the process's output."""
+    import signal
+
+    try:
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    text = out_path.read_text()
+    if rc != 0:
+        raise AssertionError(f"service exit code {rc}:\n" + text[-3000:])
+    return text
+
+
 def run_entry_point(base: Path, card: str) -> dict:
     """``python3 -m kakveda_tpu_torch.service`` as its own process on the
     card, its index at the GFKB's real size: it answers ``/healthz`` within
     120 s, ingests a warm-up batch and 8 timed batches of 512 traces, warns
     (one ingested signature must match itself; then 64 clients x 16 warns,
     the client in this process and the server in its own), exits 0 on
-    SIGINT, and its data dir replays."""
-    import signal
-
+    SIGINT leaving a v5 snapshot, and its data dir reopens. A second start
+    (phase 11's arm) restores the snapshot — its log and ``/failures`` say
+    so — and answers the same ``/warn`` as before the restart."""
     import aiohttp
 
     from kakveda_tpu_torch.core.schemas import TracePayload
@@ -2666,15 +2734,10 @@ def run_entry_point(base: Path, card: str) -> dict:
 
     root = Path(__file__).resolve().parent
     data = base / "service-data"
-    port = _free_port()
-    env = dict(os.environ, PYTHONPATH=str(root), KAKVEDA_LOG_FORMAT="text", KAKVEDA_INDEX_CAPACITY=str(ROWS))
     out_path = base / "service.log"
-    base_url = f"http://127.0.0.1:{port}"
     t0 = time.perf_counter()
-    with open(out_path, "wb") as out_f:
-        proc = subprocess.Popen([sys.executable, "-m", "kakveda_tpu_torch.service", "--port", str(port),
-                                 "--data-dir", str(data)], cwd=root, env=env,
-                                stdout=out_f, stderr=subprocess.STDOUT)
+    proc, base_url = _start_service(root, data, out_path)
+    warn_body = _warn_body("app-z", "Summarize report 1 and include citations")
 
     async def drive():
         async with aiohttp.ClientSession(connector=aiohttp.TCPConnector(limit=128)) as s:
@@ -2685,18 +2748,7 @@ def run_entry_point(base: Path, card: str) -> dict:
                         raise AssertionError(f"service POST {path}: {r.status} {out}")
                     return out
 
-            while True:
-                if proc.poll() is not None:
-                    raise AssertionError("the service exited early:\n" + out_path.read_text()[-3000:])
-                if time.perf_counter() - t0 > 120:
-                    raise AssertionError("the service did not answer /healthz within 120 s")
-                try:
-                    async with s.get(base_url + "/healthz") as r:
-                        if r.status == 200:
-                            break
-                except aiohttp.ClientConnectionError:
-                    await asyncio.sleep(0.2)
-            up_s = time.perf_counter() - t0
+            up_s = await _wait_healthz(s, base_url, proc, out_path, t0)
             # One warm-up batch first (the process's first device calls
             # initialize cuBLAS and the allocator), then 8 timed batches.
             warm = [t.model_dump(mode="json") for t in _service_traces(TracePayload, 100_000, 512)]
@@ -2707,7 +2759,7 @@ def run_entry_point(base: Path, card: str) -> dict:
             for lo in range(0, 4096, 512):
                 failures += (await post("/ingest/batch", {"traces": traces[lo : lo + 512]}))["failures"]
             ingest_s = time.perf_counter() - t
-            w = await post("/warn", _warn_body("app-z", "Summarize report 1 and include citations"))
+            w = await post("/warn", warn_body)
             async with s.get(base_url + "/readyz") as r:
                 ready = await r.json()
             if failures != 3072 or not w["references"] or w["confidence"] < 0.99:
@@ -2718,32 +2770,56 @@ def run_entry_point(base: Path, card: str) -> dict:
             await post("/warn", _warn_body("app-z", "warm up"))
             c64 = await _warn_clients(post, 64, 16)
             return dict(start_s=up_s, ingest_traces_per_s=4096 / ingest_s, warn_c64=c64,
-                        confidence=w["confidence"], failure_id=w["references"][0]["failure_id"])
+                        confidence=w["confidence"], failure_id=w["references"][0]["failure_id"],
+                        references=[(r["failure_id"], r["score"]) for r in w["references"]])
 
     try:
         out = asyncio.run(drive())
-        proc.send_signal(signal.SIGINT)
-        rc = proc.wait(timeout=60)
     finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
-    if rc != 0:
-        raise AssertionError(f"service exit code {rc}:\n" + out_path.read_text()[-3000:])
+        first = _stop_service(proc, out_path)
+    n_rec = 3072 + 384
+    manifest = json.loads((data / "snapshot" / "manifest.json").read_text())
+    if f"gfkb snapshot written ({n_rec} entries)" not in first or manifest["version"] != 5 or manifest["n"] != n_rec:
+        raise AssertionError(f"shutdown snapshot: {manifest}\n" + first[-2000:])
     rows = (data / "failures.jsonl").read_text().splitlines()
     plat = Platform(data_dir=data, capacity=1 << 12, dim=DIM)
-    if len(rows) != 3072 + 384 or plat.gfkb.count != 3072 + 384 or plat.device.type != "cuda":
-        raise AssertionError(f"replay: {len(rows)} log rows, {plat.gfkb.count} records on {plat.device}")
+    if len(rows) != n_rec or plat.gfkb.count != n_rec or plat.device.type != "cuda":
+        raise AssertionError(f"reopen: {len(rows)} log rows, {plat.gfkb.count} records on {plat.device}")
     out["replayed"] = plat.gfkb.count
     plat.close()
+    del plat
+
+    out_path2 = base / "service-restart.log"
+    t0 = time.perf_counter()
+    proc, base_url = _start_service(root, data, out_path2)
+
+    async def again():
+        async with aiohttp.ClientSession() as s:
+            up_s = await _wait_healthz(s, base_url, proc, out_path2, t0)
+            async with s.get(base_url + "/failures") as r:
+                count = len((await r.json())["failures"])
+            async with s.post(base_url + "/warn", json=warn_body) as r:
+                w = await r.json()
+            return up_s, count, w
+
+    try:
+        up2, count2, w2 = asyncio.run(again())
+    finally:
+        second = _stop_service(proc, out_path2)
+    refs2 = [(r["failure_id"], r["score"]) for r in w2["references"]]
+    if (f"restored a snapshot of {n_rec} rows" not in second or f"restored from a snapshot: {n_rec}" not in second
+            or count2 != n_rec or refs2 != out["references"] or w2["confidence"] != out["confidence"]):
+        raise AssertionError(f"restart: /failures {count2}, /warn {refs2} vs {out['references']}\n" + second[-2000:])
+    out["restart_start_s"] = up2
     c64 = out["warn_c64"]
     log(f"python3 -m kakveda_tpu_torch.service ({ROWS} x {DIM} index): answered /healthz after "
         f"{out['start_s']:.1f} s; /ingest/batch 8 x 512 (after one warm-up batch) at "
         f"{out['ingest_traces_per_s']:.1f} traces/s; an ingested "
         f"signature warned at {out['confidence']:.6f} ({out['failure_id']}); /warn at concurrency 64 (64 x 16, "
         f"client in another process): p50 {c64['p50_ms']:.3f} ms, p99 {c64['p99_ms']:.3f} ms, "
-        f"{c64['warns_per_s']:.1f} warns/s; exited 0 on SIGINT; a fresh Platform on the card replayed "
-        f"{out['replayed']} records [{card}]")
+        f"{c64['warns_per_s']:.1f} warns/s; exited 0 on SIGINT with a v5 snapshot of {n_rec} rows; a fresh "
+        f"Platform on the card reopened {out['replayed']} records; a second start restored the snapshot, "
+        f"answered /healthz after {up2:.1f} s, /failures {count2}, and the same /warn [{card}]")
     return out
 
 
@@ -2778,6 +2854,306 @@ def phase_service(base: Path, fused_topk, card: str) -> dict:
     torch.cuda.empty_cache()
     out["entry_point"] = run_entry_point(base, card)
     log("phase 8: " + json.dumps({k: v for k, v in out.items() if k != "host_split"}))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 11: restart and lifecycle at real size
+# ---------------------------------------------------------------------------
+
+RESTART_N, RESTART_BATCH = 1 << 19, 4096
+RESTART_TYPES = ("HALLUCINATION_CITATION", "TIMEOUT", "SCHEMA")
+RESTART_AGED_BATCHES = RESTART_N // RESTART_BATCH // 8  # the first 1/8 of the rows age out
+
+
+def restart_corpus(n: int, seed: int = 11, spread: int = 64):
+    """(failure type, app, signature) of ``n`` distinct failure signatures in
+    clusters of 1-10 members, drawn as ``parity_corpus`` draws them
+    (thirteen random four-letter words per cluster, one changed per member,
+    so no row has more than nine neighbours above 0.6), in bulk. Member j
+    puts a digit in word j, which no drawn word holds, so members differ
+    from each other and from every other cluster's. One cluster in
+    ``spread`` spans apps (a pattern); the rest stay in one app each.
+    ``parity_corpus`` spreads every cluster (``spread=1``); phase 11's
+    lifecycle runs at 64, because a full mine's pattern emission grows with
+    the square of the spread clusters (``measure_emission``)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(1, 11, size=n)
+    n_cl = int(np.searchsorted(np.cumsum(sizes), n)) + 1
+    alpha = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz", np.uint8)
+    words = alpha[rng.integers(0, 26, size=(n_cl, 13, 4))].view("S4")[..., 0].astype(str).tolist()
+    out = []
+    for c in range(n_cl):
+        w = words[c]
+        for j in range(int(sizes[c])):
+            sig = " ".join(w[:j] + ["9" + w[j][1:]] + w[j + 1 :])
+            app = (c + j) % 8 if c % spread == 0 else c % 8
+            out.append((RESTART_TYPES[c % 3], f"app-{app}", f"Sources: {sig}"))
+            if len(out) == n:
+                return out
+    return out
+
+
+def _build_store(data: Path, corpus, capacity: int):
+    """A GFKB on the card holding ``corpus``, upserted in batches of
+    RESTART_BATCH with mining on; returns it and each batch's timestamp."""
+    from kakveda_tpu_torch.index.gfkb import GFKB
+
+    store = GFKB(data_dir=data, capacity=capacity, dim=DIM)
+    batch_ts = []
+    for lo in range(0, len(corpus), RESTART_BATCH):
+        res = store.upsert_failures_batch([
+            {"failure_type": ft, "signature_text": sig, "app_id": app, "impact_severity": "medium"}
+            for ft, app, sig in corpus[lo : lo + RESTART_BATCH]
+        ])
+        if not all(created for _, created in res):
+            raise AssertionError(f"phase 11: batch at {lo} re-upserted a signature")
+        batch_ts.append(res[0][0].updated_at.timestamp())
+    store.mine_drain()
+    return store, batch_ts
+
+
+def measure_emission(base: Path, card: str) -> dict:
+    """A full mine's wall where every cluster spans apps (``spread=1``, as
+    ``parity_corpus``) at 2^15 and 2^16 rows, beside phase 11's spread of 64
+    at 2^16. Each spread cluster upserts into one of three patterns (named by
+    failure type) and the mine keeps every upsert's view, a copy of the whole
+    membership so far, so the emission grows with the square of the spread
+    clusters (the JAX package's ``_pattern_view`` too); 651 s at 2^19 rows."""
+    from kakveda_tpu_torch.pipeline.patterns import PatternDetector
+
+    out = {}
+    for n, spread in ((1 << 15, 1), (1 << 16, 1), (1 << 16, 64)):
+        store, _ = _build_store(base / f"emit-{n}-{spread}", restart_corpus(n, spread=spread), 1 << 17)
+        t = time.perf_counter()
+        pats, info = PatternDetector(store).mine_patterns_ex(0.6, mode="full")
+        wall = time.perf_counter() - t
+        members = sum(len(p.failure_ids) for p in pats)
+        out[f"{n}/{spread}"] = {"full_mine_s": wall, "upserts": len(pats), "view_members": members}
+        log(f"phase 11 emission: {n} rows, 1 cluster in {spread} spanning apps: full mine {wall:.3f} s, "
+            f"{len(pats)} pattern upserts whose views hold {members} failure ids in all [{card}]")
+        store.close()
+        del store, pats
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _same_records(a, b) -> bool:
+    return [(r.failure_id, r.version, r.occurrences, tuple(r.affected_apps)) for r in a._records] == [
+        (r.failure_id, r.version, r.occurrences, tuple(r.affected_apps)) for r in b._records
+    ]
+
+
+def _same_buffers(a, b) -> bool:
+    return torch.equal(a._emb, b._emb) and torch.equal(a._valid, b._valid) and torch.equal(a._types, b._types)
+
+
+def _same_matches(a, b, queries) -> bool:
+    ma, mb = a.match_batch(queries), b.match_batch(queries)
+    return [[(m.failure_id, m.score) for m in row] for row in ma] == [
+        [(m.failure_id, m.score) for m in row] for row in mb
+    ]
+
+
+def phase_restart(base: Path, fused_topk_reference, card: str) -> dict:
+    """Phase 11: the GFKB's durable lifecycle on the card at RESTART_N rows
+    of a ROWS x DIM index. Build (mining on) → snapshot, timed by stage →
+    full replay (snapshot moved aside) and its first mine, a full sweep →
+    restore, timed by stage, which must take the restore path → the
+    restored buffers bit-equal to the replay's, equal warns, the restored
+    labels equal to the build's and the sweep's, an incremental first mine
+    → aging of a known 1/8 (no warn returns an aged row, held against a
+    plain top-k over the live rows), an organic resurrection (its row
+    bit-equal to before), a compaction that reopens identically → the
+    pattern emission's growth (``measure_emission``). The crash sweep at the
+    two fence sites runs beside the untimed build, its children on the
+    card, and is joined before the first timed stage."""
+    import numpy as np
+
+    from kakveda_tpu_torch.index.crashsweep import run_sweep
+    from kakveda_tpu_torch.index.gfkb import GFKB
+    from kakveda_tpu_torch.pipeline.patterns import PatternDetector
+
+    sweep_out: dict = {}
+
+    def sweep() -> None:
+        try:
+            sweep_out.update(run_sweep(rows=10, aged=5, sites=("gfkb.compact_fence", "gfkb.compact_swap"),
+                                       device="cuda"))
+        except Exception as e:  # noqa: BLE001 — reported and failed below
+            sweep_out["error"] = f"{type(e).__name__}: {e}"
+
+    t_sweep = time.perf_counter()
+    sweeper = threading.Thread(target=sweep, name="crash-sweep")
+    sweeper.start()
+
+    n = RESTART_N
+    data = base / "gfkb"
+    out: dict = {"rows": n, "capacity": ROWS, "dim": DIM, "apps_spread_every": 64}
+    t = time.perf_counter()
+    corpus = restart_corpus(n)
+    gen_s = time.perf_counter() - t
+    t = time.perf_counter()
+    store, batch_ts = _build_store(data, corpus, ROWS)
+    build_s = time.perf_counter() - t
+    st = store.mine_state_info()
+    if store.count != n or st["stale"] or not st["covers_all_rows"] or st["evictions"]:
+        raise AssertionError(f"phase 11 build: {store.count} rows, mining {st}")
+    build_labels = store._mine.labels()
+    log(f"phase 11 build: {n} distinct signatures (drawn in {gen_s:.1f} s; 1 cluster in 64 spans apps, not "
+        f"every cluster as in parity_corpus, since a full mine's pattern emission grows with the square of "
+        f"the spread clusters: see the emission lines) through upsert_failures_batch x {RESTART_BATCH} with "
+        f"mining on in {build_s:.1f} s (untimed set-up, beside the crash sweep), {st['delta_dispatches']} "
+        f"delta dispatches, {int(len(np.unique(build_labels)))} clusters, no list evicted [{card}]")
+
+    # No sweep child may run during a timed stage.
+    t = time.perf_counter()
+    sweeper.join()
+    sweep_s = time.perf_counter() - t_sweep
+    log(f"phase 11: waited {time.perf_counter() - t:.1f} s for the crash sweep ({sweep_s:.1f} s in all) before "
+        f"the first timed stage [{card}]")
+    if "error" in sweep_out or sweep_out.get("corrupt_recoveries") != 0 or sweep_out.get("kill_points", 0) < 2:
+        raise AssertionError(f"phase 11 crash sweep: {sweep_out}")
+    if not str(sweep_out["device"]).startswith("cuda"):
+        raise AssertionError(f"phase 11 crash sweep ran on {sweep_out['device']}")
+    out["crash_sweep"] = {k: sweep_out[k] for k in ("kill_points", "corrupt_recoveries", "sites", "stable_queries")}
+    out["crash_sweep_s"] = sweep_s
+    log(f"phase 11 crash sweep (children on {sweep_out['device']}, {sweep_s:.1f} s): {sweep_out['kill_points']} "
+        f"kill points at {sweep_out['sites']}, 0 corrupt recoveries [{card}]")
+
+    t = time.perf_counter()
+    store.snapshot()
+    out["snapshot_s"] = time.perf_counter() - t
+    snap = store.lifecycle_info()["snapshot"]
+    out["snapshot"] = snap
+    out["log_bytes"] = store.failures_path.stat().st_size
+    store.close()
+    del store
+    gc.collect()
+    torch.cuda.empty_cache()
+    sec = snap["seconds"]
+    log(f"phase 11 snapshot of {n} rows: {out['snapshot_s']:.3f} s = capture {sec['capture']:.3f} + device copy "
+        f"{sec['device_copy']:.3f} + sparsify on the card and d2h {sec['sparse_gather']:.3f} + stack "
+        f"{sec['stack']:.3f} + disk write {sec['write']:.3f}; payload {snap['bytes']} bytes, failures.jsonl "
+        f"{out['log_bytes']} bytes [{card}]")
+
+    sd, aside = data / "snapshot", data / "snapshot.aside"
+    sd.rename(aside)
+    t = time.perf_counter()
+    a = GFKB(data_dir=data, capacity=ROWS, dim=DIM)
+    out["replay_open_s"] = time.perf_counter() - t
+    if a.lifecycle_info()["restore"] is not None or a.count != n or a.mine_usable(0.6):
+        raise AssertionError(f"phase 11: store A did not fully replay: {a.lifecycle_info()['restore']}")
+    t = time.perf_counter()
+    _, a_info = PatternDetector(a).mine_patterns_ex(0.6)
+    out["replay_first_mine_s"] = time.perf_counter() - t
+    if a_info["mode"] != "full":
+        raise AssertionError(f"phase 11: A's first mine was {a_info['mode']}, not the full sweep")
+    a.close()
+    sweep_labels = a._mine.labels()
+    log(f"phase 11 full replay (snapshot moved aside): open {out['replay_open_s']:.3f} s; first mine, a full sweep, "
+        f"{out['replay_first_mine_s']:.3f} s [{card}]")
+
+    aside.rename(sd)
+    t = time.perf_counter()
+    b = GFKB(data_dir=data, capacity=ROWS, dim=DIM)
+    out["restore_open_s"] = time.perf_counter() - t
+    restore = b.lifecycle_info()["restore"]
+    if not restore or restore["rows"] != n:
+        raise AssertionError(f"phase 11: store B did not take the restore path: {restore}")
+    out["restore"] = restore
+    rs = restore["seconds"]
+    log(f"phase 11 restore: open {out['restore_open_s']:.3f} s = verify (checksums) {rs['verify']:.3f} + records "
+        f"{rs['records']:.3f} + payload load {rs['payload']:.3f} + device insert {rs['insert']:.3f} + labels "
+        f"{rs['labels']:.3f} + the rest {out['restore_open_s'] - sum(rs.values()):.3f} (tail from byte "
+        f"{restore['log_offset']}) [{card}]")
+
+    if not _same_buffers(a, b):
+        raise AssertionError("phase 11: restored emb/valid/types differ from the full replay's")
+    if not _same_records(a, b):
+        raise AssertionError("phase 11: restored records differ from the full replay's")
+    rng = np.random.default_rng(12)
+    held = [f"Sources: {' '.join('yy' + w[2:] if k == 3 else w for k, w in enumerate(corpus[int(i)][2][9:].split()))}"
+            for i in rng.choice(n, 64, replace=False)]
+    if not _same_matches(a, b, held):
+        raise AssertionError("phase 11: match_batch of the restored store differs from the full replay's")
+    b_labels = b._mine.labels()
+    if not (np.array_equal(b_labels, build_labels) and np.array_equal(b_labels, sweep_labels)):
+        raise AssertionError("phase 11: restored labels differ from the build's or the full sweep's partition")
+    t = time.perf_counter()
+    _, b_info = PatternDetector(b).mine_patterns_ex(0.6)
+    out["restore_first_mine_s"] = time.perf_counter() - t
+    if b_info["mode"] != "incremental":
+        raise AssertionError(f"phase 11: B's first mine was {b_info['mode']}, not incremental")
+    log(f"phase 11 B == A: emb, valid, types bit-equal; records equal; 64 held-out warns equal (ids, ties, "
+        f"scores); labels = the build's = the sweep's ({int(len(np.unique(b_labels)))} clusters); first mine "
+        f"incremental in {out['restore_first_mine_s'] * 1e3:.3f} ms against the sweep's "
+        f"{out['replay_first_mine_s']:.3f} s [{card}]")
+    del a
+    gc.collect()
+
+    # Aging: the first RESTART_AGED_BATCHES batches predate the cut.
+    n_aged = min(RESTART_AGED_BATCHES, len(batch_ts) - 1) * RESTART_BATCH
+    cut = (batch_ts[n_aged // RESTART_BATCH - 1] + batch_ts[n_aged // RESTART_BATCH]) / 2
+    victim = 5
+    before = (b._emb[victim].clone(), bool(b._valid[victim]), int(b._types[victim]))
+    t = time.perf_counter()
+    aged = b.age_rows(ttl_s=1000.0, now=cut + 1000.0)
+    out["age_s"] = time.perf_counter() - t
+    if aged["tombstoned"] != n_aged or sorted(b._tombstoned) != list(range(n_aged)):
+        raise AssertionError(f"phase 11: aging retired {aged['tombstoned']} rows, not the first {n_aged}")
+    sigs = [corpus[int(i)][2] for i in np.concatenate([rng.choice(n_aged, 32, replace=False),
+                                                       n_aged + rng.choice(n - n_aged, 32, replace=False)])]
+    got = b.match_batch(sigs)
+    if any(b._slot_by_id[m.failure_id] < n_aged for row in got for m in row):
+        raise AssertionError("phase 11: a warn returned an aged row")
+    q_idx, q_val = b.featurizer.encode_batch_sparse(sigs)
+    from kakveda_tpu_torch.ops.knn import to_device
+
+    q = b._knn.densify(to_device(q_idx, np.int32, b.device), to_device(q_val, np.float32, b.device))
+    live = b._valid.clone()
+    live[:n_aged] = False
+    rv, ri = fused_topk_reference(b._emb, live, q, b.top_k)
+    rv = rv.clamp(-1.0, 1.0)  # as match_batch reports cosines: a bf16 self-match may pass 1.0
+    if any(len(row) != b.top_k for row in got):
+        raise AssertionError("phase 11: a warn returned fewer than k live rows")
+    gv = torch.tensor([[m.score for m in row] for row in got], device=rv.device)
+    gi = torch.tensor([[b._slot_by_id[m.failure_id] for m in row] for row in got], device=ri.device, dtype=ri.dtype)
+    err = check_topk(gv, gi, rv, ri, "phase 11 warns vs a plain top-k over the live rows")
+    rec, created = b.upsert_failure(failure_type=corpus[victim][0], signature_text=corpus[victim][2],
+                                    app_id="app-back", impact_severity="medium")
+    after = (b._emb[victim], bool(b._valid[victim]), int(b._types[victim]))
+    if created or victim in b._tombstoned or not torch.equal(after[0], before[0]) or after[1:] != before[1:]:
+        raise AssertionError("phase 11: the resurrected row is not its pre-tombstone row")
+    log(f"phase 11 aging: {aged['tombstoned']} rows (the first 1/8) tombstoned in {out['age_s']:.3f} s; 64 warns "
+        f"(32 of aged signatures) return no aged row and equal a plain top-k over the live rows "
+        f"(max |score - plain| {err:.3g}); an organic upsert resurrected {rec.failure_id} bit-equal [{card}]")
+
+    t = time.perf_counter()
+    comp = b.compact()
+    out["compact_s"] = time.perf_counter() - t
+    out["compact"] = comp
+    b.close()
+    t = time.perf_counter()
+    c = GFKB(data_dir=data, capacity=ROWS, dim=DIM)
+    out["reopen_s"] = time.perf_counter() - t
+    cinfo = c.lifecycle_info()
+    if not (cinfo["restore"] and cinfo["restore"]["rows"] == n and cinfo["compact_generation"] == 1
+            and c._tombstoned == b._tombstoned and _same_buffers(b, c) and _same_records(b, c)
+            and _same_matches(b, c, held + sigs)):
+        raise AssertionError(f"phase 11: the compacted store did not reopen identically: {cinfo}")
+    log(f"phase 11 compact: {out['compact_s']:.3f} s, failures.jsonl {comp['bytes_before']} -> {comp['bytes_after']} "
+        f"bytes, {comp['tombstone_lines']} tombstone lines; reopened in {out['reopen_s']:.3f} s with buffers, "
+        f"records, {len(c._tombstoned)} tombstones and warns identical [{card}]")
+    c.close()
+    del b, c
+    gc.collect()
+
+    out["emission"] = measure_emission(base, card)
+    log("phase 11: " + json.dumps(out))
     return out
 
 
@@ -2851,6 +3227,15 @@ def main() -> int:
     log(f"fused_topk launches of the service's requests (phase 8 a-e): {service_launches}")
     log_held("phase 8")
 
+    with tempfile.TemporaryDirectory(prefix="kakveda-restart-") as d:
+        fused_topk.launches = 0
+        restart = phase_restart(Path(d), fused_topk_reference, card)
+        restart_launches = fused_topk.launches
+    if restart_launches <= 0:
+        raise AssertionError("the restart phase never launched fused_topk")
+    log(f"fused_topk launches of phase 11: {restart_launches}")
+    log_held("phase 11")
+
     flash = phase_flash(card)
     held = torch.cuda.memory_allocated()
     model = phase_model(card)
@@ -2868,6 +3253,7 @@ def main() -> int:
         name="fused_topk", route="cuda", source="kakveda_tpu_torch/csrc/fused_topk.cu",
         replaces="kakveda_tpu/ops/pallas_knn.py:128", launches=launches,
         launches_service=service_launches, launches_service_c64=service["warn_c64_launches"],
+        launches_restart=restart_launches,
         max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
         bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=row["library_ms"],
         shape="B=1, k=5", b64=dict(shape="B=64, k=5", **row["b64"]),

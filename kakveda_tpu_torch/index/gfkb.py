@@ -4,11 +4,24 @@ Port of ``kakveda_tpu/index/gfkb.py`` (hot tier only): append-only JSONL
 persistence with versioning-by-append, dense ``F-%04d``/``FP-%04d`` id
 minting, identity by ``(failure_type, signature_text)``, one embedding row
 per canonical failure in a device-resident ``[capacity, dim]`` index, and a
-top-k match of one ``fused_topk`` launch per query batch. ``failures.jsonl``
-and ``patterns.jsonl`` are written in the JAX package's line format through
-the native group-commit writer (``native.AppendLog``, a Python file where
-the library is absent), flushed once per public mutation, and replayed at
-start-up, so a data dir written by either package opens in the other.
+top-k match of one ``fused_topk`` launch per query batch. ``failures.jsonl``,
+``patterns.jsonl`` and ``tombstones.jsonl`` are written in the JAX
+package's line format through the native group-commit writer
+(``native.AppendLog``, a Python file where the library is absent), flushed
+once per public mutation.
+
+Durability is the reference's: a v5 snapshot (``snapshot/``: sparse rows,
+records, the mining labels, a manifest pinning the covered log prefix and
+checksums) lets a restart restore the rows onto the card and replay only
+the log tail; any mismatch degrades to a full replay, a bad label file to
+one full re-mine. Tombstones (aging, duplicate collapse) are durable before
+visible, zero the row on the card and resurrect on an organic upsert. The
+compaction rewrites the failures log to the delta after a fresh snapshot,
+fenced by the manifest so a crash at any byte replays to the pre- or the
+post-compaction state (``index/crashsweep.py`` certifies it). A data dir
+written by either package opens in the other, snapshot, tombstones and
+compaction included; the port leaves replication's dedup log
+(``applied_events.jsonl``) as it finds it, byte for byte.
 
 Incremental mining rides the ingest path as in the reference: each new
 record joins a streaming ``ClusterState`` (``ops/incremental.py``); after a
@@ -16,21 +29,31 @@ batch's scatter its new rows get their neighbours either from a recent
 warn's match of the same signature (the match cache, no device work) or
 from ONE delta top-k of the batch against the index, drained lazily when
 mining reads the state. A fault there marks the state stale (one full
-sweep at the next mine) and never fails an ingest. A replayed log leaves
-the state stale, so the first mine after start-up is a full sweep.
+sweep at the next mine) and never fails an ingest. A snapshot restore seeds
+the state from its labels; a full replay, or a tail with rows the snapshot
+never saw, leaves it stale, so that first mine is a full sweep.
 
-Not yet ported (later slices): snapshots (and the cluster state they carry),
-tombstones and compaction, applied-event dedup and replication, the host
-tiers and degraded fallback (so no tier attachment and no router re-seed
-from a mined partition).
+Not yet ported (later slices): replication (the applied-event dedup and
+its tombstone fence), the host tiers and degraded fallback (so a snapshot
+carries no ``tiers`` section, a restore ignores ``centroids.npy`` and
+``tier_assign.npy`` and puts every row on the card, and aging has no
+promote-LRU exemption) and the metric families. Two deviations: a
+capacity growth re-zeroes the tombstoned rows it re-embeds (the reference's
+growth leaves them scoring, filtered only at assembly), and records parse
+with pydantic's JSON parser (the same records, several times faster).
 """
 
 from __future__ import annotations
 
+import hashlib
+import io
 import json
 import logging
 import os
+import shutil
+import tempfile
 import threading
+import time
 from collections import OrderedDict, deque
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -39,6 +62,7 @@ import numpy as np
 import torch
 
 from kakveda_tpu_torch import native
+from kakveda_tpu_torch.core import faults as _faults
 from kakveda_tpu_torch.core.schemas import (
     CanonicalFailureRecord,
     FailureMatch,
@@ -47,10 +71,48 @@ from kakveda_tpu_torch.core.schemas import (
     utcnow,
 )
 from kakveda_tpu_torch.ops.featurizer import HashedNGramFeaturizer
-from kakveda_tpu_torch.ops.incremental import ClusterState, delta_topk_sparse, unpack_topk
+from kakveda_tpu_torch.ops.incremental import (
+    ClusterState,
+    collapse_groups,
+    delta_topk_sparse,
+    unpack_topk,
+)
 from kakveda_tpu_torch.ops.knn import MAX_CAPACITY, Knn
 
 log = logging.getLogger("kakveda.gfkb")
+
+_CHUNK = 1 << 16  # rows per bulk insert and per snapshot gather
+
+
+class SnapshotError(RuntimeError):
+    """Snapshot unavailable or aborted (persist=False, concurrent reload):
+    a caller-side condition, distinct from device and runtime failures."""
+
+
+def _parse_record(line: str) -> CanonicalFailureRecord:
+    """One JSONL record (a log line or a snapshot row), parsed and validated
+    by pydantic's JSON parser: the records the reference gets from
+    ``model_validate(json.loads(...))`` or ``model_construct``, several
+    times faster than either."""
+    return CanonicalFailureRecord.model_validate_json(line)
+
+
+def _stack_sparse(parts, dim: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Row-stack per-chunk (idx, val) pairs at their common width, padded
+    with (dim, 0): what one ``dense_rows_to_sparse`` call over all the rows
+    gives (the reference's snapshot payload)."""
+    if not parts:
+        return np.full((0, 64), dim, np.int32), np.zeros((0, 64), np.float32)
+    k = max(p[0].shape[1] for p in parts)
+    n = sum(p[0].shape[0] for p in parts)
+    idx = np.full((n, k), dim, np.int32)
+    val = np.zeros((n, k), np.float32)
+    r = 0
+    for pi, pv in parts:
+        idx[r : r + len(pi), : pi.shape[1]] = pi
+        val[r : r + len(pv), : pv.shape[1]] = pv
+        r += len(pi)
+    return idx, val
 
 
 class GFKB:
@@ -72,6 +134,30 @@ class GFKB:
             self.data_dir.mkdir(parents=True, exist_ok=True)
         self.failures_path = self.data_dir / "failures.jsonl"
         self.patterns_path = self.data_dir / "patterns.jsonl"
+        # Lifecycle side-log: {"op": "tomb"|"live", "id", "reason", "ts"}
+        # lines. Tombstoned slots keep their records, ids and keys (dense id
+        # minting and replay latest-wins depend on slot stability); they are
+        # zeroed on the card and dropped from every match assembly.
+        self.tombstones_path = self.data_dir / "tombstones.jsonl"
+        self._tombstoned: Dict[int, str] = {}  # slot -> reason
+        self._tomb_view: Optional[frozenset] = frozenset()  # None: rebuild at the next match
+        # Compaction posture (the manifest's "compact" section); the age
+        # trigger counts from the open when the store never compacted.
+        self._opened_ts = time.time()
+        self._last_compact_ts = 0.0
+        self._compact_generation = 0
+        self._compact_inflight = False
+        self._compact_bytes = int(os.environ.get("KAKVEDA_GFKB_COMPACT_BYTES", "0"))
+        self._compact_age_s = float(os.environ.get("KAKVEDA_GFKB_COMPACT_AGE_S", "0"))
+        # Reentrant: compact() snapshots and swaps under one critical section.
+        self._snapshot_write_lock = threading.RLock()
+        # Bumped by reload(); a snapshot that sees it change aborts, and
+        # in-flight embeds and mining deltas of the old generation drop.
+        self._generation = 0
+        # What the last restore and snapshot did (rows, walls by stage).
+        self._restore_info: Optional[dict] = None
+        self._snapshot_info: Optional[dict] = None
+
         self.featurizer = featurizer or HashedNGramFeaturizer(dim=dim)
         self.top_k = top_k
         self._knn = Knn(capacity, dim, k=top_k, device=device)
@@ -92,23 +178,32 @@ class GFKB:
         # (each line carries only the members new in that upsert).
         self._pattern_state: Dict[str, dict] = {}
         self._lock = threading.Lock()
-        # Records appended whose rows are not scattered yet: the sweep's
-        # records_and_embeddings waits for them.
+        # Records appended whose rows are not scattered yet: snapshot() and
+        # records_and_embeddings wait for them.
         self._pending_embeds = 0
         self._embeds_cv = threading.Condition(self._lock)
         self._logs: Dict[Path, native.AppendLog] = {}
         # A torn final line tolerated at replay: truncate back to this
         # offset before the next append to that file.
         self._truncate_pending: Dict[Path, int] = {}
+        # Chaos sites (core/faults.py), the reference's names.
+        self._fault_append = _faults.site("gfkb.append")
+        self._fault_snapshot = _faults.site("gfkb.snapshot")
+        self._fault_mine = _faults.site("gfkb.mine_state")
+        self._fault_compact_delta = _faults.site("gfkb.compact_delta")
+        self._fault_compact_fence = _faults.site("gfkb.compact_fence")
+        self._fault_compact_swap = _faults.site("gfkb.compact_swap")
+        self._fault_tombstone = _faults.site("gfkb.tombstone")
 
         # Incremental mining state (KAKVEDA_MINE_INCREMENTAL=0: no state,
         # no cache, no extra device dispatches — every mine is a full sweep).
         self._mine: Optional[ClusterState] = None
-        # Dispatched delta top-ks not yet folded in: (capacity, slots, pending).
+        # Dispatched delta top-ks not yet folded in:
+        # (capacity, slots, pending, generation).
         self._mine_pending: deque = deque()
         self._mine_pending_max = int(os.environ.get("KAKVEDA_MINE_PENDING_MAX", "256"))
-        # signature_text -> (scores, slots): a warn's fetched neighbours,
-        # reused to attach the same signature at ingest with no dispatch.
+        # signature_text -> (scores, slots, generation): a warn's fetched
+        # neighbours, reused to attach the same signature at ingest.
         self._match_cache: "OrderedDict[str, tuple]" = OrderedDict()
         self._match_cache_max = int(os.environ.get("KAKVEDA_MINE_MATCH_CACHE", "4096"))
         self.mine_delta_dispatches = 0
@@ -125,17 +220,26 @@ class GFKB:
     # persistence
     # ------------------------------------------------------------------
 
+    def _append_jsonl(self, path: Path, obj: dict) -> None:
+        self._append_line(path, json.dumps(obj, ensure_ascii=False))
+
     def _append_line(self, path: Path, line: str) -> None:
         """Buffer one pre-serialized record; public mutations flush once."""
         if not self.persist:
             return
+        self._fault_append.fire()
         pend = self._truncate_pending.pop(path, None)
         if pend is not None:
             f = self._logs.pop(path, None)
             if f is not None:
                 f.close()
-            os.truncate(path, pend)
-            log.warning("truncated torn tail of %s to %d bytes", path, pend)
+            try:
+                os.truncate(path, pend)
+                log.warning("truncated torn tail of %s to %d bytes", path, pend)
+            except OSError as e:
+                log.error("could not truncate torn tail of %s: %s", path, e)
+                self._truncate_pending[path] = pend
+                raise
         alog = self._logs.get(path)
         if alog is None:
             alog = self._logs[path] = native.AppendLog(path)
@@ -148,16 +252,27 @@ class GFKB:
     def close(self) -> None:
         """Flush and close the append logs (safe to call repeatedly)."""
         with self._lock:
-            for f in self._logs.values():
-                f.close()
-            self._logs.clear()
+            self._close_locked()
 
-    def _iter_log_lines(self, path: Path, parse):
-        """Yield ``parse(line)`` per JSONL line, tolerating one torn FINAL
-        line (a crash mid-append: warn, truncate on the next append); a bad
-        record with data after it is mid-file corruption and raises."""
+    def _close_locked(self) -> None:
+        for f in self._logs.values():
+            f.close()
+        self._logs.clear()
+
+    def _sync(self) -> None:
+        """Wait for the card (stage walls of a snapshot or a restore)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _iter_log_lines(self, path: Path, offset: int, parse):
+        """Yield ``parse(line)`` per JSONL line of ``path`` from byte
+        ``offset``, tolerating one torn FINAL line (a crash mid-append:
+        warn, truncate on the next append); a bad record with data after it
+        is mid-file corruption and raises."""
         with path.open("rb") as f:
-            pos = 0
+            if offset:
+                f.seek(offset)
+            pos = f.tell()
             for raw in f:
                 line_start = pos
                 pos += len(raw)
@@ -178,40 +293,378 @@ class GFKB:
                 yield parsed
 
     def _replay(self) -> None:
-        """Rebuild host metadata and the device index from the append logs
-        (latest version per key wins; slots in first-seen order)."""
+        """Rebuild host metadata and the device index: restore a valid
+        snapshot, then replay the failures log from its offset (a tail line
+        for a snapshotted key replaces that record in place; new keys append
+        in first-seen order, latest version wins), then the patterns log,
+        then the tombstones (whose rows are zeroed again)."""
         if self.failures_path.exists():
+            tail_offset = self._restore_snapshot()
             latest: Dict[Tuple[str, str], CanonicalFailureRecord] = {}
             order: List[Tuple[str, str]] = []
-            for rec in self._iter_log_lines(
-                self.failures_path,
-                lambda t: CanonicalFailureRecord.model_validate(json.loads(t)),
-            ):
+            for rec in self._iter_log_lines(self.failures_path, tail_offset, _parse_record):
                 key = (rec.failure_type, rec.signature_text)
+                slot = self._slot_by_key.get(key)
+                if slot is not None:  # a snapshot row updated in the tail
+                    self._records[slot] = rec
+                    self._apps_by_type.setdefault(rec.failure_type, set()).update(rec.affected_apps)
+                    if self._mine is not None:
+                        # Membership is unchanged; the cluster's app span may widen.
+                        self._mine.note_apps(slot, rec.affected_apps)
+                    continue
                 if key not in latest:
                     order.append(key)
                 latest[key] = rec
-            for slot, key in enumerate(order):
-                rec = latest[key]
-                self._records.append(rec)
-                self._slot_by_key[key] = slot
-                self._slot_by_id[rec.failure_id] = slot
-                self._ids_by_type.setdefault(rec.failure_type, []).append(rec.failure_id)
-                self._apps_by_type.setdefault(rec.failure_type, set()).update(rec.affected_apps)
-            if self._records:
-                self._rebuild(self._records)
+            if order:
+                base = len(self._records)
+                for i, key in enumerate(order):
+                    rec = latest[key]
+                    self._records.append(rec)
+                    self._slot_by_key[key] = base + i
+                    self._slot_by_id[rec.failure_id] = base + i
+                    self._ids_by_type.setdefault(rec.failure_type, []).append(rec.failure_id)
+                    self._apps_by_type.setdefault(rec.failure_type, set()).update(rec.affected_apps)
+                if len(self._records) > self._knn.capacity:
+                    self._rebuild(self._records)  # re-embeds the tail too
+                else:
+                    tail = self._records[base:]
+                    self._insert_texts_chunked(
+                        [r.signature_text for r in tail],
+                        np.arange(base, len(self._records), dtype=np.int32),
+                        np.asarray([self._type_id(r.failure_type) for r in tail], np.int32),
+                    )
         if self.patterns_path.exists():
             for p in self._iter_log_lines(
-                self.patterns_path, lambda t: PatternEntity.model_validate(json.loads(t))
+                self.patterns_path, 0, lambda t: PatternEntity.model_validate(json.loads(t))
             ):
                 self._merge_pattern_line(p)
+        if self.tombstones_path.exists():
+            # Net tombstone state replays from byte 0 (compact() rewrites
+            # the log to net state). Unknown ids skip with a warning: the
+            # failures log can be rewritten or truncated independently.
+            for rec in self._iter_log_lines(self.tombstones_path, 0, json.loads):
+                if not isinstance(rec, dict):
+                    log.warning("non-object tombstone line skipped")
+                    continue
+                fid = rec.get("id")
+                slot = self._slot_by_id.get(fid) if isinstance(fid, str) else None
+                if slot is None:
+                    log.warning("tombstone line for unknown id %r skipped", fid)
+                    continue
+                if rec.get("op") == "tomb":
+                    self._tombstoned[slot] = str(rec.get("reason", "aged"))
+                else:
+                    self._tombstoned.pop(slot, None)
+            self._tomb_view = None
+            if self._tombstoned:
+                # The replay above embedded every row; re-zero the tombstoned ones.
+                self._zero_device_rows_locked(sorted(self._tombstoned))
+
+    def _bulk_insert_chunked(self, sparsify, slots: np.ndarray, tids: np.ndarray) -> None:
+        """Insert rows in 64k chunks; ``sparsify(i, j)`` yields the sparse
+        (idx, val) pair of rows [i, j)."""
+        for i in range(0, len(slots), _CHUNK):
+            j = min(i + _CHUNK, len(slots))
+            sp_i, sp_v = sparsify(i, j)
+            self._knn.insert_sparse(
+                self._emb, self._valid, self._types, sp_i, sp_v, slots[i:j], tids[i:j]
+            )
+
+    def _insert_texts_chunked(self, texts: List[str], slots: np.ndarray, tids: np.ndarray) -> None:
+        """Signature texts (replay, growth): encoded sparse per chunk."""
+        self._bulk_insert_chunked(
+            lambda i, j: self.featurizer.encode_batch_sparse(texts[i:j]), slots, tids
+        )
 
     def _mine_after_replay(self) -> None:
         """The cluster state must cover exactly the replayed rows or be
-        stale: a replayed log leaves a gap that only a full sweep closes."""
+        stale: a full replay, or a tail with rows the snapshot never saw,
+        leaves a gap that only a full sweep closes."""
         m = self._mine
         if m is not None and self._records and m.n_rows != len(self._records):
             m.mark_stale("replayed rows not covered by restored cluster state")
+
+    # --- snapshot / restore --------------------------------------------
+
+    # The reference's format: v2 sparse rows, v3 the payload checksum, v4
+    # the mining labels (clusters.npy, own checksum: a bad file costs one
+    # full re-mine), v5 the tier router (centroids.npy + tier_assign.npy +
+    # a "tiers" section, written only by a store with a router: the port
+    # writes none and ignores them). Other versions replay in full.
+    _SNAPSHOT_VERSION = 5
+    _TAIL_HASH_BYTES = 4096
+    _SNAPSHOT_PAYLOAD = ("sparse_idx.npy", "sparse_val.npy", "records.jsonl")
+
+    @classmethod
+    def _snapshot_checksum(cls, sd: Path) -> str:
+        """sha256 over the payload files in manifest order: the content
+        checksum both snapshot() and _restore_snapshot() compute."""
+        h = hashlib.sha256()
+        for name in cls._SNAPSHOT_PAYLOAD:
+            with (sd / name).open("rb") as f:
+                for chunk in iter(lambda: f.read(1 << 20), b""):
+                    h.update(chunk)
+            h.update(b"\x00")
+        return h.hexdigest()
+
+    def _snapshot_dir(self) -> Path:
+        return self.data_dir / "snapshot"
+
+    def _log_prefix_hash(self, offset: int) -> str:
+        """sha256 of the last ≤4KB of failures.jsonl before ``offset``: the
+        log the snapshot covered is still the same log."""
+        start = max(0, offset - self._TAIL_HASH_BYTES)
+        with self.failures_path.open("rb") as f:
+            f.seek(start)
+            return hashlib.sha256(f.read(offset - start)).hexdigest()
+
+    def snapshot(self) -> Path:
+        """Write an atomic point-in-time snapshot: slot-ordered sparse rows
+        (no re-embed on restore), the records as ``model_dump_json`` lines,
+        the mining labels, and a manifest pinning the covered
+        failures.jsonl byte range. A consistent view (records, an on-card
+        copy of the first n rows, the labels) is taken under the data lock;
+        the host transfer and the disk write run outside it. Walls by stage
+        land in ``lifecycle_info()["snapshot"]``."""
+        if not self.persist:
+            raise SnapshotError("snapshot requires a persistent GFKB (persist=True)")
+        with self._snapshot_write_lock:
+            t0 = time.perf_counter()
+            with self._lock:
+                self._drain_pending_embeds()
+                # Fold pending deltas in: the labels must cover exactly the
+                # persisted rows.
+                self._mine_drain_locked()
+                self._flush_logs()
+                records = list(self._records)
+                n = len(records)
+                mine_labels = mine_threshold = None
+                m = self._mine
+                if m is not None and not m.stale and m.n_rows == n:
+                    mine_labels = m.labels()
+                    mine_threshold = m.threshold
+                offset = self.failures_path.stat().st_size if self.failures_path.exists() else 0
+                log_hash = self._log_prefix_hash(offset) if offset else ""
+                generation = self._generation
+                knn = self._knn
+                tc = time.perf_counter()
+                emb_copy = knn.device_copy(self._emb, n)
+            self._sync()
+            t1 = time.perf_counter()
+            # Sparsified on the device, 64k rows at a time: only the
+            # (idx, val) pairs cross to the host.
+            parts = [knn.sparse_rows(emb_copy, i, min(i + _CHUNK, n)) for i in range(0, n, _CHUNK)]
+            del emb_copy
+            t2 = time.perf_counter()
+            sp_idx, sp_val = _stack_sparse(parts, knn.dim)
+            del parts
+            t3 = time.perf_counter()
+            sd = self._snapshot_dir()
+            tmp = Path(tempfile.mkdtemp(dir=self.data_dir, prefix=".snapshot-"))
+            old = self.data_dir / f".snapshot-old-{os.getpid()}-{id(tmp)}"
+            try:
+                np.save(tmp / "sparse_idx.npy", sp_idx)
+                np.save(tmp / "sparse_val.npy", sp_val)
+                with (tmp / "records.jsonl").open("w", encoding="utf-8") as f:
+                    f.writelines(r.model_dump_json() + "\n" for r in records)
+                # A fault here exercises the except path: tmp goes, the
+                # previous snapshot stays installed.
+                self._fault_snapshot.fire()
+                manifest = {
+                    "version": self._SNAPSHOT_VERSION,
+                    "n": n,
+                    "dim": knn.dim,
+                    "log_offset": offset,
+                    "log_hash": log_hash,
+                    "checksum": self._snapshot_checksum(tmp),
+                    "compact": {
+                        "generation": self._compact_generation,
+                        "ts": self._last_compact_ts,
+                    },
+                }
+                if mine_labels is not None:
+                    np.save(tmp / "clusters.npy", mine_labels.astype(np.int32))
+                    manifest["mine"] = {
+                        "n": n,
+                        "threshold": mine_threshold,
+                        "checksum": hashlib.sha256((tmp / "clusters.npy").read_bytes()).hexdigest(),
+                    }
+                (tmp / "manifest.json").write_text(json.dumps(manifest))
+                # Swap by renames under the data lock (serialized with
+                # reload()); a crash mid-swap leaves at worst no snapshot.
+                with self._lock:
+                    if self._generation != generation:
+                        raise SnapshotError(
+                            "GFKB was reloaded during snapshot; snapshot aborted — retry"
+                        )
+                    if sd.exists():
+                        sd.rename(old)
+                    tmp.rename(sd)
+                shutil.rmtree(old, ignore_errors=True)
+            except BaseException:
+                shutil.rmtree(tmp, ignore_errors=True)
+                if old.exists() and not sd.exists():
+                    old.rename(sd)  # restore the previous snapshot
+                raise
+            t4 = time.perf_counter()
+            self._snapshot_info = {
+                "rows": n,
+                "bytes": sum(p.stat().st_size for p in sd.iterdir()),
+                "seconds": {
+                    "capture": tc - t0, "device_copy": t1 - tc, "sparse_gather": t2 - t1,
+                    "stack": t3 - t2, "write": t4 - t3, "total": t4 - t0,
+                },
+            }
+            return sd
+
+    def _restore_snapshot(self) -> int:
+        """Load a valid snapshot; returns the failures.jsonl byte offset to
+        replay from (0 = no usable snapshot, full replay). Every row of the
+        payload goes onto the card, in 64k-row chunks."""
+        sd = self._snapshot_dir()
+        manifest_path = sd / "manifest.json"
+        if not manifest_path.exists():
+            return 0
+
+        def refuse(reason: str) -> int:
+            log.warning("snapshot at %s not restored (%s); replaying the full log", sd, reason)
+            self._restore_info = {"rows": 0, "reason": reason}
+            return 0
+
+        t0 = time.perf_counter()
+        try:
+            manifest = json.loads(manifest_path.read_text())
+            if manifest.get("version") != self._SNAPSHOT_VERSION:
+                return refuse(f"version {manifest.get('version')}")
+            if manifest.get("dim") != self._knn.dim:
+                return refuse(f"dim {manifest.get('dim')}")
+            offset = int(manifest.get("log_offset", 0))
+            size = self.failures_path.stat().st_size if self.failures_path.exists() else 0
+            if size < offset:
+                return refuse("log shorter than the snapshot's offset")
+            if offset and self._log_prefix_hash(offset) != manifest.get("log_hash"):
+                return refuse("log rewritten under the snapshot")
+            if self._snapshot_checksum(sd) != manifest.get("checksum"):
+                return refuse("content checksum mismatch")
+            t1 = time.perf_counter()
+            cm = manifest.get("compact") or {}
+            self._compact_generation = int(cm.get("generation", 0))
+            self._last_compact_ts = float(cm.get("ts", 0.0) or 0.0)
+            n = int(manifest["n"])
+            with (sd / "records.jsonl").open("r", encoding="utf-8") as f:
+                records = [_parse_record(line) for line in f if line.strip()]
+            if len(records) != n:
+                return refuse(f"{len(records)} records for n={n}")
+            t2 = time.perf_counter()
+            sp_idx = np.load(sd / "sparse_idx.npy")
+            sp_val = np.load(sd / "sparse_val.npy")
+            if (
+                sp_idx.shape != sp_val.shape
+                or sp_idx.shape[0] != n
+                or sp_idx.dtype != np.int32
+                or sp_val.dtype != np.float32
+            ):
+                return refuse("payload shape or dtype")
+        except Exception as e:  # noqa: BLE001 — any corruption ⇒ full replay
+            return refuse(f"{type(e).__name__}: {e}")
+        t3 = time.perf_counter()
+        # Grow before installing the records: a growth re-embeds the
+        # current records, which is the work the snapshot skips.
+        if n > self._knn.capacity:
+            self._rebuild([], rows=n)
+        self._records = records
+        self._slot_by_key = {(r.failure_type, r.signature_text): i for i, r in enumerate(records)}
+        self._slot_by_id = {r.failure_id: i for i, r in enumerate(records)}
+        for r in records:
+            self._ids_by_type.setdefault(r.failure_type, []).append(r.failure_id)
+            self._apps_by_type.setdefault(r.failure_type, set()).update(r.affected_apps)
+        if n:
+            tids = np.asarray([self._type_id(r.failure_type) for r in records], np.int32)
+            self._bulk_insert_chunked(
+                lambda i, j: (sp_idx[i:j], sp_val[i:j]), np.arange(n, dtype=np.int32), tids
+            )
+            self._sync()
+        t4 = time.perf_counter()
+        self._mine_restore(sd, manifest)
+        t5 = time.perf_counter()
+        self._restore_info = {
+            "rows": n,
+            "log_offset": offset,
+            "seconds": {
+                "verify": t1 - t0, "records": t2 - t1, "payload": t3 - t2,
+                "insert": t4 - t3, "labels": t5 - t4,
+            },
+        }
+        log.info("restored a snapshot of %d rows from %s; replaying the log from byte %d",
+                 n, sd, offset)
+        return offset
+
+    def _mine_restore(self, sd: Path, manifest: dict) -> None:
+        """Seed the cluster state from the snapshot's labels. Never installs
+        unverified labels: a missing or mismatched field, a checksum failure
+        or an injected fault leaves the state stale (one full re-mine)."""
+        m = self._mine
+        if m is None:
+            return
+        try:
+            self._fault_mine.fire()
+            mf = manifest.get("mine")
+            if not mf:
+                m.mark_stale("snapshot carries no cluster state")
+                return
+            raw = (sd / "clusters.npy").read_bytes()
+            if hashlib.sha256(raw).hexdigest() != mf.get("checksum"):
+                raise ValueError("cluster-state checksum mismatch")
+            labels = np.load(io.BytesIO(raw))
+            if (
+                labels.shape != (len(self._records),)
+                or labels.dtype != np.int32
+                or int(mf.get("n", -1)) != len(self._records)
+            ):
+                raise ValueError("cluster-state shape mismatch")
+            if float(mf.get("threshold", -1.0)) != m.threshold:
+                m.mark_stale("snapshot threshold differs from configured")
+                return
+            m.seed(
+                labels,
+                [(r.failure_type, r.failure_id, r.affected_apps) for r in self._records],
+            )
+        except Exception as e:  # noqa: BLE001 — degrade, never desync
+            log.warning(
+                "cluster-state restore failed (%s: %s); first mine will run a full sweep",
+                type(e).__name__, e,
+            )
+            m.mark_stale(f"restore failed: {type(e).__name__}")
+
+    def reload(self) -> None:
+        """Drop all in-memory and device state and replay the logs: needed
+        after an external rewrite of the JSONL files. The snapshot describes
+        the old state and is deleted; an in-flight snapshot sees the
+        generation bump at its swap and aborts."""
+        with self._lock:
+            self._generation += 1
+            shutil.rmtree(self._snapshot_dir(), ignore_errors=True)
+            # An external rewrite may have replaced the files (new inodes).
+            self._close_locked()
+            self._emb, self._valid = self._knn.alloc()
+            self._types = self._knn.alloc_i32()
+            self._type_ids = {}
+            self._records = []
+            self._slot_by_key = {}
+            self._slot_by_id = {}
+            self._pattern_state = {}
+            self._ids_by_type = {}
+            self._apps_by_type = {}
+            self._tombstoned = {}
+            self._tomb_view = frozenset()
+            self._truncate_pending = {}
+            if self._mine is not None:
+                self._mine = ClusterState(threshold=self._mine.threshold, k=self._mine.k)
+            self._mine_pending.clear()
+            self._match_cache.clear()
+            if self.persist:
+                self._replay()
+            self._mine_after_replay()
 
     # ------------------------------------------------------------------
     # failures
@@ -240,8 +693,9 @@ class GFKB:
     def records_and_embeddings(self) -> Tuple[List[CanonicalFailureRecord], torch.Tensor]:
         """Consistent (records, slot-aligned embedding rows): the rows are
         the index's own ``emb[:n]`` on the device (slot = row), taken once
-        every appended record's scatter has landed. Rows below ``n`` never
-        change (the store is append-only), so the view stays valid."""
+        every appended record's scatter has landed. Only a lifecycle write
+        (a tombstone zeroing, a resurrection) or a reload changes a row
+        below ``n``."""
         with self._lock:
             self._drain_pending_embeds()
             records = list(self._records)
@@ -281,36 +735,40 @@ class GFKB:
             tid = self._type_ids[failure_type] = len(self._type_ids)
         return tid
 
-    def _rebuild(self, records: Sequence[CanonicalFailureRecord]) -> None:
-        """Capacity growth: allocate an index of the doubled capacity that
-        holds ``records`` (re-embedded in 64k chunks) and swap it in.
-        Callers hold the lock or run single-threaded (start-up)."""
+    def _rebuild(self, records: Sequence[CanonicalFailureRecord], rows: int = 0) -> None:
+        """Capacity growth: allocate an index of the doubled capacity (at
+        least ``rows``) that holds ``records`` (re-embedded in 64k chunks,
+        tombstoned rows zeroed again) and swap it in. Callers hold the lock
+        or run single-threaded (start-up)."""
         cap = self._knn.capacity
-        while cap < len(records):
+        while cap < max(len(records), rows):
             cap *= 2
         if cap > MAX_CAPACITY:
-            raise ValueError(f"GFKB of {len(records)} records exceeds {MAX_CAPACITY} rows")
+            raise ValueError(f"GFKB of {max(len(records), rows)} records exceeds {MAX_CAPACITY} rows")
         if cap != self._knn.capacity:
             self._knn = Knn(cap, self._knn.dim, k=self.top_k, device=self.device)
-        emb, valid = self._knn.alloc()
-        types = self._knn.alloc_i32()
-        tids = np.asarray([self._type_id(r.failure_type) for r in records], np.int32)
-        chunk = 1 << 16
-        for i in range(0, len(records), chunk):
-            batch = records[i : i + chunk]
-            sp_i, sp_v = self.featurizer.encode_batch_sparse([r.signature_text for r in batch])
-            slots = np.arange(i, i + len(batch), dtype=np.int32)
-            self._knn.insert_sparse(emb, valid, types, sp_i, sp_v, slots, tids[i : i + chunk])
-        self._emb, self._valid, self._types = emb, valid, types
+        self._emb, self._valid = self._knn.alloc()
+        self._types = self._knn.alloc_i32()
+        self._insert_texts_chunked(
+            [r.signature_text for r in records],
+            np.arange(len(records), dtype=np.int32),
+            np.asarray([self._type_id(r.failure_type) for r in records], np.int32),
+        )
+        if self._tombstoned:
+            self._zero_device_rows_locked(sorted(self._tombstoned))
 
-    def _embed_new_slots(self, slots: List[int], texts: List[str], tids: List[int]) -> None:
-        """Embed new records (host work, off the lock), scatter them in —
-        growing the index when the records outran its capacity — then
-        attach them to the mining state. Callers counted the batch in
+    def _embed_new_slots(self, slots: List[int], texts: List[str], tids: List[int], gen: int) -> None:
+        """Embed new (or resurrected) records (host work, off the lock),
+        scatter them in — growing the index when the records outran its
+        capacity — then attach them to the mining state. A reload since the
+        append (generation bump) makes the slots meaningless: its replay
+        embedded every row. Callers counted the batch in
         ``_pending_embeds`` under the lock; it is released here."""
         try:
             sp_idx, sp_val = self.featurizer.encode_batch_sparse(texts)
             with self._lock:
+                if self._generation != gen:
+                    return
                 if len(self._records) > self._knn.capacity:
                     self._rebuild(self._records)  # re-embeds these rows too
                 else:
@@ -318,7 +776,7 @@ class GFKB:
                         self._emb, self._valid, self._types, sp_idx, sp_val,
                         np.asarray(slots, np.int32), np.asarray(tids, np.int32),
                     )
-            self._mine_attach_new(slots, texts, sp_idx, sp_val)
+            self._mine_attach_new(slots, texts, sp_idx, sp_val, gen)
         finally:
             with self._lock:
                 self._pending_embeds -= 1
@@ -383,7 +841,8 @@ class GFKB:
         root_cause: Optional[str] = None,
         resolution: Optional[str] = None,
     ) -> Tuple[CanonicalFailureRecord, bool]:
-        """Versioned upsert of one failure; returns (record, created)."""
+        """Versioned upsert of one failure; returns (record, created). An
+        update of a tombstoned record resurrects it (organic traffic)."""
         item = {
             "failure_type": failure_type,
             "signature_text": signature_text,
@@ -395,34 +854,53 @@ class GFKB:
         }
         with self._lock:
             now = utcnow()
+            gen = self._generation
             slot = self._slot_by_key.get((failure_type, signature_text))
             created = slot is None
+            revived = False
             if created:
                 rec = self._new_record_locked(item, now, validate=True)
                 slot = len(self._records) - 1
                 tid = self._type_id(failure_type)
             else:
                 rec = self._bump_record_locked(slot, item, now)
+                if slot in self._tombstoned:
+                    # Durable "live" line; the slot re-embeds below (its
+                    # device row was zeroed at tombstone time).
+                    self._resurrect_locked(slot, rec)
+                    tid = self._type_id(failure_type)
+                    revived = True
+            need_embed = created or revived
             self._append_line(
                 self.failures_path, json.dumps(rec.model_dump(mode="json"), ensure_ascii=False)
             )
             self._flush_logs()
-            if created:
+            if need_embed:
                 self._pending_embeds += 1
-        if created:
-            self._embed_new_slots([slot], [signature_text], [tid])
+        if need_embed:
+            self._embed_new_slots([slot], [signature_text], [tid], gen)
         return rec, created
 
     def upsert_failures_batch(
         self, items: Sequence[dict]
     ) -> List[Tuple[CanonicalFailureRecord, bool]]:
-        """Batched upsert for the streaming-ingest path: new signatures are
-        embedded in one featurizer call and written in one device scatter."""
+        """Batched upsert for the streaming-ingest path: new (and
+        resurrected) signatures are embedded in one featurizer call and
+        written in one device scatter. The size/age compaction trigger
+        rides this cadence (on a background thread)."""
+        out = self._upsert_failures_batch(items)
+        self._maybe_auto_compact()
+        return out
+
+    def _upsert_failures_batch(
+        self, items: Sequence[dict]
+    ) -> List[Tuple[CanonicalFailureRecord, bool]]:
         out: List[Tuple[CanonicalFailureRecord, bool]] = []
         new_slots: List[int] = []
         new_texts: List[str] = []
         new_tids: List[int] = []
         with self._lock:
+            gen = self._generation
             now = utcnow()
             for item in items:
                 slot = self._slot_by_key.get((item["failure_type"], item["signature_text"]))
@@ -434,14 +912,341 @@ class GFKB:
                     out.append((rec, True))
                 else:
                     rec = self._bump_record_locked(slot, item, now)
+                    if slot in self._tombstoned:
+                        self._resurrect_locked(slot, rec)
+                        new_slots.append(slot)
+                        new_texts.append(rec.signature_text)
+                        new_tids.append(self._type_id(rec.failure_type))
                     out.append((rec, False))
                 self._append_line(self.failures_path, rec.model_dump_json())
             self._flush_logs()
             if new_slots:
                 self._pending_embeds += 1
         if new_slots:
-            self._embed_new_slots(new_slots, new_texts, new_tids)
+            self._embed_new_slots(new_slots, new_texts, new_tids, gen)
         return out
+
+    # ------------------------------------------------------------------
+    # lifecycle: row aging, duplicate collapse, log compaction
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def _fsync_dir(path: Path) -> None:
+        """fsync a directory so a completed rename is durable (best effort)."""
+        try:
+            fd = os.open(path, os.O_RDONLY)
+            try:
+                os.fsync(fd)
+            finally:
+                os.close(fd)
+        except OSError:
+            pass
+
+    def _zero_device_rows_locked(self, slots) -> None:
+        """Overwrite device rows with zeros (pad-only sparse rows: the
+        scatter's set semantics wipe the row) and un-type them (tid -1), so
+        a tombstoned row can neither score nor pass the type pre-filter.
+        Caller holds ``_lock`` (or is the single-threaded replay)."""
+        arr = np.asarray(sorted(int(s) for s in slots), np.int32)
+        arr = arr[arr < self._knn.capacity]
+        if not len(arr):
+            return
+        sp_idx = np.full((len(arr), 1), self._knn.dim, np.int32)
+        sp_val = np.zeros((len(arr), 1), np.float32)
+        self._knn.insert_sparse(
+            self._emb, self._valid, self._types, sp_idx, sp_val, arr,
+            np.full(len(arr), -1, np.int32),
+        )
+
+    def _tombstone_rows_locked(self, slots, reason: str, now: Optional[float] = None) -> List[int]:
+        """Durable "tomb" line first, then the state flip, per slot: a
+        crash between rows leaves each completed transition replayable and
+        the rest not taken. Returns the slots tombstoned (already-tombstoned
+        ones are skipped). Caller holds ``_lock`` and zeroes the device
+        rows afterwards."""
+        wrote: List[int] = []
+        ts = now if now is not None else time.time()
+        for slot in slots:
+            slot = int(slot)
+            if slot in self._tombstoned or not 0 <= slot < len(self._records):
+                continue
+            try:
+                self._fault_tombstone.fire()
+                self._append_jsonl(
+                    self.tombstones_path,
+                    {"op": "tomb", "id": self._records[slot].failure_id, "reason": reason, "ts": ts},
+                )
+            except (OSError, _faults.FaultInjected) as e:
+                # Durable before visible: a transition that never hit the
+                # disk never happened; the row stays live and the pass
+                # stops (IO trouble is file-wide).
+                log.warning("tombstone write failed after %d rows (%s: %s)",
+                            len(wrote), type(e).__name__, e)
+                break
+            self._tombstoned[slot] = reason
+            wrote.append(slot)
+        if wrote:
+            self._tomb_view = None
+            self._flush_logs()
+        return wrote
+
+    def _resurrect_locked(self, slot: int, rec: CanonicalFailureRecord) -> None:
+        """An organic upsert of a tombstoned slot brings it back: durable
+        "live" line, then the state flip. Caller holds ``_lock`` and
+        re-embeds the slot."""
+        self._append_jsonl(
+            self.tombstones_path, {"op": "live", "id": rec.failure_id, "ts": time.time()}
+        )
+        self._tombstoned.pop(slot, None)
+        self._tomb_view = None
+
+    def age_rows(self, ttl_s: Optional[float] = None, now: Optional[float] = None) -> dict:
+        """TTL demotion: tombstone every live row whose last version write
+        predates ``now - ttl_s`` (``KAKVEDA_GFKB_AGE_TTL_S``; 0 = off).
+        Tombstoning is terminal but resident (slots, ids and keys stay);
+        reclaiming log bytes is :meth:`compact`'s job. ``now`` is
+        injectable. The reference exempts the cold tier's recently promoted
+        slots; the port has no tiers, so nothing is exempt."""
+        if ttl_s is None:
+            ttl_s = float(os.environ.get("KAKVEDA_GFKB_AGE_TTL_S", "0"))
+        if ttl_s <= 0:
+            return {"tombstoned": 0, "ttl_s": ttl_s}
+        ts = now if now is not None else time.time()
+        with self._lock:
+            victims = [
+                slot
+                for slot, rec in enumerate(self._records)
+                if slot not in self._tombstoned and ts - rec.updated_at.timestamp() > ttl_s
+            ]
+            wrote = self._tombstone_rows_locked(victims, "aged", now=ts)
+            if wrote:
+                self._zero_device_rows_locked(wrote)
+        return {"tombstoned": len(wrote), "ttl_s": ttl_s, "exempt": 0}
+
+    def collapse_duplicates(self, min_cluster: Optional[int] = None) -> dict:
+        """Near-duplicate collapse over the mining clusters: each cluster
+        with ≥ ``min_cluster`` live members (``KAKVEDA_GFKB_DUP_COLLAPSE``)
+        keeps its smallest live slot, folds the others' occurrences and
+        apps into it by a version-bump log line, and tombstones them. A
+        stale or behind state collapses nothing."""
+        if min_cluster is None:
+            min_cluster = int(os.environ.get("KAKVEDA_GFKB_DUP_COLLAPSE", "0"))
+        out = {"collapsed": 0, "clusters": 0, "min_cluster": min_cluster}
+        if min_cluster <= 1:
+            return out
+        with self._lock:
+            m = self._mine
+            if m is None:
+                out["reason"] = "incremental mining disabled"
+                return out
+            self._mine_drain_locked()
+            if m.stale or m.n_rows != len(self._records):
+                out["reason"] = "mine state stale or behind"
+                return out
+            now = utcnow()
+            for exemplar, victims in collapse_groups(m.labels(), min_cluster, exclude=self._tombstoned):
+                ex = self._records[exemplar].model_copy(deep=True)
+                ex.version += 1
+                ex.updated_at = now
+                for v in victims:
+                    vr = self._records[v]
+                    ex.occurrences += vr.occurrences
+                    for app in vr.affected_apps:
+                        if app not in ex.affected_apps:
+                            ex.affected_apps.append(app)
+                self._apps_by_type.setdefault(ex.failure_type, set()).update(ex.affected_apps)
+                m.note_apps(exemplar, list(ex.affected_apps))
+                self._records[exemplar] = ex
+                self._append_line(self.failures_path, ex.model_dump_json())
+                wrote = self._tombstone_rows_locked(victims, "collapsed")
+                if wrote:
+                    self._zero_device_rows_locked(wrote)
+                out["collapsed"] += len(wrote)
+                out["clusters"] += 1
+            self._flush_logs()
+        return out
+
+    def compact(self) -> dict:
+        """Checkpoint+delta rewrite of the failures log: a fresh snapshot,
+        then failures.jsonl rewritten to only the bytes after it, and the
+        tombstone log to net state. The swap is fenced by the manifest
+        (log_offset 0, generation bump), which swaps by temp + fsync +
+        rename before the log does, so a crash at any byte leaves a
+        (manifest, log) pair that replays to the pre- or post-compaction
+        state: before the manifest swap the old manifest covers the old log;
+        between the swaps offset 0 replays the full old log over the
+        snapshot (latest-wins converges); after, it replays the delta.
+        ``KAKVEDA_GFKB_COMPACT=0`` refuses (append-only, bit for bit)."""
+        if not self.persist:
+            raise SnapshotError("compaction requires a persistent GFKB (persist=True)")
+        if os.environ.get("KAKVEDA_GFKB_COMPACT", "1") == "0":
+            return {"compacted": False, "reason": "KAKVEDA_GFKB_COMPACT=0"}
+        stale = self.failures_path.with_suffix(".compact-tmp")
+        if stale.exists():
+            # A crash between the delta write and the swap strands it; it is
+            # never valid input.
+            try:
+                stale.unlink()
+            except OSError as e:
+                log.warning("stale %s could not be removed: %s", stale, e)
+        with self._snapshot_write_lock:
+            try:
+                self.snapshot()
+                out = self._compact_swap_locked()
+            except (OSError, _faults.FaultInjected) as e:
+                log.error("failures-log compaction failed: %s", e)
+                raise
+        log.info("compacted %s: %d -> %d bytes (generation %d)",
+                 self.failures_path, out["bytes_before"], out["bytes_after"], out["generation"])
+        return out
+
+    def _compact_swap_locked(self) -> dict:
+        """The fenced swap: the caller holds the snapshot-write lock with
+        the fresh snapshot installed; ``_lock`` is taken so no append lands
+        between the tail read and the log replace. The append handles are
+        closed around the replaces (a held handle appends to the replaced
+        inode) and reopen at the next append."""
+        with self._lock:
+            sd = self._snapshot_dir()
+            manifest_path = sd / "manifest.json"
+            manifest = json.loads(manifest_path.read_text())
+            offset = int(manifest.get("log_offset", 0))
+            self._close_locked()
+            size = self.failures_path.stat().st_size if self.failures_path.exists() else 0
+            with self.failures_path.open("rb") as f:
+                f.seek(offset)
+                tail = f.read()
+            # A torn final line tolerated at replay must not survive into
+            # the new log.
+            pend = self._truncate_pending.get(self.failures_path)
+            if pend is not None and pend >= offset:
+                tail = tail[: pend - offset]
+            tmp = self.failures_path.with_suffix(".compact-tmp")
+            with tmp.open("wb") as f:
+                f.write(tail)
+                f.flush()
+                os.fsync(f.fileno())
+            self._fault_compact_delta.fire()
+            gen = self._compact_generation + 1
+            manifest["log_offset"] = 0
+            manifest["log_hash"] = ""
+            manifest["compact"] = {"generation": gen, "ts": time.time()}
+            mtmp = sd / "manifest.json.tmp"
+            with mtmp.open("w", encoding="utf-8") as f:
+                f.write(json.dumps(manifest))
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(mtmp, manifest_path)
+            self._fsync_dir(sd)
+            # THE FENCE: from here replay starts at byte 0 of whichever file
+            # is live at failures.jsonl; both reach the post-state.
+            self._fault_compact_fence.fire()
+            os.replace(tmp, self.failures_path)
+            self._fsync_dir(self.data_dir)
+            self._fault_compact_swap.fire()
+            self._close_locked()
+            self._truncate_pending.pop(self.failures_path, None)
+            self._compact_generation = gen
+            self._last_compact_ts = time.time()
+            n_tomb = self._compact_tombstones_locked()
+        return {
+            "compacted": True,
+            "generation": gen,
+            "bytes_before": size,
+            "bytes_after": len(tail),
+            "checkpoint_rows": int(manifest.get("n", 0)),
+            "tombstone_lines": n_tomb,
+        }
+
+    def _compact_tombstones_locked(self) -> int:
+        """Rewrite the tombstone log to net state (one "tomb" line per
+        tombstoned slot) by temp + fsync + rename; a crash mid-rewrite
+        keeps the old log, which replays to the same state."""
+        if not self._tombstoned and not self.tombstones_path.exists():
+            return 0
+        lg = self._logs.pop(self.tombstones_path, None)
+        if lg is not None:
+            lg.close()
+        tmp = self.tombstones_path.with_suffix(".compact-tmp")
+        try:
+            with tmp.open("w", encoding="utf-8") as f:
+                for slot in sorted(self._tombstoned):
+                    f.write(json.dumps({
+                        "op": "tomb",
+                        "id": self._records[slot].failure_id,
+                        "reason": self._tombstoned[slot],
+                        "ts": self._last_compact_ts,
+                    }) + "\n")
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(tmp, self.tombstones_path)
+            self._truncate_pending.pop(self.tombstones_path, None)
+        except OSError as e:
+            log.warning("tombstone-log compaction skipped: %s", e)
+            tmp.unlink(missing_ok=True)
+        return len(self._tombstoned)
+
+    def _maybe_auto_compact(self) -> None:
+        """Size/age trigger (``KAKVEDA_GFKB_COMPACT_BYTES`` / ``_AGE_S``,
+        0 = off), checked after each ingest batch; the compaction runs on a
+        daemon thread, one at a time."""
+        if not self.persist or self._compact_inflight:
+            return
+        if self._compact_bytes <= 0 and self._compact_age_s <= 0:
+            return
+        if os.environ.get("KAKVEDA_GFKB_COMPACT", "1") == "0":
+            return
+        try:
+            size = self.failures_path.stat().st_size
+        except OSError:
+            return
+        due = self._compact_bytes > 0 and size >= self._compact_bytes
+        if not due and self._compact_age_s > 0 and size > 0:
+            last = self._last_compact_ts or self._opened_ts
+            due = (time.time() - last) >= self._compact_age_s
+        if not due:
+            return
+        with self._lock:
+            if self._compact_inflight:
+                return
+            self._compact_inflight = True
+
+        def _run() -> None:
+            try:
+                self.compact()
+            except Exception as e:  # noqa: BLE001 — never fail or abort ingest
+                log.warning("auto-compaction failed (%s: %s)", type(e).__name__, e)
+            finally:
+                self._compact_inflight = False
+
+        threading.Thread(target=_run, name="kakveda-gfkb-compact", daemon=True).start()
+
+    def lifecycle_info(self) -> dict:
+        """Durability posture: tombstone counts by reason, compaction
+        generation and time, the failures log's size; and (the port's own
+        keys) what the open's snapshot restore and the last snapshot did:
+        ``restore`` is None without a snapshot, ``{"rows": 0, "reason"}``
+        when one was refused (full replay), else its rows, log offset and
+        walls by stage."""
+        with self._lock:
+            by_reason: Dict[str, int] = {}
+            for r in self._tombstoned.values():
+                by_reason[r] = by_reason.get(r, 0) + 1
+            size = 0
+            if self.persist:
+                try:
+                    size = self.failures_path.stat().st_size
+                except OSError:
+                    size = 0
+            return {
+                "tombstoned": len(self._tombstoned),
+                "by_reason": by_reason,
+                "compact_generation": self._compact_generation,
+                "last_compact_ts": self._last_compact_ts,
+                "failures_log_bytes": size,
+                "restore": self._restore_info,
+                "snapshot": self._snapshot_info,
+            }
 
     # ------------------------------------------------------------------
     # match
@@ -469,7 +1274,9 @@ class GFKB:
         """Top-k matches for a batch of queries (one kernel launch), plus
         serving provenance. ``type_filter="post"`` filters by type after the
         top-k (the reference's behaviour); ``"pre"`` ANDs the per-slot type
-        id into the valid mask before it. A device error propagates."""
+        id into the valid mask before it. Tombstoned rows (zero on the card,
+        so they never outrank a real match) are dropped at assembly. A
+        device error propagates."""
         q_idx, q_val = self.featurizer.encode_batch_sparse(list(signature_texts))
         b = q_idx.shape[0]
         info = {"tier": "hot", "nprobe": None}
@@ -478,6 +1285,9 @@ class GFKB:
             n = len(records)
             if n == 0:
                 return [[] for _ in signature_texts], info
+            if self._tomb_view is None:
+                self._tomb_view = frozenset(self._tombstoned)
+            tomb = self._tomb_view
             valid = self._valid
             if type_filter == "pre" and failure_type is not None:
                 tid = self._type_ids.get(failure_type)
@@ -486,6 +1296,7 @@ class GFKB:
                 valid = self._knn.mask_valid(valid, self._types, tid)
             packed = self._knn.topk_async_sparse(self._emb, valid, q_idx, q_val)
             records = list(records)
+            gen = self._generation
         scores, slots = self._knn.topk_result(packed)
 
         if self._mine is not None and self._match_cache_max > 0 and failure_type is None:
@@ -494,7 +1305,7 @@ class GFKB:
             # cluster attachment free (no delta dispatch).
             with self._lock:
                 for i in range(b):
-                    self._match_cache[signature_texts[i]] = (scores[i], slots[i])
+                    self._match_cache[signature_texts[i]] = (scores[i], slots[i], gen)
                     self._match_cache.move_to_end(signature_texts[i])
                 while len(self._match_cache) > self._match_cache_max:
                     self._match_cache.popitem(last=False)
@@ -503,8 +1314,8 @@ class GFKB:
         for i in range(b):
             row: List[FailureMatch] = []
             for s, slot in zip(scores[i], slots[i]):
-                if s <= -1.0 or slot >= n:
-                    continue  # padding / invalid rows
+                if s <= -1.0 or slot >= n or int(slot) in tomb:
+                    continue  # padding / invalid / tombstoned rows
                 rec = records[int(slot)]
                 if failure_type and rec.failure_type != failure_type:
                     continue
@@ -525,7 +1336,7 @@ class GFKB:
     # incremental mining state
     # ------------------------------------------------------------------
 
-    def _mine_attach_new(self, slots, texts, sp_idx, sp_val) -> None:
+    def _mine_attach_new(self, slots, texts, sp_idx, sp_val, gen: int) -> None:
         """Attach freshly inserted rows to the cluster state.
 
         Rows whose signature a recent warn already scored reuse those
@@ -538,12 +1349,15 @@ class GFKB:
         if m is None or m.stale:
             return
         try:
+            self._fault_mine.fire()
             reused = []  # (slot, neighbour slots, sims)
             with self._lock:
+                if self._generation != gen:
+                    return
                 delta_rows: List[int] = []
                 for i, (s, t) in enumerate(zip(slots, texts)):
                     hit = self._match_cache.get(t)
-                    if hit is not None:
+                    if hit is not None and hit[2] == gen:
                         reused.append((s, hit[1], hit[0]))
                     else:
                         delta_rows.append(i)
@@ -554,9 +1368,12 @@ class GFKB:
                         self._emb, self._valid, sp_idx[delta_rows], sp_val[delta_rows], m.k + 1
                     )
                     self.mine_delta_dispatches += 1
-                    self._mine_pending.append(
-                        (self._knn.capacity, np.asarray([slots[i] for i in delta_rows], np.int32), pending)
-                    )
+                    self._mine_pending.append((
+                        self._knn.capacity,
+                        np.asarray([slots[i] for i in delta_rows], np.int32),
+                        pending,
+                        gen,
+                    ))
             for s, nslots, nsims in reused:
                 m.attach(int(s), nslots, nsims)
             if len(self._mine_pending) > self._mine_pending_max:
@@ -579,10 +1396,11 @@ class GFKB:
             return 0
         drained = 0
         while self._mine_pending:
-            capacity, d_slots, pending = self._mine_pending.popleft()
-            if m.stale:
+            capacity, d_slots, pending, gen = self._mine_pending.popleft()
+            if gen != self._generation or m.stale:
                 continue
             try:
+                self._fault_mine.fire()
                 sims, rows = unpack_topk(pending, len(d_slots))
                 for r in range(len(d_slots)):
                     keep = np.isfinite(sims[r]) & (sims[r] >= m.threshold) & (rows[r] < capacity)

@@ -53,6 +53,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+from scipy.sparse import coo_matrix
+from scipy.sparse.csgraph import connected_components
 
 from kakveda_tpu_torch.ops.device import resolve_device
 
@@ -242,9 +244,6 @@ def build_knn_edges(
 
 def _sparse_components(n: int, rows: np.ndarray, cols: np.ndarray) -> np.ndarray:
     """Connected components over an edge list; labels = min member index."""
-    from scipy.sparse import coo_matrix
-    from scipy.sparse.csgraph import connected_components
-
     g = coo_matrix((np.ones(len(rows), np.int8), (rows, cols)), shape=(n, n))
     _, comp = connected_components(g, directed=False)
     mins = np.full(comp.max() + 1 if len(comp) else 0, np.iinfo(np.int64).max)

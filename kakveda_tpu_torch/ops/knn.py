@@ -114,6 +114,31 @@ class Knn:
         self._write(emb, valid, types, self._rows(np.asarray(slots)[keep]), self.densify(idx_d, val_d), tids_d)
         return emb, valid, types
 
+    def device_copy(self, emb: torch.Tensor, rows: int | None = None) -> torch.Tensor:
+        """An on-device clone of ``emb[:rows]`` (all rows by default): a
+        snapshot takes it under the store's lock and moves it to the host
+        outside. Only the first ``rows`` are copied, so a half-full index
+        does not put its whole capacity on the card twice."""
+        return emb[:rows].clone()
+
+    def sparse_rows(self, emb: torch.Tensor, lo: int, hi: int) -> Tuple[np.ndarray, np.ndarray]:
+        """Rows [lo, hi) of ``emb`` as the (idx, val) pair that
+        ``dense_rows_to_sparse`` makes of them (columns ascending, pad
+        (dim, 0), K a power of two ≥ max(64, the widest row's nonzeros)),
+        sparsified on the device, so only the pairs cross to the host."""
+        rows = emb[lo:hi].float()
+        nz = rows != 0
+        kmax = int(nz.sum(dim=1).max()) if hi > lo else 0
+        k = pow2_bucket(kmax, floor=64)
+        col = torch.arange(self.dim, device=rows.device, dtype=torch.int32)
+        # Nonzero columns sort ahead of the pad key, in column order.
+        idx = torch.where(nz, col, self.dim).sort(dim=1).values[:, : min(k, self.dim)]
+        val = rows.gather(1, idx.clamp(max=self.dim - 1).long()).masked_fill_(idx == self.dim, 0.0)
+        if k > self.dim:
+            idx = torch.cat([idx, idx.new_full((idx.shape[0], k - self.dim), self.dim)], 1)
+            val = torch.cat([val, val.new_zeros((val.shape[0], k - self.dim))], 1)
+        return idx.cpu().numpy(), val.cpu().numpy()
+
     def gather_slots(self, emb: torch.Tensor, slots) -> np.ndarray:
         """Host f32 copy of the rows for logical ``slots``, chunked."""
         rows = np.asarray(slots, dtype=np.int64)

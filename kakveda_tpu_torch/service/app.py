@@ -18,6 +18,10 @@ from the torch ``Platform`` (the index on the card). Route map:
   GET  /patterns               pattern entities
   POST /patterns/upsert        identity-by-name pattern upsert
   POST /patterns/mine          incremental or full-sweep mining
+  POST /snapshot               a GFKB snapshot (a restart restores it and
+                               replays only the log tail); 409 when the
+                               store cannot take one (persist=False, or
+                               a reload aborted it)
   GET  /health/{app_id}        health points
   POST /publish, GET /topics   the in-process bus
 
@@ -26,11 +30,11 @@ brings each:
 
   /subscribe /unsubscribe      item 6 (the port's bus refuses URL
                                subscribers)
-  /snapshot /replicate /fleet/*  item 6
-  /metrics /flightrecorder /trace*  item 7
+  /replicate /fleet/*          item 6
+  /metrics /flightrecorder /trace*  item 5
 
-Also left for item 7: the per-client rate limiter, traffic capture, otel,
-the fault sites and the loop-stall watchdog. The reference's
+Also left for item 5: the per-client rate limiter, traffic capture, otel,
+the service's fault sites and the loop-stall watchdog. The reference's
 ``KAKVEDA_WARN_RTT_EMU_MS`` emulates a TPU tunnel's round trip and has no
 counterpart on a local card.
 """
@@ -57,6 +61,7 @@ from kakveda_tpu_torch.core.schemas import (
     Severity,
     WarningRequest,
 )
+from kakveda_tpu_torch.index.gfkb import SnapshotError
 from kakveda_tpu_torch.platform import Platform
 from kakveda_tpu_torch.service.batcher import MicroBatcher
 
@@ -271,6 +276,17 @@ def make_app(platform: Optional[Platform] = None, **platform_kw) -> web.Applicat
             {"ok": True, "patterns": [p.model_dump(mode="json") for p in found], "mining": info}
         )
 
+    async def snapshot(request):
+        """Point-in-time GFKB snapshot, written off the event loop in a
+        background admission slot."""
+        loop = asyncio.get_running_loop()
+        try:
+            with adm.slot("background"):
+                path = await loop.run_in_executor(None, plat.gfkb.snapshot)
+        except SnapshotError as e:  # persist=False, or aborted by a reload
+            return _json_error(409, str(e))
+        return web.json_response({"ok": True, "path": str(path), "entries": plat.gfkb.count})
+
     # --- health + bus ---------------------------------------------------
 
     async def app_health(request):
@@ -302,6 +318,7 @@ def make_app(platform: Optional[Platform] = None, **platform_kw) -> web.Applicat
             web.get("/patterns", list_patterns),
             web.post("/patterns/upsert", upsert_pattern),
             web.post("/patterns/mine", mine_patterns),
+            web.post("/snapshot", snapshot),
             web.get("/health/{app_id}", app_health),
             web.post("/publish", publish),
             web.get("/topics", topics),

@@ -5,10 +5,10 @@ Queue 1 item 8), multi-host init, the compile ledger or start-up
 profiling. It reads ``data_dir`` and ``index_capacity`` from the runtime
 config (``KAKVEDA_DATA_DIR``, ``KAKVEDA_INDEX_CAPACITY``), loads the native
 library, builds the ``Platform`` on the card (or on ``device``) and serves
-the API until SIGINT or SIGTERM. On the way out it closes the GFKB so the
-buffered log lines reach the disk. It writes no snapshot (item 6): the
-next start replays the logs, and a replayed data dir's first mine is a
-full sweep.
+the API until SIGINT or SIGTERM. On the way out it writes a GFKB snapshot
+(best effort, as the reference does) and closes the GFKB so the buffered
+log lines reach the disk: the next start restores the snapshot, replays
+only the log tail, and serves its first mine incrementally.
 """
 
 from __future__ import annotations
@@ -34,8 +34,9 @@ async def _serve(plat: Platform, host: str, port: int) -> None:
     await runner.setup()
     try:
         await web.TCPSite(runner, host, port).start()
-        log.info("platform API on http://%s:%d (gfkb entries: %d, device %s)",
-                 host, port, plat.gfkb.count, plat.device)
+        restore = plat.gfkb.lifecycle_info()["restore"]
+        log.info("platform API on http://%s:%d (gfkb entries: %d, restored from a snapshot: %d, device %s)",
+                 host, port, plat.gfkb.count, restore["rows"] if restore else 0, plat.device)
         stop = asyncio.Event()
         loop = asyncio.get_running_loop()
         for sig in (signal.SIGINT, signal.SIGTERM):
@@ -69,6 +70,13 @@ def run_server(
             gc.set_threshold(50_000, 20, 20)
         asyncio.run(_serve(plat, host, port))
     finally:
+        # Graceful shutdown snapshot: the next start restores it instead of
+        # re-embedding the whole GFKB and re-mining it.
+        try:
+            plat.gfkb.snapshot()
+            log.info("gfkb snapshot written (%d entries)", plat.gfkb.count)
+        except Exception as e:  # noqa: BLE001 — shutdown must not fail on this
+            log.warning("shutdown snapshot failed: %s", e, exc_info=True)
         plat.close()
         log.info("gfkb closed (%d entries)", plat.gfkb.count)
     return 0

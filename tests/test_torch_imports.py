@@ -28,7 +28,8 @@ def test_import_loads_no_jax_in_fresh_interpreter():
     for m in ("serving", "generate", "llama", "attention", "tokenizer", "runtime", "moe", "quant"):
         assert f"kakveda_tpu_torch.models.{m}" in mods
     for m in ("ops.clustering", "ops.incremental", "index.gfkb", "pipeline.patterns", "native",
-              "core.runtime", "core.admission", "service.app", "service.batcher", "service.main"):
+              "core.runtime", "core.admission", "service.app", "service.batcher", "service.main",
+              "core.faults", "index.crashsweep"):
         assert f"kakveda_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -56,6 +57,8 @@ def test_import_loads_no_jax_in_fresh_interpreter():
         ("kakveda_tpu_torch.models.generate", False),
         ("kakveda_tpu_torch.models.serving", False),
         ("kakveda_tpu_torch.pipeline.classifier", False),
+        ("kakveda_tpu_torch.core.faults", False),
+        ("kakveda_tpu_torch.index.crashsweep", False),
         ("kakveda_tpu_torch.service.app", True),
     ],
 )
@@ -74,6 +77,23 @@ def test_module_loads_no_jax_and_only_the_service_loads_aiohttp(module, aiohttp_
     )
     assert r.returncode == 0, r.stderr
     assert r.stdout.split() == ["[]", str(aiohttp_allowed)], r.stdout
+
+
+@pytest.mark.parametrize("module", ["kakveda_tpu_torch.platform", "kakveda_tpu_torch.service.app"])
+def test_mining_imports_scipy_at_start_up(module):
+    # The first /patterns/mine runs while /warn traffic is in flight: an
+    # import of scipy's graph module there (about a second, under the GIL)
+    # would stall every warn behind it, so it is paid when the module loads.
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module({module!r})\n"
+        "print('scipy.sparse.csgraph' in sys.modules)\n"
+    )
+    r = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
+    )
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.split() == ["True"], r.stdout
 
 
 def test_sources_name_no_jax():

@@ -103,6 +103,27 @@ def _sparse_rows(rng, n, dim, nnz, width=16):
     return idx, val
 
 
+@pytest.mark.parametrize("dim,nnz,lo,hi", [(128, 12, 0, 150), (128, 80, 7, 90), (40, 40, 0, 60), (128, 12, 5, 5)])
+def test_sparse_rows_is_the_reference_sparsify_of_the_dense_rows(dim, nnz, lo, hi):
+    """The snapshot's on-device sparsify gives the JAX package's
+    ``dense_rows_to_sparse`` of the same rows, bit for bit: columns
+    ascending, (dim, 0) pads, K a power of two ≥ max(64, the widest row),
+    also past dim and for an empty range."""
+    from kakveda_tpu.ops.featurizer import dense_rows_to_sparse
+
+    rng = np.random.default_rng(dim + nnz)
+    tk = Knn(256, dim, device="cpu")
+    emb, valid = tk.alloc()
+    types = tk.alloc_i32()
+    idx, val = _sparse_rows(rng, 150, dim, nnz, width=max(16, nnz))
+    tk.insert_sparse(emb, valid, types, idx, val, np.arange(150, dtype=np.int32), np.zeros(150, np.int32))
+    got_i, got_v = tk.sparse_rows(emb, lo, hi)
+    want_i, want_v = dense_rows_to_sparse(tk.gather_slots(emb, np.arange(lo, hi)), dim)
+    assert got_i.dtype == np.int32 and got_v.dtype == np.float32
+    np.testing.assert_array_equal(got_i, want_i)
+    np.testing.assert_array_equal(got_v, want_v)
+
+
 @pytest.fixture
 def one_device_mesh():
     return create_mesh("data:1")

@@ -12,6 +12,7 @@ JAX index on one device, where both take the lowest slot).
 
 import asyncio
 import copy
+import json
 import os
 import re
 import signal
@@ -196,7 +197,7 @@ def test_validation_errors(app):
 
 
 @pytest.mark.parametrize("method,path", [
-    ("post", "/subscribe"), ("post", "/unsubscribe"), ("post", "/snapshot"), ("post", "/replicate"),
+    ("post", "/subscribe"), ("post", "/unsubscribe"), ("post", "/replicate"),
     ("post", "/fleet/gossip"), ("get", "/fleet/ownership"), ("post", "/fleet/export"),
     ("get", "/metrics"), ("get", "/flightrecorder"), ("get", "/trace"),
 ])
@@ -206,6 +207,38 @@ def test_unported_routes_answer_404(app, method, path):
         assert r.status == 404
 
     run(_with_client(app, go))
+
+
+@pytest.mark.parametrize("persist", [True, False])
+def test_snapshot_route_answers_as_the_jax_app(tmp_path, persist):
+    """200 with the snapshot's path and entry count, as the JAX app answers;
+    409 with the same message when the store cannot take one."""
+    jax_plat = JaxPlatform(data_dir=tmp_path / "jax", mesh=create_mesh("data:1"), capacity=256, dim=1024,
+                           persist=persist)
+    port = Platform(data_dir=tmp_path / "port", capacity=256, dim=1024, device="cpu", persist=persist)
+
+    async def go(client):
+        r = await client.post("/ingest/batch", json={"traces": [_trace("app-A", CITE), _trace("app-B", CITE)]})
+        assert r.status == 200
+        r = await client.post("/snapshot")
+        return r.status, await r.json()
+
+    (ps, pb), (js, jb) = run(_with_client(make_app(port), go)), run(
+        _with_client(jax_make_app(jax_plat, admission=JaxAdmission()), go))
+    port.close()
+    jax_plat.gfkb.close()
+    assert ps == js == (200 if persist else 409)
+    if not persist:
+        assert pb == jb and not pb["ok"]
+        return
+    assert sorted(pb) == sorted(jb) == ["entries", "ok", "path"]
+    assert pb["entries"] == jb["entries"] == 1 and pb["ok"]
+    assert Path(pb["path"]) == tmp_path / "port" / "snapshot"
+    manifest = json.loads((Path(pb["path"]) / "manifest.json").read_text())
+    assert manifest["version"] == 5 and manifest["n"] == 1
+    again = _platform(tmp_path / "port")
+    assert again.gfkb.lifecycle_info()["restore"]["rows"] == 1
+    again.close()
 
 
 def test_publish_reaches_local_subscribers(app, plat):
@@ -455,11 +488,8 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def test_module_entry_point_serves_and_stops_on_sigint(tmp_path):
-    """``python -m kakveda_tpu_torch.service --device cpu`` starts, answers,
-    and on SIGINT exits 0 with its log flushed; the data dir replays."""
+def _start_service(tmp_path, data):
     port = _free_port()
-    data = tmp_path / "data"
     env = dict(os.environ, KAKVEDA_INDEX_CAPACITY="256", KAKVEDA_LOG_FORMAT="text",
                PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
     proc = subprocess.Popen(
@@ -467,39 +497,106 @@ def test_module_entry_point_serves_and_stops_on_sigint(tmp_path):
          "--device", "cpu"],
         cwd=tmp_path, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
     )
-    base = f"http://127.0.0.1:{port}"
+    return proc, f"http://127.0.0.1:{port}"
 
-    async def drive():
-        async with ClientSession() as s:
-            for _ in range(600):
-                try:
-                    async with s.get(base + "/healthz") as r:
-                        if r.status == 200:
-                            break
-                except OSError:
-                    pass
-                if proc.poll() is not None:
-                    raise AssertionError("server exited early")
-                await asyncio.sleep(0.1)
-            else:
-                raise AssertionError("server never answered /healthz")
-            async with s.post(base + "/ingest/batch", json={"traces": [_trace("app-A", CITE)]}) as r:
-                assert (await r.json())["failures"] == 1
-            async with s.post(base + "/warn", json={"app_id": "z", "prompt": CITE, "tools": [],
-                                                    "env": {"os": "linux"}}) as r:
-                body = await r.json()
-                assert body["references"][0]["failure_id"] == "F-0001"
 
+async def _wait_up(s, base, proc):
+    for _ in range(600):
+        try:
+            async with s.get(base + "/healthz") as r:
+                if r.status == 200:
+                    return
+        except OSError:
+            pass
+        if proc.poll() is not None:
+            raise AssertionError("server exited early")
+        await asyncio.sleep(0.1)
+    raise AssertionError("server never answered /healthz")
+
+
+def _stop_service(proc) -> str:
+    """SIGINT, then the process's output; the exit code must be 0."""
     try:
-        run(drive())
         proc.send_signal(signal.SIGINT)
         out, _ = proc.communicate(timeout=60)
     finally:
         if proc.poll() is None:
             proc.kill()
             proc.communicate()
-    assert proc.returncode == 0, out.decode(errors="replace")[-3000:]
+    text = out.decode(errors="replace")
+    assert proc.returncode == 0, text[-3000:]
+    return text
+
+
+_WARN = {"app_id": "z", "prompt": CITE, "tools": [], "env": {"os": "linux"}}
+
+
+def test_module_entry_point_serves_and_stops_on_sigint(tmp_path):
+    """``python -m kakveda_tpu_torch.service --device cpu`` starts, answers,
+    and on SIGINT exits 0 with its log flushed; the data dir reopens."""
+    data = tmp_path / "data"
+    proc, base = _start_service(tmp_path, data)
+
+    async def drive():
+        async with ClientSession() as s:
+            await _wait_up(s, base, proc)
+            async with s.post(base + "/ingest/batch", json={"traces": [_trace("app-A", CITE)]}) as r:
+                assert (await r.json())["failures"] == 1
+            async with s.post(base + "/warn", json=_WARN) as r:
+                body = await r.json()
+                assert body["references"][0]["failure_id"] == "F-0001"
+
+    try:
+        run(drive())
+    finally:
+        _stop_service(proc)
     assert "F-0001" in (data / "failures.jsonl").read_text()
     replayed = _platform(data)
     assert replayed.gfkb.count == 1
     replayed.close()
+
+
+def test_entry_point_snapshots_on_sigint_and_restores_on_restart(tmp_path):
+    """SIGINT leaves a v5 snapshot of every record; the next start restores
+    it (its log says so, ``/failures`` counts the records, the mining state
+    is served incrementally) and ``/warn`` answers as before the restart."""
+    data = tmp_path / "data"
+    prompts = [CITE, "Explain research paper and add references.",
+               "Summarize report 7 and include citations even if not provided."]
+
+    async def drive(proc, base, ingest):
+        async with ClientSession() as s:
+            await _wait_up(s, base, proc)
+            if ingest:
+                traces = [_trace(f"app-{i % 2}", p) for i, p in enumerate(prompts)]
+                async with s.post(base + "/ingest/batch", json={"traces": traces}) as r:
+                    assert (await r.json())["failures"] == 3
+            async with s.get(base + "/failures") as r:
+                count = len((await r.json())["failures"])
+            async with s.post(base + "/warn", json=_WARN) as r:
+                warn = await r.json()
+            async with s.post(base + "/patterns/mine", json={}) as r:
+                mode = (await r.json())["mining"]["mode"]
+            return count, warn, mode
+
+    proc, base = _start_service(tmp_path, data)
+    try:
+        count, warn, _ = run(drive(proc, base, ingest=True))
+    finally:
+        first = _stop_service(proc)
+    assert count == 3 and warn["references"]
+    assert "gfkb snapshot written (3 entries)" in first
+    manifest = json.loads((data / "snapshot" / "manifest.json").read_text())
+    assert manifest["version"] == 5 and manifest["n"] == 3 and "mine" in manifest
+
+    proc, base = _start_service(tmp_path, data)
+    try:
+        count2, warn2, mode2 = run(drive(proc, base, ingest=False))
+    finally:
+        second = _stop_service(proc)
+    assert "restored a snapshot of 3 rows" in second and "restored from a snapshot: 3" in second
+    assert count2 == 3 and mode2 == "incremental"
+    assert [(r["failure_id"], r["score"]) for r in warn2["references"]] == [
+        (r["failure_id"], r["score"]) for r in warn["references"]
+    ]
+    assert (warn2["action"], warn2["confidence"]) == (warn["action"], warn["confidence"])
