@@ -123,7 +123,12 @@ JAX package). Phases, each of which raises on failure (exit code != 0):
    answers the same ``/warn``.
 
 11. restart and lifecycle at real size (after phase 8, before the model
-   phases, which get the card back): 2^19 distinct signatures
+   phases, which get the card back; in the pre-tiered configuration,
+   ``KAKVEDA_GFKB_TIERED=0``: on ``restart_corpus``, which has no coarse
+   structure, the default router spawns a centroid per cluster and its
+   per-batch update grows with them, past the run's time limit at 2^19
+   rows, as ``measure_router`` shows; phase 12 drives the tiered
+   lifecycle): 2^19 distinct signatures
    (``restart_corpus``, clusters of 1-10, 1 in 64 spanning apps) through
    ``upsert_failures_batch`` × 4096 into a 2^20 × 2048 GFKB with mining
    on, beside ``crashsweep.run_sweep`` at the two fence sites with its
@@ -140,8 +145,15 @@ JAX package). Phases, each of which raises on failure (exit code != 0):
    after) and a reopen that is identical, tombstones kept; last, a full
    mine's wall where every cluster spans apps, at 2^15 and 2^16 rows,
    beside 1 in 64 at 2^16 (the pattern emission grows with the square of
-   the spread clusters). ``fused_topk``'s launches there are the kernel
-   row's ``launches_restart``.
+   the spread clusters). Then ``measure_router``: the default
+   ``TierConfig`` on 2^17 rows of ``restart_corpus`` against 2^17 of
+   ``tier_corpus``, each through ``upsert_failures_batch`` × 4096 on the
+   card: build rows/s, the router's ms per batch against its centroid
+   count (and the fit's projection to 2^19 and to phase 12's rows), the
+   [4096, C] score matrix's bytes, the routed match's p50 at B = 1 and 64
+   over every row (the degraded warn's) and its top-1 recall against the
+   exact scan. ``fused_topk``'s launches there are the kernel row's
+   ``launches_restart``.
 
 9. Mixtral-8x7B width and depth with int8 weight-only weights (the
    published config.json's values in ``MIXTRAL_8X7B``; random weights from
@@ -186,6 +198,43 @@ JAX package). Phases, each of which raises on failure (exit code != 0):
    forward's graph replay), arm B's wall and prefill device time, and the
    peak allocated with both planes resident.
 
+12. the host tiers past the hot cap and device loss (after phase 11): a
+   2^20 × 2048 GFKB on the card under the default ``TierConfig`` (hot
+   2^20, nprobe 8, max_list 4096; ``KAKVEDA_GFKB_WARM_ROWS`` cut to 2^20 +
+   2^17 so 2^17 rows reach the cold shards) holding 2^20 + 2^18 rows of
+   ``tier_corpus`` (prompt templates, an assumed structure the router can
+   partition; ``measure_router`` in phase 11 sets it beside
+   ``restart_corpus``), upserted × 4096 with mining off. a. The card stops
+   at 2^20 rows; warm and cold rows and bytes. b. ``warn_batch`` at B = 1
+   and 64 over hot, warm, cold and unseen signatures answers
+   ``tier="tiered"``; p50 of 50 calls through ``Platform.warn_batch``,
+   split into featurize, the hot ``fused_topk`` (CUDA events), the host
+   routed match, merge and the rest; the hot part against
+   ``fused_topk_reference``; routed top-1 recall against the exact host
+   scan ≥ 0.99; the routed and exact host scans all in C++ (the scorer's
+   ``ivf``, ``warm`` and ``cold`` counts move, no fallback). Aging of the
+   first 1/8 on the tiered store, 16 cold rows in the promote-LRU exempt,
+   no warn returning an aged row. c. ``device.unavailable``
+   armed: 1,024 warns answer degraded from the warm tier (top-1 agreement
+   with the healthy answers printed), ``/warn`` through ``make_app`` 200
+   degraded, ``/readyz`` latched, ``generate_batch`` of a 2-layer bf16
+   Llama (head_dim 128) raises ``DeviceUnavailableError`` in < 1 s; disarmed,
+   the probe (``KAKVEDA_DEGRADED_PROBE=1``) unlatches within 2 s; the
+   fallback count equals the degraded warns. d. A child process
+   (``--sticky-child``, beside the build) opens a 2^16-row store with the
+   hot cap at 2^15 (mining on: every overflow row attaches from the tiers),
+   poisons its CUDA context with a device-side assert, and its warns then
+   answer degraded and equal the ones it recorded before; the probe keeps
+   failing, generation fails fast. e. ``compact()`` (a snapshot with its
+   ``tiers`` section, then the log swap) and the restore through
+   ``Platform``, each with its wall: 2^20 rows on the card, the aged ones
+   untyped, the tombstones kept, the router restored bit-equal, the 64
+   warns equal. f. The latch's transitions and the fallback count are 0
+   after phases 4, 8, 11 and the healthy parts of 12, and after the model
+   phases exactly c's one latch and 1,025 degraded warns; phase 10's warn
+   is not degraded. ``fused_topk``'s launches there are the kernel row's
+   ``launches_tiers``.
+
 Prints a ``{"kernels": [...]}`` line (the flash rows with phase 9's and
 phase 10's launches beside phase 6's, and the judge shapes' times), the
 card line, and last ``{"ok": true, "device": {...}}``.
@@ -208,6 +257,7 @@ import threading
 import time
 from datetime import datetime, timezone
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -2031,6 +2081,7 @@ def phase_judge(base: Path, fused_topk, card: str) -> dict:
     """Phase 10: the LLM judge on the ingest path, the Platform's 2^20 x 2048
     index and Llama-3-8B (random bf16 weights from seed 0) on one card."""
     from kakveda_tpu_torch.core.schemas import TracePayload, WarningRequest
+    from kakveda_tpu_torch.index.gfkb import fallback_total
     from kakveda_tpu_torch.models import generate as G
     from kakveda_tpu_torch.models import runtime as R
     from kakveda_tpu_torch.models.attention import flash_gqa_cache
@@ -2149,9 +2200,12 @@ def phase_judge(base: Path, fused_topk, card: str) -> dict:
         fused_topk.launches = 0
         reqs = [WarningRequest(app_id="z", prompt=f"Summarize report {i * 31} and include citations",
                                tools=[], env={"os": "linux"}) for i in range(64)]
+        fb0 = fallback_total()
         res = plat.warn_batch(reqs)
-        if len(res) != 64 or fused_topk.launches < 1 or not all(r.confidence > 0.5 for r in res):
-            raise AssertionError(f"warn_batch after the judged stream: {fused_topk.launches} launches")
+        if (len(res) != 64 or fused_topk.launches < 1 or not all(r.confidence > 0.5 for r in res)
+                or any(r.degraded for r in res) or fallback_total() != fb0):
+            raise AssertionError(f"warn_batch after the judged stream: {fused_topk.launches} launches, "
+                                 f"{sum(r.degraded for r in res)} degraded, fallback {fallback_total() - fb0}")
         # register_prefix once more, warm (the first one paid the first
         # forward at S = 69): another head of the judge's length.
         other = _JUDGE_PROMPT.split("{prompt}")[0].replace("applications", "applicationz")
@@ -2959,6 +3013,126 @@ def _same_matches(a, b, queries) -> bool:
 
 
 def phase_restart(base: Path, fused_topk_reference, card: str) -> dict:
+    """Phase 11 in the pre-tiered configuration (``KAKVEDA_GFKB_TIERED=0``:
+    no hot cap, no router, no cold tier; the warm mirror stays):
+    ``restart_corpus`` has no coarse structure, so the default router
+    spawns a centroid per cluster, and ``measure_router``, under the
+    default ``TierConfig`` after it, measures what that costs. Phase 12
+    runs the tiered lifecycle."""
+    before = os.environ.get("KAKVEDA_GFKB_TIERED")
+    os.environ["KAKVEDA_GFKB_TIERED"] = "0"
+    try:
+        out = _phase_restart(base, fused_topk_reference, card)
+    finally:
+        if before is None:
+            os.environ.pop("KAKVEDA_GFKB_TIERED", None)
+        else:
+            os.environ["KAKVEDA_GFKB_TIERED"] = before
+    out["router"] = measure_router(base, card)
+    log("phase 11 router: " + json.dumps(out["router"]))
+    return out
+
+
+ROUTER_N = 1 << 17  # 32 batches; the router's cost per batch grows with its centroids
+
+
+def measure_router(base: Path, card: str) -> dict:
+    """The default ``TierConfig`` on ROUTER_N rows of ``restart_corpus``
+    (random-word clusters: nothing coarse to partition) and of
+    ``tier_corpus`` (prompt templates), each through
+    ``upsert_failures_batch`` x RESTART_BATCH into a GFKB on the card with
+    mining on: build rows/s; ``CoarseRouter.add_batch``'s ms per batch
+    against the centroid count C it scored against; for ``restart_corpus``,
+    a least-squares line through them, summed over the batches of a
+    2^19-row build (phase 11's) and of phase 12's TIER_N rows, as C grows
+    in this run's ratio of centroids to rows; the [B, C] f32 score matrix of the
+    last batch; the routed match over every row (what a degraded warn
+    runs, and what the overflow runs past the cap) at B = 1 and 64, p50,
+    and its top-1 recall against the exact host scan over the same 64
+    stored signatures."""
+    import numpy as np
+
+    from kakveda_tpu_torch.index.gfkb import GFKB
+
+    out = {}
+    corpora = (("restart_corpus", [r[2] for r in restart_corpus(ROUTER_N)]),
+               ("tier_corpus", [r[5] for r in tier_corpus(ROUTER_N)]))
+    for name, sigs in corpora:
+        store = GFKB(data_dir=base / f"router-{name}", capacity=ROUTER_N, dim=DIM)
+        router = store._tiers.router
+        add = router.add_batch
+        per = []
+
+        def timed(*a, **k):
+            c = router.c
+            t = time.perf_counter()
+            try:
+                return add(*a, **k)
+            finally:
+                per.append((c, (time.perf_counter() - t) * 1e3))
+
+        router.add_batch = timed
+        t = time.perf_counter()
+        for lo in range(0, ROUTER_N, RESTART_BATCH):
+            store.upsert_failures_batch([
+                {"failure_type": RESTART_TYPES[0], "signature_text": sig, "app_id": "app-r",
+                 "impact_severity": "medium"} for sig in sigs[lo : lo + RESTART_BATCH]
+            ])
+        build_s = time.perf_counter() - t
+        del router.add_batch
+        if store.count != ROUTER_N or not router.covers(ROUTER_N) or len(per) != ROUTER_N // RESTART_BATCH:
+            raise AssertionError(f"router measure on {name}: {store.count} rows, {len(per)} router updates")
+        cs = np.array([c for c, _ in per], np.float64)
+        ms = np.array([m for _, m in per], np.float64)
+        per_row = router.c / ROUTER_N
+        fit = projected = None
+        if name == "restart_corpus":  # C grows with the rows: the line and its sums
+            slope, icpt = np.polyfit(cs, ms, 1)
+            fit = {"intercept_ms": float(icpt), "ms_per_1000_centroids": float(slope * 1e3)}
+            projected = {
+                label: float((icpt + slope * per_row * np.arange(0, rows, RESTART_BATCH, dtype=np.float64)).sum()
+                             / 1e3)
+                for label, rows in (("2^19", 1 << 19), ("phase 12", TIER_N))
+            }
+
+        rng = np.random.default_rng(16)
+        q_idx, q_val = store.featurizer.encode_batch_sparse([sigs[int(i)] for i in rng.choice(ROUTER_N, 64,
+                                                                                                replace=False)])
+        routed = store._tiers.match_host_batch(q_idx, q_val, store.top_k, exact=False)
+        exact = store._tiers.match_host_batch(q_idx, q_val, store.top_k, exact=True)
+        recall = sum(1 for r, e in zip(routed, exact) if r[1][0] == e[1][0] or r[0][0] >= e[0][0] - 1e-6) / 64
+        match_ms = {}
+        for b, calls in ((1, 20), (64, 5)):
+            walls = []
+            for _ in range(calls):
+                t = time.perf_counter()
+                store._tiers.match_host_batch(q_idx[:b], q_val[:b], store.top_k, exact=False)
+                walls.append((time.perf_counter() - t) * 1e3)
+            match_ms[b] = statistics.median(walls)
+        out[name] = dict(
+            rows=ROUTER_N, build_s=build_s, rows_per_s=ROUTER_N / build_s, centroids=router.c,
+            splits=router.splits, router_ms_first=float(ms[0]), router_ms_last=float(ms[-1]),
+            router_s_total=float(ms.sum() / 1e3), fit=fit, projected_router_s=projected,
+            score_matrix_bytes_last=int(RESTART_BATCH * cs[-1] * 4), routed_p50_ms=match_ms, recall_top1=recall,
+        )
+        line = "" if fit is None else (
+            f", fit {fit['intercept_ms']:.1f} ms + {fit['ms_per_1000_centroids']:.2f} ms per 1000 centroids, "
+            f"which summed over a 2^19-row build is {projected['2^19']:.0f} s and over phase 12's {TIER_N} rows "
+            f"{projected['phase 12']:.0f} s")
+        log(f"phase 11 router, default TierConfig on {ROUTER_N} rows of {name}: build {build_s:.1f} s "
+            f"({ROUTER_N / build_s:.1f} rows/s, mining on), {router.c} centroids, {router.splits} splits; "
+            f"add_batch {ms[0]:.1f} ms at the first batch, {ms[-1]:.1f} ms at the last (C = {int(cs[-1])}, its "
+            f"[{RESTART_BATCH}, C] f32 scores {int(RESTART_BATCH * cs[-1] * 4)} bytes), {ms.sum() / 1e3:.1f} s in "
+            f"all{line}; routed match over every row p50 {match_ms[1]:.3f} ms at B = 1, {match_ms[64]:.3f} ms at B = 64, "
+            f"top-1 recall {recall:.4f} against the exact scan [{card}]")
+        store.close()
+        del store, router
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _phase_restart(base: Path, fused_topk_reference, card: str) -> dict:
     """Phase 11: the GFKB's durable lifecycle on the card at RESTART_N rows
     of a ROWS x DIM index. Build (mining on) → snapshot, timed by stage →
     full replay (snapshot moved aside) and its first mine, a full sweep →
@@ -3157,6 +3331,625 @@ def phase_restart(base: Path, fused_topk_reference, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the host tiers past the hot cap, and device loss
+# ---------------------------------------------------------------------------
+
+TIER_HOT = 1 << 20  # TierConfig's default hot cap: the card's index holds no more
+TIER_N = TIER_HOT + (1 << 18)
+TIER_WARM = TIER_HOT + (1 << 17)  # the one cut: the default 2^22 would take 4.2M rows to reach the cold tier
+TIER_BATCH = 4096
+TIER_ASKS = (
+    "summarize it and include citations even if not provided",
+    "explain why with references",
+    "give a short summary",
+    "describe the steps taken",
+    "list the sources",
+    "answer briefly",
+)
+TIER_TOOLS = ((), ("web_search",), ("retriever", "web_search"), ("sql_query",), ("calculator", "code_exec"))
+TIER_ENVS = ((), ("model", "temperature"), ("region", "tenant"), ("model", "region", "temperature"))
+STICKY_ROWS, STICKY_HOT = 1 << 16, 1 << 15
+
+
+def tier_corpus(n: int, seed: int = 12, per_template: int = 1280):
+    """``n`` distinct failures as (type, app, prompt, tools, env keys,
+    signature), the signature ``signature_text(prompt, tools, env)``. Apps
+    run prompt templates: n / ``per_template`` templates of six random
+    four-letter words, each with an ask (which sets the intent tags), a tool
+    set and env keys; a failure cluster (1-7 members) adds seven words,
+    member j changing word j. Same-template rows share their tags, tools
+    and template words (cosine ~0.7), other templates share at most the
+    tags: the coarse structure the router partitions. That structure is
+    assumed, not taken from a traffic source: no trace source in the repo
+    shows how real failures group into templates. ``restart_corpus`` has
+    none (every cluster is random words), so the router spawns one centroid
+    per cluster there (``tests/test_torch_tiers.py``); ``measure_router``
+    measures both corpora under the default ``TierConfig``."""
+    import numpy as np
+
+    from kakveda_tpu_torch.core.fingerprint import prompt_intent_tags
+
+    rng = np.random.default_rng(seed)
+    alpha = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz", np.uint8)
+    n_t = max(1, n // per_template)
+    tw = alpha[rng.integers(0, 26, size=(n_t, 6, 4))].view("S4")[..., 0].astype(str).tolist()
+    meta = []
+    for t in range(n_t):
+        ask = TIER_ASKS[int(rng.integers(len(TIER_ASKS)))]
+        tools = TIER_TOOLS[int(rng.integers(len(TIER_TOOLS)))]
+        env = TIER_ENVS[int(rng.integers(len(TIER_ENVS)))]
+        tags = ",".join(prompt_intent_tags(ask))  # random words hold no keyword
+        meta.append((ask, tools, env, f" | tools:{','.join(sorted(tools))} | env_keys:{','.join(env)}", tags))
+    sizes = rng.integers(1, 8, size=n)
+    n_cl = int(np.searchsorted(np.cumsum(sizes), n)) + 1
+    cw = alpha[rng.integers(0, 26, size=(n_cl, 7, 4))].view("S4")[..., 0].astype(str).tolist()
+    ct = rng.integers(0, n_t, size=n_cl).tolist()
+    out = []
+    for c in range(n_cl):
+        t = ct[c]
+        ask, tools, env, tail, tags = meta[t]
+        head, w = " ".join(tw[t]), cw[c]
+        for j in range(int(sizes[c])):
+            prompt = f"{head} {' '.join(w[:j] + ['9' + w[j][1:]] + w[j + 1:])}. {ask}"
+            sig = f"intent_tags:{tags} | prompt_hint:{prompt[:80]}{tail}"
+            out.append((RESTART_TYPES[c % 3], f"app-{c % 8}", prompt, tools, env, sig))
+            if len(out) == n:
+                return out
+    return out
+
+
+def _tier_requests(rows, app="app-w"):
+    from kakveda_tpu_torch.core.schemas import WarningRequest
+
+    return [WarningRequest(app_id=app, prompt=p, tools=list(tl), env={k: "x" for k in env})
+            for _, _, p, tl, env, _ in rows]
+
+
+def _tier_build(store, corpus, label: str, card: str, batch_ts: Optional[list] = None) -> dict:
+    """Upsert ``corpus`` in TIER_BATCH batches; rows/s of the batches below
+    and past the hot cap. ``batch_ts`` gets each batch's timestamp."""
+    walls = {"hot": [], "overflow": []}
+    for lo in range(0, len(corpus), TIER_BATCH):
+        t = time.perf_counter()
+        res = store.upsert_failures_batch([
+            {"failure_type": ft, "signature_text": sig, "app_id": app, "impact_severity": "medium"}
+            for ft, app, _, _, _, sig in corpus[lo : lo + TIER_BATCH]
+        ])
+        walls["overflow" if lo >= store._hot_cap() else "hot"].append(time.perf_counter() - t)
+        if not all(created for _, created in res):
+            raise AssertionError(f"{label}: batch at {lo} re-upserted a signature")
+        if batch_ts is not None:
+            batch_ts.append(res[0][0].updated_at.timestamp())
+    out = {k: {"batches": len(v), "rows_per_s": len(v) * TIER_BATCH / sum(v)} for k, v in walls.items() if v}
+    log(f"{label} build: " + json.dumps(out) + f" [{card}]")
+    return out
+
+
+def _answers(res):
+    return [(r.action, r.confidence, tuple(m.failure_id for m in r.references), r.tier, r.degraded) for r in res]
+
+
+def _agreement(store, sig: str, a, b, tol: float, threshold: float = 0.8) -> str:
+    """How two warn answers to ``sig`` agree: "equal" (action, top-1 and
+    confidence within ``tol``), "tie" (the confidences within ``tol`` and the
+    two top-1 rows scoring within ``tol`` of each other against the query,
+    in f32 on the host: rows tied at bf16 precision, whose order the card's
+    bf16 scores and the host's f32 ones may break differently), or
+    "threshold" (the confidences within ``tol`` of each other and of the
+    threshold, so the action, or whether a reference is kept, sits on the
+    tie), "routed miss" (b's
+    best is worse by more than ``tol``: b routed over candidate lists that
+    lacked a's top-1, which an exact scan found); else "differ"."""
+    import numpy as np
+
+    if b.confidence < a.confidence - tol:
+        return "routed miss"  # b's routed candidates lacked a's top-1
+    if abs(a.confidence - b.confidence) > tol:
+        return "differ"
+    ra = a.references[0].failure_id if a.references else None
+    rb = b.references[0].failure_id if b.references else None
+    if a.action == b.action and ra == rb:
+        return "equal"
+    if a.action != b.action or ra is None or rb is None:  # a reference is kept only at the threshold or above
+        return "threshold" if abs(a.confidence - threshold) <= tol else "differ"
+    q_idx, q_val = store.featurizer.encode_batch_sparse([sig])
+    qd = store._tiers.densify_query(q_idx[0], q_val[0])
+    sc = []
+    for fid in (ra, rb):
+        idx, val = store._tiers.row(store._slot_by_id[fid])
+        sc.append(float((qd[np.minimum(idx, store.featurizer.dim)] * val).sum()))
+    return "tie" if abs(sc[0] - sc[1]) <= tol else "differ"
+
+
+def sticky_child(data: Path, rows: int, hot: int) -> int:
+    """Phase 12 d, in its own process on the card: a ``rows``-row store with
+    the hot cap at ``hot`` (mining on, so the overflow rows attach from the
+    tiers), warns recorded, then a device-side assert poisons the CUDA
+    context. The warns must answer degraded and equal the recorded ones,
+    the probe keep failing and generation fail fast. Prints one JSON line;
+    exits 0 when every check held (os._exit: the poisoned context is not
+    torn down)."""
+    import numpy as np
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    os.environ.update(KAKVEDA_GFKB_HOT_ROWS=str(hot), KAKVEDA_DEGRADED_PROBE="1", KAKVEDA_NATIVE="require")
+    from kakveda_tpu_torch.core.admission import DeviceUnavailableError, get_device_health
+    from kakveda_tpu_torch.core.fingerprint import signature_text
+    from kakveda_tpu_torch.index.gfkb import GFKB, fallback_total
+    from kakveda_tpu_torch.models.generate import LlamaRuntime
+    from kakveda_tpu_torch.models.llama import LlamaConfig
+    from kakveda_tpu_torch.pipeline.warning import WarningPolicy
+
+    out: dict = {"rows": rows, "hot": hot}
+    corpus = tier_corpus(rows + 64, seed=13, per_template=640)
+    store = GFKB(data_dir=data, capacity=hot, dim=DIM)
+    t = time.perf_counter()
+    out["build"] = _tier_build(store, corpus[:rows], "phase 12 d child", "child")
+    out["build_s"] = time.perf_counter() - t
+    st = store.mine_state_info()
+    out["mining"] = {k: st[k] for k in ("stale", "covers_all_rows", "tier_attaches", "delta_dispatches")}
+    out["attach_ok"] = bool(not st["stale"] and st["covers_all_rows"] and st["tier_attaches"] == rows - hot)
+    rt = LlamaRuntime(cfg=LlamaConfig(d_model=256, n_heads=2, n_kv_heads=1, d_ff=512, max_seq_len=256), device="cuda")
+    rng = np.random.default_rng(14)
+    pick = np.concatenate([rng.choice(hot, 24, replace=False), hot + rng.choice(rows - hot, 24, replace=False)])
+    reqs = _tier_requests([corpus[int(i)] for i in pick] + corpus[rows : rows + 16])
+    policy = WarningPolicy(store)
+    before = policy.warn_batch(reqs)
+    out["before_tiers"] = sorted({r.tier for r in before})
+    health = get_device_health()
+    # The poison: an out-of-range index trips the gather kernel's
+    # device-side assert. Nothing here waits for it: the next CUDA call
+    # (the warn's dispatch or its fetch) is what reports it.
+    x = torch.zeros(4, device="cuda")
+    x[torch.tensor([1 << 20], device="cuda")]
+    time.sleep(0.5)
+    t = time.perf_counter()
+    after = policy.warn_batch(reqs)
+    out["degraded_warn_s"] = time.perf_counter() - t
+    out["reason"] = health.info()["reason"]
+    out["all_degraded"] = all(r.degraded for r in after) and health.degraded
+    out["after_tiers"] = sorted({r.tier for r in after})
+    sigs = [signature_text(r.prompt, r.tools, r.env) for r in reqs]
+    kinds = [_agreement(store, q, a, b, 1e-2) for q, a, b in zip(sigs, before, after)]
+    out["agreement"] = {k: kinds.count(k) for k in ("equal", "tie", "threshold", "routed miss", "differ")}
+    out["stored_equal"] = kinds[:48].count("equal")
+    out["max_conf_diff"] = max(abs(a.confidence - b.confidence) for a, b in zip(before, after))
+    out["queries"] = len(reqs)
+    out["fallback"] = fallback_total()
+    time.sleep(2.5)  # two probe intervals: the poisoned context keeps failing it
+    out["probes"] = dict(health.probes)
+    out["still_degraded"] = health.degraded
+    t = time.perf_counter()
+    try:
+        rt.generate_batch(["a prompt"], max_tokens=4)
+        out["generate"] = "ran"
+    except DeviceUnavailableError:
+        out["generate"] = "DeviceUnavailableError"
+    out["generate_s"] = time.perf_counter() - t
+    out["ok"] = bool(
+        out["attach_ok"] and out["all_degraded"] and out["agreement"]["equal"] + out["agreement"]["tie"]
+        + out["agreement"]["threshold"] == len(reqs) and out["stored_equal"] == 48
+        and out["before_tiers"] == ["tiered"]
+        and out["still_degraded"] and out["probes"]["fail"] >= 1 and out["probes"]["ok"] == 0
+        and out["generate"] == "DeviceUnavailableError" and out["generate_s"] < 1.0
+        and out["fallback"] == len(reqs)
+    )
+    print("STICKY " + json.dumps(out), flush=True)
+    sys.stderr.flush()
+    os._exit(0 if out["ok"] else 1)
+
+
+def _run_sticky_child(data: Path, sink: dict) -> None:
+    """Phase 12 d's child (this script with ``--sticky-child``), beside the
+    parent's untimed build; ``sink`` gets its JSON line or its failure."""
+    env = {k: v for k, v in os.environ.items() if k not in ("KAKVEDA_MINE_INCREMENTAL", "KAKVEDA_GFKB_WARM_ROWS")}
+    try:
+        p = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--sticky-child", str(data),
+             str(STICKY_ROWS), str(STICKY_HOT)],
+            capture_output=True, text=True, timeout=600, env=env,
+        )
+        line = next((ln for ln in p.stdout.splitlines() if ln.startswith("STICKY ")), None)
+        sink.update(rc=p.returncode, result=json.loads(line[7:]) if line else None,
+                    tail=(p.stdout + p.stderr)[-3000:])
+    except Exception as e:  # noqa: BLE001 — reported and failed by the parent
+        sink["error"] = f"{type(e).__name__}: {e}"
+
+
+DRILL_WARNS = 1024 + 1  # phase 12 c: 1,024 warns and one /warn through make_app
+
+
+def check_healthy(after: str, drilled: bool = False) -> None:
+    """Phase 12 f: on a healthy path the latch never moved and no warn
+    took the host fallback; after phase 12 c (``drilled``), exactly its
+    one latch and un-latch and its DRILL_WARNS degraded warns."""
+    from kakveda_tpu_torch.core.admission import get_device_health
+    from kakveda_tpu_torch.index.gfkb import fallback_total
+
+    n = 1 if drilled else 0
+    tr = get_device_health().transitions
+    if tr != {"degraded": n, "healthy": n} or fallback_total() != n * DRILL_WARNS:
+        raise AssertionError(f"after {after}: latch transitions {tr}, fallback warns {fallback_total()}")
+    log(f"after {after}: latch transitions {tr}, fallback warns {fallback_total()}")
+
+
+def tier_split(plat, reqs, fused_topk, calls: int) -> dict:
+    """Warn stages at one batch: p50 of ``calls`` ``Platform.warn_batch``
+    walls, and per stage (medians of synchronized calls through wrappers on
+    the real path): featurize, the hot ``fused_topk`` (upload + densify +
+    kernel, with CUDA events; then the d2h), the host routed match over the
+    overflow, the merge (the same numpy expressions re-run on the call's
+    arrays), and the rest (signature text, tombstones, matches, responses).
+    The routed match must score in C++: the scorer's ``ivf`` count (one a
+    routed query) moves on every call and no fallback is counted."""
+    import numpy as np
+
+    from kakveda_tpu_torch.pipeline import warning as warning_mod
+
+    gfkb = plat.gfkb
+    scorer = gfkb._tiers.scorer
+    calls0, fb0 = dict(scorer.calls), sum(scorer.fallbacks.values())
+    for _ in range(3):
+        plat.warn_batch(reqs)
+    walls = []
+    for _ in range(calls):
+        t = time.perf_counter()
+        plat.warn_batch(reqs)
+        walls.append((time.perf_counter() - t) * 1e3)
+    st = _Stages()
+    seen = {}
+    route = gfkb._tiers.match_host_batch
+    fetch = gfkb._knn.topk_result
+
+    def keep_route(*a, **k):
+        seen["overflow"] = route(*a, **k)
+        return seen["overflow"]
+
+    def keep_fetch(*a, **k):
+        seen["hot"] = fetch(*a, **k)
+        return seen["hot"]
+
+    gfkb._tiers.match_host_batch = keep_route
+    gfkb._knn.topk_result = keep_fetch
+    st.wrap(warning_mod, "signature_text", "signature_text", sync=False)
+    st.wrap(gfkb.featurizer, "encode_batch_sparse", "featurize", sync=False)
+    st.wrap(gfkb._knn, "topk_async_sparse", "hot fused_topk", events=True)
+    st.wrap(gfkb._knn, "topk_result", "hot d2h")
+    st.wrap(gfkb._tiers, "match_host_batch", "host routed match")
+    st.wrap(plat.warning_policy, "warn_batch", "call")
+    per = []
+    try:
+        for _ in range(min(calls, 20)):
+            launches = fused_topk.launches
+            plat.warn_batch(reqs)
+            got = st.take()
+            if gfkb.device.type == "cuda" and fused_topk.launches != launches + 1:
+                raise AssertionError("phase 12: a healthy warn did not launch fused_topk once")
+            scores, slots = seen["hot"]
+            t = time.perf_counter()
+            k = scores.shape[1]
+            for i in range(len(reqs)):  # the merge of match_batch_info, re-run
+                o_s, o_sl, _ = seen["overflow"][i]
+                cs = np.concatenate([scores[i], o_s])
+                csl = np.concatenate([slots[i], o_sl])
+                order = np.argsort(-cs)[:k]
+                cs[order], csl[order]
+            got["host"]["merge"] = (time.perf_counter() - t) * 1e3
+            per.append(got)
+    finally:
+        st.restore()
+        del gfkb._tiers.match_host_batch, gfkb._knn.topk_result
+    n_calls = 3 + calls + len(per)
+    grew = {k: scorer.calls[k] - calls0[k] for k in scorer.calls}
+    if grew["ivf"] < n_calls or sum(scorer.fallbacks.values()) != fb0:
+        raise AssertionError(f"phase 12 b: {n_calls} warns made native scorer calls {grew}, "
+                             f"fallbacks {scorer.fallbacks}")
+    med = lambda key, kind="host": statistics.median(c[kind].get(key, 0.0) for c in per)  # noqa: E731
+    stages = {k: med(k) for k in ("signature_text", "featurize", "hot fused_topk", "hot d2h", "host routed match",
+                                  "merge")}
+    stages["assembly (rest)"] = med("call") - sum(stages.values())
+    return dict(b=len(reqs), p50_ms=statistics.median(walls), p99_ms=_pct(walls, 0.99), calls=calls,
+                stages_host_ms=stages, hot_dev_ms=med("hot fused_topk", "dev"), synced_call_ms=med("call"),
+                scorer_calls=grew, scorer_fallbacks=dict(scorer.fallbacks))
+
+
+def phase_tiers(base: Path, fused_topk, fused_topk_reference, card: str) -> dict:
+    """Phase 12: a 2^20 x 2048 GFKB on the card under the default
+    ``TierConfig`` (hot 2^20, nprobe 8, max_list 4096) holding TIER_N rows
+    of ``tier_corpus``: the card stops at the hot cap, the overflow lives in
+    the host tiers (TIER_WARM warm, the rest cold). a. residency and host
+    bytes; b. healthy warns (``tier == "tiered"``, stage split, the hot part
+    against the plain top-k, routed top-1 recall against the exact host
+    scan, every host scan in C++) and aging of the first 1/8; c. the
+    ``device.unavailable`` drill; d. a real sticky CUDA error in a child
+    process; e. ``compact()``, whose snapshot has the ``tiers`` section, and
+    the restore, which installs the router; f. the latch and the fallback count
+    stay 0 on every healthy path (checked here before the drill and after
+    phases 4, 8 and 11 in ``main``)."""
+    import aiohttp  # noqa: F401 — required: /warn and /readyz go through make_app
+    import numpy as np
+    from aiohttp.test_utils import TestClient, TestServer
+
+    from kakveda_tpu_torch.core import faults
+    from kakveda_tpu_torch.core.admission import DeviceUnavailableError, get_device_health
+    from kakveda_tpu_torch.index.gfkb import GFKB, fallback_total
+    from kakveda_tpu_torch.models.generate import LlamaRuntime
+    from kakveda_tpu_torch.models.llama import LlamaConfig
+    from kakveda_tpu_torch.ops.knn import to_device
+    from kakveda_tpu_torch.pipeline.warning import WarningPolicy
+    from kakveda_tpu_torch.platform import Platform
+    from kakveda_tpu_torch.service.app import make_app
+
+    env_before = {k: os.environ.get(k) for k in ("KAKVEDA_GFKB_WARM_ROWS", "KAKVEDA_MINE_INCREMENTAL")}
+    os.environ["KAKVEDA_GFKB_WARM_ROWS"] = str(TIER_WARM)
+    os.environ["KAKVEDA_MINE_INCREMENTAL"] = "0"  # the build's cut: the overflow attach is d's
+    out: dict = {"rows": TIER_N, "capacity": ROWS, "dim": DIM, "hot_rows": TIER_HOT, "warm_rows": TIER_WARM}
+    try:
+        child: dict = {}
+        t_child = time.perf_counter()
+        runner = threading.Thread(target=_run_sticky_child, args=(base / "sticky", child), name="sticky-child")
+        runner.start()
+
+        t = time.perf_counter()
+        corpus = tier_corpus(TIER_N + 4096)
+        held = corpus[TIER_N:]
+        corpus = corpus[:TIER_N]
+        gen_s = time.perf_counter() - t
+        from kakveda_tpu_torch.core.fingerprint import signature_text
+
+        for row in corpus[:: TIER_N // 64] + held[:8]:
+            if signature_text(row[2], row[3], {k: "x" for k in row[4]}) != row[5]:
+                raise AssertionError(f"phase 12: tier_corpus's signature is not signature_text's: {row}")
+        data = base / "gfkb"
+        store = GFKB(data_dir=data, capacity=ROWS, dim=DIM)
+        cfg = store._tiers.cfg
+        if (cfg.hot_rows, cfg.nprobe, cfg.max_list, cfg.warm_rows) != (TIER_HOT, 8, 4096, TIER_WARM):
+            raise AssertionError(f"phase 12: TierConfig {vars(cfg)}")
+        t = time.perf_counter()
+        batch_ts: list = []
+        out["build"] = _tier_build(store, corpus, "phase 12", card, batch_ts)
+        out["build_s"] = time.perf_counter() - t
+
+        # a. residency
+        info = store.tiers_info()
+        out["tiers"] = info
+        if not (store.count == TIER_N and info["hot"] == TIER_HOT and info["warm"] == TIER_WARM
+                and info["cold"] == TIER_N - TIER_WARM and info["warm_overflow"] == 0
+                and store._knn.capacity == ROWS and int(store._valid.sum()) == TIER_HOT):
+            raise AssertionError(f"phase 12 a: {store.count} rows, capacity {store._knn.capacity}, {info}")
+        log(f"phase 12 a: {TIER_N} rows of tier_corpus (drawn in {gen_s:.1f} s) through upsert_failures_batch x "
+            f"{TIER_BATCH} in {out['build_s']:.1f} s (mining off): card {info['hot']} rows (capacity "
+            f"{store._knn.capacity}, valid {int(store._valid.sum())}), warm {info['warm']} rows in "
+            f"{info['warm_bytes']} host bytes (K = {info['warm_k']}), cold {info['cold']} rows in "
+            f"{info['cold_bytes']} bytes of shards; router {info['centroids']} centroids, {info['splits']} "
+            f"splits [{card}]")
+
+        # Queries: 16 each of hot, warm-overflow and cold rows, 16 unseen.
+        rng = np.random.default_rng(15)
+        pick = lambda lo, hi, m: [corpus[int(i)] for i in lo + rng.choice(hi - lo, m, replace=False)]  # noqa: E731
+        unseen = held[:8] + [("X", "app-x", f"unrelated question number {i} about the weather", (), (), "")
+                             for i in range(8)]
+        rows64 = pick(0, TIER_HOT, 16) + pick(TIER_HOT, TIER_WARM, 16) + pick(TIER_WARM, TIER_N, 16) + unseen
+        reqs64 = _tier_requests(rows64)
+
+        # d joins before the first timed stage: no child runs beside it.
+        t = time.perf_counter()
+        runner.join()
+        log(f"phase 12: waited {time.perf_counter() - t:.1f} s for the sticky-error child "
+            f"({time.perf_counter() - t_child:.1f} s in all)")
+        res = child.get("result")
+        if child.get("error") or child.get("rc") != 0 or not res or not res["ok"]:
+            raise AssertionError(f"phase 12 d: {child}")
+        out["sticky"] = res
+        log(f"phase 12 d (child on the card, {res['rows']} rows, hot cap {res['hot']}, mining on: "
+            f"{res['mining']['tier_attaches']} overflow rows attached from the tiers): a device-side assert "
+            f"poisoned the context; {res['queries']} warns then answered degraded ({res['reason']}) in "
+            f"{res['degraded_warn_s'] * 1e3:.1f} ms, against the recorded answers {res['agreement']} (the 48 "
+            f"stored signatures all equal; max |conf diff| {res['max_conf_diff']:.3g}), tiers "
+            f"{res['before_tiers']} -> {res['after_tiers']}; probe "
+            f"{res['probes']} after 2.5 s, still degraded; generate_batch -> {res['generate']} in "
+            f"{res['generate_s'] * 1e3:.3f} ms [{card}]")
+
+        # b. healthy warns; the routed and exact host scans run in C++
+        check_healthy("phase 12's build")
+        scorer = store._tiers.scorer
+        calls0 = dict(scorer.calls)
+        policy = WarningPolicy(store)
+        before = policy.warn_batch(reqs64)
+        if {r.tier for r in before} != {"tiered"} or any(r.degraded for r in before):
+            raise AssertionError(f"phase 12 b: tiers {[r.tier for r in before]}")
+        q_idx, q_val = store.featurizer.encode_batch_sparse([r[5] or "" for r in rows64[:48]])
+        routed = store._tiers.match_host_batch(q_idx, q_val, store.top_k, min_slot=TIER_HOT)
+        exact = store._tiers.match_host_batch(q_idx, q_val, store.top_k, min_slot=TIER_HOT, exact=True)
+        hits = sum(1 for r, e in zip(routed, exact) if r[1][0] == e[1][0] or r[0][0] >= e[0][0] - 1e-6)
+        out["recall_top1"] = hits / len(exact)
+        if out["recall_top1"] < 0.99 or {m for *_, m in routed} != {"routed"}:
+            raise AssertionError(f"phase 12 b: routed top-1 recall {out['recall_top1']}")
+        full = store._tiers.match_host_batch(q_idx, q_val, store.top_k, exact=True)
+        own = sum(1 for r, e in zip(before[:48], full) if r.references
+                  and store._slot_by_id[r.references[0].failure_id] == int(e[1][0]))
+        grew = {k: scorer.calls[k] - calls0[k] for k in scorer.calls}
+        out["scorer"] = dict(calls=grew, fallbacks=dict(scorer.fallbacks))
+        if not (scorer.enabled and scorer.require and grew["ivf"] > 0 and grew["cold"] > 0 and grew["warm"] > 0
+                and not any(scorer.fallbacks.values())):
+            raise AssertionError(f"phase 12 b: the host scans did not all run in C++: {out['scorer']}")
+        log(f"phase 12 b: routed top-1 recall over the overflow {out['recall_top1']:.4f} (48 queries against the "
+            f"exact host scan); the warn's top-1 is the exact full scan's for {own} of 48 stored signatures; "
+            f"native scorer calls {grew}, fallbacks {scorer.fallbacks} [{card}]")
+
+        # Aging on the tiered store: the first 1/8 of the batches, with 16
+        # cold rows paged into the promote-LRU first (exempt, though aging
+        # is a time cut and the cold rows are the newest).
+        n_aged_b = len(batch_ts) // 8
+        n_aged = n_aged_b * TIER_BATCH
+        for slot in TIER_WARM + rng.choice(TIER_N - TIER_WARM, 16, replace=False):
+            if store._tiers.row(int(slot)) is None:
+                raise AssertionError(f"phase 12: cold slot {slot} did not page in")
+        cut = (batch_ts[n_aged_b - 1] + batch_ts[n_aged_b]) / 2
+        t = time.perf_counter()
+        aged = store.age_rows(ttl_s=1000.0, now=cut + 1000.0)
+        out["age_s"] = time.perf_counter() - t
+        promoted = store._tiers.recently_promoted_slots()
+        if (aged["tombstoned"] != n_aged or sorted(store._tombstoned) != list(range(n_aged))
+                or aged["exempt"] != len(promoted) or len(promoted) < 16 or min(promoted) < TIER_WARM
+                or not bool((store._types[:n_aged] == -1).all()) or bool((store._types[n_aged:] == -1).any())):
+            raise AssertionError(f"phase 12: aging {aged}, {len(store._tombstoned)} tombstones")
+        before = policy.warn_batch(reqs64)
+        if ({r.tier for r in before} != {"tiered"}
+                or any(store._slot_by_id[m.failure_id] < n_aged for r in before for m in r.references)):
+            raise AssertionError("phase 12: a warn after aging returned an aged row")
+        log(f"phase 12 aging: {aged['tombstoned']} rows (the first 1/8) tombstoned in {out['age_s']:.3f} s, "
+            f"{aged['exempt']} cold rows in the promote-LRU exempt; 64 warns return no aged row [{card}]")
+
+        # e. compaction (a snapshot with its tiers section, then the log
+        # swap), then the restore through the Platform (the slice's entry)
+        t = time.perf_counter()
+        comp = store.compact()
+        out["compact_s"] = time.perf_counter() - t
+        out["compact"] = comp
+        out["snapshot"] = store.lifecycle_info()["snapshot"]
+        store.close()
+        manifest = json.loads((data / "snapshot" / "manifest.json").read_text())
+        if manifest.get("tiers", {}).get("n") != TIER_N or manifest["tiers"]["hot"] != TIER_HOT:
+            raise AssertionError(f"phase 12 e: manifest {manifest.get('tiers')}")
+        router_before = store._tiers.router.export_state()
+        del store, policy
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        plat = Platform(data_dir=data, capacity=ROWS, dim=DIM)
+        out["restore_open_s"] = time.perf_counter() - t
+        restore = plat.gfkb.lifecycle_info()["restore"]
+        out["restore"] = restore
+        rc, ra = plat.gfkb._tiers.router.export_state()
+        if not (restore and restore["rows"] == TIER_N and restore["hot"] == TIER_HOT and restore["router"] == "restored"
+                and rc.tobytes() == router_before[0].tobytes() and ra.tobytes() == router_before[1].tobytes()
+                and sorted(plat.gfkb._tombstoned) == list(range(n_aged))
+                and int(plat.gfkb._valid.sum()) == TIER_HOT and bool((plat.gfkb._types[:n_aged] == -1).all())):
+            raise AssertionError(f"phase 12 e: restore {restore}")
+        after = plat.warn_batch(reqs64)
+        if _answers(after) != _answers(before):
+            raise AssertionError("phase 12 e: the restored store's warns differ from the compacted store's")
+        sec = out["snapshot"]["seconds"]
+        log(f"phase 12 e: compact {out['compact_s']:.3f} s (failures.jsonl {comp['bytes_before']} -> "
+            f"{comp['bytes_after']} bytes, {comp['tombstone_lines']} tombstone lines), its snapshot "
+            f"{sec['total']:.3f} s ({json.dumps({k: round(v, 3) for k, v in sec.items()})}, payload "
+            f"{out['snapshot']['bytes']} bytes, tiers section n={TIER_N} hot={TIER_HOT}); restore open "
+            f"{out['restore_open_s']:.3f} s ({json.dumps({k: round(v, 3) for k, v in restore['seconds'].items()})}): "
+            f"{TIER_HOT} rows on the card, the {n_aged} aged ones zeroed and untyped, tombstones kept, router restored "
+            f"bit-equal, not rebuilt; 64 warns equal before and after [{card}]")
+
+        # b. stage split and p50s through Platform.warn_batch
+        check_healthy("phase 12's build, snapshot and restore")
+        split = {}
+        for b, reqs in ((1, reqs64[16:17]), (64, reqs64)):
+            split[b] = tier_split(plat, reqs, fused_topk, calls=50)
+            log(f"phase 12 b, B = {b}: " + json.dumps(split[b]) + f" [{card}]")
+        out["split"] = split
+        gfkb = plat.gfkb
+        q_idx, q_val = gfkb.featurizer.encode_batch_sparse([r[5] or "x" for r in rows64])
+        q = gfkb._knn.densify(to_device(q_idx, np.int32, gfkb.device), to_device(q_val, np.float32, gfkb.device))
+        launches = fused_topk.launches
+        v, i = fused_topk(gfkb._emb, gfkb._valid, q, gfkb.top_k)
+        rv, ri = fused_topk_reference(gfkb._emb, gfkb._valid, q, gfkb.top_k)
+        out["hot_max_abs_err"] = check_topk(v, i, rv, ri, "phase 12 b: the hot part vs fused_topk_reference")
+        fused_topk.launches = launches  # a check launch is not the path's
+        check_healthy("phase 12's healthy warns")
+
+        # c. the injected drill
+        rt = LlamaRuntime(cfg=LlamaConfig(d_model=256, n_heads=2, n_kv_heads=1, d_ff=512, max_seq_len=256),
+                          device="cuda")
+        healthy_gen = rt.generate_batch(["a healthy prompt"], max_tokens=4)
+        drill_rows = [corpus[int(i)] for i in rng.choice(TIER_N, 1024 - 64, replace=False)] + rows64
+        drill = _tier_requests(drill_rows)
+        healthy = [r for lo in range(0, 1024, 64) for r in plat.warn_batch(drill[lo : lo + 64])]
+        health = get_device_health()
+        fb0 = fallback_total()
+        faults.arm("device.unavailable:1:-1")
+        t = time.perf_counter()
+        degraded = [r for lo in range(0, 1024, 64) for r in plat.warn_batch(drill[lo : lo + 64])]
+        drill_s = time.perf_counter() - t
+        if not (all(r.degraded for r in degraded) and health.degraded
+                and {r.tier for r in degraded} <= {"warm_routed", "warm"}):
+            raise AssertionError("phase 12 c: a drill warn was not degraded")
+        kinds = [_agreement(plat.gfkb, signature_text(q.prompt, q.tools, q.env), a, b, 1e-2)
+                 for q, a, b in zip(drill, healthy, degraded)]
+        agree = {k: kinds.count(k) for k in ("equal", "tie", "threshold", "routed miss", "differ")}
+        if agree["differ"]:
+            raise AssertionError(f"phase 12 c: degraded answers against the healthy ones: {agree}")
+
+        async def http():
+            client = TestClient(TestServer(make_app(plat)))
+            await client.start_server()
+            try:
+                r = await client.post("/warn", json={"app_id": "app-h", "prompt": drill_rows[0][2],
+                                                    "tools": list(drill_rows[0][3]),
+                                                    "env": {k: "x" for k in drill_rows[0][4]}})
+                body = (r.status, await r.json())
+                ready = await (await client.get("/readyz")).json()
+                return body, ready
+            finally:
+                await client.close()
+
+        (status, body), ready = asyncio.run(http())
+        if status != 200 or body["degraded"] is not True or ready["device"]["degraded"] is not True:
+            raise AssertionError(f"phase 12 c: /warn {status} {body}, /readyz {ready['device']}")
+        t = time.perf_counter()
+        try:
+            rt.generate_batch(["a prompt"], max_tokens=4)
+            raise AssertionError("phase 12 c: generate_batch ran while degraded")
+        except DeviceUnavailableError:
+            gen_ms = (time.perf_counter() - t) * 1e3
+        if gen_ms >= 1000.0:
+            raise AssertionError(f"phase 12 c: generation took {gen_ms} ms to fail")
+        n_degraded = fallback_total() - fb0
+        if n_degraded != DRILL_WARNS or ready["tiers"]["fallback"] != DRILL_WARNS:
+            raise AssertionError(f"phase 12 c: fallback count {n_degraded}, not {DRILL_WARNS}")
+        faults.disarm()
+        t = time.perf_counter()
+        while health.degraded and time.perf_counter() - t < 5.0:
+            time.sleep(0.01)
+        unlatch_s = time.perf_counter() - t
+        if health.degraded or unlatch_s > 2.0:
+            raise AssertionError(f"phase 12 c: the probe took {unlatch_s} s to unlatch")
+        post = plat.warn_batch(reqs64)
+        if _answers(post) != _answers(before):
+            raise AssertionError("phase 12 c: the warns after recovery differ from the healthy ones")
+        rt.close()
+        out["drill"] = dict(warns=1024, wall_s=drill_s, agreement=agree, http_status=status,
+                            readyz_device=ready["device"], generate_fail_ms=gen_ms, unlatch_s=unlatch_s,
+                            fallback=n_degraded, transitions=dict(health.transitions), probes=dict(health.probes),
+                            healthy_generate=healthy_gen[0].meta.get("tokens_generated"))
+        log(f"phase 12 c: device.unavailable armed: 1024 warns answered degraded from the warm tier in "
+            f"{drill_s:.3f} s; against the healthy answers {agree} (tie: top-1 rows within 1e-2 in f32; "
+            f"threshold: the action on the 0.8 edge; routed miss: the degraded path routes the hot rows too, "
+            f"and its nprobe lists lacked the card's exact top-1); /warn 200 degraded, /readyz "
+            f"degraded ({ready['device']['reason']}); generate_batch raised DeviceUnavailableError in "
+            f"{gen_ms:.3f} ms; disarmed, the probe unlatched in {unlatch_s:.3f} s; fallback count {n_degraded} = "
+            f"1024 + 1 /warn; transitions {health.transitions}; warns after recovery equal the healthy ones "
+            f"[{card}]")
+        plat.close()
+        # make_app's routes stay reachable from aiohttp's method caches, and
+        # through them this Platform: hand its 4.3 GB index back to the card
+        # for the model phases.
+        gfkb._emb = gfkb._valid = gfkb._types = None
+        del plat, gfkb, q, v, i, rv, ri
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        for k, v in env_before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    log("phase 12: " + json.dumps({k: out[k] for k in out if k not in ("sticky",)}, default=str))
+    return out
+
+
 def log_held(after: str) -> None:
     gc.collect()
     torch.cuda.empty_cache()
@@ -3164,12 +3957,17 @@ def log_held(after: str) -> None:
 
 
 def main() -> int:
+    if len(sys.argv) == 5 and sys.argv[1] == "--sticky-child":
+        return sticky_child(Path(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]))
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     # The whole run on the native host tier: no silent Python fallback.
     os.environ["KAKVEDA_NATIVE"] = "require"
+    # Phase 12 c's probe: one try a second, so a disarmed drill unlatches
+    # within 2 s. The latch is process-global and built at first use.
+    os.environ["KAKVEDA_DEGRADED_PROBE"] = "1"
     from kakveda_tpu_torch import native
     from kakveda_tpu_torch.ops import _build
     from kakveda_tpu_torch.ops.fused_topk import fused_topk, fused_topk_reference
@@ -3214,6 +4012,7 @@ def main() -> int:
     if launches <= 0:
         raise AssertionError("the main path never launched fused_topk")
     log(f"fused_topk launches on the main path: {launches}")
+    check_healthy("phase 4")
     log_held("phase 4")  # the 2^20 x 2048 index should be gone; the models need the room
 
     phase_mining(card)
@@ -3225,6 +4024,7 @@ def main() -> int:
     if service_launches <= 0:
         raise AssertionError("the service path never launched fused_topk")
     log(f"fused_topk launches of the service's requests (phase 8 a-e): {service_launches}")
+    check_healthy("phase 8")
     log_held("phase 8")
 
     with tempfile.TemporaryDirectory(prefix="kakveda-restart-") as d:
@@ -3234,7 +4034,18 @@ def main() -> int:
     if restart_launches <= 0:
         raise AssertionError("the restart phase never launched fused_topk")
     log(f"fused_topk launches of phase 11: {restart_launches}")
+    check_healthy("phase 11")
     log_held("phase 11")
+
+    with tempfile.TemporaryDirectory(prefix="kakveda-tiers-") as d:
+        fused_topk.launches = 0
+        tiers = phase_tiers(Path(d), fused_topk, fused_topk_reference, card)
+        tiers_launches = fused_topk.launches
+    if tiers_launches <= 0:
+        raise AssertionError("phase 12 never launched fused_topk")
+    log(f"fused_topk launches of phase 12 (the hot tier under every healthy warn): {tiers_launches}")
+    check_healthy("phase 12", drilled=True)
+    log_held("phase 12")
 
     flash = phase_flash(card)
     held = torch.cuda.memory_allocated()
@@ -3248,12 +4059,14 @@ def main() -> int:
     if torch.cuda.memory_allocated() > held + 0.5e9:  # phase 9 needs the card back
         raise AssertionError(f"phase 10 left {torch.cuda.memory_allocated() - held} bytes allocated")
     mixtral = phase_mixtral(card)
+    # No warn served from the host and no latch outside phase 12 c's drill.
+    check_healthy("phases 5, 6, 10 and 9", drilled=True)
 
     kernels = [dict(
         name="fused_topk", route="cuda", source="kakveda_tpu_torch/csrc/fused_topk.cu",
         replaces="kakveda_tpu/ops/pallas_knn.py:128", launches=launches,
         launches_service=service_launches, launches_service_c64=service["warn_c64_launches"],
-        launches_restart=restart_launches,
+        launches_restart=restart_launches, launches_tiers=tiers_launches,
         max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
         bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=row["library_ms"],
         shape="B=1, k=5", b64=dict(shape="B=64, k=5", **row["b64"]),

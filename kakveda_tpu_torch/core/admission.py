@@ -12,20 +12,33 @@ bounded jitter (``KAKVEDA_ADMIT_RA_JITTER``, default 0.25) so shed clients
 do not come back in lockstep. The warn micro-batcher's queue bound sheds
 through :meth:`shed` too, so every rejection lands on one count.
 
+:class:`DeviceHealth` is the device-loss latch (the reference's, with
+CUDA's failure modes): a backend error on a device path latches DEGRADED,
+the warn path then answers from the GFKB's host tiers with
+``degraded=True``, generation fails fast with
+:class:`DeviceUnavailableError`, and a probe thread un-latches when the
+card answers again. :func:`get_device_health` is the process-global latch.
+
 Left for the admission slice (ROADMAP Queue 1 item 7): the brownout
 ladder, deadline shedding from the queue-wait history, tenant quotas
 inside the controller (the micro-batcher's tenant-fair composition and
-tenant-aware queue bound are ported), fleet pressure, ``DeviceHealth`` and
-the metric families.
+tenant-aware queue bound are ported), fleet pressure and the metric
+families (the latch keeps its transition and probe counts as plain
+integers; there is no flight recorder).
 """
 
 from __future__ import annotations
 
+import logging
 import os
 import random
 import threading
 import time
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
+
+from kakveda_tpu_torch.core import faults as _faults
+
+log = logging.getLogger("kakveda.admission")
 
 CLASSES: Tuple[str, ...] = ("warn", "ingest", "interactive", "background")
 
@@ -46,6 +59,18 @@ class OverloadError(Exception):
         self.reason = reason
         # The app key whose traffic was shed (empty for tenant-blind sheds).
         self.tenant = tenant
+
+
+class DeviceUnavailableError(Exception):
+    """The card is latched DEGRADED (a sticky CUDA error, a lost device).
+    Retryable: the probe un-latches when the card answers again, and
+    ``retry_after`` hints when to come back. Not a RuntimeError, for the
+    reason :class:`OverloadError` is not: the solo-decode fallback would hit
+    the same dead device."""
+
+    def __init__(self, message: str, retry_after: float = 5.0):
+        super().__init__(message)
+        self.retry_after = max(0.1, float(retry_after))
 
 
 def _env_int(name: str, default: int) -> int:
@@ -185,3 +210,196 @@ class _Slot:
     def __exit__(self, *exc):
         self._adm.release(self._klass)
         return False
+
+
+class DeviceHealth:
+    """The device-loss latch and its recovery probe.
+
+    ``degraded`` turns on when (a) the ``device.unavailable`` fault site is
+    armed and fires on a device path, or (b) a real backend error (a CUDA
+    error, an out-of-memory, a device-side assert) reaches
+    :meth:`note_failure`. While latched:
+
+    * device paths call :meth:`check` first and fail fast with
+      :class:`DeviceUnavailableError` (microseconds, never a hang);
+    * the warn path answers from the GFKB's host warm/cold tiers;
+    * one daemon thread retries a tiny CUDA op every
+      ``KAKVEDA_DEGRADED_PROBE`` seconds (default 5); success un-latches.
+
+    A sticky error (an illegal address, a device-side assert) poisons the
+    process's CUDA context, so its probe never succeeds: the latch then
+    holds for the process's life, and only a restart brings the card back.
+    An out-of-memory is not sticky, and there the probe un-latches.
+    """
+
+    # Substrings of an exception's text that mark a backend failure. The
+    # reference's transport markers, with CUDA's in place of its ``tpu`` /
+    # ``pjrt``; deliberately conservative: a shape mismatch or a plain
+    # ValueError must not latch the platform.
+    _BACKEND_MARKERS = (
+        "unavailable", "deadline_exceeded", "failed to connect", "socket closed",
+        "device or resource busy", "cuda error", "device-side assert",
+        "illegal memory access", "unspecified launch failure", "cublas", "cudnn",
+        "nccl", "uncorrectable ecc",
+    )
+
+    def __init__(self, probe_interval: Optional[float] = None, probe_fn=None):
+        self.probe_interval = (
+            _env_float("KAKVEDA_DEGRADED_PROBE", 5.0) if probe_interval is None else probe_interval
+        )
+        self._probe_fn = probe_fn or self._default_probe
+        self._degraded = threading.Event()
+        self._lock = threading.Lock()
+        self._probe_thread: Optional[threading.Thread] = None
+        self._since: Optional[float] = None
+        self._reason = ""
+        # Shared with the GFKB's match dispatch: while armed the probe keeps
+        # failing, so disarming is what lets the platform recover, as the
+        # end of a real outage does.
+        self._fault = _faults.site("device.unavailable")
+        # The reference's metric families as counts: latch transitions by
+        # target state, probe attempts by result.
+        self.transitions: Dict[str, int] = {"degraded": 0, "healthy": 0}
+        self.probes: Dict[str, int] = {"ok": 0, "fail": 0}
+
+    # -- classification --------------------------------------------------
+
+    @classmethod
+    def is_backend_error(cls, exc: BaseException) -> bool:
+        """Does this exception look like the card going away (vs a plain
+        software bug)? Injected ``device.unavailable`` faults count by
+        construction; real ones match torch's accelerator and
+        out-of-memory types or the marker list. A kernel that failed to
+        build is a software fault and never latches."""
+        if isinstance(exc, _faults.FaultInjected):
+            return exc.site == "device.unavailable"
+        from kakveda_tpu_torch.ops._build import KernelBuildError
+
+        if isinstance(exc, KernelBuildError):
+            return False
+        import torch
+
+        types = tuple(
+            t for t in (getattr(torch, "AcceleratorError", None), getattr(torch, "OutOfMemoryError", None))
+            if isinstance(t, type)
+        )
+        if types and isinstance(exc, types):
+            return True
+        text = str(exc).lower()
+        return any(m in text for m in cls._BACKEND_MARKERS)
+
+    # -- latch -----------------------------------------------------------
+
+    @property
+    def degraded(self) -> bool:
+        return self._degraded.is_set()
+
+    def check(self) -> None:
+        """Fail fast while latched: a device path never dispatches into a
+        dead or poisoned card."""
+        if self._degraded.is_set():
+            raise DeviceUnavailableError(
+                f"accelerator backend degraded ({self._reason}); host-fallback paths only",
+                retry_after=self.probe_interval,
+            )
+
+    def note_failure(self, exc: BaseException, where: str = "") -> bool:
+        """Classify, and latch on a backend error. True when the platform
+        is (now) degraded: the caller's cue to take its host fallback."""
+        if self._degraded.is_set():
+            return True
+        if not self.is_backend_error(exc):
+            return False
+        with self._lock:
+            if not self._degraded.is_set():
+                self._reason = f"{type(exc).__name__} at {where or 'device path'}"
+                self._since = time.time()
+                self._degraded.set()
+                self.transitions["degraded"] += 1
+                log.error(
+                    "accelerator backend latched DEGRADED (%s: %s); warn serves from the host "
+                    "tiers, generation fails fast; probing every %.1fs",
+                    self._reason, exc, self.probe_interval,
+                )
+                self._start_probe_locked()
+        return True
+
+    def _start_probe_locked(self) -> None:
+        if self._probe_thread is not None and self._probe_thread.is_alive():
+            return
+        t = threading.Thread(target=self._probe_loop, daemon=True, name="device-health-probe")
+        self._probe_thread = t
+        t.start()
+
+    def _default_probe(self) -> None:
+        """One tiny op on the card, waited for. Raises while the card is
+        gone (a poisoned context raises at every call); the armed fault
+        site fires first, so an injected outage gates the probe as a real
+        one does. A process without a card has nothing to probe."""
+        self._fault.fire()
+        import torch
+
+        if torch.cuda.is_available():
+            (torch.ones(8, device="cuda") + 1.0).sum()
+            torch.cuda.synchronize()
+
+    def _probe_loop(self) -> None:
+        while self._degraded.is_set():
+            time.sleep(self.probe_interval)
+            if not self._degraded.is_set():
+                return
+            try:
+                self._probe_fn()
+            except Exception as e:  # noqa: BLE001 — any failure = still down
+                self.probes["fail"] += 1
+                log.warning("backend probe failed (%s: %s); still degraded", type(e).__name__, e)
+                continue
+            self.probes["ok"] += 1
+            self.unlatch("probe succeeded")
+            return
+
+    def unlatch(self, why: str = "") -> None:
+        with self._lock:
+            if not self._degraded.is_set():
+                return
+            down_s = time.time() - (self._since or time.time())
+            self._degraded.clear()
+            self.transitions["healthy"] += 1
+            log.warning("accelerator backend recovered (%s) after %.1fs degraded", why or "manual", down_s)
+
+    def info(self) -> dict:
+        return {
+            "degraded": self.degraded,
+            "reason": self._reason if self.degraded else None,
+            "since": self._since if self.degraded else None,
+            "probe_interval_s": self.probe_interval,
+            "transitions": dict(self.transitions),
+            "probes": dict(self.probes),
+        }
+
+
+_GLOBAL_LOCK = threading.Lock()
+_DEVICE_HEALTH: Optional[DeviceHealth] = None
+
+
+def get_device_health() -> DeviceHealth:
+    """The process-global latch, shared by the warn path, the serving
+    engine and ``/readyz``."""
+    global _DEVICE_HEALTH
+    if _DEVICE_HEALTH is None:
+        with _GLOBAL_LOCK:
+            if _DEVICE_HEALTH is None:
+                _DEVICE_HEALTH = DeviceHealth()
+    return _DEVICE_HEALTH
+
+
+def reset_for_tests() -> None:
+    """Drop the global latch so the next :func:`get_device_health` builds
+    one from the current env. Tests that latch degraded mode call this in
+    teardown: one process runs every test, and a leaked latch would send
+    unrelated warns down the host fallback."""
+    global _DEVICE_HEALTH
+    with _GLOBAL_LOCK:
+        if _DEVICE_HEALTH is not None:
+            _DEVICE_HEALTH.unlatch("reset_for_tests")
+        _DEVICE_HEALTH = None

@@ -1,10 +1,11 @@
 """Global Failure Knowledge Base over the port's device index.
 
-Port of ``kakveda_tpu/index/gfkb.py`` (hot tier only): append-only JSONL
+Port of ``kakveda_tpu/index/gfkb.py``: append-only JSONL
 persistence with versioning-by-append, dense ``F-%04d``/``FP-%04d`` id
 minting, identity by ``(failure_type, signature_text)``, one embedding row
 per canonical failure in a device-resident ``[capacity, dim]`` index, and a
-top-k match of one ``fused_topk`` launch per query batch. ``failures.jsonl``,
+top-k match of one ``fused_topk`` launch per query batch over the hot
+rows. ``failures.jsonl``,
 ``patterns.jsonl`` and ``tombstones.jsonl`` are written in the JAX
 package's line format through the native group-commit writer
 (``native.AppendLog``, a Python file where the library is absent), flushed
@@ -33,14 +34,27 @@ sweep at the next mine) and never fails an ingest. A snapshot restore seeds
 the state from its labels; a full replay, or a tail with rows the snapshot
 never saw, leaves it stale, so that first mine is a full sweep.
 
+The host tiers are the reference's (``index/tiers.py``, numpy on the
+host): every row lands in the host-warm mirror (the disk-cold shards past
+``KAKVEDA_GFKB_WARM_ROWS``) before its scatter, and only slots below the
+hot cap (``KAKVEDA_GFKB_HOT_ROWS``, default 2^20) go onto the card, whose
+index grows no further. Past the cap a match merges the card's exact hot
+top-k with the tiers' routed top-k over the overflow slots
+(``tier="tiered"``); the mining attach of an overflow row takes its
+neighbours from the tiers; a snapshot carries the overflow rows from the
+tiers and the router (``centroids.npy``, ``tier_assign.npy``, the
+``tiers`` section), which a restore installs instead of rebuilding. While
+``core/admission.DeviceHealth`` is latched DEGRADED the warn path answers
+from :meth:`GFKB.match_batch_fallback`, which touches no tensor on the
+card. ``KAKVEDA_HOST_FALLBACK=0`` drops the tiers (no mirror, no cap, no
+fallback).
+
 Not yet ported (later slices): replication (the applied-event dedup and
-its tombstone fence), the host tiers and degraded fallback (so a snapshot
-carries no ``tiers`` section, a restore ignores ``centroids.npy`` and
-``tier_assign.npy`` and puts every row on the card, and aging has no
-promote-LRU exemption) and the metric families. Two deviations: a
-capacity growth re-zeroes the tombstoned rows it re-embeds (the reference's
-growth leaves them scoring, filtered only at assembly), and records parse
-with pydantic's JSON parser (the same records, several times faster).
+its tombstone fence) and the metric families (the fallback count is a
+plain integer). Two deviations: a capacity growth re-zeroes the tombstoned
+rows it re-embeds (the reference's growth leaves them scoring, filtered
+only at assembly), and records parse with pydantic's JSON parser (the same
+records, several times faster).
 """
 
 from __future__ import annotations
@@ -70,6 +84,7 @@ from kakveda_tpu_torch.core.schemas import (
     Severity,
     utcnow,
 )
+from kakveda_tpu_torch.index.tiers import TierConfig, TieredIndex
 from kakveda_tpu_torch.ops.featurizer import HashedNGramFeaturizer
 from kakveda_tpu_torch.ops.incremental import (
     ClusterState,
@@ -77,7 +92,7 @@ from kakveda_tpu_torch.ops.incremental import (
     delta_topk_sparse,
     unpack_topk,
 )
-from kakveda_tpu_torch.ops.knn import MAX_CAPACITY, Knn
+from kakveda_tpu_torch.ops.knn import MAX_CAPACITY, Knn, to_device
 
 log = logging.getLogger("kakveda.gfkb")
 
@@ -87,6 +102,22 @@ _CHUNK = 1 << 16  # rows per bulk insert and per snapshot gather
 class SnapshotError(RuntimeError):
     """Snapshot unavailable or aborted (persist=False, concurrent reload):
     a caller-side condition, distinct from device and runtime failures."""
+
+
+class HostFallbackDisabled(RuntimeError):
+    """Degraded-mode matching asked for with the host tiers disabled
+    (``KAKVEDA_HOST_FALLBACK=0``): a configuration condition, typed so the
+    warn path never mistakes it for a device failure."""
+
+
+_fallback_lock = threading.Lock()
+_fallback_total = 0  # warns served by the host fallback, process-wide
+
+
+def fallback_total() -> int:
+    """Warn queries every GFKB of this process served from its host tiers
+    (degraded mode): 0 on a healthy path."""
+    return _fallback_total
 
 
 def _parse_record(line: str) -> CanonicalFailureRecord:
@@ -127,6 +158,7 @@ class GFKB:
         featurizer: Optional[HashedNGramFeaturizer] = None,
         persist: bool = True,
         device: str | torch.device | None = None,
+        tier_config: Optional[TierConfig] = None,
     ):
         self.data_dir = Path(data_dir)
         self.persist = persist
@@ -194,6 +226,20 @@ class GFKB:
         self._fault_compact_fence = _faults.site("gfkb.compact_fence")
         self._fault_compact_swap = _faults.site("gfkb.compact_swap")
         self._fault_tombstone = _faults.site("gfkb.tombstone")
+        # The device-loss drill, shared with DeviceHealth's probe: armed,
+        # every match dispatch fails as a dead card's does.
+        self._fault_device = _faults.site("device.unavailable")
+
+        # The host tiers (index/tiers.py): the warm mirror of every row,
+        # the cold shards past the warm budget, the router; the card holds
+        # the slots below the hot cap. KAKVEDA_HOST_FALLBACK=0 opts out (no
+        # mirror, no cap, no degraded warn).
+        self._tiers: Optional[TieredIndex] = None
+        if os.environ.get("KAKVEDA_HOST_FALLBACK", "1") != "0":
+            self._tiers = TieredIndex(
+                self.featurizer.dim, tier_config or TierConfig(), self.data_dir if persist else None
+            )
+        self.fallback_warns = 0  # warn queries this store served degraded
 
         # Incremental mining state (KAKVEDA_MINE_INCREMENTAL=0: no state,
         # no cache, no extra device dispatches — every mine is a full sweep).
@@ -207,6 +253,7 @@ class GFKB:
         self._match_cache: "OrderedDict[str, tuple]" = OrderedDict()
         self._match_cache_max = int(os.environ.get("KAKVEDA_MINE_MATCH_CACHE", "4096"))
         self.mine_delta_dispatches = 0
+        self.mine_tier_attaches = 0  # overflow rows attached from the host tiers
         if os.environ.get("KAKVEDA_MINE_INCREMENTAL", "1") != "0":
             self._mine = ClusterState(
                 threshold=float(os.environ.get("KAKVEDA_MINE_THRESHOLD", "0.6")),
@@ -324,15 +371,16 @@ class GFKB:
                     self._slot_by_id[rec.failure_id] = base + i
                     self._ids_by_type.setdefault(rec.failure_type, []).append(rec.failure_id)
                     self._apps_by_type.setdefault(rec.failure_type, set()).update(rec.affected_apps)
-                if len(self._records) > self._knn.capacity:
-                    self._rebuild(self._records)  # re-embeds the tail too
-                else:
-                    tail = self._records[base:]
-                    self._insert_texts_chunked(
-                        [r.signature_text for r in tail],
-                        np.arange(base, len(self._records), dtype=np.int32),
-                        np.asarray([self._type_id(r.failure_type) for r in tail], np.int32),
-                    )
+                if min(len(self._records), self._hot_cap()) > self._knn.capacity:
+                    # Grow with the rows before the tail; the tail's insert
+                    # below lands it in the tiers and on the card.
+                    self._rebuild(self._records[:base], rows=len(self._records))
+                tail = self._records[base:]
+                self._insert_texts_chunked(
+                    [r.signature_text for r in tail],
+                    np.arange(base, len(self._records), dtype=np.int32),
+                    np.asarray([self._type_id(r.failure_type) for r in tail], np.int32),
+                )
         if self.patterns_path.exists():
             for p in self._iter_log_lines(
                 self.patterns_path, 0, lambda t: PatternEntity.model_validate(json.loads(t))
@@ -360,20 +408,33 @@ class GFKB:
                 # The replay above embedded every row; re-zero the tombstoned ones.
                 self._zero_device_rows_locked(sorted(self._tombstoned))
 
-    def _bulk_insert_chunked(self, sparsify, slots: np.ndarray, tids: np.ndarray) -> None:
+    def _bulk_insert_chunked(
+        self, sparsify, slots: np.ndarray, tids: np.ndarray, route: bool = True, tiers: bool = True
+    ) -> None:
         """Insert rows in 64k chunks; ``sparsify(i, j)`` yields the sparse
-        (idx, val) pair of rows [i, j)."""
+        (idx, val) pair of rows [i, j). The rows land in the host tiers
+        first (``tiers=False``: a growth's re-embed, which the tiers
+        already hold); only slots below the hot cap go onto the card.
+        ``route=False`` skips the router's assignment (a restore installs
+        the snapshot's router instead)."""
+        hot = self._hot_cap()
         for i in range(0, len(slots), _CHUNK):
             j = min(i + _CHUNK, len(slots))
             sp_i, sp_v = sparsify(i, j)
-            self._knn.insert_sparse(
-                self._emb, self._valid, self._types, sp_i, sp_v, slots[i:j], tids[i:j]
-            )
+            if tiers:
+                self._store_tier_rows(slots[i:j], sp_i, sp_v, route=route)
+            dev = slots[i:j] < hot
+            if dev.any():
+                self._knn.insert_sparse(
+                    self._emb, self._valid, self._types, sp_i[dev], sp_v[dev], slots[i:j][dev], tids[i:j][dev]
+                )
 
-    def _insert_texts_chunked(self, texts: List[str], slots: np.ndarray, tids: np.ndarray) -> None:
+    def _insert_texts_chunked(
+        self, texts: List[str], slots: np.ndarray, tids: np.ndarray, tiers: bool = True
+    ) -> None:
         """Signature texts (replay, growth): encoded sparse per chunk."""
         self._bulk_insert_chunked(
-            lambda i, j: self.featurizer.encode_batch_sparse(texts[i:j]), slots, tids
+            lambda i, j: self.featurizer.encode_batch_sparse(texts[i:j]), slots, tids, tiers=tiers
         )
 
     def _mine_after_replay(self) -> None:
@@ -389,8 +450,8 @@ class GFKB:
     # The reference's format: v2 sparse rows, v3 the payload checksum, v4
     # the mining labels (clusters.npy, own checksum: a bad file costs one
     # full re-mine), v5 the tier router (centroids.npy + tier_assign.npy +
-    # a "tiers" section, written only by a store with a router: the port
-    # writes none and ignores them). Other versions replay in full.
+    # a "tiers" section with its own checksum: a bad file costs one router
+    # rebuild from the restored rows). Other versions replay in full.
     _SNAPSHOT_VERSION = 5
     _TAIL_HASH_BYTES = 4096
     _SNAPSHOT_PAYLOAD = ("sparse_idx.npy", "sparse_val.npy", "records.jsonl")
@@ -420,12 +481,14 @@ class GFKB:
 
     def snapshot(self) -> Path:
         """Write an atomic point-in-time snapshot: slot-ordered sparse rows
-        (no re-embed on restore), the records as ``model_dump_json`` lines,
-        the mining labels, and a manifest pinning the covered
-        failures.jsonl byte range. A consistent view (records, an on-card
-        copy of the first n rows, the labels) is taken under the data lock;
-        the host transfer and the disk write run outside it. Walls by stage
-        land in ``lifecycle_info()["snapshot"]``."""
+        (no re-embed on restore; the hot rows from the card, the overflow
+        rows from the host tiers), the records as ``model_dump_json`` lines,
+        the mining labels, the tier router, and a manifest pinning the
+        covered failures.jsonl byte range. A consistent view (records, an
+        on-card copy of the hot rows, the labels, the router) is taken
+        under the data lock; the host transfer and the disk write run
+        outside it. Walls by stage land in
+        ``lifecycle_info()["snapshot"]``."""
         if not self.persist:
             raise SnapshotError("snapshot requires a persistent GFKB (persist=True)")
         with self._snapshot_write_lock:
@@ -446,15 +509,21 @@ class GFKB:
                 offset = self.failures_path.stat().st_size if self.failures_path.exists() else 0
                 log_hash = self._log_prefix_hash(offset) if offset else ""
                 generation = self._generation
+                hot_n = min(n, self._hot_cap())
+                router_state = self._tiers.export_router_state() if self._tiers is not None else None
                 knn = self._knn
                 tc = time.perf_counter()
-                emb_copy = knn.device_copy(self._emb, n)
+                emb_copy = knn.device_copy(self._emb, hot_n)
             self._sync()
             t1 = time.perf_counter()
             # Sparsified on the device, 64k rows at a time: only the
             # (idx, val) pairs cross to the host.
-            parts = [knn.sparse_rows(emb_copy, i, min(i + _CHUNK, n)) for i in range(0, n, _CHUNK)]
+            parts = [knn.sparse_rows(emb_copy, i, min(i + _CHUNK, hot_n)) for i in range(0, hot_n, _CHUNK)]
             del emb_copy
+            if n > hot_n:
+                # Overflow rows never reached the card: their pairs come
+                # from the host tiers (warm RAM or cold shards).
+                parts.append(self._tiers._rows_block(np.arange(hot_n, n, dtype=np.int64)))
             t2 = time.perf_counter()
             sp_idx, sp_val = _stack_sparse(parts, knn.dim)
             del parts
@@ -489,6 +558,13 @@ class GFKB:
                         "threshold": mine_threshold,
                         "checksum": hashlib.sha256((tmp / "clusters.npy").read_bytes()).hexdigest(),
                     }
+                if router_state is not None:
+                    cent, assign = router_state
+                    np.save(tmp / "centroids.npy", cent.astype(np.float32))
+                    np.save(tmp / "tier_assign.npy", assign.astype(np.int32))
+                    h = hashlib.sha256((tmp / "centroids.npy").read_bytes())
+                    h.update((tmp / "tier_assign.npy").read_bytes())
+                    manifest["tiers"] = {"n": n, "hot": hot_n, "checksum": h.hexdigest()}
                 (tmp / "manifest.json").write_text(json.dumps(manifest))
                 # Swap by renames under the data lock (serialized with
                 # reload()); a crash mid-swap leaves at worst no snapshot.
@@ -520,7 +596,8 @@ class GFKB:
     def _restore_snapshot(self) -> int:
         """Load a valid snapshot; returns the failures.jsonl byte offset to
         replay from (0 = no usable snapshot, full replay). Every row of the
-        payload goes onto the card, in 64k-row chunks."""
+        payload goes into the host tiers, in 64k-row chunks, and the rows
+        below the hot cap onto the card; then the router is installed."""
         sd = self._snapshot_dir()
         manifest_path = sd / "manifest.json"
         if not manifest_path.exists():
@@ -570,7 +647,7 @@ class GFKB:
         t3 = time.perf_counter()
         # Grow before installing the records: a growth re-embeds the
         # current records, which is the work the snapshot skips.
-        if n > self._knn.capacity:
+        if min(n, self._hot_cap()) > self._knn.capacity:
             self._rebuild([], rows=n)
         self._records = records
         self._slot_by_key = {(r.failure_type, r.signature_text): i for i, r in enumerate(records)}
@@ -580,24 +657,61 @@ class GFKB:
             self._apps_by_type.setdefault(r.failure_type, set()).update(r.affected_apps)
         if n:
             tids = np.asarray([self._type_id(r.failure_type) for r in records], np.int32)
+            # route=False: the snapshot's router installs after the rows.
             self._bulk_insert_chunked(
-                lambda i, j: (sp_idx[i:j], sp_val[i:j]), np.arange(n, dtype=np.int32), tids
+                lambda i, j: (sp_idx[i:j], sp_val[i:j]), np.arange(n, dtype=np.int32), tids,
+                route=False,
             )
             self._sync()
         t4 = time.perf_counter()
         self._mine_restore(sd, manifest)
         t5 = time.perf_counter()
+        router = self._restore_tiers(sd, manifest)
+        t6 = time.perf_counter()
         self._restore_info = {
             "rows": n,
+            "hot": min(n, self._hot_cap()),
             "log_offset": offset,
+            "router": router,
             "seconds": {
                 "verify": t1 - t0, "records": t2 - t1, "payload": t3 - t2,
-                "insert": t4 - t3, "labels": t5 - t4,
+                "insert": t4 - t3, "labels": t5 - t4, "router": t6 - t5,
             },
         }
         log.info("restored a snapshot of %d rows from %s; replaying the log from byte %d",
                  n, sd, offset)
         return offset
+
+    def _restore_tiers(self, sd: Path, manifest: dict) -> Optional[str]:
+        """Install the snapshot's router state; returns "restored",
+        "rebuilt" or None (no router). Never trusts an unverified
+        partition: a missing section, a checksum mismatch or a shape error
+        costs one router rebuild from the restored rows (routing is derived
+        state), never a full log replay and never a silent misroute."""
+        t = self._tiers
+        if t is None or t.router is None:
+            return None
+        try:
+            mf = manifest.get("tiers")
+            if not mf:
+                raise ValueError("snapshot carries no tier state")
+            h = hashlib.sha256((sd / "centroids.npy").read_bytes())
+            h.update((sd / "tier_assign.npy").read_bytes())
+            if h.hexdigest() != mf.get("checksum"):
+                raise ValueError("tier-state checksum mismatch")
+            cent = np.load(sd / "centroids.npy")
+            assign = np.load(sd / "tier_assign.npy")
+            if len(assign) != len(self._records) or int(mf.get("n", -1)) != len(assign):
+                raise ValueError("tier-state shape mismatch")
+            t.restore_router_state(cent, assign)
+            return "restored"
+        except Exception as e:  # noqa: BLE001 — degrade, never desync
+            log.warning(
+                "tier-router restore failed (%s: %s); rebuilding the coarse partition "
+                "from the restored rows", type(e).__name__, e,
+            )
+            t.rebuild_router()
+            return "rebuilt"
 
     def _mine_restore(self, sd: Path, manifest: dict) -> None:
         """Seed the cluster state from the snapshot's labels. Never installs
@@ -658,6 +772,9 @@ class GFKB:
             self._tombstoned = {}
             self._tomb_view = frozenset()
             self._truncate_pending = {}
+            # The tiers (cold shards included) describe pre-rewrite slots.
+            if self._tiers is not None:
+                self._tiers.reset()
             if self._mine is not None:
                 self._mine = ClusterState(threshold=self._mine.threshold, k=self._mine.k)
             self._mine_pending.clear()
@@ -691,15 +808,24 @@ class GFKB:
             return self._records[offset : offset + limit]
 
     def records_and_embeddings(self) -> Tuple[List[CanonicalFailureRecord], torch.Tensor]:
-        """Consistent (records, slot-aligned embedding rows): the rows are
-        the index's own ``emb[:n]`` on the device (slot = row), taken once
-        every appended record's scatter has landed. Only a lifecycle write
-        (a tombstone zeroing, a resurrection) or a reload changes a row
-        below ``n``."""
+        """Consistent (records, slot-aligned embedding rows), taken once
+        every appended record's scatter has landed. Below the hot cap the
+        rows are the index's own ``emb[:n]`` on the device (slot = row):
+        only a lifecycle write (a tombstone zeroing, a resurrection) or a
+        reload changes them. Past it the overflow rows, which the card never
+        held, are densified from the host tiers onto the device (in the
+        index's dtype, as an insert would store them) and appended."""
         with self._lock:
             self._drain_pending_embeds()
             records = list(self._records)
-            return records, self._emb[: len(records)]
+            hot_n = min(len(records), self._hot_cap())
+            if len(records) == hot_n:
+                return records, self._emb[:hot_n]
+            o_idx, o_val = self._tiers._rows_block(np.arange(hot_n, len(records), dtype=np.int64))
+            dense = self._knn.densify(
+                to_device(o_idx, np.int32, self.device), to_device(o_val, np.float32, self.device)
+            )
+            return records, torch.cat([self._emb[:hot_n], dense.to(self._emb.dtype)])
 
     def _drain_pending_embeds(self) -> None:
         """Wait (the lock held, released while waiting) until no appended
@@ -737,14 +863,18 @@ class GFKB:
 
     def _rebuild(self, records: Sequence[CanonicalFailureRecord], rows: int = 0) -> None:
         """Capacity growth: allocate an index of the doubled capacity (at
-        least ``rows``) that holds ``records`` (re-embedded in 64k chunks,
-        tombstoned rows zeroed again) and swap it in. Callers hold the lock
-        or run single-threaded (start-up)."""
+        least ``rows``, at most the hot cap's worth) that holds the hot
+        ones of ``records`` (re-embedded in 64k chunks, tombstoned rows
+        zeroed again) and swap it in. The host tiers already hold every
+        row. Callers hold the lock or run single-threaded (start-up)."""
+        hot = self._hot_cap()
+        records = records[:hot]
+        need = min(max(len(records), rows), hot)
         cap = self._knn.capacity
-        while cap < max(len(records), rows):
+        while cap < need:
             cap *= 2
         if cap > MAX_CAPACITY:
-            raise ValueError(f"GFKB of {max(len(records), rows)} records exceeds {MAX_CAPACITY} rows")
+            raise ValueError(f"GFKB of {need} hot records exceeds {MAX_CAPACITY} rows")
         if cap != self._knn.capacity:
             self._knn = Knn(cap, self._knn.dim, k=self.top_k, device=self.device)
         self._emb, self._valid = self._knn.alloc()
@@ -753,6 +883,7 @@ class GFKB:
             [r.signature_text for r in records],
             np.arange(len(records), dtype=np.int32),
             np.asarray([self._type_id(r.failure_type) for r in records], np.int32),
+            tiers=False,
         )
         if self._tombstoned:
             self._zero_device_rows_locked(sorted(self._tombstoned))
@@ -766,16 +897,24 @@ class GFKB:
         ``_pending_embeds`` under the lock; it is released here."""
         try:
             sp_idx, sp_val = self.featurizer.encode_batch_sparse(texts)
+            arr_slots = np.asarray(slots, np.int32)
             with self._lock:
                 if self._generation != gen:
                     return
-                if len(self._records) > self._knn.capacity:
-                    self._rebuild(self._records)  # re-embeds these rows too
+                # The host tiers first: a scatter that dies on a lost card
+                # still leaves degraded-mode matching complete, and slots
+                # past the hot cap live only there.
+                self._store_tier_rows(arr_slots, sp_idx, sp_val)
+                hot = self._hot_cap()
+                if min(len(self._records), hot) > self._knn.capacity:
+                    self._rebuild(self._records)  # re-embeds the hot ones of these rows too
                 else:
-                    self._knn.insert_sparse(
-                        self._emb, self._valid, self._types, sp_idx, sp_val,
-                        np.asarray(slots, np.int32), np.asarray(tids, np.int32),
-                    )
+                    dev = arr_slots < hot
+                    if dev.any():
+                        self._knn.insert_sparse(
+                            self._emb, self._valid, self._types, sp_idx[dev], sp_val[dev],
+                            arr_slots[dev], np.asarray(tids, np.int32)[dev],
+                        )
             self._mine_attach_new(slots, texts, sp_idx, sp_val, gen)
         finally:
             with self._lock:
@@ -948,7 +1087,7 @@ class GFKB:
         a tombstoned row can neither score nor pass the type pre-filter.
         Caller holds ``_lock`` (or is the single-threaded replay)."""
         arr = np.asarray(sorted(int(s) for s in slots), np.int32)
-        arr = arr[arr < self._knn.capacity]
+        arr = arr[arr < min(self._knn.capacity, self._hot_cap())]
         if not len(arr):
             return
         sp_idx = np.full((len(arr), 1), self._knn.dim, np.int32)
@@ -1005,23 +1144,27 @@ class GFKB:
         predates ``now - ttl_s`` (``KAKVEDA_GFKB_AGE_TTL_S``; 0 = off).
         Tombstoning is terminal but resident (slots, ids and keys stay);
         reclaiming log bytes is :meth:`compact`'s job. ``now`` is
-        injectable. The reference exempts the cold tier's recently promoted
-        slots; the port has no tiers, so nothing is exempt."""
+        injectable. Slots in the cold tier's promote-LRU are exempt: live
+        queries paged them in recently, which a record's ``updated_at``
+        (moved only by writes) does not show."""
         if ttl_s is None:
             ttl_s = float(os.environ.get("KAKVEDA_GFKB_AGE_TTL_S", "0"))
         if ttl_s <= 0:
             return {"tombstoned": 0, "ttl_s": ttl_s}
         ts = now if now is not None else time.time()
         with self._lock:
+            exempt = self._tiers.recently_promoted_slots() if self._tiers is not None else set()
             victims = [
                 slot
                 for slot, rec in enumerate(self._records)
-                if slot not in self._tombstoned and ts - rec.updated_at.timestamp() > ttl_s
+                if slot not in self._tombstoned
+                and slot not in exempt
+                and ts - rec.updated_at.timestamp() > ttl_s
             ]
             wrote = self._tombstone_rows_locked(victims, "aged", now=ts)
             if wrote:
                 self._zero_device_rows_locked(wrote)
-        return {"tombstoned": len(wrote), "ttl_s": ttl_s, "exempt": 0}
+        return {"tombstoned": len(wrote), "ttl_s": ttl_s, "exempt": len(exempt)}
 
     def collapse_duplicates(self, min_cluster: Optional[int] = None) -> dict:
         """Near-duplicate collapse over the mining clusters: each cluster
@@ -1249,6 +1392,100 @@ class GFKB:
             }
 
     # ------------------------------------------------------------------
+    # host tiers (overflow, degraded mode, restore: one hierarchy)
+    # ------------------------------------------------------------------
+
+    def _hot_cap(self) -> int:
+        """Logical slots the card's hot tier may hold: unbounded without
+        the host tiers (nothing could take an overflow) or with tiering off."""
+        if self._tiers is None:
+            return 1 << 62
+        return self._tiers.cfg.hot_rows
+
+    def _store_tier_rows(self, slots, sp_idx: np.ndarray, sp_val: np.ndarray, route: bool = True) -> None:
+        """Land rows in the host tiers (warm RAM, or the cold shards past
+        the warm budget) and feed the router's per-batch update
+        (``route=False``: a restore installs the persisted router)."""
+        if self._tiers is None:
+            return
+        self._tiers.insert(np.asarray(slots, np.int64), sp_idx, sp_val, route=route)
+
+    def tiers_info(self) -> dict:
+        """Residency and routing of the tiers, the warm tier's host bytes
+        and the warn queries served degraded (``fallback``)."""
+        if self._tiers is None:
+            return {"enabled": False, "fallback": self.fallback_warns}
+        t = self._tiers
+        info = t.info()
+        with t.lock:
+            warm_bytes = t.warm._idx.nbytes + t.warm._val.nbytes
+            cold_bytes = 0
+            if t.cold is not None:
+                cold_bytes = sum(sh["idx"].nbytes + sh["val"].nbytes for sh in t.cold._shards)
+        info.update(
+            enabled=True, hot_rows=t.cfg.hot_rows, warm_rows=t.cfg.warm_rows, warm_k=t.warm.k,
+            warm_bytes=warm_bytes, cold_bytes=cold_bytes, fallback=self.fallback_warns,
+        )
+        return info
+
+    def match_batch_fallback(
+        self,
+        signature_texts: Sequence[str],
+        failure_type: Optional[str] = None,
+    ) -> Tuple[List[List[FailureMatch]], dict]:
+        """Top-k from the host tiers alone: the degraded-mode path. It
+        touches no tensor on the card (after a sticky CUDA error every call
+        into the context fails). Small corpora take the exact scan; past
+        the routing floor each query scores only its ``nprobe`` routed
+        candidate lists, exactly; a routing fault serves that query from the
+        exact scan. Returns ``(matches, info)`` with the serving ``tier``
+        ("warm" or "warm_routed") and ``nprobe``. ``failure_type`` filters
+        after the top-k, as :meth:`match_batch` does."""
+        global _fallback_total
+        if self._tiers is None:
+            raise HostFallbackDisabled("host fallback disabled (KAKVEDA_HOST_FALLBACK=0)")
+        q_idx, q_val = self.featurizer.encode_batch_sparse(list(signature_texts))
+        with self._lock:
+            records, n = self._records, len(self._records)  # no copy: see match_batch_info
+            if self._tomb_view is None:
+                self._tomb_view = frozenset(self._tombstoned)
+            tomb = self._tomb_view
+        if n == 0:
+            return [[] for _ in signature_texts], {"tier": "warm", "nprobe": None}
+        out: List[List[FailureMatch]] = []
+        routed = False
+        # One batched host match: the candidate dedup, the cold tier's
+        # coalesced reads and the native scoring run once per warn batch.
+        batch = self._tiers.match_host_batch(q_idx, q_val, max(self.top_k, 1))
+        for scores, slots, mode in batch:
+            routed = routed or mode == "routed"
+            row: List[FailureMatch] = []
+            for s, slot in zip(scores.tolist(), slots.tolist()):
+                if s <= 0.0 or slot >= n or slot in tomb:
+                    continue  # padding and tombstoned rows never surface
+                rec = records[slot]
+                if failure_type and rec.failure_type != failure_type:
+                    continue
+                row.append(
+                    FailureMatch(
+                        failure_id=rec.failure_id,
+                        version=rec.version,
+                        score=min(1.0, max(-1.0, float(s))),
+                        failure_type=rec.failure_type,
+                        suggested_mitigation=rec.resolution,
+                    )
+                )
+            out.append(row)
+        with _fallback_lock:
+            self.fallback_warns += len(signature_texts)
+            _fallback_total += len(signature_texts)
+        info = {
+            "tier": "warm_routed" if routed else "warm",
+            "nprobe": self._tiers.cfg.nprobe if routed else None,
+        }
+        return out, info
+
+    # ------------------------------------------------------------------
     # match
     # ------------------------------------------------------------------
 
@@ -1271,15 +1508,23 @@ class GFKB:
         failure_type: Optional[str] = None,
         type_filter: str = "post",
     ) -> Tuple[List[List[FailureMatch]], dict]:
-        """Top-k matches for a batch of queries (one kernel launch), plus
-        serving provenance. ``type_filter="post"`` filters by type after the
-        top-k (the reference's behaviour); ``"pre"`` ANDs the per-slot type
-        id into the valid mask before it. Tombstoned rows (zero on the card,
-        so they never outrank a real match) are dropped at assembly. A
-        device error propagates."""
+        """Top-k matches for a batch of queries (one kernel launch over the
+        hot rows), plus serving provenance (``tier``, ``nprobe``).
+        ``type_filter="post"`` filters by type after the top-k (the
+        reference's behaviour); ``"pre"`` ANDs the per-slot type id into the
+        valid mask before it. Tombstoned rows (zero on the card, so they
+        never outrank a real match) are dropped at assembly.
+
+        Past the hot cap each query also takes the host tiers' routed (or
+        exact-degraded) top-k over the overflow slots, merged with the
+        card's by score: ``tier`` "tiered" when every query routed,
+        "tiered_exact" / "tiered_fault" when one took the exact scan. A
+        device error (at the launch or, as CUDA reports it, at the fetch)
+        propagates: the warn path classifies it."""
         q_idx, q_val = self.featurizer.encode_batch_sparse(list(signature_texts))
         b = q_idx.shape[0]
         info = {"tier": "hot", "nprobe": None}
+        tid = None
         with self._lock:
             records = self._records
             n = len(records)
@@ -1293,11 +1538,46 @@ class GFKB:
                 tid = self._type_ids.get(failure_type)
                 if tid is None:
                     return [[] for _ in signature_texts], info
+            # The device-loss drill: armed, the dispatch dies as a lost
+            # card's does, and the warn path's degraded mode takes over.
+            self._fault_device.fire()
+            if tid is not None:
                 valid = self._knn.mask_valid(valid, self._types, tid)
             packed = self._knn.topk_async_sparse(self._emb, valid, q_idx, q_val)
-            records = list(records)
+            # No copy of the records (18 ms at 2^20 + 2^18 of them): the list
+            # is only appended to or has a slot replaced by a newer version
+            # of the same failure, and a reload swaps in a new list, so slots
+            # below n read outside the lock are this query's failures.
             gen = self._generation
         scores, slots = self._knn.topk_result(packed)
+
+        hot = self._hot_cap()
+        if n > hot and self._tiers is not None:
+            # Overflow: the card's exact hot top-k merged with the tiers'
+            # top-k over the slots the card does not hold (outside the lock).
+            modes: set = set()
+            m_scores, m_slots = [], []
+            k = scores.shape[1]
+            overflow = self._tiers.match_host_batch(q_idx, q_val, k, min_slot=hot)
+            for i in range(b):
+                o_s, o_sl, mode = overflow[i]
+                modes.add(mode)
+                if tid is not None and len(o_sl):
+                    keep = np.asarray([records[int(s)].failure_type == failure_type for s in o_sl])
+                    o_s, o_sl = o_s[keep], o_sl[keep]
+                cs = np.concatenate([scores[i], o_s])
+                csl = np.concatenate([slots[i], o_sl])
+                order = np.argsort(-cs)[:k]
+                m_scores.append(cs[order])
+                m_slots.append(csl[order])
+            scores = np.stack(m_scores)
+            slots = np.stack(m_slots)
+            if "fault_exact" in modes:
+                info = {"tier": "tiered_fault", "nprobe": None}
+            elif modes == {"routed"}:
+                info = {"tier": "tiered", "nprobe": self._tiers.cfg.nprobe}
+            else:
+                info = {"tier": "tiered_exact", "nprobe": None}
 
         if self._mine is not None and self._match_cache_max > 0 and failure_type is None:
             # A pre-flight warn is usually followed by the SAME signature
@@ -1340,17 +1620,21 @@ class GFKB:
         """Attach freshly inserted rows to the cluster state.
 
         Rows whose signature a recent warn already scored reuse those
-        neighbours (zero device work); the rest share ONE delta top-k
-        dispatch against the index — O(ΔN·N) per batch — whose host copy
-        drains lazily (mining reads it), so ingest never waits for it. Any
-        failure marks the state stale (one full sweep at the next mine):
-        mining is derived state and never fails an ingest."""
+        neighbours (zero device work); rows past the hot cap take theirs
+        from ONE batched host match over the tiers (the card never held
+        them); the rest share ONE delta top-k dispatch against the index —
+        O(ΔN·N) per batch — whose host copy drains lazily (mining reads
+        it), so ingest never waits for it. Any failure marks the state stale
+        (one full sweep at the next mine): mining is derived state and never
+        fails an ingest."""
         m = self._mine
         if m is None or m.stale:
             return
         try:
             self._fault_mine.fire()
             reused = []  # (slot, neighbour slots, sims)
+            tier_attach = []  # overflow rows: neighbours from the host tiers
+            hot = self._hot_cap()
             with self._lock:
                 if self._generation != gen:
                     return
@@ -1361,6 +1645,14 @@ class GFKB:
                         reused.append((s, hit[1], hit[0]))
                     else:
                         delta_rows.append(i)
+                ovf = [j for j, i in enumerate(delta_rows) if int(slots[i]) >= hot]
+                if ovf and self._tiers is not None:
+                    d_idx, d_val = sp_idx[delta_rows], sp_val[delta_rows]
+                    batch = self._tiers.match_host_batch(d_idx[ovf], d_val[ovf], m.k + 1)
+                    for j, (nscores, nslots, _mode) in zip(ovf, batch):
+                        tier_attach.append((int(slots[delta_rows[j]]), nslots, nscores))
+                    ovf_set = set(ovf)
+                    delta_rows = [i for j, i in enumerate(delta_rows) if j not in ovf_set]
                 if delta_rows:
                     # Under the lock, like a match; +1 neighbour: each row's
                     # top-1 against the post-insert index is itself.
@@ -1376,6 +1668,10 @@ class GFKB:
                     ))
             for s, nslots, nsims in reused:
                 m.attach(int(s), nslots, nsims)
+            for s, nslots, nsims in tier_attach:
+                keep = np.isfinite(nsims) & (nsims >= m.threshold)
+                m.attach(int(s), nslots[keep], nsims[keep])
+            self.mine_tier_attaches += len(tier_attach)
             if len(self._mine_pending) > self._mine_pending_max:
                 with self._lock:
                     self._mine_drain_locked()
@@ -1434,6 +1730,7 @@ class GFKB:
                 pending=len(self._mine_pending),
                 covers_all_rows=self._mine.n_rows == len(self._records),
                 delta_dispatches=self.mine_delta_dispatches,
+                tier_attaches=self.mine_tier_attaches,
             )
             return info
 
@@ -1478,6 +1775,11 @@ class GFKB:
                 [(r.failure_type, r.failure_id, r.affected_apps) for r in self._records],
                 threshold=threshold,
             )
+            if self._tiers is not None:
+                # A fresh full-sweep partition is the best coarse structure
+                # at hand: re-seed the router's centroids from it (a failure
+                # keeps the online partition).
+                self._tiers.reseed_router(labels)
             return True
 
     # ------------------------------------------------------------------

@@ -15,9 +15,10 @@ continuous-batching engine (``models/serving.py``), with its prefix cache,
 and falls back to the reference's solo path (a :class:`DecodeSession` with
 ``KAKVEDA_PREFILL_CHUNK`` chunked prefill) when the engine is off or a
 request does not fit its window. Without weights it serves a model drawn
-from a seed, as the JAX runtime does without a checkpoint. Not ported yet:
-streaming, nucleus sampling, speculative decoding, and the
-``DeviceHealth`` fail-fast check of ``generate_batch``.
+from a seed, as the JAX runtime does without a checkpoint. While
+``DeviceHealth`` is latched DEGRADED, ``generate`` and ``generate_batch``
+fail fast with ``DeviceUnavailableError``. Not ported yet: streaming,
+nucleus sampling and speculative decoding.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from kakveda_tpu_torch.core.admission import get_device_health
 from kakveda_tpu_torch.models.llama import (
     LlamaConfig,
     Params,
@@ -380,9 +382,7 @@ class LlamaRuntime:
         """Token lists for ``ids``: through the engine when every request
         fits its window, else (or when the engine closed meanwhile) the solo
         path. A batch of two or more first registers its common token head
-        of 16 or more as a prefix, best-effort. Returns (ids, meta extras).
-        The reference checks ``DeviceHealth`` first; that check comes with
-        the degraded mode, which is not ported."""
+        of 16 or more as a prefix, best-effort. Returns (ids, meta extras)."""
         eng = self.engine()
         if eng is not None and all(eng.fits(len(i), max_tokens) for i in ids):
             try:
@@ -401,6 +401,7 @@ class LlamaRuntime:
 
     def generate(self, prompt: str, *, model: Optional[str] = None, max_tokens: int = 64) -> GenerateResult:
         started = time.perf_counter()
+        get_device_health().check()  # degraded: fail fast, never dispatch
         (new_ids,), extra = self._generate_ids([self._encode(prompt)], max_tokens)
         return GenerateResult(
             text=self.tokenizer.decode(new_ids),
@@ -417,6 +418,10 @@ class LlamaRuntime:
         """Batched generation: the whole list joins the shared slot pool, with
         exact per-sequence parity with :meth:`generate`."""
         started = time.perf_counter()
+        # Device-loss fail-fast: while the card is latched DEGRADED every
+        # decode path (engine and solo) would dispatch into a dead card;
+        # raise the typed retryable error at once instead.
+        get_device_health().check()
         if not prompts:
             return []
         new_ids, extra = self._generate_ids([self._encode(p) for p in prompts], max_tokens)

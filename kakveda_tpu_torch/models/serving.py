@@ -42,6 +42,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from kakveda_tpu_torch.core.admission import get_device_health
 from kakveda_tpu_torch.models.attention import gqa_cache_attention
 from kakveda_tpu_torch.models.llama import (
     LlamaConfig,
@@ -484,7 +485,10 @@ class ServingEngine:
         return ContinuousBatcher.bucket_for(prompt_len, ml) + max_new_tokens + 1 <= ml
 
     def submit(self, prompt_ids: List[int], max_new_tokens: int = 64, temperature: float = 0.0) -> Future:
-        """Enqueue a request; the Future resolves to the generated id list."""
+        """Enqueue a request; the Future resolves to the generated id list.
+        While the card is latched DEGRADED it raises
+        ``DeviceUnavailableError`` at once (fail fast, never a hang)."""
+        get_device_health().check()
         with self._lock:
             if self._closed.is_set():
                 raise RuntimeError("ServingEngine is closed")
@@ -533,6 +537,10 @@ class ServingEngine:
         except Exception as e:  # noqa: BLE001 — a dead loop must not strand its callers
             err = e
             log.exception("serving engine loop died")
+            # A death that looks like the card going away (not a software
+            # fault) latches degraded mode: generation fails fast from then
+            # on and the probe owns recovery.
+            get_device_health().note_failure(e, where="engine.loop")
         finally:
             with self._lock:
                 self._closed.set()

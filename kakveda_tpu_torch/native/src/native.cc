@@ -1,20 +1,24 @@
 // kakveda-tpu native host tier, the port's copy.
 //
 // The card owns the math (the cosine top-k, mining, Llama); this library
-// owns two host-side hot loops that feed it:
+// owns three host-side hot loops around it:
 //
 //   1. hashed n-gram featurization of signature texts — the per-trace CPU
 //      cost of the ingest path and of every warn batch;
 //   2. an append-only log writer with buffered group-commit — the
-//      persistence layer under the GFKB's versioned-append store.
+//      persistence layer under the GFKB's versioned-append store;
+//   3. host-tier scoring (kkv_score_block / kkv_score_candidates /
+//      kkv_score_gather) — the sparse-dot cosine over the warm/cold tiers'
+//      fixed-width (idx, val) row arrays: the routed match over the rows
+//      past the card's hot cap, every degraded-mode warn, and the mining
+//      attach of an overflow row. ctypes releases the GIL for each call.
 //
-// A copy of the JAX package's kakveda_tpu/native/src/native.cc, its encoder
-// half and its append-log half, character for character: the port imports
-// nothing of that package, and its embeddings must stay bit-identical to the
-// reference's native encoder, so the summation order in encode_one and the
-// compiler flags (kakveda_tpu_torch/native/__init__.py: -O3, no
-// -march=native, no -ffast-math) are part of the contract. The host-tier
-// scorers (kkv_score_*) come with the port of the tiers.
+// A copy of the JAX package's kakveda_tpu/native/src/native.cc, character
+// for character below this header: the port imports nothing of that
+// package, and its embeddings and host-tier scores must stay bit-identical
+// to the reference's, so the summation orders in encode_one and
+// score_range and the compiler flags (kakveda_tpu_torch/native/__init__.py:
+// -O3, no -march=native, no -ffast-math) are part of the contract.
 //
 // Semantics mirror ops/featurizer.py exactly for ASCII text (the Python
 // wrapper routes non-ASCII strings to the Python implementation, where
@@ -33,6 +37,7 @@
 #include <cmath>
 #include <mutex>
 #include <string>
+#include <thread>
 #include <vector>
 
 #if defined(_WIN32)
@@ -209,6 +214,51 @@ void encode_one(const char* text, int dim, float* row,
   }
 }
 
+// --- host-tier scoring ----------------------------------------------------
+
+// Score fixed-width sparse rows [r0, r1) against one dense query.
+// `qd` has dim+1 floats with qd[dim] == 0.0 (the pad sentinel scores 0);
+// any idx outside [0, dim] clamps to the sentinel, so a corrupt row can
+// mis-score but never read out of bounds.
+inline void score_range(const float* qd, int dim, const int32_t* idx,
+                        const float* val, long r0, long r1, int k,
+                        float* out) {
+  const uint32_t udim = static_cast<uint32_t>(dim);
+  for (long r = r0; r < r1; r++) {
+    const int32_t* ir = idx + static_cast<size_t>(r) * k;
+    const float* vr = val + static_cast<size_t>(r) * k;
+    float s = 0.0f;
+    for (int j = 0; j < k; j++) {
+      uint32_t ix = static_cast<uint32_t>(ir[j]);
+      if (ix > udim) ix = udim;  // negatives wrap huge and clamp too
+      s += qd[ix] * vr[j];
+    }
+    out[r] = s;
+  }
+}
+
+// Split [0, total) into n_threads contiguous chunks and run fn(lo, hi) on
+// each; below the spawn floor (or single-threaded) everything runs inline —
+// thread startup would dominate small scans.
+template <typename Fn>
+void parallel_ranges(long total, int n_threads, long spawn_floor, Fn fn) {
+  if (n_threads > 64) n_threads = 64;
+  if (n_threads <= 1 || total < spawn_floor) {
+    fn(0, total);
+    return;
+  }
+  long chunk = (total + n_threads - 1) / n_threads;
+  std::vector<std::thread> pool;
+  pool.reserve(n_threads);
+  for (int t = 0; t < n_threads; t++) {
+    long lo = static_cast<long>(t) * chunk;
+    long hi = lo + chunk < total ? lo + chunk : total;
+    if (lo >= hi) break;
+    pool.emplace_back([=] { fn(lo, hi); });
+  }
+  for (auto& th : pool) th.join();
+}
+
 // --- append log -----------------------------------------------------------
 
 struct AppendLog {
@@ -265,6 +315,109 @@ int kkv_encode_sparse_batch(const char** texts, int n, int dim, int k,
     if (m > need) need = m;
   }
   return need > k ? need : 0;
+}
+
+// Host-tier block scorer: b dense queries ([b, dim+1] f32, qd[dim] == 0)
+// against the SAME n fixed-width sparse rows (idx [n, k] int32 with pad ==
+// dim, val [n, k] f32). out: [b, n] f32. The one-query case (b == 1) is the
+// warm/cold exact scan; b > 1 is the degraded-window warn batch — every
+// query streams the row block once. Returns 0 on success, -1 on bad args.
+int kkv_score_block(const float* qdense, long b, int dim, const int32_t* idx,
+                    const float* val, long n, int k, float* out,
+                    int n_threads) {
+  if (!qdense || !out || b < 0 || n < 0 || dim <= 0 || k < 0) return -1;
+  if (n > 0 && k > 0 && (!idx || !val)) return -1;
+  if (k == 0 || n == 0) {
+    std::memset(out, 0, sizeof(float) * static_cast<size_t>(b) * n);
+    return 0;
+  }
+  parallel_ranges(n, n_threads, 1 << 14, [=](long lo, long hi) {
+    for (long q = 0; q < b; q++)
+      score_range(qdense + static_cast<size_t>(q) * (dim + 1), dim, idx, val,
+                  lo, hi, k, out + static_cast<size_t>(q) * n);
+  });
+  return 0;
+}
+
+// Thread-pooled IVF candidate scorer: query q scores the concatenated
+// candidate rows [offsets[q], offsets[q+1]) — ONE call per match batch for
+// degraded warn, overflow routed matching and the mining attach path.
+// qdense: [b, dim+1]; idx/val: [offsets[b], k]; out: [offsets[b]] f32.
+// Returns 0 on success, -1 on bad args (incl. non-monotonic offsets).
+int kkv_score_candidates(const float* qdense, long b, int dim,
+                         const int32_t* idx, const float* val,
+                         const int64_t* offsets, int k, float* out,
+                         int n_threads) {
+  if (!qdense || !offsets || b < 0 || dim <= 0 || k < 0) return -1;
+  long total = static_cast<long>(offsets[b]);
+  if (offsets[0] != 0 || total < 0) return -1;
+  for (long q = 0; q < b; q++)
+    if (offsets[q + 1] < offsets[q]) return -1;
+  if (total == 0) return 0;
+  if (!out || (k > 0 && (!idx || !val))) return -1;
+  if (k == 0) {
+    std::memset(out, 0, sizeof(float) * static_cast<size_t>(total));
+    return 0;
+  }
+  // Chunk the FLAT row range so one giant candidate list still splits
+  // across threads; each chunk walks the queries overlapping it.
+  parallel_ranges(total, n_threads, 1 << 14, [=](long lo, long hi) {
+    long q = 0;
+    while (q < b && static_cast<long>(offsets[q + 1]) <= lo) q++;
+    for (; q < b && static_cast<long>(offsets[q]) < hi; q++) {
+      long r0 = static_cast<long>(offsets[q]) > lo
+                    ? static_cast<long>(offsets[q]) : lo;
+      long r1 = static_cast<long>(offsets[q + 1]) < hi
+                    ? static_cast<long>(offsets[q + 1]) : hi;
+      score_range(qdense + static_cast<size_t>(q) * (dim + 1), dim, idx, val,
+                  r0, r1, k, out);
+    }
+  });
+  return 0;
+}
+
+// Gather-scorer: score row ids straight out of a resident base array
+// (warm tier) or an mmap'd cold shard — no [m, k] materialization, no
+// Python-side fancy-index copy; cold pages fault in during the scan with
+// the GIL released. qdense: [dim+1] (one query); idx/val: the base
+// arrays, row stride k; rows: [m] int64 row ids into the base. out: [m].
+// The CALLER guarantees row ids are in range — this is the hot path and
+// it does no bounds checking beyond the per-entry feature clamp.
+int kkv_score_gather(const float* qdense, int dim, const int32_t* idx,
+                     const float* val, int k, const int64_t* rows, long m,
+                     float* out, int n_threads) {
+  if (!qdense || !out || m < 0 || dim <= 0 || k < 0) return -1;
+  if (m == 0) return 0;
+  if (!rows) return -1;
+  if (k == 0 || !idx || !val) {
+    std::memset(out, 0, sizeof(float) * static_cast<size_t>(m));
+    return 0;
+  }
+  const uint32_t udim = static_cast<uint32_t>(dim);
+  parallel_ranges(m, n_threads, 1 << 14, [=](long lo, long hi) {
+    // The row indirection defeats the hardware prefetcher (each row is a
+    // ~128 B island in a multi-GB mmap) — software-prefetch a few rows
+    // ahead so the memory latency overlaps the current row's math.
+    constexpr long kPrefetch = 8;
+    for (long i = lo; i < hi; i++) {
+      if (i + kPrefetch < hi) {
+        const size_t pr = static_cast<size_t>(rows[i + kPrefetch]);
+        __builtin_prefetch(idx + pr * k, 0, 1);
+        __builtin_prefetch(val + pr * k, 0, 1);
+      }
+      const size_t row = static_cast<size_t>(rows[i]);
+      const int32_t* ir = idx + row * k;
+      const float* vr = val + row * k;
+      float s = 0.0f;
+      for (int j = 0; j < k; j++) {
+        uint32_t ix = static_cast<uint32_t>(ir[j]);
+        if (ix > udim) ix = udim;  // pad and negatives clamp to the zero slot
+        s += qdense[ix] * vr[j];
+      }
+      out[i] = s;
+    }
+  });
+  return 0;
 }
 
 // Append-only log: open(append mode) -> handle.

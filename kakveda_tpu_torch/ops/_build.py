@@ -28,13 +28,19 @@ NVCC_FLAGS = (
 )
 
 _libs: Dict[str, ctypes.CDLL] = {}
+
+
+class KernelBuildError(RuntimeError):
+    """``nvcc`` is missing or refused a source: a software fault, which the
+    device-loss latch never mistakes for the card failing."""
+
 _lock = threading.Lock()
 
 
 def _nvcc() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+        raise KernelBuildError("nvcc not found: the CUDA kernels cannot be built")
     return path
 
 
@@ -71,7 +77,7 @@ def build(names: Sequence[str]) -> Dict[str, Path]:
             continue
         os.replace(tmp, out[name])
     if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        raise KernelBuildError("nvcc failed for " + "\n".join(failed))
     return out
 
 

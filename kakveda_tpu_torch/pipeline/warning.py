@@ -1,17 +1,25 @@
 """Pre-flight warning policy — 'has something like this failed before?'
 
-Port of ``kakveda_tpu/pipeline/warning.py`` without the degraded-mode
-fallback: build the signature text, match it against the GFKB (one kernel
-launch per batch), compare the best score to the configured threshold
-(default 0.8), attach the citation pattern when the matched failure has its
-type, and answer block|warn|silent with a confidence. A device error
-propagates to the caller.
+Port of ``kakveda_tpu/pipeline/warning.py``: build the signature text,
+match it against the GFKB (one kernel launch per batch over the hot rows,
+merged with the host tiers' top-k past the hot cap), compare the best score
+to the configured threshold (default 0.8), attach the citation pattern when
+the matched failure has its type, and answer block|warn|silent with a
+confidence.
+
+Device-loss degraded mode (``core/admission.DeviceHealth``): while the card
+is latched DEGRADED the match never dispatches; the GFKB's host tiers
+answer (``match_batch_fallback``) and every verdict says ``degraded=True``.
+A fresh backend error (a CUDA error, an armed ``device.unavailable``)
+latches the mode and takes the same fallback, so the request that finds
+the outage still gets a verdict. Any other error propagates.
 """
 
 from __future__ import annotations
 
 from typing import List, Optional, Sequence
 
+from kakveda_tpu_torch.core import admission as _admission
 from kakveda_tpu_torch.core.config import ConfigStore
 from kakveda_tpu_torch.core.fingerprint import signature_text
 from kakveda_tpu_torch.core.schemas import WarningRequest, WarningResponse
@@ -33,7 +41,19 @@ class WarningPolicy:
         threshold = self.config.similarity_threshold()
         default_action = self.config.default_action()
         sigs = [signature_text(r.prompt, r.tools, r.env) for r in reqs]
-        all_matches, tier_info = self.gfkb.match_batch_info(sigs)
+        health = _admission.get_device_health()
+        degraded = False
+        if health.degraded:
+            all_matches, tier_info = self.gfkb.match_batch_fallback(sigs)
+            degraded = True
+        else:
+            try:
+                all_matches, tier_info = self.gfkb.match_batch_info(sigs)
+            except Exception as e:  # noqa: BLE001 — classify, maybe degrade
+                if not health.note_failure(e, where="gfkb.match"):
+                    raise  # a software fault, not a lost card
+                all_matches, tier_info = self.gfkb.match_batch_fallback(sigs)
+                degraded = True
         patterns = self.gfkb.list_patterns()
 
         out: List[WarningResponse] = []
@@ -49,6 +69,7 @@ class WarningPolicy:
             common = dict(
                 confidence=score,
                 pattern_id=pattern_id,
+                degraded=degraded,
                 tier=tier_info.get("tier"),
                 nprobe=tier_info.get("nprobe"),
             )

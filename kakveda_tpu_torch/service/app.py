@@ -5,7 +5,9 @@ from the torch ``Platform`` (the index on the card). Route map:
 
   GET  /healthz /readyz        liveness; readiness with the GFKB count,
                                admission occupancy, the native library's
-                               status and the device (the card's name)
+                               status, the device (the card's name and
+                               the device-loss latch) and the GFKB's
+                               tiers (residency, routing, degraded warns)
   POST /ingest                 one trace (publish trace.ingested)
   POST /ingest/batch           a batch: one classify, one featurize, one
                                device scatter, one mining delta
@@ -52,7 +54,12 @@ from aiohttp import web
 from pydantic import ValidationError
 
 from kakveda_tpu_torch import native
-from kakveda_tpu_torch.core.admission import AdmissionController, OverloadError
+from kakveda_tpu_torch.core.admission import (
+    AdmissionController,
+    DeviceUnavailableError,
+    OverloadError,
+    get_device_health,
+)
 from kakveda_tpu_torch.core.runtime import ensure_request_id, get_runtime_config
 from kakveda_tpu_torch.core.schemas import (
     FailureMatchRequest,
@@ -89,10 +96,26 @@ def overload_response(e: OverloadError) -> web.Response:
     )
 
 
+def degraded_response(e: DeviceUnavailableError) -> web.Response:
+    """503 for device-loss degraded mode: retryable by contract (the probe
+    un-latches when the card answers again)."""
+    return web.json_response(
+        {
+            "ok": False,
+            "error": str(e),
+            "retry_after": round(e.retry_after, 2),
+            "degraded": True,
+        },
+        status=503,
+        headers={"Retry-After": str(max(1, int(round(e.retry_after))))},
+    )
+
+
 @web.middleware
 async def request_context_middleware(request: web.Request, handler):
     """Request id (echoed in the configured header) + duration logging;
-    a shed anywhere under the handler becomes the one 429 shape."""
+    a shed anywhere under the handler becomes the one 429 shape, and a
+    device path refused while degraded the one 503."""
     cfg = get_runtime_config(service_name="kakveda-tpu-torch")
     rid = ensure_request_id(request.headers.get(cfg.request_id_header))
     started = time.perf_counter()
@@ -100,6 +123,8 @@ async def request_context_middleware(request: web.Request, handler):
         response = await handler(request)
     except OverloadError as e:
         response = overload_response(e)
+    except DeviceUnavailableError as e:
+        response = degraded_response(e)
     except web.HTTPException as e:
         e.headers[cfg.request_id_header] = rid
         raise
@@ -163,12 +188,16 @@ def make_app(platform: Optional[Platform] = None, **platform_kw) -> web.Applicat
         return web.json_response({"ok": True})
 
     async def readyz(request):
+        """Readiness with the mode: a degraded platform still answers warns
+        from the host tiers, so ``ok`` stays true and ``device.degraded``
+        says how."""
         return web.json_response(
             {
                 "ok": True,
                 "gfkb_count": plat.gfkb.count,
-                "device": device,
+                "device": {**device, **get_device_health().info()},
                 "admission": adm.info(),
+                "tiers": plat.gfkb.tiers_info(),
                 "native": native.status(),
             }
         )

@@ -944,3 +944,36 @@ def test_get_runtime_puts_the_judge_on_the_platforms_card(gen, tmp_path, monkeyp
     finally:
         plat.close()
         TR.clear_runtimes()
+
+
+def test_sticky_cuda_error_is_served_degraded(gen, tmp_path):
+    """A real sticky CUDA error, in a child process (it poisons the
+    child's context for good): ``chip_smoke.py --sticky-child`` builds a
+    12,288-row store with the hot cap at 4,096 (mining on, so the overflow
+    attaches from the tiers), records warns, trips a device-side assert,
+    and must then answer every warn degraded and equal to the recorded one
+    (action and top-1, confidence within 1e-2: bf16 rows against f32; a
+    top-1 may differ only between rows tied within 1e-2, or an action on
+    the threshold's edge; the 48 stored signatures exactly), with
+    the error classified and latched, the probe failing and generation
+    refused in under a second."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent
+    p = subprocess.run(
+        [sys.executable, str(root / "chip_smoke.py"), "--sticky-child", str(tmp_path / "d"), "12288", "4096"],
+        capture_output=True, text=True, timeout=600,
+    )
+    line = next((ln for ln in p.stdout.splitlines() if ln.startswith("STICKY ")), None)
+    assert line, p.stdout[-3000:] + p.stderr[-3000:]
+    res = json.loads(line[len("STICKY "):])
+    assert p.returncode == 0 and res["ok"], res
+    agree = res["agreement"]
+    assert res["all_degraded"] and res["still_degraded"] and res["stored_equal"] == 48
+    assert agree["equal"] + agree["tie"] + agree["threshold"] == res["queries"], agree
+    assert res["before_tiers"] == ["tiered"] and set(res["after_tiers"]) <= {"warm", "warm_routed"}
+    assert "at gfkb.match" in res["reason"] and res["generate"] == "DeviceUnavailableError"
+    assert res["mining"]["tier_attaches"] == 12288 - 4096 and not res["mining"]["stale"]

@@ -98,7 +98,10 @@ def test_healthz_readyz(app, plat):
         assert r.status == 200 and (await r.json())["ok"]
         body = await (await client.get("/readyz")).json()
         assert body["ok"] and body["gfkb_count"] == 0
-        assert body["device"] == {"type": "cpu", "name": "cpu", "count": 1}
+        dev = body["device"]
+        assert {k: dev[k] for k in ("type", "name", "count")} == {"type": "cpu", "name": "cpu", "count": 1}
+        assert dev["degraded"] is False and dev["transitions"] == {"degraded": 0, "healthy": 0}
+        assert body["tiers"]["enabled"] and body["tiers"]["fallback"] == 0
         assert body["native"]["available"] is True and body["native"]["mode"] == "auto"
         assert body["admission"]["classes"]["warn"] == {"inflight": 0, "limit": 256}
 

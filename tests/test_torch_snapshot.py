@@ -274,9 +274,13 @@ def test_snapshot_sparse_files_and_corruption_fallback_matches_jax(tmp_path, dam
     assert (pd / "records.jsonl").read_bytes() == (jd / "records.jsonl").read_bytes()
     assert np.array_equal(np.load(pd / "clusters.npy"), np.load(jd / "clusters.npy"))
     jm, pm = json.loads((jd / "manifest.json").read_text()), json.loads((pd / "manifest.json").read_text())
+    # The tiers section too: the router state is the reference's, bit for bit.
     assert {k: v for k, v in pm.items() if k not in ("checksum", "mine")} == {
-        k: v for k, v in jm.items() if k not in ("checksum", "mine", "tiers")
+        k: v for k, v in jm.items() if k not in ("checksum", "mine")
     }
+    assert pm["tiers"] == {"n": 40, "hot": 40, "checksum": jm["tiers"]["checksum"]}
+    for name in ("centroids.npy", "tier_assign.npy"):
+        assert (pd / name).read_bytes() == (jd / name).read_bytes()
     assert pm["mine"]["n"] == jm["mine"]["n"] and pm["mine"]["threshold"] == jm["mine"]["threshold"]
     assert pm["checksum"] == GFKB._snapshot_checksum(pd)
 
