@@ -234,10 +234,38 @@ JAX package). Phases, each of which raises on failure (exit code != 0):
    phases exactly c's one latch and 1,025 degraded warns; phase 10's warn
    is not degraded. ``fused_topk``'s launches there are the kernel row's
    ``launches_tiers``.
+13. the serving engine's request lifecycle, inside phase 6's model
+   lifetime on its Llama-3-8B weights (8 slots, window 512, chunk 8; the
+   engine's backlog bound raised to 128 for b): a. 64 concurrent
+   ``generate_stream`` consumers × 64 greedy tokens over phase 6's prompts,
+   each stream's text equal to ``generate``'s for its prompt (or departing
+   at a near-tie, phase 6's margin rule); TTFT p50 / p99, the delta gap
+   p50 and tokens/s beside phase 6's ``generate_batch``; the bf16 kernel
+   launched 32 × forwards times (the row's ``launches_stream``). b. 8
+   streams closed at their first delta free all 8 slots within two chunks;
+   then 16 of 64 closed mid-decode and 4 requests cancelled while queued
+   (``fut.cancel()``, not counted): the ``cancelled`` outcome equals the
+   mid-decode closes, survivors equal their text. c. 4 requests past a
+   3 s deadline fail with ``DeadlineExceededError``, their tokens a prefix
+   of an undeadlined run (or a near-tie departure), their slots freed, no
+   restart; one queued behind them expires with no tokens. d. On the int8
+   cache, ``engine.dispatch`` armed with 8 requests in flight and 1 queued:
+   the 8 fail ``EngineRetryableError``, the queued one and a resubmit hold
+   their pre-crash tokens, the registered prefix hits after the rebuild,
+   allocated memory returns within one cache, and the restart's wall is
+   printed; a second engine with ``KAKVEDA_SERVE_RESTARTS=1`` and every
+   dispatch failing dies, and ``submit`` raises ``EngineDeadError`` in
+   under 1 s; the int8 kernel launched 32 × forwards times
+   (``launches_supervisor``). e. ``_sample_top_p`` at V = 128,256, B = 8:
+   the kept sets on the card equal the CPU's, 1,000 draws inside them,
+   ``top_p = 1e-9`` greedy. f. ``GET /metrics`` from a ``make_app`` in the
+   process: ``kakveda_serving_requests_total`` by outcome equals the
+   phase's own counts; ``GET /flightrecorder`` holds d's ``engine_error``
+   and ``engine_restart``.
 
-Prints a ``{"kernels": [...]}`` line (the flash rows with phase 9's and
-phase 10's launches beside phase 6's, and the judge shapes' times), the
-card line, and last ``{"ok": true, "device": {...}}``.
+Prints a ``{"kernels": [...]}`` line (the flash rows with phase 9's,
+phase 10's and phase 13's launches beside phase 6's, and the judge shapes'
+times), the card line, and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -1505,13 +1533,13 @@ class EngineRoutes:
                 ctx["layer"] += 1
             return res
 
-        def admit(prompt_ids, max_new_tokens=64, temperature=0.0):
+        def admit(prompt_ids, max_new_tokens=64, temperature=0.0, on_tokens=None):
             p = len(prompt_ids)
             off = cb.bucket_for(p, cb.max_len) - p
             self.admitted.append(cb._next_id)
             ctx.update(rows=[None] * off + [(cb._next_id, n) for n in range(p)], layer=0)
             try:
-                return real_admit(prompt_ids, max_new_tokens, temperature)
+                return real_admit(prompt_ids, max_new_tokens, temperature, on_tokens)
             finally:
                 ctx["rows"] = None
 
@@ -1631,6 +1659,463 @@ def step_times(rt, ids, out: dict, n_bytes: int, what: str, card: str, split=Non
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the engine's request lifecycle on the card (inside phase 6's
+# model lifetime, on its weights)
+# ---------------------------------------------------------------------------
+
+STREAMS = 64  # concurrent generate_stream consumers in a and b
+STREAM_TOKENS = 64
+LONG_TOKENS = 400  # c's requests: bucket 64 + 400 + 1 fits the 512 window
+DEADLINE_S = 3.0  # c's deadline: after 8 one-at-a-time admissions, before 400 tokens
+
+
+class StreamTokenizer(RecordingTokenizer):
+    """The byte tokenizer remembering, per thread, the ids of its last
+    ``decode``: a stream's last delta decodes all of its tokens, so each
+    consumer's tokens can be read back for the near-tie rule."""
+
+    def __init__(self):
+        super().__init__()
+        self.last = {}
+
+    def decode(self, ids):
+        self.last[threading.get_ident()] = list(ids)
+        return self._tok.decode(ids)
+
+
+def outcome_counts(engine: str) -> dict:
+    """``kakveda_serving_requests_total`` by outcome for one engine label,
+    read from the port's registry."""
+    from kakveda_tpu_torch.core import metrics
+
+    fam = metrics.get_registry().counter(
+        "kakveda_serving_requests_total", "Serving requests by outcome", ("engine", "outcome"))
+    return {key[1]: int(child.value) for key, child in fam._series() if key[0] == engine}
+
+
+def run_streams(rt, prompts, close_after_first=frozenset()):
+    """One ``generate_stream`` consumer thread per prompt, all released
+    together: per stream its submit-to-first-delta time, the gaps between
+    its deltas, its text and (from the tokenizer) its tokens; a stream in
+    ``close_after_first`` is closed at its first delta, with the time and
+    the engine's chunk count at the close. Returns (streams, wall)."""
+    eng = rt.engine()
+    res = [None] * len(prompts)
+    gate = threading.Barrier(len(prompts) + 1)
+
+    def consume(i):
+        gate.wait()
+        t0 = time.perf_counter()
+        times, parts = [], []
+        gen = rt.generate_stream(prompts[i], max_tokens=STREAM_TOKENS)
+        r = {}
+        try:
+            for d in gen:
+                times.append(time.perf_counter())
+                parts.append(d)
+                if i in close_after_first:
+                    r["chunks_at_close"] = eng.stats()["chunks"]
+                    gen.close()
+                    r["t_close"] = time.perf_counter()
+                    break
+        except BaseException as e:  # noqa: BLE001 — reported by the caller
+            r["error"] = e
+        r.update(t0=t0, times=times, text="".join(parts), ids=rt.tokenizer.last.get(threading.get_ident(), []))
+        res[i] = r
+
+    threads = [threading.Thread(target=consume, args=(i,)) for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    gate.wait()
+    t = time.perf_counter()
+    for th in threads:
+        th.join(timeout=600)
+        if th.is_alive():
+            raise AssertionError("phase 13: a stream consumer hung")
+    wall = time.perf_counter() - t
+    for i, r in enumerate(res):
+        if "error" in r:
+            raise AssertionError(f"phase 13: stream {i} failed: {type(r['error']).__name__}: {r['error']}")
+    return res, wall
+
+
+def hold_streams(rq, tok, prompt_ids, ref, items, what: str) -> dict:
+    """Each stream's text equals the reference's for its prompt, or its
+    tokens depart from the reference's at a near-tie (``margin_rule``):
+    the engine's rows run in another split schedule as other slots' rows
+    grow (the kernel's ``reach``), and bf16 sums in another order may flip
+    a nearer tie. ``items``: (prompt index, stream) pairs."""
+    equal, ties = 0, []
+    for j, s in items:
+        if s["text"] == ref[j][0]:
+            equal += 1
+            continue
+        m = margin_rule(rq.params, rq.cfg, tok, prompt_ids[j], ref[j][1], s["ids"], f"{what}, prompt {j}")
+        ties.append(0.0 if m is None else m)
+    log(f"{what}: {equal} of {len(items)} streams equal generate's text; {len(ties)} depart at a "
+        f"near-tie (solo margins {[round(m, 4) for m in ties]})")
+    return dict(equal=equal, near_tie=len(ties))
+
+
+def phase_lifecycle(rt, model_out: dict, card: str) -> dict:
+    """Phase 13 on phase 6's Llama-3-8B weights (8 slots, window 512,
+    chunk 8): a. 64 concurrent streams; b. cancel mid-decode and while
+    queued; c. deadlines; d. the supervisor on the int8 cache; e. top-p at
+    the full vocabulary; f. ``/metrics`` and ``/flightrecorder``."""
+    from concurrent.futures import CancelledError
+
+    from kakveda_tpu_torch.core import faults
+    from kakveda_tpu_torch.models.attention import flash_gqa_cache
+    from kakveda_tpu_torch.models.generate import LlamaRuntime, _sample_top_p, top_p_keep
+    from kakveda_tpu_torch.models.serving import (
+        DeadlineExceededError,
+        EngineDeadError,
+        EngineRetryableError,
+        ServingEngine,
+    )
+
+    cfg, out, tally = rt.cfg, {}, {}
+    tok = StreamTokenizer()
+    name = "llama3-8b-phase13"
+    rq = LlamaRuntime(cfg=cfg, params=rt.params, tokenizer=tok, model_label=name, device=rt.device)
+    # b holds 64 streams, their 16 cancels and 4 more requests in the
+    # engine's backlog at once: past the default bound of 64 it would shed.
+    os.environ["KAKVEDA_ADMIT_QUEUE"] = "128"
+    try:
+        eng = rq.engine()
+    finally:
+        del os.environ["KAKVEDA_ADMIT_QUEUE"]
+    if (eng.cb.B, eng.cb.max_len, eng.cb.chunk_steps) != (8, 512, 8):
+        raise AssertionError("phase 13: the engine is not 8 slots, window 512, chunk 8")
+    ids = [tok.encode(p) for p in PROMPTS]
+    ref = []
+    for p in PROMPTS:  # generate's text and tokens per prompt, each alone in the engine
+        r = rq.generate(p, max_tokens=STREAM_TOKENS)
+        ref.append((r.text, tok.last[threading.get_ident()]))
+    prompts = [PROMPTS[i % len(PROMPTS)] for i in range(STREAMS)]
+
+    # a. 64 streams
+    flash_gqa_cache.launches = 0
+    flash_gqa_cache.launches_kv8 = 0
+    f0 = eng.cb.forwards
+    streams, wall = run_streams(rq, prompts)
+    torch.cuda.synchronize()
+    n_fwd = eng.cb.forwards - f0
+    launches, other = flash_gqa_cache.launches, flash_gqa_cache.launches_kv8
+    if launches != cfg.n_layers * n_fwd or other != 0:
+        raise AssertionError(f"phase 13 a: {launches} launches for {n_fwd} forwards, {other} of the int8 kernel")
+    held = hold_streams(rq, tok, ids, ref, [(i % len(ids), s_) for i, s_ in enumerate(streams)], "phase 13 a")
+    ttft = [(s["times"][0] - s["t0"]) * 1e3 for s in streams]
+    gaps = [(b - a) * 1e3 for s in streams for a, b in zip(s["times"], s["times"][1:])]
+    n_tok = sum(len(s["ids"]) for s in streams)
+    out["a"] = dict(streams=STREAMS, tokens=n_tok, wall_s=wall, tokens_per_s=n_tok / wall,
+                    ttft_ms_p50=_pct(ttft, 0.5), ttft_ms_p99=_pct(ttft, 0.99), delta_gap_ms_p50=_pct(gaps, 0.5),
+                    generate_batch_tokens_per_s=model_out["bf16"]["tokens_per_s"],
+                    launches=launches, forwards=n_fwd, **held)
+    tally["completed"] = len(PROMPTS) + STREAMS
+    log(f"phase 13 a: {STREAMS} concurrent generate_stream consumers x {STREAM_TOKENS} tokens in {wall:.3f} s: "
+        f"{n_tok / wall:.1f} tokens/s (phase 6's generate_batch {model_out['bf16']['tokens_per_s']:.1f}); TTFT p50 "
+        f"{out['a']['ttft_ms_p50']:.2f} ms, p99 {out['a']['ttft_ms_p99']:.2f} ms; delta gap p50 "
+        f"{out['a']['delta_gap_ms_p50']:.2f} ms; {launches} flash launches = {cfg.n_layers} x {n_fwd} forwards "
+        f"[{card}]")
+
+    # b1. 8 streams on the 8 slots, each closed at its first delta: the
+    # slots free within two chunks of the last close.
+    c0 = outcome_counts(name).get("cancelled", 0)
+    first8, _ = run_streams(rq, PROMPTS, close_after_first=frozenset(range(len(PROMPTS))))
+    last_close = max(s["chunks_at_close"] for s in first8)
+    t = time.perf_counter()
+    while eng.cb.active and time.perf_counter() - t < 60:
+        time.sleep(0.001)
+    freed_after = eng.stats()["chunks"] - last_close
+    if eng.cb.active or freed_after > 2:
+        raise AssertionError(f"phase 13 b: {eng.cb.active} slots still held, {freed_after} chunks after the last close")
+    mid1 = sum(len(s["ids"]) < len(ref[i][1]) for i, s in enumerate(first8))
+    # b2. 64 streams, 16 closed at their first delta, and 4 requests
+    # cancelled while still queued behind them.
+    close = frozenset(range(0, STREAMS, STREAMS // 16))
+    queued, sub0 = [], eng.stats()["submitted"]
+
+    def cancel_queued():
+        while eng.stats()["submitted"] < sub0 + STREAMS:
+            time.sleep(0.0005)
+        for p_ids in ids[:4]:
+            f = eng.submit(p_ids, STREAM_TOKENS)
+            eng.cancel(f)
+            queued.append(f)
+
+    canceller = threading.Thread(target=cancel_queued)
+    canceller.start()
+    streams_b, _ = run_streams(rq, prompts, close_after_first=close)
+    canceller.join(timeout=60)
+    if len(queued) != 4 or not all(f.cancelled() for f in queued):
+        raise AssertionError("phase 13 b: a request cancelled while queued was not cancelled outright")
+    for f in queued:
+        try:
+            f.result(timeout=1)
+            raise AssertionError("phase 13 b: a cancelled queued request returned tokens")
+        except CancelledError:
+            pass
+    mid2 = sum(len(s["ids"]) < len(ref[i % len(ids)][1]) for i, s in enumerate(streams_b) if i in close)
+    held_b = hold_streams(rq, tok, ids, ref, [(i % len(ids), s_) for i, s_ in enumerate(streams_b) if i not in close],
+                          "phase 13 b survivors")
+    cancelled = outcome_counts(name).get("cancelled", 0) - c0
+    if cancelled != mid1 + mid2 or mid2 != len(close) or mid1 != len(PROMPTS):
+        raise AssertionError(f"phase 13 b: cancelled outcome {cancelled}, mid-decode closes {mid1} + {mid2}")
+    tally["completed"] += STREAMS - len(close)
+    tally["cancelled"] = cancelled
+    out["b"] = dict(closed_first8=len(first8), chunks_to_free=freed_after, closed=len(close), queued_cancelled=4,
+                    cancelled_outcome=cancelled, survivors_equal=held_b["equal"],
+                    survivors_near_tie=held_b["near_tie"])
+    log(f"phase 13 b: 8 streams closed at their first delta freed every slot {freed_after} chunk(s) after the last "
+        f"close; then {len(close)} of {STREAMS} closed mid-decode and 4 cancelled while queued (fut.cancel(), not "
+        f"counted): cancelled outcome {cancelled} = {mid1} + {mid2} [{card}]")
+
+    # c. deadlines: 4 long requests that cannot finish in DEADLINE_S beside
+    # 4 that have none, then one queued behind them whose deadline passes.
+    long_ref = [f.result(timeout=300) for f in [eng.submit(p_ids, LONG_TOKENS) for p_ids in ids[:4]]]
+    tally["completed"] += 4
+    r0 = eng.stats()["restarts"]
+
+    def admitted(fut_list, n):
+        # One at a time into an empty queue: with a backlog, the engine's
+        # deadline-aware shed would read a and b's queue waits (seconds)
+        # and shed the deadline at submit, as the reference does.
+        t_ = time.perf_counter()
+        while eng.cb.active < n:
+            if time.perf_counter() - t_ > 60:
+                raise AssertionError(f"phase 13 c: {eng.cb.active} of {n} requests admitted")
+            time.sleep(0.0005)
+        return fut_list
+
+    futs, plain = [], []
+    for k, p_ids in enumerate(ids):
+        if k < 4:
+            futs.append(eng.submit(p_ids, LONG_TOKENS, deadline_s=DEADLINE_S))
+        else:
+            plain.append(eng.submit(p_ids, 120))
+        admitted(futs, k + 1)
+    late = eng.submit(ids[0], 8, deadline_s=0.05)
+    partial = []
+    for f, want, p_ids in zip(futs, long_ref, ids):
+        try:
+            f.result(timeout=300)
+            raise AssertionError("phase 13 c: a request outlived its deadline")
+        except DeadlineExceededError as e:
+            if not 0 < len(e.tokens) < LONG_TOKENS:
+                raise AssertionError(f"phase 13 c: {len(e.tokens)} tokens at the deadline")
+            margin_rule(rq.params, rq.cfg, tok, p_ids, want[: len(e.tokens)], e.tokens, "phase 13 c")
+            partial.append(len(e.tokens))
+    t = time.perf_counter()
+    while eng.cb.active > 4 and time.perf_counter() - t < 60:
+        time.sleep(0.001)
+    freed = eng.cb.active <= 4
+    try:
+        late.result(timeout=60)
+        raise AssertionError("phase 13 c: the queued request outlived its deadline")
+    except DeadlineExceededError as e:
+        if e.tokens:
+            raise AssertionError("phase 13 c: the queued request decoded tokens")
+    for f in plain:
+        f.result(timeout=300)
+    tally["completed"] += 4
+    tally["deadline"] = 5
+    where = [e["where"] for e in eng.recorder.dump() if e["kind"] == "deadline"]
+    queued_where = [w for w in where if w != "mid-decode"]
+    if not freed or eng.stats()["restarts"] != r0 or where.count("mid-decode") != 4 \
+            or queued_where not in (["while queued"], ["expired before admission"]):
+        raise AssertionError(f"phase 13 c: slots freed {freed}, restarts {eng.stats()['restarts']}, {where}")
+    out["c"] = dict(partial_tokens=partial, queued_where=queued_where[0])
+    log(f"phase 13 c: 4 requests past a {DEADLINE_S} s deadline failed with DeadlineExceededError after {partial} tokens "
+        f"(each a prefix of its undeadlined run, or departing at a near-tie), their slots freed, no restart; "
+        f"the one queued behind them expired {queued_where[0]} with no tokens [{card}]")
+    counts = outcome_counts(name)
+    rq.close()
+
+    # d. the supervisor on the int8 cache
+    os.environ["KAKVEDA_KV_QUANT"] = "int8"
+    try:
+        r8 = LlamaRuntime(cfg=cfg, params=rt.params, tokenizer=tok, model_label=name + "-int8", device=rt.device)
+    finally:
+        del os.environ["KAKVEDA_KV_QUANT"]
+    name8 = r8.model_label
+    e8 = r8.engine()
+    head = tok.encode("System: you are the incident summarizer; answer in one short line. Incident ")
+    if not e8.register_prefix(head):
+        raise AssertionError("phase 13 d: the prefix was refused")
+    hp = [head + tok.encode(f"{i}: the {w} failed; summarize why.", bos=False)
+          for i, w in enumerate(["queue drain", "dns cache", "token mint", "rate gate",
+                                 "blob store", "cron fanout", "search shard", "session pin", "ledger sync"])]
+    flash_gqa_cache.launches = 0
+    flash_gqa_cache.launches_kv8 = 0
+    cbs, fwd0 = [e8.cb], e8.cb.forwards
+    solo8 = [f.result(timeout=300) for f in [e8.submit(p, 64) for p in hp]]
+    torch.cuda.synchronize()
+    cache_bytes = sum(t_.numel() * t_.element_size() for v in e8.cb.cache.values() if isinstance(v, list) for t_ in v)
+    mem_before = torch.cuda.memory_allocated()
+    started = threading.Semaphore(0)
+
+    def first_chunk():
+        fired = [False]
+
+        def on_tokens(new, done):
+            if not fired[0]:
+                fired[0] = True
+                started.release()
+        return on_tokens
+
+    inflight = [e8.submit(p, 256, on_tokens=first_chunk()) for p in hp[:8]]
+    queued8 = e8.submit(hp[8], 64)
+    for _ in inflight:
+        if not started.acquire(timeout=120):
+            raise AssertionError("phase 13 d: the 8 requests never started")
+    faults.arm("engine.dispatch:1:1")
+    for f in inflight:
+        try:
+            f.result(timeout=300)
+            raise AssertionError("phase 13 d: an in-flight request survived the crash")
+        except EngineRetryableError:
+            pass
+    got_q = queued8.result(timeout=300)
+    faults.disarm()
+    if e8.cb is cbs[0]:
+        raise AssertionError("phase 13 d: no rebuild")
+    cbs.append(e8.cb)
+    margin_rule(r8.params, r8.cfg, tok, hp[8], solo8[8], got_q, "phase 13 d queued")
+    again = e8.submit(hp[0], 64).result(timeout=300)
+    margin_rule(r8.params, r8.cfg, tok, hp[0], solo8[0], again, "phase 13 d resubmit")
+    with e8.cb.stats_lock:
+        hits = e8.cb.prefix_stats["hits"]
+    torch.cuda.synchronize()
+    mem_after = torch.cuda.memory_allocated()
+    ev = e8.recorder.dump()
+    t_err = next(e["t"] for e in ev if e["kind"] == "engine_error")
+    t_rst = next(e["t"] for e in ev if e["kind"] == "engine_restart")
+    if hits < 2 or abs(mem_after - mem_before) >= cache_bytes or e8.stats()["restarts"] != 1:
+        raise AssertionError(f"phase 13 d: prefix hits {hits} after the rebuild, memory {mem_before} -> {mem_after} "
+                             f"(a cache is {cache_bytes}), restarts {e8.stats()['restarts']}")
+    counts8 = outcome_counts(name8)
+    r8.close()
+    # ... then a budget of one restart and every dispatch failing: dead.
+    os.environ["KAKVEDA_SERVE_RESTARTS"] = "1"
+    try:
+        dead = ServingEngine(r8.params, r8.cfg, batch_slots=8, max_len=512, chunk_steps=8, eos_id=tok.EOS,
+                             name=name + "-dead")
+    finally:
+        del os.environ["KAKVEDA_SERVE_RESTARTS"]
+    cbs.append(dead.cb)
+    faults.arm("engine.dispatch:1:-1")
+    try:
+        try:
+            dead.submit(hp[0], 8).result(timeout=300)
+            raise AssertionError("phase 13 d: a request survived an armed dispatch")
+        except EngineRetryableError:
+            pass
+        t = time.perf_counter()
+        while dead.cb is cbs[-1] and time.perf_counter() - t < 60:
+            time.sleep(0.001)
+        cbs.append(dead.cb)
+        try:
+            dead.submit(hp[1], 8).result(timeout=300)
+            raise AssertionError("phase 13 d: the engine outlived its restart budget")
+        except EngineDeadError:
+            pass
+        if not dead._dead.wait(60):
+            raise AssertionError("phase 13 d: the engine never latched dead")
+        t = time.perf_counter()
+        try:
+            dead.submit(hp[2], 8)
+            raise AssertionError("phase 13 d: submit on a dead engine did not raise")
+        except EngineDeadError:
+            refuse_ms = (time.perf_counter() - t) * 1e3
+    finally:
+        faults.disarm()
+        dead.close()
+    torch.cuda.synchronize()
+    n_fwd8 = sum(cb.forwards for cb in cbs) - fwd0
+    l8, l16 = flash_gqa_cache.launches_kv8, flash_gqa_cache.launches
+    if refuse_ms >= 1000 or l8 != cfg.n_layers * n_fwd8 or l16 != 0:
+        raise AssertionError(f"phase 13 d: refusal {refuse_ms} ms, {l8} int8 launches for {n_fwd8} forwards, "
+                             f"{l16} bf16")
+    out["d"] = dict(restart_wall_s=t_rst - t_err, prefix_hits=hits, mem_before=mem_before, mem_after=mem_after,
+                    cache_bytes=cache_bytes, dead_refusal_ms=refuse_ms, launches=l8, forwards=n_fwd8)
+    log(f"phase 13 d (int8 cache): engine.dispatch crash with 8 in flight and 1 queued: the 8 failed "
+        f"EngineRetryableError, the queued one and a resubmit held their pre-crash tokens; restart wall "
+        f"{t_rst - t_err:.3f} s (error to rebuilt, prefix registered again: {hits} hits after it); allocated "
+        f"{mem_before} -> {mem_after} bytes (a cache is {cache_bytes}); a budget of 1 spent: submit raised "
+        f"EngineDeadError in {refuse_ms:.3f} ms; {l8} int8 flash launches = {cfg.n_layers} x {n_fwd8} forwards "
+        f"[{card}]")
+
+    # e. top-p at Llama-3's vocabulary on the card
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    logits = 3.0 * torch.randn((8, cfg.vocab_size), generator=gen, device="cuda")
+    kept = {}
+    for top_p in (0.5, 0.9, 0.95):
+        keep = top_p_keep(logits, 0.8, top_p)
+        plain = top_p_keep(logits.cpu(), 0.8, top_p)
+        if not torch.equal(keep.cpu(), plain):
+            raise AssertionError(f"phase 13 e: top_p {top_p}: the card's kept set differs from the CPU's")
+        g = torch.Generator(device="cuda").manual_seed(int(top_p * 100))
+        draws = torch.stack([_sample_top_p(logits, 0.8, top_p, g) for _ in range(125)])  # 1,000 draws
+        if not keep.gather(1, draws.T).all():
+            raise AssertionError(f"phase 13 e: top_p {top_p}: a draw outside the kept set")
+        kept[top_p] = keep.sum(-1).tolist()
+    if not torch.equal(_sample_top_p(logits, 0.8, 1e-9, gen), logits.argmax(-1)):
+        raise AssertionError("phase 13 e: top_p 1e-9 is not greedy")
+    out["e"] = dict(kept=kept)
+    log(f"phase 13 e: top-p at V = {cfg.vocab_size}, B = 8: kept sets card == CPU, sizes {kept}; 1,000 draws "
+        f"each inside; top_p 1e-9 greedy [{card}]")
+
+    # f. the metrics plane through make_app in this process
+    import re
+
+    from aiohttp.test_utils import TestClient, TestServer
+
+    from kakveda_tpu_torch.platform import Platform
+    from kakveda_tpu_torch.service.app import make_app
+
+    with tempfile.TemporaryDirectory(prefix="kakveda-metrics-") as d:
+        plat = Platform(data_dir=Path(d), capacity=1024, dim=1024, device=rt.device)
+
+        async def scrape():
+            client = TestClient(TestServer(make_app(plat)))
+            await client.start_server()
+            try:
+                return await (await client.get("/metrics")).text(), await (await client.get("/flightrecorder")).json()
+            finally:
+                await client.close()
+
+        try:
+            text, fr = asyncio.run(scrape())
+        finally:
+            plat.close()
+    scraped = {}
+    for ln in text.splitlines():
+        mt = re.match(r'kakveda_serving_requests_total\{engine="([^"]+)",outcome="([^"]+)"\} (\S+)', ln)
+        if mt:
+            scraped.setdefault(mt.group(1), {})[mt.group(2)] = int(float(mt.group(3)))
+    want8 = {"completed": len(hp) + 2}
+    if scraped.get(name) != tally or counts != tally or scraped.get(name8) != want8 or counts8 != want8:
+        raise AssertionError(f"phase 13 f: /metrics {scraped.get(name)} / {scraped.get(name8)} against the phase's "
+                             f"{tally} / {want8}")
+    rec = next((r for r in fr["recorders"] if r["name"] == f"serving/{name8}"), None)
+    kinds = [e["kind"] for e in rec["events"]] if rec else []
+    if kinds.count("engine_error") != 1 or kinds.count("engine_restart") != 1:
+        raise AssertionError(f"phase 13 f: /flightrecorder holds {kinds}")
+    for fam in ("queue_wait_seconds", "prefill_seconds", "ttft_seconds", "request_seconds", "tokens_per_second",
+                "chunk_seconds", "requests_total", "tokens_total", "engine_errors_total", "engine_restarts_total"):
+        if f"# TYPE kakveda_serving_{fam} " not in text:
+            raise AssertionError(f"phase 13 f: /metrics lacks kakveda_serving_{fam}")
+    out["f"] = dict(requests=scraped.get(name), requests_int8=scraped.get(name8))
+    log(f"phase 13 f: /metrics kakveda_serving_requests_total {scraped.get(name)} (the phase's {tally}), int8 "
+        f"engine {scraped.get(name8)}; /flightrecorder serving/{name8}: engine_error and engine_restart")
+    log("phase 13: " + json.dumps(out))
+    return out
+
+
+
+
 def phase_model(card: str) -> dict:
     from kakveda_tpu_torch.models.generate import LlamaRuntime
     from kakveda_tpu_torch.models.llama import LlamaConfig
@@ -1651,6 +2136,7 @@ def phase_model(card: str) -> dict:
     out = serve_engine(rt, tok, ids, "Llama-3-8B")
     step_times(rt, ids, out, n_bytes, "Llama-3-8B", card)
     log("model plane: " + json.dumps(out))
+    out["lifecycle"] = phase_lifecycle(rt, out, card)
     return out
 
 
@@ -4076,6 +4562,8 @@ def main() -> int:
         kernels.append(dict(
             name=kname, route="cuda", source="kakveda_tpu_torch/csrc/flash_gqa_cache.cu",
             replaces="kakveda_tpu/models/attention.py:284", launches=model[tag]["launches"],
+            **({"launches_stream": model["lifecycle"]["a"]["launches"]} if tag == "bf16" else
+               {"launches_supervisor": model["lifecycle"]["d"]["launches"]}),
             launches_mixtral=mixtral[tag]["launches"],
             launches_judge=judge["judge_launches"] if tag == "bf16" else None,
             launches_judge_solo=judge["arm_b_launches"] if tag == "bf16" else None,

@@ -19,12 +19,19 @@ the warn path then answers from the GFKB's host tiers with
 :class:`DeviceUnavailableError`, and a probe thread un-latches when the
 card answers again. :func:`get_device_health` is the process-global latch.
 
-Left for the admission slice (ROADMAP Queue 1 item 7): the brownout
-ladder, deadline shedding from the queue-wait history, tenant quotas
-inside the controller (the micro-batcher's tenant-fair composition and
-tenant-aware queue bound are ported), fleet pressure and the metric
-families (the latch keeps its transition and probe counts as plain
-integers; there is no flight recorder).
+The serving engine's part (:func:`get_admission`, the process-global
+controller ``ServingEngine.submit`` sheds through): the queue-wait history
+(:meth:`AdmissionController.note_wait`, :meth:`~AdmissionController.predicted_wait`)
+that the engine's deadline-aware shed reads, the ``kakveda_admission_shed_total``
+and ``kakveda_admission_wait_seconds`` families, and the starvation-promotion
+count of the engine's weighted-fair slot pick (:func:`note_tenant_promotion`).
+
+Left for the admission slice (ROADMAP Queue 1 item 5): the brownout
+ladder (the port stays at its level 0, the reference at rest: no class is
+shed and no token cap applies), tenant quotas inside the controller (the
+micro-batcher's tenant-fair composition and tenant-aware queue bound are
+ported), fleet pressure and the device latch's metric families (the latch
+keeps its transition and probe counts as plain integers).
 """
 
 from __future__ import annotations
@@ -34,9 +41,11 @@ import os
 import random
 import threading
 import time
+from collections import deque
 from typing import Dict, Optional, Tuple
 
 from kakveda_tpu_torch.core import faults as _faults
+from kakveda_tpu_torch.core import metrics as _metrics
 
 log = logging.getLogger("kakveda.admission")
 
@@ -94,6 +103,31 @@ def tenant_fair_enabled() -> bool:
     return os.environ.get("KAKVEDA_TENANT_FAIR", "1") != "0"
 
 
+# Starvation promotions of the fair schedulers, by plane (the serving
+# engine's weighted-fair slot pick is the one that promotes).
+_PROMOTIONS_LOCK = threading.Lock()
+_PROMOTIONS: Dict[str, int] = {}
+
+
+def note_tenant_promotion(plane: str) -> None:
+    """Count one starvation promotion (a waiting item admitted out of
+    deficit order after the most fair-scheduling rounds). ``plane`` is a
+    bounded name ("serving"), never a tenant id."""
+    with _PROMOTIONS_LOCK:
+        _PROMOTIONS[plane] = _PROMOTIONS.get(plane, 0) + 1
+    _metrics.get_registry().counter(
+        "kakveda_tenant_promotions_total",
+        "Starvation promotions by fair schedulers (a waiting item "
+        "admitted out of deficit order after max fair rounds)",
+        ("plane",),
+    ).labels(plane=plane).inc()
+
+
+def tenant_promotions() -> Dict[str, int]:
+    with _PROMOTIONS_LOCK:
+        return dict(_PROMOTIONS)
+
+
 class AdmissionController:
     """Bounded per-class admission with typed shedding.
 
@@ -103,6 +137,7 @@ class AdmissionController:
     """
 
     _DRAIN_WINDOW_S = 5.0
+    _WAIT_WINDOW = 64  # recent queue-wait samples per class
 
     def __init__(self):
         self.enabled = os.environ.get("KAKVEDA_ADMIT", "1") != "0"
@@ -122,6 +157,20 @@ class AdmissionController:
         self._drain_rate: Dict[str, float] = {k: 0.0 for k in CLASSES}
         self._ra_jitter = min(0.99, max(0.0, _env_float("KAKVEDA_ADMIT_RA_JITTER", 0.25)))
         self._sheds: Dict[str, int] = {}
+        self._waits: Dict[str, deque] = {k: deque(maxlen=self._WAIT_WINDOW) for k in CLASSES}
+        reg = _metrics.get_registry()
+        self._c_shed = reg.counter(
+            "kakveda_admission_shed_total",
+            "Requests shed by admission control, by class and reason "
+            "(queue_full|brownout|deadline|degraded|ratelimit)",
+            ("klass", "reason"),
+        )
+        h_wait = reg.histogram(
+            "kakveda_admission_wait_seconds",
+            "Observed downstream queue wait per admission class (feeds "
+            "deadline-aware shedding)", ("klass",),
+        )
+        self._m_wait = {k: h_wait.labels(klass=k) for k in CLASSES}
 
     def try_admit(self, klass: str) -> None:
         """Take a slot of ``klass`` or raise :class:`OverloadError`."""
@@ -169,8 +218,28 @@ class AdmissionController:
             return base
         return max(0.1, base * (1.0 + self._ra_jitter * (2.0 * random.random() - 1.0)))
 
+    def note_wait(self, klass: str, wait_s: float) -> None:
+        """Feed one observed downstream queue wait (the serving engine's
+        submit-to-admission): the history :meth:`predicted_wait` reads."""
+        self._m_wait[klass].observe(wait_s)
+        with self._lock:
+            self._waits[klass].append(wait_s)
+
+    def predicted_wait(self, klass: str) -> float:
+        """Pessimistic queue-wait estimate for a new request of ``klass``:
+        about the p95 of the recent waits, scaled by how full the class is.
+        Zero until a wait has been observed (never shed on no data)."""
+        with self._lock:
+            waits = sorted(self._waits[klass])
+            if not waits:
+                return 0.0
+            p95 = waits[min(len(waits) - 1, int(0.95 * len(waits)))]
+            load = self._inflight[klass] / max(1, self.limits[klass])
+        return p95 * (1.0 + load)
+
     def note_shed(self, klass: str, reason: str) -> None:
         """Count one rejection under ``klass/reason``."""
+        self._c_shed.labels(klass=klass, reason=reason).inc()
         key = f"{klass}/{reason}"
         with self._lock:
             self._sheds[key] = self._sheds.get(key, 0) + 1
@@ -379,7 +448,18 @@ class DeviceHealth:
 
 
 _GLOBAL_LOCK = threading.Lock()
+_ADMISSION: Optional[AdmissionController] = None
 _DEVICE_HEALTH: Optional[DeviceHealth] = None
+
+
+def get_admission() -> AdmissionController:
+    """The process-global controller the serving engine sheds through."""
+    global _ADMISSION
+    if _ADMISSION is None:
+        with _GLOBAL_LOCK:
+            if _ADMISSION is None:
+                _ADMISSION = AdmissionController()
+    return _ADMISSION
 
 
 def get_device_health() -> DeviceHealth:
@@ -394,12 +474,17 @@ def get_device_health() -> DeviceHealth:
 
 
 def reset_for_tests() -> None:
-    """Drop the global latch so the next :func:`get_device_health` builds
-    one from the current env. Tests that latch degraded mode call this in
-    teardown: one process runs every test, and a leaked latch would send
-    unrelated warns down the host fallback."""
-    global _DEVICE_HEALTH
+    """Drop the global latch and controller so the next
+    :func:`get_device_health` / :func:`get_admission` builds one from the
+    current env, and zero the promotion counts. Tests that latch degraded
+    mode or fill the wait history call this in teardown: one process runs
+    every test, and a leaked latch would send unrelated warns down the host
+    fallback."""
+    global _ADMISSION, _DEVICE_HEALTH
     with _GLOBAL_LOCK:
         if _DEVICE_HEALTH is not None:
             _DEVICE_HEALTH.unlatch("reset_for_tests")
+        _ADMISSION = None
         _DEVICE_HEALTH = None
+    with _PROMOTIONS_LOCK:
+        _PROMOTIONS.clear()

@@ -1,4 +1,5 @@
-"""Deterministic fault injection: the chaos harness of the GFKB lifecycle.
+"""Deterministic fault injection: the chaos harness of the GFKB lifecycle
+and the serving engine's supervisor.
 
 Port of ``kakveda_tpu/core/faults.py`` (the port keeps its own copy; it
 imports nothing of the JAX package). The site names are the reference's,
@@ -6,7 +7,7 @@ so one ``KAKVEDA_FAULTS`` / ``KAKVEDA_FAULTS_CRASH`` spec arms both
 packages.
 
 * A **fault site** is a named point in the code (``gfkb.append``,
-  ``gfkb.compact_fence``, …). Components resolve their sites once via
+  ``gfkb.compact_fence``, ``engine.dispatch``, ``engine.fetch``, …). Components resolve their sites once via
   :func:`site` and keep the object; the hot-path call is ``site.fire()``,
   a single attribute check when nothing is armed.
 * Arming is an env spec, ``KAKVEDA_FAULTS=site:prob:count,…`` (``prob``
@@ -14,9 +15,9 @@ packages.
   or :func:`arm` (tests). Arming mutates the existing site objects, so
   components built before ``arm()`` still inject. The RNG is seeded
   (``KAKVEDA_FAULTS_SEED``, default 0).
-* An injection raises :class:`FaultInjected` and adds one to the site's
-  ``injected`` count (kept across armings; the reference's metrics
-  counter comes with the port's ``core/metrics.py``).
+* An injection raises :class:`FaultInjected`, adds one to the site's
+  ``injected`` count (kept across armings) and increments
+  ``kakveda_faults_injected_total{site=…}`` on the metrics plane.
 * **Crash points** (:func:`arm_crash` / ``KAKVEDA_FAULTS_CRASH=site:nth,…``)
   are the power-cut mode: the n-th pass through the site hard-kills the
   process with ``os._exit(137)`` — no exception, no ``finally``, no
@@ -89,6 +90,7 @@ class FaultSite:
 _lock = threading.Lock()
 _sites: Dict[str, FaultSite] = {}
 _rng = random.Random(0)
+_m_injected = None  # resolved at the first injection: importing faults loads no metrics
 
 
 def site(name: str) -> FaultSite:
@@ -124,6 +126,15 @@ def _fire(s: FaultSite) -> None:
             s.remaining -= 1
             if s.remaining == 0:
                 s.armed = False
+    global _m_injected
+    if _m_injected is None:
+        from kakveda_tpu_torch.core import metrics as _metrics
+
+        _m_injected = _metrics.get_registry().counter(
+            "kakveda_faults_injected_total",
+            "Injected faults by site (KAKVEDA_FAULTS chaos harness)", ("site",),
+        )
+    _m_injected.labels(site=s.name).inc()
     log.warning("fault injected at %s (fired=%d)", s.name, s.fired)
     raise FaultInjected(s.name)
 

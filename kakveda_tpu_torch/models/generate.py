@@ -10,21 +10,29 @@ by design.
 ``decode_step`` over the shared cache, and :class:`DecodeSession` decodes a
 left-padded batch in resumable chunks on top of it.
 
+``generate_tokens(..., top_p=)`` samples from the nucleus
+(:func:`_sample_top_p`); its kept set equals the reference's on the same
+logits (at a 128,256-token vocabulary, but for the boundary token), and
+the draw comes from a ``torch.Generator``.
+
 ``LlamaRuntime`` serves ``generate``/``generate_batch`` through the shared
 continuous-batching engine (``models/serving.py``), with its prefix cache,
 and falls back to the reference's solo path (a :class:`DecodeSession` with
 ``KAKVEDA_PREFILL_CHUNK`` chunked prefill) when the engine is off or a
-request does not fit its window. Without weights it serves a model drawn
-from a seed, as the JAX runtime does without a checkpoint. While
-``DeviceHealth`` is latched DEGRADED, ``generate`` and ``generate_batch``
-fail fast with ``DeviceUnavailableError``. Not ported yet: streaming,
-nucleus sampling and speculative decoding.
+request does not fit its window. ``generate_stream`` yields text deltas as
+decode chunks land (the engine's ``on_tokens``, or one delta per solo
+chunk) and cancels its request when the consumer closes it or sets
+``cancel``. Without weights it serves a model drawn from a seed, as the JAX
+runtime does without a checkpoint. While ``DeviceHealth`` is latched
+DEGRADED, every generation entry point fails fast with
+``DeviceUnavailableError``. Not ported yet: speculative decoding.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import queue
 import threading
 import time
 from typing import List, Optional
@@ -53,12 +61,47 @@ def _last_logits(logits: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
     return mask_pad_vocab(logits[:, -1, :], cfg)
 
 
-def _sample(last: torch.Tensor, temperature: float, generator) -> torch.Tensor:
+def _sample(last: torch.Tensor, temperature: float, generator, top_p: float = 1.0) -> torch.Tensor:
     """[B] next ids: argmax (first maximum) at temperature 0, else a draw
-    from softmax(last / temperature)."""
+    from softmax(last / temperature), from its nucleus when top_p < 1."""
     if temperature <= 0.0:
         return last.argmax(dim=-1)
+    if top_p < 1.0:
+        return _sample_top_p(last, temperature, top_p, generator)
     return torch.multinomial(torch.softmax(last / temperature, dim=-1), 1, generator=generator)[:, 0]
+
+
+def top_p_keep(last: torch.Tensor, temperature: float, top_p: float) -> torch.Tensor:
+    """[B, V] bool: the nucleus of ``softmax(last / temperature)``. A token
+    is kept when the probability mass sorted before it is ``< top_p``, so
+    the most likely token always is; every token whose scaled logit ties
+    the cutoff's is kept with it, so the set does not depend on how a sort
+    orders equal values. The mass is summed in float64: an f32 cumulative
+    sum over a 128,256-token vocabulary moves between the card's scan and
+    the CPU's by more than a boundary token's mass, and the set would
+    depend on the device. The reference sums in f32, so at that vocabulary
+    the two packages may disagree on the boundary token; at small ones the
+    sets are equal. Called only for ``top_p < 1``: at 1 the sampler takes
+    the full softmax, as the reference's ``generate_tokens`` does."""
+    scaled = last / temperature
+    sorted_logits = torch.sort(scaled, dim=-1, descending=True).values
+    probs = torch.softmax(sorted_logits.double(), dim=-1)
+    keep_sorted = (torch.cumsum(probs, dim=-1) - probs) < top_p
+    inf = torch.tensor(float("inf"), device=last.device, dtype=scaled.dtype)
+    cutoff = torch.where(keep_sorted, sorted_logits, inf).amin(dim=-1, keepdim=True)
+    return scaled >= cutoff
+
+
+def _sample_top_p(last: torch.Tensor, temperature: float, top_p: float, generator) -> torch.Tensor:
+    """[B] nucleus draws: keep :func:`top_p_keep`, renormalize, sample from
+    ``generator``. The reference's ``_sample_top_p`` on the device, with
+    its kept set but for the boundary token at large vocabularies (see
+    :func:`top_p_keep`); ``jax.random`` and ``torch.Generator`` draw
+    different numbers, so the drawn token is held to that set, not to the
+    reference's token."""
+    scaled = last / temperature
+    masked = torch.where(top_p_keep(last, temperature, top_p), scaled, float("-inf"))
+    return torch.multinomial(torch.softmax(masked, dim=-1), 1, generator=generator)[:, 0]
 
 
 def _prefill_width(plen: int, chunk: int) -> int:
@@ -129,11 +172,14 @@ def generate_tokens(
     *,
     max_new_tokens: int = 64,
     temperature: float = 0.0,
+    top_p: float = 1.0,
     generator: Optional[torch.Generator] = None,
     eos_id: Optional[int] = None,
     max_len: Optional[int] = None,
 ) -> List[int]:
-    """Autoregressive decode of one prompt; returns only the new ids."""
+    """Autoregressive decode of one prompt; returns only the new ids.
+    ``temperature`` > 0 samples from ``generator``, from the nucleus of mass
+    ``top_p`` when it is below 1."""
     dev = params["embed"].device
     ml = max_len or _bucket_len(len(prompt_ids) + max_new_tokens + 1, cfg.max_seq_len)
     cache = init_cache(cfg, batch=1, max_len=ml, device=dev)
@@ -142,7 +188,7 @@ def generate_tokens(
     last = _last_logits(logits, cfg)
     out: List[int] = []
     for _ in range(max_new_tokens):
-        nxt = _sample(last, temperature, generator)
+        nxt = _sample(last, temperature, generator, top_p)
         tok = int(nxt[0])
         if eos_id is not None and tok == eos_id:
             break
@@ -286,6 +332,7 @@ class LlamaRuntime:
         self.model_label = model_label or f"llama-{self.cfg.n_layers}L-{self.cfg.d_model}d"
         self._engine = None
         self._engine_lock = threading.Lock()
+        self._retired = False
 
     @classmethod
     def from_env(cls, device=None) -> "LlamaRuntime":
@@ -305,13 +352,13 @@ class LlamaRuntime:
 
     def engine(self):
         """The shared online ServingEngine, built at first use, or None when
-        ``KAKVEDA_SERVE_CONTINUOUS=0``. ``KAKVEDA_SERVE_SLOTS`` /
-        ``_WINDOW`` / ``_CHUNK`` size the pool (8 slots, window
-        min(512, max_seq_len), chunk 8)."""
-        if os.environ.get("KAKVEDA_SERVE_CONTINUOUS", "1") == "0":
+        ``KAKVEDA_SERVE_CONTINUOUS=0`` or the runtime is retired.
+        ``KAKVEDA_SERVE_SLOTS`` / ``_WINDOW`` / ``_CHUNK`` size the pool (8
+        slots, window min(512, max_seq_len), chunk 8)."""
+        if os.environ.get("KAKVEDA_SERVE_CONTINUOUS", "1") == "0" or self._retired:
             return None
         with self._engine_lock:
-            if self._engine is None:
+            if self._engine is None and not self._retired:
                 from kakveda_tpu_torch.models.serving import ServingEngine
 
                 window = int(os.environ.get("KAKVEDA_SERVE_WINDOW", min(512, self.cfg.max_seq_len)))
@@ -321,15 +368,51 @@ class LlamaRuntime:
                     max_len=min(window, self.cfg.max_seq_len),
                     chunk_steps=int(os.environ.get("KAKVEDA_SERVE_CHUNK", "8")),
                     eos_id=self.tokenizer.EOS,
+                    name=self.model_label,
                 )
             return self._engine
 
     def close(self) -> None:
-        """Stop the engine's loop thread (pending requests fail)."""
+        """Stop the engine's loop thread (pending requests fail); the next
+        request builds a new one."""
         with self._engine_lock:
             if self._engine is not None:
                 self._engine.close()
                 self._engine = None
+
+    def retire(self) -> None:
+        """Stop the engine and bar rebuilding it: later requests take the
+        solo path."""
+        with self._engine_lock:
+            self._retired = True
+            if self._engine is not None:
+                self._engine.close()
+                self._engine = None
+
+    def serving_stats(self) -> dict:
+        """The engine pool's state for an operator (``ServingEngine.stats``
+        plus occupancy, size and window), without building an engine:
+        looking must not allocate a KV pool. ``engine`` is None before the
+        first request."""
+        eng = self._engine
+        stats = None
+        if eng is not None:
+            stats = {
+                **eng.stats(),
+                "active": eng.cb.active,
+                "slots": eng.cb.B,
+                "window": eng.cb.max_len,
+                "closed": eng._closed.is_set(),
+                "spec": None,
+            }
+        return {
+            "runtime": self.name,
+            "model": self.model_label,
+            "quant": self.quant or "none",
+            "kv_quant": self.cfg.kv_quant or "none",
+            "retired": self._retired,
+            "engine": stats,
+        }
 
     def _encode(self, prompt: str) -> List[int]:
         return self.tokenizer.encode(prompt)[-self.cfg.max_seq_len // 2 :]
@@ -394,7 +477,12 @@ class LlamaRuntime:
                         except (RuntimeError, TimeoutError):
                             pass  # an optimization only: the batch still runs
                 futs = [eng.submit(i, max_new_tokens=max_tokens) for i in ids]
-                return [f.result() for f in futs], {"continuous": True}
+                outs = [f.result() for f in futs]
+                extra = {"continuous": True}
+                tl = getattr(futs[0], "timeline", None)
+                if len(futs) == 1 and tl is not None:
+                    extra["serve"] = tl  # queue wait, prefill, TTFT, tokens/s
+                return outs, extra
             except RuntimeError:
                 pass  # engine closed or died between fits() and the results
         return self._generate_ids_chunked(ids, max_tokens), {}
@@ -413,6 +501,91 @@ class LlamaRuntime:
                 **extra,
             },
         )
+
+    def generate_stream(
+        self, prompt: str, *, model: Optional[str] = None, max_tokens: int = 64, cancel=None,
+    ):
+        """Text deltas as decode chunks land; joined, they equal
+        :meth:`generate`'s text.
+
+        Through the engine, each chunk's accepted tokens arrive by
+        ``on_tokens`` on the engine's loop thread, which only puts them in
+        a queue (a consumer that blocks must not stall every slot); when
+        the engine is off or the request does not fit, a solo
+        :class:`DecodeSession` yields one delta per chunk. A partial UTF-8
+        tail is held back until its bytes complete. ``cancel`` (a
+        ``threading.Event``) is read between deltas, also before the first
+        (a request still waiting for a slot cancels at once); closing the
+        generator does the same. Either frees the engine slot."""
+        get_device_health().check()  # degraded: fail fast, never dispatch
+        ids = self._encode(prompt)
+
+        def delta(all_ids: list, done: bool, prev: str):
+            text = self.tokenizer.decode(all_ids)
+            if not done:
+                text = text.rstrip("\ufffd")  # a partial multi-byte tail
+            if text.startswith(prev) and len(text) > len(prev):
+                return text[len(prev):], text
+            return "", prev
+
+        eng = self.engine()
+        if eng is not None and eng.fits(len(ids), max_tokens):
+            ch: "queue.Queue" = queue.Queue()
+            try:
+                fut = eng.submit(ids, max_tokens, on_tokens=lambda new, done: ch.put((list(new), done)))
+            except RuntimeError:
+                fut = None  # engine closed or dead: the solo path below
+            if fut is not None:
+                out: list = []
+                prev = ""
+                try:
+                    while True:
+                        try:
+                            new, done = ch.get(timeout=0.5)
+                        except queue.Empty:
+                            if cancel is not None and cancel.is_set():
+                                break
+                            if fut.done():  # the request failed or was cancelled
+                                fut.result()
+                                break
+                            continue
+                        out.extend(new)
+                        d, prev = delta(out, done, prev)
+                        if d:
+                            yield d
+                        if done:
+                            break
+                finally:
+                    # Abandoned (cancel, or close() raising GeneratorExit
+                    # at the yield): free the slot instead of decoding a
+                    # result nobody reads.
+                    if not fut.done():
+                        eng.cancel(fut)
+                return
+
+        pchunk = int(os.environ.get("KAKVEDA_PREFILL_CHUNK", "0"))
+        ml = _bucket_len(_prefill_width(len(ids), pchunk) + max_tokens + 1, self.cfg.max_seq_len)
+        sess = DecodeSession(self.params, self.cfg, [ids], chunk_steps=16, max_len=ml, prefill_chunk=pchunk)
+        eos = self.tokenizer.EOS
+        out = []
+        prev = ""
+        budget = min(max_tokens, sess.steps_left)
+        done = False
+        while budget > 0 and not done:
+            if cancel is not None and cancel.is_set():
+                break
+            chunk = sess.step_chunk(min(16, budget))
+            if chunk is None:
+                break
+            budget -= chunk.shape[1]
+            for t in chunk[0].tolist():
+                if t == eos or len(out) >= max_tokens:
+                    done = True
+                    break
+                out.append(t)
+            d, prev = delta(out, done or budget <= 0, prev)
+            if d:
+                yield d
 
     def generate_batch(self, prompts: list, *, model: Optional[str] = None, max_tokens: int = 64) -> list:
         """Batched generation: the whole list joins the shared slot pool, with

@@ -71,6 +71,11 @@ def list_models(runtime: "ModelRuntime") -> list:
     return [getattr(runtime, "name", "model")]
 
 
+def _serving_stats_unavailable(name: str) -> Dict[str, Any]:
+    """``serving_stats`` of a runtime with no serving engine."""
+    return {"runtime": name, "engine": None}
+
+
 class StubRuntime:
     """Deterministic canned-response backend — the hermetic test model."""
 
@@ -81,6 +86,9 @@ class StubRuntime:
 
     def list_models(self) -> list:
         return [self.model_label]
+
+    def serving_stats(self) -> Dict[str, Any]:
+        return _serving_stats_unavailable("stub")
 
     def generate(self, prompt: str, *, model: Optional[str] = None, max_tokens: int = 256) -> GenerateResult:
         started = time.perf_counter()
@@ -126,6 +134,9 @@ class OllamaRuntime:
             return names or [self.model]
         except Exception:  # noqa: BLE001
             return [self.model]
+
+    def serving_stats(self) -> Dict[str, Any]:
+        return _serving_stats_unavailable("ollama")
 
     def generate(self, prompt: str, *, model: Optional[str] = None, max_tokens: int = 256) -> GenerateResult:
         import httpx

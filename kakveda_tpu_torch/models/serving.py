@@ -1,10 +1,11 @@
 """Continuous batching — the online serving path.
 
-Counterpart of ``kakveda_tpu/models/serving.py`` (its core and the prefix
-cache; see the ROADMAP for what is not ported yet: speculative chunks and
-the prefix store's n-gram index they draft from, deadlines and cancel, the
-supervisor's restarts and its list of prefixes to register again, and the
-admission, metrics, ledger and trace hooks).
+Counterpart of ``kakveda_tpu/models/serving.py``: its core, the prefix
+cache, the request lifecycle (streaming, cancel, deadlines), the
+supervisor and the weighted-fair slot pick, reporting to the metrics plane
+(``core/metrics.py``). Not ported yet (ROADMAP): speculative chunks and the
+prefix store's n-gram index they draft from, the brownout ladder's
+class shed and token cap, and the ledger and trace hooks.
 
 A :class:`ContinuousBatcher` owns a fixed ``[B, KV, max_len, D]`` KV cache
 and treats the batch axis as B independent slots:
@@ -17,7 +18,9 @@ and treats the batch axis as B independent slots:
 * **step** advances every active slot by ``chunk_steps`` tokens, one
   :func:`_forward_wide` per token with per-slot positions; inactive slots
   decode garbage into their own rows, masked from everyone by ``kv_valid``;
-* **retire** frees EOS- or budget-finished slots on the host between chunks.
+* **retire** frees EOS- or budget-finished slots on the host between
+  chunks, and :meth:`ContinuousBatcher.cancel_request` frees a cancelled
+  or expired one.
 
 Greedy outputs are slot-for-slot identical to a solo ``generate_tokens``.
 Everything runs eagerly on one CUDA stream: a chunk is enqueued without
@@ -26,7 +29,8 @@ waiting for the card (host mirrors go up through pinned memory), and only
 engine can enqueue chunk i+1 before it reads chunk i.
 
 :class:`ServingEngine` puts one batcher behind a thread-safe ``submit`` →
-``Future`` API: one loop thread admits, steps and retires for every caller.
+``Future`` API: one loop thread admits, steps and retires for every caller,
+under a supervisor that rebuilds the batcher after a crash.
 """
 
 from __future__ import annotations
@@ -35,13 +39,18 @@ import logging
 import os
 import queue
 import threading
+import time
+import traceback
 from concurrent.futures import Future, InvalidStateError
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from kakveda_tpu_torch.core import admission as _admission
+from kakveda_tpu_torch.core import faults as _faults
+from kakveda_tpu_torch.core import metrics as _metrics
 from kakveda_tpu_torch.core.admission import get_device_health
 from kakveda_tpu_torch.models.attention import gqa_cache_attention
 from kakveda_tpu_torch.models.llama import (
@@ -63,6 +72,29 @@ from kakveda_tpu_torch.models.llama import (
 from kakveda_tpu_torch.ops.knn import pow2_bucket
 
 log = logging.getLogger("kakveda.serving")
+
+_GATE_STATES = ("disabled", "warmup", "on", "off")
+
+
+class EngineRetryableError(RuntimeError):
+    """An in-flight request was lost to a loop death; the supervisor is
+    rebuilding the engine, so resubmitting is safe (no tokens reached the
+    Future). A RuntimeError, so the runtime's solo fallback takes it."""
+
+
+class EngineDeadError(RuntimeError):
+    """The engine is dead for good: the restart budget
+    (``KAKVEDA_SERVE_RESTARTS``) is spent, or a rebuild failed. ``submit``
+    and ``register_prefix`` raise it at once."""
+
+
+class DeadlineExceededError(RuntimeError):
+    """A request's ``deadline_s`` passed before it completed; ``tokens``
+    holds what was decoded (empty when it expired while queued)."""
+
+    def __init__(self, message: str, tokens: Optional[List[int]] = None):
+        super().__init__(message)
+        self.tokens: List[int] = list(tokens or [])
 
 
 def _h2d(arr: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -164,11 +196,17 @@ class _Slot:
     max_new: int
     out: List[int] = field(default_factory=list)
     done: bool = False
+    on_tokens: Optional[Callable[[List[int], bool], None]] = None
 
 
 class ContinuousBatcher:
     """Admit-as-you-go generation over a fixed slot pool. Greedy by
-    default; a request's ``temperature`` samples that slot only."""
+    default; a request's ``temperature`` samples that slot only.
+
+    ``name`` labels its metric children (``kakveda_serving_*{engine=…}``,
+    resolved once here, so a per-chunk update is a lock and an add);
+    ``recorder`` is its engine's flight recorder. The speculation families
+    hold a ``spec_k = 0`` pool's values."""
 
     def __init__(
         self,
@@ -180,6 +218,8 @@ class ContinuousBatcher:
         chunk_steps: int = 8,
         eos_id: Optional[int] = None,
         generator: Optional[torch.Generator] = None,
+        name: str = "default",
+        recorder: Optional[_metrics.FlightRecorder] = None,
     ):
         self.params, self.cfg = params, cfg
         self.device = params["embed"].device
@@ -187,6 +227,62 @@ class ContinuousBatcher:
         self.chunk_steps = chunk_steps
         self.eos_id = eos_id
         self.generator = generator
+        self.name = name
+        self.recorder = recorder
+        # The loop thread mutates the stats while readers take snapshots:
+        # every mutation holds stats_lock, and readers go through
+        # stats_snapshot / ServingEngine.stats.
+        self.stats_lock = threading.RLock()
+        reg = _metrics.get_registry()
+        gate = reg.gauge(
+            "kakveda_serving_spec_gate_state",
+            "1 for the pool's current speculation gate state "
+            "(disabled|warmup|on|off)", ("engine", "state"),
+        )
+        for gs in _GATE_STATES:
+            gate.labels(engine=name, state=gs).set(1.0 if gs == "disabled" else 0.0)
+        chunk_hist = reg.histogram(
+            "kakveda_serving_chunk_seconds",
+            "Effective decode-chunk wall (dispatch to process, overlapped "
+            "under pipelining)", ("engine", "flavor"),
+        )
+        prefix_ctr = reg.counter(
+            "kakveda_serving_prefix_requests_total",
+            "Admissions by prefix-cache result", ("engine", "result"),
+        )
+        self._mx = {
+            "chunk_plain": chunk_hist.labels(engine=name, flavor="plain"),
+            "chunk_spec": chunk_hist.labels(engine=name, flavor="spec"),
+            "tokens": reg.counter(
+                "kakveda_serving_tokens_total", "Decode tokens emitted to callers", ("engine",),
+            ).labels(engine=name),
+            "drafted": reg.counter(
+                "kakveda_serving_spec_drafted_total",
+                "Speculative draft tokens sent to verify chunks", ("engine",),
+            ).labels(engine=name),
+            "accepted": reg.counter(
+                "kakveda_serving_spec_accepted_total",
+                "Speculative draft tokens accepted by verify chunks", ("engine",),
+            ).labels(engine=name),
+            "prefix_hit": prefix_ctr.labels(engine=name, result="hit"),
+            "prefix_miss": prefix_ctr.labels(engine=name, result="miss"),
+            "active": reg.gauge(
+                "kakveda_serving_active_slots",
+                "Occupied slots in the continuous-batching pool", ("engine",),
+            ).labels(engine=name),
+            "spec_k": reg.gauge(
+                "kakveda_serving_spec_k",
+                "Pool verify width of the most recent speculative chunk", ("engine",),
+            ).labels(engine=name),
+        }
+        reg.gauge(
+            "kakveda_serving_slots", "Total slots in the continuous-batching pool", ("engine",),
+        ).labels(engine=name).set(batch_slots)
+        # Chaos sites (core/faults.py): dispatch fires before a chunk is
+        # enqueued, fetch before a handle's tokens are read. Both escape to
+        # the engine's supervisor, which rebuilds the batcher wholesale.
+        self._fault_dispatch = _faults.site("engine.dispatch")
+        self._fault_fetch = _faults.site("engine.fetch")
         self.cache = init_cache(cfg, batch=batch_slots, max_len=max_len, device=self.device)
         self.last = torch.full((batch_slots, cfg.vocab_size), -1e30, device=self.device)
         # Host mirrors of the per-slot bookkeeping, uploaded once per chunk.
@@ -232,8 +328,14 @@ class ContinuousBatcher:
         while len(self._prefixes) >= max(1, maxp):
             self._prefixes.pop(next(iter(self._prefixes)))
         self._prefixes[ids] = _Prefix(ids=ids, kv={k: scratch[k] for k in keys})
-        self.prefix_stats["registered"] += 1
+        with self.stats_lock:
+            self.prefix_stats["registered"] += 1
         return True
+
+    def stats_snapshot(self) -> dict:
+        """The prefix stats, copied under the stats lock: the read API."""
+        with self.stats_lock:
+            return {"prefix": dict(self.prefix_stats)}
 
     def _prefix_prefill(self, ids: Tuple[int, ...]) -> dict:
         """One ``decode_step`` of the prefix into an exact-length ``[1, plen]``
@@ -283,12 +385,19 @@ class ContinuousBatcher:
     def active(self) -> int:
         return len(self.slots)
 
-    def admit(self, prompt_ids: List[int], max_new_tokens: int = 64, temperature: float = 0.0) -> int:
+    def admit(
+        self,
+        prompt_ids: List[int],
+        max_new_tokens: int = 64,
+        temperature: float = 0.0,
+        on_tokens: Optional[Callable[[List[int], bool], None]] = None,
+    ) -> int:
         """Prefill into a free slot; returns a request id. With a prefix
         match (unless ``KAKVEDA_SERVE_PREFIX=0``) the slab goes to rows
         ``[off, off + plen)`` of the scratch cache and one ``decode_step``
         of the suffix runs from row ``off + split``: RoPE rotates by the
-        logical position (row − off), so one slab serves every bucket."""
+        logical position (row − off), so one slab serves every bucket.
+        ``on_tokens(new, done)`` streams each chunk's accepted tokens."""
         if not self.free:
             raise RuntimeError("no free slot; call step() until one retires")
         p = len(prompt_ids)
@@ -297,6 +406,15 @@ class ContinuousBatcher:
         bucket = self.bucket_for(p, self.max_len)
         off = bucket - p
         slot = self.free.pop()
+        try:
+            return self._prefill_into(slot, prompt_ids, bucket, off, max_new_tokens, temperature, on_tokens)
+        except BaseException:
+            # A failed prefill (an OOM, a CUDA error) gives its slot back.
+            self.free.append(slot)
+            self._kv_np[slot] = False
+            raise
+
+    def _prefill_into(self, slot, prompt_ids, bucket, off, max_new_tokens, temperature, on_tokens) -> int:
         rid = self._next_id
         self._next_id += 1
         ar = np.arange(self.max_len)
@@ -310,8 +428,10 @@ class ContinuousBatcher:
         m = self._match_prefix(list(prompt_ids)) if os.environ.get("KAKVEDA_SERVE_PREFIX", "1") != "0" else None
         if m is not None:
             pe, split, _ = m
-            self.prefix_stats["hits"] += 1
-            self.prefix_stats["hit_tokens_saved"] += split
+            with self.stats_lock:
+                self.prefix_stats["hits"] += 1
+                self.prefix_stats["hit_tokens_saved"] += split
+            self._mx["prefix_hit"].inc()
             plen = len(pe.ids)
             for key, slabs in pe.kv.items():
                 for sk, pk in zip(scratch[key], slabs):
@@ -319,6 +439,7 @@ class ContinuousBatcher:
             scratch["pos"] = off + split
             prompt = torch.tensor([list(prompt_ids[split:])], dtype=torch.long, device=dev)
         else:
+            self._mx["prefix_miss"].inc()
             prompt = torch.tensor([[0] * off + list(prompt_ids)], dtype=torch.long, device=dev)
         logits, scratch = decode_step(
             self.params, self.cfg, prompt, scratch,
@@ -331,7 +452,8 @@ class ContinuousBatcher:
                 ck[slot].copy_(sk[0])
         self.last[slot] = mask_pad_vocab(logits[:, -1, :], self.cfg)[0]
         self.forwards += 1
-        self.slots[slot] = _Slot(req_id=rid, prompt_len=bucket, max_new=max_new_tokens)
+        self.slots[slot] = _Slot(req_id=rid, prompt_len=bucket, max_new=max_new_tokens, on_tokens=on_tokens)
+        self._mx["active"].set(len(self.slots))
         return rid
 
     def step_async(self):
@@ -341,9 +463,15 @@ class ContinuousBatcher:
         Retirement is then seen one chunk late: the overshoot steps write
         nothing past the window, each slot attends only its own rows, and
         :meth:`process_chunk` drops tokens of slots already done — outputs
-        equal the unpipelined path's."""
+        equal the unpipelined path's. The handle's snapshot shares the
+        ``_Slot`` objects: a slot retired meanwhile (by an earlier handle,
+        or by :meth:`cancel_request`) shows ``done`` there, and a slot
+        admitted again gets a new ``_Slot`` the snapshot does not hold, so
+        a stale chunk's tokens never reach its next occupant."""
         if not self.slots:
             return None
+        self._fault_dispatch.fire()
+        t_dispatch = time.perf_counter()
         self._grow_valid(self.chunk_steps)
         dev = self.device
         kv_valid = _h2d(self._kv_np, dev)
@@ -371,25 +499,28 @@ class ContinuousBatcher:
             self.forwards += 1
         self.last = last
         self._pos_np += self.chunk_steps  # every slot advances in lockstep
-        return toks, dict(self.slots)
+        return toks, dict(self.slots), t_dispatch
 
     def process_chunk(self, handle) -> List[int]:
         """Read an enqueued chunk's tokens and retire finished slots;
         returns the request ids that chunk completed."""
         if handle is None:
             return []
-        toks, snapshot = handle
+        self._fault_fetch.fire()
+        toks, snapshot, t_dispatch = handle
         toks_h = toks.cpu().numpy()
+        self._mx["chunk_plain"].observe(time.perf_counter() - t_dispatch)
         finished: List[int] = []
         for slot, st in snapshot.items():
             if st.done:
-                continue  # retired by an earlier chunk: overshoot tokens
+                continue  # retired by an earlier chunk or cancelled: overshoot tokens
             self._emit(slot, st, toks_h[slot], finished)
         return finished
 
     def _emit(self, slot: int, st: _Slot, tok_row, finished: List[int]) -> None:
-        """Accept a chunk's tokens into a slot (EOS / budget / window stops);
-        retire it when done."""
+        """Accept a chunk's tokens into a slot (EOS / budget / window stops),
+        stream them to ``on_tokens``, retire the slot when done."""
+        n_before = len(st.out)
         for t in tok_row:
             t = int(t)
             if self.eos_id is not None and t == self.eos_id:
@@ -399,12 +530,37 @@ class ContinuousBatcher:
             if len(st.out) >= st.max_new or st.prompt_len + len(st.out) + 1 >= self.max_len:
                 st.done = True
                 break
+        if len(st.out) > n_before:
+            self._mx["tokens"].inc(len(st.out) - n_before)
+        if st.on_tokens is not None:
+            # A consumer that raises just stops receiving; the loop goes on.
+            try:
+                st.on_tokens(st.out[n_before:], st.done)
+            except Exception:  # noqa: BLE001 — a gone stream consumer must not kill the loop
+                st.on_tokens = None
         if st.done:
             self.results[st.req_id] = st.out
             finished.append(st.req_id)
-            del self.slots[slot]
-            self.free.append(slot)
-            self._kv_np[slot] = False
+            self._retire(slot)
+
+    def _retire(self, slot: int) -> None:
+        del self.slots[slot]
+        self.free.append(slot)
+        self._kv_np[slot] = False
+        self._mx["active"].set(len(self.slots))
+
+    def cancel_request(self, rid: int) -> Optional[List[int]]:
+        """Retire a mid-decode request now, between chunks: returns its
+        partial tokens, frees the slot, and marks its ``_Slot`` done first,
+        so a chunk already enqueued under the pipelined loop treats the
+        slot's tokens as overshoot. None when ``rid`` is not active (done,
+        or never admitted)."""
+        for slot, st in list(self.slots.items()):
+            if st.req_id == rid:
+                st.done = True
+                self._retire(slot)
+                return st.out
+        return None
 
     def _grow_valid(self, steps: int) -> None:
         """Each active slot may read its next ``steps`` rows as it writes
@@ -449,9 +605,23 @@ def _fail(fut: Future, err: BaseException) -> None:
 class ServingEngine:
     """One shared ContinuousBatcher behind a thread-safe submit API: a loop
     thread admits requests as slots free up, steps every active slot
-    together and resolves each caller's Future. An exception in the loop
-    fails every pending Future and closes the engine (``submit`` then
-    raises); ``close()`` does the same for whatever is still pending."""
+    together and resolves each caller's Future.
+
+    The request lifecycle is the reference's: ``on_tokens`` streams each
+    chunk's tokens (on the loop thread: push to a queue and return),
+    :meth:`cancel` frees a request's slot at the next chunk boundary,
+    ``deadline_s`` retires a request that cannot finish in time with
+    :class:`DeadlineExceededError`, and ``tenant`` enters it into the
+    weighted-fair slot pick. Each request's timeline (queue wait, prefill,
+    TTFT, wall, tokens/s) goes to the ``kakveda_serving_*`` families, the
+    flight recorder ``serving/<name>`` and ``fut.timeline``.
+
+    A supervisor runs the loop: a crash fails the in-flight requests with
+    :class:`EngineRetryableError`, rebuilds the batcher (a fresh cache, the
+    registered prefixes registered again) and re-admits the queued ones,
+    with bounded exponential backoff, at most ``KAKVEDA_SERVE_RESTARTS``
+    (2) times; past that the engine is dead and ``submit`` raises
+    :class:`EngineDeadError` at once."""
 
     def __init__(
         self,
@@ -462,18 +632,112 @@ class ServingEngine:
         max_len: int = 512,
         chunk_steps: int = 8,
         eos_id: Optional[int] = None,
+        generator: Optional[torch.Generator] = None,
+        name: Optional[str] = None,
     ):
-        self.cb = ContinuousBatcher(
-            params, cfg, batch_slots=batch_slots, max_len=max_len, chunk_steps=chunk_steps,
-            eos_id=eos_id,
+        self.name = name or "default"
+        self.recorder = _metrics.FlightRecorder(f"serving/{self.name}")
+        # What a rebuild needs to construct a fresh batcher.
+        self._params, self._cfg = params, cfg
+        self._cb_kw = dict(
+            batch_slots=batch_slots, max_len=max_len, chunk_steps=chunk_steps,
+            eos_id=eos_id, generator=generator,
         )
+        self.cb = ContinuousBatcher(params, cfg, name=self.name, recorder=self.recorder, **self._cb_kw)
+        # The restart budget is read once: the supervisor must not change
+        # behaviour mid-life because the environment moved.
+        self._restart_budget = int(os.environ.get("KAKVEDA_SERVE_RESTARTS", "2"))
+        self._restarts = 0  # written by the loop thread only
+        self._dead = threading.Event()
+        # Prefixes registered on the live batcher, in order: a rebuild
+        # registers them again.
+        self._prefix_ids: List[Tuple[int, ...]] = []
+        reg = _metrics.get_registry()
+        el = {"engine": self.name}
+        self._m_requests = reg.counter(
+            "kakveda_serving_requests_total", "Serving requests by outcome", ("engine", "outcome"),
+        )
+        self._mx = {
+            "queue_wait": reg.histogram(
+                "kakveda_serving_queue_wait_seconds",
+                "Submit-to-admission wait in the serving engine queue", ("engine",),
+            ).labels(**el),
+            "prefill": reg.histogram(
+                "kakveda_serving_prefill_seconds",
+                "Admission prefill dispatch wall per request", ("engine",),
+            ).labels(**el),
+            "ttft": reg.histogram(
+                "kakveda_serving_ttft_seconds",
+                "Submit-to-first-token latency per request", ("engine",),
+            ).labels(**el),
+            "request": reg.histogram(
+                "kakveda_serving_request_seconds",
+                "Submit-to-completion wall per request", ("engine",),
+            ).labels(**el),
+            "rate": reg.histogram(
+                "kakveda_serving_tokens_per_second",
+                "Per-request decode rate (tokens / request wall)",
+                ("engine",), buckets=_metrics.RATE_BUCKETS,
+            ).labels(**el),
+            "errors": reg.counter(
+                "kakveda_serving_engine_errors_total",
+                "Serving-engine loop deaths (flight recorder dumped on each)", ("engine",),
+            ).labels(**el),
+            "restarts": reg.counter(
+                "kakveda_serving_engine_restarts_total",
+                "Supervisor restarts of a serving-engine loop after a crash "
+                "(bounded by KAKVEDA_SERVE_RESTARTS)", ("engine",),
+            ).labels(**el),
+        }
+        # The submit-side backlog bound: past it, submit sheds with a typed
+        # OverloadError (429 + Retry-After at the HTTP tier).
+        self._admit_queue = int(os.environ.get("KAKVEDA_ADMIT_QUEUE", "64"))
+        # Weighted-fair slot admission: a freed slot goes to the waiting
+        # head of the least-served tenant, and an item passed over
+        # KAKVEDA_TENANT_PROMOTE_ROUNDS times goes next whatever the
+        # deficit. Tenant-blind traffic, or KAKVEDA_TENANT_FAIR=0, is FIFO.
+        self._tenant_fair = _admission.tenant_fair_enabled()
+        self._promote_rounds = max(1, int(os.environ.get("KAKVEDA_TENANT_PROMOTE_ROUNDS", "8")))
+        self._fair_table_max = max(2, int(os.environ.get("KAKVEDA_TENANT_TABLE", "512")))
+        self._fair_served: Dict[str, int] = {}  # recent slot admissions per tenant
+        self._fair_picks = 0
+        self._fair_promotions = 0
+        # Generation items: (ids, max_new, temp, on_tokens, t_submit,
+        # deadline or None, fut); control items: ("cancel"|"prefix", …, fut).
         self._q: "queue.Queue[tuple]" = queue.Queue()
         self._closed = threading.Event()
-        self._lock = threading.Lock()  # the submit/close race and _waiting
+        self._submit_lock = threading.Lock()  # the submit/close race and _waiting
         self._pend: Dict[int, Future] = {}  # loop-owned: admitted requests
         self._waiting: List[tuple] = []  # submitted, waiting for a slot
+        self._track: Dict[int, dict] = {}  # loop-owned: per-request timelines
+        self._stats = {"submitted": 0, "completed": 0, "max_active": 0, "chunks": 0}
         self._thread = threading.Thread(target=self._loop, daemon=True, name="serving-engine")
         self._thread.start()
+
+    def stats(self) -> dict:
+        """A copy of the engine's counters and the batcher's prefix stats,
+        taken under the stats lock, with the supervisor's state and the
+        fair pick's: the read API (never the live dicts)."""
+        with self.cb.stats_lock:
+            snap = dict(self._stats)
+            snap["prefix"] = dict(self.cb.prefix_stats)
+        snap["restarts"] = self._restarts
+        snap["dead"] = self._dead.is_set()
+        with self._submit_lock:
+            snap["tenant_fair"] = {
+                "enabled": self._tenant_fair,
+                "served": dict(self._fair_served),
+                "promotions": self._fair_promotions,
+            }
+        return snap
+
+    def _bump(self, key: str, v: int = 1) -> None:
+        with self.cb.stats_lock:
+            self._stats[key] += v
+
+    def _note_active(self) -> None:
+        with self.cb.stats_lock:
+            self._stats["max_active"] = max(self._stats["max_active"], self.cb.active)
 
     def fits(self, prompt_len: int, max_new_tokens: int) -> bool:
         """True when the request runs in the pool without truncating where a
@@ -484,23 +748,101 @@ class ServingEngine:
             return False
         return ContinuousBatcher.bucket_for(prompt_len, ml) + max_new_tokens + 1 <= ml
 
-    def submit(self, prompt_ids: List[int], max_new_tokens: int = 64, temperature: float = 0.0) -> Future:
+    def _dead_error(self) -> EngineDeadError:
+        return EngineDeadError(
+            f"ServingEngine {self.name!r} is dead (restart budget exhausted after {self._restarts} restart(s))"
+        )
+
+    def submit(
+        self,
+        prompt_ids: List[int],
+        max_new_tokens: int = 64,
+        temperature: float = 0.0,
+        on_tokens: Optional[Callable[[List[int], bool], None]] = None,
+        deadline_s: Optional[float] = None,
+        klass: str = "interactive",
+        tenant: str = "",
+    ) -> Future:
         """Enqueue a request; the Future resolves to the generated id list.
-        While the card is latched DEGRADED it raises
-        ``DeviceUnavailableError`` at once (fail fast, never a hang)."""
-        get_device_health().check()
-        with self._lock:
+
+        ``on_tokens(new_ids, done)`` streams each chunk's accepted tokens,
+        on the loop thread: it must not block. ``deadline_s`` bounds the
+        submit-to-completion wall: past it the request retires at the next
+        chunk boundary and its Future fails with
+        :class:`DeadlineExceededError` carrying the partial tokens.
+        ``klass`` is the admission class; ``tenant`` (the app key) enters
+        the weighted-fair slot pick, and an empty one keeps the request
+        tenant-blind.
+
+        Before anything is enqueued: a degraded card fails fast with
+        ``DeviceUnavailableError``; a backlog of ``KAKVEDA_ADMIT_QUEUE``
+        (64) sheds with ``OverloadError``; and with a live backlog, a
+        ``deadline_s`` the observed queue waits say cannot be met is shed
+        now. Neither error is a RuntimeError, so a shed never takes a
+        caller's solo-decode fallback. (The brownout ladder is not ported:
+        the port stays at its level 0, which sheds no class and caps no
+        tokens.)"""
+        _admission.get_device_health().check()
+        adm = _admission.get_admission()
+        if adm.enabled:
+            with self._submit_lock:
+                backlog = self._q.qsize() + len(self._waiting)
+            if backlog >= self._admit_queue:
+                self._m_requests.labels(engine=self.name, outcome="shed").inc()
+                adm.shed(klass, "queue_full", detail=f"engine backlog {backlog} >= {self._admit_queue}",
+                         tenant=tenant)
+            if deadline_s is not None and backlog > 0:
+                # Only with a live backlog: an empty queue says the wait
+                # history describes a past storm, not this request's fate.
+                predicted = adm.predicted_wait(klass)
+                if predicted > deadline_s:
+                    self._m_requests.labels(engine=self.name, outcome="shed").inc()
+                    adm.shed(
+                        klass, "deadline",
+                        detail=f"predicted queue wait {predicted:.2f}s exceeds deadline {deadline_s:.2f}s",
+                        tenant=tenant,
+                    )
+        with self._submit_lock:
+            # Atomic with close()'s drain: a put between its _closed.set()
+            # and the drain would hang its caller.
+            if self._dead.is_set():
+                raise self._dead_error()
             if self._closed.is_set():
                 raise RuntimeError("ServingEngine is closed")
+            t0 = time.perf_counter()
             fut: Future = Future()
-            self._q.put((list(prompt_ids), max_new_tokens, temperature, fut))
+            fut.tenant = tenant
+            fut.fair_rounds = 0
+            self._q.put((
+                list(prompt_ids), max_new_tokens, temperature, on_tokens, t0,
+                t0 + deadline_s if deadline_s is not None else None, fut,
+            ))
+            self._bump("submitted")
             return fut
+
+    def generate_ids(self, prompt_ids: List[int], max_new_tokens: int = 64, temperature: float = 0.0) -> List[int]:
+        """Blocking submit."""
+        return self.submit(prompt_ids, max_new_tokens, temperature).result()
+
+    def cancel(self, fut: Future) -> None:
+        """Best-effort cancel: a request still queued cancels its Future
+        (never admitted, not counted); one mid-decode is retired by the loop
+        at the next chunk boundary, its slot freed, and its Future resolves
+        to the tokens decoded so far (outcome ``cancelled``)."""
+        if fut.cancel():
+            return
+        with self._submit_lock:
+            if self._closed.is_set():
+                return
+            self._q.put(("cancel", fut, fut))
 
     def register_prefix(self, prefix_ids: List[int], timeout: float = 120.0) -> bool:
         """``ContinuousBatcher.register_prefix`` on the loop thread (the
         batcher is the loop's, so a registration never races a chunk);
-        blocks for the answer."""
-        with self._lock:
+        blocks for the answer. A rebuild after a crash registers it again."""
+        with self._submit_lock:
+            if self._dead.is_set():
+                raise self._dead_error()
             if self._closed.is_set():
                 raise RuntimeError("ServingEngine is closed")
             fut: Future = Future()
@@ -508,13 +850,17 @@ class ServingEngine:
         return bool(fut.result(timeout=timeout))
 
     def close(self) -> None:
-        with self._lock:
+        with self._submit_lock:
             self._closed.set()
         self._thread.join(timeout=60.0)
         self._fail_all(RuntimeError("ServingEngine closed"))
 
     def _fail_all(self, err: BaseException) -> None:
-        with self._lock:
+        """Fail everything queued, waiting for a slot or mid-decode (close,
+        and the loop's own exit and death). Under the submit lock, so a
+        close() racing a loop that outlived its join cannot strand an item
+        both sides miss."""
+        with self._submit_lock:
             while True:
                 try:
                     *_, fut = self._q.get_nowait()
@@ -524,79 +870,332 @@ class ServingEngine:
             for item in self._waiting:
                 _fail(item[-1], err)
             self._waiting.clear()
-            for fut in self._pend.values():
+            for fut in list(self._pend.values()):
                 _fail(fut, err)
             self._pend.clear()
+            self._track.clear()
 
-    def _loop(self) -> None:
-        err: Optional[BaseException] = None
-        try:
-            if self.cb.device.type == "cuda":
-                torch.cuda.set_device(self.cb.device)
-            self._serve()
-        except Exception as e:  # noqa: BLE001 — a dead loop must not strand its callers
-            err = e
-            log.exception("serving engine loop died")
-            # A death that looks like the card going away (not a software
-            # fault) latches degraded mode: generation fails fast from then
-            # on and the probe owns recovery.
-            get_device_health().note_failure(e, where="engine.loop")
-        finally:
-            with self._lock:
-                self._closed.set()
-            self._fail_all(
-                RuntimeError(f"ServingEngine loop died: {type(err).__name__}: {err}")
-                if err is not None else RuntimeError("ServingEngine closed")
-            )
+    def _fail_inflight(self, err: BaseException) -> None:
+        """Fail only the requests admitted into the dead batcher (their slot
+        state is gone); queued and waiting ones stay for the rebuilt loop."""
+        with self._submit_lock:
+            for fut in list(self._pend.values()):
+                _fail(fut, err)
+            self._pend.clear()
+            self._track.clear()
 
-    def _register(self, item) -> None:
-        _, ids, fut = item
+    def _pick_waiting_locked(self):
+        """Pop the next waiting generation item for a freed slot (the
+        caller holds ``_submit_lock``; ``_waiting`` is not empty).
+
+        With the fair pick on: first, the earliest item passed over
+        ``_promote_rounds`` times goes, whatever the deficit (the
+        starvation bound: every pick ages every item left behind); else,
+        among each tenant's FIFO head, the tenant with the fewest recent
+        slot admissions. Tenant-blind traffic reduces to index 0 both ways,
+        exact FIFO, and ``KAKVEDA_TENANT_FAIR=0`` is ``pop(0)``."""
+        if not self._tenant_fair or len(self._waiting) <= 1:
+            return self._waiting.pop(0)
+        pick = None
+        for i, item in enumerate(self._waiting):
+            if getattr(item[-1], "fair_rounds", 0) >= self._promote_rounds:
+                pick = i
+                self._fair_promotions += 1
+                _admission.note_tenant_promotion("serving")
+                break
+        if pick is None:
+            seen = set()
+            best = None
+            pick = 0
+            for i, item in enumerate(self._waiting):
+                t = getattr(item[-1], "tenant", "")
+                if t in seen:
+                    continue  # only each tenant's FIFO head competes
+                seen.add(t)
+                s = self._fair_served.get(t, 0)
+                if best is None or s < best:
+                    best, pick = s, i
+        item = self._waiting.pop(pick)
+        t = getattr(item[-1], "tenant", "")
+        if t not in self._fair_served and len(self._fair_served) >= self._fair_table_max:
+            # A bounded table: the heaviest-served key goes, and re-enters
+            # at zero (a brief boost, the safe direction).
+            del self._fair_served[max(self._fair_served, key=self._fair_served.get)]
+        self._fair_served[t] = self._fair_served.get(t, 0) + 1
+        self._fair_picks += 1
+        if self._fair_picks % 1024 == 0:
+            # Decay: a fair share is a recent share, and zeros drop.
+            self._fair_served = {k: v // 2 for k, v in self._fair_served.items() if v // 2 > 0}
+        for other in self._waiting:
+            fut = other[-1]
+            fut.fair_rounds = getattr(fut, "fair_rounds", 0) + 1
+        return item
+
+    def _rebuild(self, dead: ContinuousBatcher) -> None:
+        """A fresh batcher after a loop death: the dead one's cache and
+        prefix slabs are dropped first (on the card the new cache takes
+        their memory, not memory beside them), the fair pick restarts from
+        what is still queued, and every registered prefix is registered
+        again, all before the new batcher is published as ``self.cb``. Loop
+        thread only."""
+        for key, val in dead.cache.items():
+            if isinstance(val, list):
+                val.clear()
+        dead._prefixes.clear()
+        dead.last = None
+        cb = ContinuousBatcher(self._params, self._cfg, name=self.name, recorder=self.recorder, **self._cb_kw)
+        for ids in list(self._prefix_ids):
+            try:
+                cb.register_prefix(list(ids))
+            except Exception as e:  # noqa: BLE001 — prefix reuse is an optimization; the rebuild must come up
+                log.warning("prefix re-registration failed after engine restart: %s", e)
+        with self._submit_lock:
+            self._fair_served.clear()
+            self._fair_picks = 0
+            for item in self._waiting:
+                item[-1].fair_rounds = 0
+        self.cb = cb
+
+    def _finish_telemetry(self, rid: int, n_tokens: int) -> Optional[dict]:
+        """Close a request's timeline: the lifecycle histograms, the
+        ``completed`` outcome, one flight-recorder event; returns the
+        timeline (it rides the caller's Future)."""
+        tr = self._track.pop(rid, None)
+        if tr is None:
+            return None
+        wall = time.perf_counter() - tr["submit"]
+        rate = n_tokens / wall if wall > 0 else 0.0
+        self._mx["request"].observe(wall)
+        if n_tokens:
+            self._mx["rate"].observe(rate)
+        self._m_requests.labels(engine=self.name, outcome="completed").inc()
+        tl = {
+            "request_id": rid,
+            "queue_wait_ms": round((tr["admit"] - tr["submit"]) * 1000, 3),
+            "prefill_ms": round(tr.get("prefill_s", 0.0) * 1000, 3),
+            "ttft_ms": round((tr["first"] - tr["submit"]) * 1000, 3) if tr["first"] is not None else None,
+            "wall_ms": round(wall * 1000, 3),
+            "tokens": n_tokens,
+            "tokens_per_s": round(rate, 2),
+        }
+        self.recorder.record("request", **tl)
+        return tl
+
+    def _finish_rids(self, rids: List[int]) -> None:
+        """Resolve completed requests' Futures, timelines attached: the one
+        completion path, shared by the serve loop and the deadline sweep."""
+        for rid in rids:
+            self._bump("completed")
+            fut = self._pend.pop(rid, None)
+            toks = self.cb.results.pop(rid, [])
+            tl = self._finish_telemetry(rid, len(toks))
+            if fut is not None:
+                if tl is not None:
+                    fut.timeline = tl
+                if not fut.done():
+                    try:
+                        fut.set_result(toks)
+                    except InvalidStateError:  # close() won the race
+                        pass
+
+    def _expire_item(self, fut: Future, tokens: List[int], where: str) -> None:
+        """Fail one request with the typed deadline error (its outcome and a
+        flight-recorder event ride along). Loop thread only."""
+        self._m_requests.labels(engine=self.name, outcome="deadline").inc()
+        self.recorder.record("deadline", tokens=len(tokens), where=where)
+        _fail(fut, DeadlineExceededError(f"deadline exceeded {where} ({len(tokens)} tokens decoded)", tokens))
+
+    def _expire_deadlines(self) -> None:
+        """Retire every request whose deadline passed: admitted ones through
+        ``cancel_request`` (done flag first, so a chunk in flight skips the
+        freed slot), waiting ones without taking a slot. Loop thread only."""
+        now = time.perf_counter()
+        for rid, tr in list(self._track.items()):
+            dl = tr.get("deadline")
+            if dl is None or now < dl:
+                continue
+            toks = self.cb.cancel_request(rid)
+            if toks is None:
+                if rid in self.cb.results:
+                    self._finish_rids([rid])  # finished before the sweep saw it
+                continue
+            fut = self._pend.pop(rid, None)
+            self._track.pop(rid, None)
+            if fut is not None:
+                self._expire_item(fut, toks, "mid-decode")
+        with self._submit_lock:
+            still = []
+            for item in self._waiting:
+                dl = item[5]
+                if dl is not None and now >= dl:
+                    self._expire_item(item[-1], [], "while queued")
+                else:
+                    still.append(item)
+            self._waiting[:] = still
+
+    def _control(self, item) -> None:
+        """A cancel or a prefix registration, at once (a cancel matters most
+        when the pool is full, so it never waits for a slot)."""
+        kind, a, fut = item
+        if kind == "cancel":
+            rid = next((r for r, f in self._pend.items() if f is fut), None)
+            if rid is None:
+                return  # already finished, or never admitted
+            toks = self.cb.cancel_request(rid)
+            self._pend.pop(rid, None)
+            self._track.pop(rid, None)
+            self._m_requests.labels(engine=self.name, outcome="cancelled").inc()
+            self.recorder.record("cancel", request_id=rid, tokens=len(toks or []))
+            if toks is None:
+                toks = self.cb.results.pop(rid, [])  # finished between chunks
+            if not fut.done():
+                try:
+                    fut.set_result(toks)
+                except InvalidStateError:  # lost the race with completion
+                    pass
+            return
         if not fut.set_running_or_notify_cancel():
             return
         try:
-            fut.set_result(self.cb.register_prefix(ids))
+            ok = self.cb.register_prefix(a)
+            if ok:
+                key = tuple(int(t) for t in a)
+                if key not in self._prefix_ids:
+                    self._prefix_ids.append(key)
+            fut.set_result(ok)
         except Exception as e:  # noqa: BLE001 — a registration's error is its caller's
             _fail(fut, e)
 
     def _admit_one(self, item) -> None:
-        ids, max_new, temp, fut = item
+        ids, max_new, temp, on_tokens, t_submit, deadline, fut = item
+        if deadline is not None and time.perf_counter() >= deadline:
+            self._expire_item(fut, [], "expired before admission")
+            return
         if not fut.set_running_or_notify_cancel():
             return  # cancelled while waiting
+        t_admit = time.perf_counter()
+        self._mx["queue_wait"].observe(t_admit - t_submit)
+        # The live queue-wait history the deadline-aware shed reads.
+        _admission.get_admission().note_wait("interactive", t_admit - t_submit)
+        track = {"submit": t_submit, "admit": t_admit, "first": None, "tokens": 0, "deadline": deadline}
+        mx_ttft = self._mx["ttft"]
+
+        def _on_tokens(new, done, _orig=on_tokens, _tr=track):
+            if _tr["first"] is None and new:
+                _tr["first"] = time.perf_counter()
+                mx_ttft.observe(_tr["first"] - _tr["submit"])
+            _tr["tokens"] += len(new)
+            if _orig is not None:
+                _orig(new, done)
+
         try:
-            rid = self.cb.admit(ids, max_new_tokens=max_new, temperature=temp)
-        except ValueError as e:  # the request's own fault (too long): the caller's error
-            fut.set_exception(e)
+            rid = self.cb.admit(ids, max_new_tokens=max_new, temperature=temp, on_tokens=_on_tokens)
+        except Exception as e:  # noqa: BLE001 — admission errors belong to the caller
+            # The future is RUNNING and in neither _waiting nor _pend: fail it
+            # here or its caller waits for ever. A CUDA error also latches
+            # degraded mode; a sticky one then fails the next chunk, and the
+            # supervisor takes over.
+            self._m_requests.labels(engine=self.name, outcome="rejected").inc()
+            get_device_health().note_failure(e, where="engine.admit")
+            _fail(fut, e)
             return
+        track["prefill_s"] = time.perf_counter() - t_admit
+        self._mx["prefill"].observe(track["prefill_s"])
+        self._track[rid] = track
         self._pend[rid] = fut
 
     def _pump(self, block: bool) -> None:
-        """Run prefix registrations at once and move new submissions to the
+        """Act on control items at once and move new submissions to the
         waiting list (blocking briefly when idle), then admit while slots
-        are free."""
+        are free. The hand-off to ``_waiting`` holds the submit lock;
+        admission runs outside it."""
         try:
             while True:
                 item = self._q.get(timeout=0.1) if block else self._q.get_nowait()
                 block = False
-                if item[0] == "prefix":
-                    self._register(item)
+                if item[0] in ("cancel", "prefix"):
+                    self._control(item)
                     continue
-                with self._lock:
+                with self._submit_lock:
                     self._waiting.append(item)
         except queue.Empty:
             pass
         while self.cb.has_capacity:
-            with self._lock:
+            with self._submit_lock:
                 if not self._waiting:
                     break
-                item = self._waiting.pop(0)
+                item = self._pick_waiting_locked()
             self._admit_one(item)
 
-    def _finish(self, rids: List[int]) -> None:
-        for rid in rids:
-            fut = self._pend.pop(rid, None)
-            toks = self.cb.results.pop(rid, [])
-            if fut is not None and not fut.done():
-                fut.set_result(toks)
+    def _loop(self) -> None:
+        """Supervise the serve loop (see the class docstring). Whatever ends
+        it, nothing pending is left to hang."""
+        try:
+            self._supervise()
+        finally:
+            self._fail_all(RuntimeError("ServingEngine closed"))
+
+    def _supervise(self) -> None:
+        if self.cb.device.type == "cuda":
+            torch.cuda.set_device(self.cb.device)
+        backoff = 0.1
+        while True:
+            try:
+                self._serve()
+                return  # clean close()
+            except Exception as e:  # noqa: BLE001 — a dead loop must not strand its callers
+                self._mx["errors"].inc()
+                # A death that looks like the card going away (not a
+                # software fault) latches degraded mode: generation fails
+                # fast from then on and the probe owns recovery.
+                get_device_health().note_failure(e, where="engine.loop")
+                self.recorder.record("engine_error", error=f"{type(e).__name__}: {e}")
+                log.error(
+                    "serving engine %s loop died (%s: %s); flight recorder dump: %s",
+                    self.name, type(e).__name__, e, self.recorder.dump_json(),
+                )
+                # The frames of the failed chunk hold the dead batcher's
+                # tensors; let them go before the rebuild allocates.
+                traceback.clear_frames(e.__traceback__)
+                if self._closed.is_set():
+                    self._fail_all(RuntimeError(f"ServingEngine closed (loop died during shutdown: {e})"))
+                    return
+                if self._restarts >= self._restart_budget:
+                    self._die(e)
+                    return
+                self._restarts += 1
+                self._mx["restarts"].inc()
+                self._fail_inflight(EngineRetryableError(
+                    f"ServingEngine loop died mid-decode ({type(e).__name__}: {e}); restarting — safe to resubmit"
+                ))
+                try:
+                    self._rebuild(self.cb)
+                except Exception as rebuild_err:  # noqa: BLE001 — a sticky CUDA error, an OOM
+                    log.error("serving engine %s rebuild failed: %s", self.name, rebuild_err)
+                    self._die(rebuild_err)
+                    return
+                self.recorder.record(
+                    "engine_restart", attempt=self._restarts, budget=self._restart_budget,
+                    backoff_s=round(backoff, 3),
+                )
+                log.warning(
+                    "serving engine %s restarted (%d/%d) after %s: %s; re-admitting queued requests",
+                    self.name, self._restarts, self._restart_budget, type(e).__name__, e,
+                )
+                if self._closed.wait(backoff):
+                    return
+                backoff = min(backoff * 2.0, 5.0)
+
+    def _die(self, cause: BaseException) -> None:
+        """Terminal death: latch ``_dead`` (submit and register_prefix
+        raise EngineDeadError from then on) and fail everything pending."""
+        with self._submit_lock:
+            self._dead.set()
+            self._closed.set()
+        self._fail_all(EngineDeadError(
+            f"ServingEngine loop died terminally after {self._restarts} restart(s): "
+            f"{type(cause).__name__}: {cause}"
+        ))
 
     def _serve(self) -> None:
         # Pipelined: enqueue chunk i+1 before reading chunk i's tokens, so the
@@ -604,10 +1203,15 @@ class ServingEngine:
         pending = None
         while not self._closed.is_set():
             self._pump(block=not self.cb.slots and pending is None and not self._waiting)
+            # Between chunks: expired requests retire through the done-flag
+            # path, safe while a chunk is in flight.
+            self._expire_deadlines()
             if self.cb.slots:
+                self._note_active()
                 handle = self.cb.step_async()
-                self._finish(self.cb.process_chunk(pending))
+                self._bump("chunks")
+                self._finish_rids(self.cb.process_chunk(pending))
                 pending = handle
             else:
-                self._finish(self.cb.process_chunk(pending))
+                self._finish_rids(self.cb.process_chunk(pending))
                 pending = None

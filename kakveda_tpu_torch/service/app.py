@@ -26,14 +26,20 @@ from the torch ``Platform`` (the index on the card). Route map:
                                a reload aborted it)
   GET  /health/{app_id}        health points
   POST /publish, GET /topics   the in-process bus
+  GET  /metrics                Prometheus text of the process-global
+                               registry (``core/metrics.py``: the serving
+                               engine's families and the fault sites')
+  GET  /flightrecorder         every live flight recorder's ring (each
+                               serving engine's request timelines, cancels,
+                               deadlines, loop deaths and restarts)
 
 Not registered yet, so they answer 404, with the ROADMAP Queue 1 item that
 brings each:
 
   /subscribe /unsubscribe      item 6 (the port's bus refuses URL
                                subscribers)
-  /replicate /fleet/*          item 6
-  /metrics /flightrecorder /trace*  item 5
+  /replicate /fleet/* /metrics/fleet  item 6
+  /trace /trace/{trace_id}     item 5 (``core/trace.py``)
 
 Also left for item 5: the per-client rate limiter, traffic capture, otel,
 the service's fault sites and the loop-stall watchdog. The reference's
@@ -54,6 +60,7 @@ from aiohttp import web
 from pydantic import ValidationError
 
 from kakveda_tpu_torch import native
+from kakveda_tpu_torch.core import metrics as _metrics
 from kakveda_tpu_torch.core.admission import (
     AdmissionController,
     DeviceUnavailableError,
@@ -146,6 +153,24 @@ def _device_info(device: torch.device) -> dict:
     if device.type == "cuda":
         return {"type": "cuda", "name": torch.cuda.get_device_name(device), "count": torch.cuda.device_count()}
     return {"type": device.type, "name": device.type, "count": 1}
+
+
+def metrics_routes() -> list:
+    """The metrics plane's routes: ``GET /metrics`` (the registry's
+    Prometheus text) and ``GET /flightrecorder`` (every live recorder's
+    ring as JSON). One registry per process, so any app that mounts them
+    shows the whole picture."""
+
+    async def metrics_ep(request):
+        return web.Response(
+            body=_metrics.get_registry().render().encode("utf-8"),
+            headers={"Content-Type": _metrics.PROMETHEUS_CONTENT_TYPE},
+        )
+
+    async def flightrecorder_ep(request):
+        return web.json_response({"recorders": _metrics.dump_recorders()})
+
+    return [web.get("/metrics", metrics_ep), web.get("/flightrecorder", flightrecorder_ep)]
 
 
 def make_app(platform: Optional[Platform] = None, **platform_kw) -> web.Application:
@@ -353,4 +378,5 @@ def make_app(platform: Optional[Platform] = None, **platform_kw) -> web.Applicat
             web.get("/topics", topics),
         ]
     )
+    app.add_routes(metrics_routes())
     return app

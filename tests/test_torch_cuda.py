@@ -977,3 +977,99 @@ def test_sticky_cuda_error_is_served_degraded(gen, tmp_path):
     assert res["before_tiers"] == ["tiered"] and set(res["after_tiers"]) <= {"warm", "warm_routed"}
     assert "at gfkb.match" in res["reason"] and res["generate"] == "DeviceUnavailableError"
     assert res["mining"]["tier_attaches"] == 12288 - 4096 and not res["mining"]["stale"]
+
+
+# ---------------------------------------------------------------------------
+# the engine's request lifecycle on the card: cancel under the pipelined
+# loop, the supervisor's rebuild, nucleus sampling
+# ---------------------------------------------------------------------------
+
+
+def _deficit(params, cfg, prompt, out):
+    """Teacher-forced: how far each token's logit lies below the argmax on
+    its own prefix (0 where the token is the argmax)."""
+    from kakveda_tpu_torch.models.llama import decode_step, init_cache, mask_pad_vocab
+
+    seq = torch.tensor([prompt + out], device="cuda")
+    logits, _ = decode_step(params, cfg, seq, init_cache(cfg, 1, seq.shape[1]))
+    lg = mask_pad_vocab(logits[0, len(prompt) - 1 : -1], cfg)
+    return (lg.max(dim=-1).values - lg[torch.arange(len(out)), torch.tensor(out)]).max().item()
+
+
+def test_cancelled_stream_frees_its_slot_for_the_next_occupant(gen, monkeypatch):
+    """One slot: a stream closed after its first delta cancels its request
+    under the pipelined loop (a chunk is in flight when the slot frees);
+    the next request takes the same slot at once and its tokens are its
+    own, each the argmax of its prefix within one bf16 step."""
+    from kakveda_tpu_torch.models.generate import LlamaRuntime
+
+    monkeypatch.setenv("KAKVEDA_SERVE_SLOTS", "1")
+    cfg, params = _small_bf16_model(gen)
+    rt = LlamaRuntime(cfg=cfg, params=params)
+    try:
+        eng = rt.engine()
+        stream = rt.generate_stream("a stream nobody finishes reading", max_tokens=100)
+        assert next(stream)
+        stream.close()
+        fut = eng.submit([5, 6, 7], 24)
+        out = fut.result(timeout=120)
+        torch.cuda.synchronize()
+        assert len(out) == 24 and _deficit(params, cfg, [5, 6, 7], out) <= 0.05
+        st = eng.stats()
+        assert st["completed"] == 1 and eng.cb.active == 0
+        assert [e["kind"] for e in eng.recorder.dump()].count("cancel") == 1
+    finally:
+        rt.close()
+
+
+def test_supervisor_rebuild_frees_the_old_cache(gen, monkeypatch):
+    """After an injected dispatch crash the rebuilt batcher's cache takes
+    the dead one's memory: allocated memory comes back within half a cache
+    of what it was, and the engine serves again."""
+    from kakveda_tpu_torch.core import faults
+    from kakveda_tpu_torch.models.serving import EngineRetryableError, ServingEngine
+
+    monkeypatch.setenv("KAKVEDA_SERVE_RESTARTS", "1")
+    cfg, params = _small_bf16_model(gen, "int8")
+    eng = ServingEngine(params, cfg, batch_slots=8, max_len=256, chunk_steps=8)
+    try:
+        eng.submit([5, 6, 7], 8).result(timeout=120)
+        torch.cuda.synchronize()
+        cache_bytes = sum(t.numel() * t.element_size() for v in eng.cb.cache.values()
+                          if isinstance(v, list) for t in v)
+        before = torch.cuda.memory_allocated()
+        dead = eng.cb
+        faults.arm("engine.dispatch:1:1")
+        with pytest.raises(EngineRetryableError):
+            eng.submit([5, 6, 7], 8).result(timeout=120)
+        for _ in range(600):
+            if eng.cb is not dead:
+                break
+            import time
+
+            time.sleep(0.05)
+        del dead
+        out = eng.submit([9, 8, 7], 8).result(timeout=120)
+        torch.cuda.synchronize()
+        assert len(out) == 8 and eng.stats()["restarts"] == 1
+        assert abs(torch.cuda.memory_allocated() - before) < cache_bytes / 2
+    finally:
+        faults.disarm()
+        eng.close()
+
+
+def test_top_p_kept_set_on_the_card_equals_the_cpu(gen):
+    """``_sample_top_p`` at Llama-3's vocabulary (128,256) and B = 8: the
+    card's kept set equals the plain CPU computation's as a set (a sort on
+    the card may order equal values otherwise), 1,000 draws fall inside
+    it, and at top_p = 1e-9 the draw is the argmax."""
+    from kakveda_tpu_torch.models.generate import _sample_top_p, top_p_keep
+
+    logits = 3.0 * torch.randn((8, 128256), generator=gen, device="cuda")
+    for top_p in (0.5, 0.9, 0.95):
+        keep = top_p_keep(logits, 0.8, top_p)
+        assert torch.equal(keep.cpu(), top_p_keep(logits.cpu(), 0.8, top_p))
+        g = torch.Generator(device="cuda").manual_seed(1)
+        draws = torch.stack([_sample_top_p(logits, 0.8, top_p, g) for _ in range(125)])  # 1,000 draws
+        assert keep.gather(1, draws.T).all()
+    assert torch.equal(_sample_top_p(logits, 0.8, 1e-9, torch.Generator(device="cuda")), logits.argmax(-1))

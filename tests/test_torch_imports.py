@@ -29,7 +29,7 @@ def test_import_loads_no_jax_in_fresh_interpreter():
         assert f"kakveda_tpu_torch.models.{m}" in mods
     for m in ("ops.clustering", "ops.incremental", "index.gfkb", "pipeline.patterns", "native",
               "core.runtime", "core.admission", "service.app", "service.batcher", "service.main",
-              "core.faults", "index.crashsweep", "index.tiers"):
+              "core.faults", "core.metrics", "index.crashsweep", "index.tiers"):
         assert f"kakveda_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -61,6 +61,7 @@ def test_import_loads_no_jax_in_fresh_interpreter():
         ("kakveda_tpu_torch.index.crashsweep", False),
         ("kakveda_tpu_torch.index.tiers", False),
         ("kakveda_tpu_torch.core.admission", False),
+        ("kakveda_tpu_torch.core.metrics", False),
         ("kakveda_tpu_torch.pipeline.warning", False),
         ("kakveda_tpu_torch.service.app", True),
     ],

@@ -15,13 +15,13 @@ import zlib
 import numpy as np
 import pytest
 
-from kakveda_tpu import native as jax_native
 from kakveda_tpu.core.fingerprint import signature_text
 from kakveda_tpu.index.gfkb import GFKB as JaxGFKB
 from kakveda_tpu.ops.featurizer import HashedNGramFeaturizer as JaxFeaturizer
 from kakveda_tpu_torch import native
 from kakveda_tpu_torch.index.gfkb import GFKB
 from kakveda_tpu_torch.ops.featurizer import HashedNGramFeaturizer, dense_rows_to_sparse
+from test_torch_tiers import jax_native_lib  # noqa: F401 — the JAX library, loaded once per worker
 
 WORDS = (
     "summarize document citations references explain paper timeout tool search "
@@ -53,11 +53,10 @@ def _signatures(n: int, seed: int):
 
 
 @pytest.fixture(scope="module")
-def libs():
-    port, ref = native.load(), jax_native.load()
+def libs(jax_native_lib):
+    port = native.load()
     assert port is not None, native.status()
-    assert ref is not None, "the JAX package's native library must build for the parity test"
-    return port, ref
+    return port, jax_native_lib
 
 
 def test_crc32_matches_zlib(libs):

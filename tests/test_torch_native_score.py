@@ -17,6 +17,7 @@ from kakveda_tpu import native as jax_native
 from kakveda_tpu_torch import native
 from kakveda_tpu_torch.core import faults
 from kakveda_tpu_torch.index.tiers import TierConfig, TieredIndex
+from test_torch_tiers import jax_native_lib  # noqa: F401 — the JAX library, loaded once per worker
 
 
 @pytest.fixture
@@ -285,11 +286,9 @@ def test_min_rows_floor_keeps_tiny_scans_numpy():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.usefixtures("needs_native")
+@pytest.mark.usefixtures("needs_native", "jax_native_lib")
 @pytest.mark.parametrize("threads", [1, 4])
 def test_scorers_bit_equal_to_jax_library(threads):
-    if jax_native.load() is None:
-        pytest.skip("the JAX package's native library is unavailable")
     rng = np.random.default_rng(3)
     dim, n, k, b = 512, 40000, 64, 3
     idx = rng.integers(0, dim + 1, size=(n, k)).astype(np.int32)

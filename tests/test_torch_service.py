@@ -202,7 +202,7 @@ def test_validation_errors(app):
 @pytest.mark.parametrize("method,path", [
     ("post", "/subscribe"), ("post", "/unsubscribe"), ("post", "/replicate"),
     ("post", "/fleet/gossip"), ("get", "/fleet/ownership"), ("post", "/fleet/export"),
-    ("get", "/metrics"), ("get", "/flightrecorder"), ("get", "/trace"),
+    ("get", "/metrics/fleet"), ("get", "/trace/0af7651916cd43dd8448eb211c80319c"), ("get", "/trace"),
 ])
 def test_unported_routes_answer_404(app, method, path):
     async def go(client):

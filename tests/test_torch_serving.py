@@ -23,7 +23,7 @@ from kakveda_tpu.models.serving import ContinuousBatcher as JBatcher
 from kakveda_tpu_torch.convert import llama_params_from_jax
 from kakveda_tpu_torch.models import generate as TG
 from kakveda_tpu_torch.models.llama import LlamaConfig as TConfig
-from kakveda_tpu_torch.models.serving import ContinuousBatcher, ServingEngine
+from kakveda_tpu_torch.models.serving import ContinuousBatcher, EngineDeadError, ServingEngine
 
 torch.set_num_threads(2)
 
@@ -128,7 +128,12 @@ def test_runtime_solo_fallback_matches_engine(weights):
         trt.close()
 
 
-def test_engine_loop_failure_fails_pending_futures(weights):
+def test_engine_loop_failure_fails_pending_futures(weights, monkeypatch):
+    """Twin of ``tests/test_serving.py::test_serving_engine_loop_death_fails_futures_not_hangs``:
+    with no restart budget a loop death fails the pending future with
+    ``EngineDeadError`` ("died terminally") instead of leaving it to hang,
+    and later ``submit`` and ``register_prefix`` raise it at once."""
+    monkeypatch.setenv("KAKVEDA_SERVE_RESTARTS", "0")
     _, tp = weights
     eng = ServingEngine(tp, TCFG, batch_slots=2, max_len=64, chunk_steps=2)
 
@@ -137,12 +142,15 @@ def test_engine_loop_failure_fails_pending_futures(weights):
 
     eng.cb.step_async = boom
     fut = eng.submit([5, 6, 7], max_new_tokens=4)
-    with pytest.raises(RuntimeError, match="loop died.*injected"):
+    with pytest.raises(EngineDeadError, match="died terminally.*injected"):
         fut.result(timeout=60)
+    assert eng._dead.wait(timeout=10)
     eng._thread.join(timeout=10)
     assert not eng._thread.is_alive()
-    with pytest.raises(RuntimeError, match="closed"):
+    with pytest.raises(EngineDeadError):
         eng.submit([1, 2], max_new_tokens=2)
+    with pytest.raises(EngineDeadError):
+        eng.register_prefix(list(range(16)))
     eng.close()
 
 

@@ -13,17 +13,29 @@ bit-equal; hot scores within 1e-5, ``tests/test_torch_knn.py``'s
 tolerance: f32 sums in another order). A data dir with a ``tiers`` section
 opens in each package after the other wrote it, the router restored, not
 rebuilt.
+
+Every parity test holds the JAX side to its C++ library (the
+``jax_native_lib`` fixture): the reference's Python fallback differs from
+its C++ encoder and scorer by up to 2 float32 ulps, so a worker whose
+``kakveda_tpu.native.load()`` once failed (another xdist worker's ``make``
+was linking the library in place) would compare the port's C++ against the
+reference's Python, as ``test_jax_fallback_breaks_bit_equality`` shows.
 """
 
+import fcntl
 import json
 import logging
+import tempfile
 import threading
+import time
 from datetime import datetime, timezone
+from pathlib import Path
 
 import numpy as np
 import pytest
 
 import kakveda_tpu.index.gfkb as jax_gfkb_mod
+import kakveda_tpu.native as jax_native
 import kakveda_tpu_torch.index.gfkb as port_gfkb_mod
 from kakveda_tpu.core import faults as jax_faults
 from kakveda_tpu.index.tiers import TierConfig as JaxTierConfig
@@ -34,6 +46,38 @@ from kakveda_tpu_torch.index.tiers import CoarseRouter, TierConfig, TieredIndex
 
 HOT_ATOL = 1e-5
 TS = datetime(2026, 1, 2, 3, 4, 5, 678901, tzinfo=timezone.utc)
+JAX_NATIVE_WAIT_S = 120.0
+
+
+@pytest.fixture(scope="module")
+def jax_native_lib():
+    """The JAX package's native library, loaded before a parity test runs.
+
+    ``kakveda_tpu.native.load()`` runs ``make``, which links the library in
+    place, and latches its first failure for the process's life. Under
+    xdist one worker's ``ctypes.CDLL`` can meet the half-written file of
+    another's link, or its ``make`` can time out under load. So: one
+    worker at a time (an ``fcntl`` lock under the system temp dir), the
+    latch reset before each try, tries for ``JAX_NATIVE_WAIT_S`` in all,
+    and a plain failure when the library never loads."""
+    deadline = time.monotonic() + JAX_NATIVE_WAIT_S
+    with open(Path(tempfile.gettempdir()) / "kakveda-jax-native.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            while True:
+                jax_native._load_attempted = False
+                lib = jax_native.load()
+                if lib is not None or time.monotonic() >= deadline:
+                    break
+                time.sleep(1.0)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    if lib is None:
+        pytest.fail(
+            f"the JAX package's native library did not load within {JAX_NATIVE_WAIT_S:.0f} s "
+            "(kakveda_tpu/native: make); the parity tests compare against it"
+        )
+    return lib
 
 
 @pytest.fixture(autouse=True)
@@ -481,6 +525,7 @@ def _queries(idx, val, rng, m):
     return idx[qi], q_val.astype(np.float32)
 
 
+@pytest.mark.usefixtures("jax_native_lib")
 @pytest.mark.parametrize("native_on", [True, False], ids=["native", "numpy"])
 @pytest.mark.parametrize("exact", [None, True], ids=["routed", "exact"])
 def test_match_host_batch_bit_equal_to_jax(native_on, exact):
@@ -501,6 +546,7 @@ def test_match_host_batch_bit_equal_to_jax(native_on, exact):
         assert port.scorer.calls["ivf" if exact is None else "warm"] > 0
 
 
+@pytest.mark.usefixtures("jax_native_lib")
 def test_router_state_bit_equal_to_jax():
     """The same add_batch sequence (spawns and 2-means splits included) and
     the same mining re-seed leave bit-equal router states."""
@@ -539,6 +585,7 @@ def _hot_cap_corpus(n):
     ]
 
 
+@pytest.mark.usefixtures("jax_native_lib")
 def test_hot_cap_from_env_gives_the_jax_tier_and_ids(tmp_path, monkeypatch):
     """Past ``KAKVEDA_GFKB_HOT_ROWS`` (16 here, 5,000 rows, so the overflow
     routes) the port answers from the same tier with the same failure ids
@@ -577,6 +624,53 @@ def test_hot_cap_from_env_gives_the_jax_tier_and_ids(tmp_path, monkeypatch):
         j.close()
 
 
+@pytest.mark.usefixtures("jax_native_lib")
+@pytest.mark.parametrize("case", ["routed", "exact", "hot_cap"])
+def test_jax_fallback_breaks_bit_equality(case, tmp_path, monkeypatch):
+    """The cause of the parity tests' flakes, shown: with the JAX
+    package's native library made unavailable (``_lib = None`` and the
+    load latched, as a worker whose load met a half-linked file has it), a
+    fresh JAX ``TieredIndex`` / ``GFKB`` scores in Python and the
+    bit-equality of the three tests above breaks, while the slots and
+    failure ids still agree."""
+    monkeypatch.setattr(jax_native, "_lib", None)
+    monkeypatch.setattr(jax_native, "_load_attempted", True)
+    differ = 0
+    if case != "hot_cap":
+        idx, val, _t, rng = _clustered_corpus(5000, 512, n_templates=40, seed=7)
+        port, ref = _both_tiers(512, dict(tiered=True, hot_rows=0, nprobe=8), idx, val)
+        assert port.scorer.enabled and not ref.scorer.enabled
+        q_idx, q_val = _queries(idx, val, rng, 24)
+        exact = True if case == "exact" else None
+        for min_slot in (0, 700):
+            got = port.match_host_batch(q_idx, q_val, 5, min_slot=min_slot, exact=exact)
+            want = ref.match_host_batch(q_idx, q_val, 5, min_slot=min_slot, exact=exact)
+            for (ps, pl, _), (js, jl, _) in zip(got, want):
+                assert np.array_equal(pl, jl)
+                differ += not np.array_equal(ps, js)
+    else:
+        monkeypatch.setenv("KAKVEDA_GFKB_HOT_ROWS", "16")
+        monkeypatch.setattr(jax_gfkb_mod, "utcnow", lambda: TS)
+        monkeypatch.setattr(port_gfkb_mod, "utcnow", lambda: TS)
+        items = _hot_cap_corpus(5000)
+        p = _mk_gfkb(tmp_path / "port", capacity=16)
+        j = _mk_jax_gfkb(tmp_path / "jax", capacity=16)
+        try:
+            for g in (p, j):
+                for lo in range(0, len(items), 1000):
+                    g.upsert_failures_batch(items[lo : lo + 1000])
+            queries = [items[i]["signature_text"] for i in (400, 2222, 4999)]
+            pm, _ = p.match_batch_info(queries)
+            jm, _ = j.match_batch_info(queries)
+            for prow, jrow in zip(pm, jm):
+                differ += sum(a.score != b.score for a, b in zip(prow, jrow) if p._slot_by_id[a.failure_id] >= 16)
+        finally:
+            p.close()
+            j.close()
+    assert differ > 0, "the Python fallback gave bit-equal scores: the flake's cause is elsewhere"
+
+
+@pytest.mark.usefixtures("jax_native_lib")
 def test_tiers_snapshot_crosses_both_ways(tmp_path, monkeypatch, caplog):
     """A data dir whose v5 snapshot has a ``tiers`` section opens in each
     package after the other wrote it, with the router restored (the
@@ -618,6 +712,7 @@ def _pattern_key(patterns):
     return sorted((p.name, tuple(sorted(p.failure_ids)), tuple(sorted(p.affected_apps))) for p in patterns)
 
 
+@pytest.mark.usefixtures("jax_native_lib")
 def test_mining_past_the_hot_cap_matches_jax(tmp_path, monkeypatch):
     """Past a hot cap of 16 the overflow rows attach to the cluster state
     from the host tiers, and a full mine densifies them from the tiers
@@ -676,6 +771,7 @@ def test_host_fallback_off_drops_the_tiers(tmp_path, monkeypatch):
         g.close()
 
 
+@pytest.mark.usefixtures("jax_native_lib")
 def test_router_spawns_a_centroid_per_unrelated_cluster():
     """On a corpus whose clusters share no structure (``chip_smoke``'s
     ``restart_corpus``: random words), every cluster's first row is below
