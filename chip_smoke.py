@@ -8,7 +8,7 @@ JAX package). Phases, each of which raises on failure (exit code != 0):
 
 1. the card: its name and power limit (``nvidia-smi``), TF32 off;
 2. build every kernel from ``kakveda_tpu_torch/csrc`` (one ``nvcc`` each,
-   in parallel);
+   in parallel; the flash source as one library per head_dim);
 3. each kernel against its plain PyTorch version at the main path's shape —
    ``fused_topk`` over a 1,048,576 × 2048 bf16 index (~90 % valid) for
    B ∈ {1, 64}, k ∈ {5, 8}, against ``fused_topk_reference`` and the
@@ -126,9 +126,10 @@ JAX package). Phases, each of which raises on failure (exit code != 0):
    phases, which get the card back; in the pre-tiered configuration,
    ``KAKVEDA_GFKB_TIERED=0``: on ``restart_corpus``, which has no coarse
    structure, the default router spawns a centroid per cluster and its
-   per-batch update grows with them, past the run's time limit at 2^19
-   rows, as ``measure_router`` shows; phase 12 drives the tiered
-   lifecycle): 2^19 distinct signatures
+   per-batch update grows with them, past the run's time limit at this
+   phase's rows, as ``measure_router`` shows; phase 12 drives the tiered
+   lifecycle): 2^18 distinct signatures (2^19 until the model families'
+   phase needed the run's time)
    (``restart_corpus``, clusters of 1-10, 1 in 64 spanning apps) through
    ``upsert_failures_batch`` × 4096 into a 2^20 × 2048 GFKB with mining
    on, beside ``crashsweep.run_sweep`` at the two fence sites with its
@@ -146,10 +147,10 @@ JAX package). Phases, each of which raises on failure (exit code != 0):
    mine's wall where every cluster spans apps, at 2^15 and 2^16 rows,
    beside 1 in 64 at 2^16 (the pattern emission grows with the square of
    the spread clusters). Then ``measure_router``: the default
-   ``TierConfig`` on 2^17 rows of ``restart_corpus`` against 2^17 of
+   ``TierConfig`` on 2^16 rows of ``restart_corpus`` against 2^16 of
    ``tier_corpus``, each through ``upsert_failures_batch`` × 4096 on the
    card: build rows/s, the router's ms per batch against its centroid
-   count (and the fit's projection to 2^19 and to phase 12's rows), the
+   count (and the fit's projection to this phase's and phase 12's rows), the
    [4096, C] score matrix's bytes, the routed match's p50 at B = 1 and 64
    over every row (the degraded warn's) and its top-1 recall against the
    exact scan. ``fused_topk``'s launches there are the kernel row's
@@ -201,7 +202,7 @@ JAX package). Phases, each of which raises on failure (exit code != 0):
 12. the host tiers past the hot cap and device loss (after phase 11): a
    2^20 × 2048 GFKB on the card under the default ``TierConfig`` (hot
    2^20, nprobe 8, max_list 4096; ``KAKVEDA_GFKB_WARM_ROWS`` cut to 2^20 +
-   2^17 so 2^17 rows reach the cold shards) holding 2^20 + 2^18 rows of
+   2^16 so 2^16 rows reach the cold shards) holding 2^20 + 2^17 rows of
    ``tier_corpus`` (prompt templates, an assumed structure the router can
    partition; ``measure_router`` in phase 11 sets it beside
    ``restart_corpus``), upserted × 4096 with mining off. a. The card stops
@@ -246,7 +247,7 @@ JAX package). Phases, each of which raises on failure (exit code != 0):
    then 16 of 64 closed mid-decode and 4 requests cancelled while queued
    (``fut.cancel()``, not counted): the ``cancelled`` outcome equals the
    mid-decode closes, survivors equal their text. c. 4 requests past a
-   3 s deadline fail with ``DeadlineExceededError``, their tokens a prefix
+   6 s deadline fail with ``DeadlineExceededError``, their tokens a prefix
    of an undeadlined run (or a near-tie departure), their slots freed, no
    restart; one queued behind them expires with no tokens. d. On the int8
    cache, ``engine.dispatch`` armed with 8 requests in flight and 1 queued:
@@ -262,10 +263,41 @@ JAX package). Phases, each of which raises on failure (exit code != 0):
    process: ``kakveda_serving_requests_total`` by outcome equals the
    phase's own counts; ``GET /flightrecorder`` holds d's ``engine_error``
    and ``engine_restart``.
+14. the model families (after phase 9; phase 5 first holds flash at their
+   shapes, both bodies: Gemma-2-9B's H 16, KV 8, D 256 with the softcap of
+   50 at the engine's decode mask with and without its 4,096-row band, the
+   4,000-token admission and a 512-row prefill piece at pos0 4608 with
+   and without the window; Phi-3-mini's H 32, KV 32, D 96 at decode and a
+   piece; with the softcap q scaled so the scores reach past the cap, and
+   the plain version without the cap held to fall outside the tolerance;
+   the library call SDPA where no softcap applies, a compiled
+   ``flex_attention`` with the cap as its score_mod where one does; and
+   the blocks per SM the split count plans at each head_dim against the
+   card's occupancy calculator). a. Gemma-2-9B width and depth
+   (its published config through ``hf_config_to_llama``; random bf16
+   weights drawn on the card, 20.32 GB) through ``LlamaRuntime`` ->
+   ``ServingEngine`` at ``KAKVEDA_SERVE_WINDOW=8192`` (a 22.5 GB bf16
+   cache): 8 prompts x 32 tokens and a 4,000-token prompt x 128 that
+   decodes past the even layers' 4,096-token window, launch counts zeroed
+   just before and read just after (42 x forwards, the other body 0),
+   tokens held to the runtime's solo ``DecodeSession`` path by the margin
+   rule; a 4,700-token prompt through the solo path in 512-row pieces
+   (the engine takes no prompt past 4,096 tokens at this window) held to a
+   single-shot prefill; admission and decode-step times beside the
+   18.49 GB weight-read bound. b. The same weights with
+   ``KAKVEDA_KV_QUANT=int8``: 4 prompts x 16 and the crossing prompt.
+   c. Checkpoints of Qwen2 (biases, D 128), Qwen3 (q/k norms, D 128),
+   Gemma (D 256), Gemma-2 (a query scale off the default, D 256) and Phi-3
+   (longrope, fused projections, D 96), written by the script (config.json
+   and a safetensors file from a few-line writer), loaded by
+   ``hf_convert.load_hf_checkpoint(device="cuda")`` (leaves equal the CPU
+   load's) and served through the engine: tokens equal the CPU runtime's,
+   or depart at near-ties only.
 
 Prints a ``{"kernels": [...]}`` line (the flash rows with phase 9's,
-phase 10's and phase 13's launches beside phase 6's, and the judge shapes'
-times), the card line, and last ``{"ok": true, "device": {...}}``.
+phase 10's, phase 13's and phase 14's launches beside phase 6's, and the
+judge shapes' and family shapes' times), the card line, and last
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -301,6 +333,9 @@ ATOL = 1e-4  # bf16 inputs, f32 sums taken in another order than the plain versi
 # past FLASH_ATOL (the largest outputs, |out| <~ 3, have steps of 1.6e-2).
 FLASH_REL = 2.0**-6
 FLASH_ATOL = 2e-2
+# Softcap rows scale q by this: scaled scores ~N(0, 20^2) reach past a cap of
+# 50 (randn inputs give |s| < 5, where the cap moves a score by < 0.012).
+SOFTCAP_Q_SCALE = 20.0
 H, KV, HD = 32, 8, 128  # Llama-3-8B attention heads, kv heads, head_dim
 L2_BYTES = 50e6
 # Solo top-2 logit margin below which a batched token may flip. A router
@@ -1066,15 +1101,17 @@ def judge_flash_shapes() -> list:
     return out
 
 
-def flash_inputs(gen, b, s, l, kind, kv8, copies):
+def flash_inputs(gen, b, s, l, kind, kv8, copies, heads=(H, KV, HD)):
     """q, ``copies`` replicas of the cache (cycled so timed launches find it
-    cold in L2, as the 32 layers of a real step do), scales, kv_valid."""
+    cold in L2, as the 32 layers of a real step do), scales, kv_valid.
+    ``heads`` is (H, KV, D)."""
     from kakveda_tpu_torch.models.llama import _kv_quant_rows
 
-    q = torch.randn(b, s, H, HD, device="cuda", generator=gen).to(torch.bfloat16)
+    h, kvh, d = heads
+    q = torch.randn(b, s, h, d, device="cuda", generator=gen).to(torch.bfloat16)
     ks = vs = None
-    k = torch.randn(copies, b, KV, l, HD, device="cuda", generator=gen).to(torch.bfloat16)
-    v = torch.randn(copies, b, KV, l, HD, device="cuda", generator=gen).to(torch.bfloat16)
+    k = torch.randn(copies, b, kvh, l, d, device="cuda", generator=gen).to(torch.bfloat16)
+    v = torch.randn(copies, b, kvh, l, d, device="cuda", generator=gen).to(torch.bfloat16)
     if kv8:
         k, ks = _kv_quant_rows(k)
         v, vs = _kv_quant_rows(v)
@@ -1097,45 +1134,130 @@ def flash_inputs(gen, b, s, l, kind, kv8, copies):
         valid = (ar >= off).contiguous()
     elif torch.is_tensor(kind):  # the exact mask a run gives (judge_flash_shapes)
         valid = kind.to("cuda").expand(b, l).contiguous()
+    elif isinstance(kind, tuple) and kind[0] == "from":  # a prompt's rows [off, end)
+        valid = ((ar >= kind[1]) & (ar < kind[2])).expand(b, l).contiguous()
+    elif isinstance(kind, tuple) and kind[0] == "slots_at":  # the engine's decode mask, slots at rows [lo, hi), the band when > 0
+        _, lo, hi, band = kind
+        pos = torch.randint(lo, hi, (b, 1), device="cuda", generator=gen)
+        off = torch.randint(0, 64, (b, 1), device="cuda", generator=gen)
+        valid = (ar >= off) & (ar <= pos)
+        if band:
+            valid &= ar > pos - band
+        valid = valid.contiguous()
     return q, k, v, ks, vs, valid
 
 
-def flash_bound_ms(b, s, l, kv8, seen_rows=None):
+def flash_bound_ms(b, s, l, kv8, seen_rows=None, heads=(H, KV, HD)):
     """Each input read once, the output written once, over 3.35 TB/s; the
     two products' flops over 989 TFLOP/s bf16. Returns (ms, bound_by).
     With ``seen_rows`` (cache rows, summed over the batch, that at least one
     query row can see) only those rows' K/V count, in bytes and flops: the
-    least a kernel that skips what no query sees must still read."""
-    r = H // KV
+    least a kernel that skips what no query sees must still read. A
+    softcap's tanh per score is not counted (the bound is bytes)."""
+    h, kvh, d = heads
+    r = h // kvh
     rows = b * l if seen_rows is None else seen_rows
-    kv_bytes = 2 * rows * (HD + 4) if kv8 else 2 * rows * HD * 2
-    nbytes = KV * (b * 2 * s * r * HD * 2 + kv_bytes) + b * l
-    flops = 4 * KV * s * r * rows * HD
+    kv_bytes = 2 * rows * (d + 4) if kv8 else 2 * rows * d * 2
+    nbytes = kvh * (b * 2 * s * r * d * 2 + kv_bytes) + b * l
+    flops = 4 * kvh * s * r * rows * d
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def flash_schedule(b, s, l, pos0, valid, reach=None):
+def flash_schedule(b, s, l, pos0, valid, reach=None, heads=(H, KV, HD), window=0, kv8=False):
     """The kernel's schedule at this shape: (n_split, live-tile fraction
     over all its (b·kv, q block) tile visits, cache rows some query sees)."""
-    from kakveda_tpu_torch.models.attention import flash_live_tiles, flash_split_count, kernel_q_rows
+    from kakveda_tpu_torch.models.attention import (
+        flash_live_tiles, flash_split_count, kernel_blocks_per_sm, kernel_q_rows,
+    )
 
-    r = H // KV
+    h, kvh, d = heads
+    r = h // kvh
     sr = s * r
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     hint = pos0 + s if reach is None else min(pos0 + s, reach)
-    n_split = flash_split_count(b * KV, sr, l, sms, reach=hint)
+    n_split = flash_split_count(b * kvh, sr, l, sms, reach=hint, blocks_per_sm=kernel_blocks_per_sm(d, kv8, sr))
     qb = kernel_q_rows(sr)
-    live = [flash_live_tiles(l, pos0, r, r0, min(sr, r0 + qb), valid).expand(b, -1).float().mean().item()
+    live = [flash_live_tiles(l, pos0, r, r0, min(sr, r0 + qb), valid, window).expand(b, -1).float().mean().item()
             for r0 in range(0, sr, qb)]
-    seen = torch.arange(l, device="cuda")[None, :] <= pos0 + s - 1
+    col = torch.arange(l, device="cuda")[None, :]
+    seen = col <= pos0 + s - 1
+    if window:
+        seen = seen & (col > pos0 - window)
     if valid is not None:
         seen = seen & valid
     return n_split, statistics.mean(live), int(seen.expand(b, l).sum())
 
 
-def phase_flash(card: str) -> dict:
-    """Both flash bodies against the plain version at the main path's shapes."""
+# flex_attention's mask and score functions read the row's mask and cap
+# from here, so that one traced pair serves every softcap row: a compile
+# per shape, not per row or body.
+_FLEX_ROW = {}
+_FLEX = {}
+
+
+def _flex_mask(b, h, q_idx, kv_idx):
+    row = _FLEX_ROW
+    q_pos = q_idx + row["pos0"]
+    return (q_pos >= kv_idx) & (q_pos - kv_idx < row["window"]) & row["valid"][b, kv_idx]
+
+
+def _flex_softcap(score, b, h, q_idx, kv_idx):
+    return _FLEX_ROW["cap"] * torch.tanh(score / _FLEX_ROW["cap"])
+
+
+def flex_library(q, pos0, valid, window, softcap, l, k0, v0, ref):
+    """The library call of a softcap row: one ``flex_attention``, compiled
+    to its fused Triton kernel (eager where the compile fails), with the
+    cap as its score_mod (applied to the D^-0.5-scaled scores, before the
+    mask, the kernel's order) and the causal / window / kv_valid mask as its
+    block mask, q heads-major, ``enable_gqa``. Held to the plain version
+    ``ref`` on the first cache copy (``k0``, ``v0``). Returns (call(k, v),
+    how); call is None, and how says why, where it cannot serve."""
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+    b, s = q.shape[:2]
+    _FLEX_ROW.update(
+        pos0=torch.tensor(pos0, device="cuda"), window=torch.tensor(window or pos0 + s + l, device="cuda"),
+        valid=valid if valid is not None else torch.ones(b, l, dtype=torch.bool, device="cuda"), cap=float(softcap))
+    qh = q.transpose(1, 2).contiguous()
+    errors = []
+    for how in ("compiled", "eager"):
+        try:
+            if how == "compiled" and "fn" not in _FLEX:
+                _FLEX["fn"] = torch.compile(flex_attention, dynamic=False)
+            fn = _FLEX["fn"] if how == "compiled" else flex_attention
+            bm = create_block_mask(_flex_mask, B=b, H=None, Q_LEN=s, KV_LEN=l, device="cuda")
+
+            def call(kk, vv, fn=fn, bm=bm):
+                return fn(qh, kk, vv, score_mod=_flex_softcap, block_mask=bm, enable_gqa=True)
+
+            t0 = time.perf_counter()
+            out = call(k0, v0).transpose(1, 2)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+        except Exception as e:  # noqa: BLE001 - a yardstick that cannot run is reported, not fatal
+            errors.append(f"{how}: {type(e).__name__}: {str(e)[:200]}")
+            continue
+        err, use = flash_check(out, ref)
+        if use > 1.0:
+            return None, (f"flex_attention ({how}) departs from the plain version: max_abs_err {err:.3g}, "
+                          f"{use:.3g} of the tolerance")
+        return call, f"flex_attention ({how}; first call {first_s:.2f} s; {use:.3f} of the tolerance)"
+    return None, f"flex_attention cannot run on torch {torch.__version__}: " + "; ".join(errors)
+
+
+def flash_row(gen, name, kv8, shape, card, heads=(H, KV, HD), softcap=0.0, window=0) -> dict:
+    """One flash shape, one body: the kernel against the plain version of
+    its split schedule and the unsplit one (with the ``reach`` hint and,
+    where there is one, without), then its device time from a graph replay
+    beside the plain version's, the library call's and both bound forms.
+    The library call is SDPA with ``enable_gqa`` on the same boolean mask,
+    and with a softcap ``flex_attention`` (:func:`flex_library`), int8
+    dequantized first. With a softcap, q is scaled so that the scores reach
+    past the cap, and the plain version without the cap must fall outside
+    the tolerance (a kernel that skipped the cap would fail). ``shape`` is
+    (label, B, S, L, pos0, kv_valid kind, reach hint); ``heads`` (H, KV, D)."""
     import torch.nn.functional as F
 
     from kakveda_tpu_torch.models.attention import (
@@ -1145,98 +1267,199 @@ def phase_flash(card: str) -> dict:
     )
     from kakveda_tpu_torch.models.llama import _kv_dequant
 
+    label, b, s, l, pos0, kind, reach = shape
+    h, kvh, d = heads
+    kv_bytes = b * kvh * l * (2 * (d + 4) if kv8 else 4 * d)
+    copies = max(1, math.ceil(2.5 * L2_BYTES / kv_bytes))
+    q, k, v, ks, vs, valid = flash_inputs(gen, b, s, l, kind, kv8, copies, heads)
+    if softcap:  # scores past the cap, so that a kernel skipping it fails the check
+        q = (q.float() * SOFTCAP_Q_SCALE).to(torch.bfloat16)
+    n_split, live_frac, seen_rows = flash_schedule(b, s, l, pos0, valid, reach, heads, window, kv8)
+    # Without the hint, the split count pos0 alone gives (what the
+    # engine's decode took before it passed one).
+    n_split_bare = flash_schedule(b, s, l, pos0, valid, None, heads, window, kv8)[0]
+    opts = dict(window=window, softcap=softcap)
+
+    def args(i):
+        i %= copies
+        return dict(q=q, k=k[i], v=v[i], pos0=pos0, kv_valid=valid,
+                    k_scale=None if ks is None else ks[i], v_scale=None if vs is None else vs[i])
+
+    a = args(0)
+    kw = dict(k_scale=a["k_scale"], v_scale=a["v_scale"], **opts)
+    err = use = 0.0
+    uncapped = None
+    for hint, ns in ((reach, n_split), (None, n_split_bare)):
+        out = flash_gqa_cache(a["q"], a["k"], a["v"], pos0, valid, reach=hint, **kw)
+        torch.cuda.synchronize()
+        for ref in (flash_gqa_cache_split_reference(a["q"], a["k"], a["v"], pos0, valid, n_split=ns, **kw),
+                    flash_gqa_cache_reference(a["q"], a["k"], a["v"], pos0, valid, **kw)):
+            e, u = flash_check(out, ref)
+            err, use = max(err, e), max(use, u)
+        if not torch.isfinite(out).all() or use > 1.0:
+            raise AssertionError(f"{name} {label} (reach {hint}): max |kernel - plain| = {err}, "
+                                 f"{use:.3g} of the tolerance (FLASH_REL {FLASH_REL}, FLASH_ATOL {FLASH_ATOL})")
+        if kind == "slots" and not torch.equal(out[b - 1], torch.zeros_like(out[b - 1])):
+            raise AssertionError(f"{name} {label}: the slot that sees nothing is not zeros")
+        if softcap and uncapped is None:
+            uncapped = flash_check(out, flash_gqa_cache_reference(a["q"], a["k"], a["v"], pos0, valid,
+                                                                  **dict(kw, softcap=0.0)))[1]
+            if uncapped <= 1.0:
+                raise AssertionError(f"{name} {label}: the plain version without the softcap is within the "
+                                     f"tolerance ({uncapped:.3g} of it): the check cannot see the cap")
+        if reach is None:
+            break
+
+    it = iter(range(1 << 30))
+
+    def kern(hint=reach):
+        a = args(next(it))
+        flash_gqa_cache(a["q"], a["k"], a["v"], pos0, a["kv_valid"],
+                        k_scale=a["k_scale"], v_scale=a["v_scale"], reach=hint, **opts)
+
+    def plain():
+        a = args(next(it))
+        flash_gqa_cache_reference(a["q"], a["k"], a["v"], pos0, a["kv_valid"],
+                                  k_scale=a["k_scale"], v_scale=a["v_scale"], **opts)
+
+    # Yardstick: one library call on the same inputs (int8 dequantized
+    # first), q heads-major, the same boolean mask.
+    q_pos = pos0 + torch.arange(s, device="cuda")
+    col = torch.arange(l, device="cuda")
+    mask = q_pos[:, None] >= col[None, :]
+    if window:
+        mask &= (q_pos[:, None] - col[None, :]) < window
+    mask = mask[None, None]
+    if valid is not None:
+        mask = mask & valid[:, None, None, :]
+    qh = q.transpose(1, 2)
+
+    def cache(a):
+        if not kv8:
+            return a["k"], a["v"]
+        return _kv_dequant(a["k"], a["k_scale"], torch.bfloat16), _kv_dequant(a["v"], a["v_scale"], torch.bfloat16)
+
+    lib_how = "SDPA"
+    if softcap:
+        flex, lib_how = flex_library(q, pos0, valid, window, softcap, l, *cache(a),
+                                     flash_gqa_cache_reference(a["q"], a["k"], a["v"], pos0, valid, **kw))
+
+    def lib_call():
+        kk, vv = cache(args(next(it)))
+        if softcap:
+            flex(kk, vv)
+        else:
+            F.scaled_dot_product_attention(qh, kk, vv, attn_mask=mask, enable_gqa=True)
+
+    ms = graph_ms(kern, n=4 * copies)
+    bare = ""
+    if reach is not None:  # the same launches without the hint, in the same run
+        bare = (f" without the reach hint: n_split={n_split_bare} "
+                f"kernel_ms={graph_ms(lambda: kern(None), n=4 * copies):.6f};")
+    plain_ms = graph_ms(plain, n=2)
+    lib_ms = None
+    if not softcap or flex is not None:
+        try:
+            lib_ms = graph_ms(lib_call, n=4 * copies)
+        except Exception as e:  # noqa: BLE001 - a call graph capture refuses: CUDA events around each call
+            lib_how += f", timed by events (graph capture: {type(e).__name__})"
+            lib_ms = cuda_ms(lib_call, iters=4 * copies, warmup=2)
+    call_ms = cuda_ms(kern, iters=50, warmup=5)  # one eager call, wrapper included
+    bound_ms, bound_by = flash_bound_ms(b, s, l, kv8, heads=heads)
+    seen_ms, _ = flash_bound_ms(b, s, l, kv8, seen_rows, heads=heads)
+    lib_txt = f"{lib_ms:.6f}" if lib_ms is not None else "null"
+    log(f"{name} {label} (H={h} KV={kvh} D={d} B={b} S={s} L={l} pos0={pos0} window={window} "
+        f"softcap={softcap} reach={reach}): n_split={n_split} live_tiles={live_frac:.4f} "
+        f"max_abs_err={err:.3g} ({use:.3f} of the tolerance"
+        f"{'' if uncapped is None else f'; the plain version without the cap: {uncapped:.1f} of it'}) "
+        f"kernel_ms={ms:.6f};{bare} "
+        f"plain_ms={plain_ms:.4f} library_ms={lib_txt} ({lib_how}) "
+        f"bound_ms={bound_ms:.6f} ({bound_by}) bound_seen_ms={seen_ms:.6f} "
+        f"({seen_rows} of {b * l} rows seen) eager_call_ms={call_ms:.4f} [{card}]")
+    del q, k, v, ks, vs
+    return dict(shape=f"H={h} KV={kvh} D={d} B={b} S={s} L={l} pos0={pos0} window={window} softcap={softcap}",
+                n_split=n_split, live_tiles=live_frac, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, library=lib_how,
+                bound_ms=bound_ms, bound_by=bound_by, bound_seen_ms=seen_ms, max_abs_err=err,
+                tolerance_share=use, uncapped_share=uncapped)
+
+
+def phase_flash(card: str) -> dict:
+    """Both flash bodies against the plain version at the main path's shapes."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     judge_shapes = judge_flash_shapes()
     rows = {}
     for kv8 in (False, True):
         name = "flash_gqa_cache_kv8" if kv8 else "flash_gqa_cache"
         row = {"max_abs_err": 0.0}
-        for shape, b, s, l, pos0, kind, reach in FLASH_SHAPES + judge_shapes:
-            kv_bytes = b * KV * l * (2 * (HD + 4) if kv8 else 4 * HD)
-            copies = max(1, math.ceil(2.5 * L2_BYTES / kv_bytes))
-            q, k, v, ks, vs, valid = flash_inputs(gen, b, s, l, kind, kv8, copies)
-            n_split, live_frac, seen_rows = flash_schedule(b, s, l, pos0, valid, reach)
-            # Without the hint, the split count pos0 alone gives (what the
-            # engine's decode took before it passed one).
-            n_split_bare = flash_schedule(b, s, l, pos0, valid)[0]
-
-            def args(i):
-                i %= copies
-                return dict(q=q, k=k[i], v=v[i], pos0=pos0, kv_valid=valid,
-                            k_scale=None if ks is None else ks[i], v_scale=None if vs is None else vs[i])
-
-            a = args(0)
-            kw = dict(k_scale=a["k_scale"], v_scale=a["v_scale"])
-            err = use = 0.0
-            for hint, ns in ((reach, n_split), (None, n_split_bare)):
-                out = flash_gqa_cache(a["q"], a["k"], a["v"], pos0, valid, reach=hint, **kw)
-                torch.cuda.synchronize()
-                for ref in (flash_gqa_cache_split_reference(a["q"], a["k"], a["v"], pos0, valid, n_split=ns, **kw),
-                            flash_gqa_cache_reference(a["q"], a["k"], a["v"], pos0, valid, **kw)):
-                    e, u = flash_check(out, ref)
-                    err, use = max(err, e), max(use, u)
-                if not torch.isfinite(out).all() or use > 1.0:
-                    raise AssertionError(f"{name} {shape} (reach {hint}): max |kernel - plain| = {err}, "
-                                         f"{use:.3g} of the tolerance (FLASH_REL {FLASH_REL}, FLASH_ATOL {FLASH_ATOL})")
-                if kind == "slots" and not torch.equal(out[b - 1], torch.zeros_like(out[b - 1])):
-                    raise AssertionError(f"{name} {shape}: the slot that sees nothing is not zeros")
-                if reach is None:
-                    break
-            row["max_abs_err"] = max(row["max_abs_err"], err)
-
-            it = iter(range(1 << 30))
-
-            def kern(hint=reach):
-                a = args(next(it))
-                flash_gqa_cache(a["q"], a["k"], a["v"], pos0, a["kv_valid"],
-                                k_scale=a["k_scale"], v_scale=a["v_scale"], reach=hint)
-
-            def plain():
-                a = args(next(it))
-                flash_gqa_cache_reference(a["q"], a["k"], a["v"], pos0, a["kv_valid"],
-                                          k_scale=a["k_scale"], v_scale=a["v_scale"])
-
-            # Yardstick: one library call on the same inputs (int8 dequantized
-            # first), q heads-major, the same boolean mask.
-            q_pos = pos0 + torch.arange(s, device="cuda")
-            mask = (q_pos[:, None] >= torch.arange(l, device="cuda")[None, :])[None, None]
-            if valid is not None:
-                mask = mask & valid[:, None, None, :]
-            qh = q.transpose(1, 2)
-
-            def library():
-                a = args(next(it))
-                kk, vv = a["k"], a["v"]
-                if kv8:
-                    kk = _kv_dequant(kk, a["k_scale"], torch.bfloat16)
-                    vv = _kv_dequant(vv, a["v_scale"], torch.bfloat16)
-                F.scaled_dot_product_attention(qh, kk, vv, attn_mask=mask, enable_gqa=True)
-
-            ms = graph_ms(kern, n=4 * copies)
-            bare = ""
-            if reach is not None:  # the same launches without the hint, in the same run
-                bare = (f" without the reach hint: n_split={n_split_bare} "
-                        f"kernel_ms={graph_ms(lambda: kern(None), n=4 * copies):.6f};")
-            plain_ms = graph_ms(plain, n=2)
-            lib_ms = graph_ms(library, n=4 * copies)
-            call_ms = cuda_ms(kern, iters=50, warmup=5)  # one eager call, wrapper included
-            bound_ms, bound_by = flash_bound_ms(b, s, l, kv8)
-            seen_ms, _ = flash_bound_ms(b, s, l, kv8, seen_rows)
-            log(f"{name} {shape} (B={b} S={s} L={l} pos0={pos0} reach={reach}): n_split={n_split} live_tiles={live_frac:.4f} "
-                f"max_abs_err={err:.3g} ({use:.3f} of the tolerance) kernel_ms={ms:.6f};{bare} "
-                f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.6f} "
-                f"bound_ms={bound_ms:.6f} ({bound_by}) bound_seen_ms={seen_ms:.6f} "
-                f"({seen_rows} of {b * l} rows seen) eager_call_ms={call_ms:.4f} [{card}]")
-            if shape == "decode":  # the main path's most frequent shape
-                row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
-                           bound_seen_ms=seen_ms)
-            if shape in JUDGE_SHAPES or shape.startswith("judge_"):
-                row.setdefault("judge_shapes", {})[shape] = dict(
-                    shape=f"B={b} S={s} L={l} pos0={pos0}", n_split=n_split, live_tiles=live_frac, ms=ms,
-                    plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
-                    bound_seen_ms=seen_ms, max_abs_err=err, tolerance_share=use)
-            del q, k, v, ks, vs
+        for shape in FLASH_SHAPES + judge_shapes:
+            r = flash_row(gen, name, kv8, shape, card)
+            row["max_abs_err"] = max(row["max_abs_err"], r["max_abs_err"])
+            label = shape[0]
+            if label == "decode":  # the main path's most frequent shape
+                row.update({k: r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                                              "bound_seen_ms")})
+            if label in JUDGE_SHAPES or label.startswith("judge_"):
+                b, s, l, pos0 = shape[1:5]
+                row.setdefault("judge_shapes", {})[label] = dict(r, shape=f"B={b} S={s} L={l} pos0={pos0}")
         rows[name] = row
+    torch.cuda.empty_cache()
+    return rows
+
+
+# Gemma-2-9B's attention (google/gemma-2-9b config.json: 16 heads over 8 KV
+# heads of head_dim 256, attn_logit_softcapping 50, sliding_window 4096 on
+# even layers) and Phi-3-mini's (microsoft/Phi-3-mini-4k-instruct: 32 heads,
+# 32 KV heads, head_dim 96), at phase 14's cache length.
+G2_HEADS, P3_HEADS = (16, 8, 256), (32, 32, 96)
+G2_SOFTCAP, G2_WINDOW = 50.0, 4096
+FAMILY_WINDOW = 8192  # phase 14's KAKVEDA_SERVE_WINDOW and its solo path's cache
+FAMILY_FLASH_SHAPES = [
+    # (label, heads, softcap, window, (label, B, S, L, pos0, kv_valid, reach hint))
+    # Decode under the engine's mask (pos0 = L), slots at rows 4,200-8,191:
+    # the even layers' band (rows past slot_pos - 4096 are masked) and the
+    # odd layers' full causal rows.
+    ("g2_decode_engine_sliding", G2_HEADS, G2_SOFTCAP, 0,
+     (8, 1, FAMILY_WINDOW, FAMILY_WINDOW, ("slots_at", 4200, FAMILY_WINDOW, G2_WINDOW), FAMILY_WINDOW)),
+    ("g2_decode_engine_full", G2_HEADS, G2_SOFTCAP, 0,
+     (8, 1, FAMILY_WINDOW, FAMILY_WINDOW, ("slots_at", 4200, FAMILY_WINDOW, 0), FAMILY_WINDOW)),
+    # Phase 14's 4,700-token prompt in DecodeSession's 512-row pieces: the
+    # last, past the window (rows from its left pad of 420 on).
+    ("g2_prefill_piece_sliding", G2_HEADS, G2_SOFTCAP, G2_WINDOW,
+     (1, 512, FAMILY_WINDOW, 4608, ("from", 420, FAMILY_WINDOW), None)),
+    ("g2_prefill_piece_full", G2_HEADS, G2_SOFTCAP, 0, (1, 512, FAMILY_WINDOW, 4608, ("from", 420, FAMILY_WINDOW), None)),
+    # Phase 14's 4,000-token admission into the engine: bucket 4096 from row
+    # 0, left pad 96 (an even layer: the window passes, and masks nothing).
+    ("g2_admission_sliding", G2_HEADS, G2_SOFTCAP, G2_WINDOW, (1, 4096, FAMILY_WINDOW, 0, ("from", 96, 4096), None)),
+    ("p3_decode_engine", P3_HEADS, 0.0, 0, (8, 1, 4096, 4096, ("slots_at", 1000, 4096, 0), 4096)),
+    ("p3_prefill_piece", P3_HEADS, 0.0, 0, (1, 512, 4096, 512, ("from", 100, 4096), None)),
+]
+
+
+def phase_flash_families(card: str) -> dict:
+    """Phase 5 at the model families' shapes: Gemma-2-9B's (D = 256, the
+    softcap, the window) and Phi-3-mini's (D = 96), both bodies, with the
+    resident blocks per SM the split count plans for held against the
+    card's occupancy calculator at every head_dim."""
+    from kakveda_tpu_torch.models.attention import KERNEL_HEAD_DIMS, _lib, kernel_blocks_per_sm
+
+    blocks = {}
+    for d in KERNEL_HEAD_DIMS:
+        lib = _lib(d)
+        for kv8 in (0, 1):
+            for sr in (4, 64):
+                planned, granted = kernel_blocks_per_sm(d, kv8, sr), lib.kkv_flash_gqa_cache_blocks_per_sm(d, kv8, sr, 0)
+                blocks[f"D{d}_{'int8' if kv8 else 'bf16'}_{'wide' if sr > 16 else 'decode'}"] = [planned, granted]
+                if granted < planned:
+                    raise AssertionError(f"flash D={d} kv8={kv8} sr={sr}: the split count plans {planned} "
+                                         f"blocks per SM, the card grants {granted}")
+    log(f"flash blocks per SM [planned, granted by the card]: {json.dumps(blocks)}")
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    rows = {}
+    for kv8 in (False, True):
+        name = "flash_gqa_cache_kv8" if kv8 else "flash_gqa_cache"
+        for label, heads, cap, window, shape in FAMILY_FLASH_SHAPES:
+            rows.setdefault(name, {})[label] = flash_row(
+                gen, name, kv8, (label, *shape), card, heads=heads, softcap=cap, window=window)
     torch.cuda.empty_cache()
     return rows
 
@@ -1612,18 +1835,19 @@ def pinned_forced(params, cfg, seq_ids, routes):
     return logits[0], flips
 
 
-def step_times(rt, ids, out: dict, n_bytes: int, what: str, card: str, split=None) -> None:
-    """Admission and decode-step times on a batcher of the engine's shape,
-    per cache type, into ``out``: admission p50 and decode step p50 on the
-    host clock, the step's device time from a CUDA graph of ``_forward_wide``
-    (with the engine's ``reach`` hint) beside the weight-read bound;
+def step_times(rt, ids, out: dict, n_bytes: int, what: str, card: str, split=None, max_len: int = 512) -> None:
+    """Admission and decode-step times on a batcher of the engine's shape
+    (8 slots, window ``max_len``), per cache type, into ``out``: admission
+    p50 and decode step p50 on the host clock, the step's device time from
+    a CUDA graph of ``_forward_wide`` (with the engine's ``reach`` hint)
+    beside the weight-read bound (``n_bytes``, the weights a step reads);
     ``split(cb, dev_args, reach, step_ms)`` breaks the bf16-cache step up."""
     from kakveda_tpu_torch.models.serving import ContinuousBatcher, _forward_wide
 
     for kvq in ("", "int8"):
         tag = kvq or "bf16"
         cb = ContinuousBatcher(rt.params, dataclasses.replace(rt.cfg, kv_quant=kvq),
-                               batch_slots=8, max_len=512, chunk_steps=8, eos_id=None)
+                               batch_slots=8, max_len=max_len, chunk_steps=8, eos_id=None)
         adm = []
         for p_ids in ids:
             torch.cuda.synchronize()
@@ -1667,7 +1891,10 @@ def step_times(rt, ids, out: dict, n_bytes: int, what: str, card: str, split=Non
 STREAMS = 64  # concurrent generate_stream consumers in a and b
 STREAM_TOKENS = 64
 LONG_TOKENS = 400  # c's requests: bucket 64 + 400 + 1 fits the 512 window
-DEADLINE_S = 3.0  # c's deadline: after 8 one-at-a-time admissions, before 400 tokens
+# c's deadline: after 8 one-at-a-time admissions (each waits for a chunk
+# boundary: 2-2.5 s for the eight, more on a slow host), before 400 tokens
+# (9-12 s at 8 slots).
+DEADLINE_S = 6.0
 
 
 class StreamTokenizer(RecordingTokenizer):
@@ -1881,11 +2108,15 @@ def phase_lifecycle(rt, model_out: dict, card: str) -> dict:
     def admitted(fut_list, n):
         # One at a time into an empty queue: with a backlog, the engine's
         # deadline-aware shed would read a and b's queue waits (seconds)
-        # and shed the deadline at submit, as the reference does.
+        # and shed the deadline at submit, as the reference does. All n
+        # must be in the pool at once, so that the late request queues.
         t_ = time.perf_counter()
         while eng.cb.active < n:
-            if time.perf_counter() - t_ > 60:
-                raise AssertionError(f"phase 13 c: {eng.cb.active} of {n} requests admitted")
+            gone = [f for f in fut_list + plain if f.done()]
+            if gone or time.perf_counter() - t_ > 60:
+                why = [repr(f.exception()) for f in gone]
+                raise AssertionError(f"phase 13 c: {eng.cb.active} of {n} requests in the pool; ended before the "
+                                     f"last was admitted: {why}")
             time.sleep(0.0005)
         return fut_list
 
@@ -2307,6 +2538,340 @@ def phase_mixtral(card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 14: the model families on the card
+# ---------------------------------------------------------------------------
+
+# google/gemma-2-9b's published config.json (Hugging Face Hub), the fields
+# the converter reads, written out: nothing is downloaded. 42 layers of 16
+# heads over 8 KV heads of head_dim 256, GeGLU of width 14336, vocab 256000,
+# a 4096-token window on even layers, softcaps 50 (attention) and 30
+# (logits), query_pre_attn_scalar 256 (= head_dim: the default scale).
+GEMMA2_9B_HF = {
+    "model_type": "gemma2", "hidden_size": 3584, "num_hidden_layers": 42, "num_attention_heads": 16,
+    "num_key_value_heads": 8, "head_dim": 256, "intermediate_size": 14336, "vocab_size": 256000,
+    "max_position_embeddings": 8192, "rope_theta": 10000.0, "rms_norm_eps": 1e-6, "sliding_window": 4096,
+    "attn_logit_softcapping": 50.0, "final_logit_softcapping": 30.0, "query_pre_attn_scalar": 256,
+    "hidden_activation": "gelu_pytorch_tanh",
+}
+FAMILY_ENGINE_WINDOW = 8192  # KAKVEDA_SERVE_WINDOW: 8 slots x 8192 rows x 42 layers of bf16 K and V = 22.5 GB
+CROSS_TOKENS = 4000  # a prompt that fits the engine (bucket 4096) and decodes past the 4096-token window
+CROSS_NEW = 128
+LONG_TOKENS_G2 = 4700  # past 4096 tokens: the engine cannot take it (see phase_families), the solo path does,
+# in 10 pieces of 512 rows after a left pad of 420, the last at pos0 4608 (phase 5's g2_prefill_piece)
+FAMILY_CHUNK = 512  # KAKVEDA_PREFILL_CHUNK of the solo path
+
+
+def _filler_ids(tok, n: int, seed: int) -> list:
+    """``n`` token ids (BOS and n - 1 bytes of incident-log text)."""
+    import random
+
+    words = ["latency", "rose", "after", "deploy", "queue", "backlog", "citation", "missing", "retry",
+             "timeout", "schema", "drift", "tenant", "region", "cache", "miss"]
+    rng = random.Random(seed)
+    text = ""
+    while len(text) < n:
+        text += " ".join(rng.choice(words) for _ in range(12)) + ". "
+    ids = tok.encode(text[: n - 1])
+    assert len(ids) == n
+    return ids
+
+
+def _write_safetensors(path: Path, tensors: dict) -> None:
+    """A ``.safetensors`` file by hand: the little-endian header length, the
+    JSON header (dtype, shape, byte range per tensor, padded to 8 bytes),
+    then the raw little-endian data."""
+    import struct
+
+    header, blobs, off = {}, [], 0
+    for name, t in tensors.items():
+        b = t.contiguous().view(torch.uint8).numpy().tobytes()
+        header[name] = {"dtype": {torch.bfloat16: "BF16", torch.float32: "F32"}[t.dtype],
+                        "shape": list(t.shape), "data_offsets": [off, off + len(b)]}
+        blobs.append(b)
+        off += len(b)
+    h = json.dumps(header).encode()
+    h += b" " * (-len(h) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(h)) + h)
+        for b in blobs:
+            f.write(b)
+
+
+# One small checkpoint per family phase 14 c writes: (config.json fields,
+# family extras). Vocab 264, so the byte tokenizer drives them; head dims
+# as the families' released models have them (Phi-3's 96, Gemma's 256).
+LOADER_FAMILIES = {
+    "qwen2": dict(model_type="qwen2", hidden_size=512, num_attention_heads=4, num_key_value_heads=2,
+                  intermediate_size=1024, num_hidden_layers=2, rope_theta=1e6, tie_word_embeddings=False),
+    "qwen3": dict(model_type="qwen3", hidden_size=256, num_attention_heads=4, num_key_value_heads=2, head_dim=128,
+                  intermediate_size=512, num_hidden_layers=2, rope_theta=1e6, tie_word_embeddings=False),
+    "gemma": dict(model_type="gemma", hidden_size=512, num_attention_heads=2, num_key_value_heads=1, head_dim=256,
+                  intermediate_size=1024, num_hidden_layers=2),
+    "gemma2": dict(model_type="gemma2", hidden_size=512, num_attention_heads=4, num_key_value_heads=2, head_dim=256,
+                   intermediate_size=1024, num_hidden_layers=4, sliding_window=32, attn_logit_softcapping=50.0,
+                   final_logit_softcapping=30.0, query_pre_attn_scalar=144),
+    "phi3": dict(model_type="phi3", hidden_size=384, num_attention_heads=4, num_key_value_heads=4,
+                 intermediate_size=1024, num_hidden_layers=2, original_max_position_embeddings=64,
+                 rope_scaling={"type": "longrope",
+                               "short_factor": [1.0 + 0.01 * i for i in range(48)],
+                               "long_factor": [2.0 + 0.08 * i for i in range(48)]},
+                 tie_word_embeddings=False),
+}
+
+
+def write_family_checkpoint(path: Path, family: str, seed: int) -> None:
+    """``config.json`` and ``model.safetensors`` of a random checkpoint of
+    ``family`` (HF tensor names and ``[out, in]`` layouts, bf16 weights;
+    Gemma norms zero-centred as Gemma stores them, others near 1; Qwen2's
+    biases non-zero; Phi-3's projections fused)."""
+    cfg = dict(vocab_size=264, max_position_embeddings=512, rms_norm_eps=1e-6, **LOADER_FAMILIES[family])
+    path.mkdir(parents=True)
+    (path / "config.json").write_text(json.dumps(cfg))
+    g = torch.Generator().manual_seed(seed)
+    d, f, v = cfg["hidden_size"], cfg["intermediate_size"], cfg["vocab_size"]
+    hd = cfg.get("head_dim") or d // cfg["num_attention_heads"]
+    nq, nkv = cfg["num_attention_heads"] * hd, cfg["num_key_value_heads"] * hd
+    gemma = family.startswith("gemma")
+
+    def mat(out, inp):
+        return (torch.randn(out, inp, generator=g) / math.sqrt(inp)).to(torch.bfloat16)
+
+    def norm(n):
+        return (torch.randn(n, generator=g) * 0.2 + (0.0 if gemma else 1.0)).to(torch.bfloat16)
+
+    t = {"model.embed_tokens.weight": mat(v, d), "model.norm.weight": norm(d)}
+    if not gemma:
+        t["lm_head.weight"] = mat(v, d)
+    for i in range(cfg["num_hidden_layers"]):
+        pre = f"model.layers.{i}."
+        t[pre + "input_layernorm.weight"] = norm(d)
+        t[pre + "post_attention_layernorm.weight"] = norm(d)
+        if family == "gemma2":
+            t[pre + "pre_feedforward_layernorm.weight"] = norm(d)
+            t[pre + "post_feedforward_layernorm.weight"] = norm(d)
+        if family == "phi3":
+            t[pre + "self_attn.qkv_proj.weight"] = mat(nq + 2 * nkv, d)
+            t[pre + "mlp.gate_up_proj.weight"] = mat(2 * f, d)
+        else:
+            t[pre + "self_attn.q_proj.weight"] = mat(nq, d)
+            t[pre + "self_attn.k_proj.weight"] = mat(nkv, d)
+            t[pre + "self_attn.v_proj.weight"] = mat(nkv, d)
+            t[pre + "mlp.gate_proj.weight"] = mat(f, d)
+            t[pre + "mlp.up_proj.weight"] = mat(f, d)
+        t[pre + "self_attn.o_proj.weight"] = mat(d, nq)
+        t[pre + "mlp.down_proj.weight"] = mat(d, f)
+        if family == "qwen2":
+            for n, w in (("q", nq), ("k", nkv), ("v", nkv)):
+                t[pre + f"self_attn.{n}_proj.bias"] = (torch.randn(w, generator=g) * 0.5).to(torch.bfloat16)
+        if family == "qwen3":
+            t[pre + "self_attn.q_norm.weight"] = norm(hd)
+            t[pre + "self_attn.k_norm.weight"] = norm(hd)
+    _write_safetensors(path / "model.safetensors", t)
+
+
+def _leaves(params):
+    out = [("embed", params["embed"]), ("final_norm", params["final_norm"]), ("lm_head", params["lm_head"])]
+    out += [(f"{i}.{k}", w) for i, layer in enumerate(params["layers"]) for k, w in layer.items()]
+    return out
+
+
+def family_loader(base: Path, card: str) -> dict:
+    """Phase 14 c: each family's checkpoint loaded onto the card by
+    ``hf_convert.load_hf_checkpoint(device="cuda")`` equals the CPU load leaf
+    for leaf (bit for bit, same dtype), and served by ``LlamaRuntime`` on
+    the card gives the CPU runtime's greedy tokens, or departs from them
+    only where the teacher-forced top-2 margin along the CPU's tokens is
+    under MARGIN_TOL."""
+    from kakveda_tpu_torch.models.attention import flash_gqa_cache
+    from kakveda_tpu_torch.models.generate import LlamaRuntime
+    from kakveda_tpu_torch.models.hf_convert import load_hf_checkpoint
+
+    out = {}
+    for i, family in enumerate(LOADER_FAMILIES):
+        path = base / family
+        write_family_checkpoint(path, family, seed=140 + i)
+        t0 = time.perf_counter()
+        params, cfg = load_hf_checkpoint(str(path), device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        cpu_params, cpu_cfg = load_hf_checkpoint(str(path), device="cpu")
+        if cfg != cpu_cfg:
+            raise AssertionError(f"phase 14 c {family}: card and CPU configs differ")
+        for (name, a), (_, b) in zip(_leaves(params), _leaves(cpu_params)):
+            if a.dtype != b.dtype or a.device.type != "cuda" or not torch.equal(a.cpu(), b):
+                raise AssertionError(f"phase 14 c {family}: leaf {name} differs between the card and the CPU load")
+        tok_card, tok_cpu = RecordingTokenizer(), RecordingTokenizer()
+        ids = [tok_card.encode(p) for p in PROMPTS]
+        flash_gqa_cache.launches = flash_gqa_cache.launches_kv8 = 0
+        rt = LlamaRuntime(cfg=cfg, params=params, tokenizer=tok_card)
+        res = rt.generate_batch(PROMPTS, max_tokens=16)
+        launches = flash_gqa_cache.launches
+        rt.close()
+        cpu = LlamaRuntime(cfg=cpu_cfg, params=cpu_params, tokenizer=tok_cpu, device="cpu")
+        cpu.generate_batch(PROMPTS, max_tokens=16)
+        cpu.close()
+        if not all(r.meta.get("continuous") for r in res) or launches <= 0:
+            raise AssertionError(f"phase 14 c {family}: not served through the engine's kernel ({launches} launches)")
+        margins = [margin_rule(params, cfg, tok_card, p_ids, ref, got, f"phase 14 c {family}", 16)
+                   for p_ids, ref, got in zip(ids, tok_cpu.decoded, tok_card.decoded)]
+        departed = [round(m, 4) for m in margins if m is not None]
+        out[family] = dict(head_dim=cfg.head_dim, load_s=load_s, launches=launches,
+                           tokens=sum(map(len, tok_card.decoded)), departures=departed)
+        log(f"phase 14 c {family}: head_dim {cfg.head_dim}, loaded onto the card in {load_s:.3f} s, leaves == the "
+            f"CPU load's; {out[family]['tokens']} greedy tokens through the engine ({launches} flash launches), "
+            f"card == CPU but for {len(departed)} departures at margins {departed} (< {MARGIN_TOL}) [{card}]")
+        del rt, cpu, params, cpu_params
+    return out
+
+
+def phase_families(card: str) -> dict:
+    """Phase 14: a. Gemma-2-9B width and depth, bf16 weights drawn on the
+    card, through ``LlamaRuntime`` -> ``ServingEngine`` (8 slots, window
+    8192): 8 prompts, and a 4,000-token prompt (bucket 4096) that decodes
+    past the 4,096-token window, launch counts zeroed before and read after;
+    tokens held to the runtime's solo ``DecodeSession`` path by the margin
+    rule; a 4,700-token prompt through the solo path in 512-row pieces
+    (``_encode`` keeps the last max_seq_len // 2 = 4096 tokens of a text,
+    and a bucket of 8192 leaves no decode room in a window of 8192, so no
+    prompt past 4,096 tokens enters the engine: the JAX package's
+    arithmetic too) held to one single-shot pass; admission and decode-step
+    times beside the weight-read bound. b. The same weights with
+    ``KAKVEDA_KV_QUANT=int8``. c. The loader (``family_loader``)."""
+    from kakveda_tpu_torch.models.attention import flash_gqa_cache
+    from kakveda_tpu_torch.models.generate import LlamaRuntime
+    from kakveda_tpu_torch.models.hf_convert import hf_config_to_llama
+
+    log_held("phase 9, before phase 14")
+    cfg = hf_config_to_llama(GEMMA2_9B_HF)
+    if (cfg.head_dim, cfg.attn_softcap, cfg.query_scale, cfg.layer_window(0), cfg.layer_window(1)) != (256, 50.0, 0.0, 4096, 0):
+        raise AssertionError(f"phase 14: the converter mapped Gemma-2-9B to {cfg}")
+    tok = RecordingTokenizer()
+    ids = [tok.encode(p) for p in PROMPTS]
+    cross = _filler_ids(tok, CROSS_TOKENS, seed=14)
+    cross_text = tok._tok.decode(cross)
+    long_ids = _filler_ids(tok, LONG_TOKENS_G2, seed=15)
+    out = {}
+    env = {"KAKVEDA_SERVE_WINDOW": str(FAMILY_ENGINE_WINDOW), "KAKVEDA_PREFILL_CHUNK": str(FAMILY_CHUNK)}
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        t0 = time.perf_counter()
+        rt = LlamaRuntime(cfg=cfg, seed=0, tokenizer=tok)
+        torch.cuda.synchronize()
+        n_bytes = param_bytes(rt.params)
+        read_bytes = n_bytes - rt.params["embed"].numel() * rt.params["embed"].element_size()
+        log(f"phase 14 a: Gemma-2-9B width and depth: {cfg.n_layers} layers, {n_bytes / 1e9:.2f} GB of bf16 weights "
+            f"({n_bytes // 2 / 1e9:.2f} G parameters) drawn on {rt.device} in {time.perf_counter() - t0:.1f} s; "
+            f"a decode step reads {read_bytes / 1e9:.2f} GB of them (the embedding is gathered)")
+        if rt.device.type != "cuda" or abs(n_bytes - 20.32e9) > 0.02e9:
+            raise AssertionError(f"phase 14: model on {rt.device} with {n_bytes} bytes")
+        for kvq in ("", "int8"):
+            tag = kvq or "bf16"
+            rq = rt
+            if kvq:
+                os.environ["KAKVEDA_KV_QUANT"] = kvq
+                try:
+                    rq = LlamaRuntime(cfg=cfg, params=rt.params, tokenizer=tok)
+                finally:
+                    del os.environ["KAKVEDA_KV_QUANT"]
+            eng = rq.engine()
+            if (eng.cb.B, eng.cb.max_len, rq.cfg.kv_quant) != (8, FAMILY_ENGINE_WINDOW, kvq):
+                raise AssertionError(f"phase 14 {tag}: engine {eng.cb.B} x {eng.cb.max_len}, cache {rq.cfg.kv_quant!r}")
+            rq.generate_batch(PROMPTS[:2], max_tokens=4)  # warm-up
+            n_short = 32 if not kvq else 16
+            batch = PROMPTS if not kvq else PROMPTS[:4]
+            tok.decoded.clear()
+            flash_gqa_cache.launches = flash_gqa_cache.launches_kv8 = 0
+            f0 = eng.cb.forwards
+            t = time.perf_counter()
+            res = rq.generate_batch(batch, max_tokens=n_short)
+            cross_res = rq.generate(cross_text, max_tokens=CROSS_NEW)
+            wall = time.perf_counter() - t
+            n_fwd = eng.cb.forwards - f0
+            mine, other = flash_gqa_cache.launches, flash_gqa_cache.launches_kv8
+            if kvq:
+                mine, other = other, mine
+            got = list(tok.decoded)
+            rq.close()
+            del eng  # its KV pool goes before the next one is built
+            if mine != cfg.n_layers * n_fwd or other != 0:
+                raise AssertionError(f"phase 14 {tag}: {mine} launches for {n_fwd} forwards, {other} of the other body")
+            if not all(r.meta.get("continuous") for r in res + [cross_res]):
+                raise AssertionError(f"phase 14 {tag}: a request did not run through the engine")
+            n_tok = sum(len(g) for g in got)
+            # The solo path on the same requests: one DecodeSession for the
+            # batch, one for the crossing prompt (prefilled in 512-row pieces).
+            solo = rq._generate_ids_chunked([ids[i] for i in range(len(batch))], n_short)
+            solo += rq._generate_ids_chunked([cross], CROSS_NEW)
+            margins = [margin_rule(rq.params, rq.cfg, tok, p, ref, g, f"phase 14 {tag} engine vs solo", n)
+                       for p, ref, g, n in zip(ids[: len(batch)] + [cross], solo, got,
+                                               [n_short] * len(batch) + [CROSS_NEW])]
+            departed = [round(m, 4) for m in margins if m is not None]
+            crossed = len(cross) + len(got[-1]) - 1 > cfg.sliding_window
+            out[tag] = dict(launches=mine, forwards=n_fwd, tokens=n_tok, wall_s=wall, tokens_per_s=n_tok / wall,
+                            prompt_lens=sorted({len(i) for i in ids[: len(batch)]}) + [len(cross)],
+                            cross_tokens=len(got[-1]), crossed_window=crossed, departures=departed)
+            log(f"phase 14 {'a' if not kvq else 'b'} ({tag} cache): generate_batch of {len(batch)} prompts x {n_short} "
+                f"tokens and one {len(cross)}-token prompt x {CROSS_NEW} through the engine (its last position "
+                f"{len(cross) + len(got[-1]) - 1}: past the {cfg.sliding_window}-token window {crossed}) in "
+                f"{wall:.2f} s: {n_tok} tokens, {n_tok / wall:.1f} tokens/s; {n_fwd} forwards, {mine} flash launches; "
+                f"engine == solo DecodeSession path but for {len(departed)} departures at solo margins {departed} "
+                f"(< {MARGIN_TOL}) [{card}]")
+            if not crossed:
+                raise AssertionError(f"phase 14 {tag}: the crossing prompt stopped before the window")
+            if kvq:
+                del rq
+        # The 4,700-token prompt: the runtime's solo path, 512-row pieces,
+        # against a single-shot prefill of the prompt then its tokens
+        # teacher-forced in one more piece.
+        from kakveda_tpu_torch.models.llama import decode_step, init_cache, mask_pad_vocab
+
+        flash_gqa_cache.launches = 0
+        t = time.perf_counter()
+        (long_out,) = rt._generate_ids_chunked([long_ids], 16)
+        torch.cuda.synchronize()
+        long_s = time.perf_counter() - t
+        long_launches = flash_gqa_cache.launches
+        cache = init_cache(rt.cfg, 1, len(long_ids) + len(long_out), device="cuda")
+        first, _ = decode_step(rt.params, rt.cfg, torch.tensor([long_ids], device="cuda"), cache, last_only=True)
+        rest, _ = decode_step(rt.params, rt.cfg, torch.tensor([long_out[:-1]], device="cuda"), cache)
+        lg = mask_pad_vocab(torch.cat([first[0], rest[0]]), rt.cfg)[:, : tok.vocab_size]
+        del cache
+        top2 = lg.topk(2, dim=-1)
+        single = top2.indices[:, 0].tolist()
+        gaps = (top2.values[:, 0] - top2.values[:, 1]).tolist()
+        # Teacher-forced along the chunked path's tokens: every step stands
+        # alone, and each may differ only at a near-tie.
+        differ = [j for j, (x, y) in enumerate(zip(single, long_out)) if x != y]
+        n_eq = len(long_out) - len(differ)
+        if any(gaps[j] >= MARGIN_TOL for j in differ):
+            raise AssertionError(f"phase 14 a long: chunked {long_out} differs from single-shot {single} at steps "
+                                 f"{differ}, margins {[gaps[j] for j in differ]}")
+        out["long_prompt"] = dict(prompt_len=len(long_ids), tokens=len(long_out), wall_s=long_s, equal_steps=n_eq,
+                                  launches=long_launches)
+        log(f"phase 14 a: a {len(long_ids)}-token prompt through the solo DecodeSession path "
+            f"(KAKVEDA_PREFILL_CHUNK={FAMILY_CHUNK}: {-(-len(long_ids) // FAMILY_CHUNK)} pieces, the last at pos0 "
+            f"{(-(-len(long_ids) // FAMILY_CHUNK) - 1) * FAMILY_CHUNK}) x {len(long_out)} tokens in {long_s:.2f} s, "
+            f"{long_launches} flash launches; equal to the single-shot pass's argmax for {n_eq} of "
+            f"{len(long_out)} steps (a departure only at a margin under {MARGIN_TOL}) [{card}]")
+        step_times(rt, ids, out, read_bytes, "phase 14 a: Gemma-2-9B", card, max_len=FAMILY_ENGINE_WINDOW)
+        rt.close()
+        del rt
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    with tempfile.TemporaryDirectory(prefix="kakveda-ckpts-") as d:
+        out["loader"] = family_loader(Path(d), card)
+    log("phase 14: " + json.dumps(out))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 10: the LLM judge on the ingest path
 # ---------------------------------------------------------------------------
 
@@ -2419,21 +2984,37 @@ def expected_prefix_stats(head, batches, max_len: int, maxp: int, admissions=Non
     return stats
 
 
-def margin_rule(params, cfg, tok, prompt_ids, ref, got, what: str):
-    """Phase 6's token rule: ``got`` equals ``ref`` (each closed with EOS when
-    it stopped early), or first departs from it at a step whose solo top-2
-    margin along ``ref`` (one teacher-forced pass) is under MARGIN_TOL.
-    Returns None when equal, else the margin at the departure."""
-    from kakveda_tpu_torch.models.llama import decode_step, init_cache, mask_pad_vocab
+def forced_last_logits(params, cfg, prompt_ids, toks):
+    """The solo next-token logits [V] after ``prompt_ids + toks``, teacher-
+    forced: one pass, or under Phi-3 longrope the prompt then one decode
+    step per token. A longrope row's regime follows the running length, so
+    decode rotates the prompt's keys with the short factors once and for
+    all, where one pass over a sequence past the original context would
+    rotate every position with the long ones: another function."""
+    from kakveda_tpu_torch.models.llama import decode_step, init_cache
 
-    a = list(ref) + ([tok.EOS] if len(ref) < 4 else [])
-    b = list(got) + ([tok.EOS] if len(got) < 4 else [])
+    cache = init_cache(cfg, 1, len(prompt_ids) + len(toks), device="cuda")
+    head = list(prompt_ids) + ([] if cfg.rope_dim_factors_long else list(toks))
+    logits, _ = decode_step(params, cfg, torch.tensor([head], device="cuda"), cache, last_only=True)
+    for t in toks if cfg.rope_dim_factors_long else []:
+        logits, _ = decode_step(params, cfg, torch.tensor([[t]], device="cuda"), cache)
+    return logits[0, -1]
+
+
+def margin_rule(params, cfg, tok, prompt_ids, ref, got, what: str, n_max: int = 4):
+    """Phase 6's token rule: ``got`` equals ``ref`` (each closed with EOS when
+    it stopped before ``n_max`` tokens), or first departs from it at a step
+    whose solo top-2 margin along ``ref`` (teacher-forced,
+    ``forced_last_logits``) is under MARGIN_TOL. Returns None when equal,
+    else the margin at the departure."""
+    from kakveda_tpu_torch.models.llama import mask_pad_vocab
+
+    a = list(ref) + ([tok.EOS] if len(ref) < n_max else [])
+    b = list(got) + ([tok.EOS] if len(got) < n_max else [])
     n = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
     if n is None:
         return None
-    seq = torch.tensor([list(prompt_ids) + a[:n]], device="cuda")
-    logits, _ = decode_step(params, cfg, seq, init_cache(cfg, 1, seq.shape[1], device="cuda"), last_only=True)
-    top2 = mask_pad_vocab(logits[0, -1], cfg)[: tok.vocab_size].topk(2).values
+    top2 = mask_pad_vocab(forced_last_logits(params, cfg, prompt_ids, a[:n]), cfg)[: tok.vocab_size].topk(2).values
     margin = (top2[0] - top2[1]).item()
     if margin >= MARGIN_TOL:
         raise AssertionError(f"{what}: tokens {b} depart from {a} at step {n}, where the solo margin is "
@@ -3401,7 +3982,7 @@ def phase_service(base: Path, fused_topk, card: str) -> dict:
 # phase 11: restart and lifecycle at real size
 # ---------------------------------------------------------------------------
 
-RESTART_N, RESTART_BATCH = 1 << 19, 4096
+RESTART_N, RESTART_BATCH = 1 << 18, 4096
 RESTART_TYPES = ("HALLUCINATION_CITATION", "TIMEOUT", "SCHEMA")
 RESTART_AGED_BATCHES = RESTART_N // RESTART_BATCH // 8  # the first 1/8 of the rows age out
 
@@ -3519,7 +4100,7 @@ def phase_restart(base: Path, fused_topk_reference, card: str) -> dict:
     return out
 
 
-ROUTER_N = 1 << 17  # 32 batches; the router's cost per batch grows with its centroids
+ROUTER_N = 1 << 16  # 16 batches; the router's cost per batch grows with its centroids
 
 
 def measure_router(base: Path, card: str) -> dict:
@@ -3529,8 +4110,8 @@ def measure_router(base: Path, card: str) -> dict:
     ``upsert_failures_batch`` x RESTART_BATCH into a GFKB on the card with
     mining on: build rows/s; ``CoarseRouter.add_batch``'s ms per batch
     against the centroid count C it scored against; for ``restart_corpus``,
-    a least-squares line through them, summed over the batches of a
-    2^19-row build (phase 11's) and of phase 12's TIER_N rows, as C grows
+    a least-squares line through them, summed over the batches of phase
+    11's RESTART_N-row build and of phase 12's TIER_N rows, as C grows
     in this run's ratio of centroids to rows; the [B, C] f32 score matrix of the
     last batch; the routed match over every row (what a degraded warn
     runs, and what the overflow runs past the cap) at B = 1 and 64, p50,
@@ -3578,7 +4159,7 @@ def measure_router(base: Path, card: str) -> dict:
             projected = {
                 label: float((icpt + slope * per_row * np.arange(0, rows, RESTART_BATCH, dtype=np.float64)).sum()
                              / 1e3)
-                for label, rows in (("2^19", 1 << 19), ("phase 12", TIER_N))
+                for label, rows in (("phase 11", RESTART_N), ("phase 12", TIER_N))
             }
 
         rng = np.random.default_rng(16)
@@ -3603,7 +4184,7 @@ def measure_router(base: Path, card: str) -> dict:
         )
         line = "" if fit is None else (
             f", fit {fit['intercept_ms']:.1f} ms + {fit['ms_per_1000_centroids']:.2f} ms per 1000 centroids, "
-            f"which summed over a 2^19-row build is {projected['2^19']:.0f} s and over phase 12's {TIER_N} rows "
+            f"which summed over phase 11's {RESTART_N}-row build is {projected['phase 11']:.0f} s and over phase 12's {TIER_N} rows "
             f"{projected['phase 12']:.0f} s")
         log(f"phase 11 router, default TierConfig on {ROUTER_N} rows of {name}: build {build_s:.1f} s "
             f"({ROUTER_N / build_s:.1f} rows/s, mining on), {router.c} centroids, {router.splits} splits; "
@@ -3822,8 +4403,8 @@ def _phase_restart(base: Path, fused_topk_reference, card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 TIER_HOT = 1 << 20  # TierConfig's default hot cap: the card's index holds no more
-TIER_N = TIER_HOT + (1 << 18)
-TIER_WARM = TIER_HOT + (1 << 17)  # the one cut: the default 2^22 would take 4.2M rows to reach the cold tier
+TIER_N = TIER_HOT + (1 << 17)
+TIER_WARM = TIER_HOT + (1 << 16)  # the one cut: the default 2^22 would take 4.2M rows to reach the cold tier
 TIER_BATCH = 4096
 TIER_ASKS = (
     "summarize it and include citations even if not provided",
@@ -4467,8 +5048,17 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on {name}")
 
-    t0 = time.perf_counter()
-    names = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
+    t0 = t_lap = time.perf_counter()
+    walls = {}
+
+    def lap(name: str) -> None:
+        """The wall since the last lap, under ``name`` (printed at the end)."""
+        nonlocal t_lap
+        now = time.perf_counter()
+        walls[name] = round(now - t_lap, 1)
+        t_lap = now
+
+    names = _build.targets()
     g_plus = threading.Thread(target=native.load)  # g++ beside the nvcc builds
     g_plus.start()
     libs = _build.build(names)
@@ -4486,8 +5076,10 @@ def main() -> int:
         log(f"  fused_topk at wgmma N={width}: {topk_lib.kkv_fused_topk_stages(width)} ring stages, "
             f"{topk_lib.kkv_fused_topk_smem_bytes(width)} bytes of dynamic shared memory")
 
+    lap("1-2 build")
     row = phase_kernels(fused_topk, fused_topk_reference, card)
     torch.cuda.empty_cache()
+    lap("3 fused_topk")
 
     with tempfile.TemporaryDirectory(prefix="kakveda-smoke-") as d:
         count_mining_calls()
@@ -4500,9 +5092,11 @@ def main() -> int:
     log(f"fused_topk launches on the main path: {launches}")
     check_healthy("phase 4")
     log_held("phase 4")  # the 2^20 x 2048 index should be gone; the models need the room
+    lap("4 platform")
 
     phase_mining(card)
     log_held("phase 7")
+    lap("7 mining")
 
     with tempfile.TemporaryDirectory(prefix="kakveda-service-") as d:
         service = phase_service(Path(d), fused_topk, card)
@@ -4512,6 +5106,7 @@ def main() -> int:
     log(f"fused_topk launches of the service's requests (phase 8 a-e): {service_launches}")
     check_healthy("phase 8")
     log_held("phase 8")
+    lap("8 service")
 
     with tempfile.TemporaryDirectory(prefix="kakveda-restart-") as d:
         fused_topk.launches = 0
@@ -4522,6 +5117,7 @@ def main() -> int:
     log(f"fused_topk launches of phase 11: {restart_launches}")
     check_healthy("phase 11")
     log_held("phase 11")
+    lap("11 restart")
 
     with tempfile.TemporaryDirectory(prefix="kakveda-tiers-") as d:
         fused_topk.launches = 0
@@ -4532,11 +5128,15 @@ def main() -> int:
     log(f"fused_topk launches of phase 12 (the hot tier under every healthy warn): {tiers_launches}")
     check_healthy("phase 12", drilled=True)
     log_held("phase 12")
+    lap("12 tiers")
 
     flash = phase_flash(card)
+    flash_families = phase_flash_families(card)
+    lap("5 flash")
     held = torch.cuda.memory_allocated()
     model = phase_model(card)
     log_held("phase 6")
+    lap("6, 13 model")
     if torch.cuda.memory_allocated() > held + 0.5e9:  # phases 10 and 9 need phase 6's 16 GB back
         raise AssertionError(f"phase 6 left {torch.cuda.memory_allocated() - held} bytes allocated")
     with tempfile.TemporaryDirectory(prefix="kakveda-judge-") as d:
@@ -4544,9 +5144,15 @@ def main() -> int:
     log_held("phase 10")
     if torch.cuda.memory_allocated() > held + 0.5e9:  # phase 9 needs the card back
         raise AssertionError(f"phase 10 left {torch.cuda.memory_allocated() - held} bytes allocated")
+    lap("10 judge")
     mixtral = phase_mixtral(card)
+    lap("9 mixtral")
+    families = phase_families(card)
+    log_held("phase 14")
+    lap("14 families")
+    log(f"phase walls (s): {json.dumps(walls)}; {time.perf_counter() - t0:.1f} s in all [{card}]")
     # No warn served from the host and no latch outside phase 12 c's drill.
-    check_healthy("phases 5, 6, 10 and 9", drilled=True)
+    check_healthy("phases 5, 6, 10, 9 and 14", drilled=True)
 
     kernels = [dict(
         name="fused_topk", route="cuda", source="kakveda_tpu_torch/csrc/fused_topk.cu",
@@ -4568,7 +5174,11 @@ def main() -> int:
             launches_judge=judge["judge_launches"] if tag == "bf16" else None,
             launches_judge_solo=judge["arm_b_launches"] if tag == "bf16" else None,
             launches_judge_admissions=judge["admission_launches"][tag],
-            judge_shapes=r["judge_shapes"],
+            launches_gemma2=families[tag]["launches"],
+            **({"launches_gemma2_long_prompt": families["long_prompt"]["launches"],
+                "launches_loader": {f: v["launches"] for f, v in families["loader"].items()}}
+               if tag == "bf16" else {}),
+            judge_shapes=r["judge_shapes"], family_shapes=flash_families[kname],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
             bound_seen_ms=r["bound_seen_ms"],

@@ -63,16 +63,32 @@ def knn_state_from_jax(
 
 DENSE_LAYER_KEYS = {"attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate", "w_up", "w_down"}
 MOE_LAYER_KEYS = {"attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "router", "we_gate", "we_up", "we_down"}
+# The family flags' keys (llama.init_params), each set all or nothing.
+FAMILY_LAYER_KEYS = ({"bq", "bk", "bv"}, {"post_attn_norm", "post_ffw_norm"}, {"q_norm", "k_norm"})
+MATRIX_KEYS = {"embed", "lm_head", "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "we_gate", "we_up", "we_down"}
+
+
+def _np_to_torch(a) -> torch.Tensor:
+    """A numpy leaf as a tensor of the same dtype; bfloat16 (ml_dtypes, as
+    ``np.asarray`` of a JAX bf16 array gives it) goes through f32, exactly."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
 
 
 def llama_params_from_jax(params_np: Dict[str, Any], cfg, device=None) -> Dict[str, Any]:
     """The port's Llama params from the JAX tree (same keys and layouts, each
     leaf ``np.asarray``-ed). Matrices are cast to ``cfg.dtype`` — what
-    ``wmat`` does at every matmul of the JAX forward — and norm gains and the
-    MoE router stay f32. Int8 weight-only leaves ``{"q", "s"}`` cross bit for
-    bit (``q`` int8, ``s`` f32), never re-quantized or cast. A layer that is
-    neither dense nor MoE, or carries biases or extra norms of other model
-    families, raises."""
+    ``wmat`` does at every matmul of the JAX forward — and every other leaf
+    (norm gains, q/k norms, biases, the MoE router) keeps the dtype the JAX
+    tree holds: f32 from ``init_params``, bf16 from the HF loader but for
+    Gemma's materialized 1 + w gains, which stay f32. ``rms_norm`` takes
+    another branch for f32 gains, so lifting a bf16 gain would round
+    differently from the JAX package. Int8 weight-only leaves ``{"q", "s"}``
+    cross bit for bit (``q`` int8, ``s`` f32), never re-quantized or cast.
+    A layer that is neither dense nor MoE, or carries keys no family flag
+    gives, or part of a flag's set, raises."""
     dev = resolve_device(device)
 
     def leaf(name: str, a):
@@ -83,12 +99,16 @@ def llama_params_from_jax(params_np: Dict[str, Any], cfg, device=None) -> Dict[s
                 "q": torch.from_numpy(np.array(a["q"], dtype=np.int8)).to(dev),
                 "s": torch.from_numpy(np.array(a["s"], dtype=np.float32)).to(dev),
             }
-        dt = torch.float32 if name.endswith("norm") or name == "router" else cfg.dtype
-        return torch.from_numpy(np.array(a, dtype=np.float32)).to(dev, dt)
+        t = _np_to_torch(a)
+        return t.to(dev, cfg.dtype if name in MATRIX_KEYS else t.dtype)
 
     layers = []
     for layer in params_np["layers"]:
         keys = set(layer)
+        for fam in FAMILY_LAYER_KEYS:
+            if keys & fam and not fam <= keys:
+                raise NotImplementedError(f"layer params {sorted(fam - keys)} missing beside {sorted(keys & fam)}")
+            keys -= fam
         if keys not in (DENSE_LAYER_KEYS, MOE_LAYER_KEYS):
             want = MOE_LAYER_KEYS if "router" in keys else DENSE_LAYER_KEYS
             raise NotImplementedError(f"layer params {sorted(keys ^ want)} are not ported yet")

@@ -20,8 +20,9 @@ recorder, so a scrape of the port reads like a scrape of the reference.
   by ``GET /flightrecorder`` and into the log when an engine loop dies.
 
 The catalog pre-declares the families of the planes the port reports
-from: the serving engine's, the fault sites' and the two admission
-families the engine's ``submit`` moves. The other planes' families come
+from: the serving engine's, the fault sites', the two admission
+families the engine's ``submit`` moves, and the model router's two HBM
+gauges (``models/runtime.MultiModelRuntime``). The other planes' families come
 with their slices (ROADMAP Queue 1 item 5), as do fleet federation
 (``parse_prometheus_text``, ``federate_renders``), ``device_block`` and the
 stall watchdog that names each lock.
@@ -426,6 +427,10 @@ _CORE_FAMILIES = (
     ("histogram", "kakveda_admission_wait_seconds",
      "Observed downstream queue wait per admission class (feeds "
      "deadline-aware shedding)", ("klass",), None),
+    ("gauge", "kakveda_hbm_budget_bytes",
+     "Configured HBM weight+KV budget (0 = unbudgeted)", (), None),
+    ("gauge", "kakveda_hbm_loaded_bytes",
+     "Resident weight+KV bytes accounted by the model router", (), None),
 )
 
 _REGISTRY = MetricsRegistry()

@@ -1,6 +1,7 @@
 // Blockwise online-softmax GQA attention over a head-major KV cache, for
 // Hopper (sm_90a). One template, two bodies: a bf16 cache and an int8 cache
-// with f32 per-row scales.
+// with f32 per-row scales. Built as one library per head_dim (ops/_build.py
+// passes -DKKV_HEAD_DIM=<head_dim>, and the four compile in parallel).
 //
 // Replaces the Pallas TPU kernel kakveda_tpu/models/attention.py::
 // flash_gqa_cache (pl.pallas_call at attention.py:284), bodies _flash_kernel
@@ -8,7 +9,11 @@
 // It computes what _flash_body computes:
 //   * the R = H / KV query heads of one kv head fold into the q rows: folded
 //     row i of (b, g) is sequence position pos0 + i / R;
-//   * S = Q.K^T * D^-0.5 with bf16 operands and f32 accumulation;
+//   * S = Q.K^T * D^-0.5 with bf16 operands and f32 accumulation; with an
+//     attention softcap (Gemma-2) S becomes cap * tanh(S / cap) in f32
+//     before the mask, the order of _gqa_xla (the softcap instantiations
+//     replace the JAX package's XLA path for those shapes; the others keep
+//     the code they had);
 //   * keep(i, l) = l < L && q_pos >= l && kv_valid[b, l]
 //                  && (window == 0 || q_pos - l < window);
 //     masked scores are -1e30 (never -inf: an all-masked tile would give
@@ -48,7 +53,13 @@
 //     warp vote over each tile's validity bytes, and never loaded. Exact: a
 //     fully masked tile leaves m, l and acc unchanged;
 //   * a 3-stage (bf16) or 4-stage (int8) cp.async ring of K/V tiles, two
-//     blocks per SM; the int8 scales go through the same ring;
+//     blocks per SM; the int8 scales go through the same ring. At D = 256 a
+//     bf16 3-stage ring is 3 x 2 x 64 x 528 = 202,752 bytes: one block per
+//     SM, and a 2-stage ring when S*R > 16;
+//   * at D = 256 the q rows' fragments do not stay in registers (64 more a
+//     lane beside the 128 of the P.V accumulators): the block stages its q
+//     rows in shared memory once and each tile reads them back with
+//     ldmatrix (the int8 body's k permutation applied when staging);
 //   * int8 in registers: ldmatrix reads the int8 tiles as byte pairs and
 //     each fragment dequantizes as it is loaded (exact int8 -> f32 by a byte
 //     permute and one subtraction, times the bf16-rounded scale, rounded to
@@ -57,12 +68,19 @@
 // one row (K) or 2 bytes of two rows (V). The dot product's k axis and the
 // output's column axis are permuted to match (Q's fragments are loaded
 // under the same permutation, the output is written back in place); a sum
-// does not depend on the order of its terms' indices.
+// does not depend on the order of its terms' indices. At D = 96 a K row is
+// one x4 load (64 bytes) and one x2 load (32 bytes).
+//
+// D is 64, 96, 128 or 256.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#ifndef KKV_HEAD_DIM
+#error "build one library per head_dim: nvcc -DKKV_HEAD_DIM=64, 96, 128 or 256 (ops/_build.py does)"
+#endif
 
 namespace {
 
@@ -73,9 +91,14 @@ constexpr int MAX_TPS = 256;  // tiles per split (the live-tile list in shared m
 constexpr int MAX_SPLITS = 64;  // splits of one (b*kv, q block): the combine's weights in shared memory
 constexpr float NEG_INF = -1e30f;
 
-template <int D, bool KV8>
+template <int D, bool KV8, int NQW>
 struct Cfg {
-  static constexpr int STAGES = KV8 ? 4 : 3;
+  static_assert(D == 64 || D == 96 || D == 128 || D == 256, "head_dim 64, 96, 128 or 256");
+  // Q fragments from shared memory (D = 256: registers), in rows of QRS bytes.
+  static constexpr bool QS = D >= 256;
+  static constexpr int QRS = (D + 8) * 2;
+  static constexpr int QSM = QS ? 16 * NQW * QRS : 0;
+  static constexpr int STAGES = KV8 ? 4 : (D >= 256 && NQW > 1 ? 2 : 3);
   // Bytes per cache row in shared memory, padded so that the 8 rows of an
   // ldmatrix phase fall on distinct banks.
   static constexpr int RS = KV8 ? D + 16 : (D + 8) * 2;
@@ -85,7 +108,13 @@ struct Cfg {
   static constexpr int RED = (WARPS * 16 * (D + 2) + 2 * 64) * 4;  // per-warp o, m, l; per-row m, l
   static constexpr int MAIN = RING > RED ? RING : RED;
   static_assert(MAIN >= MAX_SPLITS * 64 * 2 * 4, "the split combine's m and l fit the ring");
-  static constexpr int SMEM = MAIN + MAX_TPS * 8 + MAX_TPS * 2 + 16;
+  static constexpr int SMEM = MAIN + QSM + MAX_TPS * 8 + MAX_TPS * 2 + 16;
+  static_assert(SMEM <= 227 * 1024, "one block's shared memory");
+  // Resident blocks per SM the launch bounds and the split count plan for
+  // (the wrapper reads it through kkv_flash_gqa_cache_blocks_per_sm): two
+  // where their shared memory fits the SM's 228 KB (1 KB of it reserved
+  // per block), else one.
+  static constexpr int BLOCKS = 2 * (SMEM + 1024) <= 228 * 1024 ? 2 : 1;
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -110,6 +139,11 @@ __device__ __forceinline__ void cp_async_wait() {
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
                : "r"(addr));
 }
 __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
@@ -150,10 +184,10 @@ __device__ __forceinline__ uint32_t ldg32(const __nv_bfloat16* p) {
 }
 
 // grid (B * KV, ceil(SR / (16 * NQW)), n_split), block THREADS, dynamic
-// shared memory Cfg<D, KV8>::SMEM. NQW is the number of 16-row q tiles of a
-// block: 1 when S*R <= 16, else 4.
-template <int D, bool KV8, int NQW>
-__global__ void __launch_bounds__(THREADS, 2)
+// shared memory Cfg<D, KV8, NQW>::SMEM. NQW is the number of 16-row q tiles
+// of a block: 1 when S*R <= 16, else 4. CAP: scores are softcapped at `cap`.
+template <int D, bool KV8, int NQW, bool CAP>
+__global__ void __launch_bounds__(THREADS, Cfg<D, KV8, NQW>::BLOCKS)
 flash_gqa_kernel(const __nv_bfloat16* __restrict__ q,  // [B*KV, SR, D]
                  const void* __restrict__ k_,           // [B*KV, L, D] bf16 or int8
                  const void* __restrict__ v_,
@@ -163,17 +197,19 @@ flash_gqa_kernel(const __nv_bfloat16* __restrict__ q,  // [B*KV, SR, D]
                  __nv_bfloat16* __restrict__ out,       // [B*KV, SR, D]
                  float* __restrict__ part,              // split partials (n_split > 1)
                  int* __restrict__ tickets,             // [B*KV * q blocks], zero between launches
-                 int kv, int sr, int r, int L, int pos0, int window, float scale, int tps) {
-  using C = Cfg<D, KV8>;
+                 int kv, int sr, int r, int L, int pos0, int window, float scale, float cap,
+                 int tps) {
+  using C = Cfg<D, KV8, NQW>;
   constexpr int QB = 16 * NQW;      // folded q rows of a block
   constexpr int WPQ = WARPS / NQW;  // warps sharing one 16-row q tile
   constexpr int CW = BN / WPQ;      // cache rows of each tile that one warp takes
   constexpr int EB = KV8 ? 1 : 2;   // bytes per cache element
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* ring = smem;
-  uint2* vmask = reinterpret_cast<uint2*>(smem + C::MAIN);  // per tile: valid bits, even / odd rows
-  short* live = reinterpret_cast<short*>(smem + C::MAIN + MAX_TPS * 8);
-  int* flag = reinterpret_cast<int*>(smem + C::MAIN + MAX_TPS * 10);
+  unsigned char* qsm = smem + C::MAIN;  // [QB][QRS] q rows (C::QS only)
+  uint2* vmask = reinterpret_cast<uint2*>(smem + C::MAIN + C::QSM);  // per tile: valid bits, even / odd rows
+  short* live = reinterpret_cast<short*>(smem + C::MAIN + C::QSM + MAX_TPS * 8);
+  int* flag = reinterpret_cast<int*>(smem + C::MAIN + C::QSM + MAX_TPS * 10);
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -257,12 +293,27 @@ flash_gqa_kernel(const __nv_bfloat16* __restrict__ q,  // [B*KV, SR, D]
   // 2. Issue the first stages, then this warp's q rows as mma A fragments,
   //    straight from global memory (rows past SR are zeros). The int8 body
   //    reads the k axis under the permutation its K fragments arrive in.
+  //    With C::QS the block's q rows go to shared memory instead, each
+  //    16-column chunk's 32-bit words in the order ldmatrix hands the
+  //    fragments out (for int8, logical word w < 4 is physical word 2w, and
+  //    w >= 4 is 2(w - 4) + 1); the first tile's barrier publishes them.
   for (int i = 0; i < C::STAGES - 1; ++i) {
     if (i < n_live) load_tile(t0 + live[i], i);
     cp_async_commit();
   }
-  uint32_t qa[D / 16][4];
-  if (n_live > 0) {
+  uint32_t qa[C::QS ? 1 : D / 16][4];
+  if constexpr (C::QS) {
+    if (n_live > 0) {
+      const uint32_t* qg = reinterpret_cast<const uint32_t*>(q + ((size_t)bkv * sr + row0) * D);
+      for (int idx = tid; idx < QB * (D / 2); idx += THREADS) {
+        const int rr = idx / (D / 2), w = idx % (D / 2);
+        const int wl = w & 7;
+        const int src = KV8 ? (w & ~7) + (wl < 4 ? 2 * wl : 2 * (wl - 4) + 1) : w;
+        *reinterpret_cast<uint32_t*>(qsm + rr * C::QRS + w * 4) =
+            rr < rows ? __ldg(qg + (size_t)rr * (D / 2) + src) : 0u;
+      }
+    }
+  } else if (n_live > 0) {
     const __nv_bfloat16* qg = q + (size_t)bkv * sr * D;
     const int ra = wrow + g, rb = wrow + g + 8;
 #pragma unroll
@@ -308,27 +359,77 @@ flash_gqa_kernel(const __nv_bfloat16* __restrict__ q,  // [B*KV, SR, D]
     // S = Q.K^T for this warp's 16 q rows and CW cache rows.
     float sc[CW / 8][4];
 #pragma unroll
-    for (int nc = 0; nc < CW / 8; ++nc) {
-      sc[nc][0] = sc[nc][1] = sc[nc][2] = sc[nc][3] = 0.0f;
-      const uint32_t ra = ks_addr + (nc * 8 + lrow) * C::RS;
+    for (int nc = 0; nc < CW / 8; ++nc) sc[nc][0] = sc[nc][1] = sc[nc][2] = sc[nc][3] = 0.0f;
+    if constexpr (C::QS) {
+      // k slices outer, so each A fragment is read from shared memory once a
+      // tile: lane l gives row l % 16, 16-byte half l / 16 of a 32-byte chunk.
+      const uint32_t qs_addr = smem_u32(qsm) + (qt * 16 + (lane & 15)) * C::QRS + (lane >> 4) * 16;
       if constexpr (!KV8) {
 #pragma unroll
         for (int kp = 0; kp < D / 32; ++kp) {
-          uint32_t b[4];
-          ldsm_x4(b, ra + (4 * kp + lmat) * 16);
-          mma_bf16(sc[nc], qa[2 * kp], b[0], b[1]);
-          mma_bf16(sc[nc], qa[2 * kp + 1], b[2], b[3]);
+          uint32_t a0[4], a1[4];
+          ldsm_x4(a0, qs_addr + (2 * kp) * 32);
+          ldsm_x4(a1, qs_addr + (2 * kp + 1) * 32);
+#pragma unroll
+          for (int nc = 0; nc < CW / 8; ++nc) {
+            uint32_t b[4];
+            ldsm_x4(b, ks_addr + (nc * 8 + lrow) * C::RS + (4 * kp + lmat) * 16);
+            mma_bf16(sc[nc], a0, b[0], b[1]);
+            mma_bf16(sc[nc], a1, b[2], b[3]);
+          }
         }
       } else {
-        const float s = bf16r(ksc[nc * 8 + g]);
 #pragma unroll
         for (int kq = 0; kq < D / 64; ++kq) {
-          uint32_t b[4];
-          ldsm_x4(b, ra + (4 * kq + lmat) * 16);
+          uint32_t a[4][4];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const uint32_t u = b[i] ^ 0x80808080u;
-            mma_bf16(sc[nc], qa[4 * kq + i], dq2(u, 0, s, 1, s), dq2(u, 2, s, 3, s));
+          for (int i = 0; i < 4; ++i) ldsm_x4(a[i], qs_addr + (4 * kq + i) * 32);
+#pragma unroll
+          for (int nc = 0; nc < CW / 8; ++nc) {
+            const float s = bf16r(ksc[nc * 8 + g]);
+            uint32_t b[4];
+            ldsm_x4(b, ks_addr + (nc * 8 + lrow) * C::RS + (4 * kq + lmat) * 16);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const uint32_t u = b[i] ^ 0x80808080u;
+              mma_bf16(sc[nc], a[i], dq2(u, 0, s, 1, s), dq2(u, 2, s, 3, s));
+            }
+          }
+        }
+      }
+    } else {
+#pragma unroll
+      for (int nc = 0; nc < CW / 8; ++nc) {
+        const uint32_t ra = ks_addr + (nc * 8 + lrow) * C::RS;
+        if constexpr (!KV8) {
+#pragma unroll
+          for (int kp = 0; kp < D / 32; ++kp) {
+            uint32_t b[4];
+            ldsm_x4(b, ra + (4 * kp + lmat) * 16);
+            mma_bf16(sc[nc], qa[2 * kp], b[0], b[1]);
+            mma_bf16(sc[nc], qa[2 * kp + 1], b[2], b[3]);
+          }
+        } else {
+          const float s = bf16r(ksc[nc * 8 + g]);
+#pragma unroll
+          for (int kq = 0; kq < D / 64; ++kq) {
+            uint32_t b[4];
+            ldsm_x4(b, ra + (4 * kq + lmat) * 16);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const uint32_t u = b[i] ^ 0x80808080u;
+              mma_bf16(sc[nc], qa[4 * kq + i], dq2(u, 0, s, 1, s), dq2(u, 2, s, 3, s));
+            }
+          }
+          if constexpr (D % 64 != 0) {  // D = 96: the last 32 bytes of the row
+            constexpr int kq = D / 64;
+            uint32_t b[2];
+            ldsm_x2(b, ra + (4 * kq + (lmat & 1)) * 16);
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              const uint32_t u = b[i] ^ 0x80808080u;
+              mma_bf16(sc[nc], qa[4 * kq + i], dq2(u, 0, s, 1, s), dq2(u, 2, s, 3, s));
+            }
           }
         }
       }
@@ -345,7 +446,9 @@ flash_gqa_kernel(const __nv_bfloat16* __restrict__ q,  // [B*KV, SR, D]
         const int qp = e < 2 ? qp0 : qp1;
         const bool vb = (((e & 1) ? vm.y : vm.x) >> (cl >> 1)) & 1u;
         const bool kp = vb && qp >= col && (window == 0 || qp - col < window);
-        sc[nc][e] = kp ? sc[nc][e] * scale : NEG_INF;
+        float x = sc[nc][e] * scale;
+        if constexpr (CAP) x = cap * tanhf(x / cap);
+        sc[nc][e] = kp ? x : NEG_INF;
         keep |= (uint32_t)kp << (4 * nc + e);
       }
       mx0 = fmaxf(mx0, fmaxf(sc[nc][0], sc[nc][1]));
@@ -549,38 +652,64 @@ flash_gqa_kernel(const __nv_bfloat16* __restrict__ q,  // [B*KV, SR, D]
   if (tid == 0) tickets[bq] = 0;  // ready for the next launch
 }
 
-template <int D, bool KV8, int NQW>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* ks, const void* vs,
-                   const void* valid, void* out, void* part, void* tickets, int bkv, int kv, int sr,
-                   int r, int L, int pos0, int window, float scale, int n_split, int tps,
-                   cudaStream_t s) {
-  constexpr int bytes = Cfg<D, KV8>::SMEM;
+struct Args {
+  const void *q, *k, *v, *ks, *vs, *valid;
+  void *out, *part, *tickets;
+  int bkv, kv, sr, r, L, pos0, window;
+  float scale, cap;
+  int n_split, tps;
+};
+
+template <int D, bool KV8, int NQW, bool CAP>
+cudaError_t launch(const Args& a, cudaStream_t s) {
+  constexpr int bytes = Cfg<D, KV8, NQW>::SMEM;
   static bool attr_set = false;  // setting it twice is harmless
   if (!attr_set) {
-    cudaError_t err = cudaFuncSetAttribute(flash_gqa_kernel<D, KV8, NQW>,
+    cudaError_t err = cudaFuncSetAttribute(flash_gqa_kernel<D, KV8, NQW, CAP>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return err;
     attr_set = true;
   }
-  const dim3 grid(bkv, (sr + 16 * NQW - 1) / (16 * NQW), n_split);
-  flash_gqa_kernel<D, KV8, NQW><<<grid, THREADS, bytes, s>>>(
-      static_cast<const __nv_bfloat16*>(q), k, v, static_cast<const float*>(ks),
-      static_cast<const float*>(vs), static_cast<const uint8_t*>(valid),
-      static_cast<__nv_bfloat16*>(out), static_cast<float*>(part), static_cast<int*>(tickets), kv,
-      sr, r, L, pos0, window, scale, tps);
+  const dim3 grid(a.bkv, (a.sr + 16 * NQW - 1) / (16 * NQW), a.n_split);
+  flash_gqa_kernel<D, KV8, NQW, CAP><<<grid, THREADS, bytes, s>>>(
+      static_cast<const __nv_bfloat16*>(a.q), a.k, a.v, static_cast<const float*>(a.ks),
+      static_cast<const float*>(a.vs), static_cast<const uint8_t*>(a.valid),
+      static_cast<__nv_bfloat16*>(a.out), static_cast<float*>(a.part), static_cast<int*>(a.tickets),
+      a.kv, a.sr, a.r, a.L, a.pos0, a.window, a.scale, a.cap, a.tps);
   return cudaGetLastError();
 }
 
-template <int D, bool KV8>
-cudaError_t launch_rows(const void* q, const void* k, const void* v, const void* ks,
-                        const void* vs, const void* valid, void* out, void* part, void* tickets,
-                        int bkv, int kv, int sr, int r, int L, int pos0, int window, float scale,
-                        int n_split, int tps, cudaStream_t s) {
-  if (sr <= 16)
-    return launch<D, KV8, 1>(q, k, v, ks, vs, valid, out, part, tickets, bkv, kv, sr, r, L, pos0,
-                             window, scale, n_split, tps, s);
-  return launch<D, KV8, 4>(q, k, v, ks, vs, valid, out, part, tickets, bkv, kv, sr, r, L, pos0,
-                           window, scale, n_split, tps, s);
+template <int D, bool KV8, int NQW>
+cudaError_t launch_cap(const Args& a, cudaStream_t s) {
+  return a.cap > 0.0f ? launch<D, KV8, NQW, true>(a, s) : launch<D, KV8, NQW, false>(a, s);
+}
+
+template <int D>
+cudaError_t launch_d(const Args& a, cudaStream_t s) {
+  const bool kv8 = a.ks != nullptr;
+  if (a.sr <= 16) return kv8 ? launch_cap<D, true, 1>(a, s) : launch_cap<D, false, 1>(a, s);
+  return kv8 ? launch_cap<D, true, 4>(a, s) : launch_cap<D, false, 4>(a, s);
+}
+
+template <int D, bool KV8, int NQW>
+int occupancy() {
+  constexpr int bytes = Cfg<D, KV8, NQW>::SMEM;
+  int n = 0;
+  if (cudaFuncSetAttribute(flash_gqa_kernel<D, KV8, NQW, false>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, bytes) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, flash_gqa_kernel<D, KV8, NQW, false>, THREADS,
+                                                    bytes) != cudaSuccess)
+    return -1;
+  return n;
+}
+
+template <int D>
+int blocks_d(bool kv8, bool wide, bool planned) {
+  if (planned)
+    return kv8 ? (wide ? Cfg<D, true, 4>::BLOCKS : Cfg<D, true, 1>::BLOCKS)
+               : (wide ? Cfg<D, false, 4>::BLOCKS : Cfg<D, false, 1>::BLOCKS);
+  return kv8 ? (wide ? occupancy<D, true, 4>() : occupancy<D, true, 1>())
+             : (wide ? occupancy<D, false, 4>() : occupancy<D, false, 1>());
 }
 
 }  // namespace
@@ -588,28 +717,38 @@ cudaError_t launch_rows(const void* q, const void* k, const void* v, const void*
 // q [bkv, sr, d] bf16 (the R heads of each kv head folded into the rows),
 // k, v [bkv, L, d] bf16, or int8 with k_scale, v_scale [bkv, L] f32 (null
 // for bf16), valid [bkv / kv, L] bytes 0/1 or null (all valid), out
-// [bkv, sr, d] bf16. d is 64 or 128; every pointer 16-byte aligned. The
-// cache's 64-row tiles split into n_split ranges of ceil(tiles / n_split)
-// tiles, none empty, none over 256 tiles, and at most 64 splits. With
-// n_split > 1, part holds part_floats floats and tickets n_tickets ints that
-// are zero, and are zero again when the kernel ends; the launch needs
-// kkv_flash_gqa_cache_part_floats(...) floats and bkv * ceil(sr / qb)
-// tickets (qb = 16 when sr <= 16, else 64) and refuses less. Launches on
-// `stream`, does not synchronise; returns the CUDA error code (0 on
-// success).
+// [bkv, sr, d] bf16. d is the library's own head_dim (KKV_HEAD_DIM: 64,
+// 96, 128 or 256); every pointer 16-byte aligned. softcap > 0 caps the scaled scores at softcap * tanh(s /
+// softcap) before the mask; 0 leaves them. The cache's 64-row tiles split
+// into n_split ranges of ceil(tiles / n_split) tiles, none empty, none over
+// 256 tiles, and at most 64 splits. With n_split > 1, part holds part_floats
+// floats and tickets n_tickets ints that are zero, and are zero again when
+// the kernel ends; the launch needs kkv_flash_gqa_cache_part_floats(...)
+// floats and bkv * ceil(sr / qb) tickets (qb = 16 when sr <= 16, else 64)
+// and refuses less. Launches on `stream`, does not synchronise; returns the
+// CUDA error code (0 on success).
 extern "C" long long kkv_flash_gqa_cache_part_floats(int bkv, int sr, int d, int n_split) {
   const int qb = sr <= 16 ? 16 : 64;
   return n_split > 1 ? (long long)bkv * ((sr + qb - 1) / qb) * n_split * qb * (d + 2) : 0;
+}
+
+// Resident blocks per SM at head_dim d for a block of sr <= 16 rows or
+// more: with planned != 0 the count the launch bounds and the split count
+// plan for, else what the card's occupancy calculator grants. -1 for a d
+// this library does not take.
+extern "C" int kkv_flash_gqa_cache_blocks_per_sm(int d, int kv8, int sr, int planned) {
+  return d == KKV_HEAD_DIM ? blocks_d<KKV_HEAD_DIM>(kv8 != 0, sr > 16, planned != 0) : -1;
 }
 
 extern "C" int kkv_flash_gqa_cache(const void* q, const void* k, const void* v,
                                    const void* k_scale, const void* v_scale, const void* valid,
                                    void* out, void* part, long long part_floats, void* tickets,
                                    int n_tickets, int bkv, int kv, int sr, int r, int L, int d,
-                                   int pos0, int window, float scale, int n_split, void* stream) {
+                                   int pos0, int window, float scale, float softcap, int n_split,
+                                   void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (bkv < 1 || kv < 1 || bkv % kv || sr < 1 || r < 1 || L < 1 || window < 0 ||
-      (k_scale == nullptr) != (v_scale == nullptr) || n_split < 1)
+      (k_scale == nullptr) != (v_scale == nullptr) || n_split < 1 || !(softcap >= 0.0f))
     return (int)cudaErrorInvalidValue;
   const int n_tiles = (L + BN - 1) / BN;
   const int tps = (n_tiles + n_split - 1) / n_split;
@@ -619,19 +758,7 @@ extern "C" int kkv_flash_gqa_cache(const void* q, const void* k, const void* v,
                        part_floats < kkv_flash_gqa_cache_part_floats(bkv, sr, d, n_split) ||
                        (long long)n_tickets < (long long)bkv * ((sr + qb - 1) / qb))))
     return (int)cudaErrorInvalidValue;
-  const bool kv8 = k_scale != nullptr;
-  cudaError_t err;
-  if (d == 128)
-    err = kv8 ? launch_rows<128, true>(q, k, v, k_scale, v_scale, valid, out, part, tickets, bkv,
-                                       kv, sr, r, L, pos0, window, scale, n_split, tps, s)
-              : launch_rows<128, false>(q, k, v, k_scale, v_scale, valid, out, part, tickets, bkv,
-                                        kv, sr, r, L, pos0, window, scale, n_split, tps, s);
-  else if (d == 64)
-    err = kv8 ? launch_rows<64, true>(q, k, v, k_scale, v_scale, valid, out, part, tickets, bkv,
-                                      kv, sr, r, L, pos0, window, scale, n_split, tps, s)
-              : launch_rows<64, false>(q, k, v, k_scale, v_scale, valid, out, part, tickets, bkv,
-                                       kv, sr, r, L, pos0, window, scale, n_split, tps, s);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)err;
+  const Args a{q, k, v, k_scale, v_scale, valid, out, part, tickets, bkv, kv, sr, r, L, pos0, window,
+               scale, softcap, n_split, tps};
+  return d == KKV_HEAD_DIM ? (int)launch_d<KKV_HEAD_DIM>(a, s) : (int)cudaErrorInvalidValue;
 }

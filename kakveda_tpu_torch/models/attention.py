@@ -14,7 +14,8 @@ Counterpart of ``kakveda_tpu/models/attention.py``, same contract:
   (``pl.pallas_call`` at ``kakveda_tpu/models/attention.py:284``, bodies
   ``_flash_kernel`` and ``_flash_kernel_kv8``). On a CUDA tensor it launches
   the hand-written kernel in ``kakveda_tpu_torch/csrc/flash_gqa_cache.cu``
-  (built by ``nvcc`` for ``sm_90a`` at first use) or raises; on a CPU tensor
+  (built by ``nvcc`` for ``sm_90a`` at first use, one library per head_dim)
+  or raises; on a CPU tensor
   it runs :func:`flash_gqa_cache_reference`, the plain version with the
   kernel's own semantics, which is also the kernel's oracle on the card.
   The kernel splits the cache across blocks (:func:`flash_split_count`,
@@ -22,9 +23,11 @@ Counterpart of ``kakveda_tpu/models/attention.py``, same contract:
   can see (:func:`flash_live_tiles`);
   :func:`flash_gqa_cache_split_reference` is the plain version of that
   split schedule, with the same combine.
-* :func:`gqa_grouped` is the twin of ``_gqa_xla``: it serves only softcap
-  and per-query ``full_mask`` attention, neither of which is on the serving
-  path ported so far, and neither runs on the card yet.
+* :func:`gqa_grouped` is the twin of ``_gqa_xla``: on the CPU it serves
+  softcap (Gemma-2) attention, as ``_gqa_xla`` does in the JAX package, and
+  per-query ``full_mask`` attention, which is not on the serving path ported
+  so far and does not run on the card yet. On the card a softcap goes
+  through the flash kernel, which caps the scores in the same order.
 
 One documented divergence between the two, as in the JAX package: a query
 row with no visible slot (a left-pad position) emits zeros from the flash
@@ -45,6 +48,7 @@ NEG_INF = -1e30
 KERNEL_L_BLK = 64  # the CUDA kernel's cache tile
 KERNEL_MAX_TILES_PER_SPLIT = 256  # the kernel's live-tile list holds this many
 KERNEL_MAX_SPLITS = 64  # the kernel's combine keeps this many splits' weights
+KERNEL_HEAD_DIMS = _build.FLASH_HEAD_DIMS
 
 
 def gqa_grouped(
@@ -94,13 +98,16 @@ def flash_gqa_cache_reference(
     k_scale: Optional[torch.Tensor] = None,
     v_scale: Optional[torch.Tensor] = None,
     window: int = 0,
+    softcap: float = 0.0,
 ) -> torch.Tensor:
     """Plain PyTorch version of the flash kernel, step for step: the R group
     heads fold into the q rows (row i is position ``pos0 + i // R``), the
     cache streams in the kernel's 64-row tiles through an f32 online softmax,
-    masked scores are −1e30 and p is masked again after the exp, P is cast to
-    the cache's compute dtype before P·V, and the output is
-    ``acc / max(l, 1e-20)`` — zeros for a row that sees no slot.
+    scores are scaled by D^-0.5 and, with ``softcap``, capped at
+    ``softcap · tanh(s / softcap)`` before the mask, masked scores are −1e30
+    and p is masked again after the exp, P is cast to the cache's compute
+    dtype before P·V, and the output is ``acc / max(l, 1e-20)`` — zeros for
+    a row that sees no slot.
 
     An int8 cache dequantizes as ``int8.to(q.dtype) * scale.to(q.dtype)``
     (``_kv_dequant``'s order); a float cache casts q to the cache dtype."""
@@ -124,6 +131,8 @@ def flash_gqa_cache_reference(
     for l0 in range(0, l, KERNEL_L_BLK):
         l1 = min(l, l0 + KERNEL_L_BLK)
         sc = qf @ kt[:, :, l0:l1].float().transpose(-1, -2) * scale  # [B, KV, SR, lb]
+        if softcap:
+            sc = softcap * torch.tanh(sc / softcap)
         l_pos = torch.arange(l0, l1, device=dev)
         keep = q_pos[:, None] >= l_pos[None, :]
         if window:
@@ -149,9 +158,12 @@ def kernel_q_rows(sr: int) -> int:
     return 16 if sr <= 16 else 64
 
 
-def flash_split_count(bkv: int, sr: int, l: int, sm_count: int, reach: Optional[int] = None) -> int:
+def flash_split_count(
+    bkv: int, sr: int, l: int, sm_count: int, reach: Optional[int] = None, blocks_per_sm: int = 2
+) -> int:
     """How many blocks split one (b·kv, q block)'s cache: as many as keep
-    the grid within two resident blocks per SM (one wave), at least two
+    the grid within ``blocks_per_sm`` resident blocks per SM (one wave; the
+    kernel's :func:`kernel_blocks_per_sm` at its shape), at least two
     64-row tiles a split, at most ``KERNEL_MAX_SPLITS`` splits (unless a
     cache longer than that many times ``KERNEL_MAX_TILES_PER_SPLIT`` tiles
     needs more, which the wrapper refuses), no empty split and no one-tile
@@ -163,7 +175,7 @@ def flash_split_count(bkv: int, sr: int, l: int, sm_count: int, reach: Optional[
     n_tiles = -(-l // KERNEL_L_BLK)
     reached = n_tiles if reach is None else max(1, min(n_tiles, -(-reach // KERNEL_L_BLK)))
     blocks = bkv * -(-sr // kernel_q_rows(sr))
-    n = max(1, min(2 * sm_count // blocks, reached // 2, KERNEL_MAX_SPLITS))
+    n = max(1, min(blocks_per_sm * sm_count // blocks, reached // 2, KERNEL_MAX_SPLITS))
     n = max(n, -(-n_tiles // KERNEL_MAX_TILES_PER_SPLIT))
     tps = -(-n_tiles // n)
     n = -(-n_tiles // tps)
@@ -215,7 +227,7 @@ def flash_live_tiles(
     return ok.reshape(ok.shape[0], n_tiles, tile).any(dim=-1)
 
 
-def _online_softmax(qf, kt, vt, q_pos, kv_valid, window, l0, l1, tile, live=None):
+def _online_softmax(qf, kt, vt, q_pos, kv_valid, window, l0, l1, tile, live=None, softcap=0.0):
     """(m, l, acc) of an f32 online softmax over cache rows ``[l0, l1)`` in
     ``tile``-row steps, from the "sees nothing" state (−1e30, 0, 0). With
     ``live`` [B, tiles] a tile that is not live leaves a batch row's state
@@ -229,6 +241,8 @@ def _online_softmax(qf, kt, vt, q_pos, kv_valid, window, l0, l1, tile, live=None
     for t0 in range(l0, l1, tile):
         t1 = min(l1, t0 + tile)
         sc = qf @ kt[:, :, t0:t1].float().transpose(-1, -2) * scale
+        if softcap:
+            sc = softcap * torch.tanh(sc / softcap)
         l_pos = torch.arange(t0, t1, device=dev)
         keep = q_pos[:, None] >= l_pos[None, :]
         if window:
@@ -263,6 +277,7 @@ def flash_gqa_cache_split_reference(
     window: int = 0,
     n_split: int = 1,
     tile: int = KERNEL_L_BLK,
+    softcap: float = 0.0,
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernel's split schedule: an f32 online
     softmax per split over the row ranges of :func:`flash_split_plan`, then
@@ -285,7 +300,7 @@ def flash_gqa_cache_split_reference(
     qf = qt.reshape(b, s, kv, r, d).permute(0, 2, 1, 3, 4).reshape(b, kv, sr, d).float()
     q_pos = pos0 + torch.arange(sr, device=q.device) // r
     parts = [
-        _online_softmax(qf, kt, vt, q_pos, kv_valid, window, l0, l1, tile)
+        _online_softmax(qf, kt, vt, q_pos, kv_valid, window, l0, l1, tile, softcap=softcap)
         for l0, l1 in flash_split_plan(l, n_split, tile)
     ]
     mx = parts[0][0]
@@ -325,17 +340,39 @@ def _ticket_buffer(device: torch.device, n: int) -> torch.Tensor:
     return bufs[-1]
 
 
-def _lib():
-    lib = _build.load("flash_gqa_cache")
+def _lib(d: int):
+    """The kernel's library for head_dim ``d`` (one per head_dim, built in
+    parallel: ``_build.FLASH_HEAD_DIMS``)."""
+    lib = _build.load(f"flash_gqa_cache:{d}")
     fn = lib.kkv_flash_gqa_cache
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, p, p, p, p, p, p, p, ll, p, i, i, i, i, i, i, i, i, i, ctypes.c_float, i, p]
+        f = ctypes.c_float
+        fn.argtypes = [p, p, p, p, p, p, p, p, ll, p, i, i, i, i, i, i, i, i, i, f, f, i, p]
         fn.restype = ctypes.c_int
         size = lib.kkv_flash_gqa_cache_part_floats
         size.argtypes = [i, i, i, i]
         size.restype = ll
+        blocks = lib.kkv_flash_gqa_cache_blocks_per_sm
+        blocks.argtypes = [i, i, i, i]
+        blocks.restype = i
     return lib
+
+
+_blocks = {}
+
+
+def kernel_blocks_per_sm(d: int, kv8: bool, sr: int) -> int:
+    """Resident blocks per SM that the kernel's launch bounds plan for at
+    head_dim ``d``, cache body and block rows (``Cfg::BLOCKS`` in the CUDA
+    source: two, one where a block's shared memory fills the SM, as the
+    D = 256 bf16 ring of 202,752 bytes does), read once from the loaded
+    library; the split count fills that wave."""
+    key = (d, bool(kv8), kernel_q_rows(sr))
+    n = _blocks.get(key)
+    if n is None:
+        n = _blocks[key] = _lib(d).kkv_flash_gqa_cache_blocks_per_sm(d, int(kv8), sr, 1)
+    return n
 
 
 def flash_gqa_cache(
@@ -349,12 +386,15 @@ def flash_gqa_cache(
     v_scale: Optional[torch.Tensor] = None,
     window: int = 0,
     reach: Optional[int] = None,
+    softcap: float = 0.0,
 ) -> torch.Tensor:
     """Flash attention of ``q [B, S, H, D]`` over the head-major cache
     ``k, v [B, KV, L, D]``. A CPU tensor takes
     :func:`flash_gqa_cache_reference`; a CUDA tensor launches the kernel or
     raises. The card takes a bf16 ``q``, a bf16 cache or an int8 cache with
-    f32 ``k_scale``/``v_scale`` [B, KV, L], D ∈ {64, 128} and any L up to
+    f32 ``k_scale``/``v_scale`` [B, KV, L], D ∈ ``KERNEL_HEAD_DIMS``, a
+    ``softcap`` ≥ 0 (scores capped at ``softcap · tanh(s / softcap)``
+    before the mask; 0 is off) and any L up to
     ``KERNEL_MAX_SPLITS × KERNEL_MAX_TILES_PER_SPLIT`` tiles. One launch
     whatever the split count (:func:`flash_split_count`); its workspace is
     a ``torch.empty`` and the per-device tickets of :func:`_ticket_buffer`,
@@ -368,7 +408,7 @@ def flash_gqa_cache(
     launches, ``flash_gqa_cache.launches_kv8`` int8-cache launches."""
     if q.device.type == "cpu":
         return flash_gqa_cache_reference(
-            q, k, v, pos0, kv_valid, k_scale=k_scale, v_scale=v_scale, window=window
+            q, k, v, pos0, kv_valid, k_scale=k_scale, v_scale=v_scale, window=window, softcap=softcap
         )
     if q.device.type != "cuda":
         raise ValueError(f"flash_gqa_cache: unsupported device {q.device}")
@@ -382,7 +422,7 @@ def flash_gqa_cache(
             f"flash_gqa_cache: the card runs bf16 models (q is {q.dtype}); "
             "a float32 model on the card is not ported"
         )
-    if d not in (64, 128) or h % kv or l < 1 or window < 0:
+    if d not in KERNEL_HEAD_DIMS or h % kv or l < 1 or window < 0 or not softcap >= 0:
         raise ValueError(f"flash_gqa_cache: unsupported layout H={h} KV={kv} L={l} D={d}")
     want = torch.int8 if kv8 else torch.bfloat16
     if k.dtype != want or v.dtype != want or not (k.is_contiguous() and v.is_contiguous()):
@@ -408,10 +448,10 @@ def flash_gqa_cache(
         raise ValueError("flash_gqa_cache: tensors must be 16-byte aligned")
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
     hint = int(pos0) + s if reach is None else min(int(pos0) + s, int(reach))
-    n_split = flash_split_count(b * kv, sr, l, sms, reach=hint)
+    lib = _lib(d)
+    n_split = flash_split_count(b * kv, sr, l, sms, reach=hint, blocks_per_sm=kernel_blocks_per_sm(d, kv8, sr))
     if n_split > KERNEL_MAX_SPLITS:
         raise ValueError(f"flash_gqa_cache: a cache of L={l} rows is longer than the kernel takes")
-    lib = _lib()
     part = tickets = None
     if n_split > 1:  # the C side sizes the partials and checks both buffers
         part = torch.empty(
@@ -427,7 +467,7 @@ def flash_gqa_cache(
             part.numel() if part is not None else 0,
             tickets.data_ptr() if tickets is not None else None,
             tickets.numel() if tickets is not None else 0,
-            b * kv, kv, sr, r, l, d, int(pos0), int(window), d**-0.5, n_split,
+            b * kv, kv, sr, r, l, d, int(pos0), int(window), d**-0.5, float(softcap), n_split,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if rc != 0:
@@ -459,18 +499,19 @@ def gqa_cache_attention(
 ) -> torch.Tensor:
     """Cached GQA attention: the flash kernel for every shape it takes (on
     the card there is no profitability gate — ``_flash_wins`` was measured
-    on a TPU); softcap and ``full_mask`` take :func:`gqa_grouped`, on the
-    CPU only. ``window`` > 0 is sliding-window attention; ``reach`` is
-    :func:`flash_gqa_cache`'s schedule hint."""
-    if full_mask is not None or softcap:
+    on a TPU), softcap included; on the CPU a softcap takes
+    :func:`gqa_grouped`, as ``_gqa_xla`` serves it in the JAX package.
+    ``full_mask`` takes :func:`gqa_grouped`, on the CPU only. ``window`` > 0
+    is sliding-window attention; ``reach`` is :func:`flash_gqa_cache`'s
+    schedule hint."""
+    if full_mask is not None or (softcap and q.device.type != "cuda"):
         if q.device.type == "cuda":
-            raise NotImplementedError(
-                "softcap / full_mask attention is not ported to the card yet"
-            )
+            raise NotImplementedError("full_mask attention is not ported to the card yet")
         if k_scale is not None:
             k = k.to(q.dtype) * k_scale.to(q.dtype)[..., None]
             v = v.to(q.dtype) * v_scale.to(q.dtype)[..., None]
         return gqa_grouped(q, k, v, pos0, kv_valid, window=window, softcap=softcap, full_mask=full_mask)
     return flash_gqa_cache(
-        q, k, v, pos0, kv_valid, k_scale=k_scale, v_scale=v_scale, window=window, reach=reach
+        q, k, v, pos0, kv_valid, k_scale=k_scale, v_scale=v_scale, window=window, reach=reach,
+        softcap=softcap,
     )

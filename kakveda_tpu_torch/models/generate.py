@@ -23,9 +23,11 @@ request does not fit its window. ``generate_stream`` yields text deltas as
 decode chunks land (the engine's ``on_tokens``, or one delta per solo
 chunk) and cancels its request when the consumer closes it or sets
 ``cancel``. Without weights it serves a model drawn from a seed, as the JAX
-runtime does without a checkpoint. While ``DeviceHealth`` is latched
-DEGRADED, every generation entry point fails fast with
-``DeviceUnavailableError``. Not ported yet: speculative decoding.
+runtime does without a checkpoint, or a local HF checkpoint
+(``LlamaRuntime.from_hf``; ``KAKVEDA_HF_CKPT`` / ``KAKVEDA_HF_DIR`` in
+``from_env``). While ``DeviceHealth`` is latched DEGRADED, every generation
+entry point fails fast with ``DeviceUnavailableError``. Not ported yet:
+speculative decoding.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ import numpy as np
 import torch
 
 from kakveda_tpu_torch.core.admission import get_device_health
+from kakveda_tpu_torch.models.attention import KERNEL_HEAD_DIMS
 from kakveda_tpu_torch.models.llama import (
     LlamaConfig,
     Params,
@@ -147,9 +150,9 @@ def prefill(params: Params, cfg: LlamaConfig, prompt, cache, kv_valid, pos_offse
     S = chunk from cache row k·chunk and its activations are O(chunk · d_ff)
     instead of O(P · d_ff). The width must be a chunk multiple (widen the
     left padding with ``_pack_prompts(..., plen=)``). Cached attention makes
-    the chunked and the one-piece prefill the same function. Phi-3
-    longrope, which would need each piece to see the whole prompt length,
-    is not ported (``convert`` refuses its params)."""
+    the chunked and the one-piece prefill the same function. Under Phi-3
+    longrope each piece rotates with the regime of its row's whole prompt
+    (``seq_total`` = width − left pad), as the one-piece prefill does."""
     width = prompt.shape[1]
     if chunk > 0 and width > chunk and width % chunk:
         raise ValueError(
@@ -157,10 +160,13 @@ def prefill(params: Params, cfg: LlamaConfig, prompt, cache, kv_valid, pos_offse
             f"to a multiple of chunk={chunk} (pack with plen=rounded)"
         )
     step = width if chunk <= 0 else chunk
+    seq_total = None
+    if step < width and cfg.rope_dim_factors_long:
+        seq_total = width - pos_offset
     for s in range(0, width, step):
         logits, cache = decode_step(
             params, cfg, prompt[:, s : s + step], cache,
-            kv_valid=kv_valid, pos_offset=pos_offset, last_only=True,
+            kv_valid=kv_valid, pos_offset=pos_offset, last_only=True, seq_total=seq_total,
         )
     return _last_logits(logits, cfg), cache
 
@@ -278,8 +284,8 @@ class DecodeSession:
 class LlamaRuntime:
     """On-device Llama generation with the shared ``GenerateResult`` meta
     shape. Runs on the card unless ``device`` names another; the card serves
-    bf16 models of head_dim 64 or 128 only (the flash kernel's), and a
-    runtime on the card refuses any other when it is built.
+    bf16 models of head_dim 64, 96, 128 or 256 only (the flash kernel's),
+    and a runtime on the card refuses any other when it is built.
     ``quant="int8"`` serves int8 weight-only weights
     (``models/quant.py``): drawn from the seed, each matrix is quantized as
     it is drawn, so no bf16 copy of the model ever exists; given ``params``,
@@ -308,9 +314,9 @@ class LlamaRuntime:
             raise ValueError(
                 f"the card serves bf16 models; cfg.dtype={self.cfg.dtype} on the card is not ported"
             )
-        if self.device.type == "cuda" and self.cfg.head_dim not in (64, 128):
+        if self.device.type == "cuda" and self.cfg.head_dim not in KERNEL_HEAD_DIMS:
             raise ValueError(
-                f"the card's attention kernel takes head_dim 64 or 128; head_dim={self.cfg.head_dim} "
+                f"the card's attention kernel takes head_dim 64, 96, 128 or 256; head_dim={self.cfg.head_dim} "
                 "on the card is not ported (KAKVEDA_LLAMA_PRESET=8b serves on the card)"
             )
         kvq = os.environ.get("KAKVEDA_KV_QUANT", "")
@@ -336,19 +342,48 @@ class LlamaRuntime:
 
     @classmethod
     def from_env(cls, device=None) -> "LlamaRuntime":
-        """``KAKVEDA_LLAMA_PRESET`` (``tiny`` or ``8b``), ``KAKVEDA_QUANT``
-        (``int8`` or ``none``), ``KAKVEDA_KV_QUANT`` and the
-        ``KAKVEDA_SERVE_*`` engine knobs, as the JAX runtime reads them.
-        Checkpoints are not ported and raise."""
+        """``KAKVEDA_HF_CKPT`` (or its alias ``KAKVEDA_HF_DIR``; the first
+        wins when both are set) serves that local HF checkpoint
+        (:meth:`from_hf`); else ``KAKVEDA_LLAMA_PRESET`` (``tiny`` or
+        ``8b``) with random weights. ``KAKVEDA_QUANT`` (``int8`` or
+        ``none``), ``KAKVEDA_KV_QUANT`` and the ``KAKVEDA_SERVE_*`` engine
+        knobs as the JAX runtime reads them. ``KAKVEDA_LLAMA_CKPT`` (an
+        orbax checkpoint, a JAX format) raises."""
         quant = os.environ.get("KAKVEDA_QUANT") or None
         if quant not in (None, "none", "int8"):
             raise ValueError(f"unknown KAKVEDA_QUANT={quant!r} (int8|none)")
-        for var in ("KAKVEDA_HF_CKPT", "KAKVEDA_HF_DIR", "KAKVEDA_LLAMA_CKPT"):
-            if os.environ.get(var):
-                raise NotImplementedError(f"{var}: loading checkpoints is not ported yet")
+        hf_ckpt = os.environ.get("KAKVEDA_HF_CKPT") or os.environ.get("KAKVEDA_HF_DIR")
+        if hf_ckpt:
+            return cls.from_hf(hf_ckpt, quant=quant, device=device)
+        if os.environ.get("KAKVEDA_LLAMA_CKPT"):
+            raise NotImplementedError(
+                "KAKVEDA_LLAMA_CKPT: orbax checkpoints are a JAX format; serve an HF checkpoint "
+                "with KAKVEDA_HF_CKPT"
+            )
         preset = os.environ.get("KAKVEDA_LLAMA_PRESET", "tiny").lower()
         cfg = LlamaConfig.llama3_8b() if preset in ("8b", "llama3-8b") else LlamaConfig.tiny()
         return cls(cfg=cfg, quant=quant, device=device)
+
+    @classmethod
+    def from_hf(cls, path: str, *, quant: Optional[str] = None, device=None) -> "LlamaRuntime":
+        """Serve a local HF checkpoint directory (weights, ``config.json``
+        and tokenizer files): ``hf_convert.load_hf_checkpoint`` onto
+        ``device`` (the card unless named), an ``HFTokenizer`` from the same
+        directory (it needs ``transformers``), labelled by the directory's
+        name. ``quant="int8"`` quantizes the loaded weights."""
+        from kakveda_tpu_torch.models.hf_convert import load_hf_checkpoint
+        from kakveda_tpu_torch.models.tokenizer import HFTokenizer
+
+        if quant not in (None, "none", "int8"):
+            raise ValueError(f"unknown quant mode {quant!r} (int8|none)")
+        params, cfg = load_hf_checkpoint(path, device=device)
+        if quant == "int8":
+            params = quantize_params_int8(params)
+        tok = HFTokenizer(path)
+        label = os.path.basename(os.path.normpath(path))
+        rt = cls(cfg=cfg, params=params, tokenizer=tok, model_label=label, device=device)
+        rt.quant = "int8" if quant == "int8" else None
+        return rt
 
     def engine(self):
         """The shared online ServingEngine, built at first use, or None when

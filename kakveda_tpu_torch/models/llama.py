@@ -1,25 +1,28 @@
 """In-tree Llama: config, parameters, blocks and the KV-cache decode step.
 
-Counterpart of ``kakveda_tpu/models/llama.py`` for Llama-family models
-with a dense or a sparse-MoE MLP (Llama, Mistral's sliding window, Mixtral's
-experts in ``models/moe.py``, Gemma-2's softcaps). Plain functions on
-tensors: params are a dict with the JAX package's keys and layouts (``x @
-W`` with ``W [in, out]``), matrices stored in ``cfg.dtype`` or as int8
-weight-only ``{"q", "s"}`` pairs (``models/quant.py``), the MoE router and
-norm gains in f32 (so ``rms_norm`` takes its f32-gain branch under bf16, as
-the JAX runtime does with its f32 params). The cache is updated in place,
-where the JAX version returns a new one.
+Counterpart of ``kakveda_tpu/models/llama.py``: one forward for the eight
+HF families it serves (Llama, Mistral, Qwen2, Qwen3, Gemma, Gemma-2, Phi-3,
+Mixtral), every family delta a flag on :class:`LlamaConfig`
+(``models/hf_convert.py`` maps the checkpoints): q/k/v biases, an explicit
+head_dim, GeGLU and the embedding scale, Gemma-2's alternating window,
+softcaps, query scale and sandwich norms, Qwen3's q/k norms and Phi-3's
+longrope. Plain functions on tensors: params are a dict with the JAX
+package's keys and layouts (``x @ W`` with ``W [in, out]``), matrices stored
+in ``cfg.dtype`` or as int8 weight-only ``{"q", "s"}`` pairs
+(``models/quant.py``); norm gains, biases and the MoE router keep the dtype
+they were given (``init_params`` draws them in f32, so ``rms_norm`` takes
+its f32-gain branch under bf16, as the JAX runtime does with its f32
+params). The cache is updated in place, where the JAX version returns a
+new one.
 
-Not ported yet (``convert.llama_params_from_jax`` refuses their params):
-the other family flags (biases, GeGLU, embedding scale, query scale,
-sandwich and q/k norms, Gemma-2's alternating window, Phi-3 longrope), the
-MoE load-balancing loss, and the full-sequence ``forward``, ring attention
-and training.
+Not ported yet: the MoE load-balancing loss, and the full-sequence
+``forward``, ring attention and training.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, Optional, Tuple
 
@@ -53,12 +56,32 @@ class LlamaConfig:
     # Real tokenizer vocab when the table is padded past it (sampling masks
     # the columns beyond); None = no padding.
     effective_vocab: Optional[int] = None
-    # Sliding attention window in tokens (Mistral; 0 = full causal) and the
-    # Gemma-2 tanh softcaps of attention scores and final logits (0 = off;
-    # attention softcap runs on the CPU only so far).
+    # Family knobs: q/k/v projection biases (Qwen2), a sliding attention
+    # window in tokens (Mistral; 0 = full causal), an explicit head_dim
+    # (0 = d_model // n_heads).
+    attn_bias: bool = False
     sliding_window: int = 0
+    head_dim_opt: int = 0
+    # Gemma: tanh-GELU gate (GeGLU) and sqrt(d_model) embedding scale; its
+    # (1 + w) RMSNorm gains are materialized at conversion.
+    act_fn: str = "silu"  # "silu" | "gelu_tanh"
+    scale_embed: bool = False
+    # Gemma-2: the window on even layers only, tanh softcaps of attention
+    # scores and final logits (0 = off), an explicit query scale (0 =
+    # head_dim**-0.5) and sandwich norms inside each residual branch.
+    alt_window: bool = False
     attn_softcap: float = 0.0
     final_softcap: float = 0.0
+    query_scale: float = 0.0
+    post_norms: bool = False
+    # Qwen3: per-head q/k RMSNorm over head_dim, before RoPE.
+    qk_norm: bool = False
+    # Phi-3 longrope: per-dimension inverse-frequency divisors (head_dim/2
+    # each), short while a row's sequence fits rope_original_max_len, long
+    # past it (picked per row), and a static cos/sin scale.
+    rope_dim_factors: tuple = ()
+    rope_dim_factors_long: tuple = ()
+    rope_attn_scaling: float = 1.0
     # KV-cache quantization ("" | "int8"): int8 rows + per-row f32 scales.
     kv_quant: str = ""
     # Sparse-MoE MLP (Mixtral; models/moe.py): 0 experts means dense. A
@@ -71,12 +94,15 @@ class LlamaConfig:
     router_aux_coef: float = 0.0
 
     def layer_window(self, li: int) -> int:
-        """Effective sliding window for layer ``li`` (0 = full causal)."""
+        """Effective sliding window for layer ``li`` (0 = full causal): odd
+        layers run full causal under ``alt_window``."""
+        if not self.sliding_window or (self.alt_window and li % 2 == 1):
+            return 0
         return self.sliding_window
 
     @property
     def head_dim(self) -> int:
-        return self.d_model // self.n_heads
+        return self.head_dim_opt or self.d_model // self.n_heads
 
     @classmethod
     def tiny(cls, **kw) -> "LlamaConfig":
@@ -103,9 +129,12 @@ class LlamaConfig:
 
 def init_params(generator: torch.Generator, cfg: LlamaConfig, device=None, quant: Optional[str] = None) -> Params:
     """Random weights with the JAX package's distribution: N(0, 1) / √fan_in
-    per matrix, ones for norm gains; MoE layers (``cfg.n_experts``) carry a
-    ``router [D, E]`` and stacked ``we_gate`` / ``we_up [E, D, F]``,
-    ``we_down [E, F, D]`` in place of the dense MLP. Each matrix is drawn in
+    per matrix, ones for norm gains, zeros for biases; MoE layers
+    (``cfg.n_experts``) carry a ``router [D, E]`` and stacked ``we_gate`` /
+    ``we_up [E, D, F]``, ``we_down [E, F, D]`` in place of the dense MLP, and
+    the family flags add the JAX package's keys (``bq``/``bk``/``bv``,
+    ``post_attn_norm``/``post_ffw_norm``, ``q_norm``/``k_norm`` [head_dim]),
+    all f32. Each matrix is drawn in
     f32 on ``device`` and cast to ``cfg.dtype`` (the router stays f32) or,
     with ``quant="int8"``, quantized as the JAX package quantizes its f32
     params, before the next is drawn: no f32 copy of the whole model, and
@@ -131,6 +160,9 @@ def init_params(generator: torch.Generator, cfg: LlamaConfig, device=None, quant
     def gain(n):
         return torch.ones(n, dtype=torch.float32, device=dev)
 
+    def bias(n):
+        return torch.zeros(n, dtype=torch.float32, device=dev)
+
     d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
     layers = []
     for _ in range(cfg.n_layers):
@@ -151,6 +183,12 @@ def init_params(generator: torch.Generator, cfg: LlamaConfig, device=None, quant
             layer["w_gate"] = dense("w_gate", d, (d, f))
             layer["w_up"] = dense("w_up", d, (d, f))
             layer["w_down"] = dense("w_down", f, (f, d))
+        if cfg.attn_bias:
+            layer.update(bq=bias(cfg.n_heads * hd), bk=bias(cfg.n_kv_heads * hd), bv=bias(cfg.n_kv_heads * hd))
+        if cfg.post_norms:
+            layer.update(post_attn_norm=gain(d), post_ffw_norm=gain(d))
+        if cfg.qk_norm:
+            layer.update(q_norm=gain(hd), k_norm=gain(hd))
         layers.append(layer)
     return {
         "embed": dense("embed", d, (cfg.vocab_size, d)),
@@ -185,13 +223,47 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     return (x32 * scale).to(x.dtype) * w.to(x.dtype)
 
 
-def _rope_freqs(cfg: LlamaConfig, positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def _in_dtype(v: float, dt: torch.dtype) -> float:
+    """``v`` rounded to ``dt`` on the host (``jnp.asarray(v, dt)`` in the
+    JAX package): a Python float that multiplies a ``dt`` tensor exactly as
+    a ``dt`` scalar does, with no host-to-device copy (a forward stays
+    capturable in a CUDA graph)."""
+    return torch.tensor(v, dtype=dt).item()
+
+
+@functools.lru_cache(maxsize=32)
+def _rope_divisors(factors: tuple, device: torch.device) -> torch.Tensor:
+    """Longrope's per-dimension divisors on ``device``, made once (a copy
+    from the host inside a CUDA-graph capture would fail)."""
+    return torch.tensor(factors, dtype=torch.float32, device=device)
+
+
+def _rope_freqs(
+    cfg: LlamaConfig, positions: torch.Tensor, seq_len: Optional[torch.Tensor] = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
     """cos/sin tables [..., head_dim/2] for ``positions``, with Llama-3.1's
-    wavelength-dependent NTK scaling when ``rope_factor`` > 1."""
+    wavelength-dependent NTK scaling when ``rope_factor`` > 1, or Phi-3's
+    longrope divisors: short factors while a row's length (its largest
+    position + 1, or ``seq_len`` [B], which chunked prefill passes so that
+    every piece rotates as the whole prompt does) is at most
+    ``rope_original_max_len``, long ones past it, picked per row."""
+    dev = positions.device
     half = cfg.head_dim // 2
-    inv = 1.0 / (
-        cfg.rope_theta ** (torch.arange(half, dtype=torch.float32, device=positions.device) / half)
-    )
+    inv = 1.0 / (cfg.rope_theta ** (torch.arange(half, dtype=torch.float32, device=dev) / half))
+    if cfg.rope_dim_factors:
+        inv_short = inv / _rope_divisors(cfg.rope_dim_factors, dev)
+        if cfg.rope_dim_factors_long:
+            inv_long = inv / _rope_divisors(cfg.rope_dim_factors_long, dev)
+            if seq_len is None:
+                eff_len = positions.amax(dim=-1, keepdim=True) + 1
+            else:
+                eff_len = torch.as_tensor(seq_len, device=dev).to(torch.int32)[..., None]
+            long_row = eff_len > cfg.rope_original_max_len  # [..., 1]
+            ang = positions[..., None].float()
+            ang = torch.where(long_row[..., None], ang * inv_long, ang * inv_short)
+            scale = cfg.rope_attn_scaling
+            return torch.cos(ang) * scale, torch.sin(ang) * scale
+        inv = inv_short
     if cfg.rope_factor != 1.0:
         wavelen = 2.0 * math.pi / inv
         low_wl = cfg.rope_original_max_len / cfg.rope_low_freq_factor
@@ -204,6 +276,8 @@ def _rope_freqs(cfg: LlamaConfig, positions: torch.Tensor) -> Tuple[torch.Tensor
             wavelen > low_wl, inv / cfg.rope_factor, torch.where(wavelen < high_wl, inv, blended)
         )
     ang = positions[..., None].float() * inv
+    if cfg.rope_attn_scaling != 1.0:
+        return torch.cos(ang) * cfg.rope_attn_scaling, torch.sin(ang) * cfg.rope_attn_scaling
     return torch.cos(ang), torch.sin(ang)
 
 
@@ -219,12 +293,27 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 
 def qkv_proj(h: torch.Tensor, layer: Params, cfg: LlamaConfig, dt: torch.dtype):
     """q/k/v projections: h [B, S, d_model] -> q [B, S, H, hd], k/v
-    [B, S, KV, hd]."""
+    [B, S, KV, hd]; then the biases (Qwen2), Qwen3's per-head q/k norms, and
+    the explicit query scale folded into q. The fold comes after the norms,
+    which would cancel a scale applied before them, and it commutes with
+    RoPE (the kernel scales scores by head_dim**-0.5)."""
     b, s, _ = h.shape
     hd = cfg.head_dim
-    q = (h @ wmat(layer["wq"], dt)).reshape(b, s, cfg.n_heads, hd)
-    k = (h @ wmat(layer["wk"], dt)).reshape(b, s, cfg.n_kv_heads, hd)
-    v = (h @ wmat(layer["wv"], dt)).reshape(b, s, cfg.n_kv_heads, hd)
+    q = h @ wmat(layer["wq"], dt)
+    k = h @ wmat(layer["wk"], dt)
+    v = h @ wmat(layer["wv"], dt)
+    if "bq" in layer:
+        q = q + layer["bq"].to(dt)
+        k = k + layer["bk"].to(dt)
+        v = v + layer["bv"].to(dt)
+    q = q.reshape(b, s, cfg.n_heads, hd)
+    k = k.reshape(b, s, cfg.n_kv_heads, hd)
+    v = v.reshape(b, s, cfg.n_kv_heads, hd)
+    if "q_norm" in layer:
+        q = rms_norm(q, layer["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, layer["k_norm"], cfg.norm_eps)
+    if cfg.query_scale:
+        q = q * _in_dtype(cfg.query_scale * math.sqrt(hd), dt)
     return q, k, v
 
 
@@ -244,20 +333,45 @@ def softcap_logits(logits: torch.Tensor, cap: float) -> torch.Tensor:
 
 
 def embed_tokens(params: Params, cfg: LlamaConfig, tokens: torch.Tensor) -> torch.Tensor:
-    """Token embedding at compute dtype."""
-    return F.embedding(tokens, params["embed"].to(cfg.dtype))
+    """Token embedding at compute dtype; Gemma scales it by sqrt(d_model),
+    the scale rounded to the compute dtype first."""
+    x = F.embedding(tokens, params["embed"].to(cfg.dtype))
+    if cfg.scale_embed:
+        x = x * _in_dtype(math.sqrt(cfg.d_model), cfg.dtype)
+    return x
+
+
+def _act(x: torch.Tensor, act_fn: str) -> torch.Tensor:
+    if act_fn == "gelu_tanh":  # Gemma's GeGLU gate
+        return F.gelu(x, approximate="tanh")
+    return F.silu(x)
 
 
 def mlp_block(x: torch.Tensor, layer: Params, cfg: LlamaConfig) -> torch.Tensor:
-    """Dense SwiGLU, or the sparse-MoE MLP for a layer that carries a
-    ``router`` (``models/moe.py``)."""
+    """Dense SwiGLU (GeGLU under ``act_fn="gelu_tanh"``), or the sparse-MoE
+    MLP for a layer that carries a ``router`` (``models/moe.py``)."""
     if "router" in layer:
         from kakveda_tpu_torch.models.moe import moe_mlp
 
         return moe_mlp(x, layer, cfg)
     dt = x.dtype
-    g = F.silu(x @ wmat(layer["w_gate"], dt))
+    g = _act(x @ wmat(layer["w_gate"], dt), cfg.act_fn)
     return (g * (x @ wmat(layer["w_up"], dt))) @ wmat(layer["w_down"], dt)
+
+
+def attn_residual(x: torch.Tensor, attn: torch.Tensor, layer: Params, cfg: LlamaConfig) -> torch.Tensor:
+    """``x`` plus the attention branch (heads merged, ``wo`` applied), then
+    the MLP branch; each branch goes through its sandwich norm (Gemma-2's
+    ``post_attn_norm`` / ``post_ffw_norm``) when the layer has one."""
+    b, s = x.shape[:2]
+    a = attn.reshape(b, s, -1) @ wmat(layer["wo"], x.dtype)
+    if "post_attn_norm" in layer:
+        a = rms_norm(a, layer["post_attn_norm"], cfg.norm_eps)
+    x = x + a
+    m = mlp_block(rms_norm(x, layer["mlp_norm"], cfg.norm_eps), layer, cfg)
+    if "post_ffw_norm" in layer:
+        m = rms_norm(m, layer["post_ffw_norm"], cfg.norm_eps)
+    return x + m
 
 
 # ---------------------------------------------------------------------------
@@ -315,13 +429,16 @@ def decode_step(
     kv_valid: Optional[torch.Tensor] = None,  # [B, max_len] — False masks pad slots
     pos_offset: Optional[torch.Tensor] = None,  # [B] — logical-position shift (left pad)
     last_only: bool = False,
+    seq_total: Optional[torch.Tensor] = None,  # [B] — whole-prompt length for longrope
 ) -> Tuple[torch.Tensor, Params]:
     """Incremental forward with KV cache: writes this chunk's K/V rows at
     ``cache["pos"]`` (in place), attends through :func:`gqa_cache_attention`
     and returns (logits [B, S or 1, V] f32, cache). ``kv_valid``/``pos_offset``
     give exact left-padded batching (RoPE positions are slot − offset);
     ``last_only`` computes the final norm and vocab projection for the last
-    position only."""
+    position only; ``seq_total`` picks the longrope regime of each row from
+    its whole prompt's length (chunked prefill must pass it; decode steps
+    leave it None: the running length)."""
     b, s = tokens.shape
     pos0 = int(cache["pos"])
     ml = cache["k"][0].shape[2]
@@ -330,8 +447,7 @@ def decode_step(
     positions = (torch.arange(s, device=tokens.device) + pos0).expand(b, s)
     if pos_offset is not None:
         positions = positions - pos_offset[:, None]
-    cos, sin = _rope_freqs(cfg, positions)
-    hd = cfg.head_dim
+    cos, sin = _rope_freqs(cfg, positions, seq_total)
     kq = cfg.kv_quant == "int8"
 
     x = embed_tokens(params, cfg, tokens)
@@ -359,8 +475,7 @@ def decode_step(
             q, cache["k"][li], cache["v"][li], pos0, kv_valid,
             window=cfg.layer_window(li), softcap=cfg.attn_softcap, k_scale=ks, v_scale=vs,
         )
-        x = x + attn.reshape(b, s, cfg.n_heads * hd) @ wmat(layer["wo"], dt)
-        x = x + mlp_block(rms_norm(x, layer["mlp_norm"], cfg.norm_eps), layer, cfg)
+        x = attn_residual(x, attn, layer, cfg)
 
     if last_only:
         x = x[:, -1:, :]

@@ -59,11 +59,11 @@ from kakveda_tpu_torch.models.llama import (
     _kv_quant_rows,
     _rope_freqs,
     apply_rope,
+    attn_residual,
     decode_step,
     embed_tokens,
     init_cache,
     mask_pad_vocab,
-    mlp_block,
     qkv_proj,
     rms_norm,
     softcap_logits,
@@ -126,11 +126,13 @@ def _forward_wide(
     schedule which rows the mask can show (a hint, exact either way). Slots
     whose row lies past the window (overshoot, discarded on the host) are
     left out of ``write_rows`` and write nothing — the JAX scatter's
-    ``mode="drop"``. Returns logits [B, 1, V] f32, vocab-masked."""
+    ``mode="drop"``. The family flags apply as in ``decode_step``: each
+    layer takes the window band only when ``cfg.layer_window`` gives it one
+    (Gemma-2's even layers), and the sandwich norms through
+    ``attn_residual``. Returns logits [B, 1, V] f32, vocab-masked."""
     b, s = tokens.shape
     if s != 1:
         raise ValueError("_forward_wide: one token per slot (speculative chunks are not ported)")
-    hd = cfg.head_dim
     max_len = cache["k"][0].shape[2]
     kq = cfg.kv_quant == "int8"
     dev = tokens.device
@@ -171,8 +173,7 @@ def _forward_wide(
             q, cache["k"][li], cache["v"][li], max_len, mask,
             softcap=cfg.attn_softcap, k_scale=ks, v_scale=vs, reach=reach,
         )
-        x = x + attn.reshape(b, s, cfg.n_heads * hd) @ wmat(layer["wo"], dt)
-        x = x + mlp_block(rms_norm(x, layer["mlp_norm"], cfg.norm_eps), layer, cfg)
+        x = attn_residual(x, attn, layer, cfg)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = (x @ wmat(params["lm_head"], cfg.dtype)).float()
     logits = softcap_logits(logits, cfg.final_softcap)

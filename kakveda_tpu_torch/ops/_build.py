@@ -4,8 +4,11 @@ Each ``kakveda_tpu_torch/csrc/<name>.cu`` is one shared library with a plain
 C interface, compiled by ``nvcc`` for ``sm_90a`` into
 ``kakveda_tpu_torch/csrc/build/`` (git-ignored) under a name keyed by a hash
 of its source and flags, so an edited kernel rebuilds and an unchanged one
-loads as it is. ``build()`` starts one ``nvcc`` per source, all at once.
-No ``nvcc``, or a failed build, raises: there is no fallback.
+loads as it is. The flash kernel builds as one library per head_dim,
+``flash_gqa_cache:<d>`` for each d of ``FLASH_HEAD_DIMS``, compiled with
+``-DKKV_HEAD_DIM=<d>``, so its instantiations compile in parallel.
+``build()`` starts one ``nvcc`` per target, all at once. No ``nvcc``, or a
+failed build, raises: there is no fallback.
 """
 
 from __future__ import annotations
@@ -44,17 +47,36 @@ def _nvcc() -> str:
     return path
 
 
+FLASH_HEAD_DIMS = (64, 96, 128, 256)  # one flash library each
+
+
+def targets() -> list:
+    """Every library the sources make: ``<name>``, or ``flash_gqa_cache:<d>``
+    for each head_dim of the flash kernel."""
+    out = []
+    for src in sorted(CSRC.glob("*.cu")):
+        out += [f"{src.stem}:{d}" for d in FLASH_HEAD_DIMS] if src.stem == "flash_gqa_cache" else [src.stem]
+    return out
+
+
+def _flags(name: str) -> tuple:
+    head_dim = name.partition(":")[2]
+    return NVCC_FLAGS + ((f"-DKKV_HEAD_DIM={head_dim}",) if head_dim else ())
+
+
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{h}.so"
+    stem, _, head_dim = name.partition(":")
+    src = CSRC / f"{stem}.cu"
+    h = hashlib.sha256(src.read_bytes() + " ".join(_flags(name)).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{stem}{'-' + head_dim if head_dim else ''}-{h}.so"
 
 
 def build(names: Sequence[str]) -> Dict[str, Path]:
-    """Compile every named source that has no up-to-date library, one
-    ``nvcc`` process each, all started together. Returns name → library
-    path; the compiler's output (``-Xptxas -v``: registers, shared memory,
-    spills) is kept beside each library as ``.log``."""
+    """Compile every named target (``<name>`` or ``<name>:<head_dim>``) that
+    has no up-to-date library, one ``nvcc`` process each, all started
+    together. Returns name → library path; the compiler's output
+    (``-Xptxas -v``: registers, shared memory, spills) is kept beside each
+    library as ``.log``."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     out = {}
@@ -65,7 +87,7 @@ def build(names: Sequence[str]) -> Dict[str, Path]:
             continue
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
         log = open(so.with_suffix(".log"), "w")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *_flags(name), "-o", str(tmp), str(CSRC / f"{name.partition(':')[0]}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT), tmp, log)
     failed = []
     for name, (proc, tmp, log) in procs.items():
@@ -82,7 +104,8 @@ def build(names: Sequence[str]) -> Dict[str, Path]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library of a target (``<name>`` or ``<name>:<head_dim>``),
+    built first if needed."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:

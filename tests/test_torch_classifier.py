@@ -169,16 +169,24 @@ def test_get_runtime_names_cache_and_device(monkeypatch):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             TR.get_runtime("torch")
+        # KAKVEDA_HF_CKPTS builds the multi-checkpoint router, lazily: no
+        # checkpoint is read until a model is asked for (as in the reference;
+        # tests/test_torch_multimodel.py serves through it).
         monkeypatch.setenv("KAKVEDA_HF_CKPTS", "/nowhere/a:/nowhere/b")
-        with pytest.raises(NotImplementedError, match="KAKVEDA_HF_CKPTS"):
-            TR.get_runtime("tpu", device="cpu")
+        TR.clear_runtimes()  # one runtime per (name, device): forget the tiny one
+        multi = TR.get_runtime("tpu", device="cpu")
+        assert isinstance(multi, TR.MultiModelRuntime) and multi.list_models() == ["a", "b"]
+        assert not multi._loaded and TR.get_runtime("torch", device="cpu") is multi
+        with pytest.raises(TR.UnknownModelError, match="available"):
+            multi.generate("x", model="c")
     finally:
         TR.clear_runtimes()
 
 
 def test_card_runtime_refuses_an_unported_head_dim_at_construction(monkeypatch):
-    """The card's attention kernel takes head_dim 64 or 128: a runtime on
-    the card with the tiny preset (head_dim 32) raises when it is built, so
+    """The card's attention kernel takes head_dim 64, 96, 128 or 256: a
+    runtime on the card with the tiny preset (head_dim 32) raises when it is
+    built, so
     KAKVEDA_CLASSIFIER=tiered fails at start-up, not at the first ambiguous
     trace of an ingest. Nothing reaches the card: the check comes first."""
     TR.clear_runtimes()
@@ -188,7 +196,7 @@ def test_card_runtime_refuses_an_unported_head_dim_at_construction(monkeypatch):
         for name in ("torch", "tpu"):
             with pytest.raises(ValueError, match="head_dim=32 on the card is not ported"):
                 TR.get_runtime(name)
-        with pytest.raises(ValueError, match="head_dim=16"):
+        with pytest.raises(ValueError, match="head_dim 64, 96, 128 or 256; head_dim=16"):
             TG.LlamaRuntime(cfg=TConfig(d_model=64, n_heads=4, n_kv_heads=2), device="cuda")
         assert not TR._RUNTIMES
     finally:

@@ -232,6 +232,10 @@ FLASH_ATOL = 2e-2
 FLASH_REL = 2.0**-6
 
 
+# Softcap cases scale q by this: scaled scores ~N(0, 20^2), past a cap of 50.
+SOFTCAP_Q_SCALE = 20.0
+
+
 def _assert_flash_close(out, want):
     diff = (out.float() - want.float()).abs()
     tol = (want.float().abs().amax(dim=-1, keepdim=True) * FLASH_REL).clamp(max=FLASH_ATOL)
@@ -408,7 +412,7 @@ def test_flash_kernel_refuses_a_short_workspace(gen):
     a partials or ticket buffer shorter than the launch needs."""
     from kakveda_tpu_torch.models import attention
 
-    lib = attention._lib()
+    lib = attention._lib(128)
     q, k, v, pos0, m, _, _ = _flash_case(gen, 8, 1, 32, 8, 512, 128, 512, "slots", False)
     qf = q.reshape(8, 1, 8, 4, 128).permute(0, 2, 1, 3, 4).reshape(64, 4, 128).contiguous()
     out = torch.empty_like(qf)
@@ -421,7 +425,7 @@ def test_flash_kernel_refuses_a_short_workspace(gen):
         return lib.kkv_flash_gqa_cache(
             qf.data_ptr(), k.data_ptr(), v.data_ptr(), None, None, m.view(torch.uint8).data_ptr(),
             out.data_ptr(), part.data_ptr(), n_part, tickets.data_ptr(), n_tickets,
-            64, 8, 4, 4, 512, 128, pos0, 0, 128**-0.5, 4, torch.cuda.current_stream().cuda_stream,
+            64, 8, 4, 4, 512, 128, pos0, 0, 128**-0.5, 0.0, 4, torch.cuda.current_stream().cuda_stream,
         )
 
     assert call(need - 1, 64) == 1 and call(need, 63) == 1
@@ -436,10 +440,183 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take(gen):
     k = torch.zeros(1, 2, 64, 128, dtype=torch.bfloat16, device="cuda")
     with pytest.raises(ValueError, match="bf16"):
         flash_gqa_cache(q.float(), k.float(), k.float(), 64, None)  # f32 model on the card
-    with pytest.raises(ValueError):
-        flash_gqa_cache(q[..., :96].contiguous(), k[..., :96].contiguous(), k[..., :96].contiguous(), 64, None)
+    with pytest.raises(ValueError):  # a head_dim the kernel does not take (it takes 64, 96, 128, 256)
+        flash_gqa_cache(q[..., :80].contiguous(), k[..., :80].contiguous(), k[..., :80].contiguous(), 64, None)
     with pytest.raises(ValueError):
         flash_gqa_cache(q, k.to(torch.int8), k.to(torch.int8), 64, None)  # int8 without scales
+    with pytest.raises(ValueError):
+        flash_gqa_cache(q, k, k, 64, None, softcap=-1.0)
+
+
+@pytest.mark.parametrize("kv8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("softcap", [0.0, 50.0], ids=["nocap", "softcap"])
+@pytest.mark.parametrize(
+    "b,s,h,kv,l,d,pos0,valid,window,splits",
+    [
+        (8, 1, 16, 8, 8192, 256, 8192, "slots", 4096, "many"),  # Gemma-2-9B decode, its window
+        (1, 64, 16, 8, 512, 256, 0, "leftpad", 0, "one"),  # Gemma-2-9B admission
+        (2, 16, 16, 8, 5120, 256, 4608, "leftpad", 4096, "many"),  # a prefill piece past the window
+        (2, 1, 32, 32, 2048, 96, 2048, "slots", 0, "many"),  # Phi-3-mini decode
+        (1, 40, 32, 32, 300, 96, 100, None, 0, "one"),  # Phi-3-mini prefill piece
+    ],
+)
+def test_flash_kernel_new_head_dims_replay_from_a_cuda_graph(gen, b, s, h, kv, l, d, pos0, valid, window, splits,
+                                                            softcap, kv8):
+    """D = 96 and 256, with and without Gemma-2's softcap, both bodies, split
+    and unsplit: the kernel against the plain version of its split schedule
+    and the unsplit one (the softcap in both), then the same launch captured
+    in a CUDA graph replays equal to the eager call, twice. With the softcap
+    q is scaled so that the scores reach past the cap (|s| up to ~80 at cap
+    50; randn inputs give |s| < 5, where the cap moves a score by < 0.012),
+    and the plain version without the cap must fall outside the tolerance:
+    a kernel that skipped the cap would fail."""
+    from kakveda_tpu_torch.models.attention import (
+        flash_gqa_cache_split_reference,
+        flash_split_count,
+        kernel_blocks_per_sm,
+    )
+
+    sr = s * (h // kv)
+    n_split = flash_split_count(b * kv, sr, l, _sms(), reach=pos0 + s, blocks_per_sm=kernel_blocks_per_sm(d, kv8, sr))
+    assert (n_split == 1) == (splits == "one"), n_split
+    q, k, v, pos0, kv_valid, ks, vs = _flash_case(gen, b, s, h, kv, l, d, pos0, valid, kv8)
+    if softcap:
+        q = (q.float() * SOFTCAP_Q_SCALE).to(torch.bfloat16)
+    kw = dict(k_scale=ks, v_scale=vs, window=window, softcap=softcap)
+    counter = "launches_kv8" if kv8 else "launches"
+    before = getattr(flash_gqa_cache, counter)
+    eager = flash_gqa_cache(q, k, v, pos0, kv_valid, **kw)
+    torch.cuda.synchronize()
+    assert getattr(flash_gqa_cache, counter) == before + 1
+    assert torch.isfinite(eager).all()
+    for want in (flash_gqa_cache_split_reference(q, k, v, pos0, kv_valid, n_split=n_split, **kw),
+                 flash_gqa_cache_reference(q, k, v, pos0, kv_valid, **kw)):
+        _assert_flash_close(eager, want)
+    if softcap:  # the control: the cap bends these scores past the tolerance
+        with pytest.raises(AssertionError):
+            _assert_flash_close(eager, flash_gqa_cache_reference(q, k, v, pos0, kv_valid, **dict(kw, softcap=0.0)))
+    if valid == "slots":
+        assert torch.equal(eager[0], torch.zeros_like(eager[0]))  # the slot that sees nothing
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        captured = flash_gqa_cache(q, k, v, pos0, kv_valid, **kw)
+    for _ in range(2):
+        captured.fill_(float("nan"))
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, eager)
+
+
+def test_flash_blocks_per_sm_the_split_count_plans_are_resident():
+    """At every head_dim and both bodies the blocks per SM the split count
+    plans for (the library's launch bound: two, one for D = 256's bf16
+    ring) are what the card's occupancy calculator grants at least."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    from kakveda_tpu_torch.models.attention import KERNEL_HEAD_DIMS, _lib, kernel_blocks_per_sm
+
+    for d in KERNEL_HEAD_DIMS:
+        lib = _lib(d)
+        for kv8 in (0, 1):
+            for sr in (4, 64):
+                planned = kernel_blocks_per_sm(d, kv8, sr)
+                assert planned == (1 if d == 256 else 2), (d, kv8, sr, planned)
+                assert lib.kkv_flash_gqa_cache_blocks_per_sm(d, kv8, sr, 0) >= planned, (d, kv8, sr)
+        # each library takes its own head_dim only
+        assert all(lib.kkv_flash_gqa_cache_blocks_per_sm(e, 0, 4, 1) == -1 for e in KERNEL_HEAD_DIMS if e != d)
+
+
+FAMILY_FLAGS = {
+    # Gemma-2: GeGLU, the embedding scale, head_dim 256, the softcaps, the
+    # window on even layers, a query scale off the default, sandwich norms.
+    "gemma2": dict(d_model=512, n_layers=4, n_heads=4, n_kv_heads=2, head_dim_opt=256, d_ff=1024,
+                   act_fn="gelu_tanh", scale_embed=True, sliding_window=32, alt_window=True, attn_softcap=50.0,
+                   final_softcap=30.0, query_scale=144**-0.5, post_norms=True, norm_eps=1e-6),
+    # Phi-3: head_dim 96, longrope past 64 tokens.
+    "phi3": dict(d_model=384, n_layers=2, n_heads=4, n_kv_heads=4, d_ff=1024, rope_original_max_len=64,
+                 rope_dim_factors=tuple(1.0 + 0.01 * i for i in range(48)),
+                 rope_dim_factors_long=tuple(2.0 + 0.08 * i for i in range(48)), rope_attn_scaling=1.1),
+    # Qwen2 biases and Qwen3 q/k norms at head_dim 128.
+    "qwen": dict(d_model=512, n_layers=2, n_heads=4, n_kv_heads=2, d_ff=1024, attn_bias=True, qk_norm=True),
+}
+
+
+@pytest.mark.parametrize("kv_quant", ["", "int8"])
+@pytest.mark.parametrize("family", list(FAMILY_FLAGS))
+def test_family_batcher_on_the_card_runs_the_kernel(gen, family, kv_quant):
+    """Continuous batching of each family's flags on the card: every forward
+    launches the kernel once a layer (the softcap and D = 96 / 256 too, no
+    fallback), and every engine token lies within 0.05 of the solo argmax
+    on its own prefix (teacher-forced: one pass, or under longrope, whose
+    regime follows the running length as decode does, the prompt and then
+    one step per token)."""
+    from kakveda_tpu_torch.models.llama import LlamaConfig, decode_step, init_cache, init_params, mask_pad_vocab
+    from kakveda_tpu_torch.models.serving import ContinuousBatcher
+
+    cfg = LlamaConfig(vocab_size=264, max_seq_len=256, effective_vocab=259, kv_quant=kv_quant, **FAMILY_FLAGS[family])
+    params = init_params(gen, cfg)
+    prompts = [list(range(5, 60)), [10, 11, 12, 13, 14], [42] * 40, [9, 8], list(range(100, 150))]
+    mine = "launches_kv8" if kv_quant else "launches"
+    before = getattr(flash_gqa_cache, mine)
+    cb = ContinuousBatcher(params, cfg, batch_slots=2, max_len=128, chunk_steps=4)
+    outs = cb.run_all(prompts, max_new_tokens=24)
+    torch.cuda.synchronize()
+    assert getattr(flash_gqa_cache, mine) - before == cfg.n_layers * cb.forwards
+    for p, out in zip(prompts, outs):
+        cache = init_cache(cfg, 1, len(p) + len(out))
+        if cfg.rope_dim_factors_long:
+            first, _ = decode_step(params, cfg, torch.tensor([p], device="cuda"), cache, last_only=True)
+            steps = [decode_step(params, cfg, torch.tensor([[t]], device="cuda"), cache)[0] for t in out[:-1]]
+            logits = torch.cat([first] + steps, dim=1)
+        else:
+            logits, _ = decode_step(params, cfg, torch.tensor([p + out], device="cuda"), cache)
+            logits = logits[:, len(p) - 1 : -1]
+        lg = mask_pad_vocab(logits[0], cfg)
+        deficit = lg.max(dim=-1).values - lg[torch.arange(len(out)), torch.tensor(out)]
+        assert deficit.max().item() <= 0.05, deficit
+
+
+@pytest.mark.parametrize("family", ["gemma2", "phi3"])
+def test_family_forward_wide_replays_from_a_cuda_graph(gen, family):
+    """A decode step of a family model captures whole: the embedding scale
+    and the query-scale fold are host floats and longrope's divisors are
+    made once per device, so nothing copies from the host under capture.
+    A replay after an in-place write of new tokens equals an eager step."""
+    from kakveda_tpu_torch.models.llama import LlamaConfig, init_params
+    from kakveda_tpu_torch.models.serving import ContinuousBatcher, _forward_wide
+
+    cfg = LlamaConfig(vocab_size=264, max_seq_len=256, effective_vocab=259, **FAMILY_FLAGS[family])
+    params = init_params(gen, cfg)
+    cb = ContinuousBatcher(params, cfg, batch_slots=4, max_len=128, chunk_steps=4)
+    for p in (list(range(5, 60)), [10, 11, 12, 13, 14], [42] * 40, [9, 8, 7, 6]):
+        cb.admit(p, max_new_tokens=40)
+    cb.step()
+    cb._grow_valid(1)  # the rows the next step writes, as step_async does
+    tokens = torch.tensor([[11], [12], [13], [14]], device="cuda")
+    args = (torch.from_numpy(cb._pos_np.copy()).cuda(), torch.from_numpy(cb._kv_np.copy()).cuda(),
+            torch.from_numpy(cb._off_np.copy()).cuda())
+    reach = int(cb._pos_np.max()) + 1
+
+    def step():
+        return _forward_wide(cb.params, cb.cfg, cb.cache, tokens, *args, reach=reach)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = step()
+    g.replay()
+    first = out.clone()
+    tokens.copy_(torch.tensor([[50], [60], [70], [80]], device="cuda"))
+    g.replay()
+    eager = step()
+    torch.cuda.synchronize()
+    assert torch.isfinite(out[..., :259]).all() and not torch.equal(out, first)
+    torch.testing.assert_close(out, eager, atol=2e-2, rtol=0)
+    assert torch.equal(out.argmax(-1), eager.argmax(-1))
 
 
 def _small_bf16_model(gen, kv_quant=""):

@@ -195,6 +195,35 @@ def test_split_count_at_the_serving_shapes():
     assert port.flash_split_plan(512, 4) == [(0, 128), (128, 256), (256, 384), (384, 512)]
 
 
+@pytest.mark.parametrize("d,blocks_per_sm", [(64, 2), (96, 2), (128, 2), (256, 1)])
+def test_split_count_plans_the_blocks_each_head_dim_keeps_resident(d, blocks_per_sm):
+    """At D = 256 one block fits an SM (its bf16 ring is 202,752 bytes), so
+    the wave the split count fills is one block per SM: half the splits of
+    D <= 128 at the same grid (Gemma-2-9B's decode, B 8 × 8 KV heads). The
+    wrapper reads each head_dim's figure from the kernel's library
+    (``kernel_blocks_per_sm``); the card tests hold it to these."""
+    n = port.flash_split_count(64, 2, 8192, 132, blocks_per_sm=blocks_per_sm)
+    assert n == (2 if d == 256 else 4)
+    assert 64 * n <= blocks_per_sm * 132
+
+
+def test_build_makes_one_flash_library_per_head_dim():
+    """The flash source builds once per head_dim the wrapper takes, each
+    with its own define into its own library, so the four compile in
+    parallel."""
+    from kakveda_tpu_torch.ops import _build
+
+    names = _build.targets()
+    assert [n for n in names if n.startswith("flash_gqa_cache")] == [
+        f"flash_gqa_cache:{d}" for d in port.KERNEL_HEAD_DIMS
+    ]
+    assert "fused_topk" in names
+    libs = {_build._target(n) for n in names}
+    assert len(libs) == len(names)  # a library each
+    assert _build._flags("flash_gqa_cache:96")[-1] == "-DKKV_HEAD_DIM=96"
+    assert _build._flags("fused_topk") == _build.NVCC_FLAGS
+
+
 def _brute_live(l, pos0, r, row0, row1, kv_valid, window, tile):
     q_pos = pos0 + np.arange(row0, row1)[:, None] // r
     col = np.arange(l)[None, :]

@@ -25,7 +25,7 @@ def _modules():
 def test_import_loads_no_jax_in_fresh_interpreter():
     mods = _modules()
     assert "kakveda_tpu_torch.platform" in mods and "kakveda_tpu_torch.ops.fused_topk" in mods
-    for m in ("serving", "generate", "llama", "attention", "tokenizer", "runtime", "moe", "quant"):
+    for m in ("serving", "generate", "llama", "attention", "tokenizer", "runtime", "moe", "quant", "hf_convert"):
         assert f"kakveda_tpu_torch.models.{m}" in mods
     for m in ("ops.clustering", "ops.incremental", "index.gfkb", "pipeline.patterns", "native",
               "core.runtime", "core.admission", "service.app", "service.batcher", "service.main",
@@ -54,6 +54,8 @@ def test_import_loads_no_jax_in_fresh_interpreter():
         ("kakveda_tpu_torch.models.moe", False),
         ("kakveda_tpu_torch.models.quant", False),
         ("kakveda_tpu_torch.models.runtime", False),
+        ("kakveda_tpu_torch.models.hf_convert", False),
+        ("kakveda_tpu_torch.models.tokenizer", False),
         ("kakveda_tpu_torch.models.generate", False),
         ("kakveda_tpu_torch.models.serving", False),
         ("kakveda_tpu_torch.pipeline.classifier", False),
@@ -115,14 +117,15 @@ def test_sources_name_no_jax():
 @pytest.mark.parametrize(
     "entry",
     ["platform", "gfkb", "knn", "llama_runtime", "llama_init_params", "llama_init_cache", "service_app",
-     "get_runtime", "tiered_platform"],
+     "get_runtime", "tiered_platform", "hf_loader", "multi_runtime"],
 )
 def test_entry_points_default_to_cuda(entry, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     from kakveda_tpu_torch.index.gfkb import GFKB
     from kakveda_tpu_torch.models.generate import LlamaRuntime
+    from kakveda_tpu_torch.models.hf_convert import load_hf_checkpoint
     from kakveda_tpu_torch.models.llama import LlamaConfig, init_cache, init_params
-    from kakveda_tpu_torch.models.runtime import get_runtime
+    from kakveda_tpu_torch.models.runtime import clear_runtimes, get_runtime
     from kakveda_tpu_torch.ops.knn import Knn
     from kakveda_tpu_torch.platform import Platform
     from kakveda_tpu_torch.service.app import make_app
@@ -137,10 +140,15 @@ def test_entry_points_default_to_cuda(entry, tmp_path, monkeypatch):
         "service_app": lambda: make_app(data_dir=tmp_path, capacity=16, dim=64),
         "get_runtime": lambda: get_runtime("torch"),
         "tiered_platform": lambda: Platform(data_dir=tmp_path, capacity=16, dim=64),
+        "hf_loader": lambda: load_hf_checkpoint(str(tmp_path)),
+        "multi_runtime": lambda: get_runtime("torch"),
     }[entry]
     if entry == "tiered_platform":
         monkeypatch.setenv("KAKVEDA_CLASSIFIER", "tiered")
         monkeypatch.setenv("KAKVEDA_MODEL_RUNTIME", "torch")
+    if entry == "multi_runtime":
+        monkeypatch.setenv("KAKVEDA_HF_CKPTS", str(tmp_path / "ckpt"))
+    clear_runtimes()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         make()
 

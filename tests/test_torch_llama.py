@@ -84,11 +84,22 @@ def test_init_params_layout():
 
 
 def test_convert_refuses_what_the_port_does_not_run(params):
-    # MoE layers and int8 {"q", "s"} leaves now cross (tests/test_torch_moe.py,
-    # tests/test_torch_quant.py); biases, extra norms, a router on a dense
-    # layer and other leaf pairs still raise.
+    # MoE layers and int8 {"q", "s"} leaves cross (tests/test_torch_moe.py,
+    # tests/test_torch_quant.py), and so do the family flags' keys, each set
+    # whole, their dtypes as the JAX tree holds them (a bf16 q/k norm from
+    # the HF loader stays bf16; tests/test_torch_families.py runs them). A
+    # part of a set, a router on a dense layer and other leaf pairs raise.
     jp, _ = params
     np_tree = jax.tree.map(np.asarray, jp)
+    bf16 = np.asarray(jnp.ones(16, jnp.bfloat16))
+    for extra in ({"bq": np.zeros(64, np.float32), "bk": np.zeros(32, np.float32), "bv": np.zeros(32, np.float32)},
+                  {"q_norm": bf16, "k_norm": bf16},
+                  {"post_attn_norm": np.ones(64, np.float32), "post_ffw_norm": np.ones(64, np.float32)}):
+        tree = dict(np_tree, layers=[dict(np_tree["layers"][0], **extra)])
+        layer = llama_params_from_jax(tree, TCFG, "cpu")["layers"][0]
+        for name, a in extra.items():
+            want = torch.bfloat16 if a.dtype.name == "bfloat16" else torch.float32
+            assert layer[name].dtype == want and np.array_equal(layer[name].float().numpy(), np.asarray(a, np.float32))
     for extra in ({"bq": np.zeros(64, np.float32)}, {"q_norm": np.ones(16, np.float32)},
                   {"post_attn_norm": np.ones(64, np.float32)}, {"router": np.zeros((64, 4), np.float32)}):
         tree = dict(np_tree, layers=[dict(np_tree["layers"][0], **extra)])

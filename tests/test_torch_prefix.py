@@ -127,12 +127,8 @@ def test_prefix_refused_for_longrope(base):
     (Phi-3 longrope) never registers: a slab computed at its own length
     could rotate in the wrong regime."""
     _, tcfg, _, tp = base
-
-    @dataclasses.dataclass(frozen=True)
-    class LongRope(TConfig):
-        rope_dim_factors_long: tuple = (2.0,) * 8
-
-    cfg = LongRope(**{f.name: getattr(tcfg, f.name) for f in dataclasses.fields(TConfig)})
+    half = tcfg.head_dim // 2
+    cfg = dataclasses.replace(tcfg, rope_dim_factors=(1.0,) * half, rope_dim_factors_long=(2.0,) * half)
     cb = ContinuousBatcher(tp, cfg, batch_slots=2, max_len=64, chunk_steps=4)
     assert not cb.register_prefix(PREFIX)
     assert cb.prefix_stats["registered"] == 0
