@@ -293,11 +293,33 @@ JAX package). Phases, each of which raises on failure (exit code != 0):
    ``hf_convert.load_hf_checkpoint(device="cuda")`` (leaves equal the CPU
    load's) and served through the engine: tokens equal the CPU runtime's,
    or depart at near-ties only.
+15. speculative decoding, inside phase 6's model lifetime after phase 13
+   and on its weights (phase 5 first holds flash at the verify chunk's
+   per-slot positions, an int32 [B] ``pos0`` on the card, B = 8, S = 5:
+   Llama-3-8B's heads at L = 2048 with slots at rows 95-1,900, Gemma-2-9B's
+   with the softcap and window 4096 at L = 8192; and at D = 32, the
+   default preset's H 8, KV 4: decode under the engine's mask and a
+   512-row piece; both bodies; the library call SDPA with the boolean
+   [B, 1, S, L] mask, or ``flex_attention`` with the softcap). a.
+   ``LlamaRuntime.generate_batch`` of phase 6's 8 prompts and 8 prompts of
+   a template repeated three times x 32 tokens through the engine with
+   ``KAKVEDA_SERVE_SPEC=4`` (the default gate) and with ``spec_k`` 0, with
+   each cache type: launches = 32 x forwards, verify chunks run, tokens held
+   to ``spec_k`` 0's by the margin rule, ``/metrics``' spec families equal
+   to ``spec_stats``; tokens/s, tokens per verify and the gate's state; the
+   verify chunk's S = 5 forward, a 1-wide step and the whole verify chunk
+   as CUDA graphs replayed in turns. b. ``KAKVEDA_SPEC=1``
+   ``LlamaRuntime.generate`` on 2 prompts x 64 tokens against the plain
+   solo ``generate_tokens`` (margin rule), with its tokens per round. c.
+   ``LlamaRuntime()`` with no preset (head_dim 32, seed 0) through the
+   engine with and without speculation, tokens held to the CPU port's on
+   the same weights, then ``get_runtime("torch")`` under a
+   ``TieredClassifier`` judging 16 traces.
 
 Prints a ``{"kernels": [...]}`` line (the flash rows with phase 9's,
-phase 10's, phase 13's and phase 14's launches beside phase 6's, and the
-judge shapes' and family shapes' times), the card line, and last
-``{"ok": true, "device": {...}}``.
+phase 10's, phase 13's, phase 14's and phase 15's launches beside phase
+6's, and the judge, family and verify shapes' times), each phase's wall,
+the card line, and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -1166,7 +1188,9 @@ def flash_bound_ms(b, s, l, kv8, seen_rows=None, heads=(H, KV, HD)):
 
 def flash_schedule(b, s, l, pos0, valid, reach=None, heads=(H, KV, HD), window=0, kv8=False):
     """The kernel's schedule at this shape: (n_split, live-tile fraction
-    over all its (b·kv, q block) tile visits, cache rows some query sees)."""
+    over all its (b·kv, q block) tile visits, cache rows some query sees).
+    ``pos0`` is an int or, for a verify chunk, an int32 [B] tensor (the
+    wrapper then plans from ``reach`` alone, all of L without one)."""
     from kakveda_tpu_torch.models.attention import (
         flash_live_tiles, flash_split_count, kernel_blocks_per_sm, kernel_q_rows,
     )
@@ -1175,15 +1199,17 @@ def flash_schedule(b, s, l, pos0, valid, reach=None, heads=(H, KV, HD), window=0
     r = h // kvh
     sr = s * r
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    hint = pos0 + s if reach is None else min(pos0 + s, reach)
+    vec = torch.is_tensor(pos0)
+    hint = reach if vec else (pos0 + s if reach is None else min(pos0 + s, reach))
     n_split = flash_split_count(b * kvh, sr, l, sms, reach=hint, blocks_per_sm=kernel_blocks_per_sm(d, kv8, sr))
     qb = kernel_q_rows(sr)
     live = [flash_live_tiles(l, pos0, r, r0, min(sr, r0 + qb), valid, window).expand(b, -1).float().mean().item()
             for r0 in range(0, sr, qb)]
     col = torch.arange(l, device="cuda")[None, :]
-    seen = col <= pos0 + s - 1
+    p0 = pos0.long()[:, None] if vec else pos0
+    seen = col <= p0 + s - 1
     if window:
-        seen = seen & (col > pos0 - window)
+        seen = seen & (col > p0 - window)
     if valid is not None:
         seen = seen & valid
     return n_split, statistics.mean(live), int(seen.expand(b, l).sum())
@@ -1198,7 +1224,7 @@ _FLEX = {}
 
 def _flex_mask(b, h, q_idx, kv_idx):
     row = _FLEX_ROW
-    q_pos = q_idx + row["pos0"]
+    q_pos = q_idx + row["pos0"][b]
     return (q_pos >= kv_idx) & (q_pos - kv_idx < row["window"]) & row["valid"][b, kv_idx]
 
 
@@ -1218,7 +1244,8 @@ def flex_library(q, pos0, valid, window, softcap, l, k0, v0, ref):
 
     b, s = q.shape[:2]
     _FLEX_ROW.update(
-        pos0=torch.tensor(pos0, device="cuda"), window=torch.tensor(window or pos0 + s + l, device="cuda"),
+        pos0=(pos0.long() if torch.is_tensor(pos0) else torch.full((b,), pos0, device="cuda")),
+        window=torch.tensor(window or 2 * l + s, device="cuda"),
         valid=valid if valid is not None else torch.ones(b, l, dtype=torch.bool, device="cuda"), cap=float(softcap))
     qh = q.transpose(1, 2).contiguous()
     errors = []
@@ -1257,7 +1284,11 @@ def flash_row(gen, name, kv8, shape, card, heads=(H, KV, HD), softcap=0.0, windo
     dequantized first. With a softcap, q is scaled so that the scores reach
     past the cap, and the plain version without the cap must fall outside
     the tolerance (a kernel that skipped the cap would fail). ``shape`` is
-    (label, B, S, L, pos0, kv_valid kind, reach hint); ``heads`` (H, KV, D)."""
+    (label, B, S, L, pos0, kv_valid kind, reach hint); ``heads`` (H, KV, D).
+    A pos0 of ("verify", lo, hi) is a verify chunk's: per-slot positions
+    drawn from [lo, hi] as an int32 [B] tensor the kernel reads on the
+    card, each slot's rows [left pad, pos + S) valid (``_grow_valid``),
+    and the reach hint the engine passes, max(pos) + S."""
     import torch.nn.functional as F
 
     from kakveda_tpu_torch.models.attention import (
@@ -1272,6 +1303,13 @@ def flash_row(gen, name, kv8, shape, card, heads=(H, KV, HD), softcap=0.0, windo
     kv_bytes = b * kvh * l * (2 * (d + 4) if kv8 else 4 * d)
     copies = max(1, math.ceil(2.5 * L2_BYTES / kv_bytes))
     q, k, v, ks, vs, valid = flash_inputs(gen, b, s, l, kind, kv8, copies, heads)
+    vec = isinstance(pos0, tuple)
+    if vec:  # a verify chunk: per-slot positions on the card
+        pos0 = torch.randint(pos0[1], pos0[2] + 1, (b,), device="cuda", generator=gen).to(torch.int32)
+        off = torch.randint(10, 17, (b, 1), device="cuda", generator=gen)
+        ar = torch.arange(l, device="cuda")
+        valid = ((ar >= off) & (ar < pos0[:, None].long() + s)).contiguous()
+        reach = int(pos0.max()) + s
     if softcap:  # scores past the cap, so that a kernel skipping it fails the check
         q = (q.float() * SOFTCAP_Q_SCALE).to(torch.bfloat16)
     n_split, live_frac, seen_rows = flash_schedule(b, s, l, pos0, valid, reach, heads, window, kv8)
@@ -1323,13 +1361,14 @@ def flash_row(gen, name, kv8, shape, card, heads=(H, KV, HD), softcap=0.0, windo
                                   k_scale=a["k_scale"], v_scale=a["v_scale"], **opts)
 
     # Yardstick: one library call on the same inputs (int8 dequantized
-    # first), q heads-major, the same boolean mask.
-    q_pos = pos0 + torch.arange(s, device="cuda")
+    # first), q heads-major, the same boolean mask ([B, 1, S, L] at per-slot
+    # positions).
+    q_pos = (pos0.long()[:, None] if vec else pos0) + torch.arange(s, device="cuda")
     col = torch.arange(l, device="cuda")
-    mask = q_pos[:, None] >= col[None, :]
+    mask = q_pos[..., :, None] >= col
     if window:
-        mask &= (q_pos[:, None] - col[None, :]) < window
-    mask = mask[None, None]
+        mask &= (q_pos[..., :, None] - col) < window
+    mask = mask[:, None] if vec else mask[None, None]
     if valid is not None:
         mask = mask & valid[:, None, None, :]
     qh = q.transpose(1, 2)
@@ -1368,6 +1407,8 @@ def flash_row(gen, name, kv8, shape, card, heads=(H, KV, HD), softcap=0.0, windo
     bound_ms, bound_by = flash_bound_ms(b, s, l, kv8, heads=heads)
     seen_ms, _ = flash_bound_ms(b, s, l, kv8, seen_rows, heads=heads)
     lib_txt = f"{lib_ms:.6f}" if lib_ms is not None else "null"
+    if vec:
+        pos0 = f"per-slot {sorted(pos0.tolist())}"
     log(f"{name} {label} (H={h} KV={kvh} D={d} B={b} S={s} L={l} pos0={pos0} window={window} "
         f"softcap={softcap} reach={reach}): n_split={n_split} live_tiles={live_frac:.4f} "
         f"max_abs_err={err:.3g} ({use:.3f} of the tolerance"
@@ -1458,6 +1499,43 @@ def phase_flash_families(card: str) -> dict:
     for kv8 in (False, True):
         name = "flash_gqa_cache_kv8" if kv8 else "flash_gqa_cache"
         for label, heads, cap, window, shape in FAMILY_FLASH_SHAPES:
+            rows.setdefault(name, {})[label] = flash_row(
+                gen, name, kv8, (label, *shape), card, heads=heads, softcap=cap, window=window)
+    torch.cuda.empty_cache()
+    return rows
+
+
+# Phase 15's verify chunks (KAKVEDA_SERVE_SPEC=4: S = 5) and the default
+# preset's attention (LlamaConfig(): d_model 256 over 8 heads, 4 KV heads,
+# head_dim 32), held and timed in phase 5.
+SPEC_K = 4
+D32_HEADS = (8, 4, 32)
+SPEC_FLASH_SHAPES = [
+    # (label, heads, softcap, window, (B, S, L, pos0, kv_valid, reach hint)); a
+    # pos0 of ("verify", lo, hi) draws per-slot positions (flash_row).
+    ("verify_llama3", (H, KV, HD), 0.0, 0, (8, SPEC_K + 1, 2048, ("verify", 95, 1900), None, None)),
+    # Phase 15 a's and c's engines: window 512, positions from the admission
+    # bucket (64) to the window's last verify chunk.
+    ("verify_llama3_engine", (H, KV, HD), 0.0, 0, (8, SPEC_K + 1, 512, ("verify", 64, 512 - SPEC_K - 1), None, None)),
+    ("verify_gemma2", G2_HEADS, G2_SOFTCAP, G2_WINDOW,
+     (8, SPEC_K + 1, FAMILY_WINDOW, ("verify", 95, FAMILY_WINDOW - SPEC_K - 1), None, None)),
+    ("d32_decode_engine", D32_HEADS, 0.0, 0, (8, 1, 512, 512, "engine", ENGINE_POS + 1)),
+    ("verify_d32", D32_HEADS, 0.0, 0, (8, SPEC_K + 1, 512, ("verify", 64, 512 - SPEC_K - 1), None, None)),
+    ("d32_prefill_piece", D32_HEADS, 0.0, 0, (1, 512, 1024, 512, ("from", 100, 1024), None)),
+]
+
+
+def phase_flash_spec(card: str) -> dict:
+    """Phase 5 at phase 15's shapes: verify chunks at per-slot positions
+    (Llama-3-8B's heads at L 2048 and at the engine's window 512;
+    Gemma-2-9B's with the softcap and the window) and D = 32 at the default
+    preset's heads (decode under the engine's mask, the verify chunk at the
+    engine's window, a 512-row prefill piece), both bodies."""
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    rows = {}
+    for kv8 in (False, True):
+        name = "flash_gqa_cache_kv8" if kv8 else "flash_gqa_cache"
+        for label, heads, cap, window, shape in SPEC_FLASH_SHAPES:
             rows.setdefault(name, {})[label] = flash_row(
                 gen, name, kv8, (label, *shape), card, heads=heads, softcap=cap, window=window)
     torch.cuda.empty_cache()
@@ -2347,6 +2425,366 @@ def phase_lifecycle(rt, model_out: dict, card: str) -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# phase 15: speculative decoding on the card (inside phase 6's model
+# lifetime, on its weights), then the default preset
+# ---------------------------------------------------------------------------
+
+SPEC_TOKENS = 128  # a's budget per request, and c's under the default gate: room for the gate to settle
+SPEC_SOLO_TOKENS = 64  # b's
+SPEC_CPU_TOKENS = 32  # c's runs held to the CPU port's, and a's int8 arm (the smoke's depth: ROADMAP)
+REPEAT_PROMPTS = [  # 8 template-shaped prompts: a template repeated three times (the reference tests' shape)
+    " ".join([f"Source [{i}] cites report {i}; verdict: no citation found."] * 3) for i in range(8)
+]
+
+
+@contextlib.contextmanager
+def env_set(**kw):
+    """Environment variables set for the block, restored after."""
+    old = {k: os.environ.get(k) for k in kw}
+    os.environ.update({k: str(v) for k, v in kw.items()})
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def spec_metrics(name: str, stats: dict) -> dict:
+    """The speculation families ``GET /metrics`` shows for engine ``name``
+    (the registry's render), held to the engine's ``spec_stats``: drafted
+    and accepted counts, the gate's state gauge, the last verify width."""
+    import re
+
+    from kakveda_tpu_torch.core import metrics
+
+    text = metrics.get_registry().render()
+
+    def val(fam, extra=""):
+        m = re.search(rf'^{fam}{{engine="{re.escape(name)}"{extra}}} (\S+)$', text, re.M)
+        return float(m.group(1)) if m else None
+
+    got = dict(drafted=val("kakveda_serving_spec_drafted_total"), accepted=val("kakveda_serving_spec_accepted_total"),
+               gate=val("kakveda_serving_spec_gate_state", f',state="{stats["gate_state"]}"'),
+               spec_k=val("kakveda_serving_spec_k"))
+    want = dict(drafted=stats["drafted"], accepted=stats["accepted"], gate=1.0, spec_k=stats["k_trace"][-1])
+    if got != want:
+        raise AssertionError(f"phase 15 a: /metrics {got} against spec_stats {want}")
+    return got
+
+
+def spec_engine_run(rt, tok, prompts, kvq: str, spec: int, name: str, what: str, n_tok: int) -> dict:
+    """One ``generate_batch`` of ``prompts`` × ``n_tok`` through a fresh
+    runtime on ``rt``'s weights (8 slots, window 512, chunk 8;
+    ``KAKVEDA_SERVE_SPEC=spec``, ``KAKVEDA_KV_QUANT=kvq``), after a warm-up
+    batch; launch counts zeroed just before and read just after: the run's
+    kernel body launches 32 × (forwards), the other none."""
+    from kakveda_tpu_torch.models.attention import flash_gqa_cache
+    from kakveda_tpu_torch.models.generate import LlamaRuntime
+
+    with env_set(KAKVEDA_SERVE_SPEC=spec, **({"KAKVEDA_KV_QUANT": kvq} if kvq else {})):
+        rq = LlamaRuntime(cfg=rt.cfg, params=rt.params, tokenizer=tok, model_label=name, device=rt.device)
+        eng = rq.engine()
+    try:
+        if (eng.cb.B, eng.cb.max_len, eng.cb.chunk_steps, eng.cb.spec_k, rq.cfg.kv_quant) != (8, 512, 8, spec, kvq):
+            raise AssertionError(f"{what}: engine {eng.cb.B} x {eng.cb.max_len}, spec_k {eng.cb.spec_k}, "
+                                 f"cache {rq.cfg.kv_quant!r}")
+        rq.generate_batch(prompts[:2], max_tokens=8)  # warm-up
+        tok.decoded.clear()
+        flash_gqa_cache.launches = 0
+        flash_gqa_cache.launches_kv8 = 0
+        f0, c0 = eng.cb.forwards, eng.stats()["spec"]["chunks"]
+        t = time.perf_counter()
+        res = rq.generate_batch(prompts, max_tokens=n_tok)
+        wall = time.perf_counter() - t
+        torch.cuda.synchronize()
+        n_fwd = eng.cb.forwards - f0
+        mine, other = flash_gqa_cache.launches, flash_gqa_cache.launches_kv8
+        if kvq:
+            mine, other = other, mine
+        got = list(tok.decoded)
+        stats = eng.stats()["spec"]
+        if mine != rt.cfg.n_layers * n_fwd or other != 0:
+            raise AssertionError(f"{what}: {mine} launches for {n_fwd} forwards, {other} of the other body")
+        if len(got) != len(prompts) or not all(r.meta.get("continuous") for r in res):
+            raise AssertionError(f"{what}: generate_batch did not run through the engine")
+        n_tok = sum(map(len, got))
+        out = dict(tokens=got, launches=mine, forwards=n_fwd, wall_s=wall, tokens_per_s=n_tok / wall,
+                   n_tokens=n_tok, spec_chunks=stats["chunks"] - c0, spec=stats)
+        if spec:
+            out["metrics"] = spec_metrics(name, stats)
+        return out
+    finally:
+        rq.close()
+
+
+def graphs_in_turns(fns, n: int = 2, rounds: int = 5) -> list:
+    """Device ms per call of each function: each one's ``n`` calls captured
+    in a CUDA graph of its own, then the graphs replayed in turns (A B C A B
+    C …) between CUDA events, ``rounds`` times; the median of each. Turns,
+    so a clock or power change mid-run falls on all of them alike."""
+    graphs = []
+    for fn in fns:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()  # warm up on a side stream before capture
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(n):
+                fn()
+        g.replay()
+        graphs.append(g)
+    torch.cuda.synchronize()
+    times = [[] for _ in fns]
+    for _ in range(rounds):
+        for g, t in zip(graphs, times):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            g.replay()
+            end.record()
+            end.synchronize()
+            t.append(start.elapsed_time(end) / n)
+    del graphs
+    return [statistics.median(t) for t in times]
+
+
+def verify_forward_ms(rt, ids, card: str) -> dict:
+    """Device ms of one verify chunk's forward (S = 5) beside one 1-wide step
+    (S = 1) and the whole verify chunk (argmax, forward, acceptance) on a
+    pool of 8 slots admitted with phase 6's prompts, the bf16 cache, each
+    from a CUDA graph, replayed in turns (``graphs_in_turns``)."""
+    from kakveda_tpu_torch.models.serving import ContinuousBatcher, _forward_wide, _spec_chunk
+
+    cfg = rt.cfg
+    cb = ContinuousBatcher(rt.params, cfg, batch_slots=8, max_len=512, chunk_steps=8, spec_k=SPEC_K)
+    for p in ids[:8]:
+        cb.admit(p, max_new_tokens=64)
+    cb._grow_valid(SPEC_K + 1)
+    pos = torch.from_numpy(cb._pos_np.copy()).to("cuda")
+    valid = torch.from_numpy(cb._kv_np.copy()).to("cuda")
+    off = torch.from_numpy(cb._off_np.copy()).to("cuda")
+    top = int(cb._pos_np.max())
+    tok1 = torch.zeros((8, 1), dtype=torch.long, device="cuda")
+    tok5 = torch.zeros((8, SPEC_K + 1), dtype=torch.long, device="cuda")
+    drafts = torch.zeros((8, SPEC_K), dtype=torch.long, device="cuda")
+    one, wide, chunk = graphs_in_turns([
+        lambda: _forward_wide(cb.params, cfg, cb.cache, tok1, pos, valid, off, reach=top + 1),
+        lambda: _forward_wide(cb.params, cfg, cb.cache, tok5, pos, valid, off, reach=top + SPEC_K + 1),
+        lambda: _spec_chunk(cb.params, cfg, cb.cache, cb.last, pos, valid, off, drafts, reach=top + SPEC_K + 1),
+    ])
+    del cb
+    torch.cuda.empty_cache()
+    log(f"phase 15 a: device ms at 8 slots, bf16 cache: a 1-wide step {one:.3f}, the verify chunk's S = "
+        f"{SPEC_K + 1} forward {wide:.3f} ({wide / one:.3f}x), the whole verify chunk {chunk:.3f} [{card}]")
+    return dict(step_1_ms=one, forward_5_ms=wide, verify_chunk_ms=chunk, ratio=wide / one)
+
+
+def _params_to(params, device):
+    if isinstance(params, dict):
+        return {k: _params_to(v, device) for k, v in params.items()}
+    if isinstance(params, list):
+        return [_params_to(v, device) for v in params]
+    return params.to(device)
+
+
+def default_preset(card: str) -> dict:
+    """Phase 15 c: ``LlamaRuntime()`` with no preset (head_dim 32, seed 0)
+    on the card: ``generate_batch`` of phase 6's prompts through the engine
+    without and with speculation (the gate held open:
+    ``KAKVEDA_SERVE_SPEC_CALIB=0``, ``_BREAKEVEN=0``), the tokens held to
+    the CPU port's on the same weights by the margin rule, the D = 32
+    library's launches counted; then the same prompts under the default
+    gate, SPEC_TOKENS each, against spec_k 0: on this traffic drafts are
+    seldom accepted, so the gate must turn speculation off (its break-even,
+    a verify chunk's span over a plain token's, past the tokens per
+    verify); then ``get_runtime("torch")`` (the default preset) under a
+    ``TieredClassifier`` judges one batch of phase 10's traffic (its judge
+    prompts take the solo path at the default window)."""
+    from kakveda_tpu_torch.core.schemas import TracePayload
+    from kakveda_tpu_torch.models import runtime as TR
+    from kakveda_tpu_torch.models.attention import flash_gqa_cache
+    from kakveda_tpu_torch.models.generate import LlamaRuntime
+    from kakveda_tpu_torch.pipeline.classifier import RuleClassifier, TieredClassifier, _wants_citations
+
+    os.environ.pop("KAKVEDA_LLAMA_PRESET", None)
+    out, toks = {}, {}
+    tok = RecordingTokenizer()
+    ids = [tok.encode(p) for p in PROMPTS]
+    params = None
+    runs = [(spec, SPEC_CPU_TOKENS, dict(KAKVEDA_SERVE_SPEC_CALIB=0, KAKVEDA_SERVE_SPEC_BREAKEVEN=0), f"k{spec}")
+            for spec in (0, SPEC_K)]
+    runs += [(spec, SPEC_TOKENS, {}, f"gate_k{spec}") for spec in (0, SPEC_K)]  # {}: the default gate
+    for spec, n_tok, knobs, key in runs:
+        with env_set(KAKVEDA_SERVE_SPEC=spec, **knobs):
+            rq = LlamaRuntime(tokenizer=tok, model_label=f"default-preset-{key}")
+            eng = rq.engine()
+        try:
+            if rq.device.type != "cuda" or rq.cfg.head_dim != 32 or eng.cb.spec_k != spec:
+                raise AssertionError(f"phase 15 c: {rq.device}, head_dim {rq.cfg.head_dim}, spec_k {eng.cb.spec_k}")
+            tok.decoded.clear()
+            flash_gqa_cache.launches = 0
+            f0 = eng.cb.forwards
+            t = time.perf_counter()
+            rq.generate_batch(PROMPTS, max_tokens=n_tok)
+            wall = time.perf_counter() - t
+            n_fwd = eng.cb.forwards - f0
+            if flash_gqa_cache.launches != rq.cfg.n_layers * n_fwd:
+                raise AssertionError(f"phase 15 c: {flash_gqa_cache.launches} launches for {n_fwd} forwards")
+            toks[key] = list(tok.decoded)
+            st = eng.stats()["spec"]
+            if spec and not st["chunks"]:
+                raise AssertionError(f"phase 15 c {key}: no verify chunk ran")
+            out[key] = dict(launches=flash_gqa_cache.launches, forwards=n_fwd, wall_s=wall,
+                            tokens_per_s=sum(map(len, toks[key])) / wall,
+                            spec={k: st[k] for k in ("chunks", "emitted", "slot_chunks", "gate_state",
+                                                     "tokens_per_verify", "break_even")})
+            params, cfg = rq.params, rq.cfg
+        finally:
+            rq.close()
+    gate = out[f"gate_k{SPEC_K}"]["spec"]
+    if gate["gate_state"] != "off":
+        raise AssertionError(f"phase 15 c: the default gate left speculation on at {gate['tokens_per_verify']} "
+                             f"tokens per verify against a break-even of {gate['break_even']}")
+    gate_margins = [margin_rule(params, cfg, tok, p, ref, got, "phase 15 c (default gate)", SPEC_TOKENS)
+                    for p, ref, got in zip(ids, toks["gate_k0"], toks[f"gate_k{SPEC_K}"])]
+    out["gate_departures"] = [m for m in gate_margins if m is not None]
+    tok_cpu = RecordingTokenizer()
+    r_cpu = LlamaRuntime(cfg=cfg, params=_params_to(params, "cpu"), tokenizer=tok_cpu, device="cpu")
+    try:
+        r_cpu.generate_batch(PROMPTS, max_tokens=SPEC_CPU_TOKENS)
+    finally:
+        r_cpu.close()
+    cpu = list(tok_cpu.decoded)
+    margins = [margin_rule(params, cfg, tok, p, ref, got, "phase 15 c", SPEC_CPU_TOKENS)
+               for spec in (0, SPEC_K) for p, ref, got in zip(ids, cpu, toks[f"k{spec}"])]
+    out["departures"] = [m for m in margins if m is not None]
+    TR.clear_runtimes()
+    try:
+        judge_rt = TR.get_runtime("torch")
+        if judge_rt.device.type != "cuda" or judge_rt.cfg.head_dim != 32:
+            raise AssertionError("phase 15 c: get_runtime('torch') is not the default preset on the card")
+        traces = judge_traffic(TracePayload, 16)
+        flash_gqa_cache.launches = 0
+        t = time.perf_counter()
+        res = TieredClassifier(runtime=judge_rt).classify_batch(traces)
+        judge_s = time.perf_counter() - t
+        torch.cuda.synchronize()
+        judged = sum(r is None and _wants_citations(tr.prompt)
+                     for tr, r in zip(traces, RuleClassifier().classify_batch(traces)))
+        if len(res) != len(traces) or flash_gqa_cache.launches <= 0:
+            raise AssertionError(f"phase 15 c: the judge ran no kernel ({flash_gqa_cache.launches} launches)")
+        out["judge"] = dict(traces=len(traces), judged=judged, failures=sum(r is not None for r in res),
+                            launches=flash_gqa_cache.launches, wall_s=judge_s)
+    finally:
+        TR.clear_runtimes()
+    g0, g1 = out["gate_k0"], out[f"gate_k{SPEC_K}"]
+    log(f"phase 15 c: the default preset (head_dim 32) on the card: generate_batch of 8 x {SPEC_CPU_TOKENS} tokens "
+        f"{out['k0']['tokens_per_s']:.1f} tokens/s without spec, {out[f'k{SPEC_K}']['tokens_per_s']:.1f} with "
+        f"the gate held open ({out[f'k{SPEC_K}']['spec']}); under the default gate, 8 x {SPEC_TOKENS} tokens: "
+        f"{g0['tokens_per_s']:.1f} tokens/s without spec, {g1['tokens_per_s']:.1f} with ({g1['spec']}), tokens == "
+        f"spec_k 0's but for {len(out['gate_departures'])} departures at margins "
+        f"{[round(m, 4) for m in out['gate_departures']]}; held-open tokens == the CPU port's but for "
+        f"{len(out['departures'])} departures at "
+        f"margins {[round(m, 4) for m in out['departures']]}; TieredClassifier judged {len(traces)} traces in "
+        f"{judge_s:.3f} s ({judged} ambiguous, to the judge), {flash_gqa_cache.launches} D = 32 launches, "
+        f"{out['judge']['failures']} failures [{card}]")
+    return out
+
+
+def phase_spec(rt, model_out: dict, card: str) -> dict:
+    """Phase 15 on phase 6's Llama-3-8B weights: a. the engine with
+    ``KAKVEDA_SERVE_SPEC=4`` (the default gate) against ``spec_k = 0``:
+    with the bf16 cache on phase 6's 8 prompts and on 8 template-shaped
+    ones apart, SPEC_TOKENS each (the reading of each traffic), with the
+    int8 cache on the 16 together, SPEC_CPU_TOKENS each (its checks);
+    tokens by the margin rule, verify chunks run, ``/metrics``'s spec
+    families == ``spec_stats``; and the verify chunk's device time against
+    a 1-wide step; b. ``KAKVEDA_SPEC=1``'s solo path against the plain solo
+    path; c. the default preset (``default_preset``)."""
+    from kakveda_tpu_torch.models.attention import flash_gqa_cache
+    from kakveda_tpu_torch.models.generate import LlamaRuntime, generate_tokens
+
+    t_phase = time.perf_counter()
+    cfg, out = rt.cfg, {}
+    tok = RecordingTokenizer()
+    prompts = PROMPTS + REPEAT_PROMPTS
+    ids = [tok.encode(p) for p in prompts]
+    if not all(len(i) + SPEC_TOKENS + 1 < 512 for i in ids):
+        raise AssertionError("phase 15: a prompt does not fit the engine's window")
+    arms = (("", SPEC_TOKENS, (("distinct", PROMPTS), ("template", REPEAT_PROMPTS))),
+            ("int8", SPEC_CPU_TOKENS, (("mixed", prompts),)))
+    for kvq, n_tok, sets in arms:
+        tag = kvq or "bf16"
+        out[tag] = agg = dict(launches=0, launches_spec=0, forwards_spec=0, spec_chunks=0)
+        for set_name, set_prompts in sets:
+            runs = {spec: spec_engine_run(rt, tok, set_prompts, kvq, spec,
+                                          f"llama3-8b-phase15-{tag}-{set_name}-k{spec}",
+                                          f"phase 15 a {tag} {set_name} spec_k={spec}", n_tok) for spec in (0, SPEC_K)}
+            sp = runs[SPEC_K]
+            if sp["spec_chunks"] <= 0:
+                raise AssertionError(f"phase 15 a {tag} {set_name}: no verify chunk ran ({sp['spec']})")
+            margins = [margin_rule(rt.params, dataclasses.replace(cfg, kv_quant=kvq), tok, tok.encode(p), ref, got,
+                                   f"phase 15 a {tag} {set_name}", n_tok)
+                       for p, ref, got in zip(set_prompts, runs[0]["tokens"], sp["tokens"])]
+            deps = [m for m in margins if m is not None]
+            st = sp["spec"]
+            tpv = st["emitted"] / max(st["slot_chunks"], 1)
+            agg["launches"] += runs[0]["launches"]
+            agg["launches_spec"] += sp["launches"]
+            agg["forwards_spec"] += sp["forwards"]
+            agg["spec_chunks"] += sp["spec_chunks"]
+            agg[set_name] = dict(
+                tokens_per_s=runs[0]["tokens_per_s"], tokens_per_s_spec=sp["tokens_per_s"],
+                wall_s=runs[0]["wall_s"], wall_s_spec=sp["wall_s"], spec_chunks=sp["spec_chunks"],
+                tokens_per_verify=tpv, drafted=st["drafted"], accepted=st["accepted"],
+                gate_state=st["gate_state"], break_even=st["break_even"], k_trace=st["k_trace"][-8:],
+                departures=deps, metrics=sp["metrics"])
+            log(f"phase 15 a, {tag} cache, {set_name} prompts: {len(set_prompts)} x {n_tok} tokens, "
+                f"{runs[0]['tokens_per_s']:.1f} tokens/s with spec_k 0, {sp['tokens_per_s']:.1f} with spec_k {SPEC_K} "
+                f"under the default gate ({sp['spec_chunks']} verify chunks, {st['emitted']} tokens over "
+                f"{st['slot_chunks']} slot-chunks: {tpv:.3f} tokens per verify, {st['accepted']} of {st['drafted']} "
+                f"drafts accepted; gate {st['gate_state']}, break-even {st['break_even']}); {sp['launches']} launches "
+                f"for {sp['forwards']} forwards; spec == plain but for {len(deps)} departures at margins "
+                f"{[round(m, 4) for m in deps]}; /metrics spec families == spec_stats [{card}]")
+    out["verify_forward"] = verify_forward_ms(rt, ids, card)
+
+    # b. the solo path
+    solo = []
+    with env_set(KAKVEDA_SPEC=1):
+        rs = LlamaRuntime(cfg=cfg, params=rt.params, tokenizer=tok, model_label="llama3-8b-phase15-solo",
+                          device=rt.device)
+        for p, p_ids in ((prompts[0], ids[0]), (REPEAT_PROMPTS[0], ids[len(PROMPTS)])):
+            flash_gqa_cache.launches = 0
+            t = time.perf_counter()
+            r = rs.generate(p, max_tokens=SPEC_SOLO_TOKENS)
+            wall = time.perf_counter() - t
+            got = tok.decoded[-1]
+            launches = flash_gqa_cache.launches
+            if not r.meta.get("speculative") or r.meta.get("continuous"):
+                raise AssertionError(f"phase 15 b: meta {r.meta}")
+            ref = generate_tokens(rt.params, cfg, p_ids, max_new_tokens=SPEC_SOLO_TOKENS, eos_id=tok.EOS)
+            m = margin_rule(rt.params, cfg, tok, p_ids, ref, got, "phase 15 b", SPEC_SOLO_TOKENS)
+            solo.append(dict(tokens_per_round=r.meta["tokens_per_round"], tokens=len(got), launches=launches,
+                             wall_s=wall, departure=m))
+    if any(s["launches"] <= 0 or s["launches"] % cfg.n_layers for s in solo):
+        raise AssertionError(f"phase 15 b: launches {[s['launches'] for s in solo]}")
+    out["solo"] = solo
+    log(f"phase 15 b: KAKVEDA_SPEC=1 generate, 2 prompts x {SPEC_SOLO_TOKENS} tokens: tokens_per_round "
+        f"{[s['tokens_per_round'] for s in solo]}, walls {[round(s['wall_s'], 3) for s in solo]} s, launches "
+        f"{[s['launches'] for s in solo]}, == the plain solo path but for departures at "
+        f"{[s['departure'] for s in solo]} [{card}]")
+    out["default_preset"] = default_preset(card)
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 15: {out['wall_s']:.1f} s; " + json.dumps(out))
+    return out
+
+
 def phase_model(card: str) -> dict:
     from kakveda_tpu_torch.models.generate import LlamaRuntime
     from kakveda_tpu_torch.models.llama import LlamaConfig
@@ -2368,6 +2806,7 @@ def phase_model(card: str) -> dict:
     step_times(rt, ids, out, n_bytes, "Llama-3-8B", card)
     log("model plane: " + json.dumps(out))
     out["lifecycle"] = phase_lifecycle(rt, out, card)
+    out["spec"] = phase_spec(rt, out, card)
     return out
 
 
@@ -5132,11 +5571,12 @@ def main() -> int:
 
     flash = phase_flash(card)
     flash_families = phase_flash_families(card)
+    flash_spec = phase_flash_spec(card)
     lap("5 flash")
     held = torch.cuda.memory_allocated()
     model = phase_model(card)
     log_held("phase 6")
-    lap("6, 13 model")
+    lap("6, 13, 15 model")
     if torch.cuda.memory_allocated() > held + 0.5e9:  # phases 10 and 9 need phase 6's 16 GB back
         raise AssertionError(f"phase 6 left {torch.cuda.memory_allocated() - held} bytes allocated")
     with tempfile.TemporaryDirectory(prefix="kakveda-judge-") as d:
@@ -5178,8 +5618,15 @@ def main() -> int:
             **({"launches_gemma2_long_prompt": families["long_prompt"]["launches"],
                 "launches_loader": {f: v["launches"] for f, v in families["loader"].items()}}
                if tag == "bf16" else {}),
-            judge_shapes=r["judge_shapes"], family_shapes=flash_families[kname],
-            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            launches_spec=model["spec"][tag]["launches_spec"],
+            **({"launches_spec_solo": [s["launches"] for s in model["spec"]["solo"]],
+                "launches_default_preset": {k: model["spec"]["default_preset"][k]["launches"]
+                                            for k in ("k0", f"k{SPEC_K}", "gate_k0", f"gate_k{SPEC_K}")},
+                "launches_default_preset_judge": model["spec"]["default_preset"]["judge"]["launches"]}
+               if tag == "bf16" else {}),
+            judge_shapes=r["judge_shapes"], family_shapes=flash_families[kname], spec_shapes=flash_spec[kname],
+            max_abs_err=max([r["max_abs_err"]] + [x["max_abs_err"] for x in flash_spec[kname].values()]),
+            ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
             bound_seen_ms=r["bound_seen_ms"],
         ))

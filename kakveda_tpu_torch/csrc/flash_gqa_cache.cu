@@ -1,14 +1,21 @@
 // Blockwise online-softmax GQA attention over a head-major KV cache, for
 // Hopper (sm_90a). One template, two bodies: a bf16 cache and an int8 cache
 // with f32 per-row scales. Built as one library per head_dim (ops/_build.py
-// passes -DKKV_HEAD_DIM=<head_dim>, and the four compile in parallel).
+// passes -DKKV_HEAD_DIM=<head_dim>, and the five compile in parallel).
 //
 // Replaces the Pallas TPU kernel kakveda_tpu/models/attention.py::
 // flash_gqa_cache (pl.pallas_call at attention.py:284), bodies _flash_kernel
 // (bf16 cache) and _flash_kernel_kv8 (int8 cache), both through _flash_body.
 // It computes what _flash_body computes:
 //   * the R = H / KV query heads of one kv head fold into the q rows: folded
-//     row i of (b, g) is sequence position pos0 + i / R;
+//     row i of (b, g) is sequence position pos0 + i / R, where pos0 is one
+//     host int for the whole batch or, given the device vector pos0_vec
+//     [B], pos0_vec[b] per batch row (the serving engine's speculative
+//     verify chunk: token i of slot b sits at slot_pos[b] + i; the JAX
+//     package builds that [B, S, L] mask in kakveda_tpu/models/serving.py::
+//     _forward_wide and takes _gqa_xla, and the vector replaces it here:
+//     no mask bytes, exact tile skipping, and positions that never visit
+//     the host);
 //   * S = Q.K^T * D^-0.5 with bf16 operands and f32 accumulation; with an
 //     attention softcap (Gemma-2) S becomes cap * tanh(S / cap) in f32
 //     before the mask, the order of _gqa_xla (the softcap instantiations
@@ -71,7 +78,11 @@
 // does not depend on the order of its terms' indices. At D = 96 a K row is
 // one x4 load (64 bytes) and one x2 load (32 bytes).
 //
-// D is 64, 96, 128 or 256.
+// At D = 32 a K row is 64 bytes (bf16: one x4 ldmatrix, two k16 steps) or 32
+// bytes (int8: one x2 load, as D = 96's tail), P.V four n8 tiles; the
+// split combine's weights then set the shared memory, not the ring.
+//
+// D is 32, 64, 96, 128 or 256.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -79,7 +90,7 @@
 #include <stdint.h>
 
 #ifndef KKV_HEAD_DIM
-#error "build one library per head_dim: nvcc -DKKV_HEAD_DIM=64, 96, 128 or 256 (ops/_build.py does)"
+#error "build one library per head_dim: nvcc -DKKV_HEAD_DIM=32, 64, 96, 128 or 256 (ops/_build.py does)"
 #endif
 
 namespace {
@@ -93,7 +104,7 @@ constexpr float NEG_INF = -1e30f;
 
 template <int D, bool KV8, int NQW>
 struct Cfg {
-  static_assert(D == 64 || D == 96 || D == 128 || D == 256, "head_dim 64, 96, 128 or 256");
+  static_assert(D == 32 || D == 64 || D == 96 || D == 128 || D == 256, "head_dim 32, 64, 96, 128 or 256");
   // Q fragments from shared memory (D = 256: registers), in rows of QRS bytes.
   static constexpr bool QS = D >= 256;
   static constexpr int QRS = (D + 8) * 2;
@@ -106,8 +117,8 @@ struct Cfg {
   static constexpr int STAGE = 2 * TILE + (KV8 ? 2 * BN * 4 : 0);  // + K and V scales
   static constexpr int RING = STAGES * STAGE;
   static constexpr int RED = (WARPS * 16 * (D + 2) + 2 * 64) * 4;  // per-warp o, m, l; per-row m, l
-  static constexpr int MAIN = RING > RED ? RING : RED;
-  static_assert(MAIN >= MAX_SPLITS * 64 * 2 * 4, "the split combine's m and l fit the ring");
+  static constexpr int COMB = MAX_SPLITS * 64 * 2 * 4;  // the split combine's m and l
+  static constexpr int MAIN = RING > RED ? (RING > COMB ? RING : COMB) : (RED > COMB ? RED : COMB);
   static constexpr int SMEM = MAIN + QSM + MAX_TPS * 8 + MAX_TPS * 2 + 16;
   static_assert(SMEM <= 227 * 1024, "one block's shared memory");
   // Resident blocks per SM the launch bounds and the split count plan for
@@ -197,7 +208,8 @@ flash_gqa_kernel(const __nv_bfloat16* __restrict__ q,  // [B*KV, SR, D]
                  __nv_bfloat16* __restrict__ out,       // [B*KV, SR, D]
                  float* __restrict__ part,              // split partials (n_split > 1)
                  int* __restrict__ tickets,             // [B*KV * q blocks], zero between launches
-                 int kv, int sr, int r, int L, int pos0, int window, float scale, float cap,
+                 const int* __restrict__ pos0_vec,      // [B] or null (then pos0)
+                 int kv, int sr, int r, int L, int pos0_, int window, float scale, float cap,
                  int tps) {
   using C = Cfg<D, KV8, NQW>;
   constexpr int QB = 16 * NQW;      // folded q rows of a block
@@ -231,6 +243,7 @@ flash_gqa_kernel(const __nv_bfloat16* __restrict__ q,  // [B*KV, SR, D]
   const int ntl = min(tps, n_tiles - t0);  // tiles of this split
   const size_t kv_base = (size_t)bkv * L;
   const uint8_t* vrow = valid ? valid + (size_t)(bkv / kv) * L : nullptr;
+  const int pos0 = pos0_vec ? __ldg(pos0_vec + bkv / kv) : pos0_;
   const int qmin = pos0 + row0 / r;
   const int qmax = pos0 + (row0 + rows - 1) / r;
 
@@ -655,6 +668,7 @@ flash_gqa_kernel(const __nv_bfloat16* __restrict__ q,  // [B*KV, SR, D]
 struct Args {
   const void *q, *k, *v, *ks, *vs, *valid;
   void *out, *part, *tickets;
+  const void* pos0_vec;
   int bkv, kv, sr, r, L, pos0, window;
   float scale, cap;
   int n_split, tps;
@@ -675,7 +689,7 @@ cudaError_t launch(const Args& a, cudaStream_t s) {
       static_cast<const __nv_bfloat16*>(a.q), a.k, a.v, static_cast<const float*>(a.ks),
       static_cast<const float*>(a.vs), static_cast<const uint8_t*>(a.valid),
       static_cast<__nv_bfloat16*>(a.out), static_cast<float*>(a.part), static_cast<int*>(a.tickets),
-      a.kv, a.sr, a.r, a.L, a.pos0, a.window, a.scale, a.cap, a.tps);
+      static_cast<const int*>(a.pos0_vec), a.kv, a.sr, a.r, a.L, a.pos0, a.window, a.scale, a.cap, a.tps);
   return cudaGetLastError();
 }
 
@@ -717,8 +731,10 @@ int blocks_d(bool kv8, bool wide, bool planned) {
 // q [bkv, sr, d] bf16 (the R heads of each kv head folded into the rows),
 // k, v [bkv, L, d] bf16, or int8 with k_scale, v_scale [bkv, L] f32 (null
 // for bf16), valid [bkv / kv, L] bytes 0/1 or null (all valid), out
-// [bkv, sr, d] bf16. d is the library's own head_dim (KKV_HEAD_DIM: 64,
-// 96, 128 or 256); every pointer 16-byte aligned. softcap > 0 caps the scaled scores at softcap * tanh(s /
+// [bkv, sr, d] bf16. pos0_vec, when not null, is an int32 [bkv / kv] on the
+// device whose entry b takes the place of pos0 for batch row b. d is the
+// library's own head_dim (KKV_HEAD_DIM: 32, 64, 96, 128 or 256); every
+// pointer 16-byte aligned. softcap > 0 caps the scaled scores at softcap * tanh(s /
 // softcap) before the mask; 0 leaves them. The cache's 64-row tiles split
 // into n_split ranges of ceil(tiles / n_split) tiles, none empty, none over
 // 256 tiles, and at most 64 splits. With n_split > 1, part holds part_floats
@@ -744,8 +760,8 @@ extern "C" int kkv_flash_gqa_cache(const void* q, const void* k, const void* v,
                                    const void* k_scale, const void* v_scale, const void* valid,
                                    void* out, void* part, long long part_floats, void* tickets,
                                    int n_tickets, int bkv, int kv, int sr, int r, int L, int d,
-                                   int pos0, int window, float scale, float softcap, int n_split,
-                                   void* stream) {
+                                   int pos0, const void* pos0_vec, int window, float scale,
+                                   float softcap, int n_split, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (bkv < 1 || kv < 1 || bkv % kv || sr < 1 || r < 1 || L < 1 || window < 0 ||
       (k_scale == nullptr) != (v_scale == nullptr) || n_split < 1 || !(softcap >= 0.0f))
@@ -758,7 +774,7 @@ extern "C" int kkv_flash_gqa_cache(const void* q, const void* k, const void* v,
                        part_floats < kkv_flash_gqa_cache_part_floats(bkv, sr, d, n_split) ||
                        (long long)n_tickets < (long long)bkv * ((sr + qb - 1) / qb))))
     return (int)cudaErrorInvalidValue;
-  const Args a{q, k, v, k_scale, v_scale, valid, out, part, tickets, bkv, kv, sr, r, L, pos0, window,
-               scale, softcap, n_split, tps};
+  const Args a{q, k, v, k_scale, v_scale, valid, out, part, tickets, pos0_vec, bkv, kv, sr, r, L, pos0,
+               window, scale, softcap, n_split, tps};
   return d == KKV_HEAD_DIM ? (int)launch_d<KKV_HEAD_DIM>(a, s) : (int)cudaErrorInvalidValue;
 }

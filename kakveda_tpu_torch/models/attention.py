@@ -6,7 +6,10 @@ Counterpart of ``kakveda_tpu/models/attention.py``, same contract:
     q          [B, S, H, D]   queries (prefill chunk or decode step)
     k, v       [B, KV, L, D]  head-major KV cache (cfg.dtype, or int8 with
                               ``k_scale``/``v_scale`` [B, KV, L] f32)
-    pos0       int            cache slot of q[:, 0]
+    pos0       int, or [B]    cache slot of q[:, 0]: one for the batch, or
+                              a device int32 tensor, one per batch row
+                              (the engine's verify chunk: slot b's query i
+                              sits at slot_pos[b] + i)
     kv_valid   [B, L] bool    optional per-slot validity (left-pad batching)
     -> [B, S, H, D]
 
@@ -25,9 +28,11 @@ Counterpart of ``kakveda_tpu/models/attention.py``, same contract:
   split schedule, with the same combine.
 * :func:`gqa_grouped` is the twin of ``_gqa_xla``: on the CPU it serves
   softcap (Gemma-2) attention, as ``_gqa_xla`` does in the JAX package, and
-  per-query ``full_mask`` attention, which is not on the serving path ported
-  so far and does not run on the card yet. On the card a softcap goes
-  through the flash kernel, which caps the scores in the same order.
+  an arbitrary per-query ``full_mask``, which no ported path builds and the
+  card does not take. On the card a softcap goes through the flash kernel,
+  which caps the scores in the same order. The speculative verify chunk's
+  mask, which the JAX package passes as a ``full_mask``, is the causal mask
+  at per-row positions: a ``[B]`` ``pos0`` here, on both devices.
 
 One documented divergence between the two, as in the JAX package: a query
 row with no visible slot (a left-pad position) emits zeros from the flash
@@ -51,11 +56,31 @@ KERNEL_MAX_SPLITS = 64  # the kernel's combine keeps this many splits' weights
 KERNEL_HEAD_DIMS = _build.FLASH_HEAD_DIMS
 
 
+def _positions(pos0, n: int, r: int, dev) -> torch.Tensor:
+    """Sequence position of each of ``n`` folded rows, ``pos0 + i // r``:
+    [n] for a host int, [B, n] for a per-row ``[B]`` tensor."""
+    i = torch.arange(n, device=dev) // r
+    if torch.is_tensor(pos0):
+        return pos0.to(device=dev, dtype=torch.long)[:, None] + i[None, :]
+    return pos0 + i
+
+
+def _causal_keep(q_pos: torch.Tensor, l0: int, l1: int, window: int) -> torch.Tensor:
+    """``[B or 1, 1, rows, l1 - l0]`` bool: cache row l is visible to a query
+    at ``q_pos`` (``[rows]`` or ``[B, rows]``) when l ≤ q_pos and, with a
+    window, q_pos − l < window."""
+    l_pos = torch.arange(l0, l1, device=q_pos.device)
+    keep = q_pos[..., :, None] >= l_pos
+    if window:
+        keep &= (q_pos[..., :, None] - l_pos) < window
+    return keep[:, None] if keep.dim() == 3 else keep[None, None]
+
+
 def gqa_grouped(
     q: torch.Tensor,
     k: torch.Tensor,
     v: torch.Tensor,
-    pos0: int,
+    pos0,
     kv_valid: Optional[torch.Tensor],
     window: int = 0,
     softcap: float = 0.0,
@@ -63,7 +88,8 @@ def gqa_grouped(
 ) -> torch.Tensor:
     """Grouped attention with the GQA group axis explicit (K/V are never
     repeated to H heads) — the twin of ``_gqa_xla``. ``full_mask`` [B, S, L]
-    replaces the causal/window/kv_valid mask."""
+    replaces the causal/window/kv_valid mask; ``pos0`` is a host int or a
+    ``[B]`` tensor (:func:`_positions`)."""
     b, s, h, d = q.shape
     kv, l = k.shape[1], k.shape[2]
     r = h // kv
@@ -74,12 +100,7 @@ def gqa_grouped(
     if full_mask is not None:
         keep = full_mask[:, None, :, None, :]
     else:
-        q_pos = pos0 + torch.arange(s, device=q.device)
-        l_pos = torch.arange(l, device=q.device)
-        mask = q_pos[:, None] >= l_pos[None, :]
-        if window:
-            mask &= (q_pos[:, None] - l_pos[None, :]) < window
-        keep = mask[None, None, :, None, :]
+        keep = _causal_keep(_positions(pos0, s, 1, q.device), 0, l, window)[:, :, :, None, :]
         if kv_valid is not None:
             keep = keep & kv_valid[:, None, None, None, :]
     scores = torch.where(keep, scores, torch.full_like(scores, NEG_INF))
@@ -92,7 +113,7 @@ def flash_gqa_cache_reference(
     q: torch.Tensor,
     k: torch.Tensor,
     v: torch.Tensor,
-    pos0: int,
+    pos0,
     kv_valid: Optional[torch.Tensor],
     *,
     k_scale: Optional[torch.Tensor] = None,
@@ -101,7 +122,8 @@ def flash_gqa_cache_reference(
     softcap: float = 0.0,
 ) -> torch.Tensor:
     """Plain PyTorch version of the flash kernel, step for step: the R group
-    heads fold into the q rows (row i is position ``pos0 + i // R``), the
+    heads fold into the q rows (row i is position ``pos0 + i // R``, with
+    ``pos0[b]`` for batch row b when ``pos0`` is a ``[B]`` tensor), the
     cache streams in the kernel's 64-row tiles through an f32 online softmax,
     scores are scaled by D^-0.5 and, with ``softcap``, capped at
     ``softcap · tanh(s / softcap)`` before the mask, masked scores are −1e30
@@ -123,7 +145,7 @@ def flash_gqa_cache_reference(
         kt, vt, qt = k, v, q.to(k.dtype)
     qf = qt.reshape(b, s, kv, r, d).permute(0, 2, 1, 3, 4).reshape(b, kv, sr, d).float()
     dev = q.device
-    q_pos = pos0 + torch.arange(sr, device=dev) // r  # [SR]
+    q_pos = _positions(pos0, sr, r, dev)  # [SR] or [B, SR]
     m = torch.full((b, kv, sr, 1), NEG_INF, device=dev)
     lsum = torch.zeros((b, kv, sr, 1), device=dev)
     acc = torch.zeros((b, kv, sr, d), device=dev)
@@ -133,11 +155,7 @@ def flash_gqa_cache_reference(
         sc = qf @ kt[:, :, l0:l1].float().transpose(-1, -2) * scale  # [B, KV, SR, lb]
         if softcap:
             sc = softcap * torch.tanh(sc / softcap)
-        l_pos = torch.arange(l0, l1, device=dev)
-        keep = q_pos[:, None] >= l_pos[None, :]
-        if window:
-            keep &= (q_pos[:, None] - l_pos[None, :]) < window
-        keep = keep[None, None]
+        keep = _causal_keep(q_pos, l0, l1, window)
         if kv_valid is not None:
             keep = keep & kv_valid[:, None, None, l0:l1]
         sc = torch.where(keep, sc, torch.full_like(sc, NEG_INF))
@@ -200,7 +218,7 @@ def flash_split_plan(l: int, n_split: int, tile: int = KERNEL_L_BLK) -> list:
 
 def flash_live_tiles(
     l: int,
-    pos0: int,
+    pos0,
     r: int,
     row0: int,
     row1: int,
@@ -213,15 +231,20 @@ def flash_live_tiles(
     makes this test for its block's rows before it loads a tile: a valid
     slot at or before the last row's position and, with a window, inside
     the first row's window. A tile it fails holds no slot any row keeps, so
-    dropping it leaves (m, l, acc) exactly as they were."""
+    dropping it leaves (m, l, acc) exactly as they were. A ``[B]`` ``pos0``
+    makes the bounds per batch row, as the kernel reads ``pos0_vec``."""
     dev = kv_valid.device if kv_valid is not None else torch.device("cpu")
+    if torch.is_tensor(pos0):
+        dev = pos0.device
+        pos0 = pos0.long()[:, None]
     qmin = pos0 + row0 // r
     qmax = pos0 + (row1 - 1) // r
     col = torch.arange(l, device=dev)
     ok = col <= qmax
     if window:
         ok &= (qmin - col) < window
-    ok = ok[None] if kv_valid is None else ok[None] & kv_valid
+    ok = ok if ok.dim() == 2 else ok[None]
+    ok = ok if kv_valid is None else ok & kv_valid
     n_tiles = -(-l // tile)
     ok = torch.nn.functional.pad(ok, (0, n_tiles * tile - l))
     return ok.reshape(ok.shape[0], n_tiles, tile).any(dim=-1)
@@ -243,11 +266,7 @@ def _online_softmax(qf, kt, vt, q_pos, kv_valid, window, l0, l1, tile, live=None
         sc = qf @ kt[:, :, t0:t1].float().transpose(-1, -2) * scale
         if softcap:
             sc = softcap * torch.tanh(sc / softcap)
-        l_pos = torch.arange(t0, t1, device=dev)
-        keep = q_pos[:, None] >= l_pos[None, :]
-        if window:
-            keep &= (q_pos[:, None] - l_pos[None, :]) < window
-        keep = keep[None, None]
+        keep = _causal_keep(q_pos, t0, t1, window)
         if kv_valid is not None:
             keep = keep & kv_valid[:, None, None, t0:t1]
         sc = torch.where(keep, sc, torch.full_like(sc, NEG_INF))
@@ -269,7 +288,7 @@ def flash_gqa_cache_split_reference(
     q: torch.Tensor,
     k: torch.Tensor,
     v: torch.Tensor,
-    pos0: int,
+    pos0,
     kv_valid: Optional[torch.Tensor],
     *,
     k_scale: Optional[torch.Tensor] = None,
@@ -298,7 +317,7 @@ def flash_gqa_cache_split_reference(
     else:
         kt, vt, qt = k, v, q.to(k.dtype)
     qf = qt.reshape(b, s, kv, r, d).permute(0, 2, 1, 3, 4).reshape(b, kv, sr, d).float()
-    q_pos = pos0 + torch.arange(sr, device=q.device) // r
+    q_pos = _positions(pos0, sr, r, q.device)
     parts = [
         _online_softmax(qf, kt, vt, q_pos, kv_valid, window, l0, l1, tile, softcap=softcap)
         for l0, l1 in flash_split_plan(l, n_split, tile)
@@ -348,7 +367,7 @@ def _lib(d: int):
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         f = ctypes.c_float
-        fn.argtypes = [p, p, p, p, p, p, p, p, ll, p, i, i, i, i, i, i, i, i, i, f, f, i, p]
+        fn.argtypes = [p, p, p, p, p, p, p, p, ll, p, i, i, i, i, i, i, i, i, p, i, f, f, i, p]
         fn.restype = ctypes.c_int
         size = lib.kkv_flash_gqa_cache_part_floats
         size.argtypes = [i, i, i, i]
@@ -379,7 +398,7 @@ def flash_gqa_cache(
     q: torch.Tensor,
     k: torch.Tensor,
     v: torch.Tensor,
-    pos0: int,
+    pos0,
     kv_valid: Optional[torch.Tensor],
     *,
     k_scale: Optional[torch.Tensor] = None,
@@ -404,8 +423,13 @@ def flash_gqa_cache(
     slots' last row): only the tiles before it ask for splits. It steers
     the schedule alone, never the result — the kernel still masks and
     skips by ``kv_valid`` — so a stale hint (one baked into a captured
-    graph) is exact too. ``flash_gqa_cache.launches`` counts bf16-cache
-    launches, ``flash_gqa_cache.launches_kv8`` int8-cache launches."""
+    graph) is exact too. ``pos0`` is a host int or a contiguous int32
+    ``[B]`` tensor on q's device, read by the kernel (``pos0_vec``), never
+    by the host: the schedule then plans from ``reach`` alone (all of L
+    without one), so a caller whose positions stay on the card passes a
+    host upper bound of ``max(pos0) + S``. ``flash_gqa_cache.launches``
+    counts bf16-cache launches, ``flash_gqa_cache.launches_kv8`` int8-cache
+    launches."""
     if q.device.type == "cpu":
         return flash_gqa_cache_reference(
             q, k, v, pos0, kv_valid, k_scale=k_scale, v_scale=v_scale, window=window, softcap=softcap
@@ -438,6 +462,10 @@ def flash_gqa_cache(
     ):
         raise ValueError("flash_gqa_cache: kv_valid must be a contiguous bool [B, L] tensor")
     tensors = [k, v] + ([k_scale, v_scale] if kv8 else []) + ([kv_valid] if kv_valid is not None else [])
+    if torch.is_tensor(pos0):
+        if pos0.shape != (b,) or pos0.dtype != torch.int32 or not pos0.is_contiguous():
+            raise ValueError("flash_gqa_cache: a per-row pos0 must be a contiguous int32 [B] tensor")
+        tensors.append(pos0)
     if any(t.device != q.device for t in tensors):
         raise ValueError("flash_gqa_cache: all tensors must be on one device")
     r = h // kv
@@ -447,7 +475,11 @@ def flash_gqa_cache(
     if any(t.data_ptr() % 16 for t in (qf, out, k, v)):
         raise ValueError("flash_gqa_cache: tensors must be 16-byte aligned")
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    hint = int(pos0) + s if reach is None else min(int(pos0) + s, int(reach))
+    if torch.is_tensor(pos0):
+        hint, pos0_vec, pos0 = (None if reach is None else int(reach)), pos0.data_ptr(), 0
+    else:
+        hint = int(pos0) + s if reach is None else min(int(pos0) + s, int(reach))
+        pos0_vec = None
     lib = _lib(d)
     n_split = flash_split_count(b * kv, sr, l, sms, reach=hint, blocks_per_sm=kernel_blocks_per_sm(d, kv8, sr))
     if n_split > KERNEL_MAX_SPLITS:
@@ -467,7 +499,7 @@ def flash_gqa_cache(
             part.numel() if part is not None else 0,
             tickets.data_ptr() if tickets is not None else None,
             tickets.numel() if tickets is not None else 0,
-            b * kv, kv, sr, r, l, d, int(pos0), int(window), d**-0.5, float(softcap), n_split,
+            b * kv, kv, sr, r, l, d, int(pos0), pos0_vec, int(window), d**-0.5, float(softcap), n_split,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if rc != 0:
@@ -487,7 +519,7 @@ def gqa_cache_attention(
     q: torch.Tensor,
     k: torch.Tensor,
     v: torch.Tensor,
-    pos0: int,
+    pos0,
     kv_valid: Optional[torch.Tensor] = None,
     *,
     window: int = 0,
@@ -502,8 +534,9 @@ def gqa_cache_attention(
     on a TPU), softcap included; on the CPU a softcap takes
     :func:`gqa_grouped`, as ``_gqa_xla`` serves it in the JAX package.
     ``full_mask`` takes :func:`gqa_grouped`, on the CPU only. ``window`` > 0
-    is sliding-window attention; ``reach`` is :func:`flash_gqa_cache`'s
-    schedule hint."""
+    is sliding-window attention; ``pos0`` a host int or a ``[B]`` tensor of
+    per-row positions; ``reach`` is :func:`flash_gqa_cache`'s schedule
+    hint."""
     if full_mask is not None or (softcap and q.device.type != "cuda"):
         if q.device.type == "cuda":
             raise NotImplementedError("full_mask attention is not ported to the card yet")

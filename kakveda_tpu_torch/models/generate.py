@@ -26,8 +26,11 @@ chunk) and cancels its request when the consumer closes it or sets
 runtime does without a checkpoint, or a local HF checkpoint
 (``LlamaRuntime.from_hf``; ``KAKVEDA_HF_CKPT`` / ``KAKVEDA_HF_DIR`` in
 ``from_env``). While ``DeviceHealth`` is latched DEGRADED, every generation
-entry point fails fast with ``DeviceUnavailableError``. Not ported yet:
-speculative decoding.
+entry point fails fast with ``DeviceUnavailableError``. ``KAKVEDA_SPEC=1``
+makes ``generate`` the solo speculative path
+(``models/speculative.generate_tokens_speculative``: token-identical to
+greedy decoding, 1..k+1 tokens a forward), and ``KAKVEDA_SERVE_SPEC=k``
+makes the engine's chunks verify chunks.
 """
 
 from __future__ import annotations
@@ -284,8 +287,9 @@ class DecodeSession:
 class LlamaRuntime:
     """On-device Llama generation with the shared ``GenerateResult`` meta
     shape. Runs on the card unless ``device`` names another; the card serves
-    bf16 models of head_dim 64, 96, 128 or 256 only (the flash kernel's),
-    and a runtime on the card refuses any other when it is built.
+    bf16 models of head_dim 32, 64, 96, 128 or 256 only (the flash
+    kernel's; the default preset's is 32), and a runtime on the card
+    refuses any other when it is built.
     ``quant="int8"`` serves int8 weight-only weights
     (``models/quant.py``): drawn from the seed, each matrix is quantized as
     it is drawn, so no bf16 copy of the model ever exists; given ``params``,
@@ -316,8 +320,9 @@ class LlamaRuntime:
             )
         if self.device.type == "cuda" and self.cfg.head_dim not in KERNEL_HEAD_DIMS:
             raise ValueError(
-                f"the card's attention kernel takes head_dim 64, 96, 128 or 256; head_dim={self.cfg.head_dim} "
-                "on the card is not ported (KAKVEDA_LLAMA_PRESET=8b serves on the card)"
+                f"the card's attention kernel takes head_dim "
+                f"{', '.join(map(str, KERNEL_HEAD_DIMS[:-1]))} or {KERNEL_HEAD_DIMS[-1]}; "
+                f"head_dim={self.cfg.head_dim} on the card is not ported"
             )
         kvq = os.environ.get("KAKVEDA_KV_QUANT", "")
         if kvq and kvq != "none":
@@ -438,8 +443,9 @@ class LlamaRuntime:
                 "slots": eng.cb.B,
                 "window": eng.cb.max_len,
                 "closed": eng._closed.is_set(),
-                "spec": None,
             }
+            if not eng.cb.spec_k:
+                stats["spec"] = None
         return {
             "runtime": self.name,
             "model": self.model_label,
@@ -523,9 +529,23 @@ class LlamaRuntime:
         return self._generate_ids_chunked(ids, max_tokens), {}
 
     def generate(self, prompt: str, *, model: Optional[str] = None, max_tokens: int = 64) -> GenerateResult:
+        """One completion: through the engine (or the solo path), or with
+        ``KAKVEDA_SPEC=1`` the solo speculative path, whose meta carries
+        ``speculative`` and ``tokens_per_round``. Its text equals the
+        others'; the whole generation runs on this thread, beside the
+        engine's chunks, not inside them."""
         started = time.perf_counter()
         get_device_health().check()  # degraded: fail fast, never dispatch
-        (new_ids,), extra = self._generate_ids([self._encode(prompt)], max_tokens)
+        if os.environ.get("KAKVEDA_SPEC", "") == "1":
+            from kakveda_tpu_torch.models.speculative import generate_tokens_speculative
+
+            new_ids, stats = generate_tokens_speculative(
+                self.params, self.cfg, self._encode(prompt), max_new_tokens=max_tokens,
+                eos_id=self.tokenizer.EOS, return_stats=True,
+            )
+            extra = {"speculative": True, "tokens_per_round": round(stats["tokens_per_round"], 2)}
+        else:
+            (new_ids,), extra = self._generate_ids([self._encode(prompt)], max_tokens)
         return GenerateResult(
             text=self.tokenizer.decode(new_ids),
             meta={

@@ -2,10 +2,13 @@
 
 Counterpart of ``kakveda_tpu/models/serving.py``: its core, the prefix
 cache, the request lifecycle (streaming, cancel, deadlines), the
-supervisor and the weighted-fair slot pick, reporting to the metrics plane
-(``core/metrics.py``). Not ported yet (ROADMAP): speculative chunks and the
-prefix store's n-gram index they draft from, the brownout ladder's
-class shed and token cap, and the ledger and trace hooks.
+supervisor, the weighted-fair slot pick and speculative verify chunks
+(``spec_k`` / ``KAKVEDA_SERVE_SPEC``: host prompt-lookup drafts, per-slot
+draft lengths, the acceptance gate, pipelined verify chunks whose
+positions stay on the card), reporting to the metrics plane
+(``core/metrics.py``). Not ported yet (ROADMAP): the brownout ladder's
+class shed, token cap and speculation veto, and the ledger and trace
+hooks.
 
 A :class:`ContinuousBatcher` owns a fixed ``[B, KV, max_len, D]`` KV cache
 and treats the batch axis as B independent slots:
@@ -17,7 +20,10 @@ and treats the batch axis as B independent slots:
   prefix's K/V slab in its scratch and prefills only a power-of-two tail;
 * **step** advances every active slot by ``chunk_steps`` tokens, one
   :func:`_forward_wide` per token with per-slot positions; inactive slots
-  decode garbage into their own rows, masked from everyone by ``kv_valid``;
+  decode garbage into their own rows, masked from everyone by ``kv_valid``.
+  In a speculating greedy pool a step is one verify chunk
+  (:func:`_spec_chunk`): :func:`_forward_wide` over k+1 tokens a slot, the
+  flash kernel reading each slot's position from the card;
 * **retire** frees EOS- or budget-finished slots on the host between
   chunks, and :meth:`ContinuousBatcher.cancel_request` frees a cancelled
   or expired one.
@@ -35,12 +41,14 @@ under a supervisor that rebuilds the batcher after a crash.
 
 from __future__ import annotations
 
+import copy
 import logging
 import os
 import queue
 import threading
 import time
 import traceback
+from collections import deque
 from concurrent.futures import Future, InvalidStateError
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Tuple
@@ -69,6 +77,7 @@ from kakveda_tpu_torch.models.llama import (
     softcap_logits,
     wmat,
 )
+from kakveda_tpu_torch.models.speculative import NgramIndex, copy_run
 from kakveda_tpu_torch.ops.knn import pow2_bucket
 
 log = logging.getLogger("kakveda.serving")
@@ -107,53 +116,84 @@ def _h2d(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.pin_memory().to(device, non_blocking=True)
 
 
+def _d2h_async(t: torch.Tensor):
+    """Start copying a device tensor to the host without waiting: into
+    pinned memory on the current stream, with an event to wait on (a CPU
+    tensor is its own copy). :func:`_host` finishes it. A pipelined engine
+    reads chunk i's tokens while chunk i+1 still runs."""
+    if t.device.type != "cuda":
+        return t, None
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    ev = torch.cuda.Event()
+    ev.record()
+    return host, ev
+
+
+def _host(pending) -> np.ndarray:
+    """The numpy array of a :func:`_d2h_async` copy, once it has landed."""
+    host, ev = pending
+    if ev is not None:
+        ev.synchronize()
+    return host.numpy()
+
+
 def _forward_wide(
     params: Params,
     cfg: LlamaConfig,
     cache: Params,
-    tokens: torch.Tensor,  # [B, 1]
-    slot_pos: torch.Tensor,  # [B] cache row each slot writes
+    tokens: torch.Tensor,  # [B, S]
+    slot_pos: torch.Tensor,  # [B] cache row each slot's first token writes
     kv_valid: torch.Tensor,  # [B, L] bool
     pos_offset: torch.Tensor,  # [B]
-    write_rows: Optional[torch.Tensor] = None,  # slots whose row is inside the window
-    reach: Optional[int] = None,  # host int: 1 + the largest slot_pos of an active slot
+    reach: Optional[int] = None,  # host int: one past the last row a query of an active slot sees
 ) -> torch.Tensor:
-    """One decode token for every slot with PER-SLOT positions: slot b writes
-    cache row ``slot_pos[b]`` (in place) and attends rows ``col <=
-    slot_pos[b]`` within ``kv_valid`` (and the sliding-window band). The
-    mask is a ``[B, L]`` ``kv_valid`` with ``pos0 = max_len``, so the flash
-    kernel's scalar causal term is a no-op; ``reach`` tells the kernel's
-    schedule which rows the mask can show (a hint, exact either way). Slots
-    whose row lies past the window (overshoot, discarded on the host) are
-    left out of ``write_rows`` and write nothing — the JAX scatter's
-    ``mode="drop"``. The family flags apply as in ``decode_step``: each
-    layer takes the window band only when ``cfg.layer_window`` gives it one
-    (Gemma-2's even layers), and the sandwich norms through
-    ``attn_residual``. Returns logits [B, 1, V] f32, vocab-masked."""
+    """The serving forward, S tokens for every slot with PER-SLOT positions:
+    token i of slot b writes cache row ``slot_pos[b] + i`` (in place) and
+    attends rows ``col <= slot_pos[b] + i`` within ``kv_valid`` (and the
+    sliding-window band). ``reach`` tells the kernel's schedule which rows
+    the mask can show (a hint, exact either way). The family flags apply as
+    in ``decode_step``: each layer takes the window band only when
+    ``cfg.layer_window`` gives it one (Gemma-2's even layers), and the
+    sandwich norms through ``attn_residual``. Returns logits [B, S, V] f32,
+    vocab-masked.
+
+    One path for the decode step (S = 1) and the speculative verify chunk
+    (S = k+1, whose positions may live on the card): ``slot_pos`` goes to
+    the flash kernel as its per-row ``pos0`` with the raw ``kv_valid`` and
+    the layer's window, the mask the JAX package builds as a ``[B, S, L]``
+    ``full_mask`` (and, at S = 1, as a ``[B, L]`` mask), with no mask in
+    memory. Rows past the window are dropped, as the JAX scatter's
+    ``mode="drop"``, with no host sync: such a row is redirected, with the
+    value of the slot's first row, to the row that first write takes
+    (``slot_pos[b]``, or the last row of a slot whose position passed the
+    window: a retired or idle slot, whose rows no emitted token reads and
+    admission rewrites)."""
     b, s = tokens.shape
-    if s != 1:
-        raise ValueError("_forward_wide: one token per slot (speculative chunks are not ported)")
     max_len = cache["k"][0].shape[2]
     kq = cfg.kv_quant == "int8"
     dev = tokens.device
 
-    cos, sin = _rope_freqs(cfg, (slot_pos - pos_offset)[:, None])
+    ar = torch.arange(s, device=dev)
+    cos, sin = _rope_freqs(cfg, slot_pos[:, None] + ar[None, :] - pos_offset[:, None])
     x = embed_tokens(params, cfg, tokens)
-    col = torch.arange(max_len, device=dev)[None, :]
-    base_mask = kv_valid & (col <= slot_pos[:, None])  # [B, L]
-    win_mask = base_mask
-    if cfg.sliding_window:
-        win_mask = base_mask & (col > slot_pos[:, None] - cfg.sliding_window)
-    rows = torch.arange(b, device=dev) if write_rows is None else write_rows
-    wcols = slot_pos[rows]
+    wc = slot_pos[:, None] + ar[None, :]  # [B, S]
+    inside = wc < max_len
+    wcols = torch.where(inside, wc, slot_pos.clamp(max=max_len - 1)[:, None])
+    rows = torch.arange(b, device=dev)[:, None].expand(b, s)
+    keep = inside[:, :, None, None]
+    pos_vec = slot_pos.to(torch.int32)
 
     for li, layer in enumerate(params["layers"]):
         h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
         dt = h.dtype
         q, k, v = qkv_proj(h, layer, cfg, dt)
         q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
-        k_new, v_new = k[rows, 0], v[rows, 0]  # [n, KV, D]
+        k = apply_rope(k, cos, sin)  # [B, S, KV, D]
+        k_new, v_new = k, v
+        if s > 1:  # a dropped row carries row 0's value to row 0's target (at S = 1 no two share one)
+            k_new = torch.where(keep, k, k[:, :1])
+            v_new = torch.where(keep, v, v[:, :1])
         ks = vs = None
         if kq:
             # The same quantizer as decode_step: a slot's cache bytes equal
@@ -168,9 +208,8 @@ def _forward_wide(
         else:
             cache["k"][li][rows, :, wcols] = k_new.to(cfg.dtype)
             cache["v"][li][rows, :, wcols] = v_new.to(cfg.dtype)
-        mask = win_mask if cfg.layer_window(li) else base_mask
         attn = gqa_cache_attention(
-            q, cache["k"][li], cache["v"][li], max_len, mask,
+            q, cache["k"][li], cache["v"][li], pos_vec, kv_valid, window=cfg.layer_window(li),
             softcap=cfg.attn_softcap, k_scale=ks, v_scale=vs, reach=reach,
         )
         x = attn_residual(x, attn, layer, cfg)
@@ -180,14 +219,49 @@ def _forward_wide(
     return mask_pad_vocab(logits, cfg)
 
 
+def _spec_chunk(
+    params: Params,
+    cfg: LlamaConfig,
+    cache: Params,
+    last: torch.Tensor,  # [B, V] logits after each slot's last emitted token
+    slot_pos: torch.Tensor,  # [B] next cache row of each slot
+    kv_valid: torch.Tensor,
+    pos_offset: torch.Tensor,
+    drafts: torch.Tensor,  # [B, k] host prompt-lookup guesses after t0
+    reach: Optional[int] = None,
+):
+    """The speculative verify chunk (``_spec_chunk_jit``): every slot
+    advances 1..k+1 greedy tokens in one :func:`_forward_wide` over k+1
+    positions. ``t0 = argmax(last)`` is committed on the card, so each chunk
+    emits at least one token; the accepted drafts are the run that equals
+    its own greedy verdicts. Rows written past the accepted point hold K/V
+    of rejected tokens: no query reads them (each sees only rows up to its
+    own position) and real decoding overwrites them. Decode is bound by the
+    weight stream, which the k+1-wide forward reads once, as a 1-wide step
+    does. Nothing here waits for the card. Returns (new last [B, V], the
+    slots' positions after acceptance [B], tokens [B, k+1], counts [B]):
+    the host emits ``tokens[b, :counts[b]]``."""
+    t0 = last.argmax(dim=-1)
+    tokens = torch.cat([t0[:, None], drafts], dim=1)  # [B, k+1]
+    logits = _forward_wide(params, cfg, cache, tokens, slot_pos, kv_valid, pos_offset, reach=reach)
+    greedy = logits.argmax(dim=-1)  # [B, k+1]; [b, i] follows tokens[b, :i+1]
+    m_acc = torch.cumprod((drafts == greedy[:, :-1]).long(), dim=1).sum(dim=1)  # accepted drafts
+    counts = m_acc + 1  # t0 and the accepted drafts
+    new_last = logits.gather(1, m_acc[:, None, None].expand(-1, 1, logits.shape[-1]))[:, 0]
+    return new_last, slot_pos + counts, tokens, counts
+
+
 @dataclass
 class _Prefix:
     """One registered prompt prefix: its token ids and per-layer K/V slabs
     ``[1, KV, plen, D]`` (int8 with f32 scales ``[1, KV, plen]`` under an
-    int8 cache)."""
+    int8 cache), and in a speculating pool an n-gram index over the ids, so
+    a slot can draft a template's continuation before its own history
+    holds it."""
 
     ids: Tuple[int, ...]
     kv: Dict[str, List[torch.Tensor]]
+    index: Optional[NgramIndex] = None
 
 
 @dataclass
@@ -198,6 +272,17 @@ class _Slot:
     out: List[int] = field(default_factory=list)
     done: bool = False
     on_tokens: Optional[Callable[[List[int], bool], None]] = None
+    # Speculation (spec_k > 0): the prompt ids (prompt + out is the draft
+    # corpus), its suffix index (built at the first draft), the slot's
+    # adaptive draft length in [1, spec_k], the acceptance EMA behind it,
+    # and the pipelined copy cursor (corpus, next index, period, frozen
+    # length): the head of the predicted continuation, alive only while
+    # every processed chunk matched its own prediction.
+    prompt_ids: List[int] = field(default_factory=list)
+    index: Optional[NgramIndex] = None
+    k: int = 0
+    accept_ema: float = 0.0
+    spec_cursor: Optional[Tuple] = None
 
 
 class ContinuousBatcher:
@@ -206,8 +291,20 @@ class ContinuousBatcher:
 
     ``name`` labels its metric children (``kakveda_serving_*{engine=…}``,
     resolved once here, so a per-chunk update is a lock and an add);
-    ``recorder`` is its engine's flight recorder. The speculation families
-    hold a ``spec_k = 0`` pool's values."""
+    ``recorder`` is its engine's flight recorder.
+
+    ``spec_k > 0`` speculates (the reference's engine speculation): a greedy
+    pool's chunk is a verify chunk (:meth:`step_spec_async`) of k+1 tokens
+    a slot, k of them host prompt-lookup drafts, which emits 1..k+1 tokens a
+    slot for one forward. Each slot adapts its own draft length; an
+    acceptance gate (:meth:`_gate_eval`) turns speculation off for a pool
+    whose tokens per verify do not pay for the verify chunk's wall against
+    the plain chunk's per-token wall (``KAKVEDA_SERVE_SPEC_WARMUP`` chunks
+    of warm-up, the first ``KAKVEDA_SERVE_SPEC_CALIB`` chunks plain to
+    measure that wall, ``KAKVEDA_SERVE_SPEC_BREAKEVEN`` as the prior before
+    there is one, a re-probe after ``KAKVEDA_SERVE_SPEC_REPROBE`` plain
+    chunks); a pool with a sampled slot decodes plain. ``spec_stats`` and
+    the ``kakveda_serving_spec_*`` families report it."""
 
     def __init__(
         self,
@@ -219,6 +316,7 @@ class ContinuousBatcher:
         chunk_steps: int = 8,
         eos_id: Optional[int] = None,
         generator: Optional[torch.Generator] = None,
+        spec_k: int = 0,
         name: str = "default",
         recorder: Optional[_metrics.FlightRecorder] = None,
     ):
@@ -226,22 +324,36 @@ class ContinuousBatcher:
         self.device = params["embed"].device
         self.B, self.max_len = batch_slots, max_len
         self.chunk_steps = chunk_steps
+        self.spec_k = spec_k
         self.eos_id = eos_id
         self.generator = generator
         self.name = name
         self.recorder = recorder
         # The loop thread mutates the stats while readers take snapshots:
-        # every mutation holds stats_lock, and readers go through
-        # stats_snapshot / ServingEngine.stats.
+        # every mutation holds stats_lock (re-entrant: the gate transition
+        # nests in locked sections), and readers go through stats_snapshot
+        # / ServingEngine.stats.
         self.stats_lock = threading.RLock()
+        self.spec_stats = {
+            "chunks": 0, "emitted": 0, "slot_chunks": 0,
+            "drafted": 0, "accepted": 0,
+            "gate_state": "warmup" if spec_k else "disabled",
+            "tokens_per_verify": 0.0,
+            "break_even": 0.0,
+            "k_trace": [],  # the pool's verify width per chunk, the last 64
+        }
         reg = _metrics.get_registry()
-        gate = reg.gauge(
+        self._gate_gauge = reg.gauge(
             "kakveda_serving_spec_gate_state",
             "1 for the pool's current speculation gate state "
             "(disabled|warmup|on|off)", ("engine", "state"),
         )
+        self._gate_transitions = reg.counter(
+            "kakveda_serving_gate_transitions_total",
+            "Speculation auto-gate state transitions", ("engine", "from", "to"),
+        )
         for gs in _GATE_STATES:
-            gate.labels(engine=name, state=gs).set(1.0 if gs == "disabled" else 0.0)
+            self._gate_gauge.labels(engine=name, state=gs).set(1.0 if gs == self.spec_stats["gate_state"] else 0.0)
         chunk_hist = reg.histogram(
             "kakveda_serving_chunk_seconds",
             "Effective decode-chunk wall (dispatch to process, overlapped "
@@ -279,6 +391,41 @@ class ContinuousBatcher:
         reg.gauge(
             "kakveda_serving_slots", "Total slots in the continuous-batching pool", ("engine",),
         ).labels(engine=name).set(batch_slots)
+        self._last_k_rec = 0
+        # The gate's inputs: recent chunk walls of each flavor (medians, so
+        # one slow chunk cannot flip it), recent per-slot emitted counts,
+        # and the knobs. A wall runs on the host clock from the chunk's
+        # dispatch to the loop's next move: the next dispatch or admission,
+        # or the end of the chunk's own processing when that comes first
+        # (_wall_open, _wall_close). For both flavors alike it is the
+        # loop's period per chunk, the cost a chunk adds. (Dispatch to
+        # process, the reference's wall, holds the next chunk's dispatch
+        # too under pipelining, a plain chunk's always and a verify chunk's
+        # only while its chain is alive: on a host-bound card it doubled
+        # the plain wall and halved the break-even.) The first wall of each
+        # program shape is dropped (the reference drops its compile). The
+        # chunk histograms keep dispatch to process, as their help says.
+        self._spec_walls: deque = deque(maxlen=16)
+        self._plain_walls: deque = deque(maxlen=16)
+        self._wall_cell: Optional[list] = None  # [dispatch, next move] of the last chunk dispatched
+        self._tpv_recent: deque = deque(maxlen=32)
+        self._gate_warmup = int(os.environ.get("KAKVEDA_SERVE_SPEC_WARMUP", "8"))
+        self._gate_calib = int(os.environ.get("KAKVEDA_SERVE_SPEC_CALIB", "2"))
+        self._gate_reprobe = int(os.environ.get("KAKVEDA_SERVE_SPEC_REPROBE", "256"))
+        self._gate_prior = float(os.environ.get("KAKVEDA_SERVE_SPEC_BREAKEVEN", "1.35"))
+        self._gate_spec_chunks = 0  # spec chunks since (re)entering warm-up
+        self._gate_plain_since_off = 0
+        self._gate_reprobes = 0
+        self._spec_widths_warm: set = set()
+        self._plain_warm = False
+        # Pipelined speculation: the positions the last verify chunk left
+        # on the card (the next dispatch reads them there, no host sync),
+        # and the verify chunks in flight and their widths (the budget of
+        # read validity). Valid only while no admission or plain chunk
+        # comes between: both reset or refuse.
+        self._spec_pos_dev: Optional[torch.Tensor] = None
+        self._spec_pending = 0
+        self._spec_pending_width = 0
         # Chaos sites (core/faults.py): dispatch fires before a chunk is
         # enqueued, fetch before a handle's tokens are read. Both escape to
         # the engine's supervisor, which rebuilds the batcher wholesale.
@@ -295,8 +442,8 @@ class ContinuousBatcher:
         self.free = list(range(batch_slots))
         self.results: Dict[int, List[int]] = {}
         self._next_id = 0
-        # Forward passes run: one per admission, prefix registration and
-        # decode step. Each runs every layer's attention once.
+        # Forward passes run: one per admission, prefix registration, decode
+        # step and verify chunk. Each runs every layer's attention once.
         self.forwards = 0
         # Registered prefixes, least recently used first.
         self._prefixes: Dict[Tuple[int, ...], _Prefix] = {}
@@ -328,15 +475,37 @@ class ContinuousBatcher:
         maxp = int(os.environ.get("KAKVEDA_SERVE_PREFIX_MAX", "4"))
         while len(self._prefixes) >= max(1, maxp):
             self._prefixes.pop(next(iter(self._prefixes)))
-        self._prefixes[ids] = _Prefix(ids=ids, kv={k: scratch[k] for k in keys})
+        self._prefixes[ids] = _Prefix(
+            ids=ids, kv={k: scratch[k] for k in keys}, index=NgramIndex(ids) if self.spec_k else None,
+        )
         with self.stats_lock:
             self.prefix_stats["registered"] += 1
         return True
 
     def stats_snapshot(self) -> dict:
-        """The prefix stats, copied under the stats lock: the read API."""
+        """The spec and prefix stats, copied under the stats lock: the read
+        API (the loop thread appends to ``k_trace`` meanwhile)."""
         with self.stats_lock:
-            return {"prefix": dict(self.prefix_stats)}
+            return {"spec": copy.deepcopy(self.spec_stats), "prefix": dict(self.prefix_stats)}
+
+    def _set_gate_state(self, new: str) -> None:
+        """The one gate transition: ``spec_stats``, the state gauges, the
+        transition counter and the flight recorder move together, under the
+        stats lock."""
+        with self.stats_lock:
+            old = self.spec_stats["gate_state"]
+            if new == old:
+                return
+            self.spec_stats["gate_state"] = new
+            self._gate_gauge.labels(engine=self.name, state=old).set(0.0)
+            self._gate_gauge.labels(engine=self.name, state=new).set(1.0)
+            self._gate_transitions.labels(**{"engine": self.name, "from": old, "to": new}).inc()
+            if self.recorder is not None:
+                self.recorder.record("gate", **{
+                    "from": old, "to": new,
+                    "tokens_per_verify": self.spec_stats["tokens_per_verify"],
+                    "break_even": self.spec_stats["break_even"],
+                })
 
     def _prefix_prefill(self, ids: Tuple[int, ...]) -> dict:
         """One ``decode_step`` of the prefix into an exact-length ``[1, plen]``
@@ -398,9 +567,15 @@ class ContinuousBatcher:
         ``[off, off + plen)`` of the scratch cache and one ``decode_step``
         of the suffix runs from row ``off + split``: RoPE rotates by the
         logical position (row − off), so one slab serves every bucket.
-        ``on_tokens(new, done)`` streams each chunk's accepted tokens."""
+        ``on_tokens(new, done)`` streams each chunk's accepted tokens.
+        Refused while a verify chunk is in flight: its successor would read
+        the positions it left on the card, not the host's."""
         if not self.free:
             raise RuntimeError("no free slot; call step() until one retires")
+        if self._spec_pending:
+            raise RuntimeError("admit() with a speculative chunk in flight; process_spec_chunk first")
+        self._spec_pos_dev = None
+        self._wall_cut()
         p = len(prompt_ids)
         if p + 1 >= self.max_len:
             raise ValueError("prompt too long for the slot window")
@@ -453,7 +628,12 @@ class ContinuousBatcher:
                 ck[slot].copy_(sk[0])
         self.last[slot] = mask_pad_vocab(logits[:, -1, :], self.cfg)[0]
         self.forwards += 1
-        self.slots[slot] = _Slot(req_id=rid, prompt_len=bucket, max_new=max_new_tokens, on_tokens=on_tokens)
+        # The slot's suffix index is built at its first draft: a pool whose
+        # gate is off pays no index upkeep.
+        self.slots[slot] = _Slot(
+            req_id=rid, prompt_len=bucket, max_new=max_new_tokens, on_tokens=on_tokens,
+            prompt_ids=list(prompt_ids), k=self.spec_k,
+        )
         self._mx["active"].set(len(self.slots))
         return rid
 
@@ -471,8 +651,13 @@ class ContinuousBatcher:
         a stale chunk's tokens never reach its next occupant."""
         if not self.slots:
             return None
+        if self._spec_pending:
+            raise RuntimeError("step_async() with a speculative chunk in flight; process_spec_chunk first")
         self._fault_dispatch.fire()
-        t_dispatch = time.perf_counter()
+        # A plain chunk moves the positions through the host mirrors: any
+        # left on the card by a verify chunk are stale from here on.
+        self._spec_pos_dev = None
+        wall = self._wall_open()
         self._grow_valid(self.chunk_steps)
         dev = self.device
         kv_valid = _h2d(self._kv_np, dev)
@@ -490,37 +675,39 @@ class ContinuousBatcher:
                 drawn = torch.multinomial(probs, 1, generator=self.generator)[:, 0]
                 nxt = torch.where(temps > 0, drawn, nxt)
             toks[:, t] = nxt
-            inside = pos_h + t < self.max_len
-            rows = None if inside.all() else _h2d(np.flatnonzero(inside), dev)
             logits = _forward_wide(
-                self.params, self.cfg, self.cache, nxt[:, None], pos + t, kv_valid, pos_offset, rows,
-                reach=top + t + 1,
+                self.params, self.cfg, self.cache, nxt[:, None], pos + t, kv_valid, pos_offset, reach=top + t + 1,
             )
             last = logits[:, -1, :]
             self.forwards += 1
         self.last = last
         self._pos_np += self.chunk_steps  # every slot advances in lockstep
-        return toks, dict(self.slots), t_dispatch
+        return toks, dict(self.slots), wall
 
     def process_chunk(self, handle) -> List[int]:
         """Read an enqueued chunk's tokens and retire finished slots;
-        returns the request ids that chunk completed."""
+        returns the request ids that chunk completed. In a speculating pool
+        its wall feeds the gate."""
         if handle is None:
             return []
         self._fault_fetch.fire()
-        toks, snapshot, t_dispatch = handle
+        toks, snapshot, wall = handle
         toks_h = toks.cpu().numpy()
-        self._mx["chunk_plain"].observe(time.perf_counter() - t_dispatch)
+        self._mx["chunk_plain"].observe(time.perf_counter() - wall[0])
+        live = any(not st.done for st in snapshot.values())
         finished: List[int] = []
         for slot, st in snapshot.items():
             if st.done:
                 continue  # retired by an earlier chunk or cancelled: overshoot tokens
             self._emit(slot, st, toks_h[slot], finished)
+        if self.spec_k and live:
+            self.note_plain_wall(self._wall_close(wall))
         return finished
 
     def _emit(self, slot: int, st: _Slot, tok_row, finished: List[int]) -> None:
         """Accept a chunk's tokens into a slot (EOS / budget / window stops),
-        stream them to ``on_tokens``, retire the slot when done."""
+        keep its draft corpus current, stream them to ``on_tokens``, retire
+        the slot when done. Shared by the plain and the verify chunks."""
         n_before = len(st.out)
         for t in tok_row:
             t = int(t)
@@ -528,6 +715,8 @@ class ContinuousBatcher:
                 st.done = True
                 break
             st.out.append(t)
+            if st.index is not None:
+                st.index.append(t)
             if len(st.out) >= st.max_new or st.prompt_len + len(st.out) + 1 >= self.max_len:
                 st.done = True
                 break
@@ -553,9 +742,9 @@ class ContinuousBatcher:
     def cancel_request(self, rid: int) -> Optional[List[int]]:
         """Retire a mid-decode request now, between chunks: returns its
         partial tokens, frees the slot, and marks its ``_Slot`` done first,
-        so a chunk already enqueued under the pipelined loop treats the
-        slot's tokens as overshoot. None when ``rid`` is not active (done,
-        or never admitted)."""
+        so a chunk already enqueued under the pipelined loop (plain or
+        verify) treats the slot's tokens as overshoot. None when ``rid`` is
+        not active (done, or never admitted)."""
         for slot, st in list(self.slots.items()):
             if st.req_id == rid:
                 st.done = True
@@ -565,17 +754,321 @@ class ContinuousBatcher:
 
     def _grow_valid(self, steps: int) -> None:
         """Each active slot may read its next ``steps`` rows as it writes
-        them (reads stay bounded per step by ``col <= slot_pos``); the left
-        pad [0, pos_offset) stays invalid."""
+        them (reads stay bounded per query by its own position); the left
+        pad [0, pos_offset) stays invalid. One definition for both chunk
+        flavors."""
         ar = np.arange(self.max_len)[None, :]
         active = np.zeros((self.B,), bool)
         active[list(self.slots)] = True
         limit = (self._pos_np + steps)[:, None]
         self._kv_np |= active[:, None] & (ar >= self._off_np[:, None]) & (ar < limit)
 
+    # --- speculation: host drafts --------------------------------------------
+
+    def _anchor(self, st: _Slot):
+        """A slot's anchor: its own suffix index first; a weak self-anchor
+        (under 3 tokens) defers to a longer match inside a registered
+        prefix's ids (template traffic repeats the template before its own
+        history holds the continuation). Returns ``(corpus, j, period)``,
+        period 0 for a hit in a prefix (copied literally, no wrap)."""
+        if st.index is None:
+            st.index = NgramIndex(st.prompt_ids + st.out)
+        j, m = st.index.anchor
+        corpus, period = st.index.toks, (len(st.index.toks) - 1 - j if j >= 0 else 0)
+        if m < 3 and self._prefixes:
+            tail = st.index.toks[-3:]
+            for pe in self._prefixes.values():
+                if pe.index is None:
+                    continue
+                pj, pm = pe.index.lookup(tail)
+                if pm > m and pj + 2 < len(pe.index.toks):
+                    j, m, corpus, period = pj, pm, pe.index.toks, 0
+        return corpus, j, period
+
+    @staticmethod
+    def _copy_drafts(corpus, start: int, k: int, period: int, n: int, skip: int = 1):
+        """The drafts' shared tail: copy ``k + skip`` tokens of ``corpus``
+        from ``start`` (:func:`copy_run`: past the frozen end ``n`` a run
+        repeats with ``period``), keep the last k as drafts (the first
+        ``skip`` the card commits itself), PAD (0) a short run. Returns
+        ``(drafts[k], cursor, predicted emission)``: the cursor continues
+        the run and the prediction is what the chunk emits if it accepts in
+        full, both None when the run ran short (a chunk then breaks the
+        chain whatever it emits)."""
+        seq, nxt = copy_run(corpus, start, k + skip, period, n=n)
+        drafts = seq[skip:] + [0] * (k + skip - len(seq))
+        if len(seq) < k + skip:
+            return drafts, None, None
+        return drafts, (corpus, nxt, period, n), seq[skip - 1 :]
+
+    def _draft_slot(self, st: _Slot, k: int):
+        """Drafts for a slot whose history the host has: the anchor's
+        continuation, the verify chunk's t0 (committed on the card)
+        first."""
+        corpus, j, period = self._anchor(st)
+        if j < 0:
+            return [0] * k, None, None
+        return self._copy_drafts(corpus, j + 1, k, period, len(corpus))
+
+    @classmethod
+    def _draft_cursor(cls, st: _Slot, k: int):
+        """Drafts for a slot whose last verify chunk is still in flight and
+        whose prediction chain is alive: the same copy run continues past
+        the predicted emission (a bet that the chunk in flight accepts in
+        full, the traffic where speculation pays; process_spec_chunk drops
+        the cursor when it does not)."""
+        corpus, idx, period, n = st.spec_cursor
+        return cls._copy_drafts(corpus, idx, k, period, n)
+
+    def _draft_slot_stale(self, st: _Slot, k: int):
+        """Drafts for a slot whose chain broke while a chunk is in flight:
+        anchor on the history the host has. The chunk in flight carried no
+        live drafts, so it will most likely commit one unseen token, the
+        anchor's own first prediction: predict k+2 ahead and skip that token
+        and this chunk's t0. A surprise only misses, and the next dispatch
+        anchors again."""
+        corpus, j, period = self._anchor(st)
+        if j < 0:
+            return [0] * k, None, None
+        return self._copy_drafts(corpus, j + 1, k, period, len(corpus), skip=2)
+
+    def _pool_k(self) -> int:
+        """The next verify chunk's width: the active slots' largest draft
+        length, rounded up to a power of two, at most ``spec_k``."""
+        top = max(st.k for st in self.slots.values())
+        k = 1
+        while k < top:
+            k <<= 1
+        return max(1, min(k, self.spec_k))
+
+    # --- speculation: the verify chunk ---------------------------------------
+
+    def step_spec_async(self):
+        """Enqueue one verify chunk without reading its acceptance; returns
+        a handle for :meth:`process_spec_chunk` (None when no slot is
+        active).
+
+        The chunk leaves the slots' positions after acceptance on the card
+        and the next dispatch reads them there, so verify chunks pipeline
+        with no host sync between them: the host drafts chunk i+1 from each
+        slot's copy cursor, read validity grows by the whole width in flight
+        from the last position the host knows, and the kernel's schedule
+        hint is that position plus the width in flight. Overshoot follows
+        the plain chunk's contract (rows past the window dropped, stale
+        snapshots skip done slots, rejected rows overwritten before any
+        query reaches them). Admissions need the host's positions: callers
+        process the handles in flight first (``admit`` refuses otherwise)."""
+        if not self.slots:
+            return None
+        self._fault_dispatch.fire()
+        wall = self._wall_open()  # drafting is part of the chunk's cost
+        k = self._pool_k()
+        pipelined = self._spec_pending > 0
+        drafts = np.zeros((self.B, k), np.int64)
+        kmap: Dict[int, int] = {}
+        pmap: Dict[int, Optional[List[int]]] = {}
+        for slot, st in self.slots.items():
+            kd = min(max(st.k, 1), k)
+            kmap[slot] = kd
+            if not pipelined:
+                row, cursor, pred = self._draft_slot(st, kd)
+            elif st.spec_cursor is not None:
+                row, cursor, pred = self._draft_cursor(st, kd)
+            else:
+                row, cursor, pred = self._draft_slot_stale(st, kd)
+            drafts[slot, : len(row)] = row  # columns past kd stay PAD
+            st.spec_cursor = cursor
+            pmap[slot] = pred
+        # Validity covers every chunk in flight from the last position the
+        # host knows; rows past a slot's true frontier are valid garbage,
+        # hidden from each query by its own position.
+        self._grow_valid(self._spec_pending_width + k + 1)
+        reach = int(self._pos_np[list(self.slots)].max()) + self._spec_pending_width + k + 1
+        dev = self.device
+        slot_pos = self._spec_pos_dev if self._spec_pos_dev is not None else _h2d(self._pos_np, dev)
+        self.last, self._spec_pos_dev, toks, counts = _spec_chunk(
+            self.params, self.cfg, self.cache, self.last, slot_pos,
+            _h2d(self._kv_np, dev), _h2d(self._off_np, dev), _h2d(drafts, dev), reach=reach,
+        )
+        self.forwards += 1
+        self._spec_pending += 1
+        self._spec_pending_width += k + 1
+        return _d2h_async(toks), _d2h_async(counts), dict(self.slots), k, kmap, pmap, wall
+
+    def process_spec_chunk(self, handle) -> List[int]:
+        """Read a verify chunk's tokens and acceptance, emit each slot's
+        accepted run, adapt each slot's draft length, feed the gate;
+        returns the request ids that chunk completed."""
+        if handle is None:
+            return []
+        self._fault_fetch.fire()
+        toks, counts, snapshot, k, kmap, pmap, wall = handle
+        toks_h = _host(toks)
+        counts_h = _host(counts)
+        self._spec_pending -= 1
+        self._spec_pending_width -= k + 1
+        self._mx["chunk_spec"].observe(time.perf_counter() - wall[0])
+        # Every slot's mirror moves by its own count (inactive slots drift
+        # harmlessly: admission resets them).
+        self._pos_np += counts_h
+        finished: List[int] = []
+        self._gate_spec_chunks += 1
+        # The chunk's stats land in spec_stats under one lock acquire, never
+        # held across _emit (its callbacks are caller code).
+        em = sc = dr = ac = 0
+        for slot, st in snapshot.items():
+            if st.done:
+                st.spec_cursor = None
+                continue  # retired earlier: overshoot tokens
+            n = int(counts_h[slot])
+            kd = kmap.get(slot, k)
+            a = max(0, min(n - 1, kd))  # accepted drafts (t0 comes free)
+            em += n
+            sc += 1
+            dr += kd
+            ac += a
+            self._tpv_recent.append(n)
+            # A chunk accepted in full doubles the slot's draft length (the
+            # rejected drafts ride the same weight stream, so recovering is
+            # nearly free); one rejected in full halves it toward 1.
+            st.accept_ema = 0.7 * st.accept_ema + 0.3 * (a / kd if kd else 0.0)
+            if a >= kd:
+                st.k = min(self.spec_k, max(st.k, kd) * 2)
+            elif a == 0:
+                st.k = max(1, st.k // 2)
+            # The prediction chain survives only a chunk accepted in full
+            # whose tokens match its own prediction (from the handle: a
+            # newer dispatch has moved the slot's cursor already).
+            pred = pmap.get(slot)
+            if pred is None or n != kd + 1 or [int(t) for t in toks_h[slot][:n]] != pred[:n]:
+                st.spec_cursor = None
+            self._emit(slot, st, toks_h[slot][:n], finished)
+        with self.stats_lock:
+            s = self.spec_stats
+            s["chunks"] += 1
+            s["emitted"] += em
+            s["slot_chunks"] += sc
+            s["drafted"] += dr
+            s["accepted"] += ac
+            s["k_trace"].append(k)
+            if len(s["k_trace"]) > 64:
+                del s["k_trace"][0]
+        self._mx["drafted"].inc(dr)
+        self._mx["accepted"].inc(ac)
+        self._mx["spec_k"].set(k)
+        if self.recorder is not None and k != self._last_k_rec:
+            self.recorder.record("pool_k", k=k)
+            self._last_k_rec = k
+        wall = self._wall_close(wall)
+        if k in self._spec_widths_warm:
+            self._spec_walls.append(wall)
+        else:
+            self._spec_widths_warm.add(k)  # the first chunk of a width: not a cost sample
+        self._gate_eval()
+        return finished
+
+    def step_spec(self) -> List[int]:
+        """One verify chunk for every active slot, processed at once."""
+        return self.process_spec_chunk(self.step_spec_async())
+
+    def spec_pipeline_ready(self) -> bool:
+        """True when the next verify chunk may go before the one in flight
+        is read: every active slot is on a live prediction chain and has
+        been accepting (EMA ≥ 0.5). A cursor bets on the chunk in flight
+        accepting in full; on traffic that accepts halfway the bet loses,
+        and the synchronous order (read, anchor, draft) keeps acceptance."""
+        return all(st.spec_cursor is not None and st.accept_ema >= 0.5 for st in self.slots.values())
+
+    def _wall_open(self) -> list:
+        """Open the wall of a chunk being dispatched (``[dispatch, next
+        move]``), closing the one still open: this dispatch is its next
+        move."""
+        self._wall_cut()
+        self._wall_cell = [time.perf_counter(), None]
+        return self._wall_cell
+
+    def _wall_cut(self) -> None:
+        """The loop moves on (a dispatch, an admission): the open wall ends
+        here."""
+        if self._wall_cell is not None:
+            self._wall_cell[1] = time.perf_counter()
+            self._wall_cell = None
+
+    def _wall_close(self, cell: list) -> float:
+        """A processed chunk's wall in seconds; one still open ends now, as
+        its processing does."""
+        if cell[1] is None:
+            cell[1] = time.perf_counter()
+            if cell is self._wall_cell:
+                self._wall_cell = None
+        return cell[1] - cell[0]
+
+    def note_plain_wall(self, wall: float) -> None:
+        """One plain chunk's wall (``chunk_steps`` tokens a slot): the cost
+        the gate holds verify chunks against. While the gate is off, each
+        plain chunk counts toward the re-probe that sends it back to
+        warm-up."""
+        if self._plain_warm:
+            self._plain_walls.append(wall)
+        else:
+            self._plain_warm = True  # the first plain chunk: not a cost sample
+        with self.stats_lock:
+            if self.spec_stats["gate_state"] == "off":
+                self._gate_plain_since_off += 1
+                if self._gate_reprobe and self._gate_plain_since_off >= self._gate_reprobe:
+                    self._set_gate_state("warmup")
+                    self._gate_spec_chunks = 0
+                    self._gate_plain_since_off = 0
+                    self._gate_reprobes += 1
+                    self._tpv_recent.clear()
+
+    def _gate_eval(self) -> None:
+        """The acceptance gate: speculation pays when the tokens a verify
+        chunk emits clear the break-even, its wall over the plain chunk's
+        per-token wall (medians of recent chunks; the prior until a plain
+        chunk was measured). After warm-up a pool below it turns off and
+        decodes plain; a re-probe sends it back to warm-up with a 10 %
+        margin, so a borderline pool does not flap."""
+        if not self.spec_k:
+            return
+        tpv = float(np.mean(self._tpv_recent)) if self._tpv_recent else 0.0
+        if self._spec_walls and self._plain_walls:
+            spec_w = float(np.median(self._spec_walls))
+            plain_w = float(np.median(self._plain_walls)) / max(self.chunk_steps, 1)
+            be = spec_w / max(plain_w, 1e-9)
+        else:
+            be = self._gate_prior
+        with self.stats_lock:
+            g = self.spec_stats
+            g["tokens_per_verify"] = round(tpv, 3)
+            g["break_even"] = round(be, 3)
+            if g["gate_state"] in ("warmup", "on") and self._gate_spec_chunks >= self._gate_warmup:
+                if tpv < be * (1.1 if self._gate_reprobes else 1.0):
+                    self._set_gate_state("off")
+                    self._gate_plain_since_off = 0
+                else:
+                    self._set_gate_state("on")
+
+    def spec_ready(self) -> bool:
+        """True when the next chunk should be a verify chunk: speculation
+        on, the gate not off, the gate's plain-wall calibration done, and
+        every active slot greedy. The one predicate of step() and of the
+        engine loop. (The reference's brownout ladder may veto speculation
+        too; the port stays at its level 0, which never does.)"""
+        return bool(
+            self.spec_k
+            and self.slots
+            and self.spec_stats["gate_state"] != "off"
+            and len(self._plain_walls) >= self._gate_calib
+            and all(self._temp_np[s] <= 0.0 for s in self.slots)
+        )
+
     def step(self) -> List[int]:
-        """One decode chunk for every active slot; returns the request ids
-        it finished (their tokens land in ``results``)."""
+        """One chunk for every active slot (a verify chunk when
+        :meth:`spec_ready`); returns the request ids it finished (their
+        tokens land in ``results``)."""
+        if self.spec_ready():
+            return self.step_spec()
         return self.process_chunk(self.step_async())
 
     def run_all(self, prompts: List[List[int]], max_new_tokens: int = 64) -> List[List[int]]:
@@ -622,7 +1115,14 @@ class ServingEngine:
     registered prefixes registered again) and re-admits the queued ones,
     with bounded exponential backoff, at most ``KAKVEDA_SERVE_RESTARTS``
     (2) times; past that the engine is dead and ``submit`` raises
-    :class:`EngineDeadError` at once."""
+    :class:`EngineDeadError` at once.
+
+    ``spec_k`` (``KAKVEDA_SERVE_SPEC``, read once, when not given) makes the
+    pool speculate (:class:`ContinuousBatcher`); a rebuild keeps it. The
+    loop pipelines verify chunks as it does plain ones, one in flight while
+    the next is enqueued, and processes the one in flight before it admits
+    (admission needs the host's positions). ``KAKVEDA_SERVE_PIPELINE=0``
+    processes every chunk before the next."""
 
     def __init__(
         self,
@@ -634,15 +1134,18 @@ class ServingEngine:
         chunk_steps: int = 8,
         eos_id: Optional[int] = None,
         generator: Optional[torch.Generator] = None,
+        spec_k: Optional[int] = None,
         name: Optional[str] = None,
     ):
+        if spec_k is None:
+            spec_k = int(os.environ.get("KAKVEDA_SERVE_SPEC", "0"))
         self.name = name or "default"
         self.recorder = _metrics.FlightRecorder(f"serving/{self.name}")
         # What a rebuild needs to construct a fresh batcher.
         self._params, self._cfg = params, cfg
         self._cb_kw = dict(
             batch_slots=batch_slots, max_len=max_len, chunk_steps=chunk_steps,
-            eos_id=eos_id, generator=generator,
+            eos_id=eos_id, generator=generator, spec_k=spec_k,
         )
         self.cb = ContinuousBatcher(params, cfg, name=self.name, recorder=self.recorder, **self._cb_kw)
         # The restart budget is read once: the supervisor must not change
@@ -716,11 +1219,12 @@ class ServingEngine:
         self._thread.start()
 
     def stats(self) -> dict:
-        """A copy of the engine's counters and the batcher's prefix stats,
-        taken under the stats lock, with the supervisor's state and the
-        fair pick's: the read API (never the live dicts)."""
+        """A copy of the engine's counters and the batcher's spec and prefix
+        stats, taken under the stats lock, with the supervisor's state and
+        the fair pick's: the read API (never the live dicts)."""
         with self.cb.stats_lock:
             snap = dict(self._stats)
+            snap["spec"] = copy.deepcopy(self.cb.spec_stats)
             snap["prefix"] = dict(self.cb.prefix_stats)
         snap["restarts"] = self._restarts
         snap["dead"] = self._dead.is_set()
@@ -1105,10 +1609,11 @@ class ServingEngine:
         self._track[rid] = track
         self._pend[rid] = fut
 
-    def _pump(self, block: bool) -> None:
+    def _pump(self, block: bool, drain: Optional[Callable[[], None]] = None) -> None:
         """Act on control items at once and move new submissions to the
         waiting list (blocking briefly when idle), then admit while slots
-        are free. The hand-off to ``_waiting`` holds the submit lock;
+        are free, calling ``drain`` first (it processes a verify chunk in
+        flight). The hand-off to ``_waiting`` holds the submit lock;
         admission runs outside it."""
         try:
             while True:
@@ -1126,6 +1631,8 @@ class ServingEngine:
                 if not self._waiting:
                     break
                 item = self._pick_waiting_locked()
+            if drain is not None:
+                drain()
             self._admit_one(item)
 
     def _loop(self) -> None:
@@ -1201,18 +1708,65 @@ class ServingEngine:
     def _serve(self) -> None:
         # Pipelined: enqueue chunk i+1 before reading chunk i's tokens, so the
         # host's bookkeeping and the next chunk's launches overlap the card.
-        pending = None
+        # Verify chunks pipeline the same way (their positions stay on the
+        # card) while every slot is on a live prediction chain; otherwise
+        # the loop reads the chunk in flight, drafts on real history and
+        # enqueues the next. A switch of flavor processes the other
+        # flavor's chunk in flight first, and so does an admission.
+        pipelined = os.environ.get("KAKVEDA_SERVE_PIPELINE", "1") != "0"
+        finish = self._finish_rids
+        pending = None  # plain chunk in flight
+        pending_spec = None  # verify chunk in flight
+
+        def drain_spec() -> None:
+            nonlocal pending_spec
+            if pending_spec is not None:
+                handle, pending_spec = pending_spec, None
+                finish(self.cb.process_spec_chunk(handle))
+
         while not self._closed.is_set():
-            self._pump(block=not self.cb.slots and pending is None and not self._waiting)
+            self._pump(
+                block=not self.cb.slots and pending is None and pending_spec is None and not self._waiting,
+                drain=drain_spec,
+            )
             # Between chunks: expired requests retire through the done-flag
-            # path, safe while a chunk is in flight.
+            # path, safe while a chunk of either flavor is in flight.
             self._expire_deadlines()
-            if self.cb.slots:
-                self._note_active()
-                handle = self.cb.step_async()
-                self._bump("chunks")
-                self._finish_rids(self.cb.process_chunk(pending))
-                pending = handle
-            else:
-                self._finish_rids(self.cb.process_chunk(pending))
+            cb = self.cb
+            if cb.spec_ready():
+                finish(cb.process_chunk(pending))
                 pending = None
+                if not cb.slots:
+                    drain_spec()
+                    continue
+                self._note_active()
+                if pipelined and pending_spec is not None and cb.spec_pipeline_ready():
+                    nxt = cb.step_spec_async()
+                    drain_spec()
+                    pending_spec = nxt
+                    self._bump("chunks")
+                else:
+                    drain_spec()
+                    if cb.slots and cb.spec_ready():
+                        handle = cb.step_spec_async()
+                        self._bump("chunks")
+                        if pipelined:
+                            pending_spec = handle
+                        else:
+                            finish(cb.process_spec_chunk(handle))
+            elif cb.slots:
+                drain_spec()
+                if not cb.slots:
+                    continue  # the drain retired the whole pool
+                self._note_active()
+                handle = cb.step_async()
+                self._bump("chunks")
+                if pipelined:
+                    finish(cb.process_chunk(pending))
+                    pending = handle
+                else:
+                    finish(cb.process_chunk(handle))
+            else:
+                finish(cb.process_chunk(pending))
+                pending = None
+                drain_spec()

@@ -47,7 +47,7 @@ def _nvcc() -> str:
     return path
 
 
-FLASH_HEAD_DIMS = (64, 96, 128, 256)  # one flash library each
+FLASH_HEAD_DIMS = (32, 64, 96, 128, 256)  # one flash library each
 
 
 def targets() -> list:

@@ -184,20 +184,20 @@ def test_get_runtime_names_cache_and_device(monkeypatch):
 
 
 def test_card_runtime_refuses_an_unported_head_dim_at_construction(monkeypatch):
-    """The card's attention kernel takes head_dim 64, 96, 128 or 256: a
-    runtime on the card with the tiny preset (head_dim 32) raises when it is
-    built, so
-    KAKVEDA_CLASSIFIER=tiered fails at start-up, not at the first ambiguous
-    trace of an ingest. Nothing reaches the card: the check comes first."""
+    """The card's attention kernel takes head_dim 32, 64, 96, 128 or 256 and
+    bf16 models: a runtime on the card with head_dim 16, or with an f32
+    model, raises when it is built, so KAKVEDA_CLASSIFIER=tiered fails at
+    start-up, not at the first ambiguous trace of an ingest. Nothing reaches
+    the card: the check comes first. (The tiny preset's head_dim 32 is
+    served there; ``tests/test_torch_cuda.py`` builds it on the card.)"""
     TR.clear_runtimes()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.delenv("KAKVEDA_LLAMA_PRESET", raising=False)
     try:
-        for name in ("torch", "tpu"):
-            with pytest.raises(ValueError, match="head_dim=32 on the card is not ported"):
-                TR.get_runtime(name)
-        with pytest.raises(ValueError, match="head_dim 64, 96, 128 or 256; head_dim=16"):
+        with pytest.raises(ValueError, match="head_dim 32, 64, 96, 128 or 256; head_dim=16"):
             TG.LlamaRuntime(cfg=TConfig(d_model=64, n_heads=4, n_kv_heads=2), device="cuda")
+        with pytest.raises(ValueError, match="the card serves bf16 models"):
+            TG.LlamaRuntime(cfg=TConfig(dtype=torch.float32), device="cuda")
         assert not TR._RUNTIMES
     finally:
         TR.clear_runtimes()

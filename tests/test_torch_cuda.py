@@ -425,7 +425,7 @@ def test_flash_kernel_refuses_a_short_workspace(gen):
         return lib.kkv_flash_gqa_cache(
             qf.data_ptr(), k.data_ptr(), v.data_ptr(), None, None, m.view(torch.uint8).data_ptr(),
             out.data_ptr(), part.data_ptr(), n_part, tickets.data_ptr(), n_tickets,
-            64, 8, 4, 4, 512, 128, pos0, 0, 128**-0.5, 0.0, 4, torch.cuda.current_stream().cuda_stream,
+            64, 8, 4, 4, 512, 128, pos0, None, 0, 128**-0.5, 0.0, 4, torch.cuda.current_stream().cuda_stream,
         )
 
     assert call(need - 1, 64) == 1 and call(need, 63) == 1
@@ -440,12 +440,16 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take(gen):
     k = torch.zeros(1, 2, 64, 128, dtype=torch.bfloat16, device="cuda")
     with pytest.raises(ValueError, match="bf16"):
         flash_gqa_cache(q.float(), k.float(), k.float(), 64, None)  # f32 model on the card
-    with pytest.raises(ValueError):  # a head_dim the kernel does not take (it takes 64, 96, 128, 256)
+    with pytest.raises(ValueError):  # a head_dim the kernel does not take (it takes 32, 64, 96, 128, 256)
         flash_gqa_cache(q[..., :80].contiguous(), k[..., :80].contiguous(), k[..., :80].contiguous(), 64, None)
     with pytest.raises(ValueError):
         flash_gqa_cache(q, k.to(torch.int8), k.to(torch.int8), 64, None)  # int8 without scales
     with pytest.raises(ValueError):
         flash_gqa_cache(q, k, k, 64, None, softcap=-1.0)
+    with pytest.raises(ValueError, match="per-row pos0"):  # per-row positions are int32 [B]
+        flash_gqa_cache(q, k, k, torch.zeros(1, dtype=torch.int64, device="cuda"), None)
+    with pytest.raises(ValueError, match="per-row pos0"):
+        flash_gqa_cache(q, k, k, torch.zeros(2, dtype=torch.int32, device="cuda"), None)
 
 
 @pytest.mark.parametrize("kv8", [False, True], ids=["bf16", "int8"])
@@ -1250,3 +1254,224 @@ def test_top_p_kept_set_on_the_card_equals_the_cpu(gen):
         draws = torch.stack([_sample_top_p(logits, 0.8, top_p, g) for _ in range(125)])  # 1,000 draws
         assert keep.gather(1, draws.T).all()
     assert torch.equal(_sample_top_p(logits, 0.8, 1e-9, torch.Generator(device="cuda")), logits.argmax(-1))
+
+
+# ---------------------------------------------------------------------------
+# speculative decoding on the card: the kernel at per-slot positions and at
+# head_dim 32, the verify chunk, the default preset
+# ---------------------------------------------------------------------------
+
+
+def _verify_case(gen, b, s, h, kv, l, d, kv8):
+    """A verify chunk's inputs: slot i's S queries from its own position
+    pos[i], its rows [left pad, pos[i] + S) valid (the engine's grown
+    kv_valid), slot 0 seeing nothing."""
+    q, k, v, _, _, ks, vs = _flash_case(gen, b, s, h, kv, l, d, 0, None, kv8)
+    pos, valid = _verify_positions(gen, b, s, l)
+    return q, k, v, ks, vs, pos, valid
+
+
+def _verify_positions(gen, b, s, l):
+    ar = torch.arange(l, device="cuda")
+    off = torch.randint(0, max(1, l // 8), (b,), device="cuda", generator=gen)
+    pos = torch.randint(l // 8, l - s + 1, (b,), device="cuda", generator=gen)
+    valid = (ar[None] >= off[:, None]) & (ar[None] < (pos + s)[:, None])
+    valid[0] = False
+    return pos.to(torch.int32), valid.contiguous()
+
+
+@pytest.mark.parametrize("kv8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize(
+    "b,s,h,kv,l,d,window,softcap",
+    [
+        (8, 5, 8, 4, 512, 32, 0, 0.0),  # the default preset's heads (D 32)
+        (4, 5, 8, 2, 2048, 64, 0, 0.0),
+        (4, 5, 32, 32, 2048, 96, 0, 0.0),  # Phi-3-mini's heads
+        (8, 5, 32, 8, 2048, 128, 0, 0.0),  # Llama-3-8B's heads, S*R = 20: the wide block
+        (4, 5, 16, 8, 8192, 256, 4096, 50.0),  # Gemma-2-9B's heads, its window and softcap
+        (8, 2, 32, 8, 700, 128, 16, 0.0),  # a window narrower than the positions' spread
+    ],
+)
+def test_flash_kernel_per_slot_positions_match_plain(gen, b, s, h, kv, l, d, window, softcap, kv8):
+    """``pos0`` as an int32 [B] tensor on the card (the verify chunk's
+    per-slot positions) in both bodies at every head_dim: the kernel against
+    the plain version of its split schedule and the unsplit one, with the
+    host's reach hint and without; then captured in a CUDA graph and
+    replayed after the positions and the mask changed on the card, against
+    the plain version at the new positions (the hint stays stale: exact)."""
+    from kakveda_tpu_torch.models.attention import (
+        flash_gqa_cache_split_reference,
+        flash_split_count,
+        kernel_blocks_per_sm,
+    )
+
+    q, k, v, ks, vs, pos, valid = _verify_case(gen, b, s, h, kv, l, d, kv8)
+    if softcap:
+        q = (q.float() * SOFTCAP_Q_SCALE).to(torch.bfloat16)
+    kw = dict(k_scale=ks, v_scale=vs, window=window, softcap=softcap)
+    sr = s * (h // kv)
+    reach = int(pos.max()) + s
+    counter = "launches_kv8" if kv8 else "launches"
+    for hint in (reach, None):
+        n_split = flash_split_count(b * kv, sr, l, _sms(), reach=hint, blocks_per_sm=kernel_blocks_per_sm(d, kv8, sr))
+        before = getattr(flash_gqa_cache, counter)
+        out = flash_gqa_cache(q, k, v, pos, valid, reach=hint, **kw)
+        torch.cuda.synchronize()
+        assert getattr(flash_gqa_cache, counter) == before + 1
+        assert torch.isfinite(out).all()
+        for want in (flash_gqa_cache_split_reference(q, k, v, pos, valid, n_split=n_split, **kw),
+                     flash_gqa_cache_reference(q, k, v, pos, valid, **kw)):
+            _assert_flash_close(out, want)
+        assert torch.equal(out[0], torch.zeros_like(out[0]))  # the slot that sees nothing
+    # One row of the batch against a scalar pos0 launch: the same function.
+    one = flash_gqa_cache(q[1:2], k[1:2], v[1:2], int(pos[1]), valid[1:2].contiguous(),
+                          **dict(kw, k_scale=None if ks is None else ks[1:2], v_scale=None if vs is None else vs[1:2]))
+    _assert_flash_close(out[1:2], one)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        captured = flash_gqa_cache(q, k, v, pos, valid, reach=reach, **kw)
+    for _ in range(2):
+        new_pos, new_valid = _verify_positions(gen, b, s, l)
+        pos.copy_(new_pos)
+        valid.copy_(new_valid)
+        captured.fill_(float("nan"))
+        g.replay()
+        torch.cuda.synchronize()
+        _assert_flash_close(captured, flash_gqa_cache_reference(q, k, v, new_pos, new_valid, **kw))
+
+
+@pytest.mark.parametrize("kv8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize(
+    "h,kv,l,d,window,softcap",
+    [
+        (8, 4, 512, 32, 0, 0.0),  # the default preset's heads
+        (32, 8, 2048, 128, 0, 0.0),  # Llama-3-8B's
+        (16, 8, 8192, 256, 4096, 50.0),  # Gemma-2-9B's, its window and softcap
+    ],
+)
+def test_flash_decode_per_row_positions_equal_the_mask_form(gen, h, kv, l, d, window, softcap, kv8):
+    """The engine's decode step (S = 1) passes the slots' positions as the
+    per-row ``pos0`` with the raw validity and the window; the same
+    attention as a ``[B, L]`` mask (validity, causal and band folded in)
+    under a scalar ``pos0`` past every row, the form the decode step took
+    before, launches the same schedule and gives the same bits."""
+    q, k, v, ks, vs, pos, valid = _verify_case(gen, 8, 1, h, kv, l, d, kv8)
+    if softcap:
+        q = (q.float() * SOFTCAP_Q_SCALE).to(torch.bfloat16)
+    col = torch.arange(l, device="cuda")
+    mask = valid & (col[None] <= pos[:, None])
+    if window:
+        mask &= col[None] > pos[:, None] - window
+    reach = int(pos.max()) + 1
+    kw = dict(k_scale=ks, v_scale=vs, softcap=softcap, reach=reach)
+    per_row = flash_gqa_cache(q, k, v, pos, valid, window=window, **kw)
+    masked = flash_gqa_cache(q, k, v, l, mask.contiguous(), **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(per_row, masked)
+
+
+@pytest.mark.parametrize("kv8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize(
+    "b,s,l,pos0,valid,splits",
+    [
+        (8, 1, 512, 512, "slots", "many"),  # decode under the engine's mask regime
+        (8, 1, 4096, 4096, "slots", "many"),
+        (1, 512, 1024, 0, "leftpad", "many"),  # a 512-row prefill piece: 16 q blocks, split 4 ways
+        (2, 64, 1000, 300, "leftpad", "many"),  # a piece at pos0 > 0, ragged L
+    ],
+)
+def test_flash_kernel_head_dim_32(gen, b, s, l, pos0, valid, splits, kv8):
+    """D = 32 at the default preset's heads (H 8, KV 4): decode and
+    prefill, both bodies, against both plain versions."""
+    from kakveda_tpu_torch.models.attention import flash_gqa_cache_split_reference
+
+    n_split = _split_count(b, s, 8, 4, l, pos0)
+    assert (n_split == 1) == (splits == "one"), n_split
+    q, k, v, pos0, kv_valid, ks, vs = _flash_case(gen, b, s, 8, 4, l, 32, pos0, valid, kv8)
+    out = flash_gqa_cache(q, k, v, pos0, kv_valid, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    for want in (flash_gqa_cache_split_reference(q, k, v, pos0, kv_valid, k_scale=ks, v_scale=vs, n_split=n_split),
+                 flash_gqa_cache_reference(q, k, v, pos0, kv_valid, k_scale=ks, v_scale=vs)):
+        _assert_flash_close(out, want)
+    if valid == "slots":
+        assert torch.equal(out[0], torch.zeros_like(out[0]))
+
+
+def _margin_departure(params, cfg, prompt, ref, got):
+    """None when ``got`` equals ``ref``, else the solo top-2 logit margin
+    along ``ref`` (teacher-forced) at the first step where they part."""
+    from kakveda_tpu_torch.models.llama import decode_step, init_cache, mask_pad_vocab
+
+    n = next((j for j, (x, y) in enumerate(zip(ref, got)) if x != y), None)
+    if n is None:
+        assert len(ref) == len(got)
+        return None
+    seq = torch.tensor([prompt + ref[:n]], device="cuda")
+    logits, _ = decode_step(params, cfg, seq, init_cache(cfg, 1, seq.shape[1]), last_only=True)
+    top2 = mask_pad_vocab(logits[0, -1], cfg).topk(2).values
+    return (top2[0] - top2[1]).item()
+
+
+@pytest.mark.parametrize("kv_quant", ["", "int8"])
+def test_batcher_spec_on_the_card_gives_the_plain_tokens(gen, kv_quant, monkeypatch):
+    """The default preset (head_dim 32) in bf16 on the card: a speculating
+    pool (gate held open) runs verify chunks through the kernel, one launch
+    a layer per forward, and its tokens equal the plain pool's, or part
+    from them only where the solo top-2 margin is under 0.25 (a k+1-wide
+    GEMM rounds bf16 otherwise than a 1-wide one)."""
+    from kakveda_tpu_torch.models.llama import LlamaConfig, init_params
+    from kakveda_tpu_torch.models.serving import ContinuousBatcher
+
+    monkeypatch.setenv("KAKVEDA_SERVE_SPEC_CALIB", "0")
+    monkeypatch.setenv("KAKVEDA_SERVE_SPEC_BREAKEVEN", "0")
+    cfg = LlamaConfig(effective_vocab=259, kv_quant=kv_quant)
+    assert cfg.head_dim == 32
+    params = init_params(gen, cfg)
+    prompts = [[7, 8, 9] * 3, [5, 6, 7], [10, 11, 12, 13, 14] * 2, [42]]
+    plain = ContinuousBatcher(params, cfg, batch_slots=4, max_len=256, chunk_steps=4).run_all(prompts, 32)
+    mine = "launches_kv8" if kv_quant else "launches"
+    before = getattr(flash_gqa_cache, mine)
+    cb = ContinuousBatcher(params, cfg, batch_slots=4, max_len=256, chunk_steps=4, spec_k=4)
+    spec = cb.run_all(prompts, 32)
+    torch.cuda.synchronize()
+    assert cb.spec_stats["chunks"] > 0
+    assert getattr(flash_gqa_cache, mine) - before == cfg.n_layers * cb.forwards
+    for p, a, b in zip(prompts, plain, spec):
+        margin = _margin_departure(params, cfg, p, a, b)
+        assert margin is None or margin < 0.25, (p, a, b, margin)
+
+
+def test_default_preset_runtime_serves_on_the_card_with_spec(monkeypatch):
+    """``LlamaRuntime()`` and ``get_runtime("torch")`` build the default
+    preset (head_dim 32, seed 0) on the card, and its engine serves with
+    and without ``KAKVEDA_SERVE_SPEC``: the same texts, or a departure at a
+    near-tie (the margin rule above)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    from kakveda_tpu_torch.models import runtime as TR
+    from kakveda_tpu_torch.models.generate import LlamaRuntime
+
+    monkeypatch.delenv("KAKVEDA_LLAMA_PRESET", raising=False)
+    monkeypatch.setenv("KAKVEDA_SERVE_SPEC_CALIB", "0")
+    monkeypatch.setenv("KAKVEDA_SERVE_SPEC_BREAKEVEN", "0")
+    TR.clear_runtimes()
+    try:
+        rt = TR.get_runtime("torch")
+        assert rt.device.type == "cuda" and rt.cfg.head_dim == 32
+    finally:
+        TR.clear_runtimes()
+    ids = [[7, 8, 9] * 4, [104, 101, 108, 108, 111]]
+    outs = []
+    for spec in ("0", "4"):
+        monkeypatch.setenv("KAKVEDA_SERVE_SPEC", spec)
+        rt = LlamaRuntime()
+        try:
+            eng = rt.engine()
+            outs.append([eng.submit(p, 24).result(timeout=300) for p in ids])
+            assert (eng.stats()["spec"]["chunks"] > 0) == (spec == "4")
+        finally:
+            rt.close()
+    for p, a, b in zip(ids, *outs):
+        margin = _margin_departure(rt.params, rt.cfg, p, a, b)
+        assert margin is None or margin < 0.25, (p, a, b, margin)

@@ -25,7 +25,8 @@ def _modules():
 def test_import_loads_no_jax_in_fresh_interpreter():
     mods = _modules()
     assert "kakveda_tpu_torch.platform" in mods and "kakveda_tpu_torch.ops.fused_topk" in mods
-    for m in ("serving", "generate", "llama", "attention", "tokenizer", "runtime", "moe", "quant", "hf_convert"):
+    for m in ("serving", "generate", "llama", "attention", "tokenizer", "runtime", "moe", "quant", "hf_convert",
+              "speculative"):
         assert f"kakveda_tpu_torch.models.{m}" in mods
     for m in ("ops.clustering", "ops.incremental", "index.gfkb", "pipeline.patterns", "native",
               "core.runtime", "core.admission", "service.app", "service.batcher", "service.main",
@@ -58,6 +59,7 @@ def test_import_loads_no_jax_in_fresh_interpreter():
         ("kakveda_tpu_torch.models.tokenizer", False),
         ("kakveda_tpu_torch.models.generate", False),
         ("kakveda_tpu_torch.models.serving", False),
+        ("kakveda_tpu_torch.models.speculative", False),
         ("kakveda_tpu_torch.pipeline.classifier", False),
         ("kakveda_tpu_torch.core.faults", False),
         ("kakveda_tpu_torch.index.crashsweep", False),
