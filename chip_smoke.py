@@ -128,8 +128,8 @@ JAX package). Phases, each of which raises on failure (exit code != 0):
    structure, the default router spawns a centroid per cluster and its
    per-batch update grows with them, past the run's time limit at this
    phase's rows, as ``measure_router`` shows; phase 12 drives the tiered
-   lifecycle): 2^18 distinct signatures (2^19 until the model families'
-   phase needed the run's time)
+   lifecycle): 2^17 distinct signatures (2^19, then 2^18, until the model
+   phases 14 and 16 needed the run's time)
    (``restart_corpus``, clusters of 1-10, 1 in 64 spanning apps) through
    ``upsert_failures_batch`` × 4096 into a 2^20 × 2048 GFKB with mining
    on, beside ``crashsweep.run_sweep`` at the two fence sites with its
@@ -147,7 +147,7 @@ JAX package). Phases, each of which raises on failure (exit code != 0):
    mine's wall where every cluster spans apps, at 2^15 and 2^16 rows,
    beside 1 in 64 at 2^16 (the pattern emission grows with the square of
    the spread clusters). Then ``measure_router``: the default
-   ``TierConfig`` on 2^16 rows of ``restart_corpus`` against 2^16 of
+   ``TierConfig`` on 2^15 rows of ``restart_corpus`` against 2^15 of
    ``tier_corpus``, each through ``upsert_failures_batch`` × 4096 on the
    card: build rows/s, the router's ms per batch against its centroid
    count (and the fit's projection to this phase's and phase 12's rows), the
@@ -222,8 +222,9 @@ JAX package). Phases, each of which raises on failure (exit code != 0):
    Llama (head_dim 128) raises ``DeviceUnavailableError`` in < 1 s; disarmed,
    the probe (``KAKVEDA_DEGRADED_PROBE=1``) unlatches within 2 s; the
    fallback count equals the degraded warns. d. A child process
-   (``--sticky-child``, beside the build) opens a 2^16-row store with the
-   hot cap at 2^15 (mining on: every overflow row attaches from the tiers),
+   (``--sticky-child``, beside phase 11's untimed build and crash sweep,
+   joined with the sweep) opens a 2^15-row store with the hot cap at 2^14
+   (mining on: every overflow row attaches from the tiers),
    poisons its CUDA context with a device-side assert, and its warns then
    answer degraded and equal the ones it recorded before; the probe keeps
    failing, generation fails fast. e. ``compact()`` (a snapshot with its
@@ -315,6 +316,33 @@ JAX package). Phases, each of which raises on failure (exit code != 0):
    engine with and without speculation, tokens held to the CPU port's on
    the same weights, then ``get_runtime("torch")`` under a
    ``TieredClassifier`` judging 16 traces.
+
+16. the model plane's last gaps (after phase 14; phase 5 first holds the
+   f32 body, ``csrc/flash_gqa_cache_f32.cu``, at D 64 and 128 on three
+   shapes, Llama-3-8B's heads: decode under the engine's mask at L 2048,
+   the verify chunk at per-slot positions, a 512-row prefill piece; max
+   |kernel - plain| within 1e-4, rtol 0, and the plain version over inputs
+   rounded to TF32 or bf16 outside it; SDPA in f32 as the library call;
+   phase 9 g speculates with Mixtral-8x7B int8: the engine at
+   ``KAKVEDA_SERVE_SPEC=4`` on 4 prompts x 32 tokens and ``KAKVEDA_SPEC=1``
+   on one, held to phase 9 e's greedy tokens with departures counted at
+   logit or router near-ties, and layer 0's ``moe_mlp`` inside a verify
+   chunk against its plain version). a. ``llama3_8b()`` in f32 (32.12 GB)
+   through the engine with and without ``KAKVEDA_SERVE_SPEC=4``, the f32
+   body launched once a layer per forward, tokens held to the solo
+   ``generate_tokens`` by the margin rule, the step beside its weight-read
+   bound, then a tiny f32 config whose tokens equal the CPU port's. b.
+   head_dim 80 (bf16 and f32) and an f16 model through ``gqa_grouped``,
+   tokens equal to the CPU port's; ``gqa_grouped`` launched 0 times in
+   every earlier model phase. c. a ``full_mask`` on the card == the CPU
+   port. d. two written checkpoints with a ``tokenizer.json`` written by
+   hand served by ``LlamaRuntime.from_hf`` and ``MultiModelRuntime``,
+   texts and tokens == the CPU port's, the loads' seconds. e.
+   ``core.profiling.profile()`` around a warm ``warn_batch`` at B = 64 and
+   a solo ``generate_batch``: the trace's ``topk_kernel`` launches lie in
+   ``gfkb.match.dispatch``, its ``flash_gqa_kernel`` launches in
+   ``llama.generate_batch``; the ten costliest device operations with their
+   shares; ``kakveda_device_block_seconds`` on ``/metrics``.
 
 Prints a ``{"kernels": [...]}`` line (the flash rows with phase 9's,
 phase 10's, phase 13's, phase 14's and phase 15's launches beside phase
@@ -1123,17 +1151,17 @@ def judge_flash_shapes() -> list:
     return out
 
 
-def flash_inputs(gen, b, s, l, kind, kv8, copies, heads=(H, KV, HD)):
+def flash_inputs(gen, b, s, l, kind, kv8, copies, heads=(H, KV, HD), dtype=torch.bfloat16):
     """q, ``copies`` replicas of the cache (cycled so timed launches find it
     cold in L2, as the 32 layers of a real step do), scales, kv_valid.
-    ``heads`` is (H, KV, D)."""
+    ``heads`` is (H, KV, D); q and a float cache in ``dtype``."""
     from kakveda_tpu_torch.models.llama import _kv_quant_rows
 
     h, kvh, d = heads
-    q = torch.randn(b, s, h, d, device="cuda", generator=gen).to(torch.bfloat16)
+    q = torch.randn(b, s, h, d, device="cuda", generator=gen).to(dtype)
     ks = vs = None
-    k = torch.randn(copies, b, kvh, l, d, device="cuda", generator=gen).to(torch.bfloat16)
-    v = torch.randn(copies, b, kvh, l, d, device="cuda", generator=gen).to(torch.bfloat16)
+    k = torch.randn(copies, b, kvh, l, d, device="cuda", generator=gen).to(dtype)
+    v = torch.randn(copies, b, kvh, l, d, device="cuda", generator=gen).to(dtype)
     if kv8:
         k, ks = _kv_quant_rows(k)
         v, vs = _kv_quant_rows(v)
@@ -1169,9 +1197,11 @@ def flash_inputs(gen, b, s, l, kind, kv8, copies, heads=(H, KV, HD)):
     return q, k, v, ks, vs, valid
 
 
-def flash_bound_ms(b, s, l, kv8, seen_rows=None, heads=(H, KV, HD)):
+def flash_bound_ms(b, s, l, kv8, seen_rows=None, heads=(H, KV, HD), eb=2, flop_rate=BF16_FLOP_PER_S):
     """Each input read once, the output written once, over 3.35 TB/s; the
-    two products' flops over 989 TFLOP/s bf16. Returns (ms, bound_by).
+    two products' flops over 989 TFLOP/s bf16 (``eb`` bytes an element and
+    ``flop_rate`` for another type: f32 is 4 and 67 TFLOP/s, the f32 body
+    running on the CUDA cores). Returns (ms, bound_by).
     With ``seen_rows`` (cache rows, summed over the batch, that at least one
     query row can see) only those rows' K/V count, in bytes and flops: the
     least a kernel that skips what no query sees must still read. A
@@ -1179,14 +1209,14 @@ def flash_bound_ms(b, s, l, kv8, seen_rows=None, heads=(H, KV, HD)):
     h, kvh, d = heads
     r = h // kvh
     rows = b * l if seen_rows is None else seen_rows
-    kv_bytes = 2 * rows * (d + 4) if kv8 else 2 * rows * d * 2
-    nbytes = kvh * (b * 2 * s * r * d * 2 + kv_bytes) + b * l
+    kv_bytes = 2 * rows * (d + 4) if kv8 else 2 * rows * d * eb
+    nbytes = kvh * (b * 2 * s * r * d * eb + kv_bytes) + b * l
     flops = 4 * kvh * s * r * rows * d
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flop_rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def flash_schedule(b, s, l, pos0, valid, reach=None, heads=(H, KV, HD), window=0, kv8=False):
+def flash_schedule(b, s, l, pos0, valid, reach=None, heads=(H, KV, HD), window=0, kv8=False, f32=False):
     """The kernel's schedule at this shape: (n_split, live-tile fraction
     over all its (b·kv, q block) tile visits, cache rows some query sees).
     ``pos0`` is an int or, for a verify chunk, an int32 [B] tensor (the
@@ -1201,7 +1231,8 @@ def flash_schedule(b, s, l, pos0, valid, reach=None, heads=(H, KV, HD), window=0
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     vec = torch.is_tensor(pos0)
     hint = reach if vec else (pos0 + s if reach is None else min(pos0 + s, reach))
-    n_split = flash_split_count(b * kvh, sr, l, sms, reach=hint, blocks_per_sm=kernel_blocks_per_sm(d, kv8, sr))
+    n_split = flash_split_count(b * kvh, sr, l, sms, reach=hint,
+                                blocks_per_sm=kernel_blocks_per_sm(d, kv8, sr, f32))
     qb = kernel_q_rows(sr)
     live = [flash_live_tiles(l, pos0, r, r0, min(sr, r0 + qb), valid, window).expand(b, -1).float().mean().item()
             for r0 in range(0, sr, qb)]
@@ -1542,6 +1573,132 @@ def phase_flash_spec(card: str) -> dict:
     return rows
 
 
+# The f32 body (csrc/flash_gqa_cache_f32.cu): max |kernel - plain| within
+# F32_ATOL, rtol 0 (f32 sums in another order). q is scaled so that the
+# scores are ~N(0, 16): rows sharp enough that the plain version over inputs
+# rounded to TF32 (a 10-bit mantissa) or to bf16 falls outside F32_ATOL, the
+# control that the tolerance tells f32 from lower precision.
+F32_ATOL = 1e-4
+F32_Q_SCALE = 4.0
+F32_FLASH_SHAPES = [
+    # (label, (B, S, L, pos0, kv_valid, reach hint)): decode under the engine's
+    # mask (slots at rows 64-2,047), the verify chunk at per-slot positions
+    # (S = 5), a 512-row prefill piece; at Llama-3-8B's heads, D 64 and 128.
+    ("f32_decode_engine", (8, 1, 2048, 2048, ("slots_at", 64, 2048, 0), 2048)),
+    ("f32_verify", (8, SPEC_K + 1, 2048, ("verify", 95, 1900), None, None)),
+    ("f32_prefill_piece", (1, 512, 1024, 512, ("from", 100, 1024), None)),
+]
+
+
+def round_mantissa(x, bits: int):
+    """``x`` (f32) rounded to ``bits`` explicit mantissa bits: 10 is TF32, 7 bf16."""
+    i = x.contiguous().view(torch.int32)
+    drop = 23 - bits
+    return ((i + (1 << (drop - 1))) & ~((1 << drop) - 1)).view(torch.float32)
+
+
+def flash_f32_row(gen, label, d, shape, card) -> dict:
+    """One shape of the f32 body: the kernel against the plain version of
+    its split schedule and the unsplit one within F32_ATOL (rtol 0), the
+    TF32 / bf16 control outside it, then its device time from a graph
+    replay beside its bytes bound (f32: 4 bytes an element, 67 TFLOP/s),
+    the plain version's time and SDPA's in f32 with the boolean mask."""
+    import torch.nn.functional as F
+
+    from kakveda_tpu_torch.models.attention import (
+        flash_gqa_cache,
+        flash_gqa_cache_reference,
+        flash_gqa_cache_split_reference,
+    )
+
+    b, s, l, pos0, kind, reach = shape
+    heads = (H, KV, d)
+    copies = max(1, math.ceil(2.5 * L2_BYTES / (b * KV * l * 8 * d)))
+    q, k, v, _, _, valid = flash_inputs(gen, b, s, l, kind, False, copies, heads, dtype=torch.float32)
+    q = q * F32_Q_SCALE
+    vec = isinstance(pos0, tuple)
+    if vec:
+        pos0 = torch.randint(pos0[1], pos0[2] + 1, (b,), device="cuda", generator=gen).to(torch.int32)
+        off = torch.randint(10, 17, (b, 1), device="cuda", generator=gen)
+        ar = torch.arange(l, device="cuda")
+        valid = ((ar >= off) & (ar < pos0[:, None].long() + s)).contiguous()
+        reach = int(pos0.max()) + s
+    n_split, live_frac, seen_rows = flash_schedule(b, s, l, pos0, valid, reach, heads, f32=True)
+    before = (flash_gqa_cache.launches, flash_gqa_cache.launches_kv8, flash_gqa_cache.launches_f32)
+    out = flash_gqa_cache(q, k[0], v[0], pos0, valid, reach=reach)
+    torch.cuda.synchronize()
+    after = (flash_gqa_cache.launches, flash_gqa_cache.launches_kv8, flash_gqa_cache.launches_f32)
+    if after != (before[0], before[1], before[2] + 1) or out.dtype != torch.float32:
+        raise AssertionError(f"f32 {label} D={d}: counters {before} -> {after}, out {out.dtype}")
+    ref = flash_gqa_cache_reference(q, k[0], v[0], pos0, valid)
+    split = flash_gqa_cache_split_reference(q, k[0], v[0], pos0, valid, n_split=n_split)
+    err = max((out - ref).abs().max().item(), (out - split).abs().max().item())
+    if not torch.isfinite(out).all() or err > F32_ATOL:
+        raise AssertionError(f"flash f32 {label} D={d}: max |kernel - plain| = {err} > {F32_ATOL}")
+    control = {}
+    for bits, name in ((10, "tf32"), (7, "bf16")):
+        lo = flash_gqa_cache_reference(*(round_mantissa(x, bits) for x in (q, k[0], v[0])), pos0, valid)
+        control[name] = (lo - ref).abs().max().item()
+        if control[name] <= F32_ATOL:
+            raise AssertionError(f"flash f32 {label} D={d}: inputs rounded to {name} give {control[name]} <= "
+                                 f"{F32_ATOL}: the tolerance cannot tell f32 from {name}")
+    it = iter(range(1 << 30))
+    q_pos = (pos0.long()[:, None] if vec else pos0) + torch.arange(s, device="cuda")
+    mask = q_pos[..., :, None] >= torch.arange(l, device="cuda")
+    mask = (mask[:, None] if vec else mask[None, None]) & valid[:, None, None, :]
+    qh = q.transpose(1, 2)
+
+    def kern():
+        i = next(it) % copies
+        flash_gqa_cache(q, k[i], v[i], pos0, valid, reach=reach)
+
+    def plain():
+        i = next(it) % copies
+        flash_gqa_cache_reference(q, k[i], v[i], pos0, valid)
+
+    def lib():
+        i = next(it) % copies
+        F.scaled_dot_product_attention(qh, k[i], v[i], attn_mask=mask, enable_gqa=True)
+
+    ms = graph_ms(kern, n=4 * copies)
+    plain_ms = graph_ms(plain, n=2)
+    lib_ms = graph_ms(lib, n=4 * copies)
+    bound_ms, bound_by = flash_bound_ms(b, s, l, False, heads=heads, eb=4, flop_rate=F32_FLOP_PER_S)
+    seen_ms, _ = flash_bound_ms(b, s, l, False, seen_rows, heads=heads, eb=4, flop_rate=F32_FLOP_PER_S)
+    shown = f"per-slot {sorted(pos0.tolist())}" if vec else pos0
+    log(f"flash_gqa_cache_f32 {label} (H={H} KV={KV} D={d} B={b} S={s} L={l} pos0={shown} reach={reach}): "
+        f"n_split={n_split} live_tiles={live_frac:.4f} max_abs_err={err:.3g} (F32_ATOL {F32_ATOL}, rtol 0; the plain "
+        f"version over TF32-rounded inputs {control['tf32']:.3g}, bf16-rounded {control['bf16']:.3g}) "
+        f"kernel_ms={ms:.6f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.6f} (SDPA f32) bound_ms={bound_ms:.6f} "
+        f"({bound_by}) bound_seen_ms={seen_ms:.6f} ({seen_rows} of {b * l} rows seen) [{card}]")
+    del q, k, v
+    return dict(shape=f"H={H} KV={KV} D={d} B={b} S={s} L={l}", n_split=n_split, live_tiles=live_frac, ms=ms,
+                plain_ms=plain_ms, library_ms=lib_ms, library="SDPA f32", bound_ms=bound_ms, bound_by=bound_by,
+                bound_seen_ms=seen_ms, max_abs_err=err, control=control)
+
+
+def phase_flash_f32(card: str) -> dict:
+    """Phase 5 at f32: the f32 body at D 64 and 128, the three shapes of
+    F32_FLASH_SHAPES, and the blocks per SM its split count plans against
+    the card's occupancy calculator."""
+    from kakveda_tpu_torch.models.attention import KERNEL_F32_HEAD_DIMS, _lib, kernel_blocks_per_sm
+
+    blocks = {}
+    for d in KERNEL_F32_HEAD_DIMS:
+        for sr in (4, 64):
+            planned = kernel_blocks_per_sm(d, False, sr, f32=True)
+            granted = _lib(d, f32=True).kkv_flash_gqa_cache_blocks_per_sm(d, 0, sr, 0)
+            blocks[f"D{d}_f32_{'wide' if sr > 16 else 'decode'}"] = [planned, granted]
+            if granted < planned:
+                raise AssertionError(f"flash f32 D={d} sr={sr}: planned {planned} blocks per SM, granted {granted}")
+    log(f"flash f32 blocks per SM [planned, granted by the card]: {json.dumps(blocks)}")
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    rows = {f"D{d}_{label}": flash_f32_row(gen, label, d, shape, card)
+            for d in KERNEL_F32_HEAD_DIMS for label, shape in F32_FLASH_SHAPES}
+    torch.cuda.empty_cache()
+    return rows
+
+
 class RecordingTokenizer:
     """The byte tokenizer, remembering the ids each ``decode`` was given, so
     the tokens behind ``generate_batch``'s texts can be checked."""
@@ -1710,7 +1867,8 @@ def serve_engine(rt, tok, ids, what: str) -> dict:
         if len(res) != 8 or not all(r.meta.get("continuous") for r in res) or len(got) != 8:
             raise AssertionError(f"{what} {tag}: generate_batch did not run through the engine")
         n_tok = sum(len(g) for g in got)
-        out[tag] = dict(launches=mine, forwards=n_fwd, tokens=n_tok, wall_s=wall, tokens_per_s=n_tok / wall)
+        out[tag] = dict(launches=mine, forwards=n_fwd, tokens=n_tok, wall_s=wall, tokens_per_s=n_tok / wall,
+                        ids=got)
         if cfg.n_experts:
             out[tag].update(check_moe_tokens(rq, tok, ids, got, routes, f"{what}, {tag} cache"))
         else:
@@ -1913,17 +2071,18 @@ def pinned_forced(params, cfg, seq_ids, routes):
     return logits[0], flips
 
 
-def step_times(rt, ids, out: dict, n_bytes: int, what: str, card: str, split=None, max_len: int = 512) -> None:
+def step_times(rt, ids, out: dict, n_bytes: int, what: str, card: str, split=None, max_len: int = 512,
+               caches=(("", "bf16"), ("int8", "int8"))) -> None:
     """Admission and decode-step times on a batcher of the engine's shape
-    (8 slots, window ``max_len``), per cache type, into ``out``: admission
+    (8 slots, window ``max_len``), per cache type (``caches``: the
+    ``kv_quant`` and its key in ``out``), into ``out``: admission
     p50 and decode step p50 on the host clock, the step's device time from
     a CUDA graph of ``_forward_wide`` (with the engine's ``reach`` hint)
     beside the weight-read bound (``n_bytes``, the weights a step reads);
     ``split(cb, dev_args, reach, step_ms)`` breaks the bf16-cache step up."""
     from kakveda_tpu_torch.models.serving import ContinuousBatcher, _forward_wide
 
-    for kvq in ("", "int8"):
-        tag = kvq or "bf16"
+    for kvq, tag in caches:
         cb = ContinuousBatcher(rt.params, dataclasses.replace(rt.cfg, kv_quant=kvq),
                                batch_slots=8, max_len=max_len, chunk_steps=8, eos_id=None)
         adm = []
@@ -2481,8 +2640,8 @@ def spec_engine_run(rt, tok, prompts, kvq: str, spec: int, name: str, what: str,
     runtime on ``rt``'s weights (8 slots, window 512, chunk 8;
     ``KAKVEDA_SERVE_SPEC=spec``, ``KAKVEDA_KV_QUANT=kvq``), after a warm-up
     batch; launch counts zeroed just before and read just after: the run's
-    kernel body launches 32 × (forwards), the other none."""
-    from kakveda_tpu_torch.models.attention import flash_gqa_cache
+    kernel body launches n_layers × (forwards), the others and
+    ``gqa_grouped`` none (``hold_launches``)."""
     from kakveda_tpu_torch.models.generate import LlamaRuntime
 
     with env_set(KAKVEDA_SERVE_SPEC=spec, **({"KAKVEDA_KV_QUANT": kvq} if kvq else {})):
@@ -2494,21 +2653,16 @@ def spec_engine_run(rt, tok, prompts, kvq: str, spec: int, name: str, what: str,
                                  f"cache {rq.cfg.kv_quant!r}")
         rq.generate_batch(prompts[:2], max_tokens=8)  # warm-up
         tok.decoded.clear()
-        flash_gqa_cache.launches = 0
-        flash_gqa_cache.launches_kv8 = 0
+        zero_launches()
         f0, c0 = eng.cb.forwards, eng.stats()["spec"]["chunks"]
         t = time.perf_counter()
         res = rq.generate_batch(prompts, max_tokens=n_tok)
         wall = time.perf_counter() - t
         torch.cuda.synchronize()
         n_fwd = eng.cb.forwards - f0
-        mine, other = flash_gqa_cache.launches, flash_gqa_cache.launches_kv8
-        if kvq:
-            mine, other = other, mine
         got = list(tok.decoded)
         stats = eng.stats()["spec"]
-        if mine != rt.cfg.n_layers * n_fwd or other != 0:
-            raise AssertionError(f"{what}: {mine} launches for {n_fwd} forwards, {other} of the other body")
+        mine = hold_launches(rq.cfg, kvq, n_fwd, what)  # the other bodies and gqa_grouped: 0
         if len(got) != len(prompts) or not all(r.meta.get("continuous") for r in res):
             raise AssertionError(f"{what}: generate_batch did not run through the engine")
         n_tok = sum(map(len, got))
@@ -2966,13 +3120,126 @@ def phase_mixtral(card: str) -> dict:
 
     # e. Through the engine, both caches; f. times and the step's split.
     out.update(serve_engine(rt, tok, ids, "phase 9 e: Mixtral-8x7B int8"))
+    greedy = [out[tag].pop("ids") for tag in ("bf16", "int8")][0]
     step_times(rt, ids, out, n_bytes, "phase 9 f: Mixtral-8x7B int8", card,
                split=lambda cb, a, r, ms: moe_step_split(cb, a, r, ms, card))
+    # g. MoE under speculation.
+    out["spec"] = mixtral_spec(rt, tok, ids, greedy, card)
     rt.close()
     del rt
     gc.collect()
     torch.cuda.empty_cache()
     log("phase 9: " + json.dumps(out))
+    return out
+
+
+MIXTRAL_SPEC_PROMPTS = 4
+
+
+def moe_departure(params, cfg, tok, prompt_ids, ref, got, what: str, n_max: int):
+    """A MoE run's tokens against ``ref``: None when equal, else (the solo
+    top-2 logit margin at the first departure along ``ref``, the narrowest
+    router gap between a chosen expert and the best left out over every
+    token and layer of that prefix). A departure is a near-tie of the
+    logits or of some expert choice: it fails when both are MARGIN_TOL or
+    more (MoE routing in bf16 is not batch-invariant: a verify chunk's
+    S = k+1 GEMMs round otherwise than a 1-wide step's)."""
+    from kakveda_tpu_torch.models import moe
+    from kakveda_tpu_torch.models.llama import decode_step, init_cache, mask_pad_vocab
+
+    a = list(ref) + ([tok.EOS] if len(ref) < n_max else [])
+    b = list(got) + ([tok.EOS] if len(got) < n_max else [])
+    n = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+    if n is None:
+        return None
+    gaps, real, k = [], moe.router_topk, cfg.n_experts_per_tok
+
+    def traced(logits, k_):
+        top = logits.float().sort(dim=-1, descending=True).values
+        gaps.append((top[:, k - 1] - top[:, k]).min().item())
+        return real(logits, k_)
+
+    moe.router_topk = traced
+    try:
+        seq = list(prompt_ids) + a[:n]
+        logits, _ = decode_step(params, cfg, torch.tensor([seq], device="cuda"),
+                                init_cache(cfg, 1, len(seq), device="cuda"), last_only=True)
+    finally:
+        moe.router_topk = real
+    top2 = mask_pad_vocab(logits[0, -1], cfg)[: tok.vocab_size].topk(2).values
+    margin, gap = (top2[0] - top2[1]).item(), min(gaps)
+    if margin >= MARGIN_TOL and gap >= MARGIN_TOL:
+        raise AssertionError(f"{what}: tokens depart at step {n} where the logit margin is {margin:.4f} and the "
+                             f"narrowest router gap {gap:.4f}, both >= {MARGIN_TOL}")
+    return round(margin, 4), round(gap, 4)
+
+
+def mixtral_spec(rt, tok, ids, greedy, card: str) -> dict:
+    """Phase 9 g: Mixtral-8x7B int8 under speculation. The engine with
+    ``KAKVEDA_SERVE_SPEC=4`` (the gate held open) on MIXTRAL_SPEC_PROMPTS
+    prompts × 32 tokens, and ``KAKVEDA_SPEC=1``'s solo path on one prompt,
+    held to phase 9 e's greedy tokens (``moe_departure``: departures
+    counted, with their margins); layer 0's ``moe_mlp`` inside one verify
+    chunk (T = B·(k+1)) against its per-token plain version."""
+    from kakveda_tpu_torch.models import moe
+    from kakveda_tpu_torch.models.generate import LlamaRuntime
+
+    cfg = rt.cfg
+    prompts = PROMPTS[:MIXTRAL_SPEC_PROMPTS]
+    captured, real = [], moe.moe_mlp
+
+    def spy(x, layer, c):
+        if not captured and x.shape[1] == SPEC_K + 1 and layer is rt.params["layers"][0]:
+            captured.append(x.clone())
+        return real(x, layer, c)
+
+    moe.moe_mlp = spy
+    try:
+        with env_set(KAKVEDA_SERVE_SPEC_CALIB=0, KAKVEDA_SERVE_SPEC_BREAKEVEN=0):
+            r = spec_engine_run(rt, tok, prompts, "", SPEC_K, "mixtral-8x7b-spec", "phase 9 g engine", 32)
+    finally:
+        moe.moe_mlp = real
+    if r["spec_chunks"] <= 0 or not captured:
+        raise AssertionError(f"phase 9 g: {r['spec_chunks']} verify chunks, moe_mlp captured {len(captured)}")
+    deps = [moe_departure(rt.params, cfg, tok, p, ref, got, "phase 9 g engine", 32)
+            for p, ref, got in zip(ids, greedy, r["tokens"])]
+    x = captured[0]
+    got = moe.moe_mlp(x, rt.params["layers"][0], cfg)
+    want, experts = moe.moe_mlp_reference(x, rt.params["layers"][0], cfg)
+    trace = RouterTrace()
+    with trace.on():
+        moe.moe_mlp(x, rt.params["layers"][0], cfg)
+    diff = (got.float() - want.float()).abs().reshape(-1, cfg.d_model)
+    scale = want.float().reshape(-1, cfg.d_model).abs().amax(dim=-1, keepdim=True)
+    use = (diff / (FLASH_REL * scale)).max().item()
+    same = torch.equal(trace.calls[0], experts.cpu())
+    if not same or use > 1.0 or not torch.isfinite(got).all():
+        raise AssertionError(f"phase 9 g: moe_mlp inside the verify chunk (T={x.shape[0] * x.shape[1]}) disagrees "
+                             f"with its plain version: experts equal {same}, {use:.3f} of the tolerance")
+    with env_set(KAKVEDA_SPEC=1):
+        rs = LlamaRuntime(cfg=cfg, params=rt.params, tokenizer=tok, model_label="mixtral-solo-spec", device=rt.device)
+        zero_launches()
+        t = time.perf_counter()
+        res = rs.generate(PROMPTS[0], max_tokens=32)
+        solo_wall = time.perf_counter() - t
+        counts = launch_counts()
+    if not res.meta.get("speculative") or counts["bf16"] <= 0 or counts["bf16"] % cfg.n_layers:
+        raise AssertionError(f"phase 9 g solo: meta {res.meta}, launches {counts}")
+    solo_dep = moe_departure(rt.params, cfg, tok, ids[0], greedy[0], tok.decoded[-1], "phase 9 g solo", 32)
+    st = r["spec"]
+    out = dict(tokens_per_s=r["tokens_per_s"], spec_chunks=r["spec_chunks"], launches=r["launches"],
+               tokens_per_verify=st["emitted"] / max(st["slot_chunks"], 1), departures=[d for d in deps if d],
+               moe_verify_chunk=dict(tokens=x.shape[0] * x.shape[1], experts_equal=same, tolerance_used=use,
+                                     max_abs_err=diff.max().item()),
+               solo=dict(tokens_per_round=res.meta["tokens_per_round"], wall_s=solo_wall, launches=counts["bf16"],
+                         departure=solo_dep))
+    log(f"phase 9 g: Mixtral-8x7B int8 with KAKVEDA_SERVE_SPEC={SPEC_K} (gate held open), {len(prompts)} x 32 tokens: "
+        f"{r['tokens_per_s']:.1f} tokens/s, {r['spec_chunks']} verify chunks, {out['tokens_per_verify']:.3f} tokens "
+        f"per verify, {r['launches']} launches; == phase 9 e's greedy tokens but for {len(out['departures'])} "
+        f"departures at (logit margin, router gap) {out['departures']}; layer 0's moe_mlp in a verify chunk "
+        f"(T = {out['moe_verify_chunk']['tokens']}) vs its plain version: experts equal, {use:.3f} of the tolerance; "
+        f"KAKVEDA_SPEC=1 on 1 prompt: {res.meta['tokens_per_round']} tokens per round in {solo_wall:.2f} s, "
+        f"departure {solo_dep} [{card}]")
     return out
 
 
@@ -4421,7 +4688,7 @@ def phase_service(base: Path, fused_topk, card: str) -> dict:
 # phase 11: restart and lifecycle at real size
 # ---------------------------------------------------------------------------
 
-RESTART_N, RESTART_BATCH = 1 << 18, 4096
+RESTART_N, RESTART_BATCH = 1 << 17, 4096
 RESTART_TYPES = ("HALLUCINATION_CITATION", "TIMEOUT", "SCHEMA")
 RESTART_AGED_BATCHES = RESTART_N // RESTART_BATCH // 8  # the first 1/8 of the rows age out
 
@@ -4518,17 +4785,18 @@ def _same_matches(a, b, queries) -> bool:
     ]
 
 
-def phase_restart(base: Path, fused_topk_reference, card: str) -> dict:
+def phase_restart(base: Path, fused_topk_reference, card: str, beside=()) -> dict:
     """Phase 11 in the pre-tiered configuration (``KAKVEDA_GFKB_TIERED=0``:
     no hot cap, no router, no cold tier; the warm mirror stays):
     ``restart_corpus`` has no coarse structure, so the default router
     spawns a centroid per cluster, and ``measure_router``, under the
     default ``TierConfig`` after it, measures what that costs. Phase 12
-    runs the tiered lifecycle."""
+    runs the tiered lifecycle. ``beside``: threads of other phases' child
+    processes started before it, joined with the crash sweep."""
     before = os.environ.get("KAKVEDA_GFKB_TIERED")
     os.environ["KAKVEDA_GFKB_TIERED"] = "0"
     try:
-        out = _phase_restart(base, fused_topk_reference, card)
+        out = _phase_restart(base, fused_topk_reference, card, beside)
     finally:
         if before is None:
             os.environ.pop("KAKVEDA_GFKB_TIERED", None)
@@ -4539,7 +4807,7 @@ def phase_restart(base: Path, fused_topk_reference, card: str) -> dict:
     return out
 
 
-ROUTER_N = 1 << 16  # 16 batches; the router's cost per batch grows with its centroids
+ROUTER_N = 1 << 15  # 8 batches; the router's cost per batch grows with its centroids
 
 
 def measure_router(base: Path, card: str) -> dict:
@@ -4638,7 +4906,7 @@ def measure_router(base: Path, card: str) -> dict:
     return out
 
 
-def _phase_restart(base: Path, fused_topk_reference, card: str) -> dict:
+def _phase_restart(base: Path, fused_topk_reference, card: str, beside=()) -> dict:
     """Phase 11: the GFKB's durable lifecycle on the card at RESTART_N rows
     of a ROWS x DIM index. Build (mining on) → snapshot, timed by stage →
     full replay (snapshot moved aside) and its first mine, a full sweep →
@@ -4650,7 +4918,8 @@ def _phase_restart(base: Path, fused_topk_reference, card: str) -> dict:
     bit-equal to before), a compaction that reopens identically → the
     pattern emission's growth (``measure_emission``). The crash sweep at the
     two fence sites runs beside the untimed build, its children on the
-    card, and is joined before the first timed stage."""
+    card, and is joined before the first timed stage, with the threads of
+    ``beside`` (phase 12 d's child, started before this phase)."""
     import numpy as np
 
     from kakveda_tpu_torch.index.crashsweep import run_sweep
@@ -4689,11 +4958,14 @@ def _phase_restart(base: Path, fused_topk_reference, card: str) -> dict:
         f"mining on in {build_s:.1f} s (untimed set-up, beside the crash sweep), {st['delta_dispatches']} "
         f"delta dispatches, {int(len(np.unique(build_labels)))} clusters, no list evicted [{card}]")
 
-    # No sweep child may run during a timed stage.
+    # No child may run during a timed stage.
     t = time.perf_counter()
     sweeper.join()
     sweep_s = time.perf_counter() - t_sweep
-    log(f"phase 11: waited {time.perf_counter() - t:.1f} s for the crash sweep ({sweep_s:.1f} s in all) before "
+    for th in beside:
+        th.join()
+    log(f"phase 11: waited {time.perf_counter() - t:.1f} s for the crash sweep ({sweep_s:.1f} s in all) and "
+        f"{[th.name for th in beside]} ({time.perf_counter() - t_sweep:.1f} s since the sweep started) before "
         f"the first timed stage [{card}]")
     if "error" in sweep_out or sweep_out.get("corrupt_recoveries") != 0 or sweep_out.get("kill_points", 0) < 2:
         raise AssertionError(f"phase 11 crash sweep: {sweep_out}")
@@ -4855,7 +5127,7 @@ TIER_ASKS = (
 )
 TIER_TOOLS = ((), ("web_search",), ("retriever", "web_search"), ("sql_query",), ("calculator", "code_exec"))
 TIER_ENVS = ((), ("model", "temperature"), ("region", "tenant"), ("model", "region", "temperature"))
-STICKY_ROWS, STICKY_HOT = 1 << 16, 1 << 15
+STICKY_ROWS, STICKY_HOT = 1 << 15, 1 << 14
 
 
 def tier_corpus(n: int, seed: int = 12, per_template: int = 1280):
@@ -5163,7 +5435,7 @@ def tier_split(plat, reqs, fused_topk, calls: int) -> dict:
                 scorer_calls=grew, scorer_fallbacks=dict(scorer.fallbacks))
 
 
-def phase_tiers(base: Path, fused_topk, fused_topk_reference, card: str) -> dict:
+def phase_tiers(base: Path, fused_topk, fused_topk_reference, card: str, child: dict) -> dict:
     """Phase 12: a 2^20 x 2048 GFKB on the card under the default
     ``TierConfig`` (hot 2^20, nprobe 8, max_list 4096) holding TIER_N rows
     of ``tier_corpus``: the card stops at the hot cap, the overflow lives in
@@ -5172,7 +5444,8 @@ def phase_tiers(base: Path, fused_topk, fused_topk_reference, card: str) -> dict
     against the plain top-k, routed top-1 recall against the exact host
     scan, every host scan in C++) and aging of the first 1/8; c. the
     ``device.unavailable`` drill; d. a real sticky CUDA error in a child
-    process; e. ``compact()``, whose snapshot has the ``tiers`` section, and
+    process (``child``: its outcome, from a run beside phase 11's untimed
+    build and crash sweep); e. ``compact()``, whose snapshot has the ``tiers`` section, and
     the restore, which installs the router; f. the latch and the fallback count
     stay 0 on every healthy path (checked here before the drill and after
     phases 4, 8 and 11 in ``main``)."""
@@ -5195,11 +5468,6 @@ def phase_tiers(base: Path, fused_topk, fused_topk_reference, card: str) -> dict
     os.environ["KAKVEDA_MINE_INCREMENTAL"] = "0"  # the build's cut: the overflow attach is d's
     out: dict = {"rows": TIER_N, "capacity": ROWS, "dim": DIM, "hot_rows": TIER_HOT, "warm_rows": TIER_WARM}
     try:
-        child: dict = {}
-        t_child = time.perf_counter()
-        runner = threading.Thread(target=_run_sticky_child, args=(base / "sticky", child), name="sticky-child")
-        runner.start()
-
         t = time.perf_counter()
         corpus = tier_corpus(TIER_N + 4096)
         held = corpus[TIER_N:]
@@ -5242,11 +5510,6 @@ def phase_tiers(base: Path, fused_topk, fused_topk_reference, card: str) -> dict
         rows64 = pick(0, TIER_HOT, 16) + pick(TIER_HOT, TIER_WARM, 16) + pick(TIER_WARM, TIER_N, 16) + unseen
         reqs64 = _tier_requests(rows64)
 
-        # d joins before the first timed stage: no child runs beside it.
-        t = time.perf_counter()
-        runner.join()
-        log(f"phase 12: waited {time.perf_counter() - t:.1f} s for the sticky-error child "
-            f"({time.perf_counter() - t_child:.1f} s in all)")
         res = child.get("result")
         if child.get("error") or child.get("rc") != 0 or not res or not res["ok"]:
             raise AssertionError(f"phase 12 d: {child}")
@@ -5456,6 +5719,443 @@ def phase_tiers(base: Path, fused_topk, fused_topk_reference, card: str) -> dict
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the model plane's last gaps on the card (f32 models, head_dims and
+# dtypes no kernel body takes, full_mask, checkpoints with a tokenizer.json,
+# the device profiler)
+# ---------------------------------------------------------------------------
+
+LAUNCH_COUNTERS = ("bf16", "int8", "f32", "grouped")
+
+
+def launch_counts() -> dict:
+    """Every attention launch counter: the flash kernel's three bodies and
+    ``gqa_grouped`` on the card."""
+    from kakveda_tpu_torch.models.attention import flash_gqa_cache, gqa_grouped
+
+    return dict(bf16=flash_gqa_cache.launches, int8=flash_gqa_cache.launches_kv8,
+                f32=flash_gqa_cache.launches_f32, grouped=gqa_grouped.launches)
+
+
+def zero_launches() -> None:
+    from kakveda_tpu_torch.models.attention import flash_gqa_cache, gqa_grouped
+
+    flash_gqa_cache.launches = flash_gqa_cache.launches_kv8 = flash_gqa_cache.launches_f32 = 0
+    gqa_grouped.launches = 0
+
+
+def path_counter(cfg, kvq: str) -> str:
+    """The counter a forward of ``cfg`` with cache ``kvq`` moves on the card
+    (``card_path``)."""
+    from kakveda_tpu_torch.models.attention import card_path
+
+    if card_path(cfg.dtype, cfg.head_dim, False, bool(kvq)) == "grouped":
+        return "grouped"
+    return "int8" if kvq else ("f32" if cfg.dtype == torch.float32 else "bf16")
+
+
+def hold_launches(cfg, kvq: str, n_fwd: int, what: str) -> int:
+    """The counter of ``cfg``'s path moved n_layers × forwards, every other 0."""
+    counts = launch_counts()
+    mine = counts.pop(path_counter(cfg, kvq))
+    if mine != cfg.n_layers * n_fwd or any(counts.values()):
+        raise AssertionError(f"{what}: {mine} launches on {path_counter(cfg, kvq)} for {n_fwd} forwards "
+                             f"(want {cfg.n_layers} each), others {counts}")
+    return mine
+
+
+F32_TOKENS = 32  # phase 16 a's requests
+
+
+def f32_model(card: str) -> dict:
+    """Phase 16 a: ``llama3_8b()`` in f32 at full width and depth (random
+    weights from seed 0, 32.1 GB) through the engine (8 slots, window 512):
+    8 prompts × F32_TOKENS with ``spec_k`` 0 and with ``KAKVEDA_SERVE_SPEC=4``
+    (the gate held open), each launching the f32 body once a layer per
+    forward; tokens held to the solo ``generate_tokens`` by the margin rule
+    (departures counted); the step's device time against its weight-read
+    bound, the host step and tokens/s; then a tiny f32 config (head_dim 64)
+    whose engine tokens, with and without spec, equal the CPU port's."""
+    from kakveda_tpu_torch.models.generate import LlamaRuntime, generate_tokens
+    from kakveda_tpu_torch.models.llama import LlamaConfig
+
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), dtype=torch.float32)
+    tok = RecordingTokenizer()
+    t0 = time.perf_counter()
+    rt = LlamaRuntime(cfg=cfg, seed=0, tokenizer=tok)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    cfg = rt.cfg  # the byte tokenizer's vocabulary masks the table's pad columns
+    n_bytes = param_bytes(rt.params)
+    log(f"phase 16 a: Llama-3-8B in f32, {cfg.n_layers} layers, {n_bytes / 1e9:.2f} GB of weights on {rt.device}, "
+        f"drawn in {draw_s:.1f} s")
+    if rt.device.type != "cuda" or abs(n_bytes - 32.12e9) > 0.05e9:
+        raise AssertionError(f"f32 model on {rt.device} with {n_bytes} bytes")
+    ids = [tok.encode(p) for p in PROMPTS]
+    out = dict(weight_bytes=n_bytes, draw_s=draw_s)
+    solo = [generate_tokens(rt.params, cfg, p, max_new_tokens=F32_TOKENS, eos_id=tok.EOS) for p in ids]
+    with env_set(KAKVEDA_SERVE_SPEC_CALIB=0, KAKVEDA_SERVE_SPEC_BREAKEVEN=0):
+        for spec in (0, SPEC_K):
+            r = spec_engine_run(rt, tok, PROMPTS, "", spec, f"llama3-8b-f32-k{spec}", f"phase 16 a spec_k={spec}",
+                                F32_TOKENS)
+            margins = [margin_rule(rt.params, cfg, tok, p, ref, got, f"phase 16 a spec_k={spec}", F32_TOKENS)
+                       for p, ref, got in zip(ids, solo, r["tokens"])]
+            deps = [round(m, 4) for m in margins if m is not None]
+            out[f"k{spec}"] = dict(launches=r["launches"], forwards=r["forwards"], tokens_per_s=r["tokens_per_s"],
+                                   wall_s=r["wall_s"], spec_chunks=r["spec_chunks"], departures=deps,
+                                   tokens_per_verify=r["spec"]["tokens_per_verify"] if spec else None)
+            log(f"phase 16 a spec_k={spec}: 8 x {F32_TOKENS} tokens through the engine, {r['tokens_per_s']:.1f} "
+                f"tokens/s, {r['launches']} f32 launches = {cfg.n_layers} x {r['forwards']} forwards, "
+                f"{r['spec_chunks']} verify chunks; == the solo generate_tokens but for {len(deps)} departures at "
+                f"margins {deps} (< {MARGIN_TOL}) [{card}]")
+    out["f32"] = dict(tokens_per_s=out["k0"]["tokens_per_s"])
+    step_times(rt, ids, out, n_bytes, "phase 16 a: Llama-3-8B f32", card, caches=(("", "f32"),))
+    rt.close()
+    del rt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # The tiny f32 config at head_dim 64: card == CPU port.
+    tiny = LlamaConfig(vocab_size=264, d_model=256, n_layers=2, n_heads=4, n_kv_heads=2, d_ff=512, max_seq_len=512,
+                       effective_vocab=259, dtype=torch.float32)
+    out["tiny"] = card_vs_cpu(tiny, "phase 16 a tiny f32 (head_dim 64)", card, spec=True)
+    return out
+
+
+def card_vs_cpu(cfg, what: str, card: str, spec: bool = False, n_tok: int = 24) -> dict:
+    """``cfg`` with random weights from a seed, drawn on the CPU and copied
+    to the card, served through the engine on both: 8 prompts × ``n_tok``
+    (and with ``KAKVEDA_SERVE_SPEC=4``, the gate held open, when ``spec``);
+    the card's launches on ``cfg``'s path only, its tokens == the CPU port's
+    by the margin rule."""
+    from kakveda_tpu_torch.models.generate import LlamaRuntime
+    from kakveda_tpu_torch.models.llama import init_params
+
+    params = init_params(torch.Generator().manual_seed(16), dataclasses.replace(cfg, dtype=torch.float32), "cpu")
+    params = _params_to(_params_dtype(params, cfg.dtype), "cpu")
+    card_params = _params_to(params, "cuda")
+    out = {}
+    for k in ((0, SPEC_K) if spec else (0,)):
+        toks = {}
+        with env_set(KAKVEDA_SERVE_SPEC=k, KAKVEDA_SERVE_SPEC_CALIB=0, KAKVEDA_SERVE_SPEC_BREAKEVEN=0):
+            for dev, p in (("cuda", card_params), ("cpu", params)):
+                tok = RecordingTokenizer()
+                rt = LlamaRuntime(cfg=cfg, params=p, tokenizer=tok, device=dev)
+                try:
+                    if dev == "cuda":
+                        zero_launches()
+                        f0 = rt.engine().cb.forwards
+                    res = rt.generate_batch(PROMPTS, max_tokens=n_tok)
+                    if dev == "cuda":
+                        torch.cuda.synchronize()
+                        n_fwd = rt.engine().cb.forwards - f0
+                        launches = hold_launches(rt.cfg, "", n_fwd, f"{what} spec_k={k}")
+                        chunks = rt.engine().stats()["spec"]["chunks"]
+                finally:
+                    rt.close()
+                if not all(r.meta.get("continuous") for r in res):
+                    raise AssertionError(f"{what}: not served through the engine on {dev}")
+                toks[dev] = list(tok.decoded)
+        if k and not chunks:
+            raise AssertionError(f"{what} spec_k={k}: no verify chunk ran")
+        ids = [RecordingTokenizer().encode(p) for p in PROMPTS]
+        margins = [margin_rule(card_params, cfg, RecordingTokenizer(), p, ref, got, f"{what} spec_k={k}", n_tok)
+                   for p, ref, got in zip(ids, toks["cpu"], toks["cuda"])]
+        deps = [round(m, 4) for m in margins if m is not None]
+        out[f"k{k}"] = dict(launches=launches, path=path_counter(cfg, ""), departures=deps, spec_chunks=chunks)
+        log(f"{what} spec_k={k}: {launches} launches on {path_counter(cfg, '')} for {n_fwd} forwards; 8 x {n_tok} "
+            f"tokens card == the CPU port's but for {len(deps)} departures at margins {deps} [{card}]")
+    return out
+
+
+def _params_dtype(params, dtype):
+    if isinstance(params, dict):
+        return {k: _params_dtype(v, dtype) for k, v in params.items()}
+    if isinstance(params, list):
+        return [_params_dtype(v, dtype) for v in params]
+    return params.to(dtype) if params.is_floating_point() else params
+
+
+def full_mask_on_card(card: str) -> dict:
+    """Phase 16 c: ``gqa_cache_attention`` with a ``full_mask`` (the
+    reference's per-slot mask of a verify chunk) on the card goes through
+    ``gqa_grouped`` and equals the CPU port's, bf16 at D 128 (within 2e-2)
+    and f32 at D 64 (within 1e-4)."""
+    from kakveda_tpu_torch.models.attention import gqa_cache_attention
+
+    g = torch.Generator().manual_seed(161)
+    out = {}
+    for dtype, d, tol in ((torch.bfloat16, HD, FLASH_ATOL), (torch.float32, 64, F32_ATOL)):
+        b, s, l = 8, SPEC_K + 1, 512
+        q = torch.randn(b, s, H, d, generator=g).to(dtype)
+        k = torch.randn(b, KV, l, d, generator=g).to(dtype)
+        v = torch.randn(b, KV, l, d, generator=g).to(dtype)
+        pos = torch.randint(64, l - s, (b,), generator=g)
+        ar = torch.arange(l)
+        valid = ar[None] >= torch.randint(0, 16, (b, 1), generator=g)
+        mask = valid[:, None, :] & (ar[None, None, :] <= (pos[:, None] + torch.arange(s))[..., None])
+        want = gqa_cache_attention(q, k, v, 0, valid, full_mask=mask)
+        zero_launches()
+        got = gqa_cache_attention(*(t.cuda() for t in (q, k, v)), 0, valid.cuda(), full_mask=mask.cuda())
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        err = (got.float().cpu() - want.float()).abs().max().item()
+        if counts != dict(bf16=0, int8=0, f32=0, grouped=1) or err > tol:
+            raise AssertionError(f"phase 16 c {dtype}: launches {counts}, max |card - CPU| {err} > {tol}")
+        out[str(dtype)] = err
+    log(f"phase 16 c: full_mask through gqa_grouped on the card == the CPU port: max_abs_err {out} [{card}]")
+    return out
+
+
+# A byte-level BPE tokenizer.json written by hand (the card's machine has no
+# `tokenizers` to train one): the 256 byte symbols, seven merges and an
+# end-of-text token, 264 ids: the written checkpoints' vocabulary.
+HAND_MERGES = [("Ġ", "t"), ("h", "e"), ("Ġt", "he"), ("i", "n"), ("e", "r"), ("o", "n"), ("a", "t")]
+
+
+def write_tokenizer(path: Path) -> None:
+    from kakveda_tpu_torch.models.tokenizer import _BYTE_CHAR
+
+    vocab = {"<|endoftext|>": 0}
+    for b in range(256):
+        vocab[_BYTE_CHAR[b]] = len(vocab)
+    for a, b in HAND_MERGES:
+        vocab[a + b] = len(vocab)
+    (path / "tokenizer.json").write_text(json.dumps({
+        "version": "1.0",
+        "added_tokens": [{"id": 0, "content": "<|endoftext|>", "single_word": False, "lstrip": False,
+                          "rstrip": False, "normalized": False, "special": True}],
+        "normalizer": None,
+        "pre_tokenizer": {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": True, "use_regex": True},
+        "post_processor": None,
+        "decoder": {"type": "ByteLevel", "add_prefix_space": True, "trim_offsets": True, "use_regex": True},
+        "model": {"type": "BPE", "dropout": None, "unk_token": None, "continuing_subword_prefix": None,
+                  "end_of_word_suffix": None, "fuse_unk": False, "byte_fallback": False, "ignore_merges": False,
+                  "vocab": vocab, "merges": [list(m) for m in HAND_MERGES]},
+    }))
+    (path / "tokenizer_config.json").write_text(json.dumps(
+        {"bos_token": "<|endoftext|>", "eos_token": "<|endoftext|>", "clean_up_tokenization_spaces": False}))
+
+
+def _record_decode(tok) -> list:
+    """The ids of every ``decode`` of ``tok`` from now on."""
+    seen, real = [], tok.decode
+
+    def decode(ids):
+        seen.append(list(ids))
+        return real(ids)
+
+    tok.decode = decode
+    return seen
+
+
+def checkpoints_with_tokenizer(base: Path, card: str) -> dict:
+    """Phase 16 d: two written checkpoints (phase 14 c's Qwen2 and Qwen3)
+    with the hand-written ``tokenizer.json``, served on the card by
+    ``LlamaRuntime.from_hf`` and by a ``MultiModelRuntime`` over both, with
+    no ``transformers`` on the machine; the texts and tokens equal the CPU
+    port's (the margin rule), the load's seconds printed."""
+    import importlib.util
+
+    from kakveda_tpu_torch.models.generate import LlamaRuntime
+    from kakveda_tpu_torch.models.runtime import MultiModelRuntime
+
+    out = dict(transformers_installed=importlib.util.find_spec("transformers") is not None)
+    loaded_before = {m for m in ("transformers", "tokenizers") if m in sys.modules}
+    paths = []
+    for i, family in enumerate(("qwen2", "qwen3")):
+        path = base / f"{family}-tok"
+        write_family_checkpoint(path, family, seed=160 + i)
+        write_tokenizer(path)
+        paths.append(path)
+    prompts = PROMPTS[:4]
+    for path in paths:
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            rt = LlamaRuntime.from_hf(str(path), device=dev)
+            load_s = time.perf_counter() - t0
+            seen = _record_decode(rt.tokenizer)
+            try:
+                zero_launches()
+                texts = [r.text for r in rt.generate_batch(prompts, max_tokens=16)]
+                counts = launch_counts()
+            finally:
+                rt.close()
+            runs[dev] = (texts, list(seen), load_s, counts, rt)
+        texts, toks, load_s, counts, rt = runs["cuda"]
+        if rt.tokenizer.vocab_size != 264 or counts["bf16"] <= 0 or counts["grouped"]:
+            raise AssertionError(f"phase 16 d {path.name}: vocab {rt.tokenizer.vocab_size}, launches {counts}")
+        ids = [rt.tokenizer.encode(p) for p in prompts]
+        margins = [margin_rule(rt.params, rt.cfg, rt.tokenizer, p, ref, got, f"phase 16 d {path.name}", 16)
+                   for p, ref, got in zip(ids, runs["cpu"][1], toks)]
+        deps = [round(m, 4) for m in margins if m is not None]
+        if not deps and texts != runs["cpu"][0]:
+            raise AssertionError(f"phase 16 d {path.name}: equal tokens but different texts")
+        out[path.name] = dict(load_s=load_s, load_s_cpu=runs["cpu"][2], departures=deps,
+                              tokens=sum(map(len, toks)), launches=counts["bf16"])
+        log(f"phase 16 d {path.name}: LlamaRuntime.from_hf on the card in {load_s:.3f} s (CPU {runs['cpu'][2]:.3f} s), "
+            f"tokenizer.json read by the port ({rt.tokenizer.vocab_size} ids); {out[path.name]['tokens']} tokens, "
+            f"texts and tokens card == CPU but for {len(deps)} departures at margins {deps} [{card}]")
+    texts = {}
+    for dev in ("cuda", "cpu"):
+        mm = MultiModelRuntime([str(p) for p in paths], device=dev)
+        try:
+            t0 = time.perf_counter()
+            texts[dev] = {p.name: [r.text for r in mm.generate_batch(prompts[:2], model=p.name, max_tokens=12)]
+                          for p in paths}
+            wall = time.perf_counter() - t0
+            if dev == "cuda":
+                out["multi"] = dict(labels=mm.list_models(), wall_s=wall, loaded_bytes=mm.loaded_bytes())
+        finally:
+            mm.close()
+    same = texts["cuda"] == texts["cpu"]
+    out["multi"]["texts_equal_cpu"] = same
+    pulled = {m for m in ("transformers", "tokenizers") if m in sys.modules} - loaded_before
+    if pulled:
+        raise AssertionError(f"phase 16 d: the tokenizer reader loaded {sorted(pulled)}")
+    if not same and not any(out[p.name]["departures"] for p in paths):
+        raise AssertionError(f"phase 16 d: MultiModelRuntime texts differ between the card and the CPU: {texts}")
+    log(f"phase 16 d: MultiModelRuntime over {out['multi']['labels']} on the card (loads on first request, "
+        f"{out['multi']['wall_s']:.2f} s for both), texts == the CPU's: {same}; transformers installed: "
+        f"{out['transformers_installed']}, loaded by the reader: no [{card}]")
+    return out
+
+
+def trace_check(path: Path, card: str) -> dict:
+    """The Chrome trace of phase 16 e: each kernel launched inside the range
+    that names it (by the launch's correlation id, the host range holding
+    its runtime call; or, where the trace has them, the range's device
+    span), and the ten device operations that took the most time, with
+    their shares of the traced window."""
+    events = json.loads(path.read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel" and e.get("ph") == "X"]
+    launch = {e["args"]["correlation"]: e for e in events
+              if e.get("cat") in ("cuda_runtime", "cuda_driver") and "correlation" in e.get("args", {})}
+
+    def ranges(name, cat):
+        return [e for e in events if e.get("cat") == cat and e.get("name") == name and e.get("ph") == "X"]
+
+    def inside(e, rs):
+        return any(r["ts"] <= e["ts"] and e["ts"] + e.get("dur", 0) <= r["ts"] + r["dur"] for r in rs)
+
+    checks = {}
+    for kname, rname in (("topk_kernel", "gfkb.match.dispatch"), ("flash_gqa_kernel", "llama.generate_batch")):
+        ks = [e for e in kernels if kname in e["name"]]
+        host, dev = ranges(rname, "user_annotation"), ranges(rname, "gpu_user_annotation")
+        by_launch = [inside(launch[e["args"]["correlation"]], host) for e in ks
+                     if e.get("args", {}).get("correlation") in launch]
+        by_device = [inside(e, dev) for e in ks] if dev else []
+        ok = bool(ks) and ((by_launch and all(by_launch)) or (by_device and all(by_device)))
+        checks[kname] = dict(kernels=len(ks), range=rname, host_ranges=len(host), device_ranges=len(dev),
+                             inside_by_launch=f"{sum(by_launch)} of {len(by_launch)}",
+                             inside_by_device=f"{sum(by_device)} of {len(by_device)}")
+        if not ok:
+            raise AssertionError(f"phase 16 e: {kname} is not inside {rname}: {checks[kname]}")
+    dev_ops = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and e.get("ph") == "X"]
+    t0 = min(e["ts"] for e in dev_ops)
+    t1 = max(e["ts"] + e.get("dur", 0) for e in dev_ops)
+    tot = {}
+    for e in dev_ops:
+        tot[e["name"]] = tot.get(e["name"], 0.0) + e.get("dur", 0)
+    busy = sum(tot.values())
+    top = sorted(tot.items(), key=lambda kv: -kv[1])[:10]
+    top10 = [dict(name=n[:80], us=round(us, 1), share=round(us / (t1 - t0), 4)) for n, us in top]
+    log(f"phase 16 e: trace {path.name}: {len(kernels)} kernels over a {(t1 - t0) / 1e3:.3f} ms device window, "
+        f"device busy {busy / (t1 - t0):.3f} of it; kernels inside their ranges {json.dumps(checks)}; the ten "
+        f"device operations that took the most time: {json.dumps(top10)} [{card}]")
+    return dict(checks=checks, window_ms=(t1 - t0) / 1e3, busy_share=busy / (t1 - t0), top10=top10)
+
+
+def profiler_phase(base: Path, card: str) -> dict:
+    """Phase 16 e: ``core.profiling.profile()`` around one warm
+    ``warn_batch`` at B = 64 on a Platform on the card (2^16 × 2048, 4,096
+    failures) and one ``generate_batch`` of a 2-layer bf16 model (head_dim
+    128) on the solo path (``KAKVEDA_SERVE_CONTINUOUS=0``: the kernels
+    launch on the calling thread, inside ``llama.generate_batch``); the
+    trace parsed (``trace_check``); ``/metrics`` shows
+    ``kakveda_device_block_seconds`` under the ranges' names."""
+    from kakveda_tpu_torch.core import metrics, profiling
+    from kakveda_tpu_torch.core.schemas import TracePayload, WarningRequest
+    from kakveda_tpu_torch.models.generate import LlamaRuntime
+    from kakveda_tpu_torch.models.llama import LlamaConfig
+    from kakveda_tpu_torch.platform import Platform
+
+    plat = Platform(data_dir=base / "data", capacity=1 << 16, dim=DIM)
+    traces = [_trace(TracePayload, i, "app-A", f"Summarize incident report {i} and include citations")
+              for i in range(4096)]
+    for i in range(0, len(traces), 512):
+        asyncio.run(plat.ingest_batch(traces[i:i + 512]))
+    reqs = [WarningRequest(app_id="app-A", prompt=f"Summarize incident report {i * 61} and include citations",
+                           tools=[], env={}) for i in range(64)]
+    cfg = LlamaConfig(vocab_size=264, d_model=512, n_layers=2, n_heads=4, n_kv_heads=2, d_ff=1024,
+                      max_seq_len=512, effective_vocab=259)
+    with env_set(KAKVEDA_SERVE_CONTINUOUS=0):
+        rt = LlamaRuntime(cfg=cfg, seed=1, tokenizer=RecordingTokenizer())
+        try:
+            plat.warn_batch(reqs)  # warm: outside the trace
+            rt.generate_batch(PROMPTS[:2], max_tokens=8)
+            torch.cuda.synchronize()
+            logdir = base / "trace"
+            with profiling.profile(logdir):
+                res = plat.warn_batch(reqs)
+                gen = rt.generate_batch(PROMPTS[:4], max_tokens=16)
+                torch.cuda.synchronize()
+        finally:
+            rt.close()
+            plat.close()
+    if len(res) != 64 or any(r.meta.get("continuous") for r in gen):
+        raise AssertionError("phase 16 e: the traced work did not run as set up")
+    files = sorted(logdir.glob("*.json"))
+    if len(files) != 1:
+        raise AssertionError(f"phase 16 e: {len(files)} trace files")
+    out = trace_check(files[0], card)
+    text = metrics.get_registry().render()
+    names = ("gfkb.match.dispatch", "gfkb.match.fetch", "gfkb.insert", "llama.generate_batch")
+    missing = [n for n in names if f'kakveda_device_block_seconds_count{{name="{n}"}}' not in text]
+    if missing:
+        raise AssertionError(f"phase 16 e: /metrics lacks kakveda_device_block_seconds for {missing}")
+    out["metrics_names"] = list(names)
+    log(f"phase 16 e: /metrics shows kakveda_device_block_seconds for {list(names)}")
+    return out
+
+
+def phase_gaps(base: Path, card: str) -> dict:
+    """Phase 16 (after phase 14): a. ``f32_model``; b. head_dim 80 (bf16)
+    and an f16 model through ``gqa_grouped`` (``card_vs_cpu``), the grouped
+    count above 0 there and 0 in every bf16 phase before; c.
+    ``full_mask_on_card``; d. ``checkpoints_with_tokenizer``; e.
+    ``profiler_phase``."""
+    from kakveda_tpu_torch.models.llama import LlamaConfig
+
+    t0 = time.perf_counter()
+    out, walls = {}, {}
+    out["a"] = f32_model(card)
+    walls["a"] = time.perf_counter() - t0
+    out["b"] = {}
+    for name, cfg in (
+        ("d80_bf16", LlamaConfig(vocab_size=264, d_model=320, n_layers=2, n_heads=4, n_kv_heads=2, d_ff=512,
+                                 max_seq_len=512, effective_vocab=259)),
+        ("d128_f16", LlamaConfig(vocab_size=264, d_model=512, n_layers=2, n_heads=4, n_kv_heads=2, d_ff=1024,
+                                 max_seq_len=512, effective_vocab=259, dtype=torch.float16)),
+        ("d80_f32", LlamaConfig(vocab_size=264, d_model=320, n_layers=2, n_heads=4, n_kv_heads=2, d_ff=512,
+                                max_seq_len=512, effective_vocab=259, dtype=torch.float32)),
+    ):
+        if path_counter(cfg, "") != "grouped":
+            raise AssertionError(f"phase 16 b {name}: takes {path_counter(cfg, '')}, not gqa_grouped")
+        out["b"][name] = card_vs_cpu(cfg, f"phase 16 b {name}", card)
+    walls["b"] = time.perf_counter() - t0 - sum(walls.values())
+    out["c"] = full_mask_on_card(card)
+    walls["c"] = time.perf_counter() - t0 - sum(walls.values())
+    out["d"] = checkpoints_with_tokenizer(base, card)
+    walls["d"] = time.perf_counter() - t0 - sum(walls.values())
+    out["e"] = profiler_phase(base, card)
+    walls["e"] = time.perf_counter() - t0 - sum(walls.values())
+    out["walls_s"] = {k: round(v, 1) for k, v in walls.items()}
+    log("phase 16: " + json.dumps(out))
+    return out
+
+
 def log_held(after: str) -> None:
     gc.collect()
     torch.cuda.empty_cache()
@@ -5547,9 +6247,16 @@ def main() -> int:
     log_held("phase 8")
     lap("8 service")
 
+    # Phase 12 d's child process runs beside phase 11's untimed build and
+    # crash sweep (both children mostly start up), joined with the sweep.
+    sticky_dir = tempfile.TemporaryDirectory(prefix="kakveda-sticky-")
+    sticky: dict = {}
+    sticky_runner = threading.Thread(target=_run_sticky_child, args=(Path(sticky_dir.name) / "sticky", sticky),
+                                     name="sticky-child")
+    sticky_runner.start()
     with tempfile.TemporaryDirectory(prefix="kakveda-restart-") as d:
         fused_topk.launches = 0
-        restart = phase_restart(Path(d), fused_topk_reference, card)
+        restart = phase_restart(Path(d), fused_topk_reference, card, beside=(sticky_runner,))
         restart_launches = fused_topk.launches
     if restart_launches <= 0:
         raise AssertionError("the restart phase never launched fused_topk")
@@ -5560,8 +6267,9 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory(prefix="kakveda-tiers-") as d:
         fused_topk.launches = 0
-        tiers = phase_tiers(Path(d), fused_topk, fused_topk_reference, card)
+        tiers = phase_tiers(Path(d), fused_topk, fused_topk_reference, card, sticky)
         tiers_launches = fused_topk.launches
+    sticky_dir.cleanup()
     if tiers_launches <= 0:
         raise AssertionError("phase 12 never launched fused_topk")
     log(f"fused_topk launches of phase 12 (the hot tier under every healthy warn): {tiers_launches}")
@@ -5569,9 +6277,11 @@ def main() -> int:
     log_held("phase 12")
     lap("12 tiers")
 
+    zero_launches()  # gqa_grouped stays 0 through every bf16 phase, until phase 16 b
     flash = phase_flash(card)
     flash_families = phase_flash_families(card)
     flash_spec = phase_flash_spec(card)
+    flash_f32 = phase_flash_f32(card)
     lap("5 flash")
     held = torch.cuda.memory_allocated()
     model = phase_model(card)
@@ -5590,9 +6300,16 @@ def main() -> int:
     families = phase_families(card)
     log_held("phase 14")
     lap("14 families")
+    if launch_counts()["grouped"]:
+        raise AssertionError(f"gqa_grouped ran {launch_counts()['grouped']} times in the bf16 phases 5, 6, 9, 10, "
+                             "13, 14, 15")
+    with tempfile.TemporaryDirectory(prefix="kakveda-gaps-") as d:
+        gaps = phase_gaps(Path(d), card)
+    log_held("phase 16")
+    lap("16 gaps")
     log(f"phase walls (s): {json.dumps(walls)}; {time.perf_counter() - t0:.1f} s in all [{card}]")
     # No warn served from the host and no latch outside phase 12 c's drill.
-    check_healthy("phases 5, 6, 10, 9 and 14", drilled=True)
+    check_healthy("phases 5, 6, 10, 9, 14 and 16", drilled=True)
 
     kernels = [dict(
         name="fused_topk", route="cuda", source="kakveda_tpu_torch/csrc/fused_topk.cu",
@@ -5630,6 +6347,16 @@ def main() -> int:
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
             bound_seen_ms=r["bound_seen_ms"],
         ))
+    f32_main = flash_f32["D128_f32_decode_engine"]  # the main path's most frequent f32 shape
+    kernels.append(dict(
+        name="flash_gqa_cache_f32", route="cuda", source="kakveda_tpu_torch/csrc/flash_gqa_cache_f32.cu",
+        replaces="kakveda_tpu/models/attention.py:284", launches=gaps["a"]["k0"]["launches"],
+        launches_spec=gaps["a"][f"k{SPEC_K}"]["launches"], launches_tiny=gaps["a"]["tiny"]["k0"]["launches"],
+        max_abs_err=max(r["max_abs_err"] for r in flash_f32.values()),
+        ms=f32_main["ms"], plain_ms=f32_main["plain_ms"], bound_ms=f32_main["bound_ms"],
+        bound_by=f32_main["bound_by"], library_ms=f32_main["library_ms"], bound_seen_ms=f32_main["bound_seen_ms"],
+        shape=f32_main["shape"], f32_shapes=flash_f32,
+    ))
     kernels[0]["launches_judge_warn"] = judge["warn_fused_topk_launches"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

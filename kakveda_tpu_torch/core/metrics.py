@@ -24,8 +24,9 @@ from: the serving engine's, the fault sites', the two admission
 families the engine's ``submit`` moves, and the model router's two HBM
 gauges (``models/runtime.MultiModelRuntime``). The other planes' families come
 with their slices (ROADMAP Queue 1 item 5), as do fleet federation
-(``parse_prometheus_text``, ``federate_renders``), ``device_block`` and the
-stall watchdog that names each lock.
+(``parse_prometheus_text``, ``federate_renders``) and the stall watchdog
+that names each lock. :func:`device_block` observes
+``kakveda_device_block_seconds`` for ``core/profiling.annotate``.
 
 Knobs: ``KAKVEDA_METRICS_RECORDER`` — flight-recorder ring capacity per
 engine (default 256; 0 disables recording but keeps the dump endpoints).
@@ -431,6 +432,9 @@ _CORE_FAMILIES = (
      "Configured HBM weight+KV budget (0 = unbudgeted)", (), None),
     ("gauge", "kakveda_hbm_loaded_bytes",
      "Resident weight+KV bytes accounted by the model router", (), None),
+    ("histogram", "kakveda_device_block_seconds",
+     "Host wall of profiling.annotate()-labeled device blocks, keyed by "
+     "annotation name", ("name",), None),
 )
 
 _REGISTRY = MetricsRegistry()
@@ -438,6 +442,25 @@ _REGISTRY = MetricsRegistry()
 
 def get_registry() -> MetricsRegistry:
     return _REGISTRY
+
+
+_DEVICE_HIST: Optional[Histogram] = None
+
+
+def device_block(name: str, seconds: float) -> None:
+    """Observe one ``profiling.annotate`` block's host wall, keyed by the
+    annotation's name: the range an operator sees in a trace and the series
+    on /metrics share a vocabulary."""
+    global _DEVICE_HIST
+    h = _DEVICE_HIST
+    if h is None:
+        h = _DEVICE_HIST = _REGISTRY.histogram(
+            "kakveda_device_block_seconds",
+            "Host wall of profiling.annotate()-labeled device blocks, keyed "
+            "by annotation name",
+            ("name",),
+        )
+    h.labels(name=name).observe(seconds)
 
 
 # --- flight recorder --------------------------------------------------------

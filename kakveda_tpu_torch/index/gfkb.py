@@ -77,6 +77,7 @@ import torch
 
 from kakveda_tpu_torch import native
 from kakveda_tpu_torch.core import faults as _faults
+from kakveda_tpu_torch.core import profiling
 from kakveda_tpu_torch.core.schemas import (
     CanonicalFailureRecord,
     FailureMatch,
@@ -911,10 +912,11 @@ class GFKB:
                 else:
                     dev = arr_slots < hot
                     if dev.any():
-                        self._knn.insert_sparse(
-                            self._emb, self._valid, self._types, sp_idx[dev], sp_val[dev],
-                            arr_slots[dev], np.asarray(tids, np.int32)[dev],
-                        )
+                        with profiling.annotate("gfkb.insert"):
+                            self._knn.insert_sparse(
+                                self._emb, self._valid, self._types, sp_idx[dev], sp_val[dev],
+                                arr_slots[dev], np.asarray(tids, np.int32)[dev],
+                            )
             self._mine_attach_new(slots, texts, sp_idx, sp_val, gen)
         finally:
             with self._lock:
@@ -1538,18 +1540,20 @@ class GFKB:
                 tid = self._type_ids.get(failure_type)
                 if tid is None:
                     return [[] for _ in signature_texts], info
-            # The device-loss drill: armed, the dispatch dies as a lost
-            # card's does, and the warn path's degraded mode takes over.
-            self._fault_device.fire()
-            if tid is not None:
-                valid = self._knn.mask_valid(valid, self._types, tid)
-            packed = self._knn.topk_async_sparse(self._emb, valid, q_idx, q_val)
+            with profiling.annotate("gfkb.match.dispatch"):
+                # The device-loss drill: armed, the dispatch dies as a lost
+                # card's does, and the warn path's degraded mode takes over.
+                self._fault_device.fire()
+                if tid is not None:
+                    valid = self._knn.mask_valid(valid, self._types, tid)
+                packed = self._knn.topk_async_sparse(self._emb, valid, q_idx, q_val)
             # No copy of the records (18 ms at 2^20 + 2^18 of them): the list
             # is only appended to or has a slot replaced by a newer version
             # of the same failure, and a reload swaps in a new list, so slots
             # below n read outside the lock are this query's failures.
             gen = self._generation
-        scores, slots = self._knn.topk_result(packed)
+        with profiling.annotate("gfkb.match.fetch"):
+            scores, slots = self._knn.topk_result(packed)
 
         hot = self._hot_cap()
         if n > hot and self._tiers is not None:
@@ -1656,9 +1660,10 @@ class GFKB:
                 if delta_rows:
                     # Under the lock, like a match; +1 neighbour: each row's
                     # top-1 against the post-insert index is itself.
-                    pending = delta_topk_sparse(
-                        self._emb, self._valid, sp_idx[delta_rows], sp_val[delta_rows], m.k + 1
-                    )
+                    with profiling.annotate("gfkb.mine.delta"):
+                        pending = delta_topk_sparse(
+                            self._emb, self._valid, sp_idx[delta_rows], sp_val[delta_rows], m.k + 1
+                        )
                     self.mine_delta_dispatches += 1
                     self._mine_pending.append((
                         self._knn.capacity,

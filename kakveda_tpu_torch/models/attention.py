@@ -16,9 +16,10 @@ Counterpart of ``kakveda_tpu/models/attention.py``, same contract:
 * :func:`flash_gqa_cache` replaces the Pallas TPU kernel of the same name
   (``pl.pallas_call`` at ``kakveda_tpu/models/attention.py:284``, bodies
   ``_flash_kernel`` and ``_flash_kernel_kv8``). On a CUDA tensor it launches
-  the hand-written kernel in ``kakveda_tpu_torch/csrc/flash_gqa_cache.cu``
-  (built by ``nvcc`` for ``sm_90a`` at first use, one library per head_dim)
-  or raises; on a CPU tensor
+  a hand-written kernel or raises: ``kakveda_tpu_torch/csrc/
+  flash_gqa_cache.cu`` for a bf16 ``q`` (bf16 or int8 cache) and
+  ``csrc/flash_gqa_cache_f32.cu`` for an f32 one (built by ``nvcc`` for
+  ``sm_90a`` at first use, one library per head_dim); on a CPU tensor
   it runs :func:`flash_gqa_cache_reference`, the plain version with the
   kernel's own semantics, which is also the kernel's oracle on the card.
   The kernel splits the cache across blocks (:func:`flash_split_count`,
@@ -26,13 +27,19 @@ Counterpart of ``kakveda_tpu/models/attention.py``, same contract:
   can see (:func:`flash_live_tiles`);
   :func:`flash_gqa_cache_split_reference` is the plain version of that
   split schedule, with the same combine.
-* :func:`gqa_grouped` is the twin of ``_gqa_xla``: on the CPU it serves
-  softcap (Gemma-2) attention, as ``_gqa_xla`` does in the JAX package, and
-  an arbitrary per-query ``full_mask``, which no ported path builds and the
-  card does not take. On the card a softcap goes through the flash kernel,
-  which caps the scores in the same order. The speculative verify chunk's
-  mask, which the JAX package passes as a ``full_mask``, is the causal mask
-  at per-row positions: a ``[B]`` ``pos0`` here, on both devices.
+* :func:`gqa_grouped` is the twin of ``_gqa_xla``, which the JAX package
+  runs wherever its Pallas kernel does not (``_flash_ok``, the
+  ``full_mask`` and softcap branches of its dispatch). On the CPU it serves
+  softcap (Gemma-2) attention and an arbitrary per-query ``full_mask``, as
+  ``_gqa_xla`` does. On the card :func:`card_path` decides, from the dtype,
+  the head_dim, the cache type and whether a ``full_mask`` is given, which
+  of the kernel's bodies runs or whether ``gqa_grouped`` does: a head_dim
+  or a dtype that no body takes (f16, f32 at D = 80, an f32 model over an
+  int8 cache) and a ``full_mask`` take it; a softcap goes through the flash
+  kernel, which caps the scores in the same order. The speculative verify
+  chunk's mask, which the JAX package passes as a ``full_mask``, is the
+  causal mask at per-row positions: a ``[B]`` ``pos0`` here, on both
+  devices.
 
 One documented divergence between the two, as in the JAX package: a query
 row with no visible slot (a left-pad position) emits zeros from the flash
@@ -53,7 +60,8 @@ NEG_INF = -1e30
 KERNEL_L_BLK = 64  # the CUDA kernel's cache tile
 KERNEL_MAX_TILES_PER_SPLIT = 256  # the kernel's live-tile list holds this many
 KERNEL_MAX_SPLITS = 64  # the kernel's combine keeps this many splits' weights
-KERNEL_HEAD_DIMS = _build.FLASH_HEAD_DIMS
+KERNEL_HEAD_DIMS = _build.FLASH_HEAD_DIMS  # the bf16 and int8-cache bodies
+KERNEL_F32_HEAD_DIMS = _build.FLASH_F32_HEAD_DIMS  # the f32 body
 
 
 def _positions(pos0, n: int, r: int, dev) -> torch.Tensor:
@@ -89,7 +97,10 @@ def gqa_grouped(
     """Grouped attention with the GQA group axis explicit (K/V are never
     repeated to H heads) — the twin of ``_gqa_xla``. ``full_mask`` [B, S, L]
     replaces the causal/window/kv_valid mask; ``pos0`` is a host int or a
-    ``[B]`` tensor (:func:`_positions`)."""
+    ``[B]`` tensor (:func:`_positions`). ``gqa_grouped.launches`` counts its
+    calls on the card."""
+    if q.device.type == "cuda":
+        gqa_grouped.launches += 1
     b, s, h, d = q.shape
     kv, l = k.shape[1], k.shape[2]
     r = h // kv
@@ -107,6 +118,9 @@ def gqa_grouped(
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bgsrl,bgld->bgsrd", probs, v)
     return out.permute(0, 2, 1, 3, 4).reshape(b, s, h, d).to(q.dtype)
+
+
+gqa_grouped.launches = 0
 
 
 def flash_gqa_cache_reference(
@@ -359,10 +373,11 @@ def _ticket_buffer(device: torch.device, n: int) -> torch.Tensor:
     return bufs[-1]
 
 
-def _lib(d: int):
+def _lib(d: int, f32: bool = False):
     """The kernel's library for head_dim ``d`` (one per head_dim, built in
-    parallel: ``_build.FLASH_HEAD_DIMS``)."""
-    lib = _build.load(f"flash_gqa_cache:{d}")
+    parallel: ``_build.FLASH_HEAD_DIMS``, and ``_build.FLASH_F32_HEAD_DIMS``
+    for the f32 body, whose C interface is the same)."""
+    lib = _build.load(f"flash_gqa_cache{'_f32' if f32 else ''}:{d}")
     fn = lib.kkv_flash_gqa_cache
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -381,16 +396,17 @@ def _lib(d: int):
 _blocks = {}
 
 
-def kernel_blocks_per_sm(d: int, kv8: bool, sr: int) -> int:
+def kernel_blocks_per_sm(d: int, kv8: bool, sr: int, f32: bool = False) -> int:
     """Resident blocks per SM that the kernel's launch bounds plan for at
-    head_dim ``d``, cache body and block rows (``Cfg::BLOCKS`` in the CUDA
-    source: two, one where a block's shared memory fills the SM, as the
-    D = 256 bf16 ring of 202,752 bytes does), read once from the loaded
-    library; the split count fills that wave."""
-    key = (d, bool(kv8), kernel_q_rows(sr))
+    head_dim ``d``, body (bf16, int8 cache, or ``f32``) and block rows
+    (``Cfg::BLOCKS`` in the CUDA source: two, one where a block's shared
+    memory fills the SM, as the D = 256 bf16 ring of 202,752 bytes and the
+    D = 128 f32 rings do), read once from the loaded library; the split
+    count fills that wave."""
+    key = (d, bool(kv8), kernel_q_rows(sr), bool(f32))
     n = _blocks.get(key)
     if n is None:
-        n = _blocks[key] = _lib(d).kkv_flash_gqa_cache_blocks_per_sm(d, int(kv8), sr, 1)
+        n = _blocks[key] = _lib(d, f32).kkv_flash_gqa_cache_blocks_per_sm(d, int(kv8), sr, 1)
     return n
 
 
@@ -410,8 +426,10 @@ def flash_gqa_cache(
     """Flash attention of ``q [B, S, H, D]`` over the head-major cache
     ``k, v [B, KV, L, D]``. A CPU tensor takes
     :func:`flash_gqa_cache_reference`; a CUDA tensor launches the kernel or
-    raises. The card takes a bf16 ``q``, a bf16 cache or an int8 cache with
-    f32 ``k_scale``/``v_scale`` [B, KV, L], D ∈ ``KERNEL_HEAD_DIMS``, a
+    raises. The card takes a bf16 ``q`` over a bf16 cache or an int8 cache
+    with f32 ``k_scale``/``v_scale`` [B, KV, L] at D ∈ ``KERNEL_HEAD_DIMS``,
+    or an f32 ``q`` over an f32 cache at D ∈ ``KERNEL_F32_HEAD_DIMS`` (the
+    f32 body: FFMA, f32 end to end), a
     ``softcap`` ≥ 0 (scores capped at ``softcap · tanh(s / softcap)``
     before the mask; 0 is off) and any L up to
     ``KERNEL_MAX_SPLITS × KERNEL_MAX_TILES_PER_SPLIT`` tiles. One launch
@@ -429,7 +447,7 @@ def flash_gqa_cache(
     without one), so a caller whose positions stay on the card passes a
     host upper bound of ``max(pos0) + S``. ``flash_gqa_cache.launches``
     counts bf16-cache launches, ``flash_gqa_cache.launches_kv8`` int8-cache
-    launches."""
+    launches, ``flash_gqa_cache.launches_f32`` f32 launches."""
     if q.device.type == "cpu":
         return flash_gqa_cache_reference(
             q, k, v, pos0, kv_valid, k_scale=k_scale, v_scale=v_scale, window=window, softcap=softcap
@@ -441,14 +459,15 @@ def flash_gqa_cache(
         raise ValueError(f"flash_gqa_cache: k/v must be [B, KV, L, {d}], got {tuple(k.shape)}")
     kv, l = k.shape[1], k.shape[2]
     kv8 = k_scale is not None
-    if q.dtype != torch.bfloat16:
-        raise ValueError(
-            f"flash_gqa_cache: the card runs bf16 models (q is {q.dtype}); "
-            "a float32 model on the card is not ported"
-        )
-    if d not in KERNEL_HEAD_DIMS or h % kv or l < 1 or window < 0 or not softcap >= 0:
-        raise ValueError(f"flash_gqa_cache: unsupported layout H={h} KV={kv} L={l} D={d}")
-    want = torch.int8 if kv8 else torch.bfloat16
+    f32 = q.dtype == torch.float32
+    if q.dtype != torch.bfloat16 and not f32:
+        raise ValueError(f"flash_gqa_cache: the card's bodies take a bf16 or f32 q, not {q.dtype}")
+    if f32 and kv8:
+        raise ValueError("flash_gqa_cache: the f32 body takes an f32 cache, not an int8 one")
+    dims = KERNEL_F32_HEAD_DIMS if f32 else KERNEL_HEAD_DIMS
+    if d not in dims or h % kv or l < 1 or window < 0 or not softcap >= 0:
+        raise ValueError(f"flash_gqa_cache: unsupported layout H={h} KV={kv} L={l} D={d} ({q.dtype})")
+    want = torch.int8 if kv8 else q.dtype
     if k.dtype != want or v.dtype != want or not (k.is_contiguous() and v.is_contiguous()):
         raise ValueError(f"flash_gqa_cache: k/v must be contiguous {want}")
     if kv8:
@@ -471,7 +490,7 @@ def flash_gqa_cache(
     r = h // kv
     sr = s * r
     qf = q.reshape(b, s, kv, r, d).permute(0, 2, 1, 3, 4).reshape(b * kv, sr, d).contiguous()
-    out = torch.empty((b * kv, sr, d), dtype=torch.bfloat16, device=q.device)
+    out = torch.empty((b * kv, sr, d), dtype=q.dtype, device=q.device)
     if any(t.data_ptr() % 16 for t in (qf, out, k, v)):
         raise ValueError("flash_gqa_cache: tensors must be 16-byte aligned")
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
@@ -480,8 +499,10 @@ def flash_gqa_cache(
     else:
         hint = int(pos0) + s if reach is None else min(int(pos0) + s, int(reach))
         pos0_vec = None
-    lib = _lib(d)
-    n_split = flash_split_count(b * kv, sr, l, sms, reach=hint, blocks_per_sm=kernel_blocks_per_sm(d, kv8, sr))
+    lib = _lib(d, f32)
+    n_split = flash_split_count(
+        b * kv, sr, l, sms, reach=hint, blocks_per_sm=kernel_blocks_per_sm(d, kv8, sr, f32)
+    )
     if n_split > KERNEL_MAX_SPLITS:
         raise ValueError(f"flash_gqa_cache: a cache of L={l} rows is longer than the kernel takes")
     part = tickets = None
@@ -506,6 +527,8 @@ def flash_gqa_cache(
         raise RuntimeError(f"flash_gqa_cache kernel launch failed: cudaError {rc}")
     if kv8:
         flash_gqa_cache.launches_kv8 += 1
+    elif f32:
+        flash_gqa_cache.launches_f32 += 1
     else:
         flash_gqa_cache.launches += 1
     return out.reshape(b, kv, s, r, d).permute(0, 2, 1, 3, 4).reshape(b, s, h, d)
@@ -513,6 +536,34 @@ def flash_gqa_cache(
 
 flash_gqa_cache.launches = 0
 flash_gqa_cache.launches_kv8 = 0
+flash_gqa_cache.launches_f32 = 0
+
+
+def card_path(dtype: torch.dtype, d: int, full_mask: bool, kv8: bool) -> str:
+    """The card's attention path, a pure function of the query dtype, the
+    head_dim, whether a ``full_mask`` is given and whether the cache is
+    int8: ``"flash"`` (:func:`flash_gqa_cache`: bf16 over a bf16 or int8
+    cache at D ∈ ``KERNEL_HEAD_DIMS``, or f32 over an f32 cache at D ∈
+    ``KERNEL_F32_HEAD_DIMS``) or ``"grouped"`` (:func:`gqa_grouped`, where
+    the JAX package takes ``_gqa_xla``: a ``full_mask``, another dtype such
+    as f16, a head_dim no body takes, and an f32 model over an int8 cache,
+    which dequantizes to f32 first as ``_kv_dequant`` does)."""
+    if full_mask:
+        return "grouped"
+    if dtype == torch.bfloat16 and d in KERNEL_HEAD_DIMS:
+        return "flash"
+    if dtype == torch.float32 and not kv8 and d in KERNEL_F32_HEAD_DIMS:
+        return "flash"
+    return "grouped"
+
+
+def _path(q: torch.Tensor, full_mask: bool, kv8: bool, softcap: float) -> str:
+    """:func:`card_path` on the card; on the CPU ``"grouped"`` for a
+    ``full_mask`` or a softcap (the JAX package's ``_gqa_xla`` branches),
+    else ``"flash"`` (the kernel's plain version)."""
+    if q.device.type == "cuda":
+        return card_path(q.dtype, q.shape[-1], full_mask, kv8)
+    return "grouped" if full_mask or softcap else "flash"
 
 
 def gqa_cache_attention(
@@ -529,17 +580,17 @@ def gqa_cache_attention(
     full_mask: Optional[torch.Tensor] = None,
     reach: Optional[int] = None,
 ) -> torch.Tensor:
-    """Cached GQA attention: the flash kernel for every shape it takes (on
-    the card there is no profitability gate — ``_flash_wins`` was measured
-    on a TPU), softcap included; on the CPU a softcap takes
-    :func:`gqa_grouped`, as ``_gqa_xla`` serves it in the JAX package.
-    ``full_mask`` takes :func:`gqa_grouped`, on the CPU only. ``window`` > 0
-    is sliding-window attention; ``pos0`` a host int or a ``[B]`` tensor of
-    per-row positions; ``reach`` is :func:`flash_gqa_cache`'s schedule
-    hint."""
-    if full_mask is not None or (softcap and q.device.type != "cuda"):
-        if q.device.type == "cuda":
-            raise NotImplementedError("full_mask attention is not ported to the card yet")
+    """Cached GQA attention. On the card :func:`card_path` picks the flash
+    kernel's body or :func:`gqa_grouped` (there is no profitability gate:
+    ``_flash_wins`` was measured on a TPU, and no path gives way to another
+    when a launch fails); a softcap goes to the kernel. On the CPU a softcap
+    or a ``full_mask`` takes :func:`gqa_grouped`, as ``_gqa_xla`` serves
+    them in the JAX package, and everything else the kernel's plain
+    version. An int8 cache dequantizes first (``_kv_dequant``'s order) for
+    ``gqa_grouped``. ``window`` > 0 is sliding-window attention; ``pos0`` a
+    host int or a ``[B]`` tensor of per-row positions; ``reach`` is
+    :func:`flash_gqa_cache`'s schedule hint."""
+    if _path(q, full_mask is not None, k_scale is not None, softcap) == "grouped":
         if k_scale is not None:
             k = k.to(q.dtype) * k_scale.to(q.dtype)[..., None]
             v = v.to(q.dtype) * v_scale.to(q.dtype)[..., None]

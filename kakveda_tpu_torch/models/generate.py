@@ -45,8 +45,8 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from kakveda_tpu_torch.core import profiling
 from kakveda_tpu_torch.core.admission import get_device_health
-from kakveda_tpu_torch.models.attention import KERNEL_HEAD_DIMS
 from kakveda_tpu_torch.models.llama import (
     LlamaConfig,
     Params,
@@ -286,10 +286,13 @@ class DecodeSession:
 
 class LlamaRuntime:
     """On-device Llama generation with the shared ``GenerateResult`` meta
-    shape. Runs on the card unless ``device`` names another; the card serves
-    bf16 models of head_dim 32, 64, 96, 128 or 256 only (the flash
-    kernel's; the default preset's is 32), and a runtime on the card
-    refuses any other when it is built.
+    shape. Runs on the card unless ``device`` names another. The card
+    serves any dtype and head_dim the CPU port takes, each layer's
+    attention where ``models/attention.card_path`` sends it: bf16 at
+    head_dim 32, 64, 96, 128 or 256 and f32 at 64 or 128 through the flash
+    kernel's bodies, anything else (f16, head_dim 80, an f32 model over an
+    int8 cache) through ``gqa_grouped``, as the JAX package takes
+    ``_gqa_xla`` there.
     ``quant="int8"`` serves int8 weight-only weights
     (``models/quant.py``): drawn from the seed, each matrix is quantized as
     it is drawn, so no bf16 copy of the model ever exists; given ``params``,
@@ -314,16 +317,6 @@ class LlamaRuntime:
             raise ValueError("model vocab smaller than tokenizer vocab")
         if quant not in (None, "none", "int8"):
             raise ValueError(f"unknown quant mode {quant!r} (int8|none)")
-        if self.device.type == "cuda" and self.cfg.dtype != torch.bfloat16:
-            raise ValueError(
-                f"the card serves bf16 models; cfg.dtype={self.cfg.dtype} on the card is not ported"
-            )
-        if self.device.type == "cuda" and self.cfg.head_dim not in KERNEL_HEAD_DIMS:
-            raise ValueError(
-                f"the card's attention kernel takes head_dim "
-                f"{', '.join(map(str, KERNEL_HEAD_DIMS[:-1]))} or {KERNEL_HEAD_DIMS[-1]}; "
-                f"head_dim={self.cfg.head_dim} on the card is not ported"
-            )
         kvq = os.environ.get("KAKVEDA_KV_QUANT", "")
         if kvq and kvq != "none":
             if kvq != "int8":
@@ -374,8 +367,9 @@ class LlamaRuntime:
         """Serve a local HF checkpoint directory (weights, ``config.json``
         and tokenizer files): ``hf_convert.load_hf_checkpoint`` onto
         ``device`` (the card unless named), an ``HFTokenizer`` from the same
-        directory (it needs ``transformers``), labelled by the directory's
-        name. ``quant="int8"`` quantizes the loaded weights."""
+        directory (the port's own ``tokenizer.json`` reader: no
+        ``transformers`` needed), labelled by the directory's name.
+        ``quant="int8"`` quantizes the loaded weights."""
         from kakveda_tpu_torch.models.hf_convert import load_hf_checkpoint
         from kakveda_tpu_torch.models.tokenizer import HFTokenizer
 
@@ -502,11 +496,13 @@ class LlamaRuntime:
                         outs[i].append(t)
         return outs
 
-    def _generate_ids(self, ids: List[List[int]], max_tokens: int):
+    def _generate_ids(self, ids: List[List[int]], max_tokens: int, span: str):
         """Token lists for ``ids``: through the engine when every request
         fits its window, else (or when the engine closed meanwhile) the solo
         path. A batch of two or more first registers its common token head
-        of 16 or more as a prefix, best-effort. Returns (ids, meta extras)."""
+        of 16 or more as a prefix, best-effort. The engine's wait is the
+        profiler range ``<span>_online``, the solo path's ``<span>``.
+        Returns (ids, meta extras)."""
         eng = self.engine()
         if eng is not None and all(eng.fits(len(i), max_tokens) for i in ids):
             try:
@@ -517,8 +513,9 @@ class LlamaRuntime:
                             eng.register_prefix(list(common))
                         except (RuntimeError, TimeoutError):
                             pass  # an optimization only: the batch still runs
-                futs = [eng.submit(i, max_new_tokens=max_tokens) for i in ids]
-                outs = [f.result() for f in futs]
+                with profiling.annotate(f"{span}_online"):
+                    futs = [eng.submit(i, max_new_tokens=max_tokens) for i in ids]
+                    outs = [f.result() for f in futs]
                 extra = {"continuous": True}
                 tl = getattr(futs[0], "timeline", None)
                 if len(futs) == 1 and tl is not None:
@@ -526,7 +523,8 @@ class LlamaRuntime:
                 return outs, extra
             except RuntimeError:
                 pass  # engine closed or died between fits() and the results
-        return self._generate_ids_chunked(ids, max_tokens), {}
+        with profiling.annotate(span):
+            return self._generate_ids_chunked(ids, max_tokens), {}
 
     def generate(self, prompt: str, *, model: Optional[str] = None, max_tokens: int = 64) -> GenerateResult:
         """One completion: through the engine (or the solo path), or with
@@ -539,13 +537,14 @@ class LlamaRuntime:
         if os.environ.get("KAKVEDA_SPEC", "") == "1":
             from kakveda_tpu_torch.models.speculative import generate_tokens_speculative
 
-            new_ids, stats = generate_tokens_speculative(
-                self.params, self.cfg, self._encode(prompt), max_new_tokens=max_tokens,
-                eos_id=self.tokenizer.EOS, return_stats=True,
-            )
+            with profiling.annotate("llama.generate_spec"):
+                new_ids, stats = generate_tokens_speculative(
+                    self.params, self.cfg, self._encode(prompt), max_new_tokens=max_tokens,
+                    eos_id=self.tokenizer.EOS, return_stats=True,
+                )
             extra = {"speculative": True, "tokens_per_round": round(stats["tokens_per_round"], 2)}
         else:
-            (new_ids,), extra = self._generate_ids([self._encode(prompt)], max_tokens)
+            (new_ids,), extra = self._generate_ids([self._encode(prompt)], max_tokens, "llama.generate")
         return GenerateResult(
             text=self.tokenizer.decode(new_ids),
             meta={
@@ -652,7 +651,7 @@ class LlamaRuntime:
         get_device_health().check()
         if not prompts:
             return []
-        new_ids, extra = self._generate_ids([self._encode(p) for p in prompts], max_tokens)
+        new_ids, extra = self._generate_ids([self._encode(p) for p in prompts], max_tokens, "llama.generate_batch")
         latency_ms = int((time.perf_counter() - started) * 1000)
         label = model or self.model_label
         return [

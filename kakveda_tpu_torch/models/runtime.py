@@ -241,7 +241,9 @@ class MultiModelRuntime:
     between checkpoint directories of any family ``models/hf_convert.py``
     takes). Labels are the directories' names, the first is the default,
     and a checkpoint loads (``LlamaRuntime.from_hf`` on ``device``) on its
-    first request, so only models that are asked for occupy the card.
+    first request, so only models that are asked for occupy the card. Each
+    directory's tokenizer is read by ``models/tokenizer.HFTokenizer``, so
+    no ``transformers`` is needed.
 
     **HBM budget** (``hbm_budget_bytes`` or ``KAKVEDA_HBM_BUDGET=12GiB``):
     each loaded model is charged its exact weight bytes plus its serving

@@ -5,8 +5,10 @@ C interface, compiled by ``nvcc`` for ``sm_90a`` into
 ``kakveda_tpu_torch/csrc/build/`` (git-ignored) under a name keyed by a hash
 of its source and flags, so an edited kernel rebuilds and an unchanged one
 loads as it is. The flash kernel builds as one library per head_dim,
-``flash_gqa_cache:<d>`` for each d of ``FLASH_HEAD_DIMS``, compiled with
-``-DKKV_HEAD_DIM=<d>``, so its instantiations compile in parallel.
+``flash_gqa_cache:<d>`` for each d of ``FLASH_HEAD_DIMS`` (bf16 and int8
+caches) and ``flash_gqa_cache_f32:<d>`` for each d of
+``FLASH_F32_HEAD_DIMS`` (f32 models), compiled with ``-DKKV_HEAD_DIM=<d>``,
+so its instantiations compile in parallel.
 ``build()`` starts one ``nvcc`` per target, all at once. No ``nvcc``, or a
 failed build, raises: there is no fallback.
 """
@@ -47,15 +49,17 @@ def _nvcc() -> str:
     return path
 
 
-FLASH_HEAD_DIMS = (32, 64, 96, 128, 256)  # one flash library each
+FLASH_HEAD_DIMS = (32, 64, 96, 128, 256)  # one flash library each (bf16 and int8 caches)
+FLASH_F32_HEAD_DIMS = (64, 128)  # one f32 flash library each
+HEAD_DIMS = {"flash_gqa_cache": FLASH_HEAD_DIMS, "flash_gqa_cache_f32": FLASH_F32_HEAD_DIMS}
 
 
 def targets() -> list:
-    """Every library the sources make: ``<name>``, or ``flash_gqa_cache:<d>``
-    for each head_dim of the flash kernel."""
+    """Every library the sources make: ``<name>``, or ``<name>:<d>`` for
+    each head_dim of a source built per head_dim (``HEAD_DIMS``)."""
     out = []
     for src in sorted(CSRC.glob("*.cu")):
-        out += [f"{src.stem}:{d}" for d in FLASH_HEAD_DIMS] if src.stem == "flash_gqa_cache" else [src.stem]
+        out += [f"{src.stem}:{d}" for d in HEAD_DIMS[src.stem]] if src.stem in HEAD_DIMS else [src.stem]
     return out
 
 

@@ -1,14 +1,15 @@
 """Server entry point: ``python -m kakveda_tpu_torch.service``.
 
 Port of ``kakveda_tpu/service/main.py`` without the dashboard (ROADMAP
-Queue 1 item 8), multi-host init, the compile ledger or start-up
-profiling. It reads ``data_dir`` and ``index_capacity`` from the runtime
+Queue 1 item 8), multi-host init or the compile ledger. It reads ``data_dir`` and ``index_capacity`` from the runtime
 config (``KAKVEDA_DATA_DIR``, ``KAKVEDA_INDEX_CAPACITY``), loads the native
 library, builds the ``Platform`` on the card (or on ``device``) and serves
 the API until SIGINT or SIGTERM. On the way out it writes a GFKB snapshot
 (best effort, as the reference does) and closes the GFKB so the buffered
 log lines reach the disk: the next start restores the snapshot, replays
-only the log tail, and serves its first mine incrementally.
+only the log tail, and serves its first mine incrementally. With
+``KAKVEDA_PROFILE_DIR`` set it first captures a trace of one warm pre-flight
+warn there (``core/profiling.profile``).
 """
 
 from __future__ import annotations
@@ -22,7 +23,9 @@ import signal
 from aiohttp import web
 
 from kakveda_tpu_torch import native
+from kakveda_tpu_torch.core import profiling
 from kakveda_tpu_torch.core.runtime import get_runtime_config, setup_logging
+from kakveda_tpu_torch.core.schemas import WarningRequest
 from kakveda_tpu_torch.platform import Platform
 from kakveda_tpu_torch.service.app import make_app
 
@@ -68,6 +71,14 @@ def run_server(
             gc.collect()
             gc.freeze()
             gc.set_threshold(50_000, 20, 20)
+        # Zero-code operator profiling: KAKVEDA_PROFILE_DIR=/path captures a
+        # trace of one warm pre-flight warn at startup.
+        logdir = profiling.startup_profile_dir()
+        if logdir:
+            probe = WarningRequest(app_id="_profile", prompt="startup profile probe", tools=[], env={})
+            plat.warn(probe)  # warm outside the trace
+            with profiling.profile(logdir):
+                plat.warn(probe)
         asyncio.run(_serve(plat, host, port))
     finally:
         # Graceful shutdown snapshot: the next start restores it instead of

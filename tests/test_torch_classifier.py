@@ -184,20 +184,39 @@ def test_get_runtime_names_cache_and_device(monkeypatch):
 
 
 def test_card_runtime_refuses_an_unported_head_dim_at_construction(monkeypatch):
-    """The card's attention kernel takes head_dim 32, 64, 96, 128 or 256 and
-    bf16 models: a runtime on the card with head_dim 16, or with an f32
-    model, raises when it is built, so KAKVEDA_CLASSIFIER=tiered fails at
-    start-up, not at the first ambiguous trace of an ingest. Nothing reaches
-    the card: the check comes first. (The tiny preset's head_dim 32 is
-    served there; ``tests/test_torch_cuda.py`` builds it on the card.)"""
+    """The card refuses no head_dim and no dtype when a runtime is built:
+    one with head_dim 16, or an f32 model at the tiny preset's head_dim 32,
+    passes every check and goes on to draw its weights on the card (stubbed
+    here, where there is none), and its attention takes the path
+    ``card_path`` gives: ``gqa_grouped``, since no kernel body takes either
+    (the JAX package's ``_gqa_xla``). Nothing is cached in the registry of
+    runtimes."""
+    from kakveda_tpu_torch.models.attention import card_path
+
+    class Drawn(Exception):
+        pass
+
+    def draw(gen, cfg, device, quant=None):
+        assert torch.device(device).type == "cuda"
+        raise Drawn(cfg)
+
     TR.clear_runtimes()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    class Gen:  # no card here to seed a generator on
+        def __init__(self, device=None):
+            self.device = device
+
+        def manual_seed(self, seed):
+            return self
+
+    monkeypatch.setattr(torch, "Generator", Gen)
+    monkeypatch.setattr(TG, "init_params", draw)
     monkeypatch.delenv("KAKVEDA_LLAMA_PRESET", raising=False)
     try:
-        with pytest.raises(ValueError, match="head_dim 32, 64, 96, 128 or 256; head_dim=16"):
-            TG.LlamaRuntime(cfg=TConfig(d_model=64, n_heads=4, n_kv_heads=2), device="cuda")
-        with pytest.raises(ValueError, match="the card serves bf16 models"):
-            TG.LlamaRuntime(cfg=TConfig(dtype=torch.float32), device="cuda")
+        for cfg in (TConfig(d_model=64, n_heads=4, n_kv_heads=2), TConfig(dtype=torch.float32)):
+            with pytest.raises(Drawn):
+                TG.LlamaRuntime(cfg=cfg, device="cuda")
+            assert card_path(cfg.dtype, cfg.head_dim, False, False) == "grouped"
         assert not TR._RUNTIMES
     finally:
         TR.clear_runtimes()

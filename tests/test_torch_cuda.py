@@ -438,8 +438,13 @@ def test_flash_kernel_refuses_a_short_workspace(gen):
 def test_flash_wrapper_rejects_what_the_kernel_does_not_take(gen):
     q = torch.zeros(1, 1, 8, 128, dtype=torch.bfloat16, device="cuda")
     k = torch.zeros(1, 2, 64, 128, dtype=torch.bfloat16, device="cuda")
-    with pytest.raises(ValueError, match="bf16"):
-        flash_gqa_cache(q.float(), k.float(), k.float(), 64, None)  # f32 model on the card
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        flash_gqa_cache(q.half(), k.half(), k.half(), 64, None)  # no body takes f16 (gqa_grouped does)
+    with pytest.raises(ValueError):  # the f32 body takes D 64 and 128
+        flash_gqa_cache(q[..., :96].float(), k[..., :96].float(), k[..., :96].float(), 64, None)
+    with pytest.raises(ValueError, match="int8"):  # an f32 model over an int8 cache takes gqa_grouped
+        flash_gqa_cache(q.float(), k.to(torch.int8), k.to(torch.int8), 64, None,
+                        k_scale=k[..., 0].float(), v_scale=k[..., 0].float())
     with pytest.raises(ValueError):  # a head_dim the kernel does not take (it takes 32, 64, 96, 128, 256)
         flash_gqa_cache(q[..., :80].contiguous(), k[..., :80].contiguous(), k[..., :80].contiguous(), 64, None)
     with pytest.raises(ValueError):
@@ -659,6 +664,8 @@ def test_batcher_on_the_card_runs_the_kernel(gen, kv_quant):
 
 
 def test_runtime_on_the_card_serves_bf16_only(gen):
+    """The bf16 runtime serves through the engine; an f32 model of the same
+    shapes is no longer refused on the card (the f32 body serves it)."""
     from kakveda_tpu_torch.models.generate import LlamaRuntime
 
     cfg, params = _small_bf16_model(gen)
@@ -670,8 +677,17 @@ def test_runtime_on_the_card_serves_bf16_only(gen):
         rt.close()
     import dataclasses
 
-    with pytest.raises(ValueError, match="bf16"):
-        LlamaRuntime(cfg=dataclasses.replace(cfg, dtype=torch.float32), params=params)
+    f32 = {k: v.float() if torch.is_tensor(v) and v.is_floating_point() else v for k, v in params.items()
+           if k != "layers"}
+    f32["layers"] = [{k: v.float() for k, v in layer.items()} for layer in params["layers"]]
+    before = flash_gqa_cache.launches_f32
+    rt = LlamaRuntime(cfg=dataclasses.replace(cfg, dtype=torch.float32), params=f32)
+    try:
+        res = rt.generate_batch(["hello", "world!"], max_tokens=6)
+        assert all(r.meta["continuous"] and r.meta["tokens_generated"] <= 6 for r in res)
+    finally:
+        rt.close()
+    assert flash_gqa_cache.launches_f32 > before
 
 
 # ---------------------------------------------------------------------------
@@ -1475,3 +1491,246 @@ def test_default_preset_runtime_serves_on_the_card_with_spec(monkeypatch):
     for p, a, b in zip(ids, *outs):
         margin = _margin_departure(rt.params, rt.cfg, p, a, b)
         assert margin is None or margin < 0.25, (p, a, b, margin)
+
+
+# ---------------------------------------------------------------------------
+# the f32 body, and the card's dispatch: gqa_grouped where no body takes the
+# dtype, the head_dim or the mask
+# ---------------------------------------------------------------------------
+
+# The f32 body against its plain version: f32 sums in another order, so
+# within 1e-4 absolute (rtol 0). Its q is scaled so that the scores are
+# ~N(0, 16): sharp rows, where inputs rounded to a 10-bit mantissa (TF32) or
+# to bf16 move the plain version past the same tolerance (the control).
+F32_ATOL = 1e-4
+F32_Q_SCALE = 4.0
+
+
+def _round_mantissa(x, bits):
+    """``x`` rounded to ``bits`` explicit mantissa bits: 10 is TF32, 7 bf16."""
+    i = x.contiguous().view(torch.int32)
+    drop = 23 - bits
+    return ((i + (1 << (drop - 1))) & ~((1 << drop) - 1)).view(torch.float32)
+
+
+def _f32_case(gen, b, s, h, kv, l, d, pos0, valid):
+    """f32 q (scaled), k, v drawn as f32, and the mask of ``_flash_case``;
+    a ``pos0`` of "verify" gives per-slot positions (``_verify_positions``)."""
+    if pos0 == "verify":
+        pos0, kv_valid = _verify_positions(gen, b, s, l)
+    else:
+        kv_valid = _flash_case(gen, b, s, h, kv, l, 64, pos0, valid, False)[4]
+    q = torch.randn(b, s, h, d, device="cuda", generator=gen) * F32_Q_SCALE
+    k = torch.randn(b, kv, l, d, device="cuda", generator=gen)
+    v = torch.randn(b, kv, l, d, device="cuda", generator=gen)
+    return q, k, v, pos0, kv_valid
+
+
+F32_CASES = [
+    # (b, s, h, kv, l, d, pos0, valid, window, softcap)
+    (8, 1, 32, 8, 2048, 128, 2048, "slots", 0, 0.0),  # decode at Llama-3-8B's heads, split
+    (8, 1, 32, 8, 2048, 64, 2048, "slots", 0, 0.0),
+    (8, 5, 32, 8, 2048, 128, "verify", None, 0, 0.0),  # the verify chunk: S*R = 20, the wide block
+    (8, 5, 8, 2, 1024, 64, "verify", None, 0, 0.0),
+    (1, 512, 32, 8, 1024, 128, 512, "leftpad", 0, 0.0),  # a 512-row prefill piece
+    (1, 512, 8, 2, 1024, 64, 512, "leftpad", 0, 0.0),
+    (2, 3, 8, 8, 100, 64, 40, None, 0, 0.0),  # R = 1, ragged L
+    (2, 9, 32, 4, 300, 128, 0, None, 0, 0.0),  # S*R past one q block
+    (4, 1, 8, 2, 700, 128, 700, "slots", 16, 0.0),  # window, decode regime
+    (2, 16, 8, 2, 300, 128, 250, "leftpad", 37, 0.0),  # window, prefill at pos0 > 0
+    (4, 5, 16, 8, 1024, 128, "verify", None, 256, 2.0),  # softcap and window at per-slot positions
+    (4, 1, 8, 4, 512, 64, 512, "slots", 0, 2.0),  # softcap at decode
+]
+
+
+@pytest.mark.parametrize("b,s,h,kv,l,d,pos0,valid,window,softcap", F32_CASES)
+def test_flash_f32_body_matches_plain(gen, b, s, h, kv, l, d, pos0, valid, window, softcap):
+    """The f32 body against the plain version of its split schedule and the
+    unsplit one, within F32_ATOL: split and unsplit, decode, the verify
+    chunk's per-slot positions, prefill, windows and the softcap (a cap of
+    2 bends scores ~N(0, 16), so the uncapped plain version falls outside);
+    a slot that sees nothing gives zeros; only the f32 counter moves."""
+    from kakveda_tpu_torch.models.attention import (
+        flash_gqa_cache_split_reference,
+        flash_split_count,
+        kernel_blocks_per_sm,
+    )
+
+    q, k, v, pos0, kv_valid = _f32_case(gen, b, s, h, kv, l, d, pos0, valid)
+    vec = torch.is_tensor(pos0)
+    reach = int(pos0.max()) + s if vec else None
+    kw = dict(window=window, softcap=softcap)
+    sr = s * (h // kv)
+    hint = reach if vec else pos0 + s
+    n_split = flash_split_count(b * kv, sr, l, _sms(), reach=hint, blocks_per_sm=kernel_blocks_per_sm(d, False, sr, True))
+    before = (flash_gqa_cache.launches_f32, flash_gqa_cache.launches, flash_gqa_cache.launches_kv8)
+    out = flash_gqa_cache(q, k, v, pos0, kv_valid, reach=reach, **kw)
+    torch.cuda.synchronize()
+    assert (flash_gqa_cache.launches_f32, flash_gqa_cache.launches, flash_gqa_cache.launches_kv8) == (
+        before[0] + 1, before[1], before[2])
+    assert out.dtype == torch.float32 and torch.isfinite(out).all()
+    ref = flash_gqa_cache_reference(q, k, v, pos0, kv_valid, **kw)
+    for want in (flash_gqa_cache_split_reference(q, k, v, pos0, kv_valid, n_split=n_split, **kw), ref):
+        assert (out - want).abs().max().item() <= F32_ATOL
+    if valid == "slots" or vec:
+        assert torch.equal(out[0], torch.zeros_like(out[0]))  # the slot that sees nothing
+    if softcap:
+        uncapped = flash_gqa_cache_reference(q, k, v, pos0, kv_valid, window=window)
+        assert (out - uncapped).abs().max().item() > F32_ATOL
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("shape", ["decode", "verify", "prefill"])
+def test_flash_f32_tolerance_tells_f32_from_tf32_and_bf16(gen, d, shape):
+    """The control at phase 5's f32 shapes: the kernel within F32_ATOL of
+    the plain version, and the plain version over inputs rounded to TF32 or
+    to bf16 outside it."""
+    b, s, h, kv, l, pos0, valid = {
+        "decode": (8, 1, 32, 8, 2048, 2048, "slots"),
+        "verify": (8, 5, 32, 8, 2048, "verify", None),
+        "prefill": (1, 512, 32, 8, 1024, 512, "leftpad"),
+    }[shape]
+    q, k, v, pos0, kv_valid = _f32_case(gen, b, s, h, kv, l, d, pos0, valid)
+    reach = int(pos0.max()) + s if torch.is_tensor(pos0) else None
+    ref = flash_gqa_cache_reference(q, k, v, pos0, kv_valid)
+    out = flash_gqa_cache(q, k, v, pos0, kv_valid, reach=reach)
+    assert (out - ref).abs().max().item() <= F32_ATOL
+    for bits in (10, 7):
+        r = [_round_mantissa(x, bits) for x in (q, k, v)]
+        assert (flash_gqa_cache_reference(*r, pos0, kv_valid) - ref).abs().max().item() > F32_ATOL, bits
+
+
+def test_flash_f32_replays_from_a_cuda_graph(gen):
+    """Split f32 launches and a per-slot one captured in one graph replay
+    equal to eager calls, twice; after the positions and the mask change on
+    the card the per-slot launch equals the plain version at the new ones."""
+    cases = [_f32_case(gen, 8, 1, 32, 8, l, d, l, "slots") for l, d in ((512, 128), (1000, 64))]
+    vq, vk, vv, vpos, vvalid = _f32_case(gen, 8, 5, 32, 8, 1024, 128, "verify", None)
+    reach = 1024
+
+    def run():
+        outs = [flash_gqa_cache(q, k, v, p, m) for q, k, v, p, m in cases]
+        return outs + [flash_gqa_cache(vq, vk, vv, vpos, vvalid, reach=reach)]
+
+    eager = run()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        captured = run()
+    for _ in range(2):
+        for o in captured:
+            o.fill_(float("nan"))
+        g.replay()
+        torch.cuda.synchronize()
+        for o, want in zip(captured, eager):
+            assert torch.equal(o, want)
+    new_pos, new_valid = _verify_positions(gen, 8, 5, 1024)
+    vpos.copy_(new_pos)
+    vvalid.copy_(new_valid)
+    g.replay()
+    torch.cuda.synchronize()
+    assert (captured[-1] - flash_gqa_cache_reference(vq, vk, vv, new_pos, new_valid)).abs().max().item() <= F32_ATOL
+
+
+@pytest.mark.parametrize(
+    "dtype,d,full_mask,kv8,path",
+    [
+        (torch.bfloat16, 128, False, False, "launches"),
+        (torch.bfloat16, 128, False, True, "launches_kv8"),
+        (torch.float32, 64, False, False, "launches_f32"),
+        (torch.float32, 128, False, False, "launches_f32"),
+        (torch.float32, 80, False, False, "grouped"),  # no body at D = 80
+        (torch.bfloat16, 80, False, False, "grouped"),
+        (torch.float16, 64, False, False, "grouped"),  # no f16 body
+        (torch.float32, 128, False, True, "grouped"),  # an f32 model over an int8 cache
+        (torch.bfloat16, 128, True, False, "grouped"),  # a full_mask
+        (torch.float32, 64, True, False, "grouped"),
+    ],
+)
+def test_card_dispatch_counts_and_matches_the_cpu(gen, dtype, d, full_mask, kv8, path):
+    """``gqa_cache_attention`` on the card goes where ``card_path`` says, and
+    only that counter moves; its output equals the CPU port's (the plain
+    versions) within 1e-4 in f32, 2e-2 in bf16 / f16 (one step of |out| <~ 3)."""
+    from kakveda_tpu_torch.models.attention import card_path, gqa_cache_attention, gqa_grouped
+
+    assert (card_path(dtype, d, full_mask, kv8) == "grouped") == (path == "grouped")
+    b, s, h, kv, l = 4, 5, 8, 2, 256
+    q = torch.randn(b, s, h, d, device="cuda", generator=gen).to(dtype)
+    k = torch.randn(b, kv, l, d, device="cuda", generator=gen).to(dtype)
+    v = torch.randn(b, kv, l, d, device="cuda", generator=gen).to(dtype)
+    ks = vs = None
+    if kv8:
+        k, ks = _kv_quant_rows(k)
+        v, vs = _kv_quant_rows(v)
+    pos = torch.randint(40, l - s, (b,), device="cuda", generator=gen).to(torch.int32)
+    ar = torch.arange(l, device="cuda")
+    valid = ((ar[None] >= 8) & (ar[None] < (pos + s)[:, None].long())).contiguous()  # every row sees a slot
+    mask = None
+    if full_mask:
+        mask = valid[:, None, :] & (ar[None, None, :] <= (pos[:, None] + torch.arange(s, device="cuda")).long()[..., None])
+    counters = ("launches", "launches_kv8", "launches_f32")
+    before = [getattr(flash_gqa_cache, c) for c in counters] + [gqa_grouped.launches]
+    out = gqa_cache_attention(q, k, v, pos, valid, k_scale=ks, v_scale=vs, full_mask=mask, reach=int(pos.max()) + s)
+    torch.cuda.synchronize()
+    after = [getattr(flash_gqa_cache, c) for c in counters] + [gqa_grouped.launches]
+    moved = [n for n, x, y in zip(counters + ("grouped",), before, after) if x != y]
+    assert moved == [path] and after[(counters + ("grouped",)).index(path)] == before[(counters + ("grouped",)).index(path)] + 1
+    cpu = lambda t: None if t is None else t.cpu()  # noqa: E731
+    want = gqa_cache_attention(*(cpu(t) for t in (q, k, v, pos, valid)), k_scale=cpu(ks), v_scale=cpu(vs),
+                               full_mask=cpu(mask))
+    assert out.dtype == dtype
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    assert (out.float().cpu() - want.float()).abs().max().item() <= tol
+
+
+def _to_dtype(params, dtype):
+    """A parameter tree with every floating leaf in ``dtype``."""
+    conv = lambda v: v.to(dtype) if torch.is_tensor(v) and v.is_floating_point() else v  # noqa: E731
+    out = {k: conv(v) for k, v in params.items() if k != "layers"}
+    out["layers"] = [{k: conv(v) for k, v in layer.items()} for layer in params["layers"]]
+    return out
+
+
+@pytest.mark.parametrize(
+    "dtype,head_dim,path",
+    [(torch.float32, 64, "launches_f32"), (torch.float32, 80, "grouped"), (torch.float16, 64, "grouped"),
+     (torch.bfloat16, 80, "grouped")],
+)
+def test_runtime_of_another_dtype_or_head_dim_on_the_card_gives_the_cpu_tokens(gen, dtype, head_dim, path):
+    """``LlamaRuntime`` serves an f32 model, an f16 one and head_dim 80 on
+    the card (the engine, then the solo path): every forward goes through
+    ``card_path``'s choice, one launch a layer, and the tokens equal the CPU
+    port's on the same weights, or part at a solo top-2 margin under 0.05
+    (f32) / 0.25 (half precisions)."""
+    import dataclasses
+
+    from kakveda_tpu_torch.models.attention import gqa_grouped
+    from kakveda_tpu_torch.models.generate import LlamaRuntime
+    from kakveda_tpu_torch.models.llama import LlamaConfig, init_params
+
+    cfg = LlamaConfig(vocab_size=264, d_model=head_dim * 4, n_layers=2, n_heads=4, n_kv_heads=2, d_ff=512,
+                      max_seq_len=256, effective_vocab=259, dtype=torch.float32)
+    params = init_params(torch.Generator().manual_seed(3), cfg, "cpu")
+    cfg = dataclasses.replace(cfg, dtype=dtype)
+    cpu = LlamaRuntime(cfg=cfg, params=_to_dtype(params, dtype), device="cpu")
+    card_params = _to_dtype(params, dtype)
+    card_params = {k: (v.cuda() if torch.is_tensor(v) else v) for k, v in card_params.items() if k != "layers"}
+    card_params["layers"] = [{k: v.cuda() for k, v in layer.items()} for layer in _to_dtype(params, dtype)["layers"]]
+    rt = LlamaRuntime(cfg=cfg, params=card_params)
+    ids = [rt.tokenizer.encode(p) for p in ("hello there", "the quick brown fox", "a")]
+    count = (lambda: gqa_grouped.launches) if path == "grouped" else (lambda: getattr(flash_gqa_cache, path))
+    try:
+        before = count()
+        got = [rt.engine().submit(i, 12).result(timeout=300) for i in ids]
+        got.append(rt._generate_ids_chunked(ids[:1], 12)[0])  # the solo DecodeSession path
+        assert count() > before
+    finally:
+        rt.close()
+    try:
+        want = [cpu.engine().submit(i, 12).result(timeout=300) for i in ids]
+    finally:
+        cpu.close()
+    tol = 0.05 if dtype == torch.float32 else 0.25
+    for p, a, b in zip(ids + ids[:1], want + want[:1], got):
+        margin = _margin_departure(card_params, cfg, p, a, b)
+        assert margin is None or margin < tol, (p, a, b, margin)

@@ -214,13 +214,17 @@ def test_build_makes_one_flash_library_per_head_dim():
     from kakveda_tpu_torch.ops import _build
 
     names = _build.targets()
-    assert [n for n in names if n.startswith("flash_gqa_cache")] == [
+    assert [n for n in names if n.partition(":")[0] == "flash_gqa_cache"] == [
         f"flash_gqa_cache:{d}" for d in port.KERNEL_HEAD_DIMS
+    ]
+    assert [n for n in names if n.partition(":")[0] == "flash_gqa_cache_f32"] == [
+        f"flash_gqa_cache_f32:{d}" for d in port.KERNEL_F32_HEAD_DIMS
     ]
     assert "fused_topk" in names
     libs = {_build._target(n) for n in names}
     assert len(libs) == len(names)  # a library each
     assert _build._flags("flash_gqa_cache:96")[-1] == "-DKKV_HEAD_DIM=96"
+    assert _build._flags("flash_gqa_cache_f32:128")[-1] == "-DKKV_HEAD_DIM=128"
     assert _build._flags("fused_topk") == _build.NVCC_FLAGS
 
 

@@ -30,7 +30,7 @@ def test_import_loads_no_jax_in_fresh_interpreter():
         assert f"kakveda_tpu_torch.models.{m}" in mods
     for m in ("ops.clustering", "ops.incremental", "index.gfkb", "pipeline.patterns", "native",
               "core.runtime", "core.admission", "service.app", "service.batcher", "service.main",
-              "core.faults", "core.metrics", "index.crashsweep", "index.tiers"):
+              "core.faults", "core.metrics", "index.crashsweep", "index.tiers", "core.profiling"):
         assert f"kakveda_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -66,6 +66,7 @@ def test_import_loads_no_jax_in_fresh_interpreter():
         ("kakveda_tpu_torch.index.tiers", False),
         ("kakveda_tpu_torch.core.admission", False),
         ("kakveda_tpu_torch.core.metrics", False),
+        ("kakveda_tpu_torch.core.profiling", False),
         ("kakveda_tpu_torch.pipeline.warning", False),
         ("kakveda_tpu_torch.service.app", True),
     ],
@@ -175,3 +176,38 @@ def test_port_keeps_its_own_tokenizer():
     ids = tok.encode("héllo", eos=True)
     assert ids[0] == tok.BOS and ids[-1] == tok.EOS and tok.vocab_size == 259
     assert tok.decode(ids) == "héllo"
+
+
+def test_tokenizer_reader_loads_neither_transformers_nor_tokenizers(tmp_path):
+    """Building the port's ``HFTokenizer`` over a tokenizer directory, and
+    encoding and decoding with it, loads neither package in a fresh
+    interpreter (the card's machine has neither). The files are written
+    by hand: a byte-level BPE vocabulary with two merges."""
+    import json
+
+    from kakveda_tpu_torch.models.tokenizer import _BYTE_CHAR
+
+    vocab = {"<|endoftext|>": 0}
+    for b in range(256):
+        vocab[_BYTE_CHAR[b]] = len(vocab)
+    for tok in ("Ġh", "Ġhi"):
+        vocab[tok] = len(vocab)
+    (tmp_path / "tokenizer.json").write_text(json.dumps({
+        "added_tokens": [{"id": 0, "content": "<|endoftext|>", "special": True, "normalized": False}],
+        "normalizer": None,
+        "pre_tokenizer": {"type": "ByteLevel", "add_prefix_space": False, "use_regex": True},
+        "decoder": {"type": "ByteLevel"},
+        "model": {"type": "BPE", "vocab": vocab, "merges": [["Ġ", "h"], ["Ġh", "i"]]},
+    }))
+    (tmp_path / "tokenizer_config.json").write_text(json.dumps({"eos_token": "<|endoftext|>"}))
+    code = (
+        "import sys\n"
+        "from kakveda_tpu_torch.models.tokenizer import HFTokenizer\n"
+        f"tok = HFTokenizer({str(tmp_path)!r})\n"
+        "ids = tok.encode('say hi hi', bos=False)\n"
+        "assert tok.decode(ids) == 'say hi hi' and ids[-1] == 258, ids\n"
+        "print([m for m in sys.modules if m.split('.')[0] in ('transformers', 'tokenizers')])\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.split() == ["[]"], r.stdout
