@@ -144,8 +144,8 @@ JAX package). Phases, each of which raises on failure (exit code != 0):
    top-k over the live rows), an organic resurrection whose row is
    bit-equal to its pre-tombstone row, ``compact()`` (log bytes before and
    after) and a reopen that is identical, tombstones kept; last, a full
-   mine's wall where every cluster spans apps, at 2^15 and 2^16 rows,
-   beside 1 in 64 at 2^16 (the pattern emission grows with the square of
+   mine's wall where every cluster spans apps, at 2^14 and 2^15 rows,
+   beside 1 in 64 at 2^15 (the pattern emission grows with the square of
    the spread clusters). Then ``measure_router``: the default
    ``TierConfig`` on 2^15 rows of ``restart_corpus`` against 2^15 of
    ``tier_corpus``, each through ``upsert_failures_batch`` × 4096 on the
@@ -343,6 +343,40 @@ JAX package). Phases, each of which raises on failure (exit code != 0):
    ``gfkb.match.dispatch``, its ``flash_gqa_kernel`` launches in
    ``llama.generate_batch``; the ten costliest device operations with their
    shares; ``kakveda_device_block_seconds`` on ``/metrics``.
+
+17. the request plane (on objects that exist: no new model, no new 2^20
+   index). a-d on phase 8's ``Platform(capacity=2^20, dim=2048)`` and its
+   app, a second app over the same Platform where a knob is read at
+   ``make_app``: a. 256 ``/warn`` at concurrency 64, each with its own W3C
+   ``traceparent``: every trace holds ``service.request`` under the
+   caller's span and ``gfkb.warn`` under it (tier, native, not degraded,
+   the answer's action), ``fused_topk`` launched once a micro-batch; the
+   span ring's counts. b. ``KAKVEDA_RATELIMIT_RPS=50``, ``_BURST=10``: 100
+   quick ``/ingest`` from one client admit the bucket's arithmetic (burst +
+   rps x elapsed, ±1), the rest 429 with ``reason: "ratelimit"`` and a
+   ``Retry-After``, counted on ``kakveda_admission_shed_total``. c. a small
+   ``KAKVEDA_ADMIT_WARN`` (32): a noisy tenant at concurrency 128 beside a
+   victim at 4: every shed is ``tenant_quota`` naming the noisy tenant, as
+   many as ``kakveda_admission_tenant_shed_total`` counts; the victim holds
+   the reference's noisy-neighbour contract (shed rate ≤ 0.05, the flooder
+   ≥ 0.9 of the sheds, no gap past 1 s; its p95 against 3x its baseline a
+   reading). d. ``KAKVEDA_SANITIZE=1``: one 300 ms block of the loop is one
+   stall of at least 250 ms with a stack; the stalls under a ``/warn``
+   flood and phase 8 b's p50 (named locks off) are readings. e. on phase
+   6's Llama-3-8B after phase 15, the engine (8 slots) with
+   ``KAKVEDA_SERVE_SPEC=4``, the gate held open, under the process-global
+   brownout ladder driven by ``note_pressure`` (dwell 0.5 s): verify chunks
+   at step 0; none at step 1 and the tokens of a ``spec_k`` 0 engine; every
+   output cut at 32 at step 2; the background class then the interactive
+   class shed with ``reason="brownout"`` at steps 3 and 4; down one step a
+   dwell; ``kakveda_brownout_state`` and ``_transitions_total`` equal to the
+   controller's own record; every ``serving.request`` span under its
+   submitter's; then 16 clients through a small interactive bound move the
+   ladder by themselves (a reading). f. phase 8's entry-point child under
+   ``KAKVEDA_FAULTS_TIMELINE`` (``service.handler:1.0:20`` and
+   ``trace.record:1.0:-1`` at t = 2 s): ``/healthz`` answers exactly 20
+   500s, then 200; every ``/warn`` after answers 200 with every span
+   dropped.
 
 Prints a ``{"kernels": [...]}`` line (the flash rows with phase 9's,
 phase 10's, phase 13's, phase 14's and phase 15's launches beside phase
@@ -2939,6 +2973,221 @@ def phase_spec(rt, model_out: dict, card: str) -> dict:
     return out
 
 
+LADDER_DWELL_S = 0.5  # phase 17 e's short dwell (the knob's default is 5 s)
+LADDER_FLOOD_S, LADDER_FLOOD_CLIENTS, LADDER_INTERACTIVE = 6.0, 16, 4
+
+
+def _ladder_run(rq, tok, eng, n_tok: int, what: str, tracer) -> dict:
+    """``generate_batch`` of the 8 prompts through ``rq``'s engine under one
+    caller span; launch counts zeroed just before and read just after."""
+    tok.decoded.clear()
+    zero_launches()
+    f0, c0 = eng.cb.forwards, eng.stats()["spec"]["chunks"]
+    with tracer.start_span("smoke.generate_batch", what=what) as caller:
+        res = rq.generate_batch(PROMPTS, max_tokens=n_tok)
+    torch.cuda.synchronize()
+    n_fwd = eng.cb.forwards - f0
+    mine = hold_launches(rq.cfg, "", n_fwd, what)
+    if len(res) != 8 or not all(r.meta.get("continuous") for r in res):
+        raise AssertionError(f"{what}: generate_batch did not run through the engine")
+    return dict(tokens=list(tok.decoded), launches=mine, forwards=n_fwd,
+                spec_chunks=eng.stats()["spec"]["chunks"] - c0, caller=caller.span_id)
+
+
+def phase_ladder(rt, card: str) -> dict:
+    """Phase 17 e on phase 6's Llama-3-8B weights, after phase 15: the
+    engine (8 slots, window 512, chunk 8) with ``KAKVEDA_SERVE_SPEC=4``, the
+    gate held open, under the process-global brownout ladder, driven by
+    ``note_pressure`` with a dwell of LADDER_DWELL_S to each step and back:
+    verify chunks at step 0; at step 1 none, and the tokens of a spec_k 0
+    engine; at step 2 every output cut at the cap of 32, the plain tokens'
+    prefix; at steps 3 and 4 the background, then the interactive class shed
+    with ``reason="brownout"``; down one step a dwell; the state gauge and
+    transition counts equal to the controller's own record. Then real
+    interactive load past a small interactive bound moves the ladder by
+    itself (a reading). Every ``serving.request`` span lies under its
+    submitter's span."""
+    from kakveda_tpu_torch.core import admission, metrics, trace
+    from kakveda_tpu_torch.core.admission import BROWNOUT_STATES, OverloadError
+    from kakveda_tpu_torch.models.generate import LlamaRuntime
+
+    t_phase = time.perf_counter()
+    tok = RecordingTokenizer()
+    ids = [tok.encode(p) for p in PROMPTS]
+    tracer, reg = trace.get_tracer(), metrics.get_registry()
+    adm = admission.get_admission()
+    b = adm.brownout
+    if b.step != 0:
+        raise AssertionError(f"phase 17 e: the ladder is at {b.state} before the phase")
+    knobs = dict(dwell_s=b.dwell_s, exit=b.exit, interactive=adm.limits["interactive"])
+    out = {}
+
+    def transitions():
+        series = reg.snapshot()["kakveda_brownout_transitions_total"]["series"]
+        return {k: v for k, v in series.items()}
+
+    def gauge_state():
+        series = reg.snapshot()["kakveda_brownout_state"]["series"]
+        on = [k.split("=", 1)[1] for k, v in series.items() if v == 1.0]
+        if len(on) != 1:
+            raise AssertionError(f"phase 17 e: kakveda_brownout_state {series}")
+        return on[0]
+
+    def climb_to(step: int) -> None:
+        while b.step < step:
+            if b.step:
+                time.sleep(LADDER_DWELL_S)
+            b.note_pressure(1.0)
+        if b.step != step or gauge_state() != b.state:
+            raise AssertionError(f"phase 17 e: climbing to step {step}: at {b.state}, gauge {gauge_state()}")
+
+    def step_down_timed() -> list:
+        """Zero-pressure samples every 20 ms until step 0: (seconds, step)
+        at each move."""
+        moves, t0 = [], time.perf_counter()
+        while b.step > 0:
+            if time.perf_counter() - t0 > 10 * LADDER_DWELL_S * len(BROWNOUT_STATES):
+                raise AssertionError(f"phase 17 e: the ladder stuck at {b.state} on the way down")
+            before = b.step
+            b.note_pressure(0.0)
+            if b.step != before:
+                moves.append((time.perf_counter() - t0, b.step))
+            time.sleep(0.02)
+        return moves
+
+    tr0 = transitions()
+    wall0 = time.time()
+    with env_set(KAKVEDA_SERVE_SPEC=SPEC_K, KAKVEDA_SERVE_SPEC_CALIB=0, KAKVEDA_SERVE_SPEC_BREAKEVEN=0):
+        rq = LlamaRuntime(cfg=rt.cfg, params=rt.params, tokenizer=tok, model_label="llama3-8b-phase17",
+                          device=rt.device)
+        eng = rq.engine()
+    plain_rt = LlamaRuntime(cfg=rt.cfg, params=rt.params, tokenizer=tok, model_label="llama3-8b-phase17-plain",
+                            device=rt.device)
+    try:
+        if (eng.cb.B, eng.cb.max_len, eng.cb.chunk_steps, eng.cb.spec_k) != (8, 512, 8, SPEC_K):
+            raise AssertionError("phase 17 e: the engine is not 8 slots, window 512, chunk 8, speculating")
+        plain_eng = plain_rt.engine()
+        plain_rt.generate_batch(PROMPTS[:2], max_tokens=8)  # warm-ups
+        rq.generate_batch(PROMPTS[:2], max_tokens=8)
+        tracer.reset()  # from here, one caller span over each run's serving.request spans
+        plain = _ladder_run(plain_rt, tok, plain_eng, 32, "phase 17 e plain", tracer)
+        b.dwell_s, b.exit = LADDER_DWELL_S, -1.0  # hold each step: the engine's own samples are 0
+        runs = {0: _ladder_run(rq, tok, eng, 32, "phase 17 e step 0", tracer)}
+        if runs[0]["spec_chunks"] <= 0:
+            raise AssertionError("phase 17 e: no verify chunk ran at step 0 with the gate held open")
+        climb_to(1)
+        runs[1] = _ladder_run(rq, tok, eng, 32, "phase 17 e step 1", tracer)
+        if runs[1]["spec_chunks"] or runs[1]["tokens"] != plain["tokens"]:
+            raise AssertionError(f"phase 17 e step 1: {runs[1]['spec_chunks']} verify chunks; tokens == spec_k 0's: "
+                                 f"{runs[1]['tokens'] == plain['tokens']}")
+        climb_to(2)
+        runs[2] = _ladder_run(rq, tok, eng, 48, "phase 17 e step 2", tracer)
+        cap = b.token_cap()
+        if cap != 32 or runs[2]["spec_chunks"] or any(
+                len(t) != cap or t != p[:cap] for t, p in zip(runs[2]["tokens"], plain["tokens"])):
+            raise AssertionError(f"phase 17 e step 2: cap {cap}, lengths {[len(t) for t in runs[2]['tokens']]}")
+        sheds = {}
+        for step in (3, 4):
+            climb_to(step)
+            sheds[step] = []
+            for klass in ("background", "interactive"):
+                try:
+                    got = eng.submit(ids[0], 16, klass=klass).result()
+                    sheds[step].append((klass, "served", len(got)))
+                except OverloadError as e:
+                    sheds[step].append((klass, e.reason, e.klass))
+        want = {3: [("background", "brownout", "background"), ("interactive", "served", 16)],
+                4: [("background", "brownout", "background"), ("interactive", "brownout", "interactive")]}
+        if sheds != want:
+            raise AssertionError(f"phase 17 e steps 3-4: {sheds}")
+        b.exit = knobs["exit"]
+        down = step_down_timed()
+        gaps = [t for t, _ in down[:1]] + [b2 - a2 for (a2, _), (b2, _) in zip(down, down[1:])]
+        if [s2 for _, s2 in down] != [3, 2, 1, 0] or min(gaps[1:]) < LADDER_DWELL_S - 0.01:
+            raise AssertionError(f"phase 17 e: the way down {down}")
+        events = [e for e in adm.recorder.dump() if e["kind"] == "brownout" and e["t"] >= wall0]
+        moved = {}
+        for e in events:
+            key = f"from={e['from']},to={e['to']}"
+            moved[key] = moved.get(key, 0) + 1
+        tr1 = transitions()
+        delta = {k: v - tr0.get(k, 0) for k, v in tr1.items() if v != tr0.get(k, 0)}
+        if delta != moved or gauge_state() != "normal" or len(events) != 8:
+            raise AssertionError(f"phase 17 e: transitions_total moved {delta}, the controller recorded {moved}")
+        occupancy = b.occupancy()
+        # Every serving.request span lies under its generate_batch's span.
+        spans = tracer.dump()
+        callers = {r["caller"] for r in (plain, *runs.values())}
+        served = [x for x in spans if x["name"] == "serving.request"]
+        # 8 a run under its caller's span, and step 3's interactive submit,
+        # made under none, as a root.
+        if len(served) != 8 * 4 + 1 or sum(x["parent_id"] in callers for x in served) != 32:
+            raise AssertionError(f"phase 17 e: {len(served)} serving.request spans, parents "
+                                 f"{sorted({x['parent_id'] for x in served})} against callers {sorted(callers)}")
+        out["steps"] = dict(spec_chunks_step0=runs[0]["spec_chunks"], spec_chunks_step1=runs[1]["spec_chunks"],
+                            cap=cap, sheds={str(k): v for k, v in sheds.items()}, way_down=down,
+                            transitions=delta, spans=len(served),
+                            launches={"plain": plain["launches"], **{str(k): r["launches"] for k, r in runs.items()}})
+        log(f"phase 17 e: Llama-3-8B bf16, 8 slots, KAKVEDA_SERVE_SPEC={SPEC_K} (gate held open), the global ladder "
+            f"driven by note_pressure (dwell {LADDER_DWELL_S} s): step 0 {runs[0]['spec_chunks']} verify chunks; step 1 "
+            f"none, 8 x 32 tokens == the spec_k 0 engine's; step 2 every output cut at {cap}, == their prefix; "
+            f"step 3 background shed (brownout), interactive served; step 4 both shed; down one step a dwell "
+            f"({[round(t, 3) for t, _ in down]} s); transitions_total moved {delta} == the controller's record; "
+            f"{len(served)} serving.request spans, each under its submitter's span [{card}]")
+
+        # Real interactive load: clients admitted through the interactive
+        # class (bound LADDER_INTERACTIVE) flood the engine; the ladder moves
+        # by itself.
+        tr_f = transitions()
+        adm.limits["interactive"] = LADDER_INTERACTIVE
+        steps, outcomes, lock = [], {}, threading.Lock()
+        stop = time.perf_counter() + LADDER_FLOOD_S
+
+        def client(c):
+            j = 0
+            while time.perf_counter() < stop:
+                try:
+                    with adm.slot("interactive", tenant=f"client-{c}"):
+                        eng.submit(ids[(c + j) % 8], 16, klass="interactive").result()
+                    key = "served"
+                except OverloadError as e:
+                    key = e.reason
+                    time.sleep(0.01)
+                with lock:
+                    outcomes[key] = outcomes.get(key, 0) + 1
+                j += 1
+
+        threads = [threading.Thread(target=client, args=(c,)) for c in range(LADDER_FLOOD_CLIENTS)]
+        for th in threads:
+            th.start()
+        while any(th.is_alive() for th in threads):
+            steps.append(b.step)
+            time.sleep(0.05)
+        for th in threads:
+            th.join()
+        adm.limits["interactive"] = knobs["interactive"]
+        occ_flood = b.occupancy()
+        down_flood = step_down_timed()
+        moved_f = {k: v - tr_f.get(k, 0) for k, v in transitions().items() if v != tr_f.get(k, 0)}
+        out["flood"] = dict(max_step=max(steps), steps_seen=sorted(set(steps)), outcomes=outcomes,
+                            occupancy=occ_flood, transitions=moved_f, way_down=down_flood)
+        log(f"phase 17 e, a flood: {LADDER_FLOOD_CLIENTS} clients through the interactive class (bound "
+            f"{LADDER_INTERACTIVE}) for {LADDER_FLOOD_S:g} s: outcomes {outcomes}; the ladder reached "
+            f"{BROWNOUT_STATES[max(steps)]} by itself (steps seen {sorted(set(steps))}), seconds in each state "
+            f"{ {k: round(v, 3) for k, v in occ_flood.items()} }, transitions {moved_f} (a reading) [{card}]")
+        out["occupancy"] = occupancy
+    finally:
+        b.dwell_s, b.exit = knobs["dwell_s"], knobs["exit"]
+        adm.limits["interactive"] = knobs["interactive"]
+        rq.close()
+        plain_rt.close()
+    if b.step != 0:
+        raise AssertionError(f"phase 17 e: the ladder left at {b.state}")
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 17 e: {out['wall_s']:.1f} s")
+    return out
+
+
 def phase_model(card: str) -> dict:
     from kakveda_tpu_torch.models.generate import LlamaRuntime
     from kakveda_tpu_torch.models.llama import LlamaConfig
@@ -2961,6 +3210,7 @@ def phase_model(card: str) -> dict:
     log("model plane: " + json.dumps(out))
     out["lifecycle"] = phase_lifecycle(rt, out, card)
     out["spec"] = phase_spec(rt, out, card)
+    out["ladder"] = phase_ladder(rt, card)
     return out
 
 
@@ -4267,6 +4517,29 @@ async def _service_arms(client, plat, fused_topk, card: str) -> dict:
         f"dispatches (upload, densify, fused_topk, pack; CUDA events) span {span_ms:.3f} ms of the arm's "
         f"{wall * 1e3:.3f} ms ({100 * out['warn_c64_dispatch_span_share']:.2f} %) [{card}]")
 
+    # c, the tracer's cost: 64 x 16 warns at the tracer's head sampling 1
+    # (the default, every span recorded) and 0 (what KAKVEDA_TRACE_SAMPLE=0
+    # sets at import: spans counted, none recorded), in turns 1, 0, 0, 1.
+    # Not in the tally: phase 8's launch count stays comparable.
+    from kakveda_tpu_torch.core import trace
+
+    tracer = trace.get_tracer()
+    sample0, by_rate = tracer.sample, {1.0: [], 0.0: []}
+    try:
+        for rate in (1.0, 0.0, 0.0, 1.0):
+            tracer.sample = rate
+            by_rate[rate].append(await _warn_clients(client._post, 64, 16))
+    finally:
+        tracer.sample = sample0
+    on, off = (statistics.mean(r["warns_per_s"] for r in by_rate[x]) for x in (1.0, 0.0))
+    out["trace_cost"] = dict(sample1=by_rate[1.0], sample0=by_rate[0.0], warns_per_s_sample1=on,
+                             warns_per_s_sample0=off, cost=1.0 - on / off)
+    log(f"phase 8 c, the tracer's cost: 64 x 16 /warn in turns at head sampling 1, 0, 0, 1: "
+        f"{[round(r['warns_per_s'], 1) for r in by_rate[1.0]]} warns/s at 1 (p50 "
+        f"{[round(r['p50_ms'], 3) for r in by_rate[1.0]]} ms) against {[round(r['warns_per_s'], 1) for r in by_rate[0.0]]} "
+        f"at 0 (p50 {[round(r['p50_ms'], 3) for r in by_rate[0.0]]} ms): recording every span costs "
+        f"{100 * out['trace_cost']['cost']:.2f} % of the warns/s [{card}]")
+
     # d. The read routes agree with the platform, then every answer equals
     # a direct warn_batch of the same requests.
     sig = signature_text(f"Summarize report {seen[0]} and include citations", [], {"os": "linux"})
@@ -4500,11 +4773,12 @@ async def _warn_clients(post, clients: int, per_client: int) -> dict:
     return dict(p50_ms=_pct(lat, 0.5), p99_ms=_pct(lat, 0.99), warns_per_s=clients * per_client / wall)
 
 
-def _start_service(root: Path, data: Path, out_path: Path):
+def _start_service(root: Path, data: Path, out_path: Path, **extra_env):
     """``python3 -m kakveda_tpu_torch.service`` on the card at the GFKB's
     real size, its output to ``out_path``; returns (process, base URL)."""
     port = _free_port()
-    env = dict(os.environ, PYTHONPATH=str(root), KAKVEDA_LOG_FORMAT="text", KAKVEDA_INDEX_CAPACITY=str(ROWS))
+    env = dict(os.environ, PYTHONPATH=str(root), KAKVEDA_LOG_FORMAT="text", KAKVEDA_INDEX_CAPACITY=str(ROWS),
+               **extra_env)
     with open(out_path, "wb") as out_f:
         proc = subprocess.Popen([sys.executable, "-m", "kakveda_tpu_torch.service", "--port", str(port),
                                  "--data-dir", str(data)], cwd=root, env=env,
@@ -4545,6 +4819,47 @@ def _stop_service(proc, out_path: Path) -> str:
     return text
 
 
+# Phase 17 f's fault timeline in the entry-point child: at TIMELINE_AT_S
+# service.handler fails the next TIMELINE_500S requests, and trace.record
+# every span until TIMELINE_WARNS /warn have gone through (one span a
+# failed /healthz, one the 200 that ends the poll, two a /warn), so the
+# timed arms after run with no fault armed.
+TIMELINE_AT_S, TIMELINE_500S, TIMELINE_WARNS = 2.0, 20, 16
+TIMELINE_RECORD_FIRES = TIMELINE_500S + 1 + 2 * TIMELINE_WARNS
+
+
+async def _wait_healthz_timeline(s, base_url: str, proc, out_path: Path, t0: float):
+    """``_wait_healthz`` for a child whose fault timeline arms
+    ``service.handler`` for TIMELINE_500S requests: polls until a 200
+    follows that many 500s, and checks that the answers after any early
+    200s are exactly the 500s, then 200. Returns (seconds, statuses)."""
+    import aiohttp
+
+    statuses = []
+    while True:
+        if proc.poll() is not None:
+            raise AssertionError("the service exited early:\n" + out_path.read_text()[-3000:])
+        if time.perf_counter() - t0 > 120:
+            raise AssertionError(f"phase 17 f: no 200 after {TIMELINE_500S} x 500 within 120 s: {statuses}")
+        try:
+            async with s.get(base_url + "/healthz") as r:
+                statuses.append(r.status)
+                body = await r.json()
+        except aiohttp.ClientConnectionError:
+            await asyncio.sleep(0.2)
+            continue
+        if r.status == 500 and "service.handler" not in body.get("error", ""):
+            raise AssertionError(f"phase 17 f: a 500 that is not the armed site's: {body}")
+        if r.status == 200 and statuses.count(500) >= TIMELINE_500S:
+            break
+        if r.status == 200:
+            await asyncio.sleep(0.05)  # up before the timeline fired: poll on
+    tail = statuses[next(i for i, x in enumerate(statuses) if x != 200):]
+    if tail != [500] * TIMELINE_500S + [200]:
+        raise AssertionError(f"phase 17 f: /healthz answered {statuses}")
+    return time.perf_counter() - t0, statuses
+
+
 def run_entry_point(base: Path, card: str) -> dict:
     """``python3 -m kakveda_tpu_torch.service`` as its own process on the
     card, its index at the GFKB's real size: it answers ``/healthz`` within
@@ -4563,7 +4878,11 @@ def run_entry_point(base: Path, card: str) -> dict:
     data = base / "service-data"
     out_path = base / "service.log"
     t0 = time.perf_counter()
-    proc, base_url = _start_service(root, data, out_path)
+    # Phase 17 f: the child's fault timeline, offsets from its import of
+    # core/faults.
+    timeline = json.dumps([{"t": TIMELINE_AT_S, "spec": f"service.handler:1.0:{TIMELINE_500S},"
+                                                        f"trace.record:1.0:{TIMELINE_RECORD_FIRES}"}])
+    proc, base_url = _start_service(root, data, out_path, KAKVEDA_FAULTS_TIMELINE=timeline)
     warn_body = _warn_body("app-z", "Summarize report 1 and include citations")
 
     async def drive():
@@ -4575,7 +4894,18 @@ def run_entry_point(base: Path, card: str) -> dict:
                         raise AssertionError(f"service POST {path}: {r.status} {out}")
                     return out
 
-            up_s = await _wait_healthz(s, base_url, proc, out_path, t0)
+            up_s, statuses = await _wait_healthz_timeline(s, base_url, proc, out_path, t0)
+            # Phase 17 f: TIMELINE_WARNS /warn answer 200 while trace.record
+            # drops each of their spans; that spends the site, so the ring
+            # has recorded nothing since the timeline fired.
+            for i in range(TIMELINE_WARNS):
+                await post("/warn", _warn_body("app-t", f"Trace {i} with trace.record armed"))
+            async with s.get(base_url + "/trace") as r:
+                plane = (await r.json())["plane"]
+            early = next(i for i, x in enumerate(statuses) if x != 200)  # answered before the timeline fired
+            if plane["dropped"] != TIMELINE_RECORD_FIRES or plane["recorded"] != early or plane["ring"] != early:
+                raise AssertionError(f"phase 17 f: the child's trace plane {plane} with trace.record armed "
+                                     f"for {TIMELINE_RECORD_FIRES} spans")
             # One warm-up batch first (the process's first device calls
             # initialize cuBLAS and the allocator), then 8 timed batches.
             warm = [t.model_dump(mode="json") for t in _service_traces(TracePayload, 100_000, 512)]
@@ -4598,7 +4928,8 @@ def run_entry_point(base: Path, card: str) -> dict:
             c64 = await _warn_clients(post, 64, 16)
             return dict(start_s=up_s, ingest_traces_per_s=4096 / ingest_s, warn_c64=c64,
                         confidence=w["confidence"], failure_id=w["references"][0]["failure_id"],
-                        references=[(r["failure_id"], r["score"]) for r in w["references"]])
+                        references=[(r["failure_id"], r["score"]) for r in w["references"]],
+                        timeline=dict(statuses=statuses, plane=plane))
 
     try:
         out = asyncio.run(drive())
@@ -4638,6 +4969,12 @@ def run_entry_point(base: Path, card: str) -> dict:
             or count2 != n_rec or refs2 != out["references"] or w2["confidence"] != out["confidence"]):
         raise AssertionError(f"restart: /failures {count2}, /warn {refs2} vs {out['references']}\n" + second[-2000:])
     out["restart_start_s"] = up2
+    tl = out["timeline"]
+    log(f"phase 17 f: the entry-point child under KAKVEDA_FAULTS_TIMELINE (service.handler:1.0:{TIMELINE_500S} and "
+        f"trace.record:1.0:{TIMELINE_RECORD_FIRES} at t = {TIMELINE_AT_S} s from its import): /healthz answered "
+        f"{tl['statuses'].count(500)} x 500 then 200 ({len(tl['statuses'])} answers); {TIMELINE_WARNS} /warn then "
+        f"answered 200 with trace.record armed (ring {tl['plane']['ring']}, {tl['plane']['dropped']} spans dropped, "
+        f"{tl['plane']['orphaned']} open), which spent the site before the timed arms below [{card}]")
     c64 = out["warn_c64"]
     log(f"python3 -m kakveda_tpu_torch.service ({ROWS} x {DIM} index): answered /healthz after "
         f"{out['start_s']:.1f} s; /ingest/batch 8 x 512 (after one warm-up batch) at "
@@ -4647,6 +4984,324 @@ def run_entry_point(base: Path, card: str) -> dict:
         f"{c64['warns_per_s']:.1f} warns/s; exited 0 on SIGINT with a v5 snapshot of {n_rec} rows; a fresh "
         f"Platform on the card reopened {out['replayed']} records; a second start restored the snapshot, "
         f"answered /healthz after {up2:.1f} s, /failures {count2}, and the same /warn [{card}]")
+    return out
+
+
+def _snap_value(reg, fam: str, label: str = ""):
+    """One series of the registry's snapshot: a counter's or gauge's value,
+    a histogram's count (0 when the series does not exist yet)."""
+    v = reg.snapshot().get(fam, {}).get("series", {}).get(label, 0)
+    return v["count"] if isinstance(v, dict) else v
+
+
+async def _serve_app(app):
+    """``app`` on a TCPSite at a free port: (runner, base URL)."""
+    from aiohttp import web
+
+    runner = web.AppRunner(app)
+    await runner.setup()
+    port = _free_port()
+    await web.TCPSite(runner, "127.0.0.1", port).start()
+    return runner, f"http://127.0.0.1:{port}"
+
+
+async def _fetch(s, method: str, url: str, **kw):
+    """(status, headers, JSON body) of one request."""
+    async with getattr(s, method)(url, **kw) as r:
+        return r.status, r.headers, await r.json()
+
+
+PLANE_WARNS, PLANE_CONC = 256, 64  # phase 17 a
+RL_RPS, RL_BURST, RL_REQUESTS = 50.0, 10.0, 100  # phase 17 b
+def tenant_clients(app_id: str, conc: str, start_s: str, run_s: str) -> int:
+    """Phase 17 c's clients of one tenant, in a process of their own (run as
+    ``python3 -c`` with this function's source, so it imports neither torch
+    nor this script): prints READY once its session is open, waits for a
+    line ``go <base URL>`` on stdin, then keeps ``conc`` /warn of
+    ``app_id`` in flight from ``start_s`` to ``start_s + run_s`` seconds
+    after it. Prints one line, ``TENANT`` and the JSON list of (send time
+    from the go line, status, latency ms, reason, error)."""
+    import asyncio
+    import json
+    import sys
+    import time
+
+    import aiohttp
+
+    start_s, run_s = float(start_s), float(run_s)
+
+    async def go():
+        rec = []
+        async with aiohttp.ClientSession(connector=aiohttp.TCPConnector(limit=0)) as s:
+            print("READY", flush=True)
+            line = await asyncio.get_running_loop().run_in_executor(None, sys.stdin.readline)
+            base = line.split()[1]
+            t0 = time.perf_counter()
+            until = t0 + start_s + run_s
+
+            async def one(c):
+                j = 0
+                while time.perf_counter() < until:
+                    body = {"app_id": app_id, "prompt": f"Summarize report {4 * (c * 997 + j) + 1} and include "
+                                                        "citations", "tools": [], "env": {"os": "linux"}}
+                    t = time.perf_counter()
+                    async with s.post(base + "/warn", json=body) as r:
+                        b = await r.json()
+                    rec.append((t - t0, r.status, (time.perf_counter() - t) * 1e3, b.get("reason"),
+                                b.get("error", "")))
+                    j += 1
+
+            await asyncio.sleep(start_s)
+            await asyncio.gather(*[one(c) for c in range(int(conc))])
+        return rec
+
+    print("TENANT " + json.dumps(asyncio.run(go())), flush=True)
+    return 0
+
+
+def spawn_tenant_clients(tenants) -> list:
+    """Starts ``tenant_clients`` once per (app id, concurrency, start s,
+    run s); ``run_tenant_clients`` sends them off."""
+    import inspect
+
+    src = inspect.getsource(tenant_clients) + "\nimport sys\nsys.exit(tenant_clients(*sys.argv[1:]))\n"
+    return [(t, subprocess.Popen([sys.executable, "-c", src, *map(str, t)], stdin=subprocess.PIPE,
+                                 stdout=subprocess.PIPE)) for t in tenants]
+
+
+async def run_tenant_clients(procs, base: str):
+    """Once every client process of ``spawn_tenant_clients`` is ready, one
+    go line starts them all against ``base`` while this loop goes on
+    serving. Returns (each app id's records, the go time on this process's
+    ``perf_counter``). Every process is killed on the way out."""
+    loop = asyncio.get_running_loop()
+    try:
+        for _, p in procs:
+            line = await asyncio.wait_for(loop.run_in_executor(None, p.stdout.readline), 120)
+            if line.strip() != b"READY":
+                raise AssertionError(f"phase 17 c: a client process said {line!r}")
+        t_go = time.perf_counter()
+        for _, p in procs:
+            p.stdin.write(f"go {base}\n".encode())
+            p.stdin.flush()
+        out = {}
+        for (app_id, *_), p in procs:
+            stdout, _ = await asyncio.wait_for(loop.run_in_executor(None, p.communicate), 120)
+            line = next((ln for ln in stdout.decode().splitlines() if ln.startswith("TENANT ")), None)
+            if p.returncode != 0 or line is None:
+                raise AssertionError(f"phase 17 c: the {app_id} client process exited {p.returncode}")
+            out[app_id] = json.loads(line[7:])
+        return out, t_go
+    finally:
+        for _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+# Phase 17 c: the victim alone for TENANT_BASE_S, then the flood beside it.
+TENANT_WARN_BOUND, NOISY_CONC, VICTIM_CONC, TENANT_BASE_S, TENANT_FLOOD_S = 32, 128, 4, 1.0, 4.0
+STALL_BLOCK_S = 0.3  # phase 17 d
+RECORDED_WARN_C1_P50 = "5.363-8.468 ms"  # phase 8 b's range as PERF.md section 5 records it
+
+
+async def _request_plane(s, base: str, plat, fused_topk, card: str, warn_c1_p50: float) -> dict:
+    """Phase 17 a-d on phase 8's Platform (2^20 x 2048 on the card) and its
+    app at ``base``; a second app over the same Platform wherever a knob is
+    read at ``make_app``. a. traces of 256 concurrent /warn; b. the token
+    bucket; c. tenant quotas under a noisy neighbour; d. the loop-stall
+    watchdog."""
+    import uuid
+
+    from kakveda_tpu_torch.core import admission, metrics, sanitize, trace
+    from kakveda_tpu_torch.core.schemas import TracePayload
+    from kakveda_tpu_torch.service.app import make_app
+
+    out = {}
+    reg, tracer = metrics.get_registry(), trace.get_tracer()
+    t_phase = time.perf_counter()
+
+    # a. Causal traces: 256 /warn at concurrency 64, each with its own
+    # traceparent; one micro-batch, one fused_topk launch.
+    tracer.reset()
+    heads = [(uuid.uuid4().hex, uuid.uuid4().hex[:16]) for _ in range(PLANE_WARNS)]
+    bodies = [_warn_body(f"app-{'ABCDEFGH'[i % 8]}", f"Summarize report {4 * i + 1} and include citations"
+                         if i % 2 else f"Trace {i} asks about a new topic") for i in range(PLANE_WARNS)]
+    mb0, l0 = _snap_value(reg, "kakveda_microbatch_batch_size", "batcher=warn"), fused_topk.launches
+    answers = [None] * PLANE_WARNS
+
+    async def tracer_client(c):
+        for i in range(c, PLANE_WARNS, PLANE_CONC):
+            tid, sid = heads[i]
+            answers[i] = await _fetch(s, "post", base + "/warn", json=bodies[i],
+                                      headers={"traceparent": f"00-{tid}-{sid}-01"})
+
+    t = time.perf_counter()
+    await asyncio.gather(*[tracer_client(c) for c in range(PLANE_CONC)])
+    wall_a = time.perf_counter() - t
+    launches = fused_topk.launches - l0
+    batches = _snap_value(reg, "kakveda_microbatch_batch_size", "batcher=warn") - mb0
+    if any(a[0] != 200 for a in answers) or launches != batches or not 0 < batches < PLANE_WARNS:
+        raise AssertionError(f"phase 17 a: statuses {sorted({a[0] for a in answers})}, {launches} fused_topk "
+                             f"launches for {batches} micro-batches")
+    _, _, ring = await _fetch(s, "get", base + "/trace")
+    spans = {}
+    for sp in ring["spans"]:
+        spans.setdefault(sp["trace_id"], []).append(sp)
+    ones = [(await _fetch(s, "get", f"{base}/trace/{heads[i][0]}"))[2]["spans"] for i in range(PLANE_WARNS - 8,
+                                                                                                  PLANE_WARNS)]
+    for i, (tid, sid) in enumerate(heads):
+        got = {sp["name"]: sp for sp in spans.get(tid, [])}
+        req, warn = got.get("service.request"), got.get("gfkb.warn")
+        if (len(spans.get(tid, [])) != 2 or req is None or warn is None or req["parent_id"] != sid
+                or warn["parent_id"] != req["span_id"] or req["attrs"].get("status") != 200
+                or {k: warn["attrs"].get(k) for k in ("degraded", "native", "action")}
+                != {"degraded": False, "native": True, "action": answers[i][2]["action"]}
+                or warn["attrs"].get("tier") != answers[i][2]["tier"]):
+            raise AssertionError(f"phase 17 a: trace {tid}: {spans.get(tid)}")
+    if any(sorted(x["name"] for x in o) != ["gfkb.warn", "service.request"] for o in ones):
+        raise AssertionError(f"phase 17 a: /trace/{{id}} gave {ones}")
+    plane = tracer.plane()
+    out["a"] = dict(warns=PLANE_WARNS, micro_batches=batches, launches=launches, warns_per_s=PLANE_WARNS / wall_a,
+                    ring=ring["plane"], plane=plane, tier=answers[0][2]["tier"])
+    log(f"phase 17 a: {PLANE_WARNS} /warn at concurrency {PLANE_CONC}, each with its own traceparent, "
+        f"{PLANE_WARNS / wall_a:.1f} warns/s: every /trace holds service.request (under the caller's span) -> "
+        f"gfkb.warn (tier {answers[0][2]['tier']}, native, not degraded, the answer's action); {batches} "
+        f"micro-batches, {launches} fused_topk launches; the ring read {ring['plane']['ring']} spans of "
+        f"{ring['plane']['capacity']}, {ring['plane']['orphaned']} open (the /trace request's own), "
+        f"{ring['plane']['dropped']} dropped [{card}]")
+
+    # b. The token bucket, on a second app over the same Platform.
+    with env_set(KAKVEDA_RATELIMIT_RPS=RL_RPS, KAKVEDA_RATELIMIT_BURST=RL_BURST):
+        runner_b, base_b = await _serve_app(make_app(plat))
+    shed0 = _snap_value(reg, "kakveda_admission_shed_total", "klass=ingest,reason=ratelimit")
+    traces = [_trace(TracePayload, 400_000 + i, "app-rl", f"Summarize ledger {i} and include citations")
+              .model_dump(mode="json") for i in range(RL_REQUESTS)]
+    res, sent, lat = [], [], []
+    try:
+        for tr in traces:
+            t = time.perf_counter()
+            sent.append(t)
+            res.append(await _fetch(s, "post", base_b + "/ingest", json={"trace": tr}))
+            lat.append(time.perf_counter() - t)
+    finally:
+        await runner_b.cleanup()
+    ok = sum(r[0] == 200 for r in res)
+    shed = [r for r in res if r[0] != 200]
+    span = sent[-1] - sent[0]
+    lo, hi = RL_BURST + RL_RPS * (span - lat[0]) - 1, RL_BURST + RL_RPS * (span + lat[-1]) + 1
+    sheds = _snap_value(reg, "kakveda_admission_shed_total", "klass=ingest,reason=ratelimit") - shed0
+    if (not lo <= ok <= hi or any(r[0] != 429 or r[2].get("reason") != "ratelimit" or not r[1].get("Retry-After")
+                                  for r in shed) or sheds != len(shed)):
+        raise AssertionError(f"phase 17 b: {ok} admitted over {span:.3f} s (bucket allows {lo:.1f}-{hi:.1f}), "
+                             f"{len(shed)} shed, shed_total moved {sheds}: {shed[:2]}")
+    out["b"] = dict(admitted=ok, shed=len(shed), span_s=span, allowed=[lo, hi])
+    log(f"phase 17 b: KAKVEDA_RATELIMIT_RPS={RL_RPS:g}, BURST={RL_BURST:g}: {RL_REQUESTS} quick /ingest from one "
+        f"client over {span:.3f} s: {ok} admitted (the bucket's arithmetic allows {lo:.1f}-{hi:.1f}), {len(shed)} "
+        f"answered 429 with Retry-After and reason ratelimit; kakveda_admission_shed_total{{ingest,ratelimit}} "
+        f"moved {sheds} [{card}]")
+
+    # c. Tenant quotas: a small warn bound, a noisy tenant flooding beside a
+    # victim, both on a third app over the same Platform. Each tenant's
+    # clients run in a process of their own, so this loop serves the app
+    # and nothing else; it also times its own iterations meanwhile.
+    procs = spawn_tenant_clients([("app-victim", VICTIM_CONC, 0.0, TENANT_BASE_S + TENANT_FLOOD_S),
+                                  ("app-noisy", NOISY_CONC, TENANT_BASE_S, TENANT_FLOOD_S)])
+    with env_set(KAKVEDA_ADMIT_WARN=TENANT_WARN_BOUND):
+        adm_c = admission.AdmissionController()
+    runner_c, base_c = await _serve_app(make_app(plat, admission=adm_c))
+    tsh0 = _snap_value(reg, "kakveda_admission_tenant_shed_total", "tenant=app-noisy")
+    lags, lagging = [], [True]
+
+    async def loop_lag():
+        while lagging[0]:
+            t = time.perf_counter()
+            await asyncio.sleep(0.005)
+            lags.append((t, (time.perf_counter() - t - 0.005) * 1e3))
+
+    lag_task = asyncio.ensure_future(loop_lag())
+    try:
+        rec, t_go = await run_tenant_clients(procs, base_c)
+    finally:
+        lagging[0] = False
+        await lag_task
+        await runner_c.cleanup()
+    noisy = rec["app-noisy"]
+    base_v = [x for x in rec["app-victim"] if x[0] < TENANT_BASE_S]
+    victim = [x for x in rec["app-victim"] if x[0] >= TENANT_BASE_S]
+    sheds_n = [x for x in noisy if x[1] == 429]
+    sheds_v = [x for x in victim + base_v if x[1] == 429]
+    other = [x for x in noisy + victim + base_v if x[1] not in (200, 429)]
+    quota = [x for x in sheds_n if x[3] == "tenant_quota" and "app-noisy" in x[4]]
+    tsh = _snap_value(reg, "kakveda_admission_tenant_shed_total", "tenant=app-noisy") - tsh0
+    # The noisy-neighbour contract (the reference's traffic SLO, as
+    # tests/test_tenants.py sets it): over the flood, the victim's shed rate
+    # <= 0.05, the flooder's share of sheds >= 0.9, no victim starved a
+    # second, and the victim's p95 <= 3x its own p95 alone. The first three
+    # hold or the phase fails. The p95 gate fails here in both packages (the
+    # JAX app too, under these clients on a CPU): the flood's own HTTP work
+    # stretches this one loop's iterations, and a victim's request spans
+    # several of them. It is printed, and stays open in ROADMAP Queue 3.
+    v_rate = len(sheds_v) / max(1, len(victim))
+    flood_share = len(sheds_n) / max(1, len(sheds_n) + len(sheds_v))
+    v_ok = sorted(x[0] for x in victim if x[1] == 200)
+    starve = max((b - a for a, b in zip(v_ok, v_ok[1:])), default=0.0)
+    v95 = _pct([x[2] for x in victim if x[1] == 200], 0.95) if v_ok else float("inf")
+    b95 = _pct([x[2] for x in base_v if x[1] == 200], 0.95)
+    if (other or not sheds_n or sheds_v or len(quota) != len(sheds_n) or tsh != len(sheds_n)
+            or v_rate > 0.05 or flood_share < 0.9 or starve > 1.0):
+        raise AssertionError(f"phase 17 c: noisy {len(noisy)} ({len(sheds_n)} shed, {len(quota)} tenant_quota), "
+                             f"victim {len(victim)} ({len(sheds_v)} shed), other statuses {other[:3]}, "
+                             f"tenant_shed_total moved {tsh}, starved {starve:.3f} s")
+    flood0 = t_go + TENANT_BASE_S
+    lag_base = [x for t, x in lags if t_go <= t < flood0]
+    lag_flood = [x for t, x in lags if flood0 <= t < flood0 + TENANT_FLOOD_S]
+
+    def pcts(xs):
+        return [_pct(xs, q) for q in (0.5, 0.95, 1.0)] if xs else None
+
+    out["c"] = dict(noisy=len(noisy), noisy_shed=len(sheds_n), victim=len(victim), victim_shed=len(sheds_v),
+                    victim_baseline=len(base_v), victim_p95_ms=v95, victim_baseline_p95_ms=b95,
+                    victim_p50_ms=_pct([x[2] for x in victim if x[1] == 200], 0.5),
+                    victim_baseline_p50_ms=_pct([x[2] for x in base_v if x[1] == 200], 0.5),
+                    victim_p95_x_baseline=v95 / b95, p95_gate_holds=v95 <= 3.0 * b95, victim_starve_s=starve,
+                    loop_lag_baseline_ms=pcts(lag_base), loop_lag_flood_ms=pcts(lag_flood),
+                    tenants=adm_c.tenants_info())
+    log(f"phase 17 c: KAKVEDA_ADMIT_WARN={TENANT_WARN_BOUND}: app-victim at concurrency {VICTIM_CONC} alone for "
+        f"{TENANT_BASE_S:g} s ({len(base_v)} warns, p95 {b95:.3f} ms), then app-noisy at {NOISY_CONC} beside it for "
+        f"{TENANT_FLOOD_S:g} s, each tenant's clients in a process of their own: {len(sheds_n)} of {len(noisy)} "
+        f"noisy warns shed, every one tenant_quota naming app-noisy, kakveda_admission_tenant_shed_total"
+        f"{{app-noisy}} moved {tsh}; the victim: {len(victim)} warns, {len(sheds_v)} shed, longest gap between "
+        f"answers {starve * 1e3:.1f} ms, p95 {v95:.3f} ms, {v95 / b95:.2f}x its p95 alone: the reference's 3x gate "
+        f"{'holds' if v95 <= 3.0 * b95 else 'FAILS (open in ROADMAP Queue 3, as in the JAX app)'}; this loop's lag "
+        f"(p50, p95, max ms) {pcts(lag_base)} alone, {pcts(lag_flood)} under the flood [{card}]")
+
+    # d. The loop-stall watchdog on an app built with KAKVEDA_SANITIZE=1.
+    with env_set(KAKVEDA_SANITIZE=1):
+        runner_d, base_d = await _serve_app(make_app(plat))
+    try:
+        sanitize.reset()
+        asyncio.get_running_loop().call_soon(time.sleep, STALL_BLOCK_S)
+        await asyncio.sleep(STALL_BLOCK_S + 0.3)
+        stalls = sanitize.sanitizer_report()["stalls"]
+        if (len(stalls) != 1 or stalls[0]["stall_ms"] < 250 or not stalls[0]["stack"].strip()
+                or stalls[0]["stack"] == "<no frame>"):
+            raise AssertionError(f"phase 17 d: stalls after one {STALL_BLOCK_S} s block: {stalls}")
+        blocked = stalls[0]["stall_ms"]
+        sanitize.reset()
+        flood = await _warn_clients(_Http(s, base_d)._post, 64, 4)
+        under = sanitize.sanitizer_report()["stalls"]
+    finally:
+        await runner_d.cleanup()
+        sanitize.reset()
+    out["d"] = dict(stall_ms=blocked, flood_stalls=len(under), flood_stall_ms=[x["stall_ms"] for x in under],
+                    flood=flood, warn_c1_p50_ms=warn_c1_p50)
+    log(f"phase 17 d: KAKVEDA_SANITIZE=1: one {STALL_BLOCK_S * 1e3:.0f} ms block of the loop recorded as one stall "
+        f"of {blocked:.1f} ms with the loop's stack; under 64 x 4 /warn, {len(under)} stalls past 250 ms "
+        f"({[round(x['stall_ms'], 1) for x in under]}, a reading); phase 8 b's /warn p50 at concurrency 1 with "
+        f"the named locks off: {warn_c1_p50:.3f} ms (PERF.md's recorded range: {RECORDED_WARN_C1_P50}, a reading) [{card}]")
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 17 a-d: {out['wall_s']:.1f} s")
     return out
 
 
@@ -4669,8 +5324,15 @@ def phase_service(base: Path, fused_topk, card: str) -> dict:
         port = _free_port()
         await web.TCPSite(runner, "127.0.0.1", port).start()
         try:
-            async with aiohttp.ClientSession(connector=aiohttp.TCPConnector(limit=128)) as s:
-                return await _service_arms(_Http(s, f"http://127.0.0.1:{port}"), plat, fused_topk, card)
+            async with aiohttp.ClientSession(connector=aiohttp.TCPConnector(limit=256)) as s:
+                arms = await _service_arms(_Http(s, f"http://127.0.0.1:{port}"), plat, fused_topk, card)
+                # Phase 17 a-d rides on this Platform and app; its launches
+                # count apart from phase 8's.
+                mark = fused_topk.launches
+                arms["request_plane"] = await _request_plane(s, f"http://127.0.0.1:{port}", plat, fused_topk, card,
+                                                             arms["warn_c1_p50_ms"])
+                arms["launches_request_plane"] = fused_topk.launches - mark
+                return arms
         finally:
             await runner.cleanup()
 
@@ -4744,15 +5406,15 @@ def _build_store(data: Path, corpus, capacity: int):
 
 def measure_emission(base: Path, card: str) -> dict:
     """A full mine's wall where every cluster spans apps (``spread=1``, as
-    ``parity_corpus``) at 2^15 and 2^16 rows, beside phase 11's spread of 64
-    at 2^16. Each spread cluster upserts into one of three patterns (named by
+    ``parity_corpus``) at 2^14 and 2^15 rows, beside phase 11's spread of 64
+    at 2^15. Each spread cluster upserts into one of three patterns (named by
     failure type) and the mine keeps every upsert's view, a copy of the whole
     membership so far, so the emission grows with the square of the spread
     clusters (the JAX package's ``_pattern_view`` too); 651 s at 2^19 rows."""
     from kakveda_tpu_torch.pipeline.patterns import PatternDetector
 
     out = {}
-    for n, spread in ((1 << 15, 1), (1 << 16, 1), (1 << 16, 64)):
+    for n, spread in ((1 << 14, 1), (1 << 15, 1), (1 << 15, 64)):
         store, _ = _build_store(base / f"emit-{n}-{spread}", restart_corpus(n, spread=spread), 1 << 17)
         t = time.perf_counter()
         pats, info = PatternDetector(store).mine_patterns_ex(0.6, mode="full")
@@ -6245,7 +6907,7 @@ def main() -> int:
     log(f"fused_topk launches of the service's requests (phase 8 a-e): {service_launches}")
     check_healthy("phase 8")
     log_held("phase 8")
-    lap("8 service")
+    lap("8, 17 a-d, 17 f service")
 
     # Phase 12 d's child process runs beside phase 11's untimed build and
     # crash sweep (both children mostly start up), joined with the sweep.
@@ -6286,7 +6948,7 @@ def main() -> int:
     held = torch.cuda.memory_allocated()
     model = phase_model(card)
     log_held("phase 6")
-    lap("6, 13, 15 model")
+    lap("6, 13, 15, 17 e model")
     if torch.cuda.memory_allocated() > held + 0.5e9:  # phases 10 and 9 need phase 6's 16 GB back
         raise AssertionError(f"phase 6 left {torch.cuda.memory_allocated() - held} bytes allocated")
     with tempfile.TemporaryDirectory(prefix="kakveda-judge-") as d:
@@ -6358,6 +7020,8 @@ def main() -> int:
         shape=f32_main["shape"], f32_shapes=flash_f32,
     ))
     kernels[0]["launches_judge_warn"] = judge["warn_fused_topk_launches"]
+    kernels[0]["launches_request_plane"] = service["launches_request_plane"]
+    kernels[1]["launches_ladder"] = model["ladder"]["steps"]["launches"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

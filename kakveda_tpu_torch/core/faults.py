@@ -25,8 +25,10 @@ packages.
   process at every durable write seam of a compaction cycle.
   :func:`arm`/:func:`disarm` clear crash arming like any other.
 
-Not ported yet: ``FaultSchedule``, ``schedule`` and
-``KAKVEDA_FAULTS_TIMELINE`` (timed arming for the traffic plane).
+* **Timed arming** (:func:`schedule` / ``KAKVEDA_FAULTS_TIMELINE``): a
+  chaos *timeline* applies full arm specs at scheduled offsets, so a
+  process opens and closes an outage window on its own; the env form
+  gives a child process the same schedule without any admin API.
 """
 
 from __future__ import annotations
@@ -35,18 +37,23 @@ import logging
 import os
 import random
 import threading
+import time
 from typing import Dict, Optional
+
+from kakveda_tpu_torch.core import sanitize
 
 log = logging.getLogger("kakveda.faults")
 
 __all__ = [
     "FaultInjected",
+    "FaultSchedule",
     "FaultSite",
     "site",
     "arm",
     "arm_crash",
     "disarm",
     "armed_sites",
+    "schedule",
 ]
 
 
@@ -87,7 +94,7 @@ class FaultSite:
         )
 
 
-_lock = threading.Lock()
+_lock = sanitize.named_lock("faults._lock")
 _sites: Dict[str, FaultSite] = {}
 _rng = random.Random(0)
 _m_injected = None  # resolved at the first injection: importing faults loads no metrics
@@ -219,6 +226,96 @@ def armed_sites() -> Dict[str, FaultSite]:
         return {n: s for n, s in _sites.items() if s.armed}
 
 
+class FaultSchedule:
+    """Timed arming — a chaos *timeline*: apply full :func:`arm` specs at
+    scheduled offsets from ``start()``.
+
+    Entries are ``{"t": offset_s, "spec": "site:prob:count,…"}`` dicts (or
+    ``(t, spec)`` pairs), applied in offset order by a daemon thread. Each
+    entry carries a COMPLETE arming state — :func:`arm` replaces, so an
+    entry with ``spec=""`` is how an outage window closes (the same
+    disarm-ends-the-outage shape as a manual chaos run). ``speed`` divides
+    the offsets: a 2x replay runs its chaos timeline at 2x too.
+
+    ``cancel()`` stops FUTURE entries only; it deliberately does not
+    disarm — the caller owns terminal cleanup (tests use the standard
+    ``faults.disarm()`` teardown)."""
+
+    def __init__(self, entries, *, speed: float = 1.0, seed: Optional[int] = None):
+        norm = []
+        for e in entries:
+            if isinstance(e, dict):
+                t, spec = float(e["t"]), str(e.get("spec", ""))
+            else:
+                t, spec = float(e[0]), str(e[1])
+            # Parse eagerly so a bad timeline fails at construction, not
+            # mid-run inside a daemon thread nobody is watching.
+            arm_spec_check(spec)
+            norm.append((t, spec))
+        self.entries = sorted(norm, key=lambda p: p[0])
+        self.speed = max(1e-6, float(speed))
+        self.seed = seed
+        self.applied = 0
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    def start(self) -> "FaultSchedule":
+        if self._thread is not None:
+            return self
+        self._thread = threading.Thread(
+            target=self._run, name="kakveda-fault-schedule", daemon=True
+        )
+        self._thread.start()
+        return self
+
+    def _run(self) -> None:
+        t0 = time.monotonic()
+        if self.seed is not None:
+            with _lock:
+                _rng.seed(self.seed)
+        for t, spec in self.entries:
+            delay = t0 + t / self.speed - time.monotonic()
+            if delay > 0 and self._stop.wait(delay):
+                return
+            if self._stop.is_set():
+                return
+            arm(spec)
+            self.applied += 1
+
+    def cancel(self) -> None:
+        self._stop.set()
+
+    def join(self, timeout: Optional[float] = None) -> None:
+        if self._thread is not None:
+            self._thread.join(timeout)
+
+    @property
+    def done(self) -> bool:
+        return self._thread is not None and not self._thread.is_alive()
+
+
+def arm_spec_check(spec: str) -> None:
+    """Validate a ``site:prob:count,…`` spec without touching site state
+    (schedule construction, timeline env parse)."""
+    for part in (spec or "").split(","):
+        part = part.strip()
+        if not part:
+            continue
+        fields = part.split(":")
+        try:
+            float(fields[1]) if len(fields) > 1 and fields[1] else 1.0
+            int(fields[2]) if len(fields) > 2 and fields[2] else 1
+        except ValueError as e:
+            raise ValueError(f"bad fault spec entry {part!r}: {e}") from e
+
+
+def schedule(entries, *, speed: float = 1.0, seed: Optional[int] = None,
+             start: bool = True) -> FaultSchedule:
+    """Build (and by default start) a :class:`FaultSchedule`."""
+    sched = FaultSchedule(entries, speed=speed, seed=seed)
+    return sched.start() if start else sched
+
+
 # Env arming at import: a process started with KAKVEDA_FAULTS set injects
 # from its first event; KAKVEDA_FAULTS_CRASH is how the crash sweep's
 # parent arms a child.
@@ -228,3 +325,17 @@ if _env_spec:
 _env_crash = os.environ.get("KAKVEDA_FAULTS_CRASH", "")
 if _env_crash:
     arm_crash(_env_crash)
+
+# Env chaos timeline: KAKVEDA_FAULTS_TIMELINE is a JSON array of
+# {"t": offset_s, "spec": "site:prob:count,…"} entries, offsets relative to
+# import. This is how a child process gets a mid-run outage window without
+# an admin API: the parent sets the env, the child arms and disarms itself
+# on schedule.
+_env_timeline = os.environ.get("KAKVEDA_FAULTS_TIMELINE", "")
+if _env_timeline:
+    import json as _json
+
+    schedule(
+        _json.loads(_env_timeline),
+        seed=int(os.environ.get("KAKVEDA_FAULTS_SEED", "0")),
+    )

@@ -19,13 +19,16 @@ recorder, so a scrape of the port reads like a scrape of the reference.
   request timelines and engine events per serving engine, dumped as JSON
   by ``GET /flightrecorder`` and into the log when an engine loop dies.
 
-The catalog pre-declares the families of the planes the port reports
-from: the serving engine's, the fault sites', the two admission
-families the engine's ``submit`` moves, and the model router's two HBM
-gauges (``models/runtime.MultiModelRuntime``). The other planes' families come
-with their slices (ROADMAP Queue 1 item 5), as do fleet federation
-(``parse_prometheus_text``, ``federate_renders``) and the stall watchdog
-that names each lock. :func:`device_block` observes
+The catalog pre-declares the reference's families of the planes the port
+reports from: the serving engine, the fault sites, admission and the
+brownout ladder, the device latch, ingest, warn, the micro-batcher,
+mining, the in-process bus publish, and the model router's two HBM gauges
+(``models/runtime.MultiModelRuntime``). Families the reference creates at
+their call sites (the tenant plane's, the GFKB's tiers and tombstones, the
+native scorer's, ``kakveda_warn_request_seconds``) are created at the same
+call sites here. Not ported yet: the bus's URL-delivery families and fleet
+federation (``parse_prometheus_text``, ``federate_renders``), which come
+with the fleet. :func:`device_block` observes
 ``kakveda_device_block_seconds`` for ``core/profiling.annotate``.
 
 Knobs: ``KAKVEDA_METRICS_RECORDER`` — flight-recorder ring capacity per
@@ -41,6 +44,8 @@ import time
 import weakref
 from bisect import bisect_left
 from typing import Dict, Iterable, List, Optional, Tuple
+
+from kakveda_tpu_torch.core import sanitize
 
 __all__ = [
     "Counter",
@@ -376,8 +381,7 @@ class MetricsRegistry:
 # for the planes the port reports from. Declared up front so a bare-process
 # scrape already names the serving TTFT / tokens-per-second / gate-state
 # families, and so there is one place the shapes live; the instrumentation
-# sites get-or-create against these. The speculation families stay at a
-# spec_k = 0 pool's values: the port serves no speculative chunks.
+# sites get-or-create against these.
 _CORE_FAMILIES = (
     ("histogram", "kakveda_serving_queue_wait_seconds",
      "Submit-to-admission wait in the serving engine queue", ("engine",), None),
@@ -435,6 +439,57 @@ _CORE_FAMILIES = (
     ("histogram", "kakveda_device_block_seconds",
      "Host wall of profiling.annotate()-labeled device blocks, keyed by "
      "annotation name", ("name",), None),
+    ("counter", "kakveda_admission_admitted_total",
+     "Requests admitted per admission class", ("klass",), None),
+    ("gauge", "kakveda_admission_inflight",
+     "In-flight (admitted, not yet released) requests per admission class",
+     ("klass",), None),
+    ("gauge", "kakveda_brownout_state",
+     "1 on the brownout ladder's current step "
+     "(normal|no_spec|clamped|shed_background|shed_interactive)",
+     ("state",), None),
+    ("counter", "kakveda_brownout_transitions_total",
+     "Brownout ladder step transitions", ("from", "to"), None),
+    ("gauge", "kakveda_device_degraded",
+     "1 while the accelerator backend is latched DEGRADED (device-loss "
+     "mode: host-fallback warn, fail-fast generation)", (), None),
+    ("counter", "kakveda_device_degraded_transitions_total",
+     "Degraded-mode latch transitions", ("to",), None),
+    ("counter", "kakveda_device_probe_total",
+     "Backend recovery-probe attempts by result", ("result",), None),
+    ("histogram", "kakveda_ingest_batch_seconds",
+     "Classify+embed+insert wall per ingest batch", (), None),
+    ("counter", "kakveda_ingest_traces_total",
+     "Traces classified by the intelligence pipeline", (), None),
+    ("counter", "kakveda_ingest_failures_total",
+     "Failure signals detected by the classifier tier", (), None),
+    ("histogram", "kakveda_microbatch_batch_size",
+     "Coalesced batch size per micro-batcher drain", ("batcher",),
+     (1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0)),
+    ("gauge", "kakveda_hbm_budget_bytes",
+     "Configured HBM weight+KV budget (0 = unbudgeted)", (), None),
+    ("gauge", "kakveda_microbatch_queue_depth",
+     "Requests waiting in a micro-batcher queue", ("batcher",), None),
+    ("counter", "kakveda_mine_attach_total",
+     "Rows attached to the incremental cluster state by neighbor source",
+     ("source",), None),
+    ("gauge", "kakveda_mine_clusters",
+     "Live clusters in the incremental mining state", (), None),
+    ("counter", "kakveda_mine_merges_total",
+     "Cluster merges performed by incremental attachment", (), None),
+    ("counter", "kakveda_mine_sweeps_total",
+     "Pattern-mining sweeps by mode", ("mode",), None),
+    ("histogram", "kakveda_mine_update_seconds",
+     "Incremental cluster-state update wall per drained delta batch", (), None),
+    ("histogram", "kakveda_warn_batch_seconds",
+     "Device kNN match wall per warn batch", (), None),
+    ("counter", "kakveda_warn_fallback_total",
+     "Warn verdicts served by the host-side fallback index while the "
+     "backend is degraded", (), None),
+    ("counter", "kakveda_warn_requests_total",
+     "Pre-flight warn verdicts by action", ("action",), None),
+    ("counter", "kakveda_bus_events_published_total",
+     "Events published on the in-process bus", ("topic",), None),
 )
 
 _REGISTRY = MetricsRegistry()
@@ -482,7 +537,7 @@ class FlightRecorder:
             capacity = int(os.environ.get("KAKVEDA_METRICS_RECORDER", "256"))
         self.name = name
         self.capacity = max(0, capacity)
-        self._lock = threading.Lock()
+        self._lock = sanitize.named_lock("FlightRecorder._lock")
         self._events: List[dict] = []
         _RECORDERS.add(self)
 

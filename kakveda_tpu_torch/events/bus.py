@@ -3,8 +3,10 @@
 Port of ``kakveda_tpu/events/bus.py`` for local subscribers: topics fan out
 to async or sync callables, each awaited with a delivery timeout (sync ones
 in the executor), and a failing subscriber is logged and counted as not
-delivered — it never breaks the fan-out. URL subscriptions with their
-retries, circuit breaker and dead-letter queue come with a later slice.
+delivered — it never breaks the fan-out. Every publish counts its events
+on ``kakveda_bus_events_published_total{topic}``. URL subscriptions with
+their retries, circuit breaker and dead-letter queue (and their metric
+families) come with a later slice.
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ import asyncio
 import logging
 import uuid
 from typing import Any, Awaitable, Callable, Collection, Dict, List, Union
+
+from kakveda_tpu_torch.core import metrics as _metrics
 
 log = logging.getLogger("kakveda.events")
 
@@ -34,6 +38,10 @@ class EventBus:
     def __init__(self, delivery_timeout: float = 3.0):
         self._subs: Dict[str, List[Handler]] = {}
         self.delivery_timeout = delivery_timeout
+        self._m_published = _metrics.get_registry().counter(
+            "kakveda_bus_events_published_total",
+            "Events published on the in-process bus", ("topic",),
+        )
 
     def subscribe(self, topic: str, handler: Handler) -> int:
         if not callable(handler):
@@ -72,6 +80,7 @@ class EventBus:
 
     async def publish(self, topic: str, event: dict, exclude: Collection[Handler] = ()) -> int:
         """Fan out to all subscribers concurrently; returns the delivered count."""
+        self._m_published.labels(topic=topic).inc()
         subs = [s for s in self._subs.get(topic, []) if s not in exclude]
         return await self._fan_out([(s, event) for s in subs]) if subs else 0
 
@@ -79,6 +88,7 @@ class EventBus:
         self, topic: str, events: List[dict], exclude: Collection[Handler] = ()
     ) -> int:
         """Publish a batch of events (every event × subscriber delivery)."""
+        self._m_published.labels(topic=topic).inc(len(events))
         subs = [s for s in self._subs.get(topic, []) if s not in exclude]
         if not subs or not events:
             return 0

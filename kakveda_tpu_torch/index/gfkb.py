@@ -49,9 +49,12 @@ from :meth:`GFKB.match_batch_fallback`, which touches no tensor on the
 card. ``KAKVEDA_HOST_FALLBACK=0`` drops the tiers (no mirror, no cap, no
 fallback).
 
+The reference's lifecycle and mining families
+(``kakveda_gfkb_compact_total``, ``kakveda_gfkb_tombstone_total``,
+``kakveda_gfkb_tombstoned_rows``, ``kakveda_mine_*``,
+``kakveda_warn_fallback_total``) move at the reference's call sites.
 Not yet ported (later slices): replication (the applied-event dedup and
-its tombstone fence) and the metric families (the fallback count is a
-plain integer). Two deviations: a capacity growth re-zeroes the tombstoned
+its tombstone fence). Two deviations: a capacity growth re-zeroes the tombstoned
 rows it re-embeds (the reference's growth leaves them scoring, filtered
 only at assembly), and records parse with pydantic's JSON parser (the same
 records, several times faster).
@@ -77,7 +80,9 @@ import torch
 
 from kakveda_tpu_torch import native
 from kakveda_tpu_torch.core import faults as _faults
+from kakveda_tpu_torch.core import metrics as _metrics
 from kakveda_tpu_torch.core import profiling
+from kakveda_tpu_torch.core import sanitize
 from kakveda_tpu_torch.core.schemas import (
     CanonicalFailureRecord,
     FailureMatch,
@@ -183,7 +188,7 @@ class GFKB:
         self._compact_bytes = int(os.environ.get("KAKVEDA_GFKB_COMPACT_BYTES", "0"))
         self._compact_age_s = float(os.environ.get("KAKVEDA_GFKB_COMPACT_AGE_S", "0"))
         # Reentrant: compact() snapshots and swaps under one critical section.
-        self._snapshot_write_lock = threading.RLock()
+        self._snapshot_write_lock = sanitize.named_lock("GFKB._snapshot_write_lock", kind="rlock")
         # Bumped by reload(); a snapshot that sees it change aborts, and
         # in-flight embeds and mining deltas of the old generation drop.
         self._generation = 0
@@ -210,7 +215,7 @@ class GFKB:
         # Pattern store: set-backed state per name; the log is delta-append
         # (each line carries only the members new in that upsert).
         self._pattern_state: Dict[str, dict] = {}
-        self._lock = threading.Lock()
+        self._lock = sanitize.named_lock("GFKB._lock")
         # Records appended whose rows are not scattered yet: snapshot() and
         # records_and_embeddings wait for them.
         self._pending_embeds = 0
@@ -241,6 +246,58 @@ class GFKB:
                 self.featurizer.dim, tier_config or TierConfig(), self.data_dir if persist else None
             )
         self.fallback_warns = 0  # warn queries this store served degraded
+        reg = _metrics.get_registry()
+        self._m_warn_fallback = reg.counter(
+            "kakveda_warn_fallback_total",
+            "Warn verdicts served by the host-side fallback index while "
+            "the backend is degraded",
+        )
+        # Lifecycle families, children resolved before _replay(). The
+        # "applied" store's children are the reference's (its replication
+        # dedup log); the port has no such log, so they stay at 0.
+        _cmp = reg.counter(
+            "kakveda_gfkb_compact_total",
+            "Durable-log compactions by store and outcome (ok|skipped|"
+            "error|stale_tmp; stale_tmp = leftover temp file from a "
+            "crashed rewrite, removed before the next attempt)",
+            ("store", "outcome"),
+        )
+        self._m_compact = {
+            (st, oc): _cmp.labels(store=st, outcome=oc)
+            for st in ("failures", "applied", "tombstones")
+            for oc in ("ok", "skipped", "error", "stale_tmp")
+        }
+        _tmb = reg.counter(
+            "kakveda_gfkb_tombstone_total",
+            "Row lifecycle transitions by reason (aged = TTL demotion, "
+            "collapsed = near-duplicate fold, resurrected = organic "
+            "re-upsert of a tombstoned signature)",
+            ("reason",),
+        )
+        self._m_tombstone = {r: _tmb.labels(reason=r) for r in ("aged", "collapsed", "resurrected")}
+        self._g_tombstoned = reg.gauge(
+            "kakveda_gfkb_tombstoned_rows",
+            "Currently tombstoned (resident but never matched) GFKB rows",
+        )
+        self._m_mine_update = reg.histogram(
+            "kakveda_mine_update_seconds",
+            "Incremental cluster-state update wall per drained delta batch",
+        )
+        self._m_mine_clusters = reg.gauge(
+            "kakveda_mine_clusters",
+            "Live clusters in the incremental mining state",
+        )
+        _attach = reg.counter(
+            "kakveda_mine_attach_total",
+            "Rows attached to the incremental cluster state by neighbor source",
+            ("source",),
+        )
+        self._m_mine_attach = {src: _attach.labels(source=src) for src in ("delta", "reused", "tier")}
+        self._m_mine_merges = reg.counter(
+            "kakveda_mine_merges_total",
+            "Cluster merges performed by incremental attachment",
+        )
+        self._mine_merges_seen = 0
 
         # Incremental mining state (KAKVEDA_MINE_INCREMENTAL=0: no state,
         # no cache, no extra device dispatches — every mine is a full sweep).
@@ -408,6 +465,7 @@ class GFKB:
             if self._tombstoned:
                 # The replay above embedded every row; re-zero the tombstoned ones.
                 self._zero_device_rows_locked(sorted(self._tombstoned))
+            self._g_tombstoned.set(len(self._tombstoned))
 
     def _bulk_insert_chunked(
         self, sparsify, slots: np.ndarray, tids: np.ndarray, route: bool = True, tiers: bool = True
@@ -443,8 +501,13 @@ class GFKB:
         stale: a full replay, or a tail with rows the snapshot never saw,
         leaves a gap that only a full sweep closes."""
         m = self._mine
-        if m is not None and self._records and m.n_rows != len(self._records):
+        if m is None:
+            return
+        if self._records and m.n_rows != len(self._records):
             m.mark_stale("replayed rows not covered by restored cluster state")
+        nc = m.n_clusters_cached()
+        if nc is not None:
+            self._m_mine_clusters.set(nc)
 
     # --- snapshot / restore --------------------------------------------
 
@@ -1125,10 +1188,12 @@ class GFKB:
                             len(wrote), type(e).__name__, e)
                 break
             self._tombstoned[slot] = reason
+            self._m_tombstone[reason].inc()
             wrote.append(slot)
         if wrote:
             self._tomb_view = None
             self._flush_logs()
+            self._g_tombstoned.set(len(self._tombstoned))
         return wrote
 
     def _resurrect_locked(self, slot: int, rec: CanonicalFailureRecord) -> None:
@@ -1140,6 +1205,8 @@ class GFKB:
         )
         self._tombstoned.pop(slot, None)
         self._tomb_view = None
+        self._m_tombstone["resurrected"].inc()
+        self._g_tombstoned.set(len(self._tombstoned))
 
     def age_rows(self, ttl_s: Optional[float] = None, now: Optional[float] = None) -> dict:
         """TTL demotion: tombstone every live row whose last version write
@@ -1225,6 +1292,7 @@ class GFKB:
         if not self.persist:
             raise SnapshotError("compaction requires a persistent GFKB (persist=True)")
         if os.environ.get("KAKVEDA_GFKB_COMPACT", "1") == "0":
+            self._m_compact[("failures", "skipped")].inc()
             return {"compacted": False, "reason": "KAKVEDA_GFKB_COMPACT=0"}
         stale = self.failures_path.with_suffix(".compact-tmp")
         if stale.exists():
@@ -1232,15 +1300,21 @@ class GFKB:
             # never valid input.
             try:
                 stale.unlink()
+                self._m_compact[("failures", "stale_tmp")].inc()
             except OSError as e:
                 log.warning("stale %s could not be removed: %s", stale, e)
         with self._snapshot_write_lock:
             try:
                 self.snapshot()
                 out = self._compact_swap_locked()
+            except SnapshotError:
+                self._m_compact[("failures", "skipped")].inc()
+                raise
             except (OSError, _faults.FaultInjected) as e:
+                self._m_compact[("failures", "error")].inc()
                 log.error("failures-log compaction failed: %s", e)
                 raise
+        self._m_compact[("failures", "ok")].inc()
         log.info("compacted %s: %d -> %d bytes (generation %d)",
                  self.failures_path, out["bytes_before"], out["bytes_after"], out["generation"])
         return out
@@ -1326,9 +1400,11 @@ class GFKB:
                 os.fsync(f.fileno())
             os.replace(tmp, self.tombstones_path)
             self._truncate_pending.pop(self.tombstones_path, None)
+            self._m_compact[("tombstones", "ok")].inc()
         except OSError as e:
             log.warning("tombstone-log compaction skipped: %s", e)
             tmp.unlink(missing_ok=True)
+            self._m_compact[("tombstones", "error")].inc()
         return len(self._tombstoned)
 
     def _maybe_auto_compact(self) -> None:
@@ -1481,6 +1557,7 @@ class GFKB:
         with _fallback_lock:
             self.fallback_warns += len(signature_texts)
             _fallback_total += len(signature_texts)
+        self._m_warn_fallback.inc(len(signature_texts))
         info = {
             "tier": "warm_routed" if routed else "warm",
             "nprobe": self._tiers.cfg.nprobe if routed else None,
@@ -1673,9 +1750,11 @@ class GFKB:
                     ))
             for s, nslots, nsims in reused:
                 m.attach(int(s), nslots, nsims)
+                self._m_mine_attach["reused"].inc()
             for s, nslots, nsims in tier_attach:
                 keep = np.isfinite(nsims) & (nsims >= m.threshold)
                 m.attach(int(s), nslots[keep], nsims[keep])
+                self._m_mine_attach["tier"].inc()
             self.mine_tier_attaches += len(tier_attach)
             if len(self._mine_pending) > self._mine_pending_max:
                 with self._lock:
@@ -1700,12 +1779,14 @@ class GFKB:
             capacity, d_slots, pending, gen = self._mine_pending.popleft()
             if gen != self._generation or m.stale:
                 continue
+            t0 = time.perf_counter()
             try:
                 self._fault_mine.fire()
                 sims, rows = unpack_topk(pending, len(d_slots))
                 for r in range(len(d_slots)):
                     keep = np.isfinite(sims[r]) & (sims[r] >= m.threshold) & (rows[r] < capacity)
                     m.attach(int(d_slots[r]), rows[r][keep], sims[r][keep])
+                    self._m_mine_attach["delta"].inc()
                 drained += len(d_slots)
             except Exception as e:  # noqa: BLE001 — degrade, never desync
                 log.warning(
@@ -1715,6 +1796,10 @@ class GFKB:
                 m.mark_stale(f"drain failed: {type(e).__name__}")
                 self._mine_pending.clear()
                 break
+            self._m_mine_update.observe(time.perf_counter() - t0)
+        nc = m.n_clusters_cached()
+        if nc is not None:
+            self._m_mine_clusters.set(nc)
         return drained
 
     def mine_drain(self) -> int:
@@ -1747,7 +1832,13 @@ class GFKB:
             m = self._mine
             if m is None or m.stale:
                 return []
-            return m.pop_dirty()
+            out = m.pop_dirty()
+            self._m_mine_merges.inc(m.merges - self._mine_merges_seen)
+            self._mine_merges_seen = m.merges
+            nc = m.n_clusters_cached()
+            if nc is not None:
+                self._m_mine_clusters.set(nc)
+            return out
 
     def mine_usable(self, threshold: float) -> bool:
         """Can a mine be served incrementally? The state must be enabled,
@@ -1780,6 +1871,9 @@ class GFKB:
                 [(r.failure_type, r.failure_id, r.affected_apps) for r in self._records],
                 threshold=threshold,
             )
+            nc = m.n_clusters_cached()
+            if nc is not None:
+                self._m_mine_clusters.set(nc)
             if self._tiers is not None:
                 # A fresh full-sweep partition is the best coarse structure
                 # at hand: re-seed the router's centroids from it (a failure

@@ -40,9 +40,12 @@ fault takes the numpy path. ``KAKVEDA_GFKB_TIERED=0`` turns off the hot
 cap, the router and the cold tier (the pre-tiered exact behaviour) while
 the warm mirror keeps serving degraded mode.
 
-The reference's metric families are kept as plain counts on the objects
-(``NativeScorer.calls`` / ``.fallbacks``, ``TieredIndex.route_counts`` /
-``.spill_counts`` / ``.promotions``). Thread-safety: one RLock per
+The reference's metric families (``kakveda_native_score_seconds``,
+``kakveda_native_fallback_total``, ``kakveda_gfkb_tier_*``,
+``kakveda_gfkb_route_candidates``) move at the reference's call sites;
+each object also keeps its own counts (``NativeScorer.calls`` /
+``.fallbacks``, ``TieredIndex.route_counts`` / ``.spill_counts`` /
+``.promotions``). Thread-safety: one named RLock per
 :class:`TieredIndex`; the GFKB serializes its mutations under its own lock
 as well.
 """
@@ -53,15 +56,17 @@ import json
 import logging
 import os
 import shutil
-import threading
 from collections import OrderedDict
 from pathlib import Path
+from time import perf_counter
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from kakveda_tpu_torch import native as _native
 from kakveda_tpu_torch.core import faults as _faults
+from kakveda_tpu_torch.core import metrics as _metrics
+from kakveda_tpu_torch.core import sanitize
 
 log = logging.getLogger("kakveda.tiers")
 
@@ -176,6 +181,21 @@ class NativeScorer:
         self._fault = _faults.site("native.score")
         self.calls = {p: 0 for p in ("warm", "cold", "ivf")}
         self.fallbacks = {r: 0 for r in ("unavailable", "fault", "error")}
+        reg = _metrics.get_registry()
+        h = reg.histogram(
+            "kakveda_native_score_seconds",
+            "Native host-tier scoring call duration by path (warm = warm "
+            "exact scan, cold = cold-shard exact scan, ivf = routed "
+            "candidate scoring)", ("path",),
+        )
+        self._h = {p: h.labels(path=p) for p in ("warm", "cold", "ivf")}
+        c = reg.counter(
+            "kakveda_native_fallback_total",
+            "Host-tier scoring calls served by the numpy fallback by reason "
+            "(unavailable = library off/absent, fault = chaos site "
+            "native.score, error = native call failed)", ("reason",),
+        )
+        self._c_fb = {r: c.labels(reason=r) for r in ("unavailable", "fault", "error")}
 
     def _admit(self, total_rows: int) -> bool:
         """Common gate: tiny scans stay numpy (no fallback counted — a
@@ -187,11 +207,13 @@ class NativeScorer:
             if self.require:
                 raise RuntimeError("KAKVEDA_NATIVE=require but the native scorer is unavailable")
             self.fallbacks["unavailable"] += 1
+            self._c_fb["unavailable"].inc()
             return False
         try:
             self._fault.fire()
         except Exception:  # noqa: BLE001 — FaultInjected → numpy, never a failed warn
             self.fallbacks["fault"] += 1
+            self._c_fb["fault"].inc()
             return False
         return True
 
@@ -199,6 +221,7 @@ class NativeScorer:
         if self.require:
             raise RuntimeError(f"KAKVEDA_NATIVE=require but {what} failed")
         self.fallbacks["error"] += 1
+        self._c_fb["error"].inc()
 
     def score_block(
         self, qdense: np.ndarray, idx: np.ndarray, val: np.ndarray,
@@ -207,11 +230,13 @@ class NativeScorer:
         b = qdense.shape[0] if qdense.ndim == 2 else 1
         if not self._admit(b * idx.shape[0]):
             return None
+        t0 = perf_counter()
         out = _native.score_block(qdense, idx, val, dim)
         if out is None:
             self._failed("kkv_score_block")
             return None
         self.calls[path] += 1
+        self._h[path].observe(perf_counter() - t0)
         return out
 
     def score_candidates(
@@ -220,11 +245,13 @@ class NativeScorer:
     ) -> Optional[np.ndarray]:
         if not self._admit(int(offsets[-1])):
             return None
+        t0 = perf_counter()
         out = _native.score_candidates(qdense, idx, val, offsets, dim)
         if out is None:
             self._failed("kkv_score_candidates")
             return None
         self.calls["ivf"] += 1
+        self._h["ivf"].observe(perf_counter() - t0)
         return out
 
     def score_gather_segments(
@@ -239,6 +266,7 @@ class NativeScorer:
         path (never a partial result)."""
         if not self._admit(sum(len(s[2]) for s in segments)):
             return None
+        t0 = perf_counter()
         outs: List[np.ndarray] = []
         for idx, val, rows in segments:
             res = _native.score_gather(qdense, idx, val, rows, dim)
@@ -247,6 +275,7 @@ class NativeScorer:
                 return None
             outs.append(res)
         self.calls["ivf"] += 1
+        self._h["ivf"].observe(perf_counter() - t0)
         return outs
 
 
@@ -929,7 +958,7 @@ class TieredIndex:
                  data_dir: Optional[Path] = None):
         self.cfg = config or TierConfig()
         self.dim = dim
-        self.lock = threading.RLock()
+        self.lock = sanitize.named_lock("TieredIndex.lock", kind="rlock")
         self.scorer = NativeScorer()
         self.warm = WarmTier(dim, self.scorer)
         self._data_dir = Path(data_dir) if data_dir is not None else None
@@ -941,11 +970,41 @@ class TieredIndex:
         self._warm_overflow = 0
         self._fault_spill = _faults.site("gfkb.tier_spill")
         self._fault_route = _faults.site("gfkb.tier_route")
-        # The reference's metric families, as counts.
+        # Per-instance counts (info(), tests) beside the process-global
+        # families below.
         self.route_counts = {m: 0 for m in ("routed", "exact", "fault_exact")}
         self.spill_counts = {o: 0 for o in ("cold", "warm_fallback")}
         self.promotions = 0
         self.candidates = 0  # candidate slots gathered over all routed queries
+        reg = _metrics.get_registry()
+        g_rows = reg.gauge(
+            "kakveda_gfkb_tier_rows",
+            "Rows resident per GFKB storage tier (hot = device, warm = "
+            "host RAM, cold = disk shards)", ("tier",),
+        )
+        self._g_rows = {t: g_rows.labels(tier=t) for t in ("hot", "warm", "cold")}
+        c_route = reg.counter(
+            "kakveda_gfkb_tier_route_total",
+            "Tiered match queries by serving mode (routed = IVF candidate "
+            "lists, exact = full scan, fault_exact = routing fault degraded "
+            "to the exact scan)", ("mode",),
+        )
+        self._c_route = {m: c_route.labels(mode=m) for m in ("routed", "exact", "fault_exact")}
+        c_spill = reg.counter(
+            "kakveda_gfkb_tier_spill_total",
+            "Rows spilled past the warm budget by outcome (cold = landed "
+            "on disk, warm_fallback = spill failed, row kept in RAM)",
+            ("outcome",),
+        )
+        self._c_spill = {o: c_spill.labels(outcome=o) for o in ("cold", "warm_fallback")}
+        self._c_promote = reg.counter(
+            "kakveda_gfkb_tier_promote_total",
+            "Cold rows paged in and promoted to the in-RAM LRU",
+        )
+        self._h_cands = reg.histogram(
+            "kakveda_gfkb_route_candidates",
+            "Candidate slots gathered per routed tiered query",
+        )
 
     # -- tier boundaries --------------------------------------------------
 
@@ -1007,6 +1066,7 @@ class TieredIndex:
                         "route via the exact scan until reseeded",
                         type(e).__name__, e,
                     )
+            self._set_gauges()
 
     def _spill(self, slots: np.ndarray, sp_idx: np.ndarray, sp_val: np.ndarray) -> None:
         """Cold-append overflow rows; on ANY failure keep them warm (over
@@ -1035,6 +1095,7 @@ class TieredIndex:
                 )
             cold.append(sp_idx, sp_val)
             self.spill_counts["cold"] += len(slots)
+            self._c_spill["cold"].inc(len(slots))
         except Exception as e:  # noqa: BLE001 — never fail the ingest
             log.warning(
                 "cold spill failed (%s: %s); keeping %d rows warm over "
@@ -1043,6 +1104,15 @@ class TieredIndex:
             self.warm.store(slots, sp_idx, sp_val)
             self._warm_overflow += len(slots)
             self.spill_counts["warm_fallback"] += len(slots)
+            self._c_spill["warm_fallback"].inc(len(slots))
+
+    def _set_gauges(self) -> None:
+        # warm = rows resident in host RAM (the hot tier's degraded-mode
+        # mirror included — it IS the degraded serving capacity).
+        cold_n = self.cold.n if self.cold is not None else 0
+        self._g_rows["hot"].set(self.hot_n)
+        self._g_rows["warm"].set(min(self.n, self.cfg.warm_rows) + self._warm_overflow)
+        self._g_rows["cold"].set(cold_n)
 
     # -- row access -------------------------------------------------------
 
@@ -1054,6 +1124,7 @@ class TieredIndex:
             r = self.cold.row(slot)
             if r is not None:
                 self.promotions += 1
+                self._c_promote.inc()
             return r
         return None
 
@@ -1140,6 +1211,7 @@ class TieredIndex:
                     cands = self.router.route(q_idx, q_val, self.cfg.nprobe)
                     cands = cands[cands >= min_slot]
                     self.candidates += len(cands)
+                    self._h_cands.observe(float(len(cands)))
                     if len(cands):
                         scores, native = self._score_candidates(q_idx, q_val, cands)
                         order = (
@@ -1147,6 +1219,7 @@ class TieredIndex:
                             else np.argsort(-scores)[:k]
                         )
                         self.route_counts["routed"] += 1
+                        self._c_route["routed"].inc()
                         return scores[order], cands[order], "routed"
                     # empty candidate set: fall through to exact (a
                     # confident empty answer would be a silent miss)
@@ -1157,9 +1230,11 @@ class TieredIndex:
                     )
                     scores, slots = self._exact_topk(q_idx, q_val, k, min_slot)
                     self.route_counts["fault_exact"] += 1
+                    self._c_route["fault_exact"].inc()
                     return scores, slots, "fault_exact"
             scores, slots = self._exact_topk(q_idx, q_val, k, min_slot)
             self.route_counts["exact"] += 1
+            self._c_route["exact"].inc()
             return scores, slots, "exact"
 
     def _gather_scores_native(self, qd: np.ndarray, cands: np.ndarray) -> Optional[np.ndarray]:
@@ -1283,6 +1358,7 @@ class TieredIndex:
                         cands = self.router.route(q_idx[i], q_val[i], self.cfg.nprobe)
                         cands = cands[cands >= min_slot]
                         self.candidates += len(cands)
+                        self._h_cands.observe(float(len(cands)))
                         if len(cands):
                             routed_q.append(i)
                             cand_lists.append(cands)
@@ -1294,6 +1370,7 @@ class TieredIndex:
                         )
                         scores, slots = self._exact_topk(q_idx[i], q_val[i], k, min_slot)
                         self.route_counts["fault_exact"] += 1
+                        self._c_route["fault_exact"].inc()
                         results[i] = (scores, slots, "fault_exact")
             if routed_q:
                 # Native plan: zero-copy gather-scoring per query (the
@@ -1316,6 +1393,7 @@ class TieredIndex:
                 if native_res:
                     for j, i in enumerate(routed_q):
                         self.route_counts["routed"] += 1
+                        self._c_route["routed"].inc()
                         results[i] = native_res[j]
                     routed_q = []
             if routed_q:
@@ -1344,11 +1422,13 @@ class TieredIndex:
                     scores = scores_flat[sl]
                     order = np.argsort(-scores)[:k]
                     self.route_counts["routed"] += 1
+                    self._c_route["routed"].inc()
                     results[i] = (scores[order], cand_lists[j][order], "routed")
             for i in range(b):
                 if results[i] is None:
                     scores, slots = self._exact_topk(q_idx[i], q_val[i], k, min_slot)
                     self.route_counts["exact"] += 1
+                    self._c_route["exact"].inc()
                     results[i] = (scores, slots, "exact")
             return results  # type: ignore[return-value]
 
@@ -1441,6 +1521,7 @@ class TieredIndex:
             if self.cold is not None:
                 shutil.rmtree(self.cold.root, ignore_errors=True)
                 self.cold = None
+            self._set_gauges()
 
     def info(self) -> dict:
         with self.lock:

@@ -38,13 +38,13 @@ from __future__ import annotations
 import dataclasses
 import os
 import queue
-import threading
 import time
 from typing import List, Optional
 
 import numpy as np
 import torch
 
+from kakveda_tpu_torch.core import sanitize
 from kakveda_tpu_torch.core import profiling
 from kakveda_tpu_torch.core.admission import get_device_health
 from kakveda_tpu_torch.models.llama import (
@@ -335,7 +335,7 @@ class LlamaRuntime:
         self.quant = quant
         self.model_label = model_label or f"llama-{self.cfg.n_layers}L-{self.cfg.d_model}d"
         self._engine = None
-        self._engine_lock = threading.Lock()
+        self._engine_lock = sanitize.named_lock("LlamaRuntime._engine_lock")
         self._retired = False
 
     @classmethod

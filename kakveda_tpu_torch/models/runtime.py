@@ -28,6 +28,8 @@ import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Protocol
 
+from kakveda_tpu_torch.core import sanitize
+
 # The reference's exact stub text: fake citations that trip the rule
 # classifier deterministically.
 STUB_RESPONSE = (
@@ -279,8 +281,8 @@ class MultiModelRuntime:
         )
         self._loaded: Dict[str, Any] = {}  # label -> LlamaRuntime, least recently used first
         self._bytes: Dict[str, int] = {}  # label -> exact weight + KV bytes
-        self._load_lock = threading.Lock()  # loads, evictions and the budget
-        self._lru_lock = threading.Lock()  # the order of _loaded only
+        self._load_lock = sanitize.named_lock("MultiModelRuntime._load_lock")  # loads, evictions and the budget
+        self._lru_lock = sanitize.named_lock("MultiModelRuntime._lru_lock")  # the order of _loaded only
         from kakveda_tpu_torch.core import metrics as _metrics
 
         reg = _metrics.get_registry()

@@ -6,9 +6,12 @@ supervisor, the weighted-fair slot pick and speculative verify chunks
 (``spec_k`` / ``KAKVEDA_SERVE_SPEC``: host prompt-lookup drafts, per-slot
 draft lengths, the acceptance gate, pipelined verify chunks whose
 positions stay on the card), reporting to the metrics plane
-(``core/metrics.py``). Not ported yet (ROADMAP): the brownout ladder's
-class shed, token cap and speculation veto, and the ledger and trace
-hooks.
+(``core/metrics.py``), the brownout ladder (``core/admission.py``: the
+speculation veto from its first step, the token cap from its second, the
+background and then the interactive class shed from its third and fourth)
+and the causal trace (a ``serving.request`` span per completed request,
+parented on the submitter's ``traceparent``). Not ported yet (ROADMAP):
+the compile ledger.
 
 A :class:`ContinuousBatcher` owns a fixed ``[B, KV, max_len, D]`` KV cache
 and treats the batch axis as B independent slots:
@@ -59,6 +62,8 @@ import torch
 from kakveda_tpu_torch.core import admission as _admission
 from kakveda_tpu_torch.core import faults as _faults
 from kakveda_tpu_torch.core import metrics as _metrics
+from kakveda_tpu_torch.core import sanitize
+from kakveda_tpu_torch.core import trace as _trace
 from kakveda_tpu_torch.core.admission import get_device_health
 from kakveda_tpu_torch.models.attention import gqa_cache_attention
 from kakveda_tpu_torch.models.llama import (
@@ -333,7 +338,7 @@ class ContinuousBatcher:
         # every mutation holds stats_lock (re-entrant: the gate transition
         # nests in locked sections), and readers go through stats_snapshot
         # / ServingEngine.stats.
-        self.stats_lock = threading.RLock()
+        self.stats_lock = sanitize.named_lock("ContinuousBatcher.stats_lock", kind="rlock")
         self.spec_stats = {
             "chunks": 0, "emitted": 0, "slot_chunks": 0,
             "drafted": 0, "accepted": 0,
@@ -1053,14 +1058,18 @@ class ContinuousBatcher:
         """True when the next chunk should be a verify chunk: speculation
         on, the gate not off, the gate's plain-wall calibration done, and
         every active slot greedy. The one predicate of step() and of the
-        engine loop. (The reference's brownout ladder may veto speculation
-        too; the port stays at its level 0, which never does.)"""
+        engine loop. The brownout ladder's first step vetoes speculation
+        here, before a chunk's wall opens: a vetoed chunk is a plain chunk,
+        timed as one, so the gate's break-even never reads it; the gate's
+        own state is untouched, and stepping back down resumes where it
+        left off."""
         return bool(
             self.spec_k
             and self.slots
             and self.spec_stats["gate_state"] != "off"
             and len(self._plain_walls) >= self._gate_calib
             and all(self._temp_np[s] <= 0.0 for s in self.slots)
+            and _admission.get_admission().brownout.spec_allowed()
         )
 
     def step(self) -> List[int]:
@@ -1210,7 +1219,7 @@ class ServingEngine:
         # deadline or None, fut); control items: ("cancel"|"prefix", …, fut).
         self._q: "queue.Queue[tuple]" = queue.Queue()
         self._closed = threading.Event()
-        self._submit_lock = threading.Lock()  # the submit/close race and _waiting
+        self._submit_lock = sanitize.named_lock("ServingEngine._submit_lock")  # the submit/close race and _waiting
         self._pend: Dict[int, Future] = {}  # loop-owned: admitted requests
         self._waiting: List[tuple] = []  # submitted, waiting for a slot
         self._track: Dict[int, dict] = {}  # loop-owned: per-request timelines
@@ -1280,16 +1289,20 @@ class ServingEngine:
         tenant-blind.
 
         Before anything is enqueued: a degraded card fails fast with
-        ``DeviceUnavailableError``; a backlog of ``KAKVEDA_ADMIT_QUEUE``
-        (64) sheds with ``OverloadError``; and with a live backlog, a
-        ``deadline_s`` the observed queue waits say cannot be met is shed
-        now. Neither error is a RuntimeError, so a shed never takes a
-        caller's solo-decode fallback. (The brownout ladder is not ported:
-        the port stays at its level 0, which sheds no class and caps no
-        tokens.)"""
+        ``DeviceUnavailableError``; the brownout ladder may shed the class
+        outright (``reason="brownout"``) or clamp ``max_new_tokens`` to its
+        token cap; a backlog of ``KAKVEDA_ADMIT_QUEUE`` (64) sheds with
+        ``OverloadError``; and with a live backlog, a ``deadline_s`` the
+        observed queue waits say cannot be met is shed now. Neither error
+        is a RuntimeError, so a shed never takes a caller's solo-decode
+        fallback. The caller's ``traceparent`` is captured here and rides
+        the Future: the loop thread has no ambient context."""
         _admission.get_device_health().check()
         adm = _admission.get_admission()
         if adm.enabled:
+            if adm.brownout.class_shed(klass):
+                self._m_requests.labels(engine=self.name, outcome="shed").inc()
+                adm.shed(klass, "brownout", tenant=tenant)
             with self._submit_lock:
                 backlog = self._q.qsize() + len(self._waiting)
             if backlog >= self._admit_queue:
@@ -1307,6 +1320,9 @@ class ServingEngine:
                         detail=f"predicted queue wait {predicted:.2f}s exceeds deadline {deadline_s:.2f}s",
                         tenant=tenant,
                     )
+            cap = adm.brownout.token_cap()
+            if cap is not None:
+                max_new_tokens = min(max_new_tokens, cap)
         with self._submit_lock:
             # Atomic with close()'s drain: a put between its _closed.set()
             # and the drain would hang its caller.
@@ -1316,6 +1332,7 @@ class ServingEngine:
                 raise RuntimeError("ServingEngine is closed")
             t0 = time.perf_counter()
             fut: Future = Future()
+            fut.traceparent = _trace.current_traceparent()
             fut.tenant = tenant
             fut.fair_rounds = 0
             self._q.put((
@@ -1463,14 +1480,16 @@ class ServingEngine:
 
     def _finish_telemetry(self, rid: int, n_tokens: int) -> Optional[dict]:
         """Close a request's timeline: the lifecycle histograms, the
-        ``completed`` outcome, one flight-recorder event; returns the
-        timeline (it rides the caller's Future)."""
+        ``completed`` outcome, one flight-recorder event and one
+        ``serving.request`` span; returns the timeline (it rides the
+        caller's Future)."""
         tr = self._track.pop(rid, None)
         if tr is None:
             return None
         wall = time.perf_counter() - tr["submit"]
         rate = n_tokens / wall if wall > 0 else 0.0
-        self._mx["request"].observe(wall)
+        tp = _trace.parse_traceparent(tr.get("traceparent") or "")
+        self._mx["request"].observe(wall, exemplar=tp[0] if tp else None)
         if n_tokens:
             self._mx["rate"].observe(rate)
         self._m_requests.labels(engine=self.name, outcome="completed").inc()
@@ -1484,6 +1503,18 @@ class ServingEngine:
             "tokens_per_s": round(rate, 2),
         }
         self.recorder.record("request", **tl)
+        # Recorded after the fact (the loop thread has no ambient context),
+        # parented on the submitter's traceparent.
+        rec = _trace.get_tracer().record_completed(
+            "serving.request",
+            traceparent=tr.get("traceparent") or None,
+            ts=time.time() - wall, dur_ms=tl["wall_ms"], outcome="ok",
+            engine=self.name, queue_wait_ms=tl["queue_wait_ms"],
+            prefill_ms=tl["prefill_ms"], ttft_ms=tl["ttft_ms"] or 0.0,
+            tokens=n_tokens,
+        )
+        if rec:
+            tl["trace_id"] = rec["trace_id"]
         return tl
 
     def _finish_rids(self, rids: List[int]) -> None:
@@ -1582,7 +1613,10 @@ class ServingEngine:
         self._mx["queue_wait"].observe(t_admit - t_submit)
         # The live queue-wait history the deadline-aware shed reads.
         _admission.get_admission().note_wait("interactive", t_admit - t_submit)
-        track = {"submit": t_submit, "admit": t_admit, "first": None, "tokens": 0, "deadline": deadline}
+        track = {
+            "submit": t_submit, "admit": t_admit, "first": None, "tokens": 0, "deadline": deadline,
+            "traceparent": getattr(fut, "traceparent", None),
+        }
         mx_ttft = self._mx["ttft"]
 
         def _on_tokens(new, done, _orig=on_tokens, _tr=track):

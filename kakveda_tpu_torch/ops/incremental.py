@@ -30,18 +30,19 @@ carried as edges, so components never split until the next full sweep.
 
 ``ClusterState``, :func:`collapse_groups` and :func:`centroids_from_sparse`
 are numpy-only copies of the reference's, behaving bit for bit the same;
-the state's lock is a plain ``threading.RLock``.
+the state's lock is the reference's named ``ClusterState._lock``
+(``core/sanitize.py``).
 """
 
 from __future__ import annotations
 
-import threading
 from dataclasses import dataclass
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from kakveda_tpu_torch.core import sanitize
 from kakveda_tpu_torch.ops.clustering import _block_topk, _sparse_components
 from kakveda_tpu_torch.ops.knn import batch_bucket, densify, to_device
 
@@ -205,7 +206,7 @@ class ClusterState:
     def __init__(self, threshold: float = 0.6, k: int = 32):
         self.threshold = float(threshold)
         self.k = int(k)
-        self._lock = threading.RLock()
+        self._lock = sanitize.named_lock("ClusterState._lock", kind="rlock")
         self._n = 0
         self._ids = np.full((0, self.k), -1, np.int64)
         self._sims = np.full((0, self.k), -np.inf, np.float32)

@@ -22,11 +22,11 @@ from __future__ import annotations
 
 import json
 import os
-import threading
 from collections import defaultdict, deque
 from pathlib import Path
 from typing import Deque, Dict, List, Optional
 
+from kakveda_tpu_torch.core import sanitize
 from kakveda_tpu_torch.core.config import ConfigStore
 from kakveda_tpu_torch.core.schemas import FailureSignal, HealthPoint, utcnow
 
@@ -75,7 +75,7 @@ class HealthScorer:
             self.data_dir.mkdir(parents=True, exist_ok=True)
         self.health_path = self.data_dir / "health.jsonl"
         self._windows: Dict[str, _AppWindow] = defaultdict(_AppWindow)
-        self._lock = threading.Lock()
+        self._lock = sanitize.named_lock("HealthScorer._lock")
 
     def _append_all(self, points: List[HealthPoint]) -> None:
         if not self.persist or not points:

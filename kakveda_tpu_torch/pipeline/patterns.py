@@ -21,6 +21,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from kakveda_tpu_torch.core import metrics as _metrics
 from kakveda_tpu_torch.core.schemas import FailureSignal, PatternEntity
 from kakveda_tpu_torch.index.gfkb import GFKB
 from kakveda_tpu_torch.ops.clustering import cluster_embeddings
@@ -35,6 +36,9 @@ class PatternDetector:
     def __init__(self, gfkb: GFKB, min_apps: int = 2):
         self.gfkb = gfkb
         self.min_apps = min_apps
+        self._m_sweeps = _metrics.get_registry().counter(
+            "kakveda_mine_sweeps_total", "Pattern-mining sweeps by mode", ("mode",)
+        )
 
     def on_failure(self, failure: FailureSignal) -> Optional[PatternEntity]:
         """Reactor invoked on every failure.detected event."""
@@ -110,6 +114,7 @@ class PatternDetector:
                     "disabled" if not st.get("enabled")
                     else st.get("stale_reason") or "state not usable at this threshold"
                 )
+        self._m_sweeps.labels(mode=info["mode"]).inc()
         info["wall_ms"] = round((time.perf_counter() - t0) * 1000.0, 3)
         info.update(self.gfkb.mine_state_info())
         return out, info

@@ -13,13 +13,18 @@ answer (``match_batch_fallback``) and every verdict says ``degraded=True``.
 A fresh backend error (a CUDA error, an armed ``device.unavailable``)
 latches the mode and takes the same fallback, so the request that finds
 the outage still gets a verdict. Any other error propagates.
+
+Each batch observes ``kakveda_warn_batch_seconds`` (the match's wall) and
+counts its verdicts on ``kakveda_warn_requests_total{action}``.
 """
 
 from __future__ import annotations
 
+import time
 from typing import List, Optional, Sequence
 
 from kakveda_tpu_torch.core import admission as _admission
+from kakveda_tpu_torch.core import metrics as _metrics
 from kakveda_tpu_torch.core.config import ConfigStore
 from kakveda_tpu_torch.core.fingerprint import signature_text
 from kakveda_tpu_torch.core.schemas import WarningRequest, WarningResponse
@@ -33,11 +38,21 @@ class WarningPolicy:
     def __init__(self, gfkb: GFKB, config: Optional[ConfigStore] = None):
         self.gfkb = gfkb
         self.config = config or ConfigStore()
+        reg = _metrics.get_registry()
+        self._m_batch = reg.histogram(
+            "kakveda_warn_batch_seconds",
+            "Device kNN match wall per warn batch",
+        )
+        self._m_verdicts = reg.counter(
+            "kakveda_warn_requests_total",
+            "Pre-flight warn verdicts by action", ("action",),
+        )
 
     def warn(self, req: WarningRequest) -> WarningResponse:
         return self.warn_batch([req])[0]
 
     def warn_batch(self, reqs: Sequence[WarningRequest]) -> List[WarningResponse]:
+        t0 = time.perf_counter()
         threshold = self.config.similarity_threshold()
         default_action = self.config.default_action()
         sigs = [signature_text(r.prompt, r.tools, r.env) for r in reqs]
@@ -54,6 +69,7 @@ class WarningPolicy:
                     raise  # a software fault, not a lost card
                 all_matches, tier_info = self.gfkb.match_batch_fallback(sigs)
                 degraded = True
+        self._m_batch.observe(time.perf_counter() - t0)
         patterns = self.gfkb.list_patterns()
 
         out: List[WarningResponse] = []
@@ -95,4 +111,6 @@ class WarningPolicy:
                         **common,
                     )
                 )
+        for r in out:
+            self._m_verdicts.labels(action=r.action).inc()
         return out

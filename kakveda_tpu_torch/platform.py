@@ -23,11 +23,13 @@ from __future__ import annotations
 
 import asyncio
 import os
+import time
 from pathlib import Path
 from typing import List, Optional, Sequence
 
 import torch
 
+from kakveda_tpu_torch.core import metrics as _metrics
 from kakveda_tpu_torch.core.config import ConfigStore
 from kakveda_tpu_torch.core.fingerprint import signature_text
 from kakveda_tpu_torch.core.schemas import (
@@ -83,6 +85,20 @@ class Platform:
         self.health = HealthScorer(self.data_dir, self.config, persist=persist)
         self.bus.subscribe(TOPIC_TRACE_INGESTED, self._on_trace_event)
         self.bus.subscribe(TOPIC_FAILURE_DETECTED, self._on_failure_event)
+        # Pipeline counters on the process-global metrics plane.
+        reg = _metrics.get_registry()
+        self._m_traces = reg.counter(
+            "kakveda_ingest_traces_total",
+            "Traces classified by the intelligence pipeline",
+        )
+        self._m_failures = reg.counter(
+            "kakveda_ingest_failures_total",
+            "Failure signals detected by the classifier tier",
+        )
+        self._m_batch_wall = reg.histogram(
+            "kakveda_ingest_batch_seconds",
+            "Classify+embed+insert wall per ingest batch",
+        )
 
     # --- event reactors ----------------------------------------------------
 
@@ -97,12 +113,15 @@ class Platform:
     # --- core flows --------------------------------------------------------
 
     async def _classify_and_record(self, traces: Sequence[TracePayload]) -> List[FailureSignal]:
+        t0 = time.perf_counter()
+        self._m_traces.inc(len(traces))
         # Classification and the GFKB's featurize + insert run off the event
         # loop, so one ingest flood does not hold up concurrent handlers.
         loop = asyncio.get_running_loop()
         signals = await loop.run_in_executor(None, self.classifier.classify_batch, traces)
         found = [(t, s) for t, s in zip(traces, signals) if s is not None]
         if not found:
+            self._m_batch_wall.observe(time.perf_counter() - t0)
             return []
         rows = [
             {
@@ -129,6 +148,8 @@ class Platform:
                 [s.model_dump(mode="json") for s in signals_found],
                 exclude=exclude,
             )
+        self._m_failures.inc(len(signals_found))
+        self._m_batch_wall.observe(time.perf_counter() - t0)
         return signals_found
 
     async def ingest(self, trace: TracePayload) -> None:

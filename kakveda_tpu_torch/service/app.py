@@ -27,11 +27,31 @@ from the torch ``Platform`` (the index on the card). Route map:
   GET  /health/{app_id}        health points
   POST /publish, GET /topics   the in-process bus
   GET  /metrics                Prometheus text of the process-global
-                               registry (``core/metrics.py``: the serving
-                               engine's families and the fault sites')
+                               registry (``core/metrics.py``)
   GET  /flightrecorder         every live flight recorder's ring (each
                                serving engine's request timelines, cancels,
-                               deadlines, loop deaths and restarts)
+                               deadlines, loop deaths and restarts; the
+                               admission, device-health and sanitizer
+                               recorders)
+  GET  /trace                  the span ring and its counters
+                               (``core/trace.py``); ``?n=`` the last n
+  GET  /trace/{trace_id}       one trace's spans
+
+The request plane, as the reference has it: every request runs inside a
+``service.request`` span (the incoming W3C ``traceparent`` is its parent,
+else the request id is its trace id) and past the ``service.handler``
+fault site (armed: a clean 500); ``/ingest`` and ``/ingest/batch`` pass
+the per-client token bucket (``KAKVEDA_RATELIMIT_RPS`` / ``_BURST``: a
+429 with ``reason: "ratelimit"``) and run under a ``gfkb.ingest`` span;
+``/warn`` runs under a ``gfkb.warn`` span carrying the answer's tier,
+nprobe, degraded flag, native availability and action, and observes
+``kakveda_warn_request_seconds`` with its trace id as the exemplar.
+Admission is the process-global controller (``core/admission.py``), so
+the serving engine and this app see one pressure picture and one
+brownout ladder, whose step ``/readyz`` reports. With ``KAKVEDA_SANITIZE``
+set the app runs the loop-stall watchdog (``core/sanitize.py``); with
+``KAKVEDA_OTEL_ENABLED`` and the SDK present, the OTel server-span
+middleware (``core/otel.py``).
 
 Not registered yet, so they answer 404, with the ROADMAP Queue 1 item that
 brings each:
@@ -39,12 +59,10 @@ brings each:
   /subscribe /unsubscribe      item 6 (the port's bus refuses URL
                                subscribers)
   /replicate /fleet/* /metrics/fleet  item 6
-  /trace /trace/{trace_id}     item 5 (``core/trace.py``)
 
-Also left for item 5: the per-client rate limiter, traffic capture, otel,
-the service's fault sites and the loop-stall watchdog. The reference's
-``KAKVEDA_WARN_RTT_EMU_MS`` emulates a TPU tunnel's round trip and has no
-counterpart on a local card.
+Traffic capture belongs to the traffic plane and is not ported. The
+reference's ``KAKVEDA_WARN_RTT_EMU_MS`` emulates a TPU tunnel's round trip
+and has no counterpart on a local card.
 """
 
 from __future__ import annotations
@@ -60,13 +78,13 @@ from aiohttp import web
 from pydantic import ValidationError
 
 from kakveda_tpu_torch import native
+from kakveda_tpu_torch.core import admission as _admission
+from kakveda_tpu_torch.core import faults as _faults
 from kakveda_tpu_torch.core import metrics as _metrics
-from kakveda_tpu_torch.core.admission import (
-    AdmissionController,
-    DeviceUnavailableError,
-    OverloadError,
-    get_device_health,
-)
+from kakveda_tpu_torch.core import otel
+from kakveda_tpu_torch.core import sanitize
+from kakveda_tpu_torch.core import trace as _trace
+from kakveda_tpu_torch.core.admission import DeviceUnavailableError, OverloadError
 from kakveda_tpu_torch.core.runtime import ensure_request_id, get_runtime_config
 from kakveda_tpu_torch.core.schemas import (
     FailureMatchRequest,
@@ -82,6 +100,12 @@ from kakveda_tpu_torch.service.batcher import MicroBatcher
 log = logging.getLogger("kakveda.service")
 
 WARN_BATCHER_KEY: web.AppKey[MicroBatcher] = web.AppKey("warn_batcher", MicroBatcher)
+_STALL_WATCHDOG_KEY: web.AppKey[object] = web.AppKey("sanitize_stall_watchdog", object)
+
+# Chaos site for the HTTP tier, resolved once at import: an armed
+# service.handler fault turns a request into a clean 500 before its
+# handler runs.
+_FAULT_HANDLER = _faults.site("service.handler")
 
 
 def _json_error(status: int, message: str) -> web.Response:
@@ -121,21 +145,59 @@ def degraded_response(e: DeviceUnavailableError) -> web.Response:
 @web.middleware
 async def request_context_middleware(request: web.Request, handler):
     """Request id (echoed in the configured header) + duration logging;
-    a shed anywhere under the handler becomes the one 429 shape, and a
-    device path refused while degraded the one 503."""
+    a shed anywhere under the handler becomes the one 429 shape, a device
+    path refused while degraded the one 503, and an armed
+    ``service.handler`` a clean 500.
+
+    The request runs inside a ``service.request`` span: the incoming W3C
+    ``traceparent`` is its parent, else a new root whose trace id is the
+    request id (32 hex), so logs, the echoed header and the span tree join
+    on one key. Handlers reach the span as ``request["trace_span"]``. When
+    the otel middleware runs outside this one it already resolved the
+    request id; it is reused."""
     cfg = get_runtime_config(service_name="kakveda-tpu-torch")
-    rid = ensure_request_id(request.headers.get(cfg.request_id_header))
+    rid = request.get("request_id") or ensure_request_id(request.headers.get(cfg.request_id_header))
+    span = _trace.get_tracer().start_span(
+        "service.request",
+        traceparent=request.headers.get(_trace.TRACEPARENT_HEADER),
+        trace_id=rid,
+        path=request.path,
+        method=request.method,
+        rid=rid,
+    )
+    request["trace_span"] = span
+    span.activate()
     started = time.perf_counter()
     try:
+        _FAULT_HANDLER.fire()
         response = await handler(request)
+    except _faults.FaultInjected as e:
+        response = _json_error(500, str(e))
     except OverloadError as e:
         response = overload_response(e)
     except DeviceUnavailableError as e:
         response = degraded_response(e)
     except web.HTTPException as e:
         e.headers[cfg.request_id_header] = rid
+        span.deactivate()
+        span.end(
+            "error" if e.status >= 500 else "shed" if e.status == 429 else span.outcome,
+            status=e.status,
+        )
+        raise
+    except BaseException:
+        span.deactivate()
+        span.end("error")
         raise
     response.headers[cfg.request_id_header] = rid
+    span.deactivate()
+    span.end(
+        "shed" if response.status == 429
+        else "degraded" if response.status == 503
+        else "error" if response.status >= 500
+        else span.outcome,  # a 200 degraded warn may have marked it
+        status=response.status,
+    )
     log.info(
         "request",
         extra={
@@ -157,9 +219,11 @@ def _device_info(device: torch.device) -> dict:
 
 def metrics_routes() -> list:
     """The metrics plane's routes: ``GET /metrics`` (the registry's
-    Prometheus text) and ``GET /flightrecorder`` (every live recorder's
-    ring as JSON). One registry per process, so any app that mounts them
-    shows the whole picture."""
+    Prometheus text), ``GET /flightrecorder`` (every live recorder's ring
+    as JSON), ``GET /trace`` (the span ring and its counters; ``?n=`` the
+    last n) and ``GET /trace/{trace_id}`` (one trace's spans). One registry
+    and one tracer per process, so any app that mounts them shows the
+    whole picture."""
 
     async def metrics_ep(request):
         return web.Response(
@@ -170,20 +234,78 @@ def metrics_routes() -> list:
     async def flightrecorder_ep(request):
         return web.json_response({"recorders": _metrics.dump_recorders()})
 
-    return [web.get("/metrics", metrics_ep), web.get("/flightrecorder", flightrecorder_ep)]
+    async def trace_ring_ep(request):
+        tr = _trace.get_tracer()
+        try:
+            limit = int(request.query["n"]) if "n" in request.query else None
+        except ValueError:
+            limit = None
+        return web.json_response({"plane": tr.plane(), "spans": tr.dump(limit=limit)})
+
+    async def trace_one_ep(request):
+        tid = request.match_info["trace_id"]
+        return web.json_response({"trace_id": tid, "spans": _trace.get_tracer().dump(tid)})
+
+    return [
+        web.get("/metrics", metrics_ep),
+        web.get("/flightrecorder", flightrecorder_ep),
+        web.get("/trace", trace_ring_ep),
+        web.get("/trace/{trace_id}", trace_one_ep),
+    ]
 
 
-def make_app(platform: Optional[Platform] = None, **platform_kw) -> web.Application:
+def make_app(
+    platform: Optional[Platform] = None,
+    admission: Optional[_admission.AdmissionController] = None,
+    **platform_kw,
+) -> web.Application:
     """The API over ``platform`` (or a ``Platform(**platform_kw)``). The
     native library loads here, before the first request: a ``g++`` build
     inside a request thread would stall that request for seconds
-    (``KAKVEDA_NATIVE=require`` raises here if it cannot build)."""
+    (``KAKVEDA_NATIVE=require`` raises here if it cannot build).
+    ``admission`` defaults to the process-global controller; tests may
+    pass a private one."""
     native.load()
     plat = platform or Platform(**platform_kw)
-    adm = AdmissionController()
+    adm = admission if admission is not None else _admission.get_admission()
+    health = _admission.get_device_health()
     device = _device_info(plat.device)
 
-    app = web.Application(middlewares=[request_context_middleware])
+    # Optional per-client token bucket (KAKVEDA_RATELIMIT_RPS) on the
+    # ingest routes — the same 429 shape as admission sheds.
+    rl_rps = float(os.environ.get("KAKVEDA_RATELIMIT_RPS", "0") or 0)
+    bucket = None
+    if rl_rps > 0:
+        from kakveda_tpu_torch.core.ratelimit import TokenBucket
+
+        burst = os.environ.get("KAKVEDA_RATELIMIT_BURST")
+        bucket = TokenBucket(rl_rps, float(burst) if burst else None)
+
+    def _ratelimit(request) -> None:
+        if bucket is None:
+            return
+        ok, ra = bucket.allow(request.remote or "anon")
+        if not ok:
+            adm.note_shed("ingest", "ratelimit", retry_after=ra)
+            raise OverloadError(
+                f"per-client rate limit exceeded ({rl_rps:g} rps)",
+                retry_after=ra, klass="ingest", reason="ratelimit",
+            )
+
+    middlewares = [request_context_middleware]
+    if otel.setup_otel("platform"):
+        middlewares.insert(0, otel.otel_middleware())
+    app = web.Application(middlewares=middlewares)
+
+    # Trace provenance resolved once at construction: warn spans note
+    # whether the native scorer could have served them.
+    _trace.get_tracer().service = os.environ.get("KAKVEDA_REPLICA_ID", "")
+    native_avail = bool(native.status().get("available"))
+    h_warn = _metrics.get_registry().histogram(
+        "kakveda_warn_request_seconds",
+        "End-to-end /warn wall inside the service handler "
+        "(exemplar-linked to its trace id)",
+    )
 
     # KAKVEDA_WARN_MAX_BATCH coalesced requests per device call,
     # KAKVEDA_WARN_DEADLINE_MS straggler wait; the queue is bounded by the
@@ -200,8 +322,17 @@ def make_app(platform: Optional[Platform] = None, **platform_kw) -> web.Applicat
 
     async def _on_startup(app):
         warn_batcher.start()
+        if sanitize.enabled():
+            # Loop-stall watchdog: stalls past KAKVEDA_SANITIZE_STALL_MS
+            # dump the loop thread's stack to the sanitizer flight recorder.
+            wd = sanitize.LoopStallWatchdog()
+            await wd.start()
+            app[_STALL_WATCHDOG_KEY] = wd
 
     async def _on_cleanup(app):
+        wd = app.get(_STALL_WATCHDOG_KEY)
+        if wd is not None:
+            await wd.stop()
         await warn_batcher.stop()
 
     app.on_startup.append(_on_startup)
@@ -215,12 +346,12 @@ def make_app(platform: Optional[Platform] = None, **platform_kw) -> web.Applicat
     async def readyz(request):
         """Readiness with the mode: a degraded platform still answers warns
         from the host tiers, so ``ok`` stays true and ``device.degraded``
-        says how."""
+        says how; ``admission`` carries the brownout ladder's step."""
         return web.json_response(
             {
                 "ok": True,
                 "gfkb_count": plat.gfkb.count,
-                "device": {**device, **get_device_health().info()},
+                "device": {**device, **health.info()},
                 "admission": adm.info(),
                 "tiers": plat.gfkb.tiers_info(),
                 "native": native.status(),
@@ -232,17 +363,20 @@ def make_app(platform: Optional[Platform] = None, **platform_kw) -> web.Applicat
     async def ingest(request):
         # Admission runs BEFORE the body is parsed: a shed must cost
         # microseconds, not a JSON decode and a pydantic pass.
+        _ratelimit(request)
         with adm.slot("ingest"):
             try:
                 req = IngestRequest.model_validate(await request.json())
             except (ValidationError, ValueError) as e:
                 return _json_error(422, str(e))
-            await plat.ingest(req.trace)
+            with _trace.get_tracer().start_span("gfkb.ingest", app_id=req.trace.app_id, n=1):
+                await plat.ingest(req.trace)
         return web.json_response({"ok": True, "trace_id": req.trace.trace_id})
 
     async def ingest_batch(request):
         """One validate + one device scatter per batch; answers the batch's
         failure count."""
+        _ratelimit(request)
         with adm.slot("ingest"):
             try:
                 req = IngestBatchRequest.model_validate(await request.json())
@@ -250,7 +384,10 @@ def make_app(platform: Optional[Platform] = None, **platform_kw) -> web.Applicat
                 return _json_error(422, str(e))
             if not req.traces:
                 return web.json_response({"ok": True, "n": 0, "failures": 0})
-            signals = await plat.ingest_batch(req.traces)
+            with _trace.get_tracer().start_span(
+                "gfkb.ingest", app_id=req.traces[0].app_id, n=len(req.traces)
+            ):
+                signals = await plat.ingest_batch(req.traces)
         return web.json_response({"ok": True, "n": len(req.traces), "failures": len(signals)})
 
     # --- warn -----------------------------------------------------------
@@ -260,7 +397,21 @@ def make_app(platform: Optional[Platform] = None, **platform_kw) -> web.Applicat
             req = WarningRequest.model_validate(await request.json())
         except (ValidationError, ValueError) as e:
             return _json_error(422, str(e))
-        res = await warn_batcher.submit(req)
+        # The batcher's bounded queue is the warn class's shed point; a
+        # degraded card still answers here through the host tiers.
+        t0 = time.perf_counter()
+        with _trace.get_tracer().start_span("gfkb.warn", app_id=req.app_id) as gspan:
+            res = await warn_batcher.submit(req)
+            gspan.set(
+                tier=res.tier, nprobe=res.nprobe, degraded=res.degraded,
+                native=native_avail, action=res.action,
+            )
+            if res.degraded:
+                gspan.outcome = "degraded"
+                parent = request.get("trace_span")
+                if parent is not None:
+                    parent.outcome = "degraded"
+        h_warn.observe(time.perf_counter() - t0, exemplar=gspan.trace_id or None)
         return web.json_response(res.model_dump())
 
     # --- GFKB -----------------------------------------------------------

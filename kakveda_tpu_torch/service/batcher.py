@@ -27,9 +27,10 @@ queue pulls, so deferral never reorders a tenant against itself.
 Per-tenant counters are bounded and decayed. ``KAKVEDA_TENANT_FAIR=0`` or
 no ``tenant_key`` keeps global FIFO.
 
-Not ported yet (ROADMAP Queue 1 item 7): the queue-depth and batch-size
-metric families, and the queue-wait samples that feed the reference's
-deadline shedding.
+Each drain observes ``kakveda_microbatch_batch_size`` and sets
+``kakveda_microbatch_queue_depth``, and feeds its oldest item's queue wait
+to the admission controller (``note_wait``), whose pressure moves the
+brownout ladder. A shed carries the tenant it was charged to.
 """
 
 from __future__ import annotations
@@ -41,9 +42,9 @@ from typing import (
     Callable, Generic, List, Optional, Sequence, Tuple, TypeVar,
 )
 
+from kakveda_tpu_torch.core import metrics as _metrics
 from kakveda_tpu_torch.core.admission import (
     AdmissionController,
-    OverloadError,
     _env_float,
     _env_int,
     tenant_fair_enabled,
@@ -60,6 +61,9 @@ _Item = Tuple[TReq, asyncio.Future, float, str]
 # heavy an hour ago isn't deprioritized forever — and zeros drop, which
 # (with the eviction in _bump_served) bounds the table under key churn.
 _SERVED_DECAY_EVERY = 256
+
+# The one batcher is the warn route's: its metric label and admission class.
+_KLASS = "warn"
 
 
 class MicroBatcher(Generic[TReq, TRes]):
@@ -99,6 +103,16 @@ class MicroBatcher(Generic[TReq, TRes]):
         self._drains = 0
         self._queue: asyncio.Queue[_Item] = asyncio.Queue()
         self._task: asyncio.Task | None = None
+        reg = _metrics.get_registry()
+        self._m_depth = reg.gauge(
+            "kakveda_microbatch_queue_depth",
+            "Requests waiting in a micro-batcher queue", ("batcher",),
+        ).labels(batcher=_KLASS)
+        self._m_size = reg.histogram(
+            "kakveda_microbatch_batch_size",
+            "Coalesced batch size per micro-batcher drain", ("batcher",),
+            buckets=(1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0),
+        ).labels(batcher=_KLASS)
 
     def start(self) -> None:
         if self._task is None or self._task.done():
@@ -161,11 +175,13 @@ class MicroBatcher(Generic[TReq, TRes]):
         # drain-rate-derived retry hint when an admission controller
         # is attached (the service app's case).
         if self._admission is not None:
-            self._admission.shed("warn", reason, detail=detail,
+            self._admission.shed(_KLASS, reason, detail=detail,
                                  tenant=tenant)
+        from kakveda_tpu_torch.core.admission import OverloadError
+
         raise OverloadError(
             f"micro-batcher shed ({reason}): {detail}",
-            klass="warn", reason=reason, tenant=tenant,
+            klass=_KLASS, reason=reason, tenant=tenant,
         )
 
     # -- batch collection -------------------------------------------------
@@ -265,6 +281,14 @@ class MicroBatcher(Generic[TReq, TRes]):
         loop = asyncio.get_running_loop()
         while True:
             batch = await self._collect()
+            self._m_size.observe(len(batch))
+            self._m_depth.set(self._depth())
+            if self._admission is not None:
+                # Oldest item's wait = the batch's worst queue delay; one
+                # sample per drain keeps the wait history cheap and honest.
+                self._admission.note_wait(
+                    _KLASS, time.monotonic() - batch[0][2]
+                )
             reqs = [b[0] for b in batch]
             try:
                 # The device call is sync; run it off-loop so new requests

@@ -9,7 +9,14 @@ the API until SIGINT or SIGTERM. On the way out it writes a GFKB snapshot
 log lines reach the disk: the next start restores the snapshot, replays
 only the log tail, and serves its first mine incrementally. With
 ``KAKVEDA_PROFILE_DIR`` set it first captures a trace of one warm pre-flight
-warn there (``core/profiling.profile``).
+warn there (``core/profiling.profile``). What the reference starts with
+the service starts here too: the fault plane's env arming
+(``KAKVEDA_FAULTS``, ``KAKVEDA_FAULTS_CRASH`` and the timed
+``KAKVEDA_FAULTS_TIMELINE``, read when ``core/faults`` is imported, so a
+timeline's offsets count from the process's start), and, in ``make_app``,
+the OTel middleware (``KAKVEDA_OTEL_ENABLED``), the token bucket
+(``KAKVEDA_RATELIMIT_RPS``) and the loop-stall watchdog
+(``KAKVEDA_SANITIZE``).
 """
 
 from __future__ import annotations

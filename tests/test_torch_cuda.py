@@ -1506,6 +1506,35 @@ F32_ATOL = 1e-4
 F32_Q_SCALE = 4.0
 
 
+def test_ladder_step_one_vetoes_verify_chunks_on_the_card(gen, monkeypatch):
+    """The brownout ladder held at its first step (no_spec): a speculating
+    pool on the card (gate held open) dispatches no verify chunk, and its
+    tokens are the plain pool's, bit for bit (the same 1-wide chunks)."""
+    from kakveda_tpu_torch.core import admission
+    from kakveda_tpu_torch.models.serving import ContinuousBatcher
+
+    monkeypatch.setenv("KAKVEDA_SERVE_SPEC_CALIB", "0")
+    monkeypatch.setenv("KAKVEDA_SERVE_SPEC_BREAKEVEN", "0")
+    monkeypatch.setenv("KAKVEDA_BROWNOUT_EXIT", "-1")
+    admission.reset_for_tests()
+    try:
+        cfg, params = _small_bf16_model(gen)
+        prompts = [[7, 8, 9] * 3, [5, 6, 7], [10, 11, 12, 13, 14] * 2, [42]]
+        plain = ContinuousBatcher(params, cfg, batch_slots=4, max_len=256, chunk_steps=4).run_all(prompts, 32)
+        ladder = admission.get_admission().brownout
+        ladder.note_pressure(1.0)
+        assert ladder.step == 1 and not ladder.spec_allowed()
+        cb = ContinuousBatcher(params, cfg, batch_slots=4, max_len=256, chunk_steps=4, spec_k=4)
+        before = flash_gqa_cache.launches
+        out = cb.run_all(prompts, 32)
+        torch.cuda.synchronize()
+        assert cb.spec_stats["chunks"] == 0 and cb.spec_stats["drafted"] == 0
+        assert flash_gqa_cache.launches - before == cfg.n_layers * cb.forwards
+        assert out == plain
+    finally:
+        admission.reset_for_tests()
+
+
 def _round_mantissa(x, bits):
     """``x`` rounded to ``bits`` explicit mantissa bits: 10 is TF32, 7 bf16."""
     i = x.contiguous().view(torch.int32)

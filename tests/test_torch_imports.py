@@ -30,7 +30,8 @@ def test_import_loads_no_jax_in_fresh_interpreter():
         assert f"kakveda_tpu_torch.models.{m}" in mods
     for m in ("ops.clustering", "ops.incremental", "index.gfkb", "pipeline.patterns", "native",
               "core.runtime", "core.admission", "service.app", "service.batcher", "service.main",
-              "core.faults", "core.metrics", "index.crashsweep", "index.tiers", "core.profiling"):
+              "core.faults", "core.metrics", "index.crashsweep", "index.tiers", "core.profiling",
+              "core.sanitize", "core.trace", "core.otel", "core.ratelimit"):
         assert f"kakveda_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -68,6 +69,11 @@ def test_import_loads_no_jax_in_fresh_interpreter():
         ("kakveda_tpu_torch.core.metrics", False),
         ("kakveda_tpu_torch.core.profiling", False),
         ("kakveda_tpu_torch.pipeline.warning", False),
+        ("kakveda_tpu_torch.core.sanitize", False),
+        ("kakveda_tpu_torch.core.trace", False),
+        ("kakveda_tpu_torch.core.otel", False),
+        ("kakveda_tpu_torch.core.ratelimit", False),
+        ("kakveda_tpu_torch.service.batcher", False),
         ("kakveda_tpu_torch.service.app", True),
     ],
 )

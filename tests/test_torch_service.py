@@ -28,10 +28,12 @@ import pytest
 from aiohttp import ClientSession
 from aiohttp.test_utils import TestClient, TestServer
 
+from kakveda_tpu.core import admission as jax_admission
 from kakveda_tpu.core.admission import AdmissionController as JaxAdmission
 from kakveda_tpu.parallel.mesh import create_mesh
 from kakveda_tpu.platform import Platform as JaxPlatform
 from kakveda_tpu.service.app import make_app as jax_make_app
+from kakveda_tpu_torch.core import admission as port_admission
 from kakveda_tpu_torch.core.fingerprint import signature_text
 from kakveda_tpu_torch.core.schemas import WarningRequest
 from kakveda_tpu_torch.platform import Platform
@@ -78,6 +80,17 @@ async def _with_client(app, fn):
 
 def _platform(path):
     return Platform(data_dir=path, capacity=256, dim=1024, device="cpu")
+
+
+@pytest.fixture(autouse=True)
+def _fresh_admission():
+    # Both apps admit through their package's process-global controller,
+    # built from the env at first use: each test gets one built from its own.
+    port_admission.reset_for_tests()
+    jax_admission.reset_for_tests()
+    yield
+    port_admission.reset_for_tests()
+    jax_admission.reset_for_tests()
 
 
 @pytest.fixture()
@@ -205,9 +218,16 @@ def test_validation_errors(app):
     ("get", "/metrics/fleet"), ("get", "/trace/0af7651916cd43dd8448eb211c80319c"), ("get", "/trace"),
 ])
 def test_unported_routes_answer_404(app, method, path):
+    # /trace and /trace/{id} came with the request plane: they answer 200
+    # with the span ring (empty for an unknown trace id).
+    want = 200 if path.startswith("/trace") else 404
+
     async def go(client):
         r = await getattr(client, method)(path, json={"topic": "t", "callback_url": "http://x"})
-        assert r.status == 404
+        assert r.status == want
+        if want == 200:
+            body = await r.json()
+            assert "spans" in body and (path == "/trace" or body["spans"] == [])
 
     run(_with_client(app, go))
 
