@@ -133,8 +133,9 @@ JAX package). Phases, each of which raises on failure (exit code != 0):
    (``restart_corpus``, clusters of 1-10, 1 in 64 spanning apps) through
    ``upsert_failures_batch`` × 4096 into a 2^20 × 2048 GFKB with mining
    on, beside ``crashsweep.run_sweep`` at the two fence sites with its
-   children on the card (0 corrupt recoveries), which is joined before the
-   first timed stage; ``snapshot()`` timed by
+   children on the card (0 corrupt recoveries; started after phase 18,
+   whose readings of the card's memory it would disturb), which is joined
+   before the first timed stage; ``snapshot()`` timed by
    stage; a full replay (snapshot moved aside) and its first mine, a full
    sweep; the restore, which must take the restore path, timed by stage;
    the restored emb, valid and types bit-equal to the replay's, equal
@@ -377,6 +378,43 @@ JAX package). Phases, each of which raises on failure (exit code != 0):
    ``trace.record:1.0:-1`` at t = 2 s): ``/healthz`` answers exactly 20
    500s, then 200; every ``/warn`` after answers 200 with every span
    dropped.
+
+18. replication and the fleet plane (after phase 8, whose Platform this
+   process must have freed): ``python3 -m kakveda_tpu_torch.cli up
+   --replicas 2`` on the card, each replica a process with a 2^20 × 2048
+   bf16 index (the card's used memory grows by at least 2 × 4 GiB beside
+   this process's own; each ``/readyz`` names the card), and an oracle
+   ``Platform`` in this process holding the same rows. a. phase 8's 8 × 512
+   traces through the router: both replicas converge on 3,072 rows (write
+   amplification 2); 256 ``/warn`` at concurrency 1 and 64 × 16 at 64
+   through the router, every answer's action, top-1 confidence (1e-4) and
+   scores rank by rank (1e-4) equal to the oracle's; p50, p99, warns/s;
+   every answer not degraded and from the hot tier, no replica latched
+   degraded; each replica's ``fused_topk`` launches across the two arms
+   (its own ``fused_topk.launches``, which its ``/readyz`` reports under
+   ``device.launches``, read before and after) > 0. b.
+   SIGKILL of replica 1 under 64 concurrent clients: no warn lost; the card
+   regains a 4 GiB index within 10 s (so the supervisor's children hold no
+   device lease); an ingest while it is dead dead-letters, the router's
+   supervisor restarts it (``KAKVEDA_FLEET_RESTARTS=1``) and the DLQ's
+   auto-replay (``KAKVEDA_DLQ_AUTO_S``) converges the counts. d. 256
+   concurrent ingests of clean batches at replica 0 (four times its ingest
+   bound): its peer's ``kakveda_fleet_pressure`` and ladder step rise, and
+   fall back within the gossip TTL. e. ``/metrics/fleet`` holds every
+   replica's families and the router's; ``/trace/{id}`` through the router
+   assembles ``router.forward`` with the replica's ``service.request``. c.
+   ``KAKVEDA_FLEET_OWNERSHIP=1``, 4 replicas, R = 2, 64 apps (one ingest of
+   48 traces each): the largest replica holds ≤ 0.6 of the rows, write
+   amplification ≤ 2.3; each app's scatter-gather ``/warn`` is not partial
+   and its top-1 confidence equals a second oracle's (1e-4), none
+   degraded, every tier hot, each replica's ``fused_topk`` launches across
+   them > 0; a 5th replica and ``POST /fleet/rebalance`` under 16 warn
+   clients (epoch + 1, no warn lost, partial or degraded, the newcomer's
+   rows none foreign); SIGTERM of an owner under the clients (ejected,
+   promoted, every survivor at the router's epoch, coverage holes 0, no
+   warn lost, partial or degraded); a stale-epoch ``/replicate`` is a 2xx
+   drop counted on ``kakveda_fleet_fenced_rows_total``; no live replica
+   latched degraded.
 
 Prints a ``{"kernels": [...]}`` line (the flash rows with phase 9's,
 phase 10's, phase 13's, phase 14's and phase 15's launches beside phase
@@ -5308,7 +5346,7 @@ async def _request_plane(s, base: str, plat, fused_topk, card: str, warn_c1_p50:
 def phase_service(base: Path, fused_topk, card: str) -> dict:
     """Phase 8: the service plane on the card at the GFKB's real size."""
     import aiohttp  # required: without it phase 8 fails
-    from aiohttp import web
+    from aiohttp import web, web_app
 
     from kakveda_tpu_torch.platform import Platform
     from kakveda_tpu_torch.service.app import make_app
@@ -5340,6 +5378,13 @@ def phase_service(base: Path, fused_topk, card: str) -> dict:
     out["host_split"] = host_split(plat, card)
     plat.close()
     del plat
+    # aiohttp keeps each app's middleware-wrapped handlers in a module-level
+    # LRU, and the handlers hold the Platform: clear it, or the 2^20-row
+    # index stays on the card for the rest of the run.
+    cache = getattr(web_app, "_cached_build_middleware", None)
+    if cache is not None:
+        cache.cache_clear()
+    gc.collect()
     torch.cuda.empty_cache()
     out["entry_point"] = run_entry_point(base, card)
     log("phase 8: " + json.dumps({k: v for k, v in out.items() if k != "host_split"}))
@@ -5447,18 +5492,42 @@ def _same_matches(a, b, queries) -> bool:
     ]
 
 
-def phase_restart(base: Path, fused_topk_reference, card: str, beside=()) -> dict:
+def start_crash_sweep() -> tuple:
+    """Phase 11's crash sweep at the two fence sites, its children on the
+    card, on a thread: (thread, its result, its start). It runs beside
+    phase 11's untimed build, after phase 18 (whose readings of the card's
+    memory and of latency it would disturb), and phase 11 joins it before
+    its first timed stage."""
+    from kakveda_tpu_torch.index.crashsweep import run_sweep
+
+    sweep_out: dict = {}
+
+    def sweep() -> None:
+        try:
+            sweep_out.update(run_sweep(rows=10, aged=5, sites=("gfkb.compact_fence", "gfkb.compact_swap"),
+                                       device="cuda"))
+        except Exception as e:  # noqa: BLE001 — reported and failed in phase 11
+            sweep_out["error"] = f"{type(e).__name__}: {e}"
+
+    t_sweep = time.perf_counter()
+    sweeper = threading.Thread(target=sweep, name="crash-sweep")
+    sweeper.start()
+    return sweeper, sweep_out, t_sweep
+
+
+def phase_restart(base: Path, fused_topk_reference, card: str, sweep: tuple, beside=()) -> dict:
     """Phase 11 in the pre-tiered configuration (``KAKVEDA_GFKB_TIERED=0``:
     no hot cap, no router, no cold tier; the warm mirror stays):
     ``restart_corpus`` has no coarse structure, so the default router
     spawns a centroid per cluster, and ``measure_router``, under the
     default ``TierConfig`` after it, measures what that costs. Phase 12
-    runs the tiered lifecycle. ``beside``: threads of other phases' child
-    processes started before it, joined with the crash sweep."""
+    runs the tiered lifecycle. ``sweep``: ``start_crash_sweep()``'s;
+    ``beside``: threads of other phases' child processes started before
+    it, joined with the crash sweep."""
     before = os.environ.get("KAKVEDA_GFKB_TIERED")
     os.environ["KAKVEDA_GFKB_TIERED"] = "0"
     try:
-        out = _phase_restart(base, fused_topk_reference, card, beside)
+        out = _phase_restart(base, fused_topk_reference, card, sweep, beside)
     finally:
         if before is None:
             os.environ.pop("KAKVEDA_GFKB_TIERED", None)
@@ -5568,7 +5637,7 @@ def measure_router(base: Path, card: str) -> dict:
     return out
 
 
-def _phase_restart(base: Path, fused_topk_reference, card: str, beside=()) -> dict:
+def _phase_restart(base: Path, fused_topk_reference, card: str, sweep: tuple, beside=()) -> dict:
     """Phase 11: the GFKB's durable lifecycle on the card at RESTART_N rows
     of a ROWS x DIM index. Build (mining on) → snapshot, timed by stage →
     full replay (snapshot moved aside) and its first mine, a full sweep →
@@ -5579,27 +5648,16 @@ def _phase_restart(base: Path, fused_topk_reference, card: str, beside=()) -> di
     plain top-k over the live rows), an organic resurrection (its row
     bit-equal to before), a compaction that reopens identically → the
     pattern emission's growth (``measure_emission``). The crash sweep at the
-    two fence sites runs beside the untimed build, its children on the
-    card, and is joined before the first timed stage, with the threads of
-    ``beside`` (phase 12 d's child, started before this phase)."""
+    two fence sites (``sweep``, started after phase 18) runs beside the
+    untimed build, its children on the card, and is joined before the
+    first timed stage, with the threads of ``beside`` (phase 12 d's child,
+    started before this phase)."""
     import numpy as np
 
-    from kakveda_tpu_torch.index.crashsweep import run_sweep
     from kakveda_tpu_torch.index.gfkb import GFKB
     from kakveda_tpu_torch.pipeline.patterns import PatternDetector
 
-    sweep_out: dict = {}
-
-    def sweep() -> None:
-        try:
-            sweep_out.update(run_sweep(rows=10, aged=5, sites=("gfkb.compact_fence", "gfkb.compact_swap"),
-                                       device="cuda"))
-        except Exception as e:  # noqa: BLE001 — reported and failed below
-            sweep_out["error"] = f"{type(e).__name__}: {e}"
-
-    t_sweep = time.perf_counter()
-    sweeper = threading.Thread(target=sweep, name="crash-sweep")
-    sweeper.start()
+    sweeper, sweep_out, t_sweep = sweep
 
     n = RESTART_N
     data = base / "gfkb"
@@ -6390,6 +6448,666 @@ def phase_tiers(base: Path, fused_topk, fused_topk_reference, card: str, child: 
 LAUNCH_COUNTERS = ("bf16", "int8", "f32", "grouped")
 
 
+# ---------------------------------------------------------------------------
+# phase 18: replication and the fleet plane on the card
+# ---------------------------------------------------------------------------
+
+# The fleet's knobs for phase 18 (each the reference's): quick probes and
+# gossip, a breaker that opens on one failed event and half-opens after
+# 1 s, the DLQ's auto-replay 1 s after a re-close, a short ladder dwell and
+# occupancy hold so b's heal and d's decay fit the run.
+FLEET_ENV = dict(
+    KAKVEDA_FLEET_GOSSIP_S="0.5", KAKVEDA_ROUTER_PROBE_S="0.3", KAKVEDA_ROUTER_EJECT_FAILS="2",
+    KAKVEDA_BUS_RETRIES="2", KAKVEDA_BUS_RETRY_BASE="0.05", KAKVEDA_BUS_BREAKER_THRESHOLD="1",
+    KAKVEDA_BUS_BREAKER_COOLDOWN="1", KAKVEDA_DLQ_AUTO_S="1", KAKVEDA_BROWNOUT_DWELL="0.5",
+    KAKVEDA_ADMIT_OCC_WINDOW_S="1", KAKVEDA_LOG_FORMAT="text",
+)
+INDEX_BYTES = ROWS * DIM * 2  # one replica's bf16 index, 4 GiB
+FLEET_APPS = 64  # phase 18 c: one ingest batch of 48 traces per app, three in four failing
+FLEET_FLOOD = 256  # phase 18 d: concurrent ingests at one replica, four times its ingest admission bound
+
+
+def _fleet_metric(text: str, sample: str, labels: str = "") -> float:
+    """The sum of one sample's values (those whose labels contain
+    ``labels``) in a Prometheus exposition."""
+    from kakveda_tpu_torch.core.metrics import parse_prometheus_text
+
+    return sum(v for fam in parse_prometheus_text(text).values() for name, lab, v in fam["samples"]
+               if name == sample and labels in lab)
+
+
+def _card_free() -> int:
+    return torch.cuda.mem_get_info(0)[0]
+
+
+def _fleet_ports(n: int) -> int:
+    """A base of ``n`` consecutive free ports outside the kernel's ephemeral
+    range (below it, else above it). Under the floods the smoke, the
+    router and the replicas hold hundreds of keep-alive connections, each
+    on an ephemeral local port, so a replica port drawn from that range
+    (as ``pick_port_base`` draws) can be taken before its replica binds
+    it: the fifth replica's, or a restarted one's."""
+    import random
+    import socket
+
+    lo, hi = map(int, Path("/proc/sys/net/ipv4/ip_local_port_range").read_text().split())
+    spans = [(s, e) for s, e in ((10_000, lo - n), (hi + 1, 65_535 - n)) if e > s]
+    rng = random.Random()
+    for _ in range(256):
+        if not spans:
+            break
+        base = rng.randrange(*rng.choice(spans))
+        try:
+            for port in range(base, base + n):
+                with socket.socket() as sock:
+                    sock.bind(("127.0.0.1", port))
+            return base
+        except OSError:
+            continue
+    raise AssertionError(f"no {n} consecutive free ports outside the ephemeral range {lo}-{hi}")
+
+
+class _FleetProc:
+    """``python3 -m kakveda_tpu_torch.cli up --replicas n`` on the card (the
+    router on ``port``, replicas on ``base`` .. ``base + n - 1``), its output
+    in ``root/fleet.out``; ``down`` stops it and sweeps its replicas."""
+
+    def __init__(self, root: Path, n: int, **env):
+        self.root, self.n = root, n
+        self.repo = Path(__file__).resolve().parent
+        # The router, n replicas and one more (phase 18 c's fifth).
+        self.port = _fleet_ports(n + 2)
+        self.base = self.port + 1
+        self.env = dict(os.environ, PYTHONPATH=str(self.repo), KAKVEDA_INDEX_CAPACITY=str(ROWS), **FLEET_ENV, **env)
+        self.out = root / "fleet.out"
+        root.mkdir(parents=True, exist_ok=True)
+        with open(self.out, "wb") as f:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", "kakveda_tpu_torch.cli", "up", "--dir", str(root), "--port", str(self.port),
+                 "--port-base", str(self.base), "--replicas", str(n)],
+                cwd=self.repo, env=self.env, stdout=f, stderr=subprocess.STDOUT)
+        self.router = f"http://127.0.0.1:{self.port}"
+
+    def url(self, i: int) -> str:
+        return f"http://127.0.0.1:{self.base + i}"
+
+    def pid(self, i: int) -> int:
+        return int((self.root / f"replica-{i}.pid").read_text().strip())
+
+    def tail(self) -> str:
+        logs = [self.out, *sorted(self.root.glob("replica-*.log"))]
+        return "\n".join(f"--- {p.name}\n" + p.read_text(errors="replace")[-1500:] for p in logs if p.exists())
+
+    async def wait_router(self, s, healthy: int, timeout: float = 180.0) -> float:
+        import aiohttp
+
+        t0 = time.perf_counter()
+        while True:
+            if self.proc.poll() is not None:
+                raise AssertionError(f"the fleet exited early ({self.proc.returncode}):\n{self.tail()}")
+            if time.perf_counter() - t0 > timeout:
+                raise AssertionError(f"the fleet's router did not report {healthy} healthy replicas:\n{self.tail()}")
+            try:
+                async with s.get(self.router + "/readyz") as r:
+                    if r.status == 200 and (await r.json())["fleet"]["healthy"] == healthy:
+                        return time.perf_counter() - t0
+            except aiohttp.ClientError:
+                pass
+            await asyncio.sleep(0.25)
+
+    def down(self) -> None:
+        # This process reaps the router as it exits (else `down` would wait
+        # on a zombie), while `down` stops it and sweeps the replicas.
+        d = subprocess.Popen([sys.executable, "-m", "kakveda_tpu_torch.cli", "down", "--dir", str(self.root),
+                              "--timeout", "60"], cwd=self.repo, env=self.env, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+        try:
+            self.proc.wait(timeout=90)
+            text, _ = d.communicate(timeout=90)
+        finally:
+            if d.poll() is None:
+                d.kill()
+                d.wait()
+        if d.returncode != 0 or self.proc.returncode != 0:
+            raise AssertionError(f"cli down: {d.returncode} (fleet {self.proc.returncode}) {text}\n{self.tail()}")
+
+    def kill(self) -> None:
+        """Last resort on a failed phase: SIGKILL the router and whatever
+        replicas its pid files name."""
+        import signal
+
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        for p in self.root.glob("replica-*.pid"):
+            with contextlib.suppress(OSError, ValueError):
+                os.kill(int(p.read_text().strip()), signal.SIGKILL)
+
+
+async def _jpost(s, url: str, body, ok=(200,)):
+    async with s.post(url, json=body) as r:
+        out = await r.json()
+        if r.status not in ok:
+            raise AssertionError(f"POST {url}: {r.status} {out}")
+        return out
+
+
+async def _jget(s, url: str):
+    async with s.get(url) as r:
+        if r.status != 200:
+            raise AssertionError(f"GET {url}: {r.status}")
+        return await r.json()
+
+
+async def _tget(s, url: str) -> str:
+    async with s.get(url) as r:
+        if r.status != 200:
+            raise AssertionError(f"GET {url}: {r.status}")
+        return await r.text()
+
+
+async def _counts(s, urls) -> list:
+    return [(await _jget(s, u + "/readyz"))["gfkb_count"] for u in urls]
+
+
+async def _converge(s, urls, want, timeout: float, what: str) -> list:
+    """Poll the replicas' counts until ``want(counts)`` holds."""
+    t0 = time.perf_counter()
+    while True:
+        counts = await _counts(s, urls)
+        if want(counts):
+            return counts
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"{what}: counts {counts} after {timeout} s")
+        await asyncio.sleep(0.2)
+
+
+async def _launches(s, urls) -> list:
+    """Each replica's own ``fused_topk.launches`` (its ``/readyz``
+    ``device.launches``), raised where the kernel launches and nowhere
+    else; a section's launches are the difference across it."""
+    return [(await _jget(s, u + "/readyz"))["device"]["launches"]["fused_topk"] for u in urls]
+
+
+async def _warn_batches(s, urls) -> list:
+    """Each replica's warn batches (``kakveda_warn_batch_seconds``' count),
+    counted after whichever path served the batch."""
+    return [int(_fleet_metric(await _tget(s, u + "/metrics"), "kakveda_warn_batch_seconds_count")) for u in urls]
+
+
+def _minus(after: list, before: list) -> list:
+    return [a - b for a, b in zip(after, before)]
+
+
+async def _card_healthy(s, urls, what: str) -> None:
+    """Fail when a replica's card is latched degraded (its warns then come
+    from the host tiers, not the kernel)."""
+    for u in urls:
+        dev = (await _jget(s, u + "/readyz"))["device"]
+        if dev["degraded"] is not False:
+            raise AssertionError(f"{what}: {u} is latched degraded: {dev}")
+
+
+def _from_the_card(answers, what: str) -> None:
+    """Every answer came from the replicas' hot index on the card: none
+    degraded, every tier ``hot``."""
+    bad = [a for a in answers if a.get("degraded") is not False or a.get("tier") != "hot"]
+    if bad:
+        raise AssertionError(f"{what}: {len(bad)} of {len(answers)} answers not from the card's index, e.g. "
+                             f"degraded {bad[0].get('degraded')} tier {bad[0].get('tier')}")
+
+
+def _hold_to_oracle(answers, reqs, oracle, what: str) -> int:
+    """Every answer against the oracle Platform's ``warn_batch`` of the same
+    requests: the action, the top-1 confidence within 1e-4, and the scores
+    rank by rank within ATOL (ids are each replica's own)."""
+    direct = []
+    for lo in range(0, len(reqs), 64):
+        direct += oracle.warn_batch(reqs[lo : lo + 64])
+    for j, (a, d) in enumerate(zip(answers, direct)):
+        got, want = [x["score"] for x in a["references"]], [x.score for x in d.references]
+        if a["action"] != d.action or abs(a["confidence"] - d.confidence) > 1e-4 or len(got) != len(want) \
+                or any(abs(x - y) > ATOL for x, y in zip(got, want)):
+            raise AssertionError(f"{what} answer {j}: {a['action']} {a['confidence']} {got} vs oracle "
+                                 f"{d.action} {d.confidence} {want}")
+    return len(direct)
+
+
+def _oracle(base: Path, name: str, batches, TracePayload):
+    from kakveda_tpu_torch.platform import Platform
+
+    plat = Platform(data_dir=base / name, capacity=ROWS, dim=DIM)
+    for b in batches:
+        asyncio.run(plat.ingest_batch([TracePayload.model_validate(t) for t in b]))
+    return plat
+
+
+def _drop(plat) -> None:
+    plat.close()
+    del plat
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+async def _legacy_fleet(s, fl: _FleetProc, oracle, batches, reqs_b, bodies_c, card: str) -> dict:
+    """Phase 18 a, b, d, e on a two-replica fleet with legacy replication."""
+    from kakveda_tpu_torch.core.schemas import WarningRequest
+    from kakveda_tpu_torch.fleet.hashring import HashRing
+
+    out = {}
+    urls = [fl.url(i) for i in range(2)]
+    name = torch.cuda.get_device_name(0)
+    for u in urls:
+        dev = (await _jget(s, u + "/readyz"))["device"]
+        if dev.get("name") != name:
+            raise AssertionError(f"{u}/readyz names {dev}, not the card")
+
+    # a. Ingest through the router: the owner accepts, its bus replicates.
+    t0 = time.perf_counter()
+    failures = 0
+    for b in batches:
+        failures += (await _jpost(s, fl.router + "/ingest/batch", {"traces": b}))["failures"]
+    counts = await _converge(s, urls, lambda c: c == [failures] * 2, 30.0, "phase 18 a replication")
+    out["ingest_s"] = time.perf_counter() - t0
+    out["write_amplification"] = sum(counts) / failures
+    if failures != 3072 or out["write_amplification"] != 2.0:
+        raise AssertionError(f"phase 18 a: {failures} failures, counts {counts}")
+    l0, b0 = await _launches(s, urls), await _warn_batches(s, urls)
+    lat, answers = [], []
+    for body in reqs_b:
+        t = time.perf_counter()
+        answers.append(await _jpost(s, fl.router + "/warn", body))
+        lat.append((time.perf_counter() - t) * 1e3)
+    out.update(c1_p50_ms=_pct(lat, 0.5), c1_p99_ms=_pct(lat, 0.99), c1_per_s=len(lat) / (sum(lat) / 1e3))
+    l1 = await _launches(s, urls)
+    res_c = [[None] * 16 for _ in range(64)]
+    lat_c = []
+
+    async def client(c):
+        for j, body in enumerate(bodies_c[c]):
+            t = time.perf_counter()
+            res_c[c][j] = await _jpost(s, fl.router + "/warn", body)
+            lat_c.append((time.perf_counter() - t) * 1e3)
+
+    t0 = time.perf_counter()
+    await asyncio.gather(*[client(c) for c in range(64)])
+    wall = time.perf_counter() - t0
+    out.update(c64_p50_ms=_pct(lat_c, 0.5), c64_p99_ms=_pct(lat_c, 0.99), c64_per_s=1024 / wall)
+    l2, b2 = await _launches(s, urls), await _warn_batches(s, urls)
+    flat_c = [b for bs in bodies_c for b in bs]
+    fleet_answers = answers + [r for rs in res_c for r in rs]
+    _from_the_card(fleet_answers, "phase 18 a")
+    await _card_healthy(s, urls, "phase 18 a")
+    n = _hold_to_oracle(fleet_answers, [WarningRequest.model_validate(b) for b in reqs_b + flat_c], oracle,
+                        "phase 18 a")
+    out.update(launches_c1=_minus(l1, l0), launches_c64=_minus(l2, l1), launches_a=_minus(l2, l0),
+               warn_batches_a=_minus(b2, b0))
+    if min(out["launches_a"]) <= 0:
+        raise AssertionError(f"phase 18 a: a replica launched no fused_topk: {out['launches_a']}")
+    log(f"phase 18 a: 2 replicas x 2^20 x 2048 bf16 on the card; 4096 traces through the router, "
+        f"{failures} failures on each replica (write amplification {out['write_amplification']}) in "
+        f"{out['ingest_s']:.3f} s; /warn at concurrency 1 (256): p50 {out['c1_p50_ms']:.3f} ms, p99 "
+        f"{out['c1_p99_ms']:.3f} ms, {out['c1_per_s']:.1f} warns/s; 64 x 16 at concurrency 64: p50 "
+        f"{out['c64_p50_ms']:.3f} ms, p99 {out['c64_p99_ms']:.3f} ms, {out['c64_per_s']:.1f} warns/s; {n} answers "
+        f"== an oracle Platform's (scores rank by rank within {ATOL}, top-1 confidence within 1e-4), none degraded, "
+        f"every tier hot; fused_topk launches per replica (each replica's own count across the arms) "
+        f"{out['launches_c1']} at concurrency 1 + {out['launches_c64']} at 64, warn batches {out['warn_batches_a']} "
+        f"[{card}]")
+
+    # b. SIGKILL replica 1 under a concurrency-64 flood; its index comes back
+    # to the card, a gap ingest dead-letters, the supervisor restarts it and
+    # the DLQ's auto-replay heals the gap once a breaker to it re-closes
+    # (the gossip's, or the replication's, whichever delivers first).
+    import signal
+
+    ring = HashRing(["r0", "r1"])
+    survivor_app = next(f"app-{c}" for c in "ABCDEFGH" if ring.assign(f"app-{c}") == "r0")
+    statuses, stop = [], asyncio.Event()
+
+    async def flood(c):
+        j = 0
+        while not stop.is_set():
+            async with s.post(fl.router + "/warn", json=bodies_c[c][j % 16]) as r:
+                await r.read()
+                statuses.append(r.status)
+            j += 1
+
+    free0 = _card_free()
+    tasks = [asyncio.create_task(flood(c)) for c in range(64)]
+    await asyncio.sleep(1.0)
+    victim = fl.pid(1)
+    os.kill(victim, signal.SIGKILL)
+    t_kill = time.perf_counter()
+    peak = free0
+    while time.perf_counter() - t_kill < 10.0:
+        peak = max(peak, _card_free())
+        if peak - free0 >= INDEX_BYTES:
+            break
+        await asyncio.sleep(0.05)
+    out["freed_bytes"], out["freed_s"] = peak - free0, time.perf_counter() - t_kill
+    if out["freed_bytes"] < INDEX_BYTES:
+        raise AssertionError(f"phase 18 b: the card regained {out['freed_bytes']} bytes within 10 s of the SIGKILL")
+    gap = _service_batches(lo=8192, n=64, app=survivor_app)[0]
+    gap_fail = (await _jpost(s, fl.router + "/ingest/batch", {"traces": gap}))["failures"]
+    await asyncio.sleep(1.0)
+    stop.set()
+    await asyncio.gather(*tasks)
+    dlq = fl.root / "data" / "replica-0" / "dlq.jsonl"
+    if not (dlq.exists() and dlq.read_text().strip()):
+        raise AssertionError("phase 18 b: the gap ingest left no DLQ record")
+    lost = [x for x in statuses if x != 200]
+    if lost:
+        raise AssertionError(f"phase 18 b: {len(lost)} of {len(statuses)} warns lost under the kill: {lost[:5]}")
+    t0 = time.perf_counter()
+    while True:  # the router's supervise loop restarts it (KAKVEDA_FLEET_RESTARTS=1)
+        with contextlib.suppress(OSError, ValueError, AssertionError):
+            if fl.pid(1) != victim:
+                await _jget(s, fl.url(1) + "/readyz")
+                break
+        if time.perf_counter() - t0 > 120:
+            raise AssertionError(f"phase 18 b: replica 1 was not restarted:\n{fl.tail()}")
+        await asyncio.sleep(0.25)
+    out["restart_s"] = time.perf_counter() - t_kill
+    before = await _counts(s, urls)
+    want = 3072 + gap_fail
+    t0 = time.perf_counter()
+    healed = await _converge(s, urls, lambda c: c == [want] * 2, 30.0, "phase 18 b heal")
+    out["heal_s"] = time.perf_counter() - t0
+    while True:  # the replay thread rewrites the DLQ, then counts, after its last POST
+        auto = _fleet_metric(await _tget(s, urls[0] + "/metrics"), "kakveda_bus_dlq_auto_total", 'result="replayed"')
+        if auto >= 1 and not dlq.read_text().strip():
+            break
+        if time.perf_counter() - t0 > 40.0:
+            raise AssertionError(f"phase 18 b: the gap healed with {auto} DLQ auto-replays and {dlq.read_text()!r} left")
+        await asyncio.sleep(0.1)
+    await _card_healthy(s, urls, "phase 18 b")
+    log(f"phase 18 b: SIGKILL of replica 1 under 64 concurrent clients: {len(statuses)} warns, none lost; the card "
+        f"regained {out['freed_bytes']} bytes (>= one 2^20 x 2048 index) {out['freed_s']:.2f} s after the kill, so a "
+        f"killed replica holds no device lease; the gap ({gap_fail} rows) dead-lettered, the supervisor restarted "
+        f"the replica ({out['restart_s']:.1f} s after the kill, counts {before} at its first /readyz), and the DLQ's "
+        f"auto-replay after a breaker re-closed left {healed} {out['heal_s']:.2f} s later [{card}]")
+
+    # d. Gossip: flood replica 0 past its ingest admission bound with
+    # batches that classify clean (so nothing replicates and the peer's own
+    # load stays nil); the peer's folded pressure and ladder step rise,
+    # then fall within the TTL. (/warn takes no admission slot: its bound
+    # is the micro-batcher's queue, which occupancy does not count.)
+    async def peer_state():
+        text = await _tget(s, urls[1] + "/metrics")
+        ready = await _jget(s, urls[1] + "/readyz")
+        return _fleet_metric(text, "kakveda_fleet_pressure"), ready["admission"]["brownout_step"]
+
+    stop, shed = asyncio.Event(), []
+    clean = [t for t in _service_batches(lo=9000, n=512)[0] if t["response"] != STUB_RESPONSE][:8]
+
+    async def hammer(c):
+        while not stop.is_set():
+            async with s.post(urls[0] + "/ingest/batch", json={"traces": clean}) as r:
+                body = await r.json()
+                if r.status == 200 and body["failures"]:
+                    raise AssertionError(f"phase 18 d: a flood batch classified {body['failures']} failures")
+                shed.append(r.status == 429)
+
+    tasks = [asyncio.create_task(hammer(c)) for c in range(FLEET_FLOOD)]
+    peak_p, peak_step, t0 = 0.0, 0, time.perf_counter()
+    while time.perf_counter() - t0 < 3.0:
+        p, step = await peer_state()
+        peak_p, peak_step = max(peak_p, p), max(peak_step, step)
+        await asyncio.sleep(0.1)
+    stop.set()
+    await asyncio.gather(*tasks)
+    t_end = time.perf_counter()
+    ttl = float(fl.env.get("KAKVEDA_FLEET_GOSSIP_TTL_S", "5"))
+    while True:
+        p, step = await peer_state()
+        if p < 0.5 and step == 0:
+            break
+        if time.perf_counter() - t_end > ttl:
+            raise AssertionError(f"phase 18 d: the peer's pressure {p} and step {step} after the TTL")
+        await asyncio.sleep(0.1)
+    out["gossip"] = dict(peak_pressure=peak_p, peak_step=peak_step, decay_s=time.perf_counter() - t_end,
+                         flood_warns=len(shed), flood_shed=sum(shed))
+    if peak_p < 0.85 or peak_step < 1:
+        raise AssertionError(f"phase 18 d: the peer's pressure peaked at {peak_p}, its step at {peak_step}")
+    log(f"phase 18 d: {FLEET_FLOOD} concurrent ingests at replica 0 ({len(shed)} sent, {sum(shed)} shed 429): its "
+        f"peer's kakveda_fleet_pressure peaked at {peak_p} and its ladder at step {peak_step}; both back (< 0.5, "
+        f"step 0) {out['gossip']['decay_s']:.2f} s after the flood, within the {ttl} s gossip TTL [{card}]")
+
+    # e. The operator's view through the router.
+    fed = await _tget(s, fl.router + "/metrics/fleet")
+    for fam in ("kakveda_warn_batch_seconds", "kakveda_gfkb_replicate_apply_total", "kakveda_bus_dlq_total",
+                "kakveda_fleet_forwards_total", "kakveda_fleet_gossip_total"):
+        if f"# TYPE {fam} " not in fed:
+            raise AssertionError(f"/metrics/fleet lacks {fam}")
+    for rid in ("r0", "r1", "__router__"):
+        if f'replica="{rid}"' not in fed:
+            raise AssertionError(f"/metrics/fleet has no gauge of {rid}")
+    batches = await _warn_batches(s, urls)
+    if _fleet_metric(fed, "kakveda_warn_batch_seconds_count") != sum(batches):
+        raise AssertionError("/metrics/fleet's warn batches are not the replicas' sum")
+    tid = os.urandom(16).hex()
+    async with s.post(fl.router + "/warn", json=reqs_b[0], headers={"traceparent": f"00-{tid}-{os.urandom(8).hex()}-01"}) as r:
+        await r.read()
+    tr = await _jget(s, fl.router + f"/trace/{tid}")
+    names = {x["name"] for x in tr["spans"]}
+    if not {"router.request", "router.forward", "service.request", "gfkb.warn"} <= names or not tr["tree"]:
+        raise AssertionError(f"/trace/{tid} through the router: {sorted(names)} {tr['sources']}")
+    log(f"phase 18 e: /metrics/fleet holds both replicas' families and the router's ({len(fed.splitlines())} lines; "
+        f"warn batches summed {int(sum(batches))}); /trace/{{id}} through the router assembles {sorted(names)} "
+        f"from {tr['sources']}")
+    return out
+
+
+def _service_batches(lo: int = 0, n: int = 4096, app: Optional[str] = None) -> list:
+    """Phase 8's traces (three in four failing) as JSON in batches of 512,
+    all under ``app`` when given."""
+    from kakveda_tpu_torch.core.schemas import TracePayload
+
+    traces = [t.model_dump(mode="json") for t in _service_traces(TracePayload, lo, n)]
+    if app:
+        for t in traces:
+            t["app_id"] = app
+    return [traces[i : i + 512] for i in range(0, n, 512)]
+
+
+async def _sharded_fleet(s, fl: _FleetProc, oracle, batches, card: str) -> dict:
+    """Phase 18 c on four replicas with sharded ownership (R = 2)."""
+    from kakveda_tpu_torch.fleet.ownership import OwnershipView
+    from kakveda_tpu_torch.fleet.supervisor import FleetSupervisor
+
+    out = {}
+    urls = [fl.url(i) for i in range(4)]
+    unique = 0
+    for b in batches:
+        unique += (await _jpost(s, fl.router + "/ingest/batch", {"traces": b}))["failures"]
+    counts = await _converge(s, urls, lambda c: sum(c) == 2 * unique, 30.0, "phase 18 c replication")
+    out.update(unique=unique, counts=counts, max_share=max(counts) / unique, write_amplification=sum(counts) / unique)
+    if out["max_share"] > 0.6 or out["write_amplification"] > 2.3:
+        raise AssertionError(f"phase 18 c residency: {out}")
+    bodies = [_warn_body(f"app-{a:02d}", b[1]["prompt"]) for a, b in enumerate(batches)]
+    l0 = await _launches(s, urls)
+    got = [await _jpost(s, fl.router + "/warn", body) for body in bodies]
+    out["launches_scatter"] = _minus(await _launches(s, urls), l0)
+    _from_the_card(got, "phase 18 c")
+    from kakveda_tpu_torch.core.schemas import WarningRequest
+
+    direct = oracle.warn_batch([WarningRequest.model_validate(b) for b in bodies])
+    for a, (g, d) in enumerate(zip(got, direct)):
+        if g["partial"] or abs(g["confidence"] - d.confidence) > 1e-4:
+            raise AssertionError(f"phase 18 c app-{a:02d}: partial {g['partial']} {g['confidence']} vs {d.confidence}")
+    if min(out["launches_scatter"]) <= 0:
+        raise AssertionError(f"phase 18 c: a replica launched no fused_topk: {out['launches_scatter']}")
+    log(f"phase 18 c: 4 replicas, R = 2, {FLEET_APPS} apps: {unique} rows, resident {counts} (largest "
+        f"{out['max_share']:.3f} of the corpus, write amplification {out['write_amplification']}); {len(got)} "
+        f"scatter-gather /warn, partial false, none degraded, every tier hot, top-1 confidence == an oracle "
+        f"Platform's within 1e-4; fused_topk launches per replica (each replica's own count across them) "
+        f"{out['launches_scatter']} [{card}]")
+
+    # A fifth replica, then the range migration under a warn flood.
+    sup = FleetSupervisor(fl.root, port_base=fl.base, replicas=4,
+                          env={k: fl.env[k] for k in fl.env if k.startswith("KAKVEDA_")})
+    statuses, stop = [], asyncio.Event()
+
+    async def flood(c):
+        j = 0
+        while not stop.is_set():
+            async with s.post(fl.router + "/warn", json=bodies[(c * 7 + j) % len(bodies)]) as r:
+                body = await r.json()
+                statuses.append((r.status, bool(body.get("partial")), body.get("degraded", True)))
+            j += 1
+
+    try:
+        idx = sup.add_replica()
+        t0 = time.perf_counter()
+        await asyncio.get_running_loop().run_in_executor(None, lambda: sup.wait_ready(180.0, only=[idx]))
+        out["spawn_s"] = time.perf_counter() - t0
+        epoch0 = (await _jget(s, fl.router + "/readyz"))["ownership"]["epoch"]
+        all5 = urls + [sup.url(idx)]
+        l0 = await _launches(s, all5)
+        tasks = [asyncio.create_task(flood(c)) for c in range(16)]
+        t0 = time.perf_counter()
+        reb = await _jpost(s, fl.router + "/fleet/rebalance", {"add": {"id": sup.replica_id(idx), "url": sup.url(idx)}})
+        out["rebalance_s"] = time.perf_counter() - t0
+        await asyncio.sleep(0.5)
+        stop.set()
+        await asyncio.gather(*tasks)
+        out["launches_rebalance"] = _minus(await _launches(s, all5), l0)
+        epoch1 = (await _jget(s, fl.router + "/readyz"))["ownership"]["epoch"]
+        r4 = (await _jget(s, sup.url(idx) + "/readyz"))
+        bad = [x for x in statuses if x != (200, False, False)]
+        if epoch1 != epoch0 + 1 or reb["rows_moved"] <= 0 or bad or r4["gfkb_count"] <= 0 \
+                or r4["ownership"]["rows"]["foreign"]:
+            raise AssertionError(f"phase 18 c rebalance: epoch {epoch0} -> {epoch1}, {reb}, {len(bad)} bad warns "
+                                 f"{bad[:3]}, the new replica {r4['gfkb_count']} rows {r4['ownership']['rows']}")
+        out["rebalance"] = dict(epoch=[epoch0, epoch1], rows_moved=reb["rows_moved"], warns=len(statuses),
+                                wall_s=reb["wall_s"])
+        log(f"phase 18 c: a 5th replica up in {out['spawn_s']:.1f} s; POST /fleet/rebalance moved {reb['rows_moved']} "
+            f"rows in {reb['batches']} batches ({reb['wall_s']} s), epoch {epoch0} -> {epoch1}; {len(statuses)} warns "
+            f"during it, none lost, partial or degraded, fused_topk launches per replica {out['launches_rebalance']}; "
+            f"the newcomer holds {r4['gfkb_count']} rows, none foreign [{card}]")
+
+        # SIGTERM an owner under the flood: no hole, no lost warn.
+        import signal
+
+        statuses.clear()
+        stop = asyncio.Event()
+        tasks = [asyncio.create_task(flood(c)) for c in range(16)]
+        await asyncio.sleep(0.5)
+        os.kill(fl.pid(0), signal.SIGTERM)
+        t0 = time.perf_counter()
+        while True:
+            rep = await _jget(s, fl.router + "/readyz")
+            if rep["replicas"]["r0"]["ejected"] and rep["ownership"]["epoch"] > epoch1:
+                break
+            if time.perf_counter() - t0 > 15:
+                raise AssertionError(f"phase 18 c: r0 not ejected and promoted: {rep}")
+            await asyncio.sleep(0.2)
+        await asyncio.sleep(1.0)
+        stop.set()
+        await asyncio.gather(*tasks)
+        rep = await _jget(s, fl.router + "/readyz")
+        bad = [x for x in statuses if x != (200, False, False)]
+        if rep["ownership"]["coverage_holes"] or bad:
+            raise AssertionError(f"phase 18 c after the SIGTERM: holes {rep['ownership']['coverage_holes']}, "
+                                 f"{len(bad)} bad warns {bad[:3]}")
+        live = [fl.url(i) for i in (1, 2, 3)] + [sup.url(idx)]
+        epochs = [(await _jget(s, u + "/fleet/ownership"))["epoch"] for u in live]
+        if min(epochs) != rep["ownership"]["epoch"]:
+            raise AssertionError(f"phase 18 c: survivors at epochs {epochs}, the router at {rep['ownership']['epoch']}")
+        out["kill"] = dict(warns=len(statuses), epoch=rep["ownership"]["epoch"], survivor_epochs=epochs)
+        log(f"phase 18 c: SIGTERM of owner r0 under 16 clients: ejected and promoted to epoch "
+            f"{rep['ownership']['epoch']} (every survivor acknowledged it), coverage holes 0, {len(statuses)} "
+            f"warns none lost, partial or degraded [{card}]")
+
+        # A stale-epoch replication event for a range r1 does not hold.
+        view = OwnershipView.from_dict(await _jget(s, fl.url(1) + "/fleet/ownership"))
+        foreign = next(f"app-{a:02d}" for a in range(FLEET_APPS) if "r1" not in view.holders(f"app-{a:02d}"))
+        row = {"failure_type": "TIMEOUT", "signature_text": "stale epoch row", "app_id": foreign,
+               "impact_severity": "medium"}
+        m0 = _fleet_metric(await _tget(s, fl.url(1) + "/metrics"), "kakveda_fleet_fenced_rows_total")
+        fenced = await _jpost(s, fl.url(1) + "/replicate", {"id": "stale-smoke", "epoch": 1, "rows": [row]})
+        m1 = _fleet_metric(await _tget(s, fl.url(1) + "/metrics"), "kakveda_fleet_fenced_rows_total")
+        if fenced.get("reason") != "stale_epoch" or m1 != m0 + 1:
+            raise AssertionError(f"phase 18 c fence: {fenced}, fenced rows {m0} -> {m1}")
+        await _card_healthy(s, live, "phase 18 c")
+        log(f"phase 18 c: a stale-epoch /replicate answered {fenced} and kakveda_fleet_fenced_rows_total rose "
+            f"{m0} -> {m1}; no live replica latched degraded [{card}]")
+    finally:
+        sup.stop_all()
+    return out
+
+
+def phase_fleet(base: Path, card: str) -> dict:
+    """Phase 18: replication and the fleet plane at full width on the card."""
+    import aiohttp
+
+    from kakveda_tpu_torch.core.schemas import TracePayload
+
+    t_phase = time.perf_counter()
+    out = {}
+    batches_a = _service_batches()
+    reqs_b = ([_warn_body(f"app-{'ABCDEFGH'[j % 8]}", f"Summarize report {i} and include citations")
+               for j, i in enumerate([i for i in range(4096) if i % 4][:128])]
+              + [_warn_body(f"app-{'ABCDEFGH'[j % 8]}", f"Translate poem {j} into French verse") for j in range(128)])
+    bodies_c = [[_warn_body(f"app-{'ABCDEFGH'[c % 8]}",
+                            f"Summarize report {(c * 16 + j) * 3 + 1} and include citations" if j % 2 == 0
+                            else f"Client {c} asks {j} about a new topic") for j in range(16)] for c in range(64)]
+    if torch.cuda.memory_allocated() >= INDEX_BYTES:
+        raise AssertionError(f"phase 18: this process still holds {torch.cuda.memory_allocated()} bytes on the card")
+    free0, mine0 = _card_free(), torch.cuda.memory_reserved()
+    fl = _FleetProc(base / "fleet-a", 2, KAKVEDA_FLEET_RESTARTS="1")
+    oracle = None
+    try:
+        oracle = _oracle(base, "oracle-a", batches_a, TracePayload)  # while the replicas start
+
+        async def go_a():
+            async with aiohttp.ClientSession(connector=aiohttp.TCPConnector(limit=1024),
+                                             timeout=aiohttp.ClientTimeout(total=60)) as s:
+                ready_s = await fl.wait_router(s, 2)
+                # The card's used memory, less what this process's allocator
+                # took for the oracle: the replicas' share.
+                grown = free0 - _card_free() - (torch.cuda.memory_reserved() - mine0)
+                if grown < 2 * INDEX_BYTES:
+                    raise AssertionError(f"phase 18 a: the card's used memory grew {grown} bytes for 2 replicas")
+                out["replica_bytes"] = grown
+                log(f"phase 18 a: `cli up --replicas 2` ready {ready_s:.1f} s after the oracle's ingest; the card's "
+                    f"used memory grew {grown} bytes for the two replicas (>= 2 x {INDEX_BYTES})")
+                return await _legacy_fleet(s, fl, oracle, batches_a, reqs_b, bodies_c, card)
+
+        out["legacy"] = asyncio.run(go_a())
+        fl.down()
+    except BaseException:
+        fl.kill()
+        raise
+    finally:
+        if oracle is not None:
+            _drop(oracle)
+    oracle = None
+    batches_c = [b[0][:48] for b in (_service_batches(lo=20_000 + 48 * a, n=48, app=f"app-{a:02d}")
+                                    for a in range(FLEET_APPS))]
+    fl = _FleetProc(base / "fleet-c", 4, KAKVEDA_FLEET_OWNERSHIP="1", KAKVEDA_FLEET_REPLICATION="2")
+    try:
+        oracle = _oracle(base, "oracle-c", batches_c, TracePayload)
+
+        async def go_c():
+            async with aiohttp.ClientSession(connector=aiohttp.TCPConnector(limit=256),
+                                             timeout=aiohttp.ClientTimeout(total=60)) as s:
+                await fl.wait_router(s, 4)
+                return await _sharded_fleet(s, fl, oracle, batches_c, card)
+
+        out["sharded"] = asyncio.run(go_c())
+        fl.down()
+    except BaseException:
+        fl.kill()
+        raise
+    finally:
+        if oracle is not None:
+            _drop(oracle)
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 18: {out['wall_s']:.1f} s; " + json.dumps(out))
+    return out
+
+
 def launch_counts() -> dict:
     """Every attention launch counter: the flash kernel's three bodies and
     ``gqa_grouped`` on the card."""
@@ -6909,8 +7627,15 @@ def main() -> int:
     log_held("phase 8")
     lap("8, 17 a-d, 17 f service")
 
-    # Phase 12 d's child process runs beside phase 11's untimed build and
-    # crash sweep (both children mostly start up), joined with the sweep.
+    with tempfile.TemporaryDirectory(prefix="kakveda-fleet-") as d:
+        fleet = phase_fleet(Path(d), card)
+    check_healthy("phase 18")
+    lap("18 fleet")
+
+    # Phase 11's crash sweep and phase 12 d's child process run beside phase
+    # 11's untimed build (the children mostly start up), joined before its
+    # first timed stage.
+    sweep = start_crash_sweep()
     sticky_dir = tempfile.TemporaryDirectory(prefix="kakveda-sticky-")
     sticky: dict = {}
     sticky_runner = threading.Thread(target=_run_sticky_child, args=(Path(sticky_dir.name) / "sticky", sticky),
@@ -6918,7 +7643,7 @@ def main() -> int:
     sticky_runner.start()
     with tempfile.TemporaryDirectory(prefix="kakveda-restart-") as d:
         fused_topk.launches = 0
-        restart = phase_restart(Path(d), fused_topk_reference, card, beside=(sticky_runner,))
+        restart = phase_restart(Path(d), fused_topk_reference, card, sweep, beside=(sticky_runner,))
         restart_launches = fused_topk.launches
     if restart_launches <= 0:
         raise AssertionError("the restart phase never launched fused_topk")
@@ -7021,6 +7746,11 @@ def main() -> int:
     ))
     kernels[0]["launches_judge_warn"] = judge["warn_fused_topk_launches"]
     kernels[0]["launches_request_plane"] = service["launches_request_plane"]
+    # Phase 18's replicas, each its own process: its own fused_topk.launches
+    # across a's warn arms, c's scatter-gather warns and c's rebalance flood.
+    kernels[0]["launches_fleet"] = fleet["legacy"]["launches_a"]
+    kernels[0]["launches_fleet_sharded"] = fleet["sharded"]["launches_scatter"]
+    kernels[0]["launches_fleet_rebalance"] = fleet["sharded"]["launches_rebalance"]
     kernels[1]["launches_ladder"] = model["ladder"]["steps"]["launches"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

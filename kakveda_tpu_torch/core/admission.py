@@ -379,8 +379,8 @@ class AdmissionController:
         )
         self._lock = sanitize.named_lock("AdmissionController._lock")
         self._inflight: Dict[str, int] = {k: 0 for k in CLASSES}
-        # Fleet pressure floor (a peer-gossip input, fed once the fleet is
-        # ported; nothing feeds it yet): the max
+        # Fleet pressure floor (the peer-gossip input, fed by
+        # fleet/gossip.py and the service's /fleet/gossip): the max
         # live PEER occupancy with an expiry — while fresh, pressure() is
         # max(local, fleet) so the brownout ladder degrades fleet-wide.
         # This is an INPUT feed only: transitions still happen solely in

@@ -25,10 +25,11 @@ brownout ladder, the device latch, ingest, warn, the micro-batcher,
 mining, the in-process bus publish, and the model router's two HBM gauges
 (``models/runtime.MultiModelRuntime``). Families the reference creates at
 their call sites (the tenant plane's, the GFKB's tiers and tombstones, the
-native scorer's, ``kakveda_warn_request_seconds``) are created at the same
-call sites here. Not ported yet: the bus's URL-delivery families and fleet
-federation (``parse_prometheus_text``, ``federate_renders``), which come
-with the fleet. :func:`device_block` observes
+native scorer's, ``kakveda_warn_request_seconds``, the fleet's) are created
+at the same call sites here. Fleet federation is the reference's:
+:func:`parse_prometheus_text` reads an exposition back into families and
+:func:`federate_renders` merges N processes' texts into one (the router's
+``GET /metrics/fleet``). :func:`device_block` observes
 ``kakveda_device_block_seconds`` for ``core/profiling.annotate``.
 
 Knobs: ``KAKVEDA_METRICS_RECORDER`` — flight-recorder ring capacity per
@@ -39,10 +40,12 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import threading
 import time
 import weakref
 from bisect import bisect_left
+from collections import OrderedDict
 from typing import Dict, Iterable, List, Optional, Tuple
 
 from kakveda_tpu_torch.core import sanitize
@@ -55,6 +58,8 @@ __all__ = [
     "FlightRecorder",
     "get_registry",
     "dump_recorders",
+    "parse_prometheus_text",
+    "federate_renders",
     "TIME_BUCKETS",
     "RATE_BUCKETS",
     "PROMETHEUS_CONTENT_TYPE",
@@ -490,6 +495,20 @@ _CORE_FAMILIES = (
      "Pre-flight warn verdicts by action", ("action",), None),
     ("counter", "kakveda_bus_events_published_total",
      "Events published on the in-process bus", ("topic",), None),
+    ("counter", "kakveda_bus_deliveries_total",
+     "Bus deliveries by result", ("result",), None),
+    ("gauge", "kakveda_bus_inflight_deliveries",
+     "Bus deliveries currently in flight", (), None),
+    ("counter", "kakveda_bus_delivery_attempts_total",
+     "URL delivery attempts by result (ok|retry|failed|short_circuit)",
+     ("result",), None),
+    ("counter", "kakveda_bus_breaker_transitions_total",
+     "Bus circuit-breaker state transitions", ("to",), None),
+    ("gauge", "kakveda_bus_breaker_open",
+     "URL subscribers whose circuit breaker is currently open", (), None),
+    ("counter", "kakveda_bus_dlq_total",
+     "Events dead-lettered after retries were exhausted or the breaker "
+     "short-circuited", (), None),
 )
 
 _REGISTRY = MetricsRegistry()
@@ -563,3 +582,116 @@ def dump_recorders() -> List[dict]:
     ``GET /flightrecorder``."""
     recs = sorted(_RECORDERS, key=lambda r: r.name)
     return [{"name": r.name, "events": r.dump()} for r in recs]
+
+
+# --- fleet federation -------------------------------------------------------
+
+_SAMPLE_RE = re.compile(
+    r"^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{[^}]*\})?\s+(\S+)(?:\s+#.*)?$"
+)
+
+
+def parse_prometheus_text(text: str) -> "OrderedDict[str, dict]":
+    """Parse our own exposition format back into families — the inverse of
+    :meth:`MetricsRegistry.render`, for router-side federation. Returns
+    family name → ``{"type", "help", "samples": [(sample_name, labelstr,
+    value)]}`` with labelstr the raw ``{…}`` part ('' when unlabeled).
+    Exemplar suffixes are dropped (sums across replicas cannot keep a
+    single trace id honest). Unparseable lines are skipped — a replica
+    mid-restart must not take the fleet scrape down."""
+    fams: "OrderedDict[str, dict]" = OrderedDict()
+
+    def fam_for(sample_name: str) -> dict:
+        base = sample_name
+        for suffix in ("_bucket", "_sum", "_count"):
+            if base.endswith(suffix) and base[: -len(suffix)] in fams:
+                base = base[: -len(suffix)]
+                break
+        return fams.setdefault(
+            base, {"type": "untyped", "help": "", "samples": []}
+        )
+
+    for line in text.splitlines():
+        line = line.strip()
+        if not line:
+            continue
+        if line.startswith("# HELP "):
+            parts = line.split(" ", 3)
+            if len(parts) == 4:
+                fams.setdefault(
+                    parts[2], {"type": "untyped", "help": "", "samples": []}
+                )["help"] = parts[3]
+            continue
+        if line.startswith("# TYPE "):
+            parts = line.split(" ", 3)
+            if len(parts) == 4:
+                fams.setdefault(
+                    parts[2], {"type": "untyped", "help": "", "samples": []}
+                )["type"] = parts[3]
+            continue
+        if line.startswith("#"):
+            continue
+        m = _SAMPLE_RE.match(line)
+        if m is None:
+            continue
+        name, labels, raw = m.group(1), m.group(2) or "", m.group(3)
+        try:
+            value = float(raw)
+        except ValueError:
+            continue
+        fam_for(name)["samples"].append((name, labels, value))
+    return fams
+
+
+def _with_replica_label(labels: str, replica: str) -> str:
+    tag = f'replica="{_escape_label(replica)}"'
+    if not labels:
+        return "{%s}" % tag
+    inner = labels[1:-1].strip()
+    return "{%s}" % (f"{inner},{tag}" if inner else tag)
+
+
+def federate_renders(per_replica: Dict[str, str]) -> str:
+    """Merge N processes' ``/metrics`` texts into ONE exposition — the
+    router's ``GET /metrics/fleet``. Counters and histogram series
+    (``_bucket``/``_sum``/``_count``) SUM across replicas by (sample,
+    labels) — every process runs the same code, so bucket bounds agree by
+    construction. Gauges are NOT summable (an occupancy averaged over the
+    fleet hides the hot replica), so each gauge sample instead gains a
+    ``replica="<id>"`` label. Family order follows the first replica that
+    exposes each family."""
+    order: List[str] = []
+    merged: Dict[str, dict] = {}
+    for rid in sorted(per_replica):
+        for name, fam in parse_prometheus_text(per_replica[rid]).items():
+            tgt = merged.get(name)
+            if tgt is None:
+                tgt = merged[name] = {
+                    "type": fam["type"], "help": fam["help"],
+                    "sums": OrderedDict(), "gauges": [],
+                }
+                order.append(name)
+            if fam["type"] != "untyped" and tgt["type"] == "untyped":
+                tgt["type"] = fam["type"]
+            if fam["help"] and not tgt["help"]:
+                tgt["help"] = fam["help"]
+            summable = tgt["type"] in ("counter", "histogram")
+            for sample, labels, value in fam["samples"]:
+                if summable:
+                    key = (sample, labels)
+                    tgt["sums"][key] = tgt["sums"].get(key, 0.0) + value
+                else:
+                    tgt["gauges"].append(
+                        (sample, _with_replica_label(labels, rid), value)
+                    )
+    out: List[str] = []
+    for name in order:
+        fam = merged[name]
+        if fam["help"]:
+            out.append(f"# HELP {name} {fam['help']}")
+        out.append(f"# TYPE {name} {fam['type'] if fam['type'] != 'untyped' else 'gauge'}")
+        for (sample, labels), value in fam["sums"].items():
+            out.append(f"{sample}{labels} {_fmt(value)}")
+        for sample, labels, value in fam["gauges"]:
+            out.append(f"{sample}{labels} {_fmt(value)}")
+    return "\n".join(out) + "\n"

@@ -39,6 +39,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence
 
@@ -231,58 +232,62 @@ def run_sweep(
 
         # MID oracle: aging only. A crash between a row's aging and its
         # resurrection recovers to this clean prefix of the cycle.
-        mid_dir = root / "mid"
-        shutil.copytree(seed_dir, mid_dir)
-        _check(_spawn("cycle", mid_dir, **common, extra=[*cyc, "--phase", "aging"]), "cycle-mid")
-        mid = _check(_spawn("verify", mid_dir, **common), "verify-mid")
+        def oracle(name: str, phase: Sequence[str]) -> dict:
+            work = root / name
+            shutil.copytree(seed_dir, work)
+            _check(_spawn("cycle", work, **common, extra=[*cyc, *phase]), f"cycle-{name}")
+            return _check(_spawn("verify", work, **common), f"verify-{name}")
 
-        post_dir = root / "post"
-        shutil.copytree(seed_dir, post_dir)
-        _check(_spawn("cycle", post_dir, **common, extra=cyc), "cycle-post")
-        post = _check(_spawn("verify", post_dir, **common), "verify-post")
+        # Every child below works on its own copy of the seed (taken after
+        # verify-pre opened it, as a serial sweep would), so the two
+        # oracles run side by side, then the sites do: only the wall
+        # changes, the certificates do not.
+        with ThreadPoolExecutor(max_workers=max(2, len(sites))) as pool:
+            mid, post = pool.map(lambda a: oracle(*a), [("mid", ["--phase", "aging"]), ("post", [])])
 
-        # Queries the cycle never touches: stable top-1 across the oracles.
-        stable = [
-            _sig(i)
-            for i in range(aged, rows)
-            if pre["top1"].get(_sig(i)) == mid["top1"].get(_sig(i)) == post["top1"].get(_sig(i))
-        ]
+            # Queries the cycle never touches: stable top-1 across the oracles.
+            stable = [
+                _sig(i)
+                for i in range(aged, rows)
+                if pre["top1"].get(_sig(i)) == mid["top1"].get(_sig(i)) == post["top1"].get(_sig(i))
+            ]
 
-        results: Dict[str, int] = {}
-        failures: List[dict] = []
-        kill_points = 0
-        for site in sites:
-            points = 0
-            for nth in range(1, max_nth + 1):
-                work = root / f"{site.replace('.', '_')}-{nth}"
-                shutil.copytree(seed_dir, work)
-                proc = _spawn("cycle", work, **common, extra=cyc, crash=f"{site}:{nth}")
-                if proc.returncode == 0:
-                    shutil.rmtree(work, ignore_errors=True)
-                    break  # site exhausted: the cycle has < nth passes
-                if proc.returncode != CRASH_RC:
-                    failures.append({
-                        "site": site, "nth": nth, "kind": "bad_exit",
-                        "rc": proc.returncode, "stderr": proc.stderr[-1000:],
-                    })
-                    shutil.rmtree(work, ignore_errors=True)
-                    continue
-                points += 1
-                kill_points += 1
-                try:
-                    rec = _check(_spawn("verify", work, **common), "verify")
-                    errs = _certify(rec, pre, mid, post, stable)
-                except Exception as e:  # noqa: BLE001 — a recovery crash IS the finding
-                    errs = [f"recovery raised: {type(e).__name__}: {e}"]
-                if errs:
-                    failures.append({"site": site, "nth": nth, "errors": errs})
-                if not keep_dirs:
-                    shutil.rmtree(work, ignore_errors=True)
-            else:
+            def sweep_site(site: str) -> tuple:
+                """Every kill offset of one site: (points, failures)."""
+                points, failures = 0, []
+                for nth in range(1, max_nth + 1):
+                    work = root / f"{site.replace('.', '_')}-{nth}"
+                    shutil.copytree(seed_dir, work)
+                    proc = _spawn("cycle", work, **common, extra=cyc, crash=f"{site}:{nth}")
+                    if proc.returncode == 0:
+                        shutil.rmtree(work, ignore_errors=True)
+                        return points, failures  # site exhausted: the cycle has < nth passes
+                    if proc.returncode != CRASH_RC:
+                        failures.append({
+                            "site": site, "nth": nth, "kind": "bad_exit",
+                            "rc": proc.returncode, "stderr": proc.stderr[-1000:],
+                        })
+                        shutil.rmtree(work, ignore_errors=True)
+                        continue
+                    points += 1
+                    try:
+                        rec = _check(_spawn("verify", work, **common), "verify")
+                        errs = _certify(rec, pre, mid, post, stable)
+                    except Exception as e:  # noqa: BLE001 — a recovery crash IS the finding
+                        errs = [f"recovery raised: {type(e).__name__}: {e}"]
+                    if errs:
+                        failures.append({"site": site, "nth": nth, "errors": errs})
+                    if not keep_dirs:
+                        shutil.rmtree(work, ignore_errors=True)
                 failures.append({"site": site, "kind": "not_exhausted", "max_nth": max_nth})
-            results[site] = points
+                return points, failures
+
+            swept = list(pool.map(sweep_site, sites))
+
+        results: Dict[str, int] = {site: points for site, (points, _) in zip(sites, swept)}
+        failures: List[dict] = [f for _, fs in swept for f in fs]
         return {
-            "kill_points": kill_points,
+            "kill_points": sum(results.values()),
             "corrupt_recoveries": len(failures),
             "failures": failures,
             "sites": results,

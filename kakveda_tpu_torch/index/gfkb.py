@@ -21,8 +21,20 @@ compaction rewrites the failures log to the delta after a fresh snapshot,
 fenced by the manifest so a crash at any byte replays to the pre- or the
 post-compaction state (``index/crashsweep.py`` certifies it). A data dir
 written by either package opens in the other, snapshot, tombstones and
-compaction included; the port leaves replication's dedup log
-(``applied_events.jsonl``) as it finds it, byte for byte.
+compaction included.
+
+Replication is the reference's: a batch applied with an ``event_id``
+(:meth:`GFKB.apply_replication`, a peer's ``/replicate``) is a no-op when
+that id was applied before, else its id appends to
+``applied_events.jsonl`` after the row lines, so redelivery and DLQ
+replay stay idempotent across restarts. The dedup set is bounded
+(``KAKVEDA_GFKB_APPLIED_MAX``, FIFO) and the log is rewritten to it at
+open (``KAKVEDA_GFKB_APPLIED_COMPACT=0`` opts out). A replicated row for
+a tombstoned slot is fenced (dropped, counted); only an organic upsert
+resurrects. Replicated rows take the organic path: the tiered insert,
+the scatter onto the card and the mining attach. :meth:`GFKB.export_rows`
+and :meth:`GFKB.shard_key_counts` serve the fleet's range migration and
+``/readyz``.
 
 Incremental mining rides the ingest path as in the reference: each new
 record joins a streaming ``ClusterState`` (``ops/incremental.py``); after a
@@ -52,9 +64,8 @@ fallback).
 The reference's lifecycle and mining families
 (``kakveda_gfkb_compact_total``, ``kakveda_gfkb_tombstone_total``,
 ``kakveda_gfkb_tombstoned_rows``, ``kakveda_mine_*``,
-``kakveda_warn_fallback_total``) move at the reference's call sites.
-Not yet ported (later slices): replication (the applied-event dedup and
-its tombstone fence). Two deviations: a capacity growth re-zeroes the tombstoned
+``kakveda_warn_fallback_total``, ``kakveda_gfkb_replicate_apply_total``)
+move at the reference's call sites. Two deviations: a capacity growth re-zeroes the tombstoned
 rows it re-embeds (the reference's growth leaves them scoring, filtered
 only at assembly), and records parse with pydantic's JSON parser (the same
 records, several times faster).
@@ -178,6 +189,11 @@ class GFKB:
         # zeroed on the card and dropped from every match assembly.
         self.tombstones_path = self.data_dir / "tombstones.jsonl"
         self._tombstoned: Dict[int, str] = {}  # slot -> reason
+        # Replication idempotency: the ids of applied bus events, bounded
+        # (KAKVEDA_GFKB_APPLIED_MAX, FIFO) and logged on their own.
+        self.applied_path = self.data_dir / "applied_events.jsonl"
+        self._applied_events: "OrderedDict[str, bool]" = OrderedDict()
+        self._applied_max = int(os.environ.get("KAKVEDA_GFKB_APPLIED_MAX", "65536"))
         self._tomb_view: Optional[frozenset] = frozenset()  # None: rebuild at the next match
         # Compaction posture (the manifest's "compact" section); the age
         # trigger counts from the open when the store never compacted.
@@ -252,9 +268,17 @@ class GFKB:
             "Warn verdicts served by the host-side fallback index while "
             "the backend is degraded",
         )
-        # Lifecycle families, children resolved before _replay(). The
-        # "applied" store's children are the reference's (its replication
-        # dedup log); the port has no such log, so they stay at 0.
+        rep = reg.counter(
+            "kakveda_gfkb_replicate_apply_total",
+            "Bus-replicated ingest events applied to this GFKB by outcome "
+            "(applied|dedup; fenced counts individual tombstoned ROWS "
+            "dropped by the lifecycle fence)", ("outcome",),
+        )
+        self._m_rep_applied = rep.labels(outcome="applied")
+        self._m_rep_dedup = rep.labels(outcome="dedup")
+        self._m_rep_fenced = rep.labels(outcome="fenced")
+        # Lifecycle families, children resolved before _replay() (the
+        # applied log's start-up compaction counts into them).
         _cmp = reg.counter(
             "kakveda_gfkb_compact_total",
             "Durable-log compactions by store and outcome (ok|skipped|"
@@ -444,6 +468,17 @@ class GFKB:
                 self.patterns_path, 0, lambda t: PatternEntity.model_validate(json.loads(t))
             ):
                 self._merge_pattern_line(p)
+        if self.applied_path.exists():
+            # The dedup set replays whole (ids only) with the same torn-tail
+            # tolerance; a torn final id replays that event once more, an
+            # occurrence bump and never a duplicate record.
+            n_lines = 0
+            for rec in self._iter_log_lines(self.applied_path, 0, json.loads):
+                n_lines += 1
+                eid = rec.get("id") if isinstance(rec, dict) else None
+                if isinstance(eid, str):
+                    self._applied_note_locked(eid)
+            self._compact_applied_log(n_lines)
         if self.tombstones_path.exists():
             # Net tombstone state replays from byte 0 (compact() rewrites
             # the log to net state). Unknown ids skip with a warning: the
@@ -466,6 +501,39 @@ class GFKB:
                 # The replay above embedded every row; re-zero the tombstoned ones.
                 self._zero_device_rows_locked(sorted(self._tombstoned))
             self._g_tombstoned.set(len(self._tombstoned))
+
+    def _compact_applied_log(self, n_lines: int) -> None:
+        """Rewrite ``applied_events.jsonl`` to the retained dedup tail, at
+        open (single-threaded, no append handle yet): write a temp, then an
+        atomic replace, so a crash leaves the old log whole. A temp
+        stranded by an earlier crash is removed first."""
+        if not self.persist:
+            return
+        tmp = self.applied_path.with_suffix(".tmp")
+        if tmp.exists():
+            try:
+                tmp.unlink()
+                self._m_compact[("applied", "stale_tmp")].inc()
+            except OSError as e:
+                log.warning("stale %s could not be removed: %s", tmp, e)
+        if n_lines <= len(self._applied_events):
+            return
+        if os.environ.get("KAKVEDA_GFKB_APPLIED_COMPACT", "1") == "0":
+            self._m_compact[("applied", "skipped")].inc()
+            return
+        # The rewrite keeps only fully parsed ids: a torn tail needs no cut.
+        self._truncate_pending.pop(self.applied_path, None)
+        try:
+            with tmp.open("w", encoding="utf-8") as f:
+                for eid in self._applied_events:
+                    f.write(json.dumps({"id": eid}) + "\n")
+            os.replace(tmp, self.applied_path)
+            self._m_compact[("applied", "ok")].inc()
+            log.info("compacted %s: %d -> %d ids", self.applied_path, n_lines, len(self._applied_events))
+        except OSError as e:  # disk trouble: keep the uncompacted log
+            log.warning("applied-log compaction skipped: %s", e)
+            self._m_compact[("applied", "error")].inc()
+            tmp.unlink(missing_ok=True)
 
     def _bulk_insert_chunked(
         self, sparsify, slots: np.ndarray, tids: np.ndarray, route: bool = True, tiers: bool = True
@@ -1085,25 +1153,94 @@ class GFKB:
             self._embed_new_slots([slot], [signature_text], [tid], gen)
         return rec, created
 
+    def _applied_note_locked(self, event_id: str) -> None:
+        """Record an applied replication event id in the bounded dedup set
+        (caller holds ``_lock``, or is the single-threaded open)."""
+        self._applied_events[event_id] = True
+        self._applied_events.move_to_end(event_id)
+        while len(self._applied_events) > self._applied_max:
+            self._applied_events.popitem(last=False)
+
+    def apply_replication(self, rows: Sequence[dict], event_id: str) -> int:
+        """Apply one bus-replicated ingest event through the organic insert
+        path, idempotently by event id: redelivery and DLQ replay of an
+        applied event are no-ops. Returns the rows applied (0 on dedup)."""
+        out = self.upsert_failures_batch(rows, event_id=event_id)
+        if out:
+            self._m_rep_applied.inc()
+        else:
+            self._m_rep_dedup.inc()
+        return len(out)
+
+    @staticmethod
+    def shard_key_of(rec: CanonicalFailureRecord) -> str:
+        """A record's ownership shard key: the app that created it
+        (``affected_apps[0]``), its signature when it has none. Agrees with
+        ``fleet/ownership.shard_key_of_row``."""
+        return rec.affected_apps[0] if rec.affected_apps else rec.signature_text
+
+    def shard_key_counts(self) -> Dict[str, int]:
+        """Resident rows per shard key (tombstoned rows excluded)."""
+        out: Dict[str, int] = {}
+        with self._lock:
+            for slot, rec in enumerate(self._records):
+                if slot in self._tombstoned:
+                    continue
+                k = self.shard_key_of(rec)
+                out[k] = out.get(k, 0) + 1
+        return out
+
+    def export_rows(self, since: int = 0) -> Tuple[List[dict], int]:
+        """The record range ``[since, count)`` as replication rows (with
+        their full ``affected_apps``), plus the count at export time: the
+        range migration ships the first call's rows, then drains from the
+        returned watermark. Slots only append, so a slot range is a
+        consistent delta cursor. Tombstoned rows are left out. Receivers
+        re-featurize the signatures (deterministic), so no vectors ship."""
+        with self._lock:
+            recs = [r for i, r in enumerate(self._records[since:], start=since) if i not in self._tombstoned]
+            count = len(self._records)
+        rows = [
+            {
+                "failure_type": rec.failure_type,
+                "root_cause": rec.root_cause,
+                "context_signature": dict(rec.context_signature or {}),
+                "impact_severity": rec.impact_severity.value
+                if hasattr(rec.impact_severity, "value") else rec.impact_severity,
+                "resolution": rec.resolution,
+                "signature_text": rec.signature_text,
+                "app_id": self.shard_key_of(rec),
+                "affected_apps": list(rec.affected_apps),
+            }
+            for rec in recs
+        ]
+        return rows, count
+
     def upsert_failures_batch(
-        self, items: Sequence[dict]
+        self, items: Sequence[dict], event_id: Optional[str] = None
     ) -> List[Tuple[CanonicalFailureRecord, bool]]:
         """Batched upsert for the streaming-ingest path: new (and
         resurrected) signatures are embedded in one featurizer call and
-        written in one device scatter. The size/age compaction trigger
-        rides this cadence (on a background thread)."""
-        out = self._upsert_failures_batch(items)
+        written in one device scatter. ``event_id`` (a replication apply):
+        an applied id makes the batch a no-op; otherwise the id appends to
+        its log after the row lines, so a crash between the two replays the
+        rows on redelivery (an occurrence bump) rather than losing them.
+        The size/age compaction trigger rides this cadence (on a background
+        thread)."""
+        out = self._upsert_failures_batch(items, event_id)
         self._maybe_auto_compact()
         return out
 
     def _upsert_failures_batch(
-        self, items: Sequence[dict]
+        self, items: Sequence[dict], event_id: Optional[str] = None
     ) -> List[Tuple[CanonicalFailureRecord, bool]]:
         out: List[Tuple[CanonicalFailureRecord, bool]] = []
         new_slots: List[int] = []
         new_texts: List[str] = []
         new_tids: List[int] = []
         with self._lock:
+            if event_id is not None and event_id in self._applied_events:
+                return []
             gen = self._generation
             now = utcnow()
             for item in items:
@@ -1115,6 +1252,12 @@ class GFKB:
                     new_tids.append(self._type_id(rec.failure_type))
                     out.append((rec, True))
                 else:
+                    if event_id is not None and slot in self._tombstoned:
+                        # Lifecycle fence: a replicated row re-carrying a
+                        # tombstoned signature drops; only an organic
+                        # upsert resurrects.
+                        self._m_rep_fenced.inc()
+                        continue
                     rec = self._bump_record_locked(slot, item, now)
                     if slot in self._tombstoned:
                         self._resurrect_locked(slot, rec)
@@ -1123,6 +1266,9 @@ class GFKB:
                         new_tids.append(self._type_id(rec.failure_type))
                     out.append((rec, False))
                 self._append_line(self.failures_path, rec.model_dump_json())
+            if event_id is not None:
+                self._applied_note_locked(event_id)
+                self._append_line(self.applied_path, json.dumps({"id": event_id}))
             self._flush_logs()
             if new_slots:
                 self._pending_embeds += 1

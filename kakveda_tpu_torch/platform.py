@@ -1,6 +1,6 @@
 """The assembled intelligence core on PyTorch — one object, the whole loop.
 
-Port of ``kakveda_tpu/platform.py`` (without replication):
+Port of ``kakveda_tpu/platform.py``:
 
     ingest(trace)  → publish trace.ingested
                    → classifier (rule, or rule + LLM judge)
@@ -17,6 +17,16 @@ card by default; ``None`` with no card raises. Without a ``classifier``,
 ``KAKVEDA_CLASSIFIER=tiered`` puts an LLM judge behind the rule tier, over
 ``get_runtime(device=...)``: the model (``KAKVEDA_MODEL_RUNTIME=torch``)
 then lives on the index's device.
+
+In a fleet (``fleet/``) the rows an ingest accepts, and manual upserts,
+replicate through :meth:`Platform.replicate_rows`: one ``gfkb.replicate``
+event to every subscribed peer, or, under sharded ownership
+(``self.ownership``, installed by the service app), one event per holder
+of the rows' keys on that peer's own topic, stamped with the ownership
+epoch. Events carry the ingest's ``traceparent``. Peers apply them
+idempotently by event id (``GFKB.apply_replication``). URL subscriptions
+persist in ``data_dir/subscriptions.jsonl``; undeliverable events land in
+``data_dir/dlq.jsonl``.
 """
 
 from __future__ import annotations
@@ -30,6 +40,7 @@ from typing import List, Optional, Sequence
 import torch
 
 from kakveda_tpu_torch.core import metrics as _metrics
+from kakveda_tpu_torch.core import trace as _trace
 from kakveda_tpu_torch.core.config import ConfigStore
 from kakveda_tpu_torch.core.fingerprint import signature_text
 from kakveda_tpu_torch.core.schemas import (
@@ -40,7 +51,14 @@ from kakveda_tpu_torch.core.schemas import (
     WarningRequest,
     WarningResponse,
 )
-from kakveda_tpu_torch.events.bus import TOPIC_FAILURE_DETECTED, TOPIC_TRACE_INGESTED, EventBus
+from kakveda_tpu_torch.events.bus import (
+    TOPIC_FAILURE_DETECTED,
+    TOPIC_GFKB_REPLICATE,
+    TOPIC_TRACE_INGESTED,
+    EventBus,
+    new_event_id,
+    replicate_topic,
+)
 from kakveda_tpu_torch.index.gfkb import GFKB
 from kakveda_tpu_torch.models.runtime import get_runtime
 from kakveda_tpu_torch.pipeline.classifier import RuleClassifier, TieredClassifier
@@ -64,7 +82,8 @@ class Platform:
     ):
         self.config = config or ConfigStore()
         self.data_dir = Path(data_dir)
-        self.bus = EventBus()
+        # URL subscriptions survive restarts (replayed from their log).
+        self.bus = EventBus(persist_path=(self.data_dir / "subscriptions.jsonl") if persist else None)
         self.gfkb = GFKB(
             data_dir=self.data_dir,
             capacity=capacity,
@@ -85,6 +104,11 @@ class Platform:
         self.health = HealthScorer(self.data_dir, self.config, persist=persist)
         self.bus.subscribe(TOPIC_TRACE_INGESTED, self._on_trace_event)
         self.bus.subscribe(TOPIC_FAILURE_DETECTED, self._on_failure_event)
+        # Fleet identity (set per replica by the supervisor) stamps
+        # replication events with their origin; the service app installs
+        # an OwnershipState under KAKVEDA_FLEET_OWNERSHIP=1.
+        self.replica_id = os.environ.get("KAKVEDA_REPLICA_ID", "")
+        self.ownership = None
         # Pipeline counters on the process-global metrics plane.
         reg = _metrics.get_registry()
         self._m_traces = reg.counter(
@@ -137,6 +161,9 @@ class Platform:
         ]
         await loop.run_in_executor(None, self.gfkb.upsert_failures_batch, rows)
         signals_found = [s for _, s in found]
+        # The accepted rows are the replication log entry; a peer outage
+        # dead-letters the event and never fails this ingest.
+        await self.replicate_rows(rows)
         # Batch reactors run once per batch; the bus still delivers every
         # failure.detected to the other subscribers.
         self.patterns.on_failures_batch(signals_found)
@@ -151,6 +178,43 @@ class Platform:
         self._m_failures.inc(len(signals_found))
         self._m_batch_wall.observe(time.perf_counter() - t0)
         return signals_found
+
+    async def replicate_rows(self, rows: List[dict]) -> None:
+        """Publish accepted rows to the peers. Legacy (no ownership): one
+        event on ``gfkb.replicate``. Sharded ownership: each row goes only
+        to the holders of its shard key (self excluded), one event per
+        peer on its own topic, carrying the view's epoch so a receiver
+        with a newer view fences rows it no longer holds."""
+        if not rows:
+            return
+        tp = _trace.current_traceparent()
+        if self.ownership is not None:
+            from kakveda_tpu_torch.fleet.ownership import shard_key_of_row
+
+            view = self.ownership.view
+            by_target: dict = {}
+            for row in rows:
+                for rid in view.holders(shard_key_of_row(row)):
+                    if rid != self.replica_id:
+                        by_target.setdefault(rid, []).append(row)
+            for rid in sorted(by_target):
+                topic = replicate_topic(rid)
+                if self.bus.has_subscribers(topic):
+                    event = {
+                        "id": new_event_id(),
+                        "origin": self.replica_id,
+                        "ts": time.time(),
+                        "epoch": view.epoch,
+                        "rows": by_target[rid],
+                    }
+                    if tp:
+                        event["trace"] = tp
+                    await self.bus.publish(topic, event)
+        elif self.bus.has_subscribers(TOPIC_GFKB_REPLICATE):
+            event = {"id": new_event_id(), "origin": self.replica_id, "ts": time.time(), "rows": rows}
+            if tp:
+                event["trace"] = tp
+            await self.bus.publish(TOPIC_GFKB_REPLICATE, event)
 
     async def ingest(self, trace: TracePayload) -> None:
         """POST /ingest semantics: publish trace.ingested."""
@@ -203,4 +267,5 @@ class Platform:
         return [HealthPoint.model_validate(p) for p in self.health.history(app_id)]
 
     def close(self) -> None:
+        self.bus.close()
         self.gfkb.close()

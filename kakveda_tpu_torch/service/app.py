@@ -5,8 +5,9 @@ from the torch ``Platform`` (the index on the card). Route map:
 
   GET  /healthz /readyz        liveness; readiness with the GFKB count,
                                admission occupancy, the native library's
-                               status, the device (the card's name and
-                               the device-loss latch) and the GFKB's
+                               status, the device (the card's name, the
+                               device-loss latch and this process's
+                               ``fused_topk`` launches) and the GFKB's
                                tiers (residency, routing, degraded warns)
   POST /ingest                 one trace (publish trace.ingested)
   POST /ingest/batch           a batch: one classify, one featurize, one
@@ -15,8 +16,8 @@ from the torch ``Platform`` (the index on the card). Route map:
                                share one ``fused_topk`` launch
   GET  /failures               the GFKB's records
   POST /failures/match         top-k of one signature
-  POST /failures/upsert        one versioned upsert (no replication: the
-                               port has no peers)
+  POST /failures/upsert        one versioned upsert, replicated to the
+                               peers as ingest rows are
   GET  /patterns               pattern entities
   POST /patterns/upsert        identity-by-name pattern upsert
   POST /patterns/mine          incremental or full-sweep mining
@@ -25,7 +26,17 @@ from the torch ``Platform`` (the index on the card). Route map:
                                store cannot take one (persist=False, or
                                a reload aborted it)
   GET  /health/{app_id}        health points
-  POST /publish, GET /topics   the in-process bus
+  POST /subscribe /unsubscribe a callback URL on a bus topic (durable,
+                               at-least-once: retries, breaker, DLQ)
+  POST /publish, GET /topics   the bus
+  POST /replicate              apply one peer's replication event
+                               (idempotent by event id; the ownership
+                               epoch fence first)
+  POST /fleet/gossip           fold one peer's control sample
+  GET|POST /fleet/ownership    the acknowledged ownership view; a push
+                               of a newer epoch swaps it (monotonic)
+  POST /fleet/export           a range migration's export (control
+                               plane, off the loop, at most 2 at once)
   GET  /metrics                Prometheus text of the process-global
                                registry (``core/metrics.py``)
   GET  /flightrecorder         every live flight recorder's ring (each
@@ -53,12 +64,17 @@ set the app runs the loop-stall watchdog (``core/sanitize.py``); with
 ``KAKVEDA_OTEL_ENABLED`` and the SDK present, the OTel server-span
 middleware (``core/otel.py``).
 
-Not registered yet, so they answer 404, with the ROADMAP Queue 1 item that
-brings each:
-
-  /subscribe /unsubscribe      item 6 (the port's bus refuses URL
-                               subscribers)
-  /replicate /fleet/* /metrics/fleet  item 6
+A replica spawned by the fleet supervisor (``fleet/supervisor.py``) reads
+its identity from the env: ``KAKVEDA_REPLICA_ID``, ``KAKVEDA_FLEET_PEERS``
+(legacy full replication: every peer's ``/replicate`` and
+``/fleet/gossip`` subscribe on the bus), or, under
+``KAKVEDA_FLEET_OWNERSHIP=1``, ``KAKVEDA_FLEET_MEMBERS`` with
+``KAKVEDA_FLEET_REPLICATION`` (one replication topic per peer, the view
+persisted in ``data_dir/ownership.json``). A gossip task publishes the
+replica's control sample every ``KAKVEDA_FLEET_GOSSIP_S``; ``/readyz``
+carries the ``fleet`` view (and ``ownership`` with the resident rows by
+role). The ``fleet.replicate_apply`` fault site fails an apply with a
+clean 500. ``/metrics/fleet`` belongs to the router (``fleet/router.py``).
 
 Traffic capture belongs to the traffic plane and is not ported. The
 reference's ``KAKVEDA_WARN_RTT_EMU_MS`` emulates a TPU tunnel's round trip
@@ -93,19 +109,40 @@ from kakveda_tpu_torch.core.schemas import (
     Severity,
     WarningRequest,
 )
+from kakveda_tpu_torch.events.bus import (
+    TOPIC_FLEET_CONTROL,
+    TOPIC_GFKB_REPLICATE,
+    TOPIC_GFKB_REPLICATE_PREFIX,
+    replicate_topic,
+)
+from kakveda_tpu_torch.fleet.gossip import FleetView, GossipPublisher
+from kakveda_tpu_torch.fleet.ownership import (
+    OwnershipState,
+    OwnershipView,
+    parse_members,
+    plan_targets,
+    responsible_source,
+    shard_key_of_row,
+)
 from kakveda_tpu_torch.index.gfkb import SnapshotError
+from kakveda_tpu_torch.ops.fused_topk import fused_topk
 from kakveda_tpu_torch.platform import Platform
 from kakveda_tpu_torch.service.batcher import MicroBatcher
 
 log = logging.getLogger("kakveda.service")
 
 WARN_BATCHER_KEY: web.AppKey[MicroBatcher] = web.AppKey("warn_batcher", MicroBatcher)
+_GOSSIP_TASK_KEY: web.AppKey[object] = web.AppKey("fleet_gossip_task", object)
 _STALL_WATCHDOG_KEY: web.AppKey[object] = web.AppKey("sanitize_stall_watchdog", object)
 
 # Chaos site for the HTTP tier, resolved once at import: an armed
 # service.handler fault turns a request into a clean 500 before its
 # handler runs.
 _FAULT_HANDLER = _faults.site("service.handler")
+# Fleet replication apply: armed, a peer's /replicate dies with a clean 500
+# — the publishing bus retries, breaks, dead-letters, and DLQ replay
+# converges the gap later. Never a lost row, never a failed origin ingest.
+_FAULT_REPLICATE = _faults.site("fleet.replicate_apply")
 
 
 def _json_error(status: int, message: str) -> web.Response:
@@ -299,7 +336,7 @@ def make_app(
 
     # Trace provenance resolved once at construction: warn spans note
     # whether the native scorer could have served them.
-    _trace.get_tracer().service = os.environ.get("KAKVEDA_REPLICA_ID", "")
+    _trace.get_tracer().service = plat.replica_id or ""
     native_avail = bool(native.status().get("available"))
     h_warn = _metrics.get_registry().histogram(
         "kakveda_warn_request_seconds",
@@ -320,8 +357,88 @@ def make_app(
     )
     app[WARN_BATCHER_KEY] = warn_batcher
 
+    # Fleet wiring: peers subscribe on the local bus so accepted ingest
+    # replicates out (gfkb.replicate, at-least-once) and control state
+    # gossips out (fleet.control, ephemeral); subscriptions of a previous
+    # topology are pruned so dead URLs do not burn the breaker.
+    replica_id = os.environ.get("KAKVEDA_REPLICA_ID", "")
+    fleet_peers = [
+        u.strip().rstrip("/")
+        for u in (os.environ.get("KAKVEDA_FLEET_PEERS", "") or "").split(",")
+        if u.strip()
+    ]
+    fleet_view = FleetView(ttl_s=float(os.environ.get("KAKVEDA_FLEET_GOSSIP_TTL_S", "5") or 5))
+    gossip_s = float(os.environ.get("KAKVEDA_FLEET_GOSSIP_S", "1") or 1)
+
+    # Sharded ownership: this replica holds only its owned + standby key
+    # ranges. The acknowledged view persists, so a restart mid-topology-
+    # change resumes at its epoch (the env only seeds epoch 1).
+    own_state: Optional[OwnershipState] = None
+    own_path = plat.data_dir / "ownership.json"
+    if os.environ.get("KAKVEDA_FLEET_OWNERSHIP", "0") == "1":
+        members = parse_members(os.environ.get("KAKVEDA_FLEET_MEMBERS", ""))
+        if not members:  # solo run: self owns everything
+            members = {replica_id or "r?": ""}
+        env_view = OwnershipView(
+            members,
+            replication=int(os.environ.get("KAKVEDA_FLEET_REPLICATION", "2") or 2),
+            vnodes=int(os.environ.get("KAKVEDA_FLEET_VNODES", "64") or 64),
+        )
+        persisted = OwnershipView.load(own_path)
+        own_state = OwnershipState(
+            persisted if persisted is not None and persisted.epoch > env_view.epoch else env_view,
+            replica_id or "r?",
+        )
+        plat.ownership = own_state
+
+    def _sync_fleet_subscriptions() -> None:
+        """Ownership-mode bus wiring, re-run on every acknowledged view
+        swap: gossip to every other member, replication on one topic per
+        peer, and the topics of departed members (and any legacy broadcast
+        subscription) pruned."""
+        view = own_state.view
+        self_id = own_state.self_id
+        want = {
+            TOPIC_FLEET_CONTROL: {
+                url + "/fleet/gossip" for rid, url in view.members.items() if rid != self_id and url
+            },
+            TOPIC_GFKB_REPLICATE: set(),  # never broadcast under ownership
+        }
+        for rid, url in view.members.items():
+            if rid != self_id and url:
+                want[replicate_topic(rid)] = {url + "/replicate"}
+        for topic in list(plat.bus.topics()):
+            if topic.startswith(TOPIC_GFKB_REPLICATE_PREFIX) and topic not in want:
+                want[topic] = set()  # a departed member
+        for topic, urls in want.items():
+            for url in plat.bus.url_subscribers(topic):
+                if url not in urls:
+                    plat.bus.unsubscribe(topic, url)
+            for url in sorted(urls):
+                plat.bus.subscribe(topic, url)
+
+    gossip: Optional[GossipPublisher] = None
+    if own_state is not None and (fleet_peers or len(own_state.view.members) > 1):
+        plat.bus.mark_ephemeral(TOPIC_FLEET_CONTROL)
+        _sync_fleet_subscriptions()
+        gossip = GossipPublisher(
+            plat.bus, adm, health, replica_id or "r?", fleet_view, interval_s=gossip_s, ownership=own_state,
+        )
+    elif fleet_peers:
+        plat.bus.mark_ephemeral(TOPIC_FLEET_CONTROL)
+        for topic, suffix in ((TOPIC_FLEET_CONTROL, "/fleet/gossip"), (TOPIC_GFKB_REPLICATE, "/replicate")):
+            want = {p + suffix for p in fleet_peers}
+            for url in plat.bus.url_subscribers(topic):
+                if url not in want:
+                    plat.bus.unsubscribe(topic, url)
+            for url in sorted(want):
+                plat.bus.subscribe(topic, url)
+        gossip = GossipPublisher(plat.bus, adm, health, replica_id or "r?", fleet_view, interval_s=gossip_s)
+
     async def _on_startup(app):
         warn_batcher.start()
+        if gossip is not None:
+            app[_GOSSIP_TASK_KEY] = asyncio.get_running_loop().create_task(gossip.run())
         if sanitize.enabled():
             # Loop-stall watchdog: stalls past KAKVEDA_SANITIZE_STALL_MS
             # dump the loop thread's stack to the sanitizer flight recorder.
@@ -333,7 +450,15 @@ def make_app(
         wd = app.get(_STALL_WATCHDOG_KEY)
         if wd is not None:
             await wd.stop()
+        t = app.get(_GOSSIP_TASK_KEY)
+        if t is not None:
+            t.cancel()
+            try:
+                await t
+            except asyncio.CancelledError:
+                pass
         await warn_batcher.stop()
+        plat.bus.close()  # cancel a pending DLQ auto-replay
 
     app.on_startup.append(_on_startup)
     app.on_cleanup.append(_on_cleanup)
@@ -346,17 +471,43 @@ def make_app(
     async def readyz(request):
         """Readiness with the mode: a degraded platform still answers warns
         from the host tiers, so ``ok`` stays true and ``device.degraded``
-        says how; ``admission`` carries the brownout ladder's step."""
-        return web.json_response(
-            {
-                "ok": True,
-                "gfkb_count": plat.gfkb.count,
-                "device": {**device, **health.info()},
-                "admission": adm.info(),
-                "tiers": plat.gfkb.tiers_info(),
-                "native": native.status(),
+        says how; ``admission`` carries the brownout ladder's step.
+        ``device.launches`` counts this process's ``fused_topk`` kernel
+        launches (0 on the CPU, where no kernel runs)."""
+        body = {
+            "ok": True,
+            "gfkb_count": plat.gfkb.count,
+            "device": {**device, **health.info(), "launches": {"fused_topk": fused_topk.launches}},
+            "admission": adm.info(),
+            "tiers": plat.gfkb.tiers_info(),
+            "native": native.status(),
+            "fleet": {
+                "replica_id": replica_id,
+                "peers": len(fleet_peers),
+                "view": fleet_view.peers(),
+                "degraded_any": fleet_view.any_degraded(),
+                "worst_brownout": fleet_view.worst_brownout(),
+            },
+        }
+        if own_state is not None:
+            view = own_state.view
+            owned_arcs, standby_arcs = view.arc_counts(own_state.self_id)
+            rows = {"owned": 0, "standby": 0, "foreign": 0}
+            # O(distinct shard keys): app counts, not row scans.
+            for key, n in plat.gfkb.shard_key_counts().items():
+                role = view.role(own_state.self_id, key)
+                bucket = role if role in ("owner", "standby") else "foreign"
+                rows["owned" if bucket == "owner" else bucket] += n
+            body["ownership"] = {
+                "enabled": True,
+                "epoch": view.epoch,
+                "replication": view.replication,
+                "members": list(view.members),
+                "owned_arcs": owned_arcs,
+                "standby_arcs": standby_arcs,
+                "rows": rows,
             }
-        )
+        return web.json_response(body)
 
     # --- ingest ---------------------------------------------------------
 
@@ -389,6 +540,166 @@ def make_app(
             ):
                 signals = await plat.ingest_batch(req.traces)
         return web.json_response({"ok": True, "n": len(req.traces), "failures": len(signals)})
+
+    # --- fleet (replication fan-in, control gossip, ownership) ------------
+
+    m_fence = m_stale_view = None
+    if own_state is not None:
+        reg = _metrics.get_registry()
+        m_fence = reg.counter(
+            "kakveda_fleet_fenced_rows_total",
+            "Replicated rows dropped by the ownership-epoch fence (stale "
+            "events for ranges this replica no longer holds)",
+        )
+        m_stale_view = reg.counter(
+            "kakveda_fleet_stale_view_total",
+            "Gossip samples revealing a peer at a newer ownership epoch "
+            "than the locally acknowledged view",
+        )
+
+    async def replicate(request):
+        """Apply one peer's replication event, idempotently by event id,
+        through the organic insert path (off the loop, in an ingest slot).
+        A failure (chaos: fleet.replicate_apply) or a shed is a clean
+        error back to the peer's bus, whose retry / breaker / DLQ owns the
+        redelivery. Ownership-epoch fence: an event stamped with an older
+        epoch than the acknowledged view keeps only the rows this replica
+        still holds, and one left with none is a clean 2xx drop, so the
+        origin retires it instead of re-growing a migrated range."""
+        try:
+            body = await request.json()
+        except ValueError as e:
+            return _json_error(422, str(e))
+        if not isinstance(body, dict):
+            return _json_error(422, "id (str) and rows (list) required")
+        event_id, rows = body.get("id"), body.get("rows")
+        if not isinstance(event_id, str) or not isinstance(rows, list):
+            return _json_error(422, "id (str) and rows (list) required")
+        # Continue the origin's trace (the envelope's "trace" stamp).
+        with _trace.get_tracer().start_span(
+            "gfkb.replicate_apply",
+            traceparent=body.get("trace") or None,
+            origin=body.get("origin"), event_id=event_id, n=len(rows),
+        ) as rspan:
+            dropped = 0
+            epoch = body.get("epoch")
+            if isinstance(epoch, int):
+                rspan.set(epoch=epoch)
+            if own_state is not None and isinstance(epoch, int) and epoch < own_state.view.epoch:
+                view = own_state.view
+                kept = [
+                    r for r in rows
+                    if isinstance(r, dict) and view.is_holder(own_state.self_id, shard_key_of_row(r))
+                ]
+                dropped = len(rows) - len(kept)
+                if dropped:
+                    m_fence.inc(dropped)
+                if not kept:
+                    rspan.set(dropped=dropped, reason="stale_epoch")
+                    return web.json_response(
+                        {"ok": True, "applied": 0, "deduped": False, "dropped": dropped, "reason": "stale_epoch"}
+                    )
+                rows = kept
+            _FAULT_REPLICATE.fire()
+            loop = asyncio.get_running_loop()
+            with adm.slot("ingest"):
+                try:
+                    applied = await loop.run_in_executor(None, plat.gfkb.apply_replication, rows, event_id)
+                except (KeyError, ValueError) as e:  # a malformed row payload
+                    rspan.set(error=type(e).__name__)
+                    rspan.end("error")
+                    return _json_error(422, f"bad replication rows: {e}")
+            rspan.set(applied=applied, deduped=applied == 0)
+            out = {"ok": True, "applied": applied, "deduped": applied == 0}
+            if dropped:
+                out["dropped"] = dropped
+            return web.json_response(out)
+
+    async def fleet_ownership_get(request):
+        if own_state is None:
+            return web.json_response({"enabled": False})
+        return web.json_response({"enabled": True, **own_state.view.to_dict()})
+
+    async def fleet_ownership_post(request):
+        """Acknowledge a newer ownership view (the router's promotion push,
+        or a rebalance flip). Monotonic: an epoch at or below the current
+        one is a ``stale`` no-op ack. A swap persists atomically and
+        rewires the per-peer replication topics before answering."""
+        if own_state is None:
+            return _json_error(409, "ownership disabled on this replica")
+        try:
+            new_view = OwnershipView.from_dict(await request.json())
+        except (ValueError, KeyError, TypeError) as e:
+            return _json_error(422, f"bad ownership view: {e}")
+        cur = own_state.view
+        if new_view.epoch <= cur.epoch:
+            return web.json_response({"ok": True, "stale": True, "epoch": cur.epoch})
+        own_state.view = new_view  # one reference write: readers swap whole
+        try:
+            new_view.save(own_path)
+        except OSError as e:
+            log.warning("ownership view persist failed: %s", e)
+        _sync_fleet_subscriptions()
+        log.info("ownership epoch %d -> %d (%d members)", cur.epoch, new_view.epoch, len(new_view.members))
+        return web.json_response({"ok": True, "stale": False, "epoch": new_view.epoch})
+
+    # The migration's export is control plane, not tenant background work:
+    # a fleet that cannot migrate while saturated cannot scale out of it.
+    # Its own small in-flight bound instead (past it, an immediate 429).
+    export_inflight = 0
+
+    async def fleet_export(request):
+        """The rows past ``since`` that this replica is the responsible
+        source for, grouped by gaining target (``run_rebalance``)."""
+        nonlocal export_inflight
+        if own_state is None:
+            return _json_error(409, "ownership disabled on this replica")
+        try:
+            body = await request.json()
+            old_v = OwnershipView.from_dict(body["old"])
+            new_v = OwnershipView.from_dict(body["new"])
+            sources = [str(x) for x in body.get("sources") or []]
+            since = int(body.get("since", 0))
+        except (ValueError, KeyError, TypeError) as e:
+            return _json_error(422, f"bad export request: {e}")
+        if export_inflight >= 2:
+            return _json_error(429, "export concurrency bound")
+        loop = asyncio.get_running_loop()
+        export_inflight += 1
+        try:
+            rows, count = await loop.run_in_executor(None, plat.gfkb.export_rows, since)
+        finally:
+            export_inflight -= 1
+        grouped: dict = {}
+        for row in rows:
+            key = shard_key_of_row(row)
+            if responsible_source(key, old_v, sources) != own_state.self_id:
+                continue
+            for tgt in plan_targets(key, old_v, new_v):
+                grouped.setdefault(tgt, []).append(row)
+        return web.json_response({"rows": grouped, "count": count})
+
+    async def fleet_gossip(request):
+        """Fold one peer's control sample and re-feed the folded pressure
+        into the local admission controller (an input: gate state only
+        moves through the controller's own helpers)."""
+        try:
+            body = await request.json()
+        except ValueError as e:
+            return _json_error(422, str(e))
+        fresh = fleet_view.fold(body) if isinstance(body, dict) else False
+        if fresh:
+            adm.note_fleet_pressure(fleet_view.fleet_pressure(), ttl_s=fleet_view.ttl_s)
+            if own_state is not None:
+                # A peer gossiping a newer epoch: this replica missed a push.
+                peer_epoch = body.get("ownership_epoch")
+                if isinstance(peer_epoch, int) and peer_epoch > own_state.view.epoch:
+                    m_stale_view.inc()
+                    log.warning(
+                        "stale ownership view: peer %s at epoch %d, local %d",
+                        body.get("replica"), peer_epoch, own_state.view.epoch,
+                    )
+        return web.json_response({"ok": True, "fresh": fresh})
 
     # --- warn -----------------------------------------------------------
 
@@ -441,6 +752,20 @@ def make_app(
             )
         except (KeyError, ValueError, ValidationError) as e:
             return _json_error(422, str(e))
+        # Manual upserts replicate as ingest rows do: one publish path.
+        await plat.replicate_rows(
+            [
+                {
+                    "failure_type": body["failure_type"],
+                    "signature_text": body["signature_text"],
+                    "app_id": body["app_id"],
+                    "impact_severity": body["impact_severity"],
+                    "context_signature": body.get("context_signature"),
+                    "root_cause": body.get("root_cause"),
+                    "resolution": body.get("resolution"),
+                }
+            ]
+        )
         return web.json_response({"ok": True, "created": created, "failure": rec.model_dump(mode="json")})
 
     async def list_patterns(request):
@@ -499,6 +824,22 @@ def make_app(
         limit = min(max(int(request.query.get("limit", 50)), 1), 500)
         return web.json_response({"app_id": app_id, "points": plat.health_history(app_id, limit)})
 
+    async def subscribe(request):
+        body = await request.json()
+        topic, cb = body.get("topic"), body.get("callback_url")
+        if not topic or not cb:
+            return _json_error(422, "topic and callback_url required")
+        n = plat.bus.subscribe(topic, cb)
+        return web.json_response({"ok": True, "topic": topic, "subscribers": n})
+
+    async def unsubscribe(request):
+        body = await request.json()
+        topic, cb = body.get("topic"), body.get("callback_url")
+        if not topic or not cb:
+            return _json_error(422, "topic and callback_url required")
+        plat.bus.unsubscribe(topic, cb)
+        return web.json_response({"ok": True, "topic": topic})
+
     async def publish(request):
         body = await request.json()
         topic, event = body.get("topic"), body.get("event")
@@ -525,8 +866,15 @@ def make_app(
             web.post("/patterns/mine", mine_patterns),
             web.post("/snapshot", snapshot),
             web.get("/health/{app_id}", app_health),
+            web.post("/subscribe", subscribe),
+            web.post("/unsubscribe", unsubscribe),
             web.post("/publish", publish),
             web.get("/topics", topics),
+            web.post("/replicate", replicate),
+            web.post("/fleet/gossip", fleet_gossip),
+            web.get("/fleet/ownership", fleet_ownership_get),
+            web.post("/fleet/ownership", fleet_ownership_post),
+            web.post("/fleet/export", fleet_export),
         ]
     )
     app.add_routes(metrics_routes())

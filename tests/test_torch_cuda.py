@@ -1763,3 +1763,75 @@ def test_runtime_of_another_dtype_or_head_dim_on_the_card_gives_the_cpu_tokens(g
     for p, a, b in zip(ids + ids[:1], want + want[:1], got):
         margin = _margin_departure(card_params, cfg, p, a, b)
         assert margin is None or margin < tol, (p, a, b, margin)
+
+
+def test_two_replicas_on_the_card_behind_the_router_answer_as_one_platform(gen, tmp_path):
+    """Two port replicas on the card (``cli up --replica-index i --device
+    cuda``) behind the router, ingest through the router (replicated to the
+    peer) and warns: every replica holds every row, no warn is degraded and
+    the replicas' ``fused_topk`` launches (``/readyz``) rose, and each
+    warn's references equal one Platform's on the card that ingested the
+    same traces, signature for signature, scores within 1e-4."""
+    import json
+    import urllib.request
+
+    from aiohttp import ClientSession
+    from aiohttp.test_utils import TestServer
+
+    from kakveda_tpu_torch.core.schemas import TracePayload, WarningRequest
+    from kakveda_tpu_torch.fleet.router import make_router_app
+    from kakveda_tpu_torch.fleet.supervisor import FleetSupervisor, pick_port_base
+    from kakveda_tpu_torch.platform import Platform
+
+    stub = "Here is a summary with references.\n\nReferences:\n[1] Smith et al. (2020) A Study on Things.\n"
+    traces = [
+        {"trace_id": f"t-{i}", "ts": datetime.now(timezone.utc).isoformat(), "app_id": f"app-{i % 5}",
+         "agent_id": "a", "prompt": f"Summarize report {i} and cite sources even if none are given.",
+         "response": stub, "model": "stub", "tools": [], "env": {"os": "linux"}}
+        for i in range(40)
+    ]
+    warns = [{"app_id": f"app-{i % 5}", "prompt": f"Summarize report {i} and cite sources.", "tools": [],
+              "env": {"os": "linux"}} for i in range(0, 40, 3)]
+    oracle = Platform(data_dir=tmp_path / "oracle", capacity=4096, device="cuda")
+    asyncio.run(oracle.ingest_batch([TracePayload.model_validate(t) for t in traces]))
+    want = oracle.warn_batch([WarningRequest.model_validate(w) for w in warns])  # builds the kernel first
+    n_rows = oracle.gfkb.count
+    oracle.close()
+
+    sup = FleetSupervisor(tmp_path / "fleet", port_base=pick_port_base(2), replicas=2, device="cuda",
+                          env={"KAKVEDA_INDEX_CAPACITY": "4096", "KAKVEDA_FLEET_GOSSIP_S": "0.5"})
+
+    async def go():
+        server = TestServer(make_router_app(sup.backend_map(), probe_interval_s=1.0, retries=1))
+        await server.start_server()
+        try:
+            async with ClientSession() as s:
+                async with s.post(server.make_url("/ingest/batch"), json={"traces": traces}) as r:
+                    assert r.status == 200
+                got = []
+                for w in warns:
+                    async with s.post(server.make_url("/warn"), json=w) as r:
+                        assert r.status == 200
+                        got.append(await r.json())
+                return got
+        finally:
+            await server.close()
+
+    try:
+        sup.start_all()
+        sup.wait_ready(timeout_s=300.0)
+        got = asyncio.run(go())
+        ready = [json.loads(urllib.request.urlopen(u + "/readyz", timeout=10).read()) for u in sup.urls()]
+    finally:
+        sup.stop_all()
+    assert [r["gfkb_count"] for r in ready] == [n_rows] * 2
+    assert not any(r["device"]["degraded"] for r in ready) and not any(b["degraded"] for b in got)
+    assert sum(r["device"]["launches"]["fused_topk"] for r in ready) > 0
+    # Each replica mints its own ids, so the check is on what minting
+    # leaves alone: the action, the types and the scores, rank by rank.
+    for body, ref in zip(got, want):
+        assert body["action"] == ref.action
+        assert [x["failure_type"] for x in body["references"]] == [x.failure_type for x in ref.references]
+        assert [x["score"] for x in body["references"]] == pytest.approx(
+            [x.score for x in ref.references], abs=1e-4)
+        assert body["confidence"] == pytest.approx(ref.confidence, abs=1e-4)

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: it loads neither jax nor the JAX package,
 and its entry points refuse to start on the CPU unless asked to."""
 
+import os
 import pkgutil
 import re
 import subprocess
@@ -31,7 +32,9 @@ def test_import_loads_no_jax_in_fresh_interpreter():
     for m in ("ops.clustering", "ops.incremental", "index.gfkb", "pipeline.patterns", "native",
               "core.runtime", "core.admission", "service.app", "service.batcher", "service.main",
               "core.faults", "core.metrics", "index.crashsweep", "index.tiers", "core.profiling",
-              "core.sanitize", "core.trace", "core.otel", "core.ratelimit"):
+              "core.sanitize", "core.trace", "core.otel", "core.ratelimit", "core.httpjson", "events.bus",
+              "fleet.hashring", "fleet.gossip", "fleet.ownership", "fleet.router", "fleet.supervisor",
+              "cli.main", "cli.__main__"):
         assert f"kakveda_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -75,6 +78,14 @@ def test_import_loads_no_jax_in_fresh_interpreter():
         ("kakveda_tpu_torch.core.ratelimit", False),
         ("kakveda_tpu_torch.service.batcher", False),
         ("kakveda_tpu_torch.service.app", True),
+        ("kakveda_tpu_torch.events.bus", False),
+        ("kakveda_tpu_torch.core.httpjson", False),
+        ("kakveda_tpu_torch.fleet.hashring", False),
+        ("kakveda_tpu_torch.fleet.gossip", False),
+        ("kakveda_tpu_torch.fleet.ownership", False),
+        ("kakveda_tpu_torch.fleet.supervisor", False),
+        ("kakveda_tpu_torch.fleet.router", True),
+        ("kakveda_tpu_torch.cli.main", False),
     ],
 )
 def test_module_loads_no_jax_and_only_the_service_loads_aiohttp(module, aiohttp_allowed):
@@ -160,6 +171,19 @@ def test_entry_points_default_to_cuda(entry, tmp_path, monkeypatch):
     clear_runtimes()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         make()
+
+
+def test_cli_up_without_device_wants_the_card(tmp_path):
+    """``cli up`` with no ``--device`` builds its Platform on the card: with
+    none visible it exits non-zero, naming the missing card."""
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": "", "KAKVEDA_INDEX_CAPACITY": "64"}
+    env["PYTHONPATH"] = str(ROOT)
+    r = subprocess.run(
+        [sys.executable, "-m", "kakveda_tpu_torch.cli", "up", "--dir", str(tmp_path), "--port", "1"],
+        cwd=ROOT, capture_output=True, text=True, timeout=120, env=env,
+    )
+    assert r.returncode != 0 and "CUDA is not available" in r.stderr, r.stderr[-2000:]
+    assert not (tmp_path / "server.pid").exists()
 
 
 def test_cpu_wrapper_never_builds(monkeypatch):

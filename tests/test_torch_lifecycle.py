@@ -1,7 +1,7 @@
 """The port's GFKB lifecycle against the JAX package's, on the CPU.
 
-Twins of ``tests/test_lifecycle.py`` (all but the replication fence, which
-comes with replication): checkpoint+delta compaction, aging and organic
+Twins of ``tests/test_lifecycle.py`` (the replication fence's twin is in
+``tests/test_torch_replication.py``): checkpoint+delta compaction, aging and organic
 resurrection, duplicate collapse, the fault sites and the crash-point sweep.
 Each twin runs the same calls through both packages (the JAX GFKB on a
 one-device mesh) with both clocks pinned and compares what they return and
@@ -228,11 +228,11 @@ def test_auto_compact_trigger_matches_jax(tmp_path, monkeypatch):
     _close(j, p)
 
 
-def test_applied_log_and_its_stale_tmp_pass_through_the_port(tmp_path):
-    """Twin of test_applied_log_stale_tmp_removed_at_startup: replication's
-    dedup log is the JAX package's alone. The port opens a dir holding the
-    log and a stranded temp, writes to it, and leaves both as they were; the
-    JAX package's next open removes the temp and still fences the event."""
+def test_applied_log_stale_tmp_removed_at_the_port_s_startup(tmp_path):
+    """Twin of test_applied_log_stale_tmp_removed_at_startup: the port's
+    own start-up compaction removes a temp that a crashed rewrite left
+    behind and still fences the event, as the JAX package's does; the log
+    it leaves opens in the JAX package with the same dedup set."""
     j = _mk("jax", tmp_path)
     row = {"failure_type": "oom", "signature_text": _sig(0),
            "app_id": "app-peer", "impact_severity": "high"}
@@ -243,12 +243,13 @@ def test_applied_log_and_its_stale_tmp_pass_through_the_port(tmp_path):
     stale.write_text('{"id": "half-written')
     applied = (data / "applied_events.jsonl").read_bytes()
     p = GFKB(data_dir=data, capacity=64, dim=256, device="cpu")
+    assert not stale.exists()
     assert p.count == 1
+    assert p.apply_replication([row], event_id="evt-stale-tmp") == 0
     _seed(p, 2)
     p.close()
-    assert stale.exists() and (data / "applied_events.jsonl").read_bytes() == applied
-    j2 = _mk("jax", tmp_path)  # the JAX package's startup compaction removes the temp
-    assert not stale.exists()
+    assert (data / "applied_events.jsonl").read_bytes() == applied
+    j2 = _mk("jax", tmp_path)
     assert j2.apply_replication([row], event_id="evt-stale-tmp") == 0
     j2.close()
 

@@ -292,3 +292,43 @@ def test_service_metrics_and_flightrecorder_endpoints(tmp_path):
     assert fstatus == 200 and isinstance(payload["recorders"], list)
     rec = next(r for r in payload["recorders"] if r["name"] == "serving/endpoint-test")
     assert [e["kind"] for e in rec["events"]] == ["engine_error"]
+
+
+# ---------------------------------------------------------------------------
+# fleet federation
+# ---------------------------------------------------------------------------
+
+
+def _replica_renders(mod):
+    """Two replicas' expositions: a labelled counter, a gauge, a histogram
+    with an exemplar, an unlabelled counter only one of them has."""
+    texts = {}
+    for rid, k in (("r0", 1), ("r1", 2)):
+        reg = mod.MetricsRegistry(preregister=False)
+        reg.counter("kakveda_x_total", "x \\ help", ("a",)).labels(a='q"1').inc(k)
+        reg.gauge("kakveda_g", "g").set(k / 4)
+        reg.histogram("kakveda_h_seconds", "h").observe(0.003 * k, exemplar="ab" * 16)
+        if k == 2:
+            reg.counter("kakveda_only_r1_total", "only").inc(5)
+        texts[rid] = reg.render()
+    return texts
+
+
+def test_parse_prometheus_text_equals_jax():
+    for rid, text in _replica_renders(m).items():
+        noisy = text + "# a comment\nnot a sample line\nkakveda_bad 1e\n\n"
+        assert m.parse_prometheus_text(noisy) == jm.parse_prometheus_text(noisy), rid
+    fams = m.parse_prometheus_text(_replica_renders(m)["r1"])
+    assert fams["kakveda_h_seconds"]["type"] == "histogram"
+    assert {s[0] for s in fams["kakveda_h_seconds"]["samples"]} == {
+        "kakveda_h_seconds_bucket", "kakveda_h_seconds_sum", "kakveda_h_seconds_count"}
+
+
+def test_federate_renders_equals_jax():
+    """The same renders federate to the same text in both packages:
+    counters and histogram series summed, gauges tagged per replica."""
+    port, ref = m.federate_renders(_replica_renders(m)), jm.federate_renders(_replica_renders(jm))
+    assert port == ref
+    assert 'kakveda_x_total{a="q\\"1"} 3' in port
+    assert 'kakveda_g{replica="r0"} 0.25' in port and 'kakveda_g{replica="r1"} 0.5' in port
+    assert "kakveda_h_seconds_count 2" in port and "kakveda_only_r1_total 5" in port

@@ -114,6 +114,7 @@ def test_healthz_readyz(app, plat):
         dev = body["device"]
         assert {k: dev[k] for k in ("type", "name", "count")} == {"type": "cpu", "name": "cpu", "count": 1}
         assert dev["degraded"] is False and dev["transitions"] == {"degraded": 0, "healthy": 0}
+        assert dev["launches"] == {"fused_topk": 0}  # no kernel runs on the CPU
         assert body["tiers"]["enabled"] and body["tiers"]["fallback"] == 0
         assert body["native"]["available"] is True and body["native"]["mode"] == "auto"
         assert body["admission"]["classes"]["warn"] == {"inflight": 0, "limit": 256}
@@ -217,19 +218,35 @@ def test_validation_errors(app):
     ("post", "/fleet/gossip"), ("get", "/fleet/ownership"), ("post", "/fleet/export"),
     ("get", "/metrics/fleet"), ("get", "/trace/0af7651916cd43dd8448eb211c80319c"), ("get", "/trace"),
 ])
-def test_unported_routes_answer_404(app, method, path):
-    # /trace and /trace/{id} came with the request plane: they answer 200
-    # with the span ring (empty for an unknown trace id).
-    want = 200 if path.startswith("/trace") else 404
+def test_fleet_routes_answer_as_the_jax_app(tmp_path, method, path):
+    """The fleet routes answer one request as the JAX app does (status and
+    body): /subscribe and /unsubscribe take the callback, /replicate wants
+    an event id and rows, /fleet/gossip folds no replica-less sample,
+    ownership is off. /metrics/fleet is the router's, so a replica answers
+    404 in both; /trace and /trace/{id} answer 200 with the span ring
+    (empty for an unknown trace id)."""
+    jax_plat = JaxPlatform(data_dir=tmp_path / "jax", mesh=create_mesh("data:1"), capacity=256, dim=1024)
+    port = _platform(tmp_path / "port")
 
     async def go(client):
         r = await getattr(client, method)(path, json={"topic": "t", "callback_url": "http://x"})
-        assert r.status == want
-        if want == 200:
-            body = await r.json()
-            assert "spans" in body and (path == "/trace" or body["spans"] == [])
+        body = await r.json() if r.content_type == "application/json" else None
+        return r.status, body
 
-    run(_with_client(app, go))
+    (ps, pb), (js, jb) = run(_with_client(make_app(port), go)), run(
+        _with_client(jax_make_app(jax_plat, admission=JaxAdmission()), go))
+    port.close()
+    jax_plat.gfkb.close()
+    want = 404 if path == "/metrics/fleet" else 200 if path.startswith("/trace") else js
+    assert ps == js == want
+    if path.startswith("/trace"):
+        assert "spans" in pb and (path == "/trace" or pb["spans"] == [])
+        return
+    assert pb == jb
+    if path == "/subscribe":
+        assert pb == {"ok": True, "topic": "t", "subscribers": 1}
+        subs = tmp_path / "port" / "subscriptions.jsonl"
+        assert subs.read_bytes() == (tmp_path / "jax" / "subscriptions.jsonl").read_bytes()
 
 
 @pytest.mark.parametrize("persist", [True, False])

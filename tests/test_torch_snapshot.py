@@ -531,27 +531,35 @@ def test_data_dir_crosses_between_packages(tmp_path, state, writer, reader):
     again_own.close()
 
 
-def test_applied_events_log_passes_through_the_port_byte_equal(tmp_path):
-    """Replication's dedup log is the JAX package's alone: the port neither
-    reads nor rewrites it through snapshots, compaction and appends, and
-    the JAX package still fences the event afterwards."""
-    d = tmp_path / "d"
-    j = _jax(d, capacity=64, dim=256)
+def test_applied_events_log_through_snapshot_and_compaction_equals_jax(tmp_path):
+    """Replication's dedup log through snapshots, compaction and appends:
+    the port reads it (so it fences ``evt-1`` itself), and after the same
+    calls through both packages, and a reopen that compacts the log, it
+    is byte-equal to what the JAX package writes, and the JAX package
+    still fences both events."""
     row = {"failure_type": "oom", "signature_text": "replicated failure row one",
            "app_id": "app-peer", "impact_severity": "high"}
-    assert j.apply_replication([row], event_id="evt-1") == 1
-    j.close()
-    applied = (d / "applied_events.jsonl").read_bytes()
-    p = _port(d, capacity=64, dim=256)
-    _upsert(p, 1)
-    p.snapshot()
-    p.compact()
-    _upsert(p, 2)
-    p.close()
-    assert (d / "applied_events.jsonl").read_bytes() == applied
-    j2 = _jax(d, capacity=64, dim=256)
+    row2 = {**row, "signature_text": "replicated failure row two"}
+    logs = {}
+    for kind in ("jax", "port"):
+        d = tmp_path / kind
+        j = _jax(d, capacity=64, dim=256)
+        assert j.apply_replication([row], event_id="evt-1") == 1
+        j.close()
+        g = _open(kind, d, capacity=64, dim=256)
+        assert g.apply_replication([row], event_id="evt-1") == 0  # fenced
+        _upsert(g, 1)
+        g.snapshot()
+        g.compact()
+        _upsert(g, 2)
+        assert g.apply_replication([row2], event_id="evt-2") == 1
+        g.close()
+        logs[kind] = (d / "applied_events.jsonl").read_bytes()
+    assert logs["port"] == logs["jax"]
+    j2 = _jax(tmp_path / "port", capacity=64, dim=256)
     assert j2.apply_replication([row], event_id="evt-1") == 0  # still fenced
-    assert j2.count == 3
+    assert j2.apply_replication([row2], event_id="evt-2") == 0
+    assert j2.count == 4
     j2.close()
 
 
