@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA H100.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                  (every phase: under 900 s on a typical H100 host)
+    python3 chip_smoke.py --phases 19,18   (the build and those phases only)
 
 Needs one CUDA card, ``nvcc`` and the repository checkout (it imports
 ``kakveda_tpu_torch`` from beside this file, and nothing of JAX or of the
@@ -62,11 +63,12 @@ JAX package). Phases, each of which raises on failure (exit code != 0):
    query sees) and one PyTorch yardstick call
    (``scaled_dot_product_attention``, never used by the port);
 6. the model plane's main path: ``LlamaRuntime(LlamaConfig.llama3_8b())``
-   (random bf16 weights from seed 0, 16.06 GB, 32 layers) serves
+   at full width and 16 of its 32 layers (random bf16 weights from seed 0,
+   9.08 GB; the smoke's depth, ROADMAP) serves
    ``generate_batch`` of 8 prompts × 32 tokens through the engine (8 slots,
    window 512, chunk 8), once with a bf16 cache and once with an int8
    cache, launch counts zeroed just before and read just after each run:
-   the run's kernel launches 32 × (forward passes) times, the other kernel
+   the run's kernel launches 16 × (forward passes) times, the other kernel
    0. Each prompt's tokens equal a solo ``generate_tokens`` up to the first
    step whose solo top-2 logit margin is below 0.25 (bf16 noise between
    batch shapes can flip a nearer tie), and every engine token lies within
@@ -122,20 +124,22 @@ JAX package). Phases, each of which raises on failure (exit code != 0):
    start restores the snapshot (its log and ``/failures`` say so) and
    answers the same ``/warn``.
 
-11. restart and lifecycle at real size (after phase 8, before the model
+11. restart and lifecycle at real size (after phase 12, before the model
    phases, which get the card back; in the pre-tiered configuration,
    ``KAKVEDA_GFKB_TIERED=0``: on ``restart_corpus``, which has no coarse
    structure, the default router spawns a centroid per cluster and its
    per-batch update grows with them, past the run's time limit at this
    phase's rows, as ``measure_router`` shows; phase 12 drives the tiered
-   lifecycle): 2^17 distinct signatures (2^19, then 2^18, until the model
-   phases 14 and 16 needed the run's time)
+   lifecycle): 2^16 distinct signatures (2^19, then 2^18 and 2^17, until
+   the model phases 14 and 16 and then phase 19 needed the run's time; every depth cut is listed in
+   ROADMAP, "The smoke's depth")
    (``restart_corpus``, clusters of 1-10, 1 in 64 spanning apps) through
    ``upsert_failures_batch`` × 4096 into a 2^20 × 2048 GFKB with mining
-   on, beside ``crashsweep.run_sweep`` at the two fence sites with its
-   children on the card (0 corrupt recoveries; started after phase 18,
-   whose readings of the card's memory it would disturb), which is joined
-   before the first timed stage; ``snapshot()`` timed by
+   on; ``crashsweep.run_sweep`` at the two fence sites with its
+   children on the card (0 corrupt recoveries; started after phase 19,
+   whose readings of the card's memory it would disturb, beside phase 12's
+   untimed stages and joined before phase 12's first timed one);
+   ``snapshot()`` timed by
    stage; a full replay (snapshot moved aside) and its first mine, a full
    sweep; the restore, which must take the restore path, timed by stage;
    the restored emb, valid and types bit-equal to the replay's, equal
@@ -145,10 +149,10 @@ JAX package). Phases, each of which raises on failure (exit code != 0):
    top-k over the live rows), an organic resurrection whose row is
    bit-equal to its pre-tombstone row, ``compact()`` (log bytes before and
    after) and a reopen that is identical, tombstones kept; last, a full
-   mine's wall where every cluster spans apps, at 2^14 and 2^15 rows,
-   beside 1 in 64 at 2^15 (the pattern emission grows with the square of
+   mine's wall where every cluster spans apps, at 2^13 and 2^14 rows,
+   beside 1 in 64 at 2^14 (the pattern emission grows with the square of
    the spread clusters). Then ``measure_router``: the default
-   ``TierConfig`` on 2^15 rows of ``restart_corpus`` against 2^15 of
+   ``TierConfig`` on 2^14 rows of ``restart_corpus`` against 2^14 of
    ``tier_corpus``, each through ``upsert_failures_batch`` × 4096 on the
    card: build rows/s, the router's ms per batch against its centroid
    count (and the fit's projection to this phase's and phase 12's rows), the
@@ -157,16 +161,17 @@ JAX package). Phases, each of which raises on failure (exit code != 0):
    exact scan. ``fused_topk``'s launches there are the kernel row's
    ``launches_restart``.
 
-9. Mixtral-8x7B width and depth with int8 weight-only weights (the
-   published config.json's values in ``MIXTRAL_8X7B``; random weights from
-   seed 0). a. One 4096 × 14336 f32 matrix quantized on the card and on the
+9. Mixtral-8x7B width with int8 weight-only weights, 8 of its 32 layers
+   (the published config.json's values in ``MIXTRAL_8X7B``; random weights
+   from seed 0). a. One 4096 × 14336 f32 matrix quantized on the card and on the
    CPU: ``q`` and ``s`` bit-identical. b. Two layers of Mixtral's width in
    bf16 (5.8 GB) and their int8 quantization on the same prompts:
    first-step logits keep a cosine ≥ 0.99 (``hold_cosine``: a prompt whose
    expert choice flipped across a router near-tie is printed, not held).
    c. ``LlamaRuntime(quant="int8")`` draws each matrix in f32 and quantizes
-   it before the next: 46,872,802,304 bytes (int8 projections and experts,
-   a bf16 embedding, f32 scales, router and norms), the draw time and the
+   it before the next: 12,013,220,864 bytes at 8 layers (46,872,802,304 at
+   32; int8 projections and experts, a bf16 embedding, f32 scales, router
+   and norms), the draw time and the
    peak allocated. d. Layer 0's ``moe_mlp`` at T = 8 and 64 against a
    per-token oracle (``moe_mlp_reference``): the same experts, each output
    row within 2^-6 of its largest oracle value. e. Phase 6's engine runs
@@ -200,14 +205,17 @@ JAX package). Phases, each of which raises on failure (exit code != 0):
    forward's graph replay), arm B's wall and prefill device time, and the
    peak allocated with both planes resident.
 
-12. the host tiers past the hot cap and device loss (after phase 11): a
-   2^20 × 2048 GFKB on the card under the default ``TierConfig`` (hot
-   2^20, nprobe 8, max_list 4096; ``KAKVEDA_GFKB_WARM_ROWS`` cut to 2^20 +
-   2^16 so 2^16 rows reach the cold shards) holding 2^20 + 2^17 rows of
+12. the host tiers past the hot cap and device loss (after phase 19, before
+   phase 11; its build, recall, aging and compaction beside phase 11's
+   crash sweep and its own d child, both joined before b's p50s): a
+   2^20 × 2048 GFKB on the card with the hot cap at 2^18
+   (``KAKVEDA_GFKB_HOT_ROWS``; nprobe 8, max_list 4096;
+   ``KAKVEDA_GFKB_WARM_ROWS`` at 2^18 + 2^15 so 2^15 rows reach the cold
+   shards) holding 2^18 + 2^16 rows of
    ``tier_corpus`` (prompt templates, an assumed structure the router can
    partition; ``measure_router`` in phase 11 sets it beside
    ``restart_corpus``), upserted × 4096 with mining off. a. The card stops
-   at 2^20 rows; warm and cold rows and bytes. b. ``warn_batch`` at B = 1
+   at 2^18 rows; warm and cold rows and bytes. b. ``warn_batch`` at B = 1
    and 64 over hot, warm, cold and unseen signatures answers
    ``tier="tiered"``; p50 of 50 calls through ``Platform.warn_batch``,
    split into featurize, the hot ``fused_topk`` (CUDA events), the host
@@ -223,18 +231,19 @@ JAX package). Phases, each of which raises on failure (exit code != 0):
    Llama (head_dim 128) raises ``DeviceUnavailableError`` in < 1 s; disarmed,
    the probe (``KAKVEDA_DEGRADED_PROBE=1``) unlatches within 2 s; the
    fallback count equals the degraded warns. d. A child process
-   (``--sticky-child``, beside phase 11's untimed build and crash sweep,
-   joined with the sweep) opens a 2^15-row store with the hot cap at 2^14
+   (``--sticky-child``, started with phase 11's crash sweep beside this
+   phase's untimed stages) opens a store of 2^14 + 2^13 rows with the hot cap at 2^14
    (mining on: every overflow row attaches from the tiers),
    poisons its CUDA context with a device-side assert, and its warns then
    answer degraded and equal the ones it recorded before; the probe keeps
    failing, generation fails fast. e. ``compact()`` (a snapshot with its
    ``tiers`` section, then the log swap) and the restore through
-   ``Platform``, each with its wall: 2^20 rows on the card, the aged ones
+   ``Platform``, each with its wall: 2^18 rows on the card, the aged ones
    untyped, the tombstones kept, the router restored bit-equal, the 64
    warns equal. f. The latch's transitions and the fallback count are 0
-   after phases 4, 8, 11 and the healthy parts of 12, and after the model
-   phases exactly c's one latch and 1,025 degraded warns; phase 10's warn
+   after phases 4, 8 and 18, and after 19, 11, 12 and the model phases
+   exactly the latches and degraded warns of the drills so far (phase 19
+   a's storm, then c's one latch and 1,025 degraded warns); phase 10's warn
    is not degraded. ``fused_topk``'s launches there are the kernel row's
    ``launches_tiers``.
 13. the serving engine's request lifecycle, inside phase 6's model
@@ -275,18 +284,18 @@ JAX package). Phases, each of which raises on failure (exit code != 0):
    the library call SDPA where no softcap applies, a compiled
    ``flex_attention`` with the cap as its score_mod where one does; and
    the blocks per SM the split count plans at each head_dim against the
-   card's occupancy calculator). a. Gemma-2-9B width and depth
+   card's occupancy calculator). a. Gemma-2-9B width, 14 of its 42 layers
    (its published config through ``hf_config_to_llama``; random bf16
-   weights drawn on the card, 20.32 GB) through ``LlamaRuntime`` ->
-   ``ServingEngine`` at ``KAKVEDA_SERVE_WINDOW=8192`` (a 22.5 GB bf16
+   weights drawn on the card, 9.22 GB) through ``LlamaRuntime`` ->
+   ``ServingEngine`` at ``KAKVEDA_SERVE_WINDOW=8192`` (a 7.5 GB bf16
    cache): 8 prompts x 32 tokens and a 4,000-token prompt x 128 that
    decodes past the even layers' 4,096-token window, launch counts zeroed
-   just before and read just after (42 x forwards, the other body 0),
+   just before and read just after (14 x forwards, the other body 0),
    tokens held to the runtime's solo ``DecodeSession`` path by the margin
    rule; a 4,700-token prompt through the solo path in 512-row pieces
    (the engine takes no prompt past 4,096 tokens at this window) held to a
    single-shot prefill; admission and decode-step times beside the
-   18.49 GB weight-read bound. b. The same weights with
+   weight-read bound. b. The same weights with
    ``KAKVEDA_KV_QUANT=int8``: 4 prompts x 16 and the crossing prompt.
    c. Checkpoints of Qwen2 (biases, D 128), Qwen3 (q/k norms, D 128),
    Gemma (D 256), Gemma-2 (a query scale off the default, D 256) and Phi-3
@@ -306,7 +315,7 @@ JAX package). Phases, each of which raises on failure (exit code != 0):
    ``LlamaRuntime.generate_batch`` of phase 6's 8 prompts and 8 prompts of
    a template repeated three times x 32 tokens through the engine with
    ``KAKVEDA_SERVE_SPEC=4`` (the default gate) and with ``spec_k`` 0, with
-   each cache type: launches = 32 x forwards, verify chunks run, tokens held
+   each cache type: launches = layers x forwards, verify chunks run, tokens held
    to ``spec_k`` 0's by the margin rule, ``/metrics``' spec families equal
    to ``spec_stats``; tokens/s, tokens per verify and the gate's state; the
    verify chunk's S = 5 forward, a 1-wide step and the whole verify chunk
@@ -328,7 +337,7 @@ JAX package). Phases, each of which raises on failure (exit code != 0):
    ``KAKVEDA_SERVE_SPEC=4`` on 4 prompts x 32 tokens and ``KAKVEDA_SPEC=1``
    on one, held to phase 9 e's greedy tokens with departures counted at
    logit or router near-ties, and layer 0's ``moe_mlp`` inside a verify
-   chunk against its plain version). a. ``llama3_8b()`` in f32 (32.12 GB)
+   chunk against its plain version). a. ``llama3_8b()`` in f32 at 16 of its 32 layers (18.17 GB)
    through the engine with and without ``KAKVEDA_SERVE_SPEC=4``, the f32
    body launched once a layer per forward, tokens held to the solo
    ``generate_tokens`` by the margin rule, the step beside its weight-read
@@ -361,7 +370,7 @@ JAX package). Phases, each of which raises on failure (exit code != 0):
    many as ``kakveda_admission_tenant_shed_total`` counts; the victim holds
    the reference's noisy-neighbour contract (shed rate ≤ 0.05, the flooder
    ≥ 0.9 of the sheds, no gap past 1 s; its p95 against 3x its baseline a
-   reading). d. ``KAKVEDA_SANITIZE=1``: one 300 ms block of the loop is one
+   reading). d. ``KAKVEDA_SANITIZE=1``: one 400 ms block of the loop is one
    stall of at least 250 ms with a stack; the stalls under a ``/warn``
    flood and phase 8 b's p50 (named locks off) are readings. e. on phase
    6's Llama-3-8B after phase 15, the engine (8 slots) with
@@ -416,9 +425,40 @@ JAX package). Phases, each of which raises on failure (exit code != 0):
    drop counted on ``kakveda_fleet_fenced_rows_total``; no live replica
    latched degraded.
 
+19. the elastic fleet and the traffic harness (after phase 18, before
+   phase 11's crash sweep; a wall limit of its own, PHASE19_WALL_S). a. The
+   storm drill as ``cli traffic storm`` runs it (``cli.main.run_storm``: the
+   reference CLI's admission limits and brownout settings) on a 2^20 × 2048
+   Platform on the card seeded with phase 8's 4,096 traces, the ``storm``
+   scenario at tests/test_traffic.py's numbers (seed 5, 8 s at speed 1.5,
+   gossip TTL 3 s): every SLO gate raises; warns answered inside the
+   chaos timeline's device-loss window come degraded from the host, every
+   other from the hot index with ``fused_topk`` launched; the latch back
+   and the drill counted by ``check_healthy``. b. 256 ``/warn`` and 8
+   ``/ingest/batch`` to ``python3 -m kakveda_tpu_torch.service`` on the
+   card; ``cli traffic record`` writes its capture ring, equal to
+   ``from_flightrecorder`` of the same dump; ``cli traffic replay --log``
+   at speed 1 loses and hangs nothing, the child's ``fused_topk``
+   launches rise and no warn falls back. c. ``cli up --replicas 2
+   --autoscale 2:3 -d`` with ownership (R = 2) at 2^20 × 2048 a replica,
+   bench.py ``_bench_elastic``'s replica env and drill knobs, under the
+   ``flash_crowd`` scenario at tests/test_autoscaler.py's numbers (seed
+   11, 4 + 18 + 12 s, replica 1 SIGKILLed at surge end): a scale-up
+   whose replica holds rows and whose epoch only the router flips (where
+   its migration meets the SIGKILL, as the JAX package's does when its
+   replica is as late to be ready, the gate prints as failed beside the
+   JAX reading, ROADMAP Queue 3, and the drain is not asked for), r1
+   replaced at its index holding its rows again, a drain whose process
+   outlives its place in the ring, at most one flap, every warn ok, not
+   partial, from the hot index and held to an oracle Platform (action,
+   top-1 confidence, distinct scores), ``scale_log.jsonl`` == the router's
+   ``autoscale`` block == ``kakveda_fleet_scale_*``; each replica process's
+   own ``fused_topk`` launches; the card's memory back after ``down``.
+
 Prints a ``{"kernels": [...]}`` line (the flash rows with phase 9's,
 phase 10's, phase 13's, phase 14's and phase 15's launches beside phase
-6's, and the judge, family and verify shapes' times), each phase's wall,
+6's, phase 19's ``fused_topk`` launches, and the judge, family and verify
+shapes' times), each phase's wall,
 the card line, and last ``{"ok": true, "device": {...}}``.
 """
 
@@ -459,6 +499,13 @@ FLASH_ATOL = 2e-2
 # 50 (randn inputs give |s| < 5, where the cap moves a score by < 0.012).
 SOFTCAP_Q_SCALE = 20.0
 H, KV, HD = 32, 8, 128  # Llama-3-8B attention heads, kv heads, head_dim
+# Phase 6 (and 13, 15, 17 e on its weights) serves Llama-3-8B at full width
+# and LLAMA3_LAYERS of its 32 layers (the smoke's depth: ROADMAP). bf16
+# bytes: the embedding and the untied head, and one layer's matrices (its
+# norms are within the check's 0.01 GB).
+LLAMA3_LAYERS = 16
+LLAMA3_OTHER_BYTES = 2 * 128256 * 4096 * 2
+LLAMA3_LAYER_BYTES = 2 * (2 * 4096 * 4096 + 2 * 4096 * 1024 + 3 * 4096 * 14336)
 L2_BYTES = 50e6
 # Solo top-2 logit margin below which a batched token may flip. A router
 # logit is a logit: a gap between an expert kept and one left out below it
@@ -474,6 +521,11 @@ MIXTRAL_8X7B = dict(
     max_seq_len=32768, rope_theta=1e6, norm_eps=1e-5, sliding_window=0,
     n_experts=8, n_experts_per_tok=2, router_aux_coef=0.02,
 )
+# Phase 9 serves MIXTRAL_LAYERS of the 32 layers at full width (the smoke's
+# depth: ROADMAP). int8 weight-only bytes: one layer (attention, eight
+# experts, router, norms), and the embedding, head and final norm.
+MIXTRAL_LAYERS = 8
+MIXTRAL_LAYER_BYTES, MIXTRAL_OTHER_BYTES = 1_452_482_560, 393_360_384
 INT8_COS_MIN = 0.99  # first-step logits, int8 cache vs bf16 cache, int8 weights vs bf16
 STUB_RESPONSE = (
     "Here is a summary with references.\n\n"
@@ -2201,9 +2253,10 @@ STREAMS = 64  # concurrent generate_stream consumers in a and b
 STREAM_TOKENS = 64
 LONG_TOKENS = 400  # c's requests: bucket 64 + 400 + 1 fits the 512 window
 # c's deadline: after 8 one-at-a-time admissions (each waits for a chunk
-# boundary: 2-2.5 s for the eight, more on a slow host), before 400 tokens
-# (9-12 s at 8 slots).
-DEADLINE_S = 6.0
+# boundary: 2-2.5 s for the eight at 32 layers, about half at 16, more on a
+# slow host), before 400 tokens (5.4-8 s at 8 slots and 16 layers: 376 of
+# them came by 6 s on a fast host).
+DEADLINE_S = 4.0
 
 
 class StreamTokenizer(RecordingTokenizer):
@@ -3230,25 +3283,33 @@ def phase_model(card: str) -> dict:
     from kakveda_tpu_torch.models.generate import LlamaRuntime
     from kakveda_tpu_torch.models.llama import LlamaConfig
 
-    cfg = LlamaConfig.llama3_8b()
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=LLAMA3_LAYERS)
     t0 = time.perf_counter()
     tok = RecordingTokenizer()
     rt = LlamaRuntime(cfg=cfg, seed=0, tokenizer=tok)
     torch.cuda.synchronize()
     n_bytes = param_bytes(rt.params)
-    log(f"Llama-3-8B width and depth: {cfg.n_layers} layers, {n_bytes / 1e9:.2f} GB of weights "
+    log(f"Llama-3-8B width, {cfg.n_layers} of its 32 layers, {n_bytes / 1e9:.2f} GB of weights "
         f"on {rt.device}, drawn in {time.perf_counter() - t0:.1f} s")
-    if rt.device.type != "cuda" or abs(n_bytes - 16.06e9) > 0.01e9:
+    want_bytes = LLAMA3_OTHER_BYTES + cfg.n_layers * LLAMA3_LAYER_BYTES  # 16.06e9 at 32 layers
+    if rt.device.type != "cuda" or abs(n_bytes - want_bytes) > 0.01e9:
         raise AssertionError(f"model on {rt.device} with {n_bytes} bytes")
     ids = [tok.encode(p) for p in PROMPTS]
     if len({tuple(i) for i in ids}) != 8 or not all(33 <= len(i) <= 64 for i in ids):
         raise AssertionError("prompts must be 8 distinct, of one admission bucket")
+    walls, t = {}, time.perf_counter()
     out = serve_engine(rt, tok, ids, "Llama-3-8B")
     step_times(rt, ids, out, n_bytes, "Llama-3-8B", card)
     log("model plane: " + json.dumps(out))
+    walls["6"], t = time.perf_counter() - t, time.perf_counter()
     out["lifecycle"] = phase_lifecycle(rt, out, card)
+    walls["13"], t = time.perf_counter() - t, time.perf_counter()
     out["spec"] = phase_spec(rt, out, card)
+    walls["15"], t = time.perf_counter() - t, time.perf_counter()
     out["ladder"] = phase_ladder(rt, card)
+    walls["17 e"] = time.perf_counter() - t
+    out["walls_s"] = {k: round(v, 1) for k, v in walls.items()}
+    log(f"phases 6, 13, 15, 17 e walls (s): {json.dumps(out['walls_s'])} [{card}]")
     return out
 
 
@@ -3323,13 +3384,16 @@ def moe_step_split(cb, dev_args, reach: int, step_ms: float, card: str) -> dict:
     split["step"] = dict(ms=step_ms, bound_ms=param_bytes(params) / HBM_BYTES_PER_S * 1e3)
     del l0, head
     for name, p in split.items():
+        p["per_layer_ms"] = p["ms"] / cfg.n_layers
         bound = "" if p["bound_ms"] is None else f" (bound {p['bound_ms']:.2f} ms)"
-        log(f"  MoE decode step split: {name} {p['ms']:.3f} ms{bound} [{card}]")
+        log(f"  MoE decode step split: {name} {p['ms']:.3f} ms{bound}, {p['per_layer_ms']:.3f} ms per layer of "
+            f"{cfg.n_layers} [{card}]")
     return split
 
 
 def phase_mixtral(card: str) -> dict:
-    """Phase 9: Mixtral-8x7B width and depth, int8 weight-only, on the card."""
+    """Phase 9: Mixtral-8x7B at full width and MIXTRAL_LAYERS of its depth,
+    int8 weight-only, on the card."""
     from kakveda_tpu_torch.models import moe
     from kakveda_tpu_torch.models.generate import LlamaRuntime
     from kakveda_tpu_torch.models.llama import LlamaConfig
@@ -3340,7 +3404,7 @@ def phase_mixtral(card: str) -> dict:
         live = sorted(((o.numel() * o.element_size(), tuple(o.shape), str(o.dtype)) for o in gc.get_objects()
                        if isinstance(o, torch.Tensor) and o.is_cuda), reverse=True)[:8]
         log(f"phase 9: {held} bytes held from earlier phases; the largest live tensors: {live}")
-    cfg = LlamaConfig(**MIXTRAL_8X7B)
+    cfg = LlamaConfig(**{**MIXTRAL_8X7B, "n_layers": MIXTRAL_LAYERS})
     tok = RecordingTokenizer()
     ids = [tok.encode(p) for p in PROMPTS]
     out = {}
@@ -3379,10 +3443,12 @@ def phase_mixtral(card: str) -> dict:
     peak = torch.cuda.max_memory_allocated() - base
     bad = [f"{li}.{n}" for li, layer in enumerate(rt.params["layers"]) for n, v in layer.items()
            if (n.startswith("w") and v["q"].dtype != torch.int8) or (n == "router" and v.dtype != torch.float32)]
-    log(f"phase 9 c: Mixtral-8x7B width and depth: {cfg.n_layers} layers x {cfg.n_experts} experts, "
+    log(f"phase 9 c: Mixtral-8x7B width, {cfg.n_layers} of its {MIXTRAL_8X7B['n_layers']} layers x "
+        f"{cfg.n_experts} experts, "
         f"{n_bytes} bytes ({n_bytes / 1e9:.2f} GB) of int8 weight-only weights on {rt.device}, drawn and "
         f"quantized in {draw_s:.1f} s, peak allocated by the draw {peak / 1e9:.2f} GB [{card}]")
-    if rt.device.type != "cuda" or abs(n_bytes - 46_872_802_304) > 0.01e9 or bad:
+    want_bytes = MIXTRAL_OTHER_BYTES + cfg.n_layers * MIXTRAL_LAYER_BYTES  # 46,872,802,304 at 32 layers
+    if rt.device.type != "cuda" or abs(n_bytes - want_bytes) > 0.01e9 or bad:
         raise AssertionError(f"model on {rt.device} with {n_bytes} bytes; not int8 / f32: {bad}")
     out.update(weight_bytes=n_bytes, draw_s=draw_s, init_peak_bytes=peak)
 
@@ -3547,7 +3613,13 @@ GEMMA2_9B_HF = {
     "attn_logit_softcapping": 50.0, "final_logit_softcapping": 30.0, "query_pre_attn_scalar": 256,
     "hidden_activation": "gelu_pytorch_tanh",
 }
-FAMILY_ENGINE_WINDOW = 8192  # KAKVEDA_SERVE_WINDOW: 8 slots x 8192 rows x 42 layers of bf16 K and V = 22.5 GB
+# Phase 14 serves GEMMA2_LAYERS of the 42 layers at full width (the smoke's
+# depth: ROADMAP), an even count so the 4096-token window still alternates.
+# bf16 bytes: the embedding and the untied head, and one layer's matrices
+# (its norms are within the check's 0.02 GB).
+GEMMA2_LAYERS = 14
+GEMMA2_OTHER_BYTES, GEMMA2_LAYER_BYTES = 2 * 256000 * 3584 * 2, 2 * (2 * 3584 * 4096 + 2 * 3584 * 2048 + 3 * 3584 * 14336)
+FAMILY_ENGINE_WINDOW = 8192  # KAKVEDA_SERVE_WINDOW: 8 slots x 8192 rows x 14 layers of bf16 K and V = 7.5 GB
 CROSS_TOKENS = 4000  # a prompt that fits the engine (bucket 4096) and decodes past the 4096-token window
 CROSS_NEW = 128
 LONG_TOKENS_G2 = 4700  # past 4096 tokens: the engine cannot take it (see phase_families), the solo path does,
@@ -3736,7 +3808,7 @@ def phase_families(card: str) -> dict:
     from kakveda_tpu_torch.models.hf_convert import hf_config_to_llama
 
     log_held("phase 9, before phase 14")
-    cfg = hf_config_to_llama(GEMMA2_9B_HF)
+    cfg = dataclasses.replace(hf_config_to_llama(GEMMA2_9B_HF), n_layers=GEMMA2_LAYERS)
     if (cfg.head_dim, cfg.attn_softcap, cfg.query_scale, cfg.layer_window(0), cfg.layer_window(1)) != (256, 50.0, 0.0, 4096, 0):
         raise AssertionError(f"phase 14: the converter mapped Gemma-2-9B to {cfg}")
     tok = RecordingTokenizer()
@@ -3754,10 +3826,12 @@ def phase_families(card: str) -> dict:
         torch.cuda.synchronize()
         n_bytes = param_bytes(rt.params)
         read_bytes = n_bytes - rt.params["embed"].numel() * rt.params["embed"].element_size()
-        log(f"phase 14 a: Gemma-2-9B width and depth: {cfg.n_layers} layers, {n_bytes / 1e9:.2f} GB of bf16 weights "
+        log(f"phase 14 a: Gemma-2-9B width, {cfg.n_layers} of its {GEMMA2_9B_HF['num_hidden_layers']} layers, "
+            f"{n_bytes / 1e9:.2f} GB of bf16 weights "
             f"({n_bytes // 2 / 1e9:.2f} G parameters) drawn on {rt.device} in {time.perf_counter() - t0:.1f} s; "
             f"a decode step reads {read_bytes / 1e9:.2f} GB of them (the embedding is gathered)")
-        if rt.device.type != "cuda" or abs(n_bytes - 20.32e9) > 0.02e9:
+        want_bytes = GEMMA2_OTHER_BYTES + cfg.n_layers * GEMMA2_LAYER_BYTES  # 20.32e9 at 42 layers
+        if rt.device.type != "cuda" or abs(n_bytes - want_bytes) > 0.02e9:
             raise AssertionError(f"phase 14: model on {rt.device} with {n_bytes} bytes")
         for kvq in ("", "int8"):
             tag = kvq or "bf16"
@@ -4367,6 +4441,19 @@ def phase_judge(base: Path, fused_topk, card: str) -> dict:
     torch.cuda.empty_cache()
     log("phase 10: " + json.dumps(out))
     return out
+
+
+def _forget_apps() -> None:
+    """aiohttp keeps each app's middleware-wrapped handlers in a module-level
+    LRU, and the handlers hold their Platform: clear it, or a 2^20-row index
+    stays on the card for the rest of the run."""
+    from aiohttp import web_app
+
+    cache = getattr(web_app, "_cached_build_middleware", None)
+    if cache is not None:
+        cache.cache_clear()
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def _pct(xs, q):
@@ -5097,38 +5184,79 @@ def tenant_clients(app_id: str, conc: str, start_s: str, run_s: str) -> int:
     return 0
 
 
-def spawn_tenant_clients(tenants) -> list:
-    """Starts ``tenant_clients`` once per (app id, concurrency, start s,
-    run s); ``run_tenant_clients`` sends them off."""
+def ingest_flood_clients(name: str, conc: str, run_s: str, body_path: str) -> int:
+    """Phase 18 d's flood, in a process of its own (run as ``python3 -c``
+    with this function's source, as ``tenant_clients``; ``name`` keys its
+    records): prints READY once
+    its session is open, waits for a line ``go <base URL>`` on stdin, then
+    keeps ``conc`` /ingest/batch of the JSON body in ``body_path`` in flight
+    for ``run_s`` seconds. Prints one line, ``TENANT`` and the JSON list of
+    (status, failures classified)."""
+    import asyncio
+    import json
+    import sys
+    import time
+
+    import aiohttp
+
+    with open(body_path) as f:
+        body = json.load(f)
+
+    async def go():
+        rec = []
+        async with aiohttp.ClientSession(connector=aiohttp.TCPConnector(limit=0)) as s:
+            print("READY", flush=True)
+            line = await asyncio.get_running_loop().run_in_executor(None, sys.stdin.readline)
+            base = line.split()[1]
+            until = time.perf_counter() + float(run_s)
+
+            async def one():
+                while time.perf_counter() < until:
+                    async with s.post(base + "/ingest/batch", json=body) as r:
+                        b = await r.json()
+                    rec.append((r.status, b.get("failures", 0) if r.status == 200 else 0))
+
+            await asyncio.gather(*[one() for _ in range(int(conc))])
+        return rec
+
+    print("TENANT " + json.dumps(asyncio.run(go())), flush=True)
+    return 0
+
+
+def spawn_tenant_clients(tenants, fn=tenant_clients) -> list:
+    """Starts ``fn`` (``tenant_clients``: once per (app id, concurrency,
+    start s, run s)) in a process per argument tuple; ``run_tenant_clients``
+    sends them off."""
     import inspect
 
-    src = inspect.getsource(tenant_clients) + "\nimport sys\nsys.exit(tenant_clients(*sys.argv[1:]))\n"
+    src = inspect.getsource(fn) + f"\nimport sys\nsys.exit({fn.__name__}(*sys.argv[1:]))\n"
     return [(t, subprocess.Popen([sys.executable, "-c", src, *map(str, t)], stdin=subprocess.PIPE,
                                  stdout=subprocess.PIPE)) for t in tenants]
 
 
-async def run_tenant_clients(procs, base: str):
+async def run_tenant_clients(procs, base: str, what: str = "phase 17 c"):
     """Once every client process of ``spawn_tenant_clients`` is ready, one
     go line starts them all against ``base`` while this loop goes on
-    serving. Returns (each app id's records, the go time on this process's
-    ``perf_counter``). Every process is killed on the way out."""
+    serving. Returns (each process's records under its first argument, the
+    go time on this process's ``perf_counter``). Every process is killed
+    on the way out."""
     loop = asyncio.get_running_loop()
     try:
         for _, p in procs:
             line = await asyncio.wait_for(loop.run_in_executor(None, p.stdout.readline), 120)
             if line.strip() != b"READY":
-                raise AssertionError(f"phase 17 c: a client process said {line!r}")
+                raise AssertionError(f"{what}: a client process said {line!r}")
         t_go = time.perf_counter()
         for _, p in procs:
             p.stdin.write(f"go {base}\n".encode())
             p.stdin.flush()
         out = {}
-        for (app_id, *_), p in procs:
+        for (key, *_), p in procs:
             stdout, _ = await asyncio.wait_for(loop.run_in_executor(None, p.communicate), 120)
             line = next((ln for ln in stdout.decode().splitlines() if ln.startswith("TENANT ")), None)
             if p.returncode != 0 or line is None:
-                raise AssertionError(f"phase 17 c: the {app_id} client process exited {p.returncode}")
-            out[app_id] = json.loads(line[7:])
+                raise AssertionError(f"{what}: the {key} client process exited {p.returncode}")
+            out[key] = json.loads(line[7:])
         return out, t_go
     finally:
         for _, p in procs:
@@ -5139,7 +5267,10 @@ async def run_tenant_clients(procs, base: str):
 
 # Phase 17 c: the victim alone for TENANT_BASE_S, then the flood beside it.
 TENANT_WARN_BOUND, NOISY_CONC, VICTIM_CONC, TENANT_BASE_S, TENANT_FLOOD_S = 32, 128, 4, 1.0, 4.0
-STALL_BLOCK_S = 0.3  # phase 17 d
+# Phase 17 d's block: the watchdog stamps and checks every 250 / 4 ms, so
+# only a block past 250 + 2 x 62.5 ms is always seen (a 300 ms one went
+# unrecorded once on a slow host).
+STALL_BLOCK_S = 0.4
 RECORDED_WARN_C1_P50 = "5.363-8.468 ms"  # phase 8 b's range as PERF.md section 5 records it
 
 
@@ -5346,7 +5477,7 @@ async def _request_plane(s, base: str, plat, fused_topk, card: str, warn_c1_p50:
 def phase_service(base: Path, fused_topk, card: str) -> dict:
     """Phase 8: the service plane on the card at the GFKB's real size."""
     import aiohttp  # required: without it phase 8 fails
-    from aiohttp import web, web_app
+    from aiohttp import web
 
     from kakveda_tpu_torch.platform import Platform
     from kakveda_tpu_torch.service.app import make_app
@@ -5378,14 +5509,7 @@ def phase_service(base: Path, fused_topk, card: str) -> dict:
     out["host_split"] = host_split(plat, card)
     plat.close()
     del plat
-    # aiohttp keeps each app's middleware-wrapped handlers in a module-level
-    # LRU, and the handlers hold the Platform: clear it, or the 2^20-row
-    # index stays on the card for the rest of the run.
-    cache = getattr(web_app, "_cached_build_middleware", None)
-    if cache is not None:
-        cache.cache_clear()
-    gc.collect()
-    torch.cuda.empty_cache()
+    _forget_apps()
     out["entry_point"] = run_entry_point(base, card)
     log("phase 8: " + json.dumps({k: v for k, v in out.items() if k != "host_split"}))
     return out
@@ -5395,7 +5519,7 @@ def phase_service(base: Path, fused_topk, card: str) -> dict:
 # phase 11: restart and lifecycle at real size
 # ---------------------------------------------------------------------------
 
-RESTART_N, RESTART_BATCH = 1 << 17, 4096
+RESTART_N, RESTART_BATCH = 1 << 16, 4096
 RESTART_TYPES = ("HALLUCINATION_CITATION", "TIMEOUT", "SCHEMA")
 RESTART_AGED_BATCHES = RESTART_N // RESTART_BATCH // 8  # the first 1/8 of the rows age out
 
@@ -5449,17 +5573,20 @@ def _build_store(data: Path, corpus, capacity: int):
     return store, batch_ts
 
 
+EMIT_N = 1 << 13  # measure_emission's smaller store (a reading with no check: the smoke's depth, ROADMAP)
+
+
 def measure_emission(base: Path, card: str) -> dict:
     """A full mine's wall where every cluster spans apps (``spread=1``, as
-    ``parity_corpus``) at 2^14 and 2^15 rows, beside phase 11's spread of 64
-    at 2^15. Each spread cluster upserts into one of three patterns (named by
+    ``parity_corpus``) at EMIT_N and 2 x EMIT_N rows, beside phase 11's
+    spread of 64 at 2 x EMIT_N. Each spread cluster upserts into one of three patterns (named by
     failure type) and the mine keeps every upsert's view, a copy of the whole
     membership so far, so the emission grows with the square of the spread
     clusters (the JAX package's ``_pattern_view`` too); 651 s at 2^19 rows."""
     from kakveda_tpu_torch.pipeline.patterns import PatternDetector
 
     out = {}
-    for n, spread in ((1 << 14, 1), (1 << 15, 1), (1 << 15, 64)):
+    for n, spread in ((EMIT_N, 1), (2 * EMIT_N, 1), (2 * EMIT_N, 64)):
         store, _ = _build_store(base / f"emit-{n}-{spread}", restart_corpus(n, spread=spread), 1 << 17)
         t = time.perf_counter()
         pats, info = PatternDetector(store).mine_patterns_ex(0.6, mode="full")
@@ -5494,10 +5621,10 @@ def _same_matches(a, b, queries) -> bool:
 
 def start_crash_sweep() -> tuple:
     """Phase 11's crash sweep at the two fence sites, its children on the
-    card, on a thread: (thread, its result, its start). It runs beside
-    phase 11's untimed build, after phase 18 (whose readings of the card's
-    memory and of latency it would disturb), and phase 11 joins it before
-    its first timed stage."""
+    card, on a thread: (thread, its result, its start). It starts after
+    phases 18 and 19 (whose readings of the card's memory and of latency it
+    would disturb) and runs beside phase 12's untimed stages, which joins it
+    before its first timed one (phase 11 alone: beside its untimed build)."""
     from kakveda_tpu_torch.index.crashsweep import run_sweep
 
     sweep_out: dict = {}
@@ -5538,7 +5665,7 @@ def phase_restart(base: Path, fused_topk_reference, card: str, sweep: tuple, bes
     return out
 
 
-ROUTER_N = 1 << 15  # 8 batches; the router's cost per batch grows with its centroids
+ROUTER_N = 1 << 14  # 4 batches; the router's cost per batch grows with its centroids (a reading: ROADMAP)
 
 
 def measure_router(base: Path, card: str) -> dict:
@@ -5675,7 +5802,7 @@ def _phase_restart(base: Path, fused_topk_reference, card: str, sweep: tuple, be
     log(f"phase 11 build: {n} distinct signatures (drawn in {gen_s:.1f} s; 1 cluster in 64 spans apps, not "
         f"every cluster as in parity_corpus, since a full mine's pattern emission grows with the square of "
         f"the spread clusters: see the emission lines) through upsert_failures_batch x {RESTART_BATCH} with "
-        f"mining on in {build_s:.1f} s (untimed set-up, beside the crash sweep), {st['delta_dispatches']} "
+        f"mining on in {build_s:.1f} s (untimed set-up), {st['delta_dispatches']} "
         f"delta dispatches, {int(len(np.unique(build_labels)))} clusters, no list evicted [{card}]")
 
     # No child may run during a timed stage.
@@ -5833,9 +5960,14 @@ def _phase_restart(base: Path, fused_topk_reference, card: str, sweep: tuple, be
 # phase 12: the host tiers past the hot cap, and device loss
 # ---------------------------------------------------------------------------
 
-TIER_HOT = 1 << 20  # TierConfig's default hot cap: the card's index holds no more
-TIER_N = TIER_HOT + (1 << 17)
-TIER_WARM = TIER_HOT + (1 << 16)  # the one cut: the default 2^22 would take 4.2M rows to reach the cold tier
+# Phase 12's hot cap, set with the reference's own knob (KAKVEDA_GFKB_HOT_ROWS;
+# its default, 2^20, is the card index's capacity, which stays 2^20 here):
+# the smoke's depth (ROADMAP). An overflow of 2^16 rows past it, half warm,
+# half cold (the default warm budget of 2^22 would take 4.2M rows to reach
+# the cold tier).
+TIER_HOT = 1 << 18
+TIER_N = TIER_HOT + (1 << 16)
+TIER_WARM = TIER_HOT + (1 << 15)
 TIER_BATCH = 4096
 TIER_ASKS = (
     "summarize it and include citations even if not provided",
@@ -5847,7 +5979,13 @@ TIER_ASKS = (
 )
 TIER_TOOLS = ((), ("web_search",), ("retriever", "web_search"), ("sql_query",), ("calculator", "code_exec"))
 TIER_ENVS = ((), ("model", "temperature"), ("region", "tenant"), ("model", "region", "temperature"))
-STICKY_ROWS, STICKY_HOT = 1 << 15, 1 << 14
+# Phase 12 d's child: a hot cap of 2^14 and 2^13 overflow rows past it (the
+# host takes the routed path past 4,096 overflow rows; the child's warns
+# must). Its build is the child's wall: the overflow rows attach to mining
+# from the host tiers at 136-189 rows/s on the H100's host (2^14 of them
+# took 107.7 s of a 124.3 s child), the hot ones at 6,100-8,300 rows/s.
+STICKY_HOT = 1 << 14
+STICKY_ROWS = STICKY_HOT + (1 << 13)
 
 
 def tier_corpus(n: int, seed: int = 12, per_template: int = 1280):
@@ -5982,10 +6120,12 @@ def sticky_child(data: Path, rows: int, hot: int) -> int:
     from kakveda_tpu_torch.models.llama import LlamaConfig
     from kakveda_tpu_torch.pipeline.warning import WarningPolicy
 
+    t_child = time.perf_counter()
     out: dict = {"rows": rows, "hot": hot}
     corpus = tier_corpus(rows + 64, seed=13, per_template=640)
     store = GFKB(data_dir=data, capacity=hot, dim=DIM)
     t = time.perf_counter()
+    out["set_up_s"] = t - t_child
     out["build"] = _tier_build(store, corpus[:rows], "phase 12 d child", "child")
     out["build_s"] = time.perf_counter() - t
     st = store.mine_state_info()
@@ -6045,6 +6185,7 @@ def _run_sticky_child(data: Path, sink: dict) -> None:
     """Phase 12 d's child (this script with ``--sticky-child``), beside the
     parent's untimed build; ``sink`` gets its JSON line or its failure."""
     env = {k: v for k, v in os.environ.items() if k not in ("KAKVEDA_MINE_INCREMENTAL", "KAKVEDA_GFKB_WARM_ROWS")}
+    t = time.perf_counter()
     try:
         p = subprocess.run(
             [sys.executable, str(Path(__file__).resolve()), "--sticky-child", str(data),
@@ -6053,7 +6194,7 @@ def _run_sticky_child(data: Path, sink: dict) -> None:
         )
         line = next((ln for ln in p.stdout.splitlines() if ln.startswith("STICKY ")), None)
         sink.update(rc=p.returncode, result=json.loads(line[7:]) if line else None,
-                    tail=(p.stdout + p.stderr)[-3000:])
+                    tail=(p.stdout + p.stderr)[-3000:], wall_s=time.perf_counter() - t)
     except Exception as e:  # noqa: BLE001 — reported and failed by the parent
         sink["error"] = f"{type(e).__name__}: {e}"
 
@@ -6061,18 +6202,20 @@ def _run_sticky_child(data: Path, sink: dict) -> None:
 DRILL_WARNS = 1024 + 1  # phase 12 c: 1,024 warns and one /warn through make_app
 
 
-def check_healthy(after: str, drilled: bool = False) -> None:
+def check_healthy(after: str) -> None:
     """Phase 12 f: on a healthy path the latch never moved and no warn
-    took the host fallback; after phase 12 c (``drilled``), exactly its
-    one latch and un-latch and its DRILL_WARNS degraded warns."""
+    took the host fallback; the device-loss drills so far (``DRILLS``:
+    phase 19 a's storm, phase 12 c) account for every latch, un-latch and
+    degraded warn."""
     from kakveda_tpu_torch.core.admission import get_device_health
     from kakveda_tpu_torch.index.gfkb import fallback_total
 
-    n = 1 if drilled else 0
+    n = DRILLS["latches"]
     tr = get_device_health().transitions
-    if tr != {"degraded": n, "healthy": n} or fallback_total() != n * DRILL_WARNS:
-        raise AssertionError(f"after {after}: latch transitions {tr}, fallback warns {fallback_total()}")
-    log(f"after {after}: latch transitions {tr}, fallback warns {fallback_total()}")
+    if tr != {"degraded": n, "healthy": n} or fallback_total() != DRILLS["fallback"]:
+        raise AssertionError(f"after {after}: latch transitions {tr}, fallback warns {fallback_total()}, drills "
+                             f"{DRILLS}")
+    log(f"after {after}: latch transitions {tr}, fallback warns {fallback_total()} (drills {DRILLS})")
 
 
 def tier_split(plat, reqs, fused_topk, calls: int) -> dict:
@@ -6155,17 +6298,18 @@ def tier_split(plat, reqs, fused_topk, calls: int) -> dict:
                 scorer_calls=grew, scorer_fallbacks=dict(scorer.fallbacks))
 
 
-def phase_tiers(base: Path, fused_topk, fused_topk_reference, card: str, child: dict) -> dict:
-    """Phase 12: a 2^20 x 2048 GFKB on the card under the default
-    ``TierConfig`` (hot 2^20, nprobe 8, max_list 4096) holding TIER_N rows
+def phase_tiers(base: Path, fused_topk, fused_topk_reference, card: str, child: dict, child_runner,
+                beside=()) -> dict:
+    """Phase 12: a 2^20 x 2048 GFKB on the card under ``TierConfig`` with
+    the hot cap at TIER_HOT (nprobe 8, max_list 4096) holding TIER_N rows
     of ``tier_corpus``: the card stops at the hot cap, the overflow lives in
     the host tiers (TIER_WARM warm, the rest cold). a. residency and host
     bytes; b. healthy warns (``tier == "tiered"``, stage split, the hot part
     against the plain top-k, routed top-1 recall against the exact host
     scan, every host scan in C++) and aging of the first 1/8; c. the
     ``device.unavailable`` drill; d. a real sticky CUDA error in a child
-    process (``child``: its outcome, from a run beside phase 11's untimed
-    build and crash sweep); e. ``compact()``, whose snapshot has the ``tiers`` section, and
+    process (``child``: its outcome, from ``child_runner``, a thread started
+    beside this phase's untimed build and phase 11's crash sweep); e. ``compact()``, whose snapshot has the ``tiers`` section, and
     the restore, which installs the router; f. the latch and the fallback count
     stay 0 on every healthy path (checked here before the drill and after
     phases 4, 8 and 11 in ``main``)."""
@@ -6183,7 +6327,9 @@ def phase_tiers(base: Path, fused_topk, fused_topk_reference, card: str, child: 
     from kakveda_tpu_torch.platform import Platform
     from kakveda_tpu_torch.service.app import make_app
 
-    env_before = {k: os.environ.get(k) for k in ("KAKVEDA_GFKB_WARM_ROWS", "KAKVEDA_MINE_INCREMENTAL")}
+    env_before = {k: os.environ.get(k) for k in ("KAKVEDA_GFKB_WARM_ROWS", "KAKVEDA_MINE_INCREMENTAL",
+                                                 "KAKVEDA_GFKB_HOT_ROWS")}
+    os.environ["KAKVEDA_GFKB_HOT_ROWS"] = str(TIER_HOT)
     os.environ["KAKVEDA_GFKB_WARM_ROWS"] = str(TIER_WARM)
     os.environ["KAKVEDA_MINE_INCREMENTAL"] = "0"  # the build's cut: the overflow attach is d's
     out: dict = {"rows": TIER_N, "capacity": ROWS, "dim": DIM, "hot_rows": TIER_HOT, "warm_rows": TIER_WARM}
@@ -6213,7 +6359,8 @@ def phase_tiers(base: Path, fused_topk, fused_topk_reference, card: str, child: 
         out["tiers"] = info
         if not (store.count == TIER_N and info["hot"] == TIER_HOT and info["warm"] == TIER_WARM
                 and info["cold"] == TIER_N - TIER_WARM and info["warm_overflow"] == 0
-                and store._knn.capacity == ROWS and int(store._valid.sum()) == TIER_HOT):
+                and store._knn.capacity == ROWS and int(store._valid.sum()) == TIER_HOT
+                and os.environ["KAKVEDA_GFKB_HOT_ROWS"] == str(TIER_HOT)):
             raise AssertionError(f"phase 12 a: {store.count} rows, capacity {store._knn.capacity}, {info}")
         log(f"phase 12 a: {TIER_N} rows of tier_corpus (drawn in {gen_s:.1f} s) through upsert_failures_batch x "
             f"{TIER_BATCH} in {out['build_s']:.1f} s (mining off): card {info['hot']} rows (capacity "
@@ -6229,19 +6376,6 @@ def phase_tiers(base: Path, fused_topk, fused_topk_reference, card: str, child: 
                              for i in range(8)]
         rows64 = pick(0, TIER_HOT, 16) + pick(TIER_HOT, TIER_WARM, 16) + pick(TIER_WARM, TIER_N, 16) + unseen
         reqs64 = _tier_requests(rows64)
-
-        res = child.get("result")
-        if child.get("error") or child.get("rc") != 0 or not res or not res["ok"]:
-            raise AssertionError(f"phase 12 d: {child}")
-        out["sticky"] = res
-        log(f"phase 12 d (child on the card, {res['rows']} rows, hot cap {res['hot']}, mining on: "
-            f"{res['mining']['tier_attaches']} overflow rows attached from the tiers): a device-side assert "
-            f"poisoned the context; {res['queries']} warns then answered degraded ({res['reason']}) in "
-            f"{res['degraded_warn_s'] * 1e3:.1f} ms, against the recorded answers {res['agreement']} (the 48 "
-            f"stored signatures all equal; max |conf diff| {res['max_conf_diff']:.3g}), tiers "
-            f"{res['before_tiers']} -> {res['after_tiers']}; probe "
-            f"{res['probes']} after 2.5 s, still degraded; generate_batch -> {res['generate']} in "
-            f"{res['generate_s'] * 1e3:.3f} ms [{card}]")
 
         # b. healthy warns; the routed and exact host scans run in C++
         check_healthy("phase 12's build")
@@ -6285,7 +6419,8 @@ def phase_tiers(base: Path, fused_topk, fused_topk_reference, card: str, child: 
         promoted = store._tiers.recently_promoted_slots()
         if (aged["tombstoned"] != n_aged or sorted(store._tombstoned) != list(range(n_aged))
                 or aged["exempt"] != len(promoted) or len(promoted) < 16 or min(promoted) < TIER_WARM
-                or not bool((store._types[:n_aged] == -1).all()) or bool((store._types[n_aged:] == -1).any())):
+                or not bool((store._types[:n_aged] == -1).all())
+                or bool((store._types[n_aged:TIER_HOT] == -1).any())):
             raise AssertionError(f"phase 12: aging {aged}, {len(store._tombstoned)} tombstones")
         before = policy.warn_batch(reqs64)
         if ({r.tier for r in before} != {"tiered"}
@@ -6331,6 +6466,15 @@ def phase_tiers(base: Path, fused_topk, fused_topk_reference, card: str, child: 
             f"{out['restore_open_s']:.3f} s ({json.dumps({k: round(v, 3) for k, v in restore['seconds'].items()})}): "
             f"{TIER_HOT} rows on the card, the {n_aged} aged ones zeroed and untyped, tombstones kept, router restored "
             f"bit-equal, not rebuilt; 64 warns equal before and after [{card}]")
+
+        # No child process runs during the timed stages (b's p50s, c's
+        # drill): the sticky-error child and the threads of ``beside`` (phase
+        # 11's crash sweep) are joined here.
+        t = time.perf_counter()
+        for th in (child_runner, *beside):
+            th.join()
+        log(f"phase 12: waited {time.perf_counter() - t:.1f} s for {[th.name for th in (child_runner, *beside)]} "
+            f"before the first timed stage [{card}]")
 
         # b. stage split and p50s through Platform.warn_batch
         check_healthy("phase 12's build, snapshot and restore")
@@ -6405,6 +6549,8 @@ def phase_tiers(base: Path, fused_topk, fused_topk_reference, card: str, child: 
         unlatch_s = time.perf_counter() - t
         if health.degraded or unlatch_s > 2.0:
             raise AssertionError(f"phase 12 c: the probe took {unlatch_s} s to unlatch")
+        DRILLS["latches"] += 1
+        DRILLS["fallback"] += n_degraded
         post = plat.warn_batch(reqs64)
         if _answers(post) != _answers(before):
             raise AssertionError("phase 12 c: the warns after recovery differ from the healthy ones")
@@ -6429,6 +6575,22 @@ def phase_tiers(base: Path, fused_topk, fused_topk_reference, card: str, child: 
         del plat, gfkb, q, v, i, rv, ri
         gc.collect()
         torch.cuda.empty_cache()
+        # d. the sticky-error child, started beside this phase's build and
+        # joined before b's timed stages.
+        res = child.get("result")
+        if child.get("error") or child.get("rc") != 0 or not res or not res["ok"]:
+            raise AssertionError(f"phase 12 d: {child}")
+        out["sticky"] = res
+        log(f"phase 12 d child: {child['wall_s']:.1f} s as a process, of which set-up {res['set_up_s']:.1f} s and "
+            f"the build {res['build_s']:.1f} s ({json.dumps(res['build'])}) [{card}]")
+        log(f"phase 12 d (child on the card, {res['rows']} rows, hot cap {res['hot']}, mining on: "
+            f"{res['mining']['tier_attaches']} overflow rows attached from the tiers): a device-side assert "
+            f"poisoned the context; {res['queries']} warns then answered degraded ({res['reason']}) in "
+            f"{res['degraded_warn_s'] * 1e3:.1f} ms, against the recorded answers {res['agreement']} (the 48 "
+            f"stored signatures all equal; max |conf diff| {res['max_conf_diff']:.3g}), tiers "
+            f"{res['before_tiers']} -> {res['after_tiers']}; probe "
+            f"{res['probes']} after 2.5 s, still degraded; generate_batch -> {res['generate']} in "
+            f"{res['generate_s'] * 1e3:.3f} ms [{card}]")
     finally:
         for k, v in env_before.items():
             if v is None:
@@ -6465,6 +6627,7 @@ FLEET_ENV = dict(
 INDEX_BYTES = ROWS * DIM * 2  # one replica's bf16 index, 4 GiB
 FLEET_APPS = 64  # phase 18 c: one ingest batch of 48 traces per app, three in four failing
 FLEET_FLOOD = 256  # phase 18 d: concurrent ingests at one replica, four times its ingest admission bound
+FLEET_FLOOD_PROCS, FLEET_FLOOD_S = 2, 3.0  # its client processes, and how long they keep it up
 
 
 def _fleet_metric(text: str, sample: str, labels: str = "") -> float:
@@ -6510,22 +6673,31 @@ def _fleet_ports(n: int) -> int:
 class _FleetProc:
     """``python3 -m kakveda_tpu_torch.cli up --replicas n`` on the card (the
     router on ``port``, replicas on ``base`` .. ``base + n - 1``), its output
-    in ``root/fleet.out``; ``down`` stops it and sweeps its replicas."""
+    in ``root/fleet.out``; ``down`` stops it and sweeps its replicas. With
+    ``detach`` the command is ``up -d`` (the router then runs in its own
+    session, its output in ``root/server.log``); ``args`` are added to it
+    (phase 19 c's ``--autoscale``)."""
 
-    def __init__(self, root: Path, n: int, **env):
+    def __init__(self, root: Path, n: int, detach: bool = False, args=(), extra_ports: int = 1, **env):
         self.root, self.n = root, n
         self.repo = Path(__file__).resolve().parent
-        # The router, n replicas and one more (phase 18 c's fifth).
-        self.port = _fleet_ports(n + 2)
+        # The router, n replicas and ``extra_ports`` more (phase 18 c's fifth, the
+        # replicas phase 19 c's autoscaler spawns).
+        self.port = _fleet_ports(n + 1 + extra_ports)
         self.base = self.port + 1
-        self.env = dict(os.environ, PYTHONPATH=str(self.repo), KAKVEDA_INDEX_CAPACITY=str(ROWS), **FLEET_ENV, **env)
+        self.env = {**os.environ, "PYTHONPATH": str(self.repo), "KAKVEDA_INDEX_CAPACITY": str(ROWS), **FLEET_ENV,
+                    **env}
         self.out = root / "fleet.out"
         root.mkdir(parents=True, exist_ok=True)
+        cmd = [sys.executable, "-m", "kakveda_tpu_torch.cli", "up", "--dir", str(root), "--port", str(self.port),
+               "--port-base", str(self.base), "--replicas", str(n), *(["-d"] if detach else []), *args]
         with open(self.out, "wb") as f:
-            self.proc = subprocess.Popen(
-                [sys.executable, "-m", "kakveda_tpu_torch.cli", "up", "--dir", str(root), "--port", str(self.port),
-                 "--port-base", str(self.base), "--replicas", str(n)],
-                cwd=self.repo, env=self.env, stdout=f, stderr=subprocess.STDOUT)
+            self.proc = subprocess.Popen(cmd, cwd=self.repo, env=self.env, stdout=f, stderr=subprocess.STDOUT)
+        if detach:
+            # `up -d` returns once it has started the router in the background.
+            if self.proc.wait(timeout=60) != 0:
+                raise AssertionError(f"cli up -d: {self.proc.returncode}\n{self.tail()}")
+            self.proc = None
         self.router = f"http://127.0.0.1:{self.port}"
 
     def url(self, i: int) -> str:
@@ -6534,8 +6706,14 @@ class _FleetProc:
     def pid(self, i: int) -> int:
         return int((self.root / f"replica-{i}.pid").read_text().strip())
 
+    def router_pid(self) -> Optional[int]:
+        try:
+            return int((self.root / "server.pid").read_text().strip())
+        except (OSError, ValueError):
+            return None
+
     def tail(self) -> str:
-        logs = [self.out, *sorted(self.root.glob("replica-*.log"))]
+        logs = [self.out, self.root / "server.log", *sorted(self.root.glob("replica-*.log"))]
         return "\n".join(f"--- {p.name}\n" + p.read_text(errors="replace")[-1500:] for p in logs if p.exists())
 
     async def wait_router(self, s, healthy: int, timeout: float = 180.0) -> float:
@@ -6543,7 +6721,7 @@ class _FleetProc:
 
         t0 = time.perf_counter()
         while True:
-            if self.proc.poll() is not None:
+            if self.proc is not None and self.proc.poll() is not None:
                 raise AssertionError(f"the fleet exited early ({self.proc.returncode}):\n{self.tail()}")
             if time.perf_counter() - t0 > timeout:
                 raise AssertionError(f"the fleet's router did not report {healthy} healthy replicas:\n{self.tail()}")
@@ -6562,23 +6740,28 @@ class _FleetProc:
                               "--timeout", "60"], cwd=self.repo, env=self.env, stdout=subprocess.PIPE,
                              stderr=subprocess.STDOUT, text=True)
         try:
-            self.proc.wait(timeout=90)
+            if self.proc is not None:
+                self.proc.wait(timeout=90)
             text, _ = d.communicate(timeout=90)
         finally:
             if d.poll() is None:
                 d.kill()
                 d.wait()
-        if d.returncode != 0 or self.proc.returncode != 0:
-            raise AssertionError(f"cli down: {d.returncode} (fleet {self.proc.returncode}) {text}\n{self.tail()}")
+        rc = 0 if self.proc is None else self.proc.returncode
+        if d.returncode != 0 or rc != 0:
+            raise AssertionError(f"cli down: {d.returncode} (fleet {rc}) {text}\n{self.tail()}")
 
     def kill(self) -> None:
         """Last resort on a failed phase: SIGKILL the router and whatever
         replicas its pid files name."""
         import signal
 
-        if self.proc.poll() is None:
+        if self.proc is not None and self.proc.poll() is None:
             self.proc.kill()
             self.proc.wait()
+        if self.proc is None and self.router_pid():
+            with contextlib.suppress(OSError):
+                os.kill(self.router_pid(), signal.SIGKILL)
         for p in self.root.glob("replica-*.pid"):
             with contextlib.suppress(OSError, ValueError):
                 os.kill(int(p.read_text().strip()), signal.SIGKILL)
@@ -6837,26 +7020,25 @@ async def _legacy_fleet(s, fl: _FleetProc, oracle, batches, reqs_b, bodies_c, ca
         ready = await _jget(s, urls[1] + "/readyz")
         return _fleet_metric(text, "kakveda_fleet_pressure"), ready["admission"]["brownout_step"]
 
-    stop, shed = asyncio.Event(), []
+    # The flood comes from client processes of their own (this loop only
+    # reads the peer), so a slow host's loop does not thin it.
     clean = [t for t in _service_batches(lo=9000, n=512)[0] if t["response"] != STUB_RESPONSE][:8]
-
-    async def hammer(c):
-        while not stop.is_set():
-            async with s.post(urls[0] + "/ingest/batch", json={"traces": clean}) as r:
-                body = await r.json()
-                if r.status == 200 and body["failures"]:
-                    raise AssertionError(f"phase 18 d: a flood batch classified {body['failures']} failures")
-                shed.append(r.status == 429)
-
-    tasks = [asyncio.create_task(hammer(c)) for c in range(FLEET_FLOOD)]
-    peak_p, peak_step, t0 = 0.0, 0, time.perf_counter()
-    while time.perf_counter() - t0 < 3.0:
+    body_path = fl.root / "flood.json"
+    body_path.write_text(json.dumps({"traces": clean}))
+    procs = spawn_tenant_clients([(f"flood-{i}", FLEET_FLOOD // FLEET_FLOOD_PROCS, FLEET_FLOOD_S, body_path)
+                                  for i in range(FLEET_FLOOD_PROCS)], fn=ingest_flood_clients)
+    flood = asyncio.create_task(run_tenant_clients(procs, urls[0], "phase 18 d"))
+    peak_p, peak_step = 0.0, 0
+    while not flood.done():
         p, step = await peer_state()
         peak_p, peak_step = max(peak_p, p), max(peak_step, step)
         await asyncio.sleep(0.1)
-    stop.set()
-    await asyncio.gather(*tasks)
+    rec, _ = await flood
     t_end = time.perf_counter()
+    bad = [n for r in rec.values() for st, n in r if st == 200 and n]
+    if bad:
+        raise AssertionError(f"phase 18 d: {len(bad)} flood batches classified failures ({bad[:4]})")
+    shed = [st == 429 for r in rec.values() for st, _ in r]
     ttl = float(fl.env.get("KAKVEDA_FLEET_GOSSIP_TTL_S", "5"))
     while True:
         p, step = await peer_state()
@@ -7108,6 +7290,537 @@ def phase_fleet(base: Path, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the elastic fleet and the traffic harness on the card
+# ---------------------------------------------------------------------------
+
+# Phase 19 a: the storm drill at tests/test_traffic.py's storm smoke numbers.
+STORM = dict(seed=5, duration_s=8.0, speed=1.5, timeout_s=15.0, gossip_ttl_s=3.0)
+STORM_UNLATCH_S = 2.5  # the probe (KAKVEDA_DEGRADED_PROBE=1) un-latches within this of the disarm
+STORM_IN_FLIGHT_S = 0.25  # a warn answered this soon after the arm may have been dispatched before it
+# Phase 19 b: the requests captured, then replayed.
+REPLAY_WARNS, REPLAY_INGESTS = 256, 8
+# Phase 19 c: tests/test_autoscaler.py's flash crowd (its scenario numbers)
+# under bench.py _bench_elastic's replica env and drill knobs.
+ELASTIC_SCENARIO = dict(seed=11, baseline_s=4.0, surge_s=18.0, decay_s=12.0, warn_rps=4.0, surge_x=3.0, bg_rps=12.0,
+                        apps=8, crash_replica=1, gossip_ttl_s=3.0, max_scale_flaps=1)
+ELASTIC_ENV = dict(
+    KAKVEDA_FLEET_OWNERSHIP="1", KAKVEDA_FLEET_REPLICATION="2", KAKVEDA_ADMIT_BACKGROUND="1",
+    KAKVEDA_ADMIT_WARN="64", KAKVEDA_DLQ_AUTO_S="2", KAKVEDA_SCALE_UP_OCC="0.6", KAKVEDA_SCALE_DOWN_OCC="0.2",
+    KAKVEDA_SCALE_DWELL_S="2", KAKVEDA_SCALE_COOLDOWN_S="5", KAKVEDA_SCALE_REPLACE_S="3",
+    KAKVEDA_SCALE_REPLACE_BACKOFF_S="3", KAKVEDA_SCALE_TICK_S="0.5",
+)
+ELASTIC_PER_APP = 48  # rows per app of the seed corpus, as phase 18 c
+ELASTIC_MAX_PARTIAL = 0.1  # the reference's max_partial_rate (rebalance_storm's SLO)
+ELASTIC_CONVERGE_S = 40.0  # after the replay: the replacement's heal and the drain back to 2
+PHASE19_WALL_S = 100.0  # the phase's own limit; each wait inside it is bounded by what is left
+# The scale-up's range migration against the SIGKILL at surge end (ROADMAP
+# Queue 3): the JAX package on the CPU, its replicas started late enough to
+# be ready as late as a card replica on a slow host, fails the same way
+# (``python tests/torch_elastic_witness.py jax 9``; its reading, quoted).
+ELASTIC_JAX_WITNESS = ("the JAX package on the CPU, its newcomer ready 14.41 s after its spawn: scale_up:error "
+                       "'MigrationError: rebalance 1->2 failed (pre-flip)', no scale-up, 235 of 235 warns ok")
+# Device-loss drills so far (phase 19 a's storm, phase 12 c's): latches and
+# the warns they served from the host; check_healthy holds the process to it.
+DRILLS = {"latches": 0, "fallback": 0}
+
+
+class _Deadline:
+    def __init__(self, seconds: float, what: str):
+        self.end, self.what = time.perf_counter() + seconds, what
+
+    def left(self, cap: float) -> float:
+        left = self.end - time.perf_counter()
+        if left <= 0:
+            raise AssertionError(f"{self.what}: past its wall limit")
+        return min(cap, left)
+
+
+def phase_storm(base: Path, fused_topk, card: str) -> dict:
+    """Phase 19 a: ``cli traffic storm``'s drill in process (``run_storm``:
+    its admission limits and brownout settings) on a Platform on the card,
+    seeded with phase 8's 4,096 traces through ``/ingest/batch``. Every SLO
+    gate of the scenario raises; warns answered inside the device-loss
+    window come degraded from the host, every other warn from the card's
+    hot index, with ``fused_topk`` launched; the latch is released after,
+    and the drill is counted in ``DRILLS``."""
+    from kakveda_tpu_torch.cli.main import run_storm
+    from kakveda_tpu_torch.core.admission import get_device_health
+    from kakveda_tpu_torch.index.gfkb import fallback_total
+
+    answers = []
+    health = get_device_health()
+    tr0, fb0, l0 = dict(health.transitions), fallback_total(), fused_topk.launches
+    t = time.perf_counter()
+    sc, res, rep = run_storm(**STORM, device="cuda", capacity=ROWS, dim=DIM, data_dir=base / "storm",
+                             seed_batches=_service_batches(),
+                             on_response=lambda path, st, body, at: answers.append((at, st, body))
+                             if path == "/warn" else None)
+    wall = time.perf_counter() - t
+    launches = fused_topk.launches - l0
+    _forget_apps()
+    speed = STORM["speed"]
+    arm = min(c["t"] for c in sc.chaos if c["action"] == "faults" and c["spec"]) / speed
+    disarm = max(c["t"] for c in sc.chaos if c["action"] == "faults" and not c["spec"]) / speed
+    ok = [(at, b) for at, st, b in answers if st == 200]
+    degraded = [at for at, b in ok if b.get("degraded")]
+    hot = [(at, b.get("tier")) for at, b in ok if not b.get("degraded")]
+    late_deg = [round(at, 3) for at in degraded if not arm - 0.05 <= at <= disarm + STORM_UNLATCH_S]
+    bad_hot = [(round(at, 3), tier) for at, tier in hot if tier != "hot" or arm + STORM_IN_FLIGHT_S <= at <= disarm]
+    n_fb = fallback_total() - fb0
+    tr = {k: health.transitions[k] - tr0.get(k, 0) for k in health.transitions}
+    out = dict(wall_s=wall, launches=launches, warns=len(answers), degraded=len(degraded), hot=len(hot),
+               fallback=n_fb, transitions=tr, window_s=[arm, disarm], slo=rep.to_dict(), replay=res.to_dict(),
+               warn_p95_ms={ph: round(_pct(res.latencies_ms("warn", ph), 0.95), 3)
+                            for ph in ("baseline", "storm", "recovery") if res.latencies_ms("warn", ph)})
+    log(f"phase 19 a: storm (seed {STORM['seed']}, {STORM['duration_s']} s at speed {speed}) on a "
+        f"{ROWS} x {DIM} Platform seeded with 4096 traces: {len(answers)} warns, {res.class_counts()}; "
+        f"device-loss window {arm:.3f}-{disarm:.3f} s: {len(degraded)} warns answered degraded from the host, "
+        f"{len(hot)} from the card's hot index; fused_topk launches {launches}; fallback warns {n_fb}; latch "
+        f"{tr}; warn p95 by phase {out['warn_p95_ms']} ms; ladder back in {res.ladder_recovery_s} s; "
+        f"{rep.summary()}; {wall:.1f} s [{card}]")
+    if not rep.ok:
+        raise AssertionError(f"phase 19 a: {rep.summary()}")
+    if not degraded or not hot or late_deg or bad_hot:
+        raise AssertionError(f"phase 19 a: degraded answers outside the window {late_deg[:5]}, answers not from "
+                             f"the card's hot index {bad_hot[:5]} ({len(degraded)} degraded, {len(hot)} hot)")
+    if launches <= 0 or n_fb != len(degraded) or tr != {"degraded": 1, "healthy": 1} or health.degraded:
+        raise AssertionError(f"phase 19 a: launches {launches}, fallback {n_fb} for {len(degraded)} degraded "
+                             f"answers, latch {tr}, degraded now {health.degraded}")
+    DRILLS["latches"] += 1
+    DRILLS["fallback"] += n_fb
+    return out
+
+
+def _cli(args, timeout: float, **env) -> str:
+    """``python3 -m kakveda_tpu_torch.cli`` with ``args``; its stdout (rc 0)."""
+    repo = Path(__file__).resolve().parent
+    r = subprocess.run([sys.executable, "-m", "kakveda_tpu_torch.cli", *args], cwd=repo, capture_output=True,
+                       text=True, timeout=timeout, env={**os.environ, "PYTHONPATH": str(repo), **env})
+    if r.returncode != 0:
+        raise AssertionError(f"cli {' '.join(args)}: {r.returncode}\n{r.stdout[-2000:]}\n{r.stderr[-3000:]}")
+    return r.stdout
+
+
+async def _record_replay(s, url: str, base: Path, card: str, dl: _Deadline) -> dict:
+    """Phase 19 b against the entry-point child at ``url``."""
+    from kakveda_tpu_torch import traffic as T
+
+    out = {}
+    for b in _service_batches(lo=40_000)[:REPLAY_INGESTS]:
+        await _jpost(s, url + "/ingest/batch", {"traces": b})
+    bodies = [_warn_body(f"app-{'ABCDEFG'[i % 7]}", f"Summarize report {40_000 + 3 * i + 1} and include citations")
+              for i in range(REPLAY_WARNS)]
+
+    async def client(c):
+        for body in bodies[c::16]:
+            await _jpost(s, url + "/warn", body)
+
+    await asyncio.gather(*(client(c) for c in range(16)))
+    log_path = base / "captured.jsonl"
+    loop = asyncio.get_running_loop()
+    rec = json.loads(await loop.run_in_executor(None, lambda: _cli(
+        ["traffic", "record", "--url", url, "--out", str(log_path)], dl.left(60.0))))
+    dump = await _jget(s, url + "/flightrecorder")
+    meta, events = T.read_log(log_path)
+    if rec["events"] != REPLAY_WARNS + REPLAY_INGESTS or events != T.from_flightrecorder(dump, seed=0):
+        raise AssertionError(f"phase 19 b: record wrote {rec}; its events equal from_flightrecorder of the same "
+                             f"dump: {events == T.from_flightrecorder(dump, seed=0)}")
+    r0 = await _jget(s, url + "/readyz")
+    rep = json.loads(await loop.run_in_executor(None, lambda: _cli(
+        ["traffic", "replay", "--url", url, "--log", str(log_path), "--speed", "1"], dl.left(90.0))))
+    r1 = await _jget(s, url + "/readyz")
+    launches = r1["device"]["launches"]["fused_topk"] - r0["device"]["launches"]["fused_topk"]
+    fallback = r1["tiers"]["fallback"] - r0["tiers"]["fallback"]
+    counts = rep["replay"]["class_counts"]
+    out.update(events=len(events), meta=meta, counts=counts, late_p95_ms=rep["replay"]["late_p95_ms"],
+               wall_s=rep["replay"]["wall_s"], span_s=events[-1]["t"], launches=launches, fallback=fallback,
+               slo=rep["slo"]["ok"])
+    if (counts != {"warn": {"ok": REPLAY_WARNS}, "ingest": {"ok": REPLAY_INGESTS}} or not rep["slo"]["ok"]
+            or launches <= 0 or fallback != 0 or r1["device"]["degraded"] is not False):
+        raise AssertionError(f"phase 19 b: replay {counts}, SLO {rep['slo']}, fused_topk launches {launches}, "
+                             f"fallback warns {fallback}, device {r1['device']}")
+    log(f"phase 19 b: {REPLAY_WARNS} /warn and {REPLAY_INGESTS} /ingest/batch to the entry-point child; `cli traffic "
+        f"record` wrote {rec['events']} events (== from_flightrecorder of the same dump, {events[-1]['t']:.3f} s of "
+        f"traffic); `cli traffic replay --log --speed 1`: {counts}, none lost or hung, late p95 "
+        f"{out['late_p95_ms']} ms, {out['wall_s']} s; the child's fused_topk launches {launches}, fallback warns "
+        f"{fallback}, not degraded [{card}]")
+    return out
+
+
+class _PidSupervisor:
+    """The chaos timeline's supervisor handle for a fleet whose router
+    supervises it: ``crash_replica`` SIGKILLs the pid in
+    ``replica-<i>.pid``; the lease marker is the supervisor's own."""
+
+    def __init__(self, fl):
+        from kakveda_tpu_torch.fleet.supervisor import FleetSupervisor
+
+        self.fl, self.killed = fl, []
+        self.sup = FleetSupervisor(fl.root, port_base=fl.base, replicas=fl.n, device="cuda",
+                                   env={k: v for k, v in fl.env.items() if k.startswith("KAKVEDA_")})
+
+    def may_hold_device_lease(self, i: int) -> bool:
+        return self.sup.may_hold_device_lease(i)
+
+    def stop(self, i: int, timeout_s: float = 20.0, sig=None) -> None:
+        import signal
+
+        pid = self.fl.pid(i)
+        os.kill(pid, sig or signal.SIGTERM)
+        self.killed.append((i, pid, time.perf_counter()))
+
+    def start(self, i: int) -> None:
+        raise AssertionError("phase 19 c starts no replica: the autoscaler replaces")
+
+
+class _RemoteScaler:
+    """The router's autoscaler as ``run_scenario`` reads it, through the
+    router's ``/readyz`` ``autoscale`` block."""
+
+    def __init__(self, router: str):
+        self.router = router
+
+    def info(self) -> dict:
+        from kakveda_tpu_torch.core import httpjson
+
+        return json.loads(httpjson.request("GET", self.router + "/readyz", timeout=5.0)[1])["autoscale"]
+
+    def decision_counts(self) -> dict:
+        return dict(self.info()["counts"])
+
+    def flap_count(self) -> int:
+        return int(self.info()["flaps"])
+
+
+def _distinct(scores) -> list:
+    out = []
+    for x in scores:
+        if not out or abs(out[-1] - x) > ATOL:
+            out.append(x)
+    return out
+
+
+def _hold_merged_to_oracle(answers, bodies, oracle, what: str) -> int:
+    """Scatter-gather answers against the oracle Platform's ``warn_batch`` of
+    the same requests: the action, the top-1 confidence within 1e-4, and the
+    distinct scores rank by rank within ATOL (under R = 2 the merge repeats
+    a row held by owner and standby, in the JAX package too: ROADMAP Queue
+    3)."""
+    from kakveda_tpu_torch.core.schemas import WarningRequest
+
+    direct = []
+    for lo in range(0, len(bodies), 64):
+        direct += oracle.warn_batch([WarningRequest.model_validate(b) for b in bodies[lo : lo + 64]])
+    for j, (a, d) in enumerate(zip(answers, direct)):
+        got = _distinct([x["score"] for x in a["references"]])
+        want = _distinct([x.score for x in d.references])
+        if a["action"] != d.action or abs(a["confidence"] - d.confidence) > 1e-4 or got != want[: len(got)] \
+                or len(got) < min(2, len(want)):
+            raise AssertionError(f"{what} answer {j}: {a['action']} {a['confidence']} {got} vs oracle "
+                                 f"{d.action} {d.confidence} {want}")
+    return len(direct)
+
+
+def _migration_met_the_kill(lines: list, killed: list, wall_to_perf: float) -> list:
+    """The scale-ups whose range migration failed against the replica the
+    chaos timeline SIGKILLed (a ``MigrationError`` ledgered after the kill)
+    while no scale-up succeeded: the race the JAX package loses too when
+    its newcomer is ready as late (ROADMAP Queue 3). Empty otherwise."""
+    if any(ln["action"] == "scale_up" and ln["outcome"] == "ok" for ln in lines) or len(killed) != 1:
+        return []
+    t_kill = killed[0][2]
+    return [ln for ln in lines if ln["action"] == "scale_up" and ln["outcome"] == "error"
+            and "MigrationError" in ln.get("detail", "") and ln["ts"] + wall_to_perf > t_kill]
+
+
+async def _elastic(s, fl, oracle, batches, card: str, dl: _Deadline) -> dict:
+    """Phase 19 c on the fleet ``fl`` (router and two replicas up). A run
+    whose only scale-up lost its migration to the SIGKILL (the race of
+    :func:`_migration_met_the_kill`) is held to every other check and
+    prints the gate as failed beside the JAX package's reading."""
+    import dataclasses as dc
+
+    from kakveda_tpu_torch import traffic as T
+
+    out = {}
+    urls = [fl.url(i) for i in range(4)]  # the two, the third, a failed scale-up's
+    unique = 0
+    for b in batches:
+        unique += (await _jpost(s, fl.router + "/ingest/batch", {"traces": b}))["failures"]
+    await _converge(s, urls[:2], lambda c: c == [unique] * 2, dl.left(30.0), "phase 19 c seed")
+    rep0 = await _jget(s, fl.router + "/readyz")
+    epoch0, pids0 = rep0["ownership"]["epoch"], {i: fl.pid(i) for i in range(2)}
+
+    samples, stop = [], asyncio.Event()
+
+    async def monitor():
+        """Router epoch and members, and each live replica process's count
+        and launches, every 0.25 s."""
+        while not stop.is_set():
+            # A replica's log file appears when the supervisor spawns it.
+            row = {"t": time.perf_counter(), "replicas": {},
+                   "logs": [i for i in range(len(urls)) if (fl.root / f"replica-{i}.log").exists()]}
+            with contextlib.suppress(Exception):
+                rep = await _jget(s, fl.router + "/readyz")
+                row.update(epoch=rep["ownership"]["epoch"], members=sorted(rep["ownership"]["members"]),
+                           holes=rep["ownership"]["coverage_holes"])
+            for i, u in enumerate(urls):
+                pid = None
+                with contextlib.suppress(OSError, ValueError):
+                    pid = fl.pid(i)
+                    os.kill(pid, 0)
+                if pid is None:
+                    continue
+                with contextlib.suppress(Exception):
+                    r = await _jget(s, u + "/readyz")
+                    row["replicas"][i] = dict(pid=pid, count=r["gfkb_count"],
+                                              launches=r["device"]["launches"]["fused_topk"],
+                                              epoch=r["ownership"]["epoch"], degraded=r["device"]["degraded"])
+                    continue
+                row["replicas"][i] = dict(pid=pid)  # alive, not answering yet
+            samples.append(row)
+            await asyncio.sleep(0.25)
+
+    answers, partial = [], [0]
+
+    async def post(path, body):
+        async with s.post(fl.router + path, json=body) as r:
+            data = await r.read()
+            if path == "/warn" and r.status == 200:
+                a = json.loads(data)
+                answers.append((body, a))
+                partial[0] += bool(a.get("partial"))
+            return r.status
+
+    sc = T.make_scenario("flash_crowd", **ELASTIC_SCENARIO)
+    crasher, scaler = _PidSupervisor(fl), _RemoteScaler(fl.router)
+    mon = asyncio.create_task(monitor())
+    t0 = time.perf_counter()
+    try:
+        res = await T.run_scenario(sc, post=post, speed=1.0, supervisor=crasher, autoscaler=scaler, timeout_s=15.0)
+        out["replay_s"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        wall_to_perf = time.perf_counter() - time.time()
+        raced = []
+        while True:
+            info = (await _jget(s, fl.router + "/readyz"))
+            counts = info["autoscale"]["counts"]
+            live = [rid for rid, r in info["replicas"].items() if r["healthy"] and not r["ejected"]]
+            held = [r["gfkb_count"] for rid, r in info["replicas"].items() if rid in live]
+            ledger = fl.root / "data" / "scale_log.jsonl"
+            with contextlib.suppress(OSError, ValueError):  # not written yet, or a line half written
+                raced = _migration_met_the_kill([json.loads(x) for x in ledger.read_text().splitlines()],
+                                                crasher.killed, wall_to_perf)
+            scaled = counts.get("scale_up:ok", 0) >= 1 and counts.get("scale_down:ok", 0) >= 1
+            if ((scaled or raced) and counts.get("replace:ok", 0) >= 1 and len(live) == 2
+                    and info["ownership"]["coverage_holes"] == 0 and held == [unique, unique]
+                    and info["autoscale"]["state"] in ("steady", "cooldown")):
+                break
+            if time.perf_counter() - t1 > dl.left(ELASTIC_CONVERGE_S):
+                raise AssertionError(f"phase 19 c: no convergence {time.perf_counter() - t1:.1f} s after the "
+                                     f"replay: decisions {counts}, live {live} holding {held} of {unique}, holes "
+                                     f"{info['ownership']['coverage_holes']}; scale_log.jsonl:\n{ledger.read_text()}")
+            await asyncio.sleep(0.25)
+        out["converge_s"] = time.perf_counter() - t1
+    finally:
+        stop.set()
+        await mon
+    res.notes["scale_flaps"] = float(info["autoscale"]["flaps"])
+    res.notes["partial"] = float(partial[0])
+    report = T.evaluate(dc.replace(sc.slo, max_partial_rate=ELASTIC_MAX_PARTIAL), res)
+
+    # The ledger, its families and the decisions taken (two ticks on, so
+    # the replicas gauge has read the drained fleet).
+    await asyncio.sleep(2 * float(ELASTIC_ENV["KAKVEDA_SCALE_TICK_S"]))
+    lines = [json.loads(x) for x in (fl.root / "data" / "scale_log.jsonl").read_text().splitlines()]
+    by = {}
+    for ln in lines:
+        by[f"{ln['action']}:{ln['outcome']}"] = by.get(f"{ln['action']}:{ln['outcome']}", 0) + 1
+    text = await _tget(s, fl.router + "/metrics")
+    fams = {k: _fleet_metric(text, "kakveda_fleet_scale_decisions_total", f'action="{k.split(":")[0]}",'
+                             f'outcome="{k.split(":")[1]}"') for k in by}
+    flaps_m = _fleet_metric(text, "kakveda_fleet_scale_flaps_total")
+    state_m = {st: _fleet_metric(text, "kakveda_fleet_scale_state", f'state="{st}"')
+               for st in ("steady", "scale_up", "drain", "replace", "cooldown")}
+    replicas_m = _fleet_metric(text, "kakveda_fleet_scale_replicas")
+    trans_m = _fleet_metric(text, "kakveda_fleet_scale_transitions_total")
+    info = (await _jget(s, fl.router + "/readyz"))["autoscale"]
+    if (by != info["counts"] or {k: int(v) for k, v in fams.items()} != by or int(flaps_m) != info["flaps"]
+            or state_m[info["state"]] != 1.0 or sum(state_m.values()) != 1.0 or replicas_m != 2.0
+            or trans_m < 2 * len(lines)):
+        raise AssertionError(f"phase 19 c: scale_log {by} vs info {info['counts']} vs families {fams}, flaps "
+                             f"{flaps_m} vs {info['flaps']}, state {state_m} vs {info['state']}, replicas "
+                             f"{replicas_m}, transitions {trans_m} for {len(lines)} decisions")
+
+    # The actions themselves, from the log and the monitor's samples.
+    ups = [ln for ln in lines if ln["action"] == "scale_up" and ln["outcome"] == "ok"]
+    repl = [ln for ln in lines if ln["action"] == "replace" and ln["outcome"] == "ok"]
+    downs = [ln for ln in lines if ln["action"] == "scale_down" and ln["outcome"] == "ok"]
+    epochs = [r["epoch"] for r in samples if "epoch" in r]
+    seen3 = [r for r in samples if len(r.get("members", [])) == 3]
+    newcomer = sorted({m for r in seen3 for m in r["members"]} - {"r0", "r1"})
+    nc_rows = max((x.get("count") or 0 for r in samples for i, x in r["replicas"].items()
+                   if newcomer and f"r{i}" == newcomer[0]), default=0)
+    rep_epochs = {x["epoch"] for r in samples for x in r["replicas"].values() if "epoch" in x}
+    killed = crasher.killed
+    members = (await _jget(s, fl.router + "/readyz"))["ownership"]["members"]
+    final = {int(m[1:]): fl.pid(int(m[1:])) for m in members}
+    raced = _migration_met_the_kill(lines, killed, wall_to_perf)
+    if raced:  # the shared race: no third member, no drain; every other check holds
+        nc = int(raced[0]["target"][1:])
+        spawn = next((r["t"] for r in samples if nc in r["logs"]), None)
+        ready = next((r["t"] for r in samples if "count" in r["replicas"].get(nc, {})), None)
+        out["raced"] = dict(target=raced[0]["target"], detail=raced[0]["detail"],
+                            spawn_to_ready=None if None in (spawn, ready) else round(ready - spawn, 2),
+                            kill_after_spawn=None if spawn is None else round(killed[0][2] - spawn, 2),
+                            logged_after_kill=round(raced[0]["ts"] + wall_to_perf - killed[0][2], 2))
+        log(f"phase 19 c: the scale-up's range migration met the SIGKILLed r{killed[0][0]}: {out['raced']}; "
+            f"the gate 'a scale-up runs' FAILS here, as in the JAX package at a late spawn ({ELASTIC_JAX_WITNESS}); "
+            f"open in ROADMAP Queue 3. Every other check of phase 19 c still holds [{card}]")
+    elif not (ups and ups[0]["target"] in newcomer and nc_rows > 0 and max(epochs) > epoch0
+              and rep_epochs <= set(epochs) | {epoch0}):
+        raise AssertionError(f"phase 19 c scale-up: {ups}, members seen {newcomer}, the newcomer's rows {nc_rows}, "
+                             f"router epochs {sorted(set(epochs))} from {epoch0}, replica epochs {rep_epochs}")
+    # The replacement: the SIGKILLed index back with a new process that
+    # holds at least what the dead one held.
+    crash_i, crash_pid, t_kill = killed[0] if len(killed) == 1 else (None, None, 0.0)
+    before_kill = [x["count"] for r in samples if r["t"] < t_kill for i, x in r["replicas"].items()
+                   if i == crash_i and x.get("pid") == crash_pid and "count" in x]
+    healed = next((r["t"] for r in samples if r["t"] > t_kill and crash_i in r["replicas"]
+                   and r["replicas"][crash_i].get("pid") not in (None, crash_pid)
+                   and (r["replicas"][crash_i].get("count") or 0) >= (before_kill or [1 << 30])[-1]), None)
+    if not (crash_i is not None and crash_pid == pids0[crash_i] and repl and repl[0]["target"] == f"r{crash_i}"
+            and healed is not None):
+        raise AssertionError(f"phase 19 c replacement: killed {killed}, replaced {repl}, held before "
+                             f"{before_kill[-1:]}, healed at {healed}, pids {pids0} -> {final}")
+    # The drain: the victim's process still alive when the ring last held
+    # it (migrate, de-ring, THEN stop), gone after.
+    victim = downs[0]["target"] if downs else "r?"
+    vi = int(victim[1:]) if downs else -1
+    ringed = [r["t"] for r in samples if victim in r.get("members", ())]
+    alive = [r["t"] for r in samples if vi in r["replicas"]]
+    if raced:
+        if downs or len(final) != 2:
+            raise AssertionError(f"phase 19 c: no scale-up, yet drains {downs}, replicas left {final}")
+    elif not (downs and ringed and alive and alive[-1] >= ringed[-1] and vi not in final and len(final) == 2
+              and not (fl.root / f"replica-{vi}.pid").exists()):
+        raise AssertionError(f"phase 19 c drain: {downs}, {victim} last in the ring at {ringed[-1:]}, its process "
+                             f"last alive at {alive[-1:]}, replicas left {final}")
+    wc = res.class_counts().get("warn", {})
+    n_gen = res.generated("warn")
+    bad = [a for _, a in answers if a.get("degraded") is not False or a.get("tier") != "hot"]
+    if not report.ok or int(res.notes["scale_flaps"]) > 1 or wc.get("ok", 0) != n_gen or bad:
+        raise AssertionError(f"phase 19 c: {report.summary()}, flaps {res.notes['scale_flaps']}, warns {wc} of "
+                             f"{n_gen}, {len(bad)} answers not from the card's hot index")
+    held = _hold_merged_to_oracle([a for _, a in answers], [b for b, _ in answers], oracle, "phase 19 c")
+
+    # Each replica process's own fused_topk launches across the section.
+    first, last = {}, {}
+    for r in samples:
+        for i, x in r["replicas"].items():
+            if "launches" in x:
+                key = (i, x["pid"])
+                first.setdefault(key, x["launches"] if r is samples[0] else 0)
+                last[key] = x["launches"]
+    launches = {f"r{i}/{pid}": last[(i, pid)] - first[(i, pid)] for i, pid in sorted(last)}
+    if sum(launches.values()) <= 0:
+        raise AssertionError(f"phase 19 c: no replica launched fused_topk: {launches}")
+    out.update(decisions=by, flaps=int(res.notes["scale_flaps"]), warns=wc, generated=n_gen, partial=partial[0],
+               held_to_oracle=held, launches=launches, epochs=sorted(set(epochs)), newcomer=newcomer,
+               newcomer_rows=nc_rows, killed=[(i, pid) for i, pid, _ in killed], slo=report.to_dict(),
+               log=lines, late_p95_ms=res.late_p95_ms(), wall_replay_s=res.wall_s)
+    # Times from the monitor's samples: the newcomer's spawn (its log file)
+    # to its first answer and to the router's flip to three members; the
+    # SIGKILL to the replacement holding the dead process's rows again.
+    out["times_s"] = dict(kill_to_healed=round(healed - t_kill, 2))
+    if not raced:
+        nc = int(newcomer[0][1:])
+        spawn = next((r["t"] for r in samples if nc in r["logs"]), None)
+        ready3 = next((r["t"] for r in samples if "count" in r["replicas"].get(nc, {})), None)
+        out["times_s"].update(
+            spawn_to_ready=None if ready3 is None or spawn is None else round(ready3 - spawn, 2),
+            spawn_to_flip=None if spawn is None else round(seen3[0]["t"] - spawn, 2),
+            scale_up_logged_s=round(ups[0]["ts"] + wall_to_perf - t0, 2))
+    log(f"phase 19 c: `cli up --replicas 2 --autoscale 2:3 -d`, ownership R = 2, {unique} rows; flash_crowd "
+        f"(seed {ELASTIC_SCENARIO['seed']}, {sc.duration_s} s): warns {wc} of {n_gen}, {partial[0]} partial, "
+        f"{held} held to an oracle Platform; decisions {by} (scale_log == /readyz == "
+        f"kakveda_fleet_scale_decisions_total), flaps {out['flaps']}; "
+        + ("no scale-up (the race above), no drain; " if raced else
+           f"scale-up {newcomer} holding {nc_rows} rows (router epochs {out['epochs']}); {victim} drained then "
+           "stopped; ")
+        + f"r{crash_i} SIGKILLed at surge end and replaced at its index; times {out['times_s']}; fused_topk "
+        f"launches per replica process {launches}; "
+        f"converged {out['converge_s']:.1f} s after the replay; {report.summary()} [{card}]")
+    return out
+
+
+def phase_elastic(base: Path, fused_topk, card: str) -> dict:
+    """Phase 19: a. the storm drill in process, b. record → replay against
+    the entry-point child, c. the elastic fleet under the flash crowd. The
+    child and the fleet start first, so their start-up overlaps a."""
+    import aiohttp
+
+    from kakveda_tpu_torch.core.schemas import TracePayload
+
+    t_phase = time.perf_counter()
+    dl = _Deadline(PHASE19_WALL_S, "phase 19")
+    repo = Path(__file__).resolve().parent
+    out = {}
+    free0, mine0 = _card_free(), torch.cuda.memory_reserved()
+    batches = [b[0][:ELASTIC_PER_APP] for b in (_service_batches(lo=50_000 + ELASTIC_PER_APP * a, n=ELASTIC_PER_APP,
+                                                                 app=f"app-{a}")
+                                                for a in range(ELASTIC_SCENARIO["apps"]))]
+    # Two more ports: the third replica, and one a scale-up that fails after
+    # its spawn leaves running (a crash while the surge's pressure holds).
+    fl = _FleetProc(base / "elastic", 2, detach=True, args=("--autoscale", "2:3"), extra_ports=2, **ELASTIC_ENV)
+    child_out = base / "child.out"
+    proc, url = _start_service(repo, base / "child-data", child_out)
+    oracle = None
+    try:
+        out["a"] = phase_storm(base, fused_topk, card)
+        oracle = _oracle(base, "oracle-elastic", batches, TracePayload)
+
+        async def go():
+            async with aiohttp.ClientSession(connector=aiohttp.TCPConnector(limit=256),
+                                             timeout=aiohttp.ClientTimeout(total=60)) as s:
+                await _wait_healthz(s, url, proc, child_out, time.perf_counter())
+                b = await _record_replay(s, url, base, card, dl)
+                await asyncio.get_running_loop().run_in_executor(None, _stop_service, proc, child_out)
+                await fl.wait_router(s, 2, timeout=dl.left(120.0))
+                c = await _elastic(s, fl, oracle, batches, card, dl)
+                return b, c
+
+        out["b"], out["c"] = asyncio.run(go())
+        fl.down()
+    except BaseException:
+        fl.kill()
+        raise
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        if oracle is not None:
+            _drop(oracle)
+    oracle = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    # The card's free memory, plus what this process's allocator holds
+    # beyond its start-of-phase share: back to the start's, less 512 MiB.
+    t = time.perf_counter()
+    while (back := _card_free() + torch.cuda.memory_reserved() - mine0) < free0 - (1 << 29):
+        if time.perf_counter() - t > dl.left(15.0):
+            raise AssertionError(f"phase 19 c: the card's free memory {_card_free()} after down (this process "
+                                 f"holding {torch.cuda.memory_reserved() - mine0} more), {free0} before up")
+        time.sleep(0.1)
+    out["memory_back_s"] = time.perf_counter() - t
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 19: {out['wall_s']:.1f} s (limit {PHASE19_WALL_S:.0f}); the card's free memory back to {back} "
+        f"(>= {free0} - 512 MiB) {out['memory_back_s']:.2f} s after `cli down`")
+    log("phase 19: " + json.dumps({k: v for k, v in out.items()}, default=str))
+    return out
+
+
 def launch_counts() -> dict:
     """Every attention launch counter: the flash kernel's three bodies and
     ``gqa_grouped`` on the card."""
@@ -7148,8 +7861,9 @@ F32_TOKENS = 32  # phase 16 a's requests
 
 
 def f32_model(card: str) -> dict:
-    """Phase 16 a: ``llama3_8b()`` in f32 at full width and depth (random
-    weights from seed 0, 32.1 GB) through the engine (8 slots, window 512):
+    """Phase 16 a: ``llama3_8b()`` in f32 at full width and phase 6's depth,
+    LLAMA3_LAYERS of its 32 layers (random weights from seed 0, 18.2 GB;
+    32.1 GB at 32) through the engine (8 slots, window 512):
     8 prompts × F32_TOKENS with ``spec_k`` 0 and with ``KAKVEDA_SERVE_SPEC=4``
     (the gate held open), each launching the f32 body once a layer per
     forward; tokens held to the solo ``generate_tokens`` by the margin rule
@@ -7159,7 +7873,7 @@ def f32_model(card: str) -> dict:
     from kakveda_tpu_torch.models.generate import LlamaRuntime, generate_tokens
     from kakveda_tpu_torch.models.llama import LlamaConfig
 
-    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), dtype=torch.float32)
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), dtype=torch.float32, n_layers=LLAMA3_LAYERS)
     tok = RecordingTokenizer()
     t0 = time.perf_counter()
     rt = LlamaRuntime(cfg=cfg, seed=0, tokenizer=tok)
@@ -7167,9 +7881,10 @@ def f32_model(card: str) -> dict:
     draw_s = time.perf_counter() - t0
     cfg = rt.cfg  # the byte tokenizer's vocabulary masks the table's pad columns
     n_bytes = param_bytes(rt.params)
-    log(f"phase 16 a: Llama-3-8B in f32, {cfg.n_layers} layers, {n_bytes / 1e9:.2f} GB of weights on {rt.device}, "
-        f"drawn in {draw_s:.1f} s")
-    if rt.device.type != "cuda" or abs(n_bytes - 32.12e9) > 0.05e9:
+    log(f"phase 16 a: Llama-3-8B in f32, {cfg.n_layers} of its 32 layers, {n_bytes / 1e9:.2f} GB of weights on "
+        f"{rt.device}, drawn in {draw_s:.1f} s")
+    want_bytes = 2 * (LLAMA3_OTHER_BYTES + cfg.n_layers * LLAMA3_LAYER_BYTES)  # f32: 32.12e9 at 32 layers
+    if rt.device.type != "cuda" or abs(n_bytes - want_bytes) > 0.05e9:
         raise AssertionError(f"f32 model on {rt.device} with {n_bytes} bytes")
     ids = [tok.encode(p) for p in PROMPTS]
     out = dict(weight_bytes=n_bytes, draw_s=draw_s)
@@ -7542,9 +8257,28 @@ def log_held(after: str) -> None:
     log(f"device memory still allocated after {after}: {torch.cuda.memory_allocated()} bytes")
 
 
+# The phases in the order a whole run takes them; ``--phases`` picks some
+# (the build, 1-2, always runs). Each id names the group its lap times.
+PHASE_ORDER = ("3", "4", "7", "8", "18", "19", "12", "11", "5", "6", "10", "9", "14", "16")
+
+
+def _phases_arg(argv) -> tuple:
+    """``--phases 19,18`` → the chosen ids in run order; none → all."""
+    if not argv:
+        return PHASE_ORDER
+    if len(argv) != 2 or argv[0] != "--phases":
+        raise SystemExit(f"usage: chip_smoke.py [--phases ID,ID,...] (ids: {','.join(PHASE_ORDER)})")
+    want = {x.strip() for x in argv[1].split(",") if x.strip()}
+    if not want or want - set(PHASE_ORDER):
+        raise SystemExit(f"unknown phases {sorted(want - set(PHASE_ORDER))}; ids: {','.join(PHASE_ORDER)}")
+    return tuple(p for p in PHASE_ORDER if p in want)
+
+
 def main() -> int:
     if len(sys.argv) == 5 and sys.argv[1] == "--sticky-child":
         return sticky_child(Path(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]))
+    phases = _phases_arg(sys.argv[1:])
+    every = phases == PHASE_ORDER
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -7565,7 +8299,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     name = torch.cuda.get_device_name(0)
-    log(f"torch {torch.__version__} cuda {torch.version.cuda} on {name}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} on {name}; phases {','.join(phases)}")
 
     t0 = t_lap = time.perf_counter()
     walls = {}
@@ -7594,115 +8328,148 @@ def main() -> int:
     for width in (8, 16, 32, 64):
         log(f"  fused_topk at wgmma N={width}: {topk_lib.kkv_fused_topk_stages(width)} ring stages, "
             f"{topk_lib.kkv_fused_topk_smem_bytes(width)} bytes of dynamic shared memory")
-
     lap("1-2 build")
-    row = phase_kernels(fused_topk, fused_topk_reference, card)
-    torch.cuda.empty_cache()
-    lap("3 fused_topk")
+    done = {}  # each phase's result
 
-    with tempfile.TemporaryDirectory(prefix="kakveda-smoke-") as d:
-        count_mining_calls()
-        fused_topk.launches = 0
-        MINING_CALLS.update(dict.fromkeys(MINING_CALLS, 0))
-        main_path = phase_platform(Path(d) / "data", fused_topk, fused_topk_reference, card)
-        launches = fused_topk.launches
-    if launches <= 0:
-        raise AssertionError("the main path never launched fused_topk")
-    log(f"fused_topk launches on the main path: {launches}")
-    check_healthy("phase 4")
-    log_held("phase 4")  # the 2^20 x 2048 index should be gone; the models need the room
-    lap("4 platform")
+    if "3" in phases:
+        done["3"] = phase_kernels(fused_topk, fused_topk_reference, card)
+        torch.cuda.empty_cache()
+        lap("3 fused_topk")
 
-    phase_mining(card)
-    log_held("phase 7")
-    lap("7 mining")
+    if "4" in phases:
+        with tempfile.TemporaryDirectory(prefix="kakveda-smoke-") as d:
+            count_mining_calls()
+            fused_topk.launches = 0
+            MINING_CALLS.update(dict.fromkeys(MINING_CALLS, 0))
+            phase_platform(Path(d) / "data", fused_topk, fused_topk_reference, card)
+            done["4"] = fused_topk.launches
+        if done["4"] <= 0:
+            raise AssertionError("the main path never launched fused_topk")
+        log(f"fused_topk launches on the main path: {done['4']}")
+        check_healthy("phase 4")
+        log_held("phase 4")  # the 2^20 x 2048 index should be gone; the models need the room
+        lap("4 platform")
 
-    with tempfile.TemporaryDirectory(prefix="kakveda-service-") as d:
-        service = phase_service(Path(d), fused_topk, card)
-    service_launches = service["launches_service"]
-    if service_launches <= 0:
-        raise AssertionError("the service path never launched fused_topk")
-    log(f"fused_topk launches of the service's requests (phase 8 a-e): {service_launches}")
-    check_healthy("phase 8")
-    log_held("phase 8")
-    lap("8, 17 a-d, 17 f service")
+    if "7" in phases:
+        phase_mining(card)
+        log_held("phase 7")
+        lap("7 mining")
 
-    with tempfile.TemporaryDirectory(prefix="kakveda-fleet-") as d:
-        fleet = phase_fleet(Path(d), card)
-    check_healthy("phase 18")
-    lap("18 fleet")
+    if "8" in phases:
+        with tempfile.TemporaryDirectory(prefix="kakveda-service-") as d:
+            done["8"] = phase_service(Path(d), fused_topk, card)
+        if done["8"]["launches_service"] <= 0:
+            raise AssertionError("the service path never launched fused_topk")
+        log(f"fused_topk launches of the service's requests (phase 8 a-e): {done['8']['launches_service']}")
+        check_healthy("phase 8")
+        log_held("phase 8")
+        lap("8, 17 a-d, 17 f service")
 
-    # Phase 11's crash sweep and phase 12 d's child process run beside phase
-    # 11's untimed build (the children mostly start up), joined before its
-    # first timed stage.
-    sweep = start_crash_sweep()
-    sticky_dir = tempfile.TemporaryDirectory(prefix="kakveda-sticky-")
+    if "18" in phases:
+        with tempfile.TemporaryDirectory(prefix="kakveda-fleet-") as d:
+            done["18"] = phase_fleet(Path(d), card)
+        check_healthy("phase 18")
+        lap("18 fleet")
+
+    if "19" in phases:
+        with tempfile.TemporaryDirectory(prefix="kakveda-elastic-") as d:
+            done["19"] = phase_elastic(Path(d), fused_topk, card)
+        check_healthy("phase 19")
+        log_held("phase 19")
+        lap("19 elastic, traffic")
+
+    # Phase 11's crash sweep and phase 12 d's child process start here, after
+    # phase 19 (whose memory and latency readings they would disturb), and
+    # run beside phase 12's build, recall, aging and compaction: phase 12
+    # joins both before its first timed stage (b's p50s, c's drill).
     sticky: dict = {}
-    sticky_runner = threading.Thread(target=_run_sticky_child, args=(Path(sticky_dir.name) / "sticky", sticky),
-                                     name="sticky-child")
-    sticky_runner.start()
-    with tempfile.TemporaryDirectory(prefix="kakveda-restart-") as d:
-        fused_topk.launches = 0
-        restart = phase_restart(Path(d), fused_topk_reference, card, sweep, beside=(sticky_runner,))
-        restart_launches = fused_topk.launches
-    if restart_launches <= 0:
-        raise AssertionError("the restart phase never launched fused_topk")
-    log(f"fused_topk launches of phase 11: {restart_launches}")
-    check_healthy("phase 11")
-    log_held("phase 11")
-    lap("11 restart")
+    sticky_dir = sticky_runner = sweep = None
+    if "12" in phases:
+        sticky_dir = tempfile.TemporaryDirectory(prefix="kakveda-sticky-")
+        sticky_runner = threading.Thread(target=_run_sticky_child, args=(Path(sticky_dir.name) / "sticky", sticky),
+                                         name="sticky-child")
+        sticky_runner.start()
+    if "11" in phases:
+        sweep = start_crash_sweep()
+    if "12" in phases:
+        with tempfile.TemporaryDirectory(prefix="kakveda-tiers-") as d:
+            fused_topk.launches = 0
+            phase_tiers(Path(d), fused_topk, fused_topk_reference, card, sticky, sticky_runner,
+                        beside=() if sweep is None else (sweep[0],))
+            done["12"] = fused_topk.launches
+        sticky_dir.cleanup()
+        if done["12"] <= 0:
+            raise AssertionError("phase 12 never launched fused_topk")
+        log(f"fused_topk launches of phase 12 (the hot tier under every healthy warn): {done['12']}")
+        check_healthy("phase 12")
+        log_held("phase 12")
+        lap("12 tiers")
 
-    with tempfile.TemporaryDirectory(prefix="kakveda-tiers-") as d:
-        fused_topk.launches = 0
-        tiers = phase_tiers(Path(d), fused_topk, fused_topk_reference, card, sticky)
-        tiers_launches = fused_topk.launches
-    sticky_dir.cleanup()
-    if tiers_launches <= 0:
-        raise AssertionError("phase 12 never launched fused_topk")
-    log(f"fused_topk launches of phase 12 (the hot tier under every healthy warn): {tiers_launches}")
-    check_healthy("phase 12", drilled=True)
-    log_held("phase 12")
-    lap("12 tiers")
+    if "11" in phases:
+        with tempfile.TemporaryDirectory(prefix="kakveda-restart-") as d:
+            fused_topk.launches = 0
+            phase_restart(Path(d), fused_topk_reference, card, sweep)
+            done["11"] = fused_topk.launches
+        if done["11"] <= 0:
+            raise AssertionError("the restart phase never launched fused_topk")
+        log(f"fused_topk launches of phase 11: {done['11']}")
+        check_healthy("phase 11")
+        log_held("phase 11")
+        lap("11 restart")
 
     zero_launches()  # gqa_grouped stays 0 through every bf16 phase, until phase 16 b
-    flash = phase_flash(card)
-    flash_families = phase_flash_families(card)
-    flash_spec = phase_flash_spec(card)
-    flash_f32 = phase_flash_f32(card)
-    lap("5 flash")
+    if "5" in phases:
+        done["5"] = dict(flash=phase_flash(card), families=phase_flash_families(card), spec=phase_flash_spec(card),
+                      f32=phase_flash_f32(card))
+        lap("5 flash")
     held = torch.cuda.memory_allocated()
-    model = phase_model(card)
-    log_held("phase 6")
-    lap("6, 13, 15, 17 e model")
-    if torch.cuda.memory_allocated() > held + 0.5e9:  # phases 10 and 9 need phase 6's 16 GB back
-        raise AssertionError(f"phase 6 left {torch.cuda.memory_allocated() - held} bytes allocated")
-    with tempfile.TemporaryDirectory(prefix="kakveda-judge-") as d:
-        judge = phase_judge(Path(d), fused_topk, card)
-    log_held("phase 10")
-    if torch.cuda.memory_allocated() > held + 0.5e9:  # phase 9 needs the card back
-        raise AssertionError(f"phase 10 left {torch.cuda.memory_allocated() - held} bytes allocated")
-    lap("10 judge")
-    mixtral = phase_mixtral(card)
-    lap("9 mixtral")
-    families = phase_families(card)
-    log_held("phase 14")
-    lap("14 families")
+    if "6" in phases:
+        done["6"] = phase_model(card)
+        log_held("phase 6")
+        lap("6, 13, 15, 17 e model")
+        if torch.cuda.memory_allocated() > held + 0.5e9:  # phases 10 and 9 need phase 6's 16 GB back
+            raise AssertionError(f"phase 6 left {torch.cuda.memory_allocated() - held} bytes allocated")
+    if "10" in phases:
+        with tempfile.TemporaryDirectory(prefix="kakveda-judge-") as d:
+            done["10"] = phase_judge(Path(d), fused_topk, card)
+        log_held("phase 10")
+        if torch.cuda.memory_allocated() > held + 0.5e9:  # phase 9 needs the card back
+            raise AssertionError(f"phase 10 left {torch.cuda.memory_allocated() - held} bytes allocated")
+        lap("10 judge")
+    if "9" in phases:
+        done["9"] = phase_mixtral(card)
+        lap("9 mixtral")
+    if "14" in phases:
+        done["14"] = phase_families(card)
+        log_held("phase 14")
+        lap("14 families")
     if launch_counts()["grouped"]:
         raise AssertionError(f"gqa_grouped ran {launch_counts()['grouped']} times in the bf16 phases 5, 6, 9, 10, "
                              "13, 14, 15")
-    with tempfile.TemporaryDirectory(prefix="kakveda-gaps-") as d:
-        gaps = phase_gaps(Path(d), card)
-    log_held("phase 16")
-    lap("16 gaps")
+    if "16" in phases:
+        with tempfile.TemporaryDirectory(prefix="kakveda-gaps-") as d:
+            done["16"] = phase_gaps(Path(d), card)
+        log_held("phase 16")
+        lap("16 gaps")
     log(f"phase walls (s): {json.dumps(walls)}; {time.perf_counter() - t0:.1f} s in all [{card}]")
-    # No warn served from the host and no latch outside phase 12 c's drill.
-    check_healthy("phases 5, 6, 10, 9, 14 and 16", drilled=True)
+    # No warn served from the host and no latch outside the device-loss drills
+    # (phase 19 a's storm, phase 12 c).
+    check_healthy("the last phase")
+    if not every:
+        print(card, flush=True)
+        print(json.dumps({"ok": True, "phases": list(phases), "device": {"platform": "gpu", "kind": name,
+                                                                         "count": torch.cuda.device_count()}}),
+              flush=True)
+        return 0
 
+    row, service, fleet, elastic = done["3"], done["8"], done["18"], done["19"]
+    flash, flash_families, flash_spec, flash_f32 = (done["5"][k] for k in ("flash", "families", "spec", "f32"))
+    model, judge, mixtral, families, gaps = done["6"], done["10"], done["9"], done["14"], done["16"]
     kernels = [dict(
         name="fused_topk", route="cuda", source="kakveda_tpu_torch/csrc/fused_topk.cu",
-        replaces="kakveda_tpu/ops/pallas_knn.py:128", launches=launches,
-        launches_service=service_launches, launches_service_c64=service["warn_c64_launches"],
-        launches_restart=restart_launches, launches_tiers=tiers_launches,
+        replaces="kakveda_tpu/ops/pallas_knn.py:128", launches=done["4"],
+        launches_service=service["launches_service"], launches_service_c64=service["warn_c64_launches"],
+        launches_restart=done["11"], launches_tiers=done["12"],
         max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
         bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=row["library_ms"],
         shape="B=1, k=5", b64=dict(shape="B=64, k=5", **row["b64"]),
@@ -7752,6 +8519,12 @@ def main() -> int:
     kernels[0]["launches_fleet_sharded"] = fleet["sharded"]["launches_scatter"]
     kernels[0]["launches_fleet_rebalance"] = fleet["sharded"]["launches_rebalance"]
     kernels[1]["launches_ladder"] = model["ladder"]["steps"]["launches"]
+    # Phase 19: the storm's in-process Platform, the entry-point child under
+    # the replayed log (its /readyz count), each elastic replica process's own.
+    kernels[0]["launches_storm"] = elastic["a"]["launches"]
+    kernels[0]["launches_replay"] = elastic["b"]["launches"]
+    kernels[0]["launches_elastic"] = sum(elastic["c"]["launches"].values())
+    kernels[0]["launches_elastic_per_replica"] = elastic["c"]["launches"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,6 +1,6 @@
 """The replica fleet: N service processes on one host behind a router.
 
-Port of ``kakveda_tpu/fleet/`` (the autoscaler is not ported yet):
+Port of ``kakveda_tpu/fleet/``:
 
 * :mod:`~kakveda_tpu_torch.fleet.hashring`: the consistent-hash ring
   (blake2b; warn traffic shards by app key).
@@ -14,6 +14,9 @@ Port of ``kakveda_tpu/fleet/`` (the autoscaler is not ported yet):
   epochs, range migration.
 * :mod:`~kakveda_tpu_torch.fleet.supervisor`: spawn, watch and stop the
   replica processes (``python -m kakveda_tpu_torch.cli up --replicas N``).
+* :mod:`~kakveda_tpu_torch.fleet.autoscaler`: the elastic policy loop in
+  the router (``up --autoscale MIN:MAX``): scale-up on sustained pressure,
+  lossless drain on idle, replacement of a dead replica.
 
 Ingest fans in over the at-least-once bus (``gfkb.replicate``): each peer
 applies the accepted rows idempotently by event id, and DLQ replay heals

@@ -140,6 +140,17 @@ class FleetView:
             default=0.0,
         )
 
+    def occupancies(self) -> Dict[str, float]:
+        """Per-replica occupancy from live samples (router sender
+        excluded) — the autoscaler's least-loaded victim selection."""
+        with self._lock:
+            live = self._live_locked()
+        return {
+            r: float(s.get("occupancy", 0.0))
+            for r, s in live.items()
+            if r != self.ROUTER_SENDER
+        }
+
     def any_degraded(self) -> bool:
         with self._lock:
             live = self._live_locked()
@@ -162,7 +173,7 @@ def sample_from_ready(rid: str, seq: int, ready: dict) -> dict:
     """Synthesize a gossip-shaped control sample from a /readyz body.
 
     The router folds one per successful probe into its OWN FleetView, so
-    the router holds the same (occupancy, brownout rung, DEGRADED)
+    the autoscaler consumes the same (occupancy, brownout rung, DEGRADED)
     vocabulary — with the same seq/TTL freshness discipline — whether the
     signal travelled by bus gossip or by probe. The replica's exported
     ``admission.occupancy`` is its LOCAL load only (local_pressure) —

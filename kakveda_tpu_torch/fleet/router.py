@@ -1,7 +1,6 @@
 """The fleet front router — one ingress port over N service replicas.
 
-Port of ``kakveda_tpu/fleet/router.py`` (its autoscaler is not ported:
-``make_router_app(autoscale=...)`` raises). ``python -m
+Port of ``kakveda_tpu/fleet/router.py``. ``python -m
 kakveda_tpu_torch.cli up --replicas N`` mounts this app on the public
 port; replicas listen on ``port_base + i``. Routing policy:
 
@@ -79,6 +78,8 @@ _FAULT_PROMOTE = _faults.site("fleet.promote")
 ROUTER_KEY: web.AppKey["Router"] = web.AppKey("fleet_router", object)  # type: ignore[type-var]
 _PROBE_TASK_KEY: web.AppKey[object] = web.AppKey("fleet_probe_task", object)
 _SUPERVISE_TASK_KEY: web.AppKey[object] = web.AppKey("fleet_supervise_task", object)
+AUTOSCALER_KEY: web.AppKey[object] = web.AppKey("fleet_autoscaler", object)
+_AUTOSCALE_TASK_KEY: web.AppKey[object] = web.AppKey("fleet_autoscale_task", object)
 
 # Bounded hot-key accounting: enough keys to see real skew, cheap enough
 # to keep on the forward hot path.
@@ -159,11 +160,13 @@ class Router:
         # The router's own fold of the fleet's control vocabulary: one
         # gossip-shaped sample per successful probe (gossip.
         # sample_from_ready) under the SAME seq/TTL freshness discipline
-        # the replicas use on the bus.
+        # the replicas use on the bus — the autoscaler's policy input.
         self.fleet_view = FleetView(
             ttl_s=_env_float("KAKVEDA_FLEET_GOSSIP_TTL_S", 5.0)
         )
         self._probe_fold_seq = 0
+        # Mounted by make_router_app(autoscale=…); report() exposes it.
+        self.autoscaler = None
         self._client = None  # aiohttp.ClientSession, bound at app startup
         self._hot_keys: Dict[str, int] = {}
         self._hot_total = 0
@@ -232,7 +235,8 @@ class Router:
 
     def liveness(self) -> Dict[str, bool]:
         """Per-replica routability (healthy AND not ejected) — the same
-        verdict broadcast_verdicts gossips."""
+        verdict broadcast_verdicts gossips; the autoscaler's dead-replica
+        detection input."""
         return {
             rid: bool(st["healthy"]) and not st["ejected"]
             for rid, st in self._state.items()
@@ -557,10 +561,11 @@ class Router:
 
     async def rebalance_to(self, members: Dict[str, str]) -> dict:
         """Drive the range-migration protocol to an explicit target
-        membership — THE membership-change epoch write path (the POST
-        /fleet/rebalance handler goes through here), so the router stays
-        the single epoch writer (run_rebalance's flip push commits, and
-        any residual promotion retries ride the probe loop's dirty flag).
+        membership — THE membership-change epoch write path. Both the
+        POST /fleet/rebalance handler and the autoscaler go through here,
+        so the router stays the single epoch writer (the autoscaler
+        requests; run_rebalance's flip push commits, and any residual
+        promotion retries ride the probe loop's dirty flag).
         Raises :class:`~kakveda_tpu_torch.fleet.ownership.MigrationError`
         with ``flipped`` provenance; flipped=False means the old view
         still rules everywhere and a full retry is safe."""
@@ -847,6 +852,8 @@ class Router:
                 "members": list(view.members),
                 "coverage_holes": view.coverage_holes(live),
             }
+        if self.autoscaler is not None:
+            out["autoscale"] = self.autoscaler.info()
         return out
 
 
@@ -947,18 +954,16 @@ def make_router_app(
     enables the supervise loop: dead replica processes are restarted up to
     ``KAKVEDA_FLEET_RESTARTS`` times each (default 0 — route around only).
 
-    ``autoscale=(min, max)`` mounts the reference's elastic autoscaler,
-    which the port does not have yet: it raises.
+    ``autoscale=(min, max)`` (requires ``supervisor``) mounts the elastic
+    :class:`fleet.autoscaler.Autoscaler` policy loop instead — replacement
+    of dead replicas subsumes the supervise loop's restart duty, so the
+    two are never mounted together (a double-start race on the same
+    replica index otherwise).
 
     ``KAKVEDA_FLEET_OWNERSHIP=1`` (or an ``ownership=`` OwnershipView kw)
     turns on sharded ownership: warn/match become scatter-gather merges,
     ejection/re-admission drive epoch-bumped ownership pushes, and
     ``POST /fleet/rebalance`` runs the range-migration protocol."""
-    if autoscale is not None:
-        raise NotImplementedError(
-            "the fleet autoscaler is not ported yet (ROADMAP Queue 1 item 6): "
-            "run a fixed --replicas N fleet"
-        )
     if "ownership" not in router_kw and os.environ.get(
         "KAKVEDA_FLEET_OWNERSHIP", "0"
     ) == "1":
@@ -1012,13 +1017,25 @@ def make_router_app(
         app[_PROBE_TASK_KEY] = asyncio.get_running_loop().create_task(
             router.probe_loop()
         )
-        if supervisor is not None:
+        if autoscale is not None and supervisor is not None:
+            from kakveda_tpu_torch.fleet.autoscaler import Autoscaler
+
+            mn, mx = autoscale
+            scaler = Autoscaler(
+                router, supervisor, min_replicas=int(mn), max_replicas=int(mx)
+            )
+            router.autoscaler = scaler
+            app[AUTOSCALER_KEY] = scaler
+            app[_AUTOSCALE_TASK_KEY] = asyncio.get_running_loop().create_task(
+                scaler.run()
+            )
+        elif supervisor is not None:
             app[_SUPERVISE_TASK_KEY] = asyncio.get_running_loop().create_task(
                 _supervise_loop(router, supervisor)
             )
 
     async def _cleanup(app):
-        for key in (_PROBE_TASK_KEY, _SUPERVISE_TASK_KEY):
+        for key in (_PROBE_TASK_KEY, _SUPERVISE_TASK_KEY, _AUTOSCALE_TASK_KEY):
             t = app.get(key)
             if t is not None:
                 t.cancel()

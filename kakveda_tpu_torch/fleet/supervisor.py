@@ -91,6 +91,13 @@ class FleetSupervisor:
         self.router_port = router_port
         self.device = str(device)
         self.procs: Dict[int, subprocess.Popen] = {}
+        # Indices drained away by the autoscaler: excluded from the
+        # active fleet (backend_map/poll/manifest) and recycled first by
+        # add_replica so ports and ring positions stay bounded.
+        self.retired: set = set()
+        # (min, max) when the fleet runs under an autoscaler — stamped
+        # into the manifest.
+        self.autoscale: Optional[tuple] = None
         self.root.mkdir(parents=True, exist_ok=True)
 
     # -- identity --------------------------------------------------------
@@ -102,8 +109,8 @@ class FleetSupervisor:
         return f"http://{self.host}:{self.port_base + i}"
 
     def active_indices(self) -> List[int]:
-        """Every spawned slot's index — the fleet."""
-        return list(range(self.n))
+        """Spawned-slot indices minus the retired ones — the fleet."""
+        return [i for i in range(self.n) if i not in self.retired]
 
     def urls(self) -> List[str]:
         return [self.url(i) for i in self.active_indices()]
@@ -178,15 +185,30 @@ class FleetSupervisor:
         self.write_manifest()
 
     def add_replica(self) -> int:
-        """Scale out by one: spawn replica ``n`` on the next port, then
-        refresh the manifest. The caller (the router's /fleet/rebalance, a
-        drill) still owns the range migration — this only creates the
-        process. Returns the index."""
-        i = self.n
-        self.n = i + 1
+        """Scale out by one: recycle the lowest retired slot (its port
+        and ring position come back) or spawn replica ``n`` on the next
+        port, then refresh the manifest. The caller (the router's
+        /fleet/rebalance, the autoscaler, a drill) still owns the range
+        migration — this only creates the process. Returns the index."""
+        if self.retired:
+            i = min(self.retired)
+            self.retired.discard(i)
+        else:
+            i = self.n
+            self.n = i + 1
         self.start(i)
         self.write_manifest()
         return i
+
+    def retire(self, i: int) -> None:
+        """Drop a (stopped) replica from the active fleet — the
+        autoscaler's scale-down epilogue. The slot recycles via
+        add_replica; the data dir stays (its rows were migrated away,
+        logs keep their forensic value)."""
+        self.retired.add(i)
+        self.procs.pop(i, None)
+        self.pid_file(i).unlink(missing_ok=True)
+        self.write_manifest()
 
     # -- watch -----------------------------------------------------------
 
@@ -316,6 +338,12 @@ class FleetSupervisor:
                 for i in self.active_indices()
             ],
         }
+        if self.autoscale is not None:
+            manifest["autoscale"] = {
+                "min": int(self.autoscale[0]),
+                "max": int(self.autoscale[1]),
+                "scale_log": str(self.root / "data" / "scale_log.jsonl"),
+            }
         (self.root / "fleet.json").write_text(json.dumps(manifest, indent=2))
 
 

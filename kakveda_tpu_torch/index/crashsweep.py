@@ -38,6 +38,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -238,30 +239,49 @@ def run_sweep(
             _check(_spawn("cycle", work, **common, extra=[*cyc, *phase]), f"cycle-{name}")
             return _check(_spawn("verify", work, **common), f"verify-{name}")
 
+        def crash_cycle(site: str, nth: int) -> tuple:
+            work = root / f"{site.replace('.', '_')}-{nth}"
+            shutil.copytree(seed_dir, work)
+            return work, _spawn("cycle", work, **common, extra=cyc, crash=f"{site}:{nth}")
+
         # Every child below works on its own copy of the seed (taken after
         # verify-pre opened it, as a serial sweep would), so the two
-        # oracles run side by side, then the sites do: only the wall
-        # changes, the certificates do not.
-        with ThreadPoolExecutor(max_workers=max(2, len(sites))) as pool:
-            mid, post = pool.map(lambda a: oracle(*a), [("mid", ["--phase", "aging"]), ("post", [])])
+        # oracles, the sites, and each site's next kill offset beside the
+        # recovery of the one before run side by side: only the wall
+        # changes, the certificates do not (a recovery is certified once
+        # both oracles are in).
+        with ThreadPoolExecutor(max_workers=2 + 2 * len(sites)) as pool:
+            oracles = [pool.submit(oracle, *a) for a in (("mid", ["--phase", "aging"]), ("post", []))]
+            box: List[List[str]] = []
+            lock = threading.Lock()
 
-            # Queries the cycle never touches: stable top-1 across the oracles.
-            stable = [
-                _sig(i)
-                for i in range(aged, rows)
-                if pre["top1"].get(_sig(i)) == mid["top1"].get(_sig(i)) == post["top1"].get(_sig(i))
-            ]
+            def stable_queries() -> List[str]:
+                """Queries the cycle never touches: stable top-1 across the oracles."""
+                mid, post = (f.result() for f in oracles)
+                with lock:
+                    if not box:
+                        box.append([
+                            _sig(i)
+                            for i in range(aged, rows)
+                            if pre["top1"].get(_sig(i)) == mid["top1"].get(_sig(i)) == post["top1"].get(_sig(i))
+                        ])
+                return box[0]
+
+            def certify(rec: dict) -> List[str]:
+                mid, post = (f.result() for f in oracles)
+                return _certify(rec, pre, mid, post, stable_queries())
 
             def sweep_site(site: str) -> tuple:
                 """Every kill offset of one site: (points, failures)."""
                 points, failures = 0, []
+                nxt = pool.submit(crash_cycle, site, 1)
                 for nth in range(1, max_nth + 1):
-                    work = root / f"{site.replace('.', '_')}-{nth}"
-                    shutil.copytree(seed_dir, work)
-                    proc = _spawn("cycle", work, **common, extra=cyc, crash=f"{site}:{nth}")
+                    work, proc = nxt.result()
                     if proc.returncode == 0:
                         shutil.rmtree(work, ignore_errors=True)
                         return points, failures  # site exhausted: the cycle has < nth passes
+                    if nth < max_nth:
+                        nxt = pool.submit(crash_cycle, site, nth + 1)
                     if proc.returncode != CRASH_RC:
                         failures.append({
                             "site": site, "nth": nth, "kind": "bad_exit",
@@ -272,7 +292,7 @@ def run_sweep(
                     points += 1
                     try:
                         rec = _check(_spawn("verify", work, **common), "verify")
-                        errs = _certify(rec, pre, mid, post, stable)
+                        errs = certify(rec)
                     except Exception as e:  # noqa: BLE001 — a recovery crash IS the finding
                         errs = [f"recovery raised: {type(e).__name__}: {e}"]
                     if errs:
@@ -282,7 +302,8 @@ def run_sweep(
                 failures.append({"site": site, "kind": "not_exhausted", "max_nth": max_nth})
                 return points, failures
 
-            swept = list(pool.map(sweep_site, sites))
+            swept = [f.result() for f in [pool.submit(sweep_site, site) for site in sites]]
+            stable, post = stable_queries(), oracles[1].result()
 
         results: Dict[str, int] = {site: points for site, (points, _) in zip(sites, swept)}
         failures: List[dict] = [f for _, fs in swept for f in fs]

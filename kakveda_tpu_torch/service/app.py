@@ -76,7 +76,11 @@ carries the ``fleet`` view (and ``ownership`` with the resident rows by
 role). The ``fleet.replicate_apply`` fault site fails an apply with a
 clean 500. ``/metrics/fleet`` belongs to the router (``fleet/router.py``).
 
-Traffic capture belongs to the traffic plane and is not ported. The
+Traffic capture (``kakveda_tpu_torch/traffic/capture.py``): every warn and
+ingest arrival lands in a bounded ``FlightRecorder("traffic")`` ring, shown
+by ``GET /flightrecorder``, which ``cli traffic record`` converts into a
+replayable log (``KAKVEDA_TRAFFIC_CAPTURE=0`` turns it off,
+``KAKVEDA_TRAFFIC_CAPTURE_N`` sizes the ring, default 2048). The
 reference's ``KAKVEDA_WARN_RTT_EMU_MS`` emulates a TPU tunnel's round trip
 and has no counterpart on a local card.
 """
@@ -308,6 +312,16 @@ def make_app(
     health = _admission.get_device_health()
     device = _device_info(plat.device)
 
+    # Traffic capture: every warn/ingest arrival lands in this bounded ring
+    # so `traffic record` can pull GET /flightrecorder and convert the
+    # timeline into a replayable traffic log. One append per request when
+    # enabled; KAKVEDA_TRAFFIC_CAPTURE=0 makes record() a no-op (capacity 0).
+    _cap_on = os.environ.get("KAKVEDA_TRAFFIC_CAPTURE", "1") != "0"
+    traffic_rec = _metrics.FlightRecorder(
+        "traffic",
+        capacity=int(os.environ.get("KAKVEDA_TRAFFIC_CAPTURE_N", "2048")) if _cap_on else 0,
+    )
+
     # Optional per-client token bucket (KAKVEDA_RATELIMIT_RPS) on the
     # ingest routes — the same 429 shape as admission sheds.
     rl_rps = float(os.environ.get("KAKVEDA_RATELIMIT_RPS", "0") or 0)
@@ -520,6 +534,7 @@ def make_app(
                 req = IngestRequest.model_validate(await request.json())
             except (ValidationError, ValueError) as e:
                 return _json_error(422, str(e))
+            traffic_rec.record("ingest", app_id=req.trace.app_id, n=1)
             with _trace.get_tracer().start_span("gfkb.ingest", app_id=req.trace.app_id, n=1):
                 await plat.ingest(req.trace)
         return web.json_response({"ok": True, "trace_id": req.trace.trace_id})
@@ -535,6 +550,7 @@ def make_app(
                 return _json_error(422, str(e))
             if not req.traces:
                 return web.json_response({"ok": True, "n": 0, "failures": 0})
+            traffic_rec.record("ingest", app_id=req.traces[0].app_id, n=len(req.traces))
             with _trace.get_tracer().start_span(
                 "gfkb.ingest", app_id=req.traces[0].app_id, n=len(req.traces)
             ):
@@ -708,6 +724,7 @@ def make_app(
             req = WarningRequest.model_validate(await request.json())
         except (ValidationError, ValueError) as e:
             return _json_error(422, str(e))
+        traffic_rec.record("warn", app_id=req.app_id, prompt=req.prompt)
         # The batcher's bounded queue is the warn class's shed point; a
         # degraded card still answers here through the host tiers.
         t0 = time.perf_counter()

@@ -34,7 +34,8 @@ def test_import_loads_no_jax_in_fresh_interpreter():
               "core.faults", "core.metrics", "index.crashsweep", "index.tiers", "core.profiling",
               "core.sanitize", "core.trace", "core.otel", "core.ratelimit", "core.httpjson", "events.bus",
               "fleet.hashring", "fleet.gossip", "fleet.ownership", "fleet.router", "fleet.supervisor",
-              "cli.main", "cli.__main__"):
+              "fleet.autoscaler", "traffic", "traffic.capture", "traffic.scenarios", "traffic.replay",
+              "traffic.slo", "cli.main", "cli.__main__"):
         assert f"kakveda_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -85,6 +86,12 @@ def test_import_loads_no_jax_in_fresh_interpreter():
         ("kakveda_tpu_torch.fleet.ownership", False),
         ("kakveda_tpu_torch.fleet.supervisor", False),
         ("kakveda_tpu_torch.fleet.router", True),
+        ("kakveda_tpu_torch.fleet.autoscaler", False),
+        ("kakveda_tpu_torch.traffic", False),
+        ("kakveda_tpu_torch.traffic.capture", False),
+        ("kakveda_tpu_torch.traffic.scenarios", False),
+        ("kakveda_tpu_torch.traffic.replay", False),
+        ("kakveda_tpu_torch.traffic.slo", False),
         ("kakveda_tpu_torch.cli.main", False),
     ],
 )
@@ -137,10 +144,11 @@ def test_sources_name_no_jax():
 @pytest.mark.parametrize(
     "entry",
     ["platform", "gfkb", "knn", "llama_runtime", "llama_init_params", "llama_init_cache", "service_app",
-     "get_runtime", "tiered_platform", "hf_loader", "multi_runtime"],
+     "get_runtime", "tiered_platform", "hf_loader", "multi_runtime", "traffic_storm"],
 )
 def test_entry_points_default_to_cuda(entry, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from kakveda_tpu_torch.cli.main import run_storm
     from kakveda_tpu_torch.index.gfkb import GFKB
     from kakveda_tpu_torch.models.generate import LlamaRuntime
     from kakveda_tpu_torch.models.hf_convert import load_hf_checkpoint
@@ -162,6 +170,7 @@ def test_entry_points_default_to_cuda(entry, tmp_path, monkeypatch):
         "tiered_platform": lambda: Platform(data_dir=tmp_path, capacity=16, dim=64),
         "hf_loader": lambda: load_hf_checkpoint(str(tmp_path)),
         "multi_runtime": lambda: get_runtime("torch"),
+        "traffic_storm": lambda: run_storm(data_dir=tmp_path, duration_s=0.1),
     }[entry]
     if entry == "tiered_platform":
         monkeypatch.setenv("KAKVEDA_CLASSIFIER", "tiered")
@@ -184,6 +193,18 @@ def test_cli_up_without_device_wants_the_card(tmp_path):
     )
     assert r.returncode != 0 and "CUDA is not available" in r.stderr, r.stderr[-2000:]
     assert not (tmp_path / "server.pid").exists()
+
+
+def test_cli_traffic_storm_without_device_wants_the_card(tmp_path):
+    """``cli traffic storm`` with no ``--device`` runs its Platform on the
+    card: with none visible it exits non-zero before any traffic."""
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": "", "PYTHONPATH": str(ROOT)}
+    r = subprocess.run(
+        [sys.executable, "-m", "kakveda_tpu_torch.cli", "traffic", "storm", "--duration", "0.5"],
+        cwd=tmp_path, capture_output=True, text=True, timeout=120, env=env,
+    )
+    assert r.returncode != 0 and "wants the CUDA card" in r.stderr, r.stderr[-2000:]
+    assert '"replay"' not in r.stdout
 
 
 def test_cpu_wrapper_never_builds(monkeypatch):
