@@ -333,6 +333,9 @@ JAX package). Phases, each of which raises on failure (exit code != 0):
    the verify chunk at per-slot positions, a 512-row prefill piece; max
    |kernel - plain| within 1e-4, rtol 0, and the plain version over inputs
    rounded to TF32 or bf16 outside it; SDPA in f32 as the library call;
+   the bound over the rows some query sees and the scores the mask keeps, its
+   operations at 3xTF32's 165 TFLOP/s; correctness-only rows at
+   the edges of its 16-, 32- and 64-row blocks, and their blocks per SM;
    phase 9 g speculates with Mixtral-8x7B int8: the engine at
    ``KAKVEDA_SERVE_SPEC=4`` on 4 prompts x 32 tokens and ``KAKVEDA_SPEC=1``
    on one, held to phase 9 e's greedy tokens with departures counted at
@@ -486,6 +489,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12  # dense bf16 tensor-core peak
 F32_FLOP_PER_S = 67e12  # float32 outside the tensor cores
+TF32X3_FLOP_PER_S = 495e12 / 3  # f32-grade products on the tensor cores: 3xTF32, three TF32 products each
 ROWS, DIM = 1 << 20, 2048
 ATOL = 1e-4  # bf16 inputs, f32 sums taken in another order than the plain version
 # Flash: bf16 outputs from f32 sums taken in another order than the plain
@@ -1321,21 +1325,24 @@ def flash_inputs(gen, b, s, l, kind, kv8, copies, heads=(H, KV, HD), dtype=torch
     return q, k, v, ks, vs, valid
 
 
-def flash_bound_ms(b, s, l, kv8, seen_rows=None, heads=(H, KV, HD), eb=2, flop_rate=BF16_FLOP_PER_S):
+def flash_bound_ms(b, s, l, kv8, seen_rows=None, heads=(H, KV, HD), eb=2, flop_rate=BF16_FLOP_PER_S,
+                   kept=None):
     """Each input read once, the output written once, over 3.35 TB/s; the
     two products' flops over 989 TFLOP/s bf16 (``eb`` bytes an element and
-    ``flop_rate`` for another type: f32 is 4 and 67 TFLOP/s, the f32 body
-    running on the CUDA cores). Returns (ms, bound_by).
+    ``flop_rate`` for another type: the f32 body gives 4 and the tensor
+    cores' 3xTF32 rate). Returns (ms, bound_by).
     With ``seen_rows`` (cache rows, summed over the batch, that at least one
     query row can see) only those rows' K/V count, in bytes and flops: the
-    least a kernel that skips what no query sees must still read. A
-    softcap's tanh per score is not counted (the bound is bytes)."""
+    least a kernel that skips what no query sees must still read. With
+    ``kept`` (the scores the mask keeps: over the batch and the query
+    positions, the cache rows each one sees) the flops count those scores
+    alone. A softcap's tanh per score is not counted."""
     h, kvh, d = heads
     r = h // kvh
     rows = b * l if seen_rows is None else seen_rows
     kv_bytes = 2 * rows * (d + 4) if kv8 else 2 * rows * d * eb
     nbytes = kvh * (b * 2 * s * r * d * eb + kv_bytes) + b * l
-    flops = 4 * kvh * s * r * rows * d
+    flops = 4 * kvh * r * d * (s * rows if kept is None else kept)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flop_rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -1714,6 +1721,64 @@ F32_FLASH_SHAPES = [
 ]
 
 
+# Correctness-only rows of the f32 body at its block plan's edges (16, 32
+# or 64 folded rows a block: S*R = 16, 17, 32, 33, 64, 65 and a ragged last
+# 64-row block), at D 64 and 128, L <= 1024, among them a softcap, windows,
+# per-slot pos0 and n_split > 1: (label, (B, S, H, KV, L, D, pos0, window,
+# softcap)), pos0 "verify" for per-slot positions.
+F32_EDGE_SHAPES = [
+    ("sr16", (4, 4, 32, 8, 1024, 128, 1020, 0, 0.0)),
+    ("sr17", (2, 17, 8, 8, 512, 64, 400, 128, 0.0)),
+    ("sr32", (8, 8, 32, 8, 1024, 128, "verify", 0, 2.0)),
+    ("sr33", (2, 33, 8, 8, 640, 128, 500, 0, 0.0)),
+    ("sr64", (2, 16, 16, 4, 1024, 64, 900, 256, 2.0)),
+    ("sr65", (1, 65, 8, 8, 1024, 128, 600, 0, 0.0)),
+    ("sr200_ragged", (1, 50, 32, 8, 768, 64, 700, 0, 0.0)),
+    ("sr20_verify", (4, 5, 32, 8, 1024, 64, "verify", 300, 0.0)),
+]
+
+
+def flash_f32_edges(gen) -> dict:
+    """F32_EDGE_SHAPES through the f32 body, each held within F32_ATOL (rtol
+    0) of both plain versions; no timing."""
+    from kakveda_tpu_torch.models.attention import (
+        flash_gqa_cache,
+        flash_gqa_cache_reference,
+        flash_gqa_cache_split_reference,
+    )
+
+    rows = {}
+    for label, (b, s, h, kvh, l, d, pos0, window, cap) in F32_EDGE_SHAPES:
+        q = torch.randn(b, s, h, d, device="cuda", generator=gen) * F32_Q_SCALE
+        k = torch.randn(b, kvh, l, d, device="cuda", generator=gen)
+        v = torch.randn(b, kvh, l, d, device="cuda", generator=gen)
+        ar = torch.arange(l, device="cuda")
+        if pos0 == "verify":
+            pos0 = torch.randint(l // 8, l - s + 1, (b,), device="cuda", generator=gen).to(torch.int32)
+            off = torch.randint(0, 17, (b, 1), device="cuda", generator=gen)
+            valid = ((ar >= off) & (ar < pos0[:, None].long() + s)).contiguous()
+            reach = int(pos0.max()) + s
+        else:
+            valid = (ar >= 13).expand(b, l).contiguous()
+            reach = None
+        n_split = flash_schedule(b, s, l, pos0, valid, reach, (h, kvh, d), window, f32=True)[0]
+        before = flash_gqa_cache.launches_f32
+        out = flash_gqa_cache(q, k, v, pos0, valid, reach=reach, window=window, softcap=cap)
+        torch.cuda.synchronize()
+        kw = dict(window=window, softcap=cap)
+        err = max((out - flash_gqa_cache_reference(q, k, v, pos0, valid, **kw)).abs().max().item(),
+                  (out - flash_gqa_cache_split_reference(q, k, v, pos0, valid, n_split=n_split, **kw))
+                  .abs().max().item())
+        if flash_gqa_cache.launches_f32 != before + 1 or not torch.isfinite(out).all() or err > F32_ATOL:
+            raise AssertionError(f"flash f32 edge {label} D={d}: max |kernel - plain| = {err} > {F32_ATOL} "
+                                 f"or launches {before} -> {flash_gqa_cache.launches_f32}")
+        sr = s * (h // kvh)
+        rows[f"D{d}_edge_{label}"] = dict(sr=sr, n_split=n_split, max_abs_err=err)
+        log(f"flash_gqa_cache_f32 edge {label} (S*R={sr} D={d} B={b} L={l} window={window} softcap={cap}): "
+            f"n_split={n_split} max_abs_err={err:.3g} (F32_ATOL {F32_ATOL}, rtol 0)")
+    return rows
+
+
 def round_mantissa(x, bits: int):
     """``x`` (f32) rounded to ``bits`` explicit mantissa bits: 10 is TF32, 7 bf16."""
     i = x.contiguous().view(torch.int32)
@@ -1725,8 +1790,12 @@ def flash_f32_row(gen, label, d, shape, card) -> dict:
     """One shape of the f32 body: the kernel against the plain version of
     its split schedule and the unsplit one within F32_ATOL (rtol 0), the
     TF32 / bf16 control outside it, then its device time from a graph
-    replay beside its bytes bound (f32: 4 bytes an element, 67 TFLOP/s),
-    the plain version's time and SDPA's in f32 with the boolean mask."""
+    replay beside its bound (f32: 4 bytes an element, the K/V of the cache
+    rows some query sees and the flops of the scores the mask keeps, at the
+    tensor cores' 3xTF32 rate, 495 / 3 TFLOP/s; logged beside it the 67
+    TFLOP/s FFMA figure and the bound over every row and score of the
+    rectangle), the plain version's time and SDPA's in f32 with the boolean
+    mask."""
     import torch.nn.functional as F
 
     from kakveda_tpu_torch.models.attention import (
@@ -1787,38 +1856,44 @@ def flash_f32_row(gen, label, d, shape, card) -> dict:
     ms = graph_ms(kern, n=4 * copies)
     plain_ms = graph_ms(plain, n=2)
     lib_ms = graph_ms(lib, n=4 * copies)
-    bound_ms, bound_by = flash_bound_ms(b, s, l, False, heads=heads, eb=4, flop_rate=F32_FLOP_PER_S)
-    seen_ms, _ = flash_bound_ms(b, s, l, False, seen_rows, heads=heads, eb=4, flop_rate=F32_FLOP_PER_S)
+    kept = int(mask.expand(b, 1, s, l).sum())
+    bound_ms, bound_by = flash_bound_ms(b, s, l, False, seen_rows, heads, 4, TF32X3_FLOP_PER_S, kept)
+    ffma_ms, ffma_by = flash_bound_ms(b, s, l, False, seen_rows, heads, 4, F32_FLOP_PER_S, kept)
+    all_ms, _ = flash_bound_ms(b, s, l, False, heads=heads, eb=4, flop_rate=TF32X3_FLOP_PER_S)
     shown = f"per-slot {sorted(pos0.tolist())}" if vec else pos0
     log(f"flash_gqa_cache_f32 {label} (H={H} KV={KV} D={d} B={b} S={s} L={l} pos0={shown} reach={reach}): "
         f"n_split={n_split} live_tiles={live_frac:.4f} max_abs_err={err:.3g} (F32_ATOL {F32_ATOL}, rtol 0; the plain "
         f"version over TF32-rounded inputs {control['tf32']:.3g}, bf16-rounded {control['bf16']:.3g}) "
         f"kernel_ms={ms:.6f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.6f} (SDPA f32) bound_ms={bound_ms:.6f} "
-        f"({bound_by}) bound_seen_ms={seen_ms:.6f} ({seen_rows} of {b * l} rows seen) [{card}]")
+        f"({bound_by}, 3xTF32 at 165 TFLOP/s; {seen_rows} of {b * l} rows seen, {kept} of {b * s * l} scores kept) "
+        f"bound_ffma_ms={ffma_ms:.6f} ({ffma_by}, FFMA at 67 TFLOP/s) bound_all_ms={all_ms:.6f} (every row and "
+        f"score) [{card}]")
     del q, k, v
     return dict(shape=f"H={H} KV={KV} D={d} B={b} S={s} L={l}", n_split=n_split, live_tiles=live_frac, ms=ms,
                 plain_ms=plain_ms, library_ms=lib_ms, library="SDPA f32", bound_ms=bound_ms, bound_by=bound_by,
-                bound_seen_ms=seen_ms, max_abs_err=err, control=control)
+                bound_all_ms=all_ms, bound_ffma_ms=ffma_ms, max_abs_err=err, control=control)
 
 
 def phase_flash_f32(card: str) -> dict:
     """Phase 5 at f32: the f32 body at D 64 and 128, the three shapes of
-    F32_FLASH_SHAPES, and the blocks per SM its split count plans against
-    the card's occupancy calculator."""
-    from kakveda_tpu_torch.models.attention import KERNEL_F32_HEAD_DIMS, _lib, kernel_blocks_per_sm
+    F32_FLASH_SHAPES, the correctness-only rows of F32_EDGE_SHAPES, and the
+    blocks per SM its split count plans against the card's occupancy
+    calculator at each block size (16, 32 and 64 rows)."""
+    from kakveda_tpu_torch.models.attention import KERNEL_F32_HEAD_DIMS, _lib, kernel_blocks_per_sm, kernel_f32_q_rows
 
     blocks = {}
     for d in KERNEL_F32_HEAD_DIMS:
-        for sr in (4, 64):
+        for sr in (4, 20, 64):
             planned = kernel_blocks_per_sm(d, False, sr, f32=True)
             granted = _lib(d, f32=True).kkv_flash_gqa_cache_blocks_per_sm(d, 0, sr, 0)
-            blocks[f"D{d}_f32_{'wide' if sr > 16 else 'decode'}"] = [planned, granted]
+            blocks[f"D{d}_f32_q{kernel_f32_q_rows(sr)}"] = [planned, granted]
             if granted < planned:
                 raise AssertionError(f"flash f32 D={d} sr={sr}: planned {planned} blocks per SM, granted {granted}")
     log(f"flash f32 blocks per SM [planned, granted by the card]: {json.dumps(blocks)}")
     gen = torch.Generator(device="cuda").manual_seed(16)
     rows = {f"D{d}_{label}": flash_f32_row(gen, label, d, shape, card)
             for d in KERNEL_F32_HEAD_DIMS for label, shape in F32_FLASH_SHAPES}
+    rows.update(flash_f32_edges(gen))
     torch.cuda.empty_cache()
     return rows
 
@@ -8508,7 +8583,7 @@ def main() -> int:
         launches_spec=gaps["a"][f"k{SPEC_K}"]["launches"], launches_tiny=gaps["a"]["tiny"]["k0"]["launches"],
         max_abs_err=max(r["max_abs_err"] for r in flash_f32.values()),
         ms=f32_main["ms"], plain_ms=f32_main["plain_ms"], bound_ms=f32_main["bound_ms"],
-        bound_by=f32_main["bound_by"], library_ms=f32_main["library_ms"], bound_seen_ms=f32_main["bound_seen_ms"],
+        bound_by=f32_main["bound_by"], library_ms=f32_main["library_ms"], bound_all_ms=f32_main["bound_all_ms"],
         shape=f32_main["shape"], f32_shapes=flash_f32,
     ))
     kernels[0]["launches_judge_warn"] = judge["warn_fused_topk_launches"]

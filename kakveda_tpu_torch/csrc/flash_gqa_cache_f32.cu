@@ -9,56 +9,91 @@
 // kernel takes any dtype where _flash_ok holds (D = 64 or a multiple of 128),
 // and its f32 path is f32 end to end (p.astype(v.dtype) keeps P in f32). It
 // computes what flash_gqa_cache.cu's bf16 body computes, with every operand
-// and product in f32:
+// and sum f32-grade:
 //   * the R = H / KV query heads of one kv head fold into the q rows: folded
 //     row i of (b, g) is sequence position pos0 + i / R, with pos0 one host
 //     int or, given the device vector pos0_vec [B], pos0_vec[b];
-//   * S = Q.K^T * D^-0.5 in f32; with an attention softcap S becomes
+//   * S = Q.K^T * D^-0.5; with an attention softcap S becomes
 //     cap * tanh(S / cap) before the mask;
 //   * keep(i, l) = l < L && q_pos >= l && kv_valid[b, l]
 //                  && (window == 0 || q_pos - l < window);
-//     masked scores are -1e30, and p is masked again after the exp;
+//     masked scores are -1e30, and give p = 0;
 //   * online softmax in f32 over 64-row cache tiles (m, l, acc), P kept in
 //     f32 for P.V;
 //   * out = acc / max(l, 1e-20): a row that sees no slot emits zeros.
 //
-// Arithmetic: FFMA on the CUDA cores, not the tensor cores. TF32 mma keeps a
-// 10-bit mantissa (~1e-3 from the f32 function), which is another function;
-// the 3xTF32 split would restore f32 accuracy at three products a step. The
-// shapes this body serves are bound by bytes: decode reads 8 bytes of K/V for
-// every 2 flops of a query row (S*R = 4 rows: ~1 flop a byte, where the
-// card's f32 rate binds only past ~20 flops a byte), so plain FFMA costs
-// little there and gives f32 sums exactly as the plain version takes them, up
-// to their order. Prefill pieces (S*R in the thousands) are compute-bound in
-// f32 either way; their FFMA rate is the price of the exact function.
+// What bounds it on this card. Decode (S*R = 4 folded rows) and the verify
+// chunk (S*R = 20) read 8 bytes of K and V for every 4 * S*R flops (per
+// cache row and column): 2 and 10 flops a byte, under the ~49 flops a byte
+// at which the tensor cores' f32-grade rate (below) meets 3.35 TB/s, so
+// both are bound by bytes. A prefill piece
+// (S*R in the thousands, every K/V tile shared by its q blocks through L2) is
+// bound by operations, at 165 TFLOP/s.
+//
+// Arithmetic: both products on the tensor cores in 3xTF32 (mma.sync m16n8k8
+// .tf32, f32 accumulators). Each f32 operand x splits exactly into
+// hi = x & 0xffffe000 (x cut to TF32's 10-bit mantissa) and lo = x - hi, and
+// a.b is taken as lo_a.hi_b + hi_a.lo_b + hi_a.hi_b: 495 / 3 = 165 TFLOP/s
+// of f32-grade products where FFMA on the CUDA cores gives 67. The tensor
+// cores read the top 19 bits of a TF32 operand, so lo enters cut to 10 bits
+// as well, and hi can be handed over as x itself (ptxas does so). One
+// product (1xTF32) moves the output by ~3e-3: another function. This one
+// lands within 3e-5 of the plain version (chip_smoke.py's f32 rows on an
+// H100; the most at the 512-row piece), most of it from the tensor cores'
+// accumulation, which rounds toward zero: each of the 3 * L / 8 mma results
+// that P.V adds into the running o can shrink it by an ulp. Summing P.V and
+// Q.K^T in fresh accumulators, added to o in f32, halved the piece's error
+// but spilled every D = 128 instantiation and cost 29 % of its time;
+// rounding hi (x + 0x1000 before the cut) moved the rows' errors by -32 % to
+// +20 % for 6 % of the piece's time: neither is taken. cvt.rna.tf32.f32
+// has no single instruction on sm_90. The max, exp and sum stay in f32 on
+// the CUDA cores (scores in log2 units, p = 2^(x - m) by ex2.approx); P
+// stays f32 and is split like any other operand. mma.sync and not wgmma:
+// wgmma takes TF32 operands from shared memory only K-major, so P.V would
+// need V transposed there, and a B operand read from shared memory would
+// need its lo half stored there too, twice a stage's bytes; mma.sync takes
+// both from registers, split in place.
+//
+// Work split. A block has 4 warps and QB = 16 (S*R <= 16, every decode), 32
+// (S*R <= 32, the verify chunk at k = 4..7 with R = 4) or 64 q rows (wider).
+// Each warp owns one 16-row q tile (the m16 of Q.K^T) and CW = 16, 32 or 64
+// of each cache tile's 64 rows: with fewer than 64 q rows the warps that
+// share a q tile split the cache rows and keep their own (m, l, o), merged
+// through shared memory at the end, so every warp of a 16- or 32-row block
+// works on real rows. Q.K^T: a lane holds its q rows g and g + 8 in
+// registers in the mma's A order (d ordered so that one float4 of K feeds two
+// k-steps); S comes out in the accumulator layout, which is P.V's operand
+// layout once the cache rows of a k-step are taken in the order (2t,
+// 2t + 1): P never leaves registers. P.V runs as O^T = V^T.P^T, so that P's
+// accumulator pairs are the B operand as they stand and V enters as float2s,
+// with no register moves; o is put back in row order when it is written.
+// Tiles that every row of a warp sees whole skip the per-score mask.
+//
+// Shared memory. K and V tiles go through one ring of slots of 64 cache rows,
+// K and V alternating (K of tile t, V of t, K of t + 1, ...), one barrier a
+// slot, so that while one is in use the next one or more are in flight. K
+// rows are D + 16 floats apart (the 16-byte loads of 8 lanes along 8 rows
+// fall on distinct banks), V rows D + 4 (the 8-byte loads of 16 lanes along
+// 4 row pairs likewise). A slot is 64 * (D + 16) * 4 bytes: 36,864 at
+// D = 128, 20,480 at D = 64.
+//   * D = 128: 3 slots (110,592 bytes; 113,168 with the live-tile list),
+//     two resident blocks per SM. Decode too: a deeper ring at one block per
+//     SM would halve the split count, and the split with the most live
+//     tiles sets a decode's time.
+//   * D = 64: 5 slots (102,400), two blocks per SM.
+// The per-warp o, m and l of the merge and the split combine's weights reuse
+// the ring after the last tile.
 //
 // The contract is the bf16 body's: split L across blocks with per-device
 // tickets (graph-capturable), pos0 as a host int or a device pos0_vec,
 // kv_valid, window and softcap, tiles no row of the block sees skipped before
 // any copy, and the split count read from Cfg::BLOCKS.
-//
-// Shared memory. An f32 K/V tile of 64 rows at D = 128 is 33 KB (rows padded
-// to D + 4 floats, so that the 8 rows of a 16-byte load phase fall on
-// distinct banks), one stage of K and V 66 KB: the bf16 body's 3-stage ring
-// with its 64 q rows would pass the 227 KB a block may hold. The ring is
-// re-planned by stage count: 3 stages (198 KB) at D = 128 for decode blocks
-// (16 q rows), one block per SM with two tiles in flight; 2 stages where the
-// block holds 64 q rows or at D = 64, where two blocks per SM then fit.
-//
-// Work split. A block has 4 warps and 16 (S*R <= 16, every decode) or 64 q
-// rows. With 16 rows the 4 warps split each tile's 64 cache rows, 16 each,
-// and keep their own (m, l, o), merged through shared memory at the end; with
-// 64 rows each warp owns 16 q rows and all 64 cache rows. Q.K^T: lanes run
-// along a warp's cache rows (16 or 32 lanes, one or two rows each) and down
-// its q rows; the row's max and sum go by shuffles. P goes through shared
-// memory to P.V, where each lane owns D / 32 output columns of every q row.
-// Each lane works on 4 q rows at a time, so the FMA chains of a row group
-// are independent; warps skip the groups past the block's real rows (a
-// decode's S*R = 4 of 16), a test that is uniform across the warp.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #ifndef KKV_HEAD_DIM
 #error "build one library per head_dim: nvcc -DKKV_HEAD_DIM=64 or 128 (ops/_build.py does)"
@@ -73,30 +108,35 @@ constexpr int MAX_TPS = 256;    // tiles per split (the live-tile list in shared
 constexpr int MAX_SPLITS = 64;  // splits of one (b*kv, q block): the combine's weights in shared memory
 constexpr float NEG_INF = -1e30f;
 
+// 16-row q tiles of a block for S*R folded rows: the block plan
+// (kakveda_tpu_torch/models/attention.py, kernel_f32_q_rows).
+constexpr int q_tiles(int sr) { return sr <= 16 ? 1 : (sr <= 32 ? 2 : 4); }
+
+constexpr int cmax(int a, int b) { return a > b ? a : b; }
+
 template <int D, int NQW>
 struct Cfg {
   static_assert(D == 64 || D == 128, "head_dim 64 or 128");
   static constexpr int QB = 16 * NQW;      // folded q rows of a block
   static constexpr int WPQ = WARPS / NQW;  // warps sharing one 16-row q tile
   static constexpr int CW = BN / WPQ;      // cache rows of each tile that one warp takes
-  static constexpr int RS = D + 4;         // floats per K, V or q row in shared memory
-  static constexpr int PS = CW + 4;        // floats per P row (16-byte aligned rows)
-  static constexpr int STAGES = (D >= 128 && NQW == 1) ? 3 : 2;
-  static constexpr int TILE = BN * RS * 4;  // bytes of K or V of one stage
-  static constexpr int STAGE = 2 * TILE;
-  static constexpr int RING = STAGES * STAGE;
-  static constexpr int RED = (WARPS * 16 * D + 2 * WARPS * 16 + 2 * 64) * 4;  // per-warp o, m, l; per-row m, l
-  static constexpr int COMB = MAX_SPLITS * 64 * 2 * 4;                      // the split combine's m and l
-  static constexpr int MAIN = RING > RED ? (RING > COMB ? RING : COMB) : (RED > COMB ? RED : COMB);
-  static constexpr int QSM = QB * RS * 4;
-  static constexpr int PSM = WARPS * 16 * PS * 4;
-  static constexpr int CSM = WARPS * 16 * 4;
-  static constexpr int SMEM = MAIN + QSM + PSM + CSM + MAX_TPS * 8 + MAX_TPS * 2 + 16;
+  static constexpr int NT = CW / 8;        // its n-tiles of S, k-steps of P.V
+  static constexpr int KS = D + 16;        // floats per K row in shared memory
+  static constexpr int VS = D + 4;         // floats per V row
+  static constexpr int RO = D + 4;         // floats per row of the merge's o
+  static constexpr int SLOT = BN * KS * 4;  // bytes of one K or V tile
+  static constexpr int SLOTS = D == 64 ? 5 : 3;
+  static constexpr int RING = SLOTS * SLOT;
+  static constexpr int RED = (WARPS * 16 * RO + 2 * WARPS * 16 + 2 * 64) * 4;  // per-warp o, m, l; per-row m, l
+  static constexpr int COMB = MAX_SPLITS * 64 * 2 * 4;                       // the split combine's m and l
+  static constexpr int MAIN = cmax(RING, cmax(RED, COMB));
+  static constexpr int SMEM = MAIN + MAX_TPS * 8 + MAX_TPS * 2 + 16;
   static_assert(SMEM <= 227 * 1024, "one block's shared memory");
   // Resident blocks per SM the launch bounds and the split count plan for
-  // (read through kkv_flash_gqa_cache_blocks_per_sm): two where their
-  // shared memory fits the SM's 228 KB (1 KB of it reserved per block).
-  static constexpr int BLOCKS = 2 * (SMEM + 1024) <= 228 * 1024 ? 2 : 1;
+  // (read through kkv_flash_gqa_cache_blocks_per_sm): two, whose shared
+  // memory fits the SM's 228 KB (1 KB of it reserved per block).
+  static constexpr int BLOCKS = 2;
+  static_assert(BLOCKS * (SMEM + 1024) <= 228 * 1024, "two resident blocks per SM");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -113,24 +153,54 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-template <int N>
-struct Vec;
-template <>
-struct Vec<2> {
-  using T = float2;
-  __device__ static void get(const T& v, float (&o)[2]) { o[0] = v.x; o[1] = v.y; }
-  __device__ static T make(const float (&o)[2]) { return make_float2(o[0], o[1]); }
-};
-template <>
-struct Vec<4> {
-  using T = float4;
-  __device__ static void get(const T& v, float (&o)[4]) { o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w; }
-  __device__ static T make(const float (&o)[4]) { return make_float4(o[0], o[1], o[2], o[3]); }
-};
+__device__ __forceinline__ float exp2_approx(float x) {  // 2^x; 0 below 2^-126
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Four f32 values as TF32 halves, x = hi + lo exactly (hi: x cut to 10
+// mantissa bits).
+__device__ __forceinline__ void split4(float a0, float a1, float a2, float a3, uint32_t (&hi)[4],
+                                       uint32_t (&lo)[4]) {
+  const float a[4] = {a0, a1, a2, a3};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    hi[i] = __float_as_uint(a[i]) & 0xffffe000u;
+    lo[i] = __float_as_uint(a[i] - __uint_as_float(hi[i]));
+  }
+}
+
+// c += a.b on the tensor cores: a 16x8 (row), b 8x8 (col), f32 accumulators.
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
+      "{%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a.b in 3xTF32 from split halves: the two cross terms, then hi.hi.
+__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4], const uint32_t (&al)[4],
+                                     uint32_t bh0, uint32_t bh1, uint32_t bl0, uint32_t bl1) {
+  mma(c, al, bh0, bh1);
+  mma(c, ah, bl0, bl1);
+  mma(c, ah, bh0, bh1);
+}
 
 // grid (B * KV, ceil(SR / (16 * NQW)), n_split), block THREADS, dynamic
 // shared memory Cfg<D, NQW>::SMEM. NQW is the number of 16-row q tiles of a
-// block: 1 when S*R <= 16, else 4. CAP: scores are softcapped at `cap`.
+// block (q_tiles(SR)). CAP: scores are softcapped at `cap`.
+//
+// Fragments (mma m16n8k8 .tf32; lane = 4 g + t): A rows g, g + 8 and k
+// columns t, t + 4; B k rows t, t + 4 and n column g; C rows g, g + 8 and n
+// columns 2t, 2t + 1.
+//   * Q.K^T, k-steps 2p and 2p + 1 take d = 16p + 4t + (0, 1) and
+//     16p + 4t + (2, 3) as their k columns t, t + 4: one float4 of K row
+//     8j + g serves both.
+//   * P.V as O^T = V^T.P^T, k-step j: cache rows 8j + 2t, 8j + 2t + 1 as k
+//     rows t, t + 4, which is where S's accumulators put them (P^T's B pair
+//     of q rows g and g + 8); A rows g, g + 8 of m-tile i are V's columns
+//     16i + 2g and 16i + 2g + 1, one float2 per cache row.
 template <int D, int NQW, bool CAP>
 __global__ void __launch_bounds__(THREADS, Cfg<D, NQW>::BLOCKS)
 flash_gqa_f32_kernel(const float* __restrict__ q,        // [B*KV, SR, D]
@@ -147,21 +217,16 @@ flash_gqa_f32_kernel(const float* __restrict__ q,        // [B*KV, SR, D]
   constexpr int QB = C::QB;
   constexpr int WPQ = C::WPQ;
   constexpr int CW = C::CW;
-  constexpr int RS = C::RS;
-  constexpr int PS = C::PS;
-  constexpr int LC = CW < 32 ? CW : 32;  // lanes along a warp's cache rows
-  constexpr int LH = 32 / LC;            // lane groups down its q rows
-  constexpr int CPL = CW / LC;           // cache rows per lane
-  constexpr int RPL = 16 / LH;           // q rows per lane
-  constexpr int NC = D / 32;             // P.V output columns per lane
-  constexpr int G = 4;                   // q rows a lane works on at once
-  using V = Vec<NC>;
+  constexpr int NT = C::NT;
+  constexpr int KS = C::KS;
+  constexpr int VS = C::VS;
+  constexpr int RO = C::RO;
+  constexpr int KP = D / 16;  // Q.K^T k-step pairs
+  constexpr int MT = D / 16;  // m-tiles of O^T
+  constexpr float L2E = 1.4426950408889634f;
   extern __shared__ __align__(16) unsigned char smem[];
   float* ring = reinterpret_cast<float*>(smem);
-  float* qs = reinterpret_cast<float*>(smem + C::MAIN);                      // [QB][RS]
-  float* ps = reinterpret_cast<float*>(smem + C::MAIN + C::QSM);             // [WARPS][16][PS]
-  float* cs = reinterpret_cast<float*>(smem + C::MAIN + C::QSM + C::PSM);    // [WARPS][16]
-  unsigned char* lists = smem + C::MAIN + C::QSM + C::PSM + C::CSM;
+  unsigned char* lists = smem + C::MAIN;
   uint2* vmask = reinterpret_cast<uint2*>(lists);  // per tile: valid bits, even / odd rows
   short* live = reinterpret_cast<short*>(lists + MAX_TPS * 8);
   int* flag = reinterpret_cast<int*>(lists + MAX_TPS * 10);
@@ -169,8 +234,8 @@ flash_gqa_f32_kernel(const float* __restrict__ q,        // [B*KV, SR, D]
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int c = lane % LC;  // this lane's first cache row within the warp's
-  const int h = lane / LC;  // ... and its first q row within the warp's 16
+  const int g = lane >> 2;
+  const int t = lane & 3;
   const int bkv = blockIdx.x;
   const int bq = bkv * gridDim.y + blockIdx.y;
   const int z = blockIdx.z;
@@ -221,194 +286,240 @@ flash_gqa_f32_kernel(const float* __restrict__ q,        // [B*KV, SR, D]
   }
   __syncthreads();
   const int n_live = *flag;
+  const int n_units = 2 * n_live;  // K of each live tile, then its V
 
-  auto load_tile = [&](int tile, int stage) {
-    constexpr int CH = D / 4;  // 16-byte chunks per cache row
-    const int l0 = tile * BN;
-    float* st = ring + stage * (C::STAGE / 4);
-    const float* kg = k + kv_base * D;
-    const float* vg = v + kv_base * D;
-    for (int idx = tid; idx < BN * CH; idx += THREADS) {
-      const int rr = idx / CH, cc = idx % CH;
-      const bool ok = l0 + rr < L;
-      const size_t off = ok ? (size_t)(l0 + rr) * D + cc * 4 : 0;
-      cp_async16(st + rr * RS + cc * 4, kg + off, ok);
-      cp_async16(st + C::TILE / 4 + rr * RS + cc * 4, vg + off, ok);
-    }
+  // Unit u (K of live tile u / 2 when u is even, else its V) into its slot:
+  // each thread copies one 16-byte chunk of every RPI-th row, at constant
+  // offsets; only a tile that runs past L tests its rows.
+  auto load_unit = [&](int u) {
+    constexpr int CH = D / 4;          // 16-byte chunks per cache row
+    constexpr int RPI = THREADS / CH;  // rows one pass of the block copies
+    const int l0 = (t0 + live[u >> 1]) * BN;
+    const int rr = tid / CH, cc = tid % CH;
+    const float* base = ((u & 1) ? v : k) + kv_base * D;
+    const float* src = base + (size_t)(l0 + rr) * D + cc * 4;
+    float* dst = ring + (u % C::SLOTS) * (C::SLOT / 4) + cc * 4;
+    auto copy = [&](auto stride) {
+      constexpr int RS = decltype(stride)::value;
+      float* d0 = dst + rr * RS;
+      if (l0 + BN <= L) {
+#pragma unroll
+        for (int i = 0; i < BN / RPI; ++i) cp_async16(d0 + i * RPI * RS, src + (size_t)i * RPI * D, true);
+      } else {
+#pragma unroll
+        for (int i = 0; i < BN / RPI; ++i) {
+          const bool ok = l0 + rr + i * RPI < L;
+          cp_async16(d0 + i * RPI * RS, ok ? src + (size_t)i * RPI * D : base, ok);
+        }
+      }
+    };
+    if (u & 1) copy(std::integral_constant<int, VS>());
+    else copy(std::integral_constant<int, KS>());
+  };
+  // Unit u's slot is visible to all, the one read at u - 1 is free and
+  // takes unit u + SLOTS - 1.
+  auto advance = [&](int u) {
+    cp_async_wait<C::SLOTS - 2>();
+    __syncthreads();
+    const int nx = u + C::SLOTS - 1;
+    if (nx < n_units) load_unit(nx);
+    cp_async_commit();
   };
 
-  // 2. Start the first stages' copies, then stage the block's q rows (zeros past
-  //    SR); the first tile's barrier publishes them.
-  for (int i = 0; i < C::STAGES - 1; ++i) {
-    if (i < n_live) load_tile(t0 + live[i], i);
+  // 2. Start the first slots' copies, then this lane's q rows g and g + 8
+  //    into registers in A order (zeros past the warp's real rows): qf[p][h]
+  //    is k-step 2p + h's (row g: d, d + 1 as k t, t + 4; row g + 8 alike).
+  for (int i = 0; i < C::SLOTS - 1; ++i) {
+    if (i < n_units) load_unit(i);
     cp_async_commit();
   }
-  if (n_live > 0) {
-    const float4* qg = reinterpret_cast<const float4*>(q + ((size_t)bkv * sr + row0) * D);
-    for (int idx = tid; idx < QB * (D / 4); idx += THREADS) {
-      const int rr = idx / (D / 4), cc = idx % (D / 4);
-      *reinterpret_cast<float4*>(qs + rr * RS + cc * 4) =
-          rr < rows ? __ldg(qg + (size_t)rr * (D / 4) + cc) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  float qf[KP][2][4];
+  {
+    const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    const float4* qg = reinterpret_cast<const float4*>(q + ((size_t)bkv * sr + wrow) * D) + t;
+    const bool ra = n_live > 0 && g < nr, rb = n_live > 0 && g + 8 < nr;
+#pragma unroll
+    for (int p = 0; p < KP; ++p) {
+      const float4 a = ra ? __ldg(qg + (size_t)g * (D / 4) + 4 * p) : zero;
+      const float4 b = rb ? __ldg(qg + (size_t)(g + 8) * (D / 4) + 4 * p) : zero;
+      qf[p][0][0] = a.x, qf[p][0][1] = b.x, qf[p][0][2] = a.y, qf[p][0][3] = b.y;
+      qf[p][1][0] = a.z, qf[p][1][1] = b.z, qf[p][1][2] = a.w, qf[p][1][3] = b.w;
     }
   }
 
-  float o[16][NC];  // P.V accumulators: this warp's 16 q rows, columns lane * NC + n
+  // O^T accumulators: o[2i + h] holds columns 16i + 2g (c0, c1) and + 1
+  // (c2, c3) of rows 8h + 2t (c0, c2) and 8h + 2t + 1 (c1, c3).
+  float o[2 * MT][4];
 #pragma unroll
-  for (int i = 0; i < 16; ++i)
+  for (int i = 0; i < 2 * MT; ++i)
 #pragma unroll
-    for (int n = 0; n < NC; ++n) o[i][n] = 0.0f;
-  float m[RPL], l[RPL];  // running max and sum of q rows h + LH * i (whole rows: every lane of the group)
-#pragma unroll
-  for (int i = 0; i < RPL; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.0f;
-  }
-  float* pw = ps + warp * 16 * PS;
-  float* cwr = cs + warp * 16;
-  const float* qw = qs + qt * 16 * RS;
+    for (int e = 0; e < 4; ++e) o[i][e] = 0.0f;
+  float m0 = NEG_INF, m1 = NEG_INF;  // running max of rows g, g + 8, log2 units (the same in a row's 4 lanes)
+  float l0 = 0.0f, l1 = 0.0f;        // running sums of this lane's columns
+  float sc[NT][4];                   // S, then P, of the tile in flight
+  const int qp0 = pos0 + (wrow + g) / r;
+  const int qp1 = pos0 + (wrow + g + 8) / r;
+  const int qlo = pos0 + wrow / r;
+  const int qhi = pos0 + (wrow + max(nr, 1) - 1) / r;
+  constexpr unsigned WBITS = CW == 64 ? 0xffffffffu : (1u << (CW / 2)) - 1u;
+  const unsigned wbits = WBITS << (cw0 >> 1);  // validity bits of this warp's cache rows
+  const float sx = CAP ? scale : scale * L2E;
 
-  // 3. The live tiles through the ring, one barrier a tile.
+  // 3. The live tiles through the ring: K (Q.K^T and the softmax), then V
+  //    (P.V), one barrier each.
   for (int it = 0; it < n_live; ++it) {
-    cp_async_wait<C::STAGES - 2>();
-    __syncthreads();  // tile `it` visible to all; the stage read at it - 1 is free
-    {
-      const int nx = it + C::STAGES - 1;
-      if (nx < n_live) load_tile(t0 + live[nx], nx % C::STAGES);
-      cp_async_commit();
-    }
-    if (nr == 0) continue;
+    advance(2 * it);
     const int li = live[it];
-    const float* kt = ring + (it % C::STAGES) * (C::STAGE / 4) + cw0 * RS;
-    const float* vt = kt + C::TILE / 4;
-    const uint2 vm = vmask[li];
-    const int lt = (t0 + li) * BN + cw0;  // cache row of this warp's first column
-
-    // S = Q.K^T for q rows h + LH * i and cache rows c + LC * j, G rows at a
-    // time: G * CPL independent FMA chains, and the groups past the warp's
-    // real rows skipped (a test uniform across the warp).
-    float sc[RPL][CPL];
+    if (nr > 0) {
+      const float* kt = ring + ((2 * it) % C::SLOTS) * (C::SLOT / 4) + (cw0 + g) * KS + 4 * t;
 #pragma unroll
-    for (int i = 0; i < RPL; ++i)
+      for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int j = 0; j < CPL; ++j) sc[i][j] = 0.0f;
+        for (int e = 0; e < 4; ++e) sc[j][e] = 0.0f;
 #pragma unroll
-    for (int i0 = 0; i0 < RPL; i0 += G) {
-      if (LH * i0 >= nr) break;
-#pragma unroll 4
-      for (int d4 = 0; d4 < D / 4; ++d4) {
-        float4 kk[CPL];
+      for (int p = 0; p < KP; ++p) {
+        // Opaque to the compiler, so that q's split stays here and is not
+        // hoisted out of the loop as twice q's registers.
+        asm volatile("" : "+f"(qf[p][0][0]), "+f"(qf[p][0][1]), "+f"(qf[p][0][2]), "+f"(qf[p][0][3]));
+        asm volatile("" : "+f"(qf[p][1][0]), "+f"(qf[p][1][1]), "+f"(qf[p][1][2]), "+f"(qf[p][1][3]));
+        uint32_t ah0[4], al0[4], ah1[4], al1[4];
+        split4(qf[p][0][0], qf[p][0][1], qf[p][0][2], qf[p][0][3], ah0, al0);
+        split4(qf[p][1][0], qf[p][1][1], qf[p][1][2], qf[p][1][3], ah1, al1);
 #pragma unroll
-        for (int j = 0; j < CPL; ++j) kk[j] = *reinterpret_cast<const float4*>(kt + (c + LC * j) * RS + 4 * d4);
+        for (int j = 0; j < NT; ++j) {
+          const float4 kk = *reinterpret_cast<const float4*>(kt + j * 8 * KS + 16 * p);
+          uint32_t bh[4], bl[4];
+          split4(kk.x, kk.y, kk.z, kk.w, bh, bl);
+          mma3(sc[j], ah0, al0, bh[0], bh[1], bl[0], bl[1]);
+          mma3(sc[j], ah1, al1, bh[2], bh[3], bl[2], bl[3]);
+        }
+      }
+      // Scale (to log2 units) and cap; mask where not every row of the warp
+      // sees every one of its cache rows; each row's max over its 4 lanes;
+      // P in place of S, the rows' corrections applied to o.
+      const uint2 vm = vmask[li];
+      const int lt = (t0 + li) * BN + cw0;  // cache row of this warp's column 0
+      const bool full = (vm.x & wbits) == wbits && (vm.y & wbits) == wbits && lt + CW - 1 <= qlo &&
+                        (window == 0 || qhi - lt < window);
 #pragma unroll
-        for (int i = i0; i < i0 + G; ++i) {
-          const float4 qq = *reinterpret_cast<const float4*>(qw + (h + LH * i) * RS + 4 * d4);
+      for (int j = 0; j < NT; ++j)
 #pragma unroll
-          for (int j = 0; j < CPL; ++j) {
-            float s = sc[i][j];
-            s = fmaf(qq.x, kk[j].x, s);
-            s = fmaf(qq.y, kk[j].y, s);
-            s = fmaf(qq.z, kk[j].z, s);
-            s = fmaf(qq.w, kk[j].w, s);
-            sc[i][j] = s;
+        for (int e = 0; e < 4; ++e) {
+          float x = sc[j][e] * sx;
+          if constexpr (CAP) x = cap * L2E * tanhf(x / cap);
+          sc[j][e] = x;
+        }
+      if (!full) {
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = lt + 8 * j + 2 * t + (e & 1);
+            const int qp = e < 2 ? qp0 : qp1;
+            const unsigned w = (e & 1) ? vm.y : vm.x;
+            const bool keep =
+                ((w >> ((cw0 >> 1) + 4 * j + t)) & 1u) && qp >= col && (window == 0 || qp - col < window);
+            if (!keep) sc[j][e] = NEG_INF;
           }
+      }
+      float mx0 = NEG_INF, mx1 = NEG_INF;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        mx0 = fmaxf(mx0, fmaxf(sc[j][0], sc[j][1]));
+        mx1 = fmaxf(mx1, fmaxf(sc[j][2], sc[j][3]));
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      const float c0 = exp2_approx(m0 - mn0), c1 = exp2_approx(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+      // A row that has seen nothing yet (max -1e30) takes 0 as its max: its
+      // masked scores then give p = 2^-1e30 = 0, as they do under any real max.
+      const float ms0 = mn0 == NEG_INF ? 0.0f : mn0, ms1 = mn1 == NEG_INF ? 0.0f : mn1;
+      float sum0 = 0.0f, sum1 = 0.0f;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        sc[j][0] = exp2_approx(sc[j][0] - ms0);
+        sc[j][1] = exp2_approx(sc[j][1] - ms0);
+        sc[j][2] = exp2_approx(sc[j][2] - ms1);
+        sc[j][3] = exp2_approx(sc[j][3] - ms1);
+        sum0 += sc[j][0] + sc[j][1];
+        sum1 += sc[j][2] + sc[j][3];
+      }
+      l0 = l0 * c0 + sum0;
+      l1 = l1 * c1 + sum1;
+      // o holds rows 2t, 2t + 1 (and 8 on): their corrections from lanes
+      // 8t and 8t + 4, whose rows g are 2t and 2t + 1; none where no row's
+      // max moved.
+      const float ra = __shfl_sync(0xffffffffu, c0, 8 * t), rb = __shfl_sync(0xffffffffu, c0, 8 * t + 4);
+      const float rc = __shfl_sync(0xffffffffu, c1, 8 * t), rd = __shfl_sync(0xffffffffu, c1, 8 * t + 4);
+      if (!__all_sync(0xffffffffu, c0 == 1.0f && c1 == 1.0f)) {
+#pragma unroll
+        for (int i = 0; i < 2 * MT; i += 2) {
+          o[i][0] *= ra;
+          o[i][1] *= rb;
+          o[i][2] *= ra;
+          o[i][3] *= rb;
+          o[i + 1][0] *= rc;
+          o[i + 1][1] *= rd;
+          o[i + 1][2] *= rc;
+          o[i + 1][3] *= rd;
         }
       }
     }
-    // Scale, cap and mask; each row's max and sum over the warp's cache rows
-    // (lanes of one group, xor offsets below LC); P and the correction to
-    // shared memory for P.V.
+    advance(2 * it + 1);
+    if (nr > 0) {
+      const float* vt = ring + ((2 * it + 1) % C::SLOTS) * (C::SLOT / 4) + (cw0 + 2 * t) * VS + 2 * g;
 #pragma unroll
-    for (int i = 0; i < RPL; ++i) {
-      const int ri = h + LH * i;
-      const int qp = pos0 + (wrow + ri) / r;
-      bool kp[CPL];
-      float mx = NEG_INF;
+      for (int j = 0; j < NT; ++j) {
+        uint32_t bh[4], bl[4];  // P^T: the pairs of q rows g and g + 8
+        split4(sc[j][0], sc[j][1], sc[j][2], sc[j][3], bh, bl);
+        const float* v0 = vt + 8 * j * VS;
 #pragma unroll
-      for (int j = 0; j < CPL; ++j) {
-        const int cl = cw0 + c + LC * j;  // column within the tile
-        const int col = lt + c + LC * j;
-        const bool vb = (((cl & 1) ? vm.y : vm.x) >> (cl >> 1)) & 1u;
-        kp[j] = ri < nr && vb && qp >= col && (window == 0 || qp - col < window);
-        float x = sc[i][j] * scale;
-        if constexpr (CAP) x = cap * tanhf(x / cap);
-        sc[i][j] = kp[j] ? x : NEG_INF;
-        mx = fmaxf(mx, sc[i][j]);
-      }
-#pragma unroll
-      for (int off = LC / 2; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float mn = fmaxf(m[i], mx);
-      const float corr = expf(m[i] - mn);
-      m[i] = mn;
-      float s = 0.0f;
-#pragma unroll
-      for (int j = 0; j < CPL; ++j) {
-        const float p = kp[j] ? expf(sc[i][j] - mn) : 0.0f;
-        s += p;
-        pw[ri * PS + c + LC * j] = p;
-      }
-#pragma unroll
-      for (int off = LC / 2; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-      l[i] = l[i] * corr + s;
-      if (c == 0) cwr[ri] = corr;
-    }
-    __syncwarp();
-    // O = O * corr + P.V over the warp's CW cache rows, four at a time, for
-    // G q rows at a time (G * NC independent chains), the groups past the
-    // warp's real rows skipped.
-#pragma unroll
-    for (int i0 = 0; i0 < 16; i0 += G) {
-      if (i0 >= nr) break;
-#pragma unroll
-      for (int i = i0; i < i0 + G; ++i) {
-        const float f = cwr[i];
-#pragma unroll
-        for (int n = 0; n < NC; ++n) o[i][n] *= f;
-      }
-#pragma unroll 2
-      for (int j4 = 0; j4 < CW / 4; ++j4) {
-        float vv[4][NC];
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-          V::get(*reinterpret_cast<const typename V::T*>(vt + (4 * j4 + u) * RS + lane * NC), vv[u]);
-#pragma unroll
-        for (int i = i0; i < i0 + G; ++i) {
-          const float4 p = *reinterpret_cast<const float4*>(pw + i * PS + 4 * j4);
-#pragma unroll
-          for (int n = 0; n < NC; ++n) {
-            float a = o[i][n];
-            a = fmaf(p.x, vv[0][n], a);
-            a = fmaf(p.y, vv[1][n], a);
-            a = fmaf(p.z, vv[2][n], a);
-            a = fmaf(p.w, vv[3][n], a);
-            o[i][n] = a;
-          }
+        for (int i = 0; i < MT; ++i) {
+          const float2 x0 = *reinterpret_cast<const float2*>(v0 + 16 * i);
+          const float2 x1 = *reinterpret_cast<const float2*>(v0 + VS + 16 * i);
+          uint32_t ah[4], al[4];
+          split4(x0.x, x0.y, x1.x, x1.y, ah, al);
+          mma3(o[2 * i], ah, al, bh[0], bh[1], bl[0], bl[1]);
+          mma3(o[2 * i + 1], ah, al, bh[2], bh[3], bl[2], bl[3]);
         }
       }
     }
-    __syncwarp();  // P and the corrections are read before the next tile writes them
   }
 
-  // 4. Each warp's (m, l, o) to shared memory (the ring is free now); then
-  //    the warps that share a q tile merge.
+  // 4. Each warp's (m, l, o) to shared memory (the ring is free now), o in
+  //    row order; then the warps that share a q tile merge.
   cp_async_wait<0>();
   __syncthreads();
-  float* red_o = ring;                     // [WARPS][16][D]
-  float* red_m = red_o + WARPS * 16 * D;   // [WARPS][16]
+  float* red_o = ring;                     // [WARPS][16][RO]
+  float* red_m = red_o + WARPS * 16 * RO;  // [WARPS][16]
   float* red_l = red_m + WARPS * 16;
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
   if (nr > 0) {
 #pragma unroll
-    for (int i = 0; i < 16; ++i)
-      if (i < nr) *reinterpret_cast<typename V::T*>(red_o + (warp * 16 + i) * D + lane * NC) = V::make(o[i]);
-    if (c == 0) {
-#pragma unroll
-      for (int i = 0; i < RPL; ++i) {
-        red_m[warp * 16 + h + LH * i] = m[i];
-        red_l[warp * 16 + h + LH * i] = l[i];
-      }
+    for (int i = 0; i < 2 * MT; ++i) {
+      float* r0 = red_o + (warp * 16 + 8 * (i & 1) + 2 * t) * RO + 16 * (i >> 1) + 2 * g;
+      *reinterpret_cast<float2*>(r0) = make_float2(o[i][0], o[i][2]);
+      *reinterpret_cast<float2*>(r0 + RO) = make_float2(o[i][1], o[i][3]);
+    }
+    if (t == 0) {
+      red_m[warp * 16 + g] = m0;
+      red_m[warp * 16 + g + 8] = m1;
+      red_l[warp * 16 + g] = l0;
+      red_l[warp * 16 + g + 8] = l1;
     }
   }
   __syncthreads();
-  // Per row: the merge's weights e^(m_w - m) in place of the warps' m (over
+  // Per row: the merge's weights 2^(m_w - m) in place of the warps' m (over
   // max(l, 1e-20) where this block writes the output), the row's m and l.
   float* row_m = red_l + WARPS * 16;  // [QB]
   float* row_l = row_m + 64;          // [QB]
@@ -422,7 +533,7 @@ flash_gqa_f32_kernel(const float* __restrict__ q,        // [B*KV, SR, D]
 #pragma unroll
     for (int s = 0; s < WPQ; ++s) {
       const int w = s * NQW + w0;
-      e[s] = expf(red_m[w * 16 + ri] - mx);
+      e[s] = exp2_approx(red_m[w * 16 + ri] - mx);
       ls += red_l[w * 16 + ri] * e[s];
     }
     const float inv = split ? 1.0f : 1.0f / fmaxf(ls, 1e-20f);
@@ -434,7 +545,7 @@ flash_gqa_f32_kernel(const float* __restrict__ q,        // [B*KV, SR, D]
   __syncthreads();
 
   float* og = out + ((size_t)bkv * sr + row0) * D;
-  // This split's partials: [QB][D] acc, then [QB] m and [QB] l.
+  // This split's partials: [QB][D] acc, then [QB] m and [QB] l (m in log2 units).
   constexpr int PF = QB * (D + 2);  // floats per split
   float* pz = split ? part + ((size_t)bq * n_split + z) * PF : nullptr;
   for (int idx = tid; idx < rows * (D / 4); idx += THREADS) {
@@ -445,7 +556,7 @@ flash_gqa_f32_kernel(const float* __restrict__ q,        // [B*KV, SR, D]
     for (int s = 0; s < WPQ; ++s) {
       const int w = s * NQW + w0;
       const float e = red_m[w * 16 + ri];
-      const float4 x = *reinterpret_cast<const float4*>(&red_o[(w * 16 + ri) * D + cc]);
+      const float4 x = *reinterpret_cast<const float4*>(&red_o[(w * 16 + ri) * RO + cc]);
       a.x += x.x * e;
       a.y += x.y * e;
       a.z += x.z * e;
@@ -464,7 +575,7 @@ flash_gqa_f32_kernel(const float* __restrict__ q,        // [B*KV, SR, D]
   if (!split) return;
 
   // 5. The last split of this (b*kv, q block) to finish combines them all:
-  //    per row the weights e^(m_s - m*) / max(l*, 1e-20) into shared
+  //    per row the weights 2^(m_s - m*) / max(l*, 1e-20) into shared
   //    memory, then one pass of float4 loads over the splits' acc.
   __threadfence();
   __syncthreads();
@@ -486,7 +597,7 @@ flash_gqa_f32_kernel(const float* __restrict__ q,        // [B*KV, SR, D]
     for (int s = 0; s < n_split; ++s) mx = fmaxf(mx, cw[s * QB + rr]);
     float ls = 0.0f;
     for (int s = 0; s < n_split; ++s) {
-      const float e = expf(cw[s * QB + rr] - mx);
+      const float e = exp2_approx(cw[s * QB + rr] - mx);
       cw[s * QB + rr] = e;
       ls += cl[s * QB + rr] * e;
     }
@@ -571,22 +682,26 @@ int occupancy() {
 // 64 splits. With n_split > 1, part holds part_floats floats and tickets
 // n_tickets ints that are zero, and are zero again when the kernel ends; the
 // launch needs kkv_flash_gqa_cache_part_floats(...) floats and
-// bkv * ceil(sr / qb) tickets (qb = 16 when sr <= 16, else 64) and refuses
-// less. Launches on `stream`, does not synchronise; returns the CUDA error
-// code (0 on success).
+// bkv * ceil(sr / qb) tickets (qb = 16 when sr <= 16, 32 when sr <= 32, else
+// 64) and refuses less. Launches on `stream`, does not synchronise; returns
+// the CUDA error code (0 on success).
 extern "C" long long kkv_flash_gqa_cache_part_floats(int bkv, int sr, int d, int n_split) {
-  const int qb = sr <= 16 ? 16 : 64;
+  const int qb = 16 * q_tiles(sr);
   return n_split > 1 ? (long long)bkv * ((sr + qb - 1) / qb) * n_split * qb * (d + 2) : 0;
 }
 
-// Resident blocks per SM at head_dim d for a block of sr <= 16 rows or more:
-// with planned != 0 the count the launch bounds and the split count plan
-// for, else what the card's occupancy calculator grants. -1 for a d this
-// library does not take, or an int8 cache.
+// Resident blocks per SM at head_dim d for a block of sr folded rows (the
+// block plan above): with planned != 0 the count the launch bounds and the
+// split count plan for, else what the card's occupancy calculator grants.
+// -1 for a d this library does not take, or an int8 cache.
 extern "C" int kkv_flash_gqa_cache_blocks_per_sm(int d, int kv8, int sr, int planned) {
-  if (d != KKV_HEAD_DIM || kv8 != 0) return -1;
-  if (planned) return sr > 16 ? Cfg<KKV_HEAD_DIM, 4>::BLOCKS : Cfg<KKV_HEAD_DIM, 1>::BLOCKS;
-  return sr > 16 ? occupancy<KKV_HEAD_DIM, 4>() : occupancy<KKV_HEAD_DIM, 1>();
+  if (d != KKV_HEAD_DIM || kv8 != 0 || sr < 1) return -1;
+  constexpr int D = KKV_HEAD_DIM;
+  switch (q_tiles(sr)) {
+    case 1: return planned ? Cfg<D, 1>::BLOCKS : occupancy<D, 1>();
+    case 2: return planned ? Cfg<D, 2>::BLOCKS : occupancy<D, 2>();
+    default: return planned ? Cfg<D, 4>::BLOCKS : occupancy<D, 4>();
+  }
 }
 
 extern "C" int kkv_flash_gqa_cache(const void* q, const void* k, const void* v,
@@ -601,7 +716,7 @@ extern "C" int kkv_flash_gqa_cache(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   const int n_tiles = (L + BN - 1) / BN;
   const int tps = (n_tiles + n_split - 1) / n_split;
-  const int qb = sr <= 16 ? 16 : 64;
+  const int qb = 16 * q_tiles(sr);
   if (tps > MAX_TPS || n_split > MAX_SPLITS || (n_split - 1) * tps >= n_tiles ||
       (n_split > 1 && (part == nullptr || tickets == nullptr ||
                        part_floats < kkv_flash_gqa_cache_part_floats(bkv, sr, d, n_split) ||
@@ -609,5 +724,10 @@ extern "C" int kkv_flash_gqa_cache(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   const Args a{q, k, v, valid, out, part, tickets, pos0_vec, bkv, kv, sr, r, L, pos0,
                window, scale, softcap, n_split, tps};
-  return sr <= 16 ? (int)launch_cap<KKV_HEAD_DIM, 1>(a, s) : (int)launch_cap<KKV_HEAD_DIM, 4>(a, s);
+  constexpr int D = KKV_HEAD_DIM;
+  switch (q_tiles(sr)) {
+    case 1: return (int)launch_cap<D, 1>(a, s);
+    case 2: return (int)launch_cap<D, 2>(a, s);
+    default: return (int)launch_cap<D, 4>(a, s);
+  }
 }

@@ -190,6 +190,17 @@ def kernel_q_rows(sr: int) -> int:
     return 16 if sr <= 16 else 64
 
 
+def kernel_f32_q_rows(sr: int) -> int:
+    """Folded q rows of one block of the f32 body (``q_tiles`` in
+    ``csrc/flash_gqa_cache_f32.cu``): 16 when S·R ≤ 16, 32 when S·R ≤ 32
+    (the verify chunk at k = 4..7 with R = 4; two warps share each 16-row
+    tile, so that none runs on padding), else 64. Its block count equals
+    :func:`kernel_q_rows`' at every S·R (one block wherever the two
+    differ), so the split count and the tickets follow either; the
+    library's layout, partials and blocks per SM follow this one."""
+    return 16 if sr <= 16 else 32 if sr <= 32 else 64
+
+
 def flash_split_count(
     bkv: int, sr: int, l: int, sm_count: int, reach: Optional[int] = None, blocks_per_sm: int = 2
 ) -> int:
@@ -400,10 +411,9 @@ def kernel_blocks_per_sm(d: int, kv8: bool, sr: int, f32: bool = False) -> int:
     """Resident blocks per SM that the kernel's launch bounds plan for at
     head_dim ``d``, body (bf16, int8 cache, or ``f32``) and block rows
     (``Cfg::BLOCKS`` in the CUDA source: two, one where a block's shared
-    memory fills the SM, as the D = 256 bf16 ring of 202,752 bytes and the
-    D = 128 f32 rings do), read once from the loaded library; the split
-    count fills that wave."""
-    key = (d, bool(kv8), kernel_q_rows(sr), bool(f32))
+    memory fills the SM, as the D = 256 bf16 ring of 202,752 bytes does),
+    read once from the loaded library; the split count fills that wave."""
+    key = (d, bool(kv8), kernel_f32_q_rows(sr) if f32 else kernel_q_rows(sr), bool(f32))
     n = _blocks.get(key)
     if n is None:
         n = _blocks[key] = _lib(d, f32).kkv_flash_gqa_cache_blocks_per_sm(d, int(kv8), sr, 1)
@@ -429,7 +439,7 @@ def flash_gqa_cache(
     raises. The card takes a bf16 ``q`` over a bf16 cache or an int8 cache
     with f32 ``k_scale``/``v_scale`` [B, KV, L] at D ∈ ``KERNEL_HEAD_DIMS``,
     or an f32 ``q`` over an f32 cache at D ∈ ``KERNEL_F32_HEAD_DIMS`` (the
-    f32 body: FFMA, f32 end to end), a
+    f32 body: 3xTF32 tensor-core products, f32-grade end to end), a
     ``softcap`` ≥ 0 (scores capped at ``softcap · tanh(s / softcap)``
     before the mask; 0 is off) and any L up to
     ``KERNEL_MAX_SPLITS × KERNEL_MAX_TILES_PER_SPLIT`` tiles. One launch

@@ -1570,9 +1570,20 @@ F32_CASES = [
     (4, 5, 16, 8, 1024, 128, "verify", None, 256, 2.0),  # softcap and window at per-slot positions
     (4, 1, 8, 4, 512, 64, 512, "slots", 0, 2.0),  # softcap at decode
 ]
+F32_EDGE_CASES = [
+    # S*R at the edges of the f32 body's block plan (16, 32 or 64 folded rows)
+    (4, 4, 32, 8, 1024, 128, 1020, "leftpad", 0, 0.0),  # 16: one 16-row block, split
+    (2, 17, 8, 8, 512, 64, 400, "leftpad", 128, 0.0),  # 17: a 32-row block, one real row in its second tile
+    (8, 8, 32, 8, 1024, 128, "verify", None, 0, 2.0),  # 32: the verify chunk at k = 7
+    (2, 33, 8, 8, 640, 128, 500, "leftpad", 0, 0.0),  # 33: a 64-row block, one row in its third tile
+    (2, 16, 16, 4, 1024, 64, 900, None, 256, 2.0),  # 64
+    (1, 65, 8, 8, 1024, 128, 600, "leftpad", 0, 0.0),  # 65: a second 64-row block of one row
+    (1, 50, 32, 8, 768, 64, 700, "leftpad", 0, 0.0),  # 200: a ragged last block
+    (4, 5, 32, 8, 1024, 64, "verify", None, 300, 0.0),  # 20: the verify chunk under a window
+]
 
 
-@pytest.mark.parametrize("b,s,h,kv,l,d,pos0,valid,window,softcap", F32_CASES)
+@pytest.mark.parametrize("b,s,h,kv,l,d,pos0,valid,window,softcap", F32_CASES + F32_EDGE_CASES)
 def test_flash_f32_body_matches_plain(gen, b, s, h, kv, l, d, pos0, valid, window, softcap):
     """The f32 body against the plain version of its split schedule and the
     unsplit one, within F32_ATOL: split and unsplit, decode, the verify
@@ -1630,10 +1641,12 @@ def test_flash_f32_tolerance_tells_f32_from_tf32_and_bf16(gen, d, shape):
 
 
 def test_flash_f32_replays_from_a_cuda_graph(gen):
-    """Split f32 launches and a per-slot one captured in one graph replay
-    equal to eager calls, twice; after the positions and the mask change on
-    the card the per-slot launch equals the plain version at the new ones."""
+    """Split f32 launches at each block size of the f32 plan (16, 32 and 64
+    folded rows) and a per-slot one captured in one graph replay equal to
+    eager calls, twice; after the positions and the mask change on the card
+    the per-slot launch equals the plain version at the new ones."""
     cases = [_f32_case(gen, 8, 1, 32, 8, l, d, l, "slots") for l, d in ((512, 128), (1000, 64))]
+    cases += [_f32_case(gen, 4, 4, 32, 8, 1024, 128, 1020, "leftpad"), _f32_case(gen, 2, 33, 8, 8, 1024, 64, 900, "leftpad")]
     vq, vk, vv, vpos, vvalid = _f32_case(gen, 8, 5, 32, 8, 1024, 128, "verify", None)
     reach = 1024
 
@@ -1659,6 +1672,46 @@ def test_flash_f32_replays_from_a_cuda_graph(gen):
     g.replay()
     torch.cuda.synchronize()
     assert (captured[-1] - flash_gqa_cache_reference(vq, vk, vv, new_pos, new_valid)).abs().max().item() <= F32_ATOL
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_f32_library_sizes_the_workspace_by_the_block_plan(gen, d):
+    """The f32 library's partials, tickets and blocks per SM follow the
+    wrapper's block plan (16, 32 or 64 folded rows): part_floats at each
+    block size, the plan's figure granted by the card, and a 32-row launch
+    that refuses a partials buffer one float short and takes the exact one."""
+    from kakveda_tpu_torch.models import attention
+
+    lib = attention._lib(d, f32=True)
+    for sr in (1, 4, 16, 17, 20, 32, 33, 64, 65, 200):
+        qb = attention.kernel_f32_q_rows(sr)
+        assert qb == (16 if sr <= 16 else 32 if sr <= 32 else 64)
+        for n in (1, 2, 4):
+            want = 0 if n == 1 else 64 * -(-sr // qb) * n * qb * (d + 2)
+            assert lib.kkv_flash_gqa_cache_part_floats(64, sr, d, n) == want, (sr, n)
+        planned = attention.kernel_blocks_per_sm(d, False, sr, f32=True)
+        assert planned == 2, (sr, planned)
+        assert lib.kkv_flash_gqa_cache_blocks_per_sm(d, 0, sr, 0) >= planned, sr
+    q, k, v, pos0, m = _f32_case(gen, 8, 5, 32, 8, 1024, d, "verify", None)
+    qf = q.reshape(8, 5, 8, 4, d).permute(0, 2, 1, 3, 4).reshape(64, 20, d).contiguous()
+    out = torch.empty_like(qf)
+    need = lib.kkv_flash_gqa_cache_part_floats(64, 20, d, 4)
+    part = torch.empty(need, device="cuda")
+    tickets = torch.zeros(64, dtype=torch.int32, device="cuda")
+
+    def call(n_part, n_tickets):
+        return lib.kkv_flash_gqa_cache(
+            qf.data_ptr(), k.data_ptr(), v.data_ptr(), None, None, m.view(torch.uint8).data_ptr(),
+            out.data_ptr(), part.data_ptr(), n_part, tickets.data_ptr(), n_tickets,
+            64, 8, 20, 4, 1024, d, 0, pos0.data_ptr(), 0, d**-0.5, 0.0, 4, torch.cuda.current_stream().cuda_stream,
+        )
+
+    assert call(need - 1, 64) == 1 and call(need, 63) == 1
+    assert call(need, 64) == 0
+    torch.cuda.synchronize()
+    got = out.reshape(8, 8, 5, 4, d).permute(0, 2, 1, 3, 4).reshape(8, 5, 32, d)
+    assert (got - flash_gqa_cache_reference(q, k, v, pos0, m)).abs().max().item() <= F32_ATOL
+    assert torch.equal(tickets, torch.zeros_like(tickets))
 
 
 @pytest.mark.parametrize(

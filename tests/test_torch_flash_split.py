@@ -271,3 +271,97 @@ def test_live_tiles_are_exact_to_drop(b, s, h, kv, l, d, pos0, valid, window):
             assert torch.equal(x, y)
     if valid is not None or pos0 < l - 1:
         assert n_dead > 0  # the case exercises a dead tile
+
+
+# ---------------------------------------------------------------------------
+# the f32 body's own block plan: 16, 32 or 64 folded rows a block
+# ---------------------------------------------------------------------------
+
+
+def test_f32_block_plan_covers_every_row_once():
+    """For S·R = 1..130, every folded row falls in exactly one (block, q
+    tile) of the f32 plan, as the CUDA kernel lays them out (16-row q
+    tiles, one warp group each); no tile of a 16- or 32-row block is all
+    padding, and in the 64-row plan only the last block can hold one (its
+    warps skip every cache tile). The bf16 / int8 plan is unchanged."""
+    for sr in range(1, 131):
+        qb = port.kernel_f32_q_rows(sr)
+        assert qb == (16 if sr <= 16 else 32 if sr <= 32 else 64), sr
+        assert port.kernel_q_rows(sr) == (16 if sr <= 16 else 64), sr
+        seen = []
+        starts = range(0, sr, qb)
+        for i, row0 in enumerate(starts):
+            rows = min(qb, sr - row0)
+            tiles = [max(0, min(16, rows - 16 * t)) for t in range(qb // 16)]
+            for t, nr in enumerate(tiles):
+                seen += range(row0 + 16 * t, row0 + 16 * t + nr)
+            if qb <= 32:
+                assert all(tiles), (sr, tiles)
+            elif i < len(starts) - 1:
+                assert tiles == [16] * 4, (sr, tiles)
+        assert seen == list(range(sr)), sr
+
+
+@pytest.mark.parametrize("blocks_per_sm", [1, 2])
+@pytest.mark.parametrize("l", [64, 2048, 64 * 300])
+@pytest.mark.parametrize("bkv", [1, 8, 64, 512])
+@pytest.mark.parametrize("sr", [17, 20, 32])
+def test_f32_split_count_at_the_32_row_block_is_one_wave(sr, bkv, l, blocks_per_sm, sms=132):
+    """At 16 < S·R ≤ 32 the f32 plan has one 32-row block per (b·kv), as
+    many blocks as the bf16 plan's one 64-row block, so the one split count
+    serves both; it keeps the grid within one wave of ``blocks_per_sm``
+    resident blocks (the library's figure, two at D 64 / 128: the card
+    tests hold it), unless the 256-tile cap sets the count; the plan is
+    contiguous."""
+    blocks = bkv * -(-sr // port.kernel_f32_q_rows(sr))
+    assert blocks == bkv == bkv * -(-sr // port.kernel_q_rows(sr))
+    n = port.flash_split_count(bkv, sr, l, sms, blocks_per_sm=blocks_per_sm)
+    plan = port.flash_split_plan(l, n)
+    assert len(plan) == n and plan[0][0] == 0 and plan[-1][1] == l
+    n_tiles = -(-l // port.KERNEL_L_BLK)
+    if n > -(-n_tiles // port.KERNEL_MAX_TILES_PER_SPLIT):
+        assert blocks * n <= max(blocks, blocks_per_sm * sms)
+
+
+def test_f32_split_count_at_the_serving_shapes(sms=132):
+    """The verify chunk (B 8 × KV 8, S·R 20, L 2048) takes 4 splits at two
+    blocks per SM; a 2048-row piece's 32 blocks per (b·kv) take one."""
+    assert port.flash_split_count(64, 20, 2048, sms, reach=1905, blocks_per_sm=2) == 4
+    assert port.flash_split_count(8, 2048, 1024, sms, reach=1024, blocks_per_sm=2) == 1
+    assert port.flash_split_count(64, 4, 2048, sms, reach=2048, blocks_per_sm=1) == 2
+
+
+F32_LIVE_CASES = [
+    # (B, S, H, KV, L, D, pos0, valid, window): S·R in (16, 32], the 32-row block
+    (2, 5, 16, 4, 300, 16, 200, "slots", 0),  # the verify chunk's 20 rows
+    (2, 8, 16, 4, 260, 16, 130, "leftpad", 0),  # 32
+    (3, 17, 4, 4, 200, 16, 150, "slots", 40),  # 17, a window
+    (2, 6, 16, 4, 520, 32, 400, None, 100),  # 24, a window, no mask
+    (2, 20, 8, 8, 330, 16, 250, "leftpad", 0),  # 20 at R = 1
+]
+
+
+@pytest.mark.parametrize("b,s,h,kv,l,d,pos0,valid,window", F32_LIVE_CASES)
+def test_f32_live_tiles_over_32_row_blocks(b, s, h, kv, l, d, pos0, valid, window):
+    """Over the f32 plan's 32-row blocks, the live-tile predicate equals the
+    plain mask's live tiles (a superset under a window, as the kernel's
+    block-wide bound), and dropping the dead ones leaves the online softmax
+    bit-identical."""
+    tq, tk, tv, tvalid, _ = _torch_case(b, s, h, kv, l, d, valid, 11, "f32", False)
+    r = h // kv
+    sr = s * r
+    assert port.kernel_f32_q_rows(sr) == 32
+    qf = tq.reshape(b, s, kv, r, d).permute(0, 2, 1, 3, 4).reshape(b, kv, sr, d)
+    tile = port.KERNEL_L_BLK
+    row0, row1 = 0, sr
+    live = port.flash_live_tiles(l, pos0, r, row0, row1, tvalid, window, tile).expand(b, -1)
+    brute = _brute_live(l, pos0, r, row0, row1, None if tvalid is None else tvalid.numpy(), window, tile)
+    if window:
+        assert (live.numpy() | ~np.broadcast_to(brute, live.shape)).all()
+    else:
+        assert np.array_equal(live.numpy(), np.broadcast_to(brute, live.shape))
+    assert int((~live).sum()) > 0  # the case exercises a dead tile
+    q_pos = pos0 + torch.arange(row0, row1) // r
+    args = (qf, tk, tv, q_pos, tvalid, window, 0, l, tile)
+    for x, y in zip(port._online_softmax(*args), port._online_softmax(*args, live=live)):
+        assert torch.equal(x, y)
