@@ -63,12 +63,12 @@ JAX package). Phases, each of which raises on failure (exit code != 0):
    query sees) and one PyTorch yardstick call
    (``scaled_dot_product_attention``, never used by the port);
 6. the model plane's main path: ``LlamaRuntime(LlamaConfig.llama3_8b())``
-   at full width and 16 of its 32 layers (random bf16 weights from seed 0,
-   9.08 GB; the smoke's depth, ROADMAP) serves
+   at full width and 12 of its 32 layers (random bf16 weights from seed 0,
+   7.34 GB; the smoke's depth, ROADMAP) serves
    ``generate_batch`` of 8 prompts × 32 tokens through the engine (8 slots,
    window 512, chunk 8), once with a bf16 cache and once with an int8
    cache, launch counts zeroed just before and read just after each run:
-   the run's kernel launches 16 × (forward passes) times, the other kernel
+   the run's kernel launches 12 × (forward passes) times, the other kernel
    0. Each prompt's tokens equal a solo ``generate_tokens`` up to the first
    step whose solo top-2 logit margin is below 0.25 (bf16 noise between
    batch shapes can flip a nearer tie), and every engine token lies within
@@ -253,12 +253,12 @@ JAX package). Phases, each of which raises on failure (exit code != 0):
    each stream's text equal to ``generate``'s for its prompt (or departing
    at a near-tie, phase 6's margin rule); TTFT p50 / p99, the delta gap
    p50 and tokens/s beside phase 6's ``generate_batch``; the bf16 kernel
-   launched 32 × forwards times (the row's ``launches_stream``). b. 8
+   launched once a layer per forward (the row's ``launches_stream``). b. 8
    streams closed at their first delta free all 8 slots within two chunks;
    then 16 of 64 closed mid-decode and 4 requests cancelled while queued
    (``fut.cancel()``, not counted): the ``cancelled`` outcome equals the
    mid-decode closes, survivors equal their text. c. 4 requests past a
-   6 s deadline fail with ``DeadlineExceededError``, their tokens a prefix
+   3 s deadline (DEADLINE_S, 4 s at 16 layers) fail with ``DeadlineExceededError``, their tokens a prefix
    of an undeadlined run (or a near-tie departure), their slots freed, no
    restart; one queued behind them expires with no tokens. d. On the int8
    cache, ``engine.dispatch`` armed with 8 requests in flight and 1 queued:
@@ -340,7 +340,7 @@ JAX package). Phases, each of which raises on failure (exit code != 0):
    ``KAKVEDA_SERVE_SPEC=4`` on 4 prompts x 32 tokens and ``KAKVEDA_SPEC=1``
    on one, held to phase 9 e's greedy tokens with departures counted at
    logit or router near-ties, and layer 0's ``moe_mlp`` inside a verify
-   chunk against its plain version). a. ``llama3_8b()`` in f32 at 16 of its 32 layers (18.17 GB)
+   chunk against its plain version). a. ``llama3_8b()`` in f32 at 12 of its 32 layers (14.67 GB)
    through the engine with and without ``KAKVEDA_SERVE_SPEC=4``, the f32
    body launched once a layer per forward, tokens held to the solo
    ``generate_tokens`` by the margin rule, the step beside its weight-read
@@ -458,10 +458,38 @@ JAX package). Phases, each of which raises on failure (exit code != 0):
    ``autoscale`` block == ``kakveda_fleet_scale_*``; each replica process's
    own ``fused_topk`` launches; the card's memory back after ``down``.
 
+20. the application layer (its own wall limit, PHASE20_WALL_S, and ``jinja2``
+   required). a. The dashboard mounted beside phase 8's app over phase 8's
+   Platform (2^20 × 2048 bf16) by ``service.main.mount_dashboard``, as
+   ``cli up --dashboard-port`` mounts it, its model the configured runtime
+   (the stub): logged in as the demo admin, 8 ``/scenarios/run`` (warn →
+   generate → ingest), each warn's stored answer held to
+   ``fused_topk_reference`` over the index as it stood at that warn (the
+   referenced failure id, or none, and the confidence within 1e-4; ranks
+   within 1e-4 of the top are ties); a 64-example dataset through
+   ``/datasets/{id}/eval``, whose one ``warn_batch`` is held likewise;
+   ``/``, ``/warnings``, ``/runs``, ``/runs/{id}``, ``/failures/{id}``,
+   ``/health-page`` and ``/admin/audit`` read back; ``fused_topk``'s
+   launches of those requests > 0. b. A dashboard over phase 6's
+   Llama-3-8B runtime (12 layers, bf16) and a small Platform on the card:
+   one ``/playground/run`` and one ``/playground/stream`` at once, the run's
+   text == ``rt.generate`` of the prompt (greedy), the stream's deltas
+   joined == it (each, or its tokens depart at a near-tie, phase 6's
+   margin rule, printed), ``/admin/serving`` showing the engine, the bf16 flash
+   launches of the two requests > 0 and no other body's. c. ``python3 -m
+   kakveda_tpu_torch.service.agent_echo`` as a child, registered through
+   ``/api/agents/register``: ``/admin/agents/echo/test`` answers 200 healthy
+   and a playground ``agent:echo`` target returns the echo; then, phase 8's
+   Platform closed, ``cli status``, ``cli compact`` on the card and ``cli
+   doctor`` on phase 20 a's data dir: every live row's warn answer (top-1
+   id and score, ties as in a) equal after the compaction, ``doctor``
+   naming the card. With ``--phases 20`` alone it builds phase 8 a's
+   Platform and phase 6's runtime itself.
+
 Prints a ``{"kernels": [...]}`` line (the flash rows with phase 9's,
-phase 10's, phase 13's, phase 14's and phase 15's launches beside phase
-6's, phase 19's ``fused_topk`` launches, and the judge, family and verify
-shapes' times), each phase's wall,
+phase 10's, phase 13's, phase 14's, phase 15's and phase 20's launches
+beside phase 6's, phase 19's and phase 20's ``fused_topk`` launches, and
+the judge, family and verify shapes' times), each phase's wall,
 the card line, and last ``{"ok": true, "device": {...}}``.
 """
 
@@ -503,11 +531,11 @@ FLASH_ATOL = 2e-2
 # 50 (randn inputs give |s| < 5, where the cap moves a score by < 0.012).
 SOFTCAP_Q_SCALE = 20.0
 H, KV, HD = 32, 8, 128  # Llama-3-8B attention heads, kv heads, head_dim
-# Phase 6 (and 13, 15, 17 e on its weights) serves Llama-3-8B at full width
-# and LLAMA3_LAYERS of its 32 layers (the smoke's depth: ROADMAP). bf16
-# bytes: the embedding and the untied head, and one layer's matrices (its
-# norms are within the check's 0.01 GB).
-LLAMA3_LAYERS = 16
+# Phase 6 (and 13, 15, 17 e, 16 a and 20 b on its weights or config) serves
+# Llama-3-8B at full width and LLAMA3_LAYERS of its 32 layers (the smoke's
+# depth: ROADMAP). bf16 bytes: the embedding and the untied head, and one
+# layer's matrices (its norms are within the check's 0.01 GB).
+LLAMA3_LAYERS = 12
 LLAMA3_OTHER_BYTES = 2 * 128256 * 4096 * 2
 LLAMA3_LAYER_BYTES = 2 * (2 * 4096 * 4096 + 2 * 4096 * 1024 + 3 * 4096 * 14336)
 L2_BYTES = 50e6
@@ -2330,8 +2358,10 @@ LONG_TOKENS = 400  # c's requests: bucket 64 + 400 + 1 fits the 512 window
 # c's deadline: after 8 one-at-a-time admissions (each waits for a chunk
 # boundary: 2-2.5 s for the eight at 32 layers, about half at 16, more on a
 # slow host), before 400 tokens (5.4-8 s at 8 slots and 16 layers: 376 of
-# them came by 6 s on a fast host).
-DEADLINE_S = 4.0
+# them came by 6 s on a fast host). It was 4 s at 16 layers, where 152-184
+# tokens came by it; at LLAMA3_LAYERS = 12, 4 s let 168-312 come, so 3 s
+# keeps both margins where 16 layers had them. Set it anew with the depth.
+DEADLINE_S = 3.0
 
 
 class StreamTokenizer(RecordingTokenizer):
@@ -3354,7 +3384,9 @@ def phase_ladder(rt, card: str) -> dict:
     return out
 
 
-def phase_model(card: str) -> dict:
+def phase_model(card: str, playground: bool = False) -> dict:
+    """Phases 6, 13, 15 and 17 e on one Llama-3-8B runtime; with
+    ``playground``, phase 20 b last, on the same runtime."""
     from kakveda_tpu_torch.models.generate import LlamaRuntime
     from kakveda_tpu_torch.models.llama import LlamaConfig
 
@@ -3382,9 +3414,12 @@ def phase_model(card: str) -> dict:
     out["spec"] = phase_spec(rt, out, card)
     walls["15"], t = time.perf_counter() - t, time.perf_counter()
     out["ladder"] = phase_ladder(rt, card)
-    walls["17 e"] = time.perf_counter() - t
+    walls["17 e"], t = time.perf_counter() - t, time.perf_counter()
+    if playground:
+        out["playground"] = asyncio.run(phase_playground(rt, card))
+        walls["20 b"] = time.perf_counter() - t
     out["walls_s"] = {k: round(v, 1) for k, v in walls.items()}
-    log(f"phases 6, 13, 15, 17 e walls (s): {json.dumps(out['walls_s'])} [{card}]")
+    log(f"phases 6, 13, 15, 17 e{', 20 b' if playground else ''} walls (s): {json.dumps(out['walls_s'])} [{card}]")
     return out
 
 
@@ -5549,11 +5584,15 @@ async def _request_plane(s, base: str, plat, fused_topk, card: str, warn_c1_p50:
     return out
 
 
-def phase_service(base: Path, fused_topk, card: str) -> dict:
-    """Phase 8: the service plane on the card at the GFKB's real size."""
+def phase_service(base: Path, fused_topk, card: str, echo: Optional[tuple] = None) -> dict:
+    """Phase 8: the service plane on the card at the GFKB's real size. With
+    ``echo`` (``start_agent_echo``'s), phase 20 a and c ride on its
+    Platform: the dashboard mounted beside the app after phase 17 a-d, the
+    CLI on its data dir once it is closed (``out["dashboard"]``)."""
     import aiohttp  # required: without it phase 8 fails
     from aiohttp import web
 
+    from kakveda_tpu_torch.ops.fused_topk import fused_topk_reference
     from kakveda_tpu_torch.platform import Platform
     from kakveda_tpu_torch.service.app import make_app
 
@@ -5576,15 +5615,21 @@ def phase_service(base: Path, fused_topk, card: str) -> dict:
                 arms["request_plane"] = await _request_plane(s, f"http://127.0.0.1:{port}", plat, fused_topk, card,
                                                              arms["warn_c1_p50_ms"])
                 arms["launches_request_plane"] = fused_topk.launches - mark
+                if echo is not None:
+                    arms["dashboard"] = await phase_dashboard(plat, base, fused_topk, fused_topk_reference, echo,
+                                                              card)
                 return arms
         finally:
             await runner.cleanup()
 
     out = asyncio.run(go())
     out["host_split"] = host_split(plat, card)
+    before = live_answers(plat.gfkb) if echo is not None else None
     plat.close()
     del plat
     _forget_apps()
+    if echo is not None:
+        out["dashboard"]["c_cli"] = phase_cli(base, before, card)
     out["entry_point"] = run_entry_point(base, card)
     log("phase 8: " + json.dumps({k: v for k, v in out.items() if k != "host_split"}))
     return out
@@ -7091,8 +7136,9 @@ async def _legacy_fleet(s, fl: _FleetProc, oracle, batches, reqs_b, bodies_c, ca
     # then fall within the TTL. (/warn takes no admission slot: its bound
     # is the micro-batcher's queue, which occupancy does not count.)
     async def peer_state():
-        text = await _tget(s, urls[1] + "/metrics")
-        ready = await _jget(s, urls[1] + "/readyz")
+        # Both reads at once: the folded pressure holds for one gossip tick
+        # (KAKVEDA_FLEET_GOSSIP_S), which serial reads on a slow host can miss.
+        text, ready = await asyncio.gather(_tget(s, urls[1] + "/metrics"), _jget(s, urls[1] + "/readyz"))
         return _fleet_metric(text, "kakveda_fleet_pressure"), ready["admission"]["brownout_step"]
 
     # The flood comes from client processes of their own (this loop only
@@ -7107,7 +7153,7 @@ async def _legacy_fleet(s, fl: _FleetProc, oracle, batches, reqs_b, bodies_c, ca
     while not flood.done():
         p, step = await peer_state()
         peak_p, peak_step = max(peak_p, p), max(peak_step, step)
-        await asyncio.sleep(0.1)
+        await asyncio.sleep(0.02)
     rec, _ = await flood
     t_end = time.perf_counter()
     bad = [n for r in rec.values() for st, n in r if st == 200 and n]
@@ -7937,7 +7983,7 @@ F32_TOKENS = 32  # phase 16 a's requests
 
 def f32_model(card: str) -> dict:
     """Phase 16 a: ``llama3_8b()`` in f32 at full width and phase 6's depth,
-    LLAMA3_LAYERS of its 32 layers (random weights from seed 0, 18.2 GB;
+    LLAMA3_LAYERS of its 32 layers (random weights from seed 0, 14.7 GB;
     32.1 GB at 32) through the engine (8 slots, window 512):
     8 prompts × F32_TOKENS with ``spec_k`` 0 and with ``KAKVEDA_SERVE_SPEC=4``
     (the gate held open), each launching the f32 body once a layer per
@@ -8326,6 +8372,489 @@ def phase_gaps(base: Path, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the application layer (the dashboard, the playground, the agent
+# echo app, the operator CLI)
+# ---------------------------------------------------------------------------
+
+PHASE20_WALL_S = 30.0  # the phase's own limit (a + b + c)
+DASH_SCENARIOS = (  # (app, prompt): phase 8 a ingested "Summarize report i ..." (i % 4: a failure)
+    ("app-A", "Summarize report 1 and include citations"),
+    ("app-B", "Summarize report 2 and include citations"),
+    ("app-C", "Explain the rollout of feature 7 with references"),
+    ("app-A", "Summarize report 1 and include citations"),  # again: matches the first run's own ingest
+    ("app-D", "Summarize report 4 and include citations"),  # a passing trace of 8 a: no failure row
+    ("app-E", "Describe the outage of the queue workers."),
+    ("app-F", "Summarize report 4093 and include citations"),
+    ("app-G", "Summarize report 30 and include citations"),
+)
+DASH_EXAMPLES = 64  # 20 a's dataset: half ingested signatures, half new
+PLAYGROUND_PROMPT = PROMPTS[3]
+PLAYGROUND_TOKENS = 64  # the playground's generate and generate_stream default
+
+
+def _dash_session():
+    import aiohttp
+
+    # The dashboard's cookies come from 127.0.0.1: the default jar drops
+    # cookies of a bare IP.
+    return aiohttp.ClientSession(cookie_jar=aiohttp.CookieJar(unsafe=True))
+
+
+async def _dash_login(s, base: str) -> None:
+    async with s.post(base + "/login", data={"email": "admin@local", "password": "admin123", "next": "/"},
+                      allow_redirects=False) as r:
+        if r.status != 302 or r.headers.get("Location") != "/":
+            raise AssertionError(f"dashboard login: {r.status} {r.headers.get('Location')}")
+
+
+async def _dash_page(s, base: str, path: str, *marks: str) -> str:
+    async with s.get(base + path) as r:
+        body = await r.text()
+        if r.status != 200 or not all(m in body for m in marks):
+            raise AssertionError(f"GET {path}: {r.status}; missing {[m for m in marks if m not in body]}")
+        return body
+
+
+async def _dash_post(s, base: str, path: str, data: dict, want: int = 302) -> tuple:
+    async with s.post(base + path, data=data, allow_redirects=False) as r:
+        body = await r.text()
+        if r.status != want:
+            raise AssertionError(f"POST {path}: {r.status} (want {want}) {body[:500]}")
+        return r.headers.get("Location"), body
+
+
+def _pre_text(body: str, what: str) -> str:
+    """The playground's result: the text inside its ``<pre>``, unescaped."""
+    import html
+    import re
+
+    m = re.search(r"<h2>Result .*?</h2>\s*<pre>(.*?)</pre>", body, re.S)
+    if m is None:
+        raise AssertionError(f"{what}: no result on the page")
+    return html.unescape(m.group(1))
+
+
+def warn_oracle(plat, prompts, fused_topk_reference) -> list:
+    """Each prompt's warn answer by ``fused_topk_reference`` over the index as
+    it stands (the dashboard's warns carry no tools and no env): its top score
+    and the ids of every rank within ATOL of it."""
+    from kakveda_tpu_torch.core.fingerprint import signature_text
+
+    gfkb = plat.gfkb
+    idx, val = gfkb.featurizer.encode_batch_sparse([signature_text(p, [], {}) for p in prompts])
+    q = gfkb._knn.densify(torch.as_tensor(idx, device=gfkb.device), torch.as_tensor(val, device=gfkb.device))
+    rv, ri = fused_topk_reference(gfkb._emb, gfkb._valid, q, gfkb.top_k)
+    rv, ri = rv.cpu().tolist(), ri.cpu().tolist()
+    recs = gfkb._records
+    return [(min(1.0, v[0]), {recs[i].failure_id for s_, i in zip(v, ids) if v[0] - s_ <= ATOL})
+            for v, ids in zip(rv, ri)]
+
+
+def hold_warn(confidence: float, failure_id, oracle: tuple, threshold: float, what: str) -> None:
+    """A warn's answer (its confidence and referenced failure id, None when it
+    cites none) against the oracle's: the same id, the same score."""
+    top, tied = oracle
+    if abs(confidence - top) > ATOL:
+        raise AssertionError(f"{what}: confidence {confidence} vs the plain top-k's {top}")
+    if failure_id is None:
+        if top >= threshold + ATOL:
+            raise AssertionError(f"{what}: no reference, yet the plain top-1 scores {top}")
+    elif failure_id not in tied or top < threshold - ATOL:
+        raise AssertionError(f"{what}: references {failure_id}, the plain top-k {sorted(tied)} at {top}")
+
+
+def start_agent_echo(log_path: Path) -> tuple:
+    """``python3 -m kakveda_tpu_torch.service.agent_echo`` on a free port, its
+    output in ``log_path``: (process, its URL, ``log_path``)."""
+    port = _free_port()
+    repo = Path(__file__).resolve().parent
+    with open(log_path, "wb") as f:
+        proc = subprocess.Popen([sys.executable, "-m", "kakveda_tpu_torch.service.agent_echo", "--port", str(port)],
+                                cwd=repo, env={**os.environ, "PYTHONPATH": str(repo)},
+                                stdout=f, stderr=subprocess.STDOUT)
+    return proc, f"http://127.0.0.1:{port}", log_path
+
+
+def stop_agent_echo(echo: tuple) -> None:
+    proc = echo[0]
+    proc.terminate()
+    try:
+        proc.wait(timeout=10)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+
+
+async def _wait_echo(s, url: str, proc, log_path: Path, timeout_s: float = 60.0) -> float:
+    """Poll the echo app's ``/health`` until it answers; seconds waited."""
+    import aiohttp
+
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout_s:
+        if proc.poll() is not None:
+            raise AssertionError(f"agent_echo exited {proc.returncode}: {log_path.read_text()[-2000:]}")
+        try:
+            async with s.get(url + "/health") as r:
+                if r.status == 200:
+                    return time.perf_counter() - t0
+        except aiohttp.ClientError:
+            pass
+        await asyncio.sleep(0.1)
+    raise AssertionError(f"agent_echo not up within {timeout_s} s")
+
+
+async def phase_dashboard(plat, base: Path, fused_topk, fused_topk_reference, echo: tuple, card: str) -> dict:
+    """Phase 20 a and c's agent part: the dashboard mounted beside the
+    service over phase 8's Platform (2^20 x 2048 bf16), through
+    ``service.main.mount_dashboard`` as ``cli up --dashboard-port`` mounts
+    it. Logged in as the demo admin: DASH_SCENARIOS through
+    ``/scenarios/run`` (warn → generate → ingest), each warn's stored answer
+    held to ``warn_oracle`` over the index as it stood at that warn; a
+    dataset of DASH_EXAMPLES examples through ``/datasets/{id}/eval``, whose
+    one ``warn_batch`` is held to the oracle likewise; the pages read back.
+    Then the agent echo app (``echo``: ``start_agent_echo``'s child, started
+    beside the build so its interpreter is up by now) registered through
+    ``/api/agents/register``, its health test and a playground ``agent:``
+    target."""
+    import jinja2  # required: the dashboard renders its pages with it
+
+    from kakveda_tpu_torch.core.config import ConfigStore
+    from kakveda_tpu_torch.dashboard.core import CTX_KEY
+    from kakveda_tpu_torch.service.main import mount_dashboard
+
+    t_phase = time.perf_counter()
+    echo, echo_url, echo_log = echo
+    threshold = ConfigStore().similarity_threshold()
+    out = {"jinja2": jinja2.__version__}
+    port = _free_port()
+    base_url = f"http://127.0.0.1:{port}"
+    mark = fused_topk.launches
+    runner = await mount_dashboard(plat, "127.0.0.1", port, db_path=base / "dashboard.db")
+    try:
+        db = runner.app[CTX_KEY].db
+        model = runner.app[CTX_KEY].model
+        async with _dash_session() as s:
+            await _dash_login(s, base_url)
+            # Scenarios: each warn held to the oracle over the index before
+            # its run (the run ingests only after its warn).
+            held, cited, traces = 0, [], []
+            for i, (app_id, prompt) in enumerate(DASH_SCENARIOS):
+                want = warn_oracle(plat, [prompt], fused_topk_reference)[0]
+                loc, _ = await _dash_post(s, base_url, "/scenarios/run", {"app_id": app_id, "prompt": prompt})
+                wid = int(loc.rsplit("#w-", 1)[1])
+                row = db.one("SELECT confidence, failure_id FROM warning_events WHERE id=?", (wid,))
+                hold_warn(row["confidence"], row["failure_id"], want, threshold, f"phase 20 a scenario {i}")
+                held += 1
+                if row["failure_id"]:
+                    cited.append(row["failure_id"])
+            runs = db.query("SELECT trace_id FROM scenario_runs ORDER BY id")
+            if len(runs) != len(DASH_SCENARIOS) or not cited:
+                raise AssertionError(f"phase 20 a: {len(runs)} scenario runs, {len(cited)} cited a failure")
+            # A dataset and its eval: one warn_batch, one generate_batch, one
+            # ingest_batch. The warn_batch's answers, recorded at the call.
+            await _dash_post(s, base_url, "/datasets/create", {"name": "phase20", "description": "smoke"})
+            ds = db.one("SELECT id FROM datasets WHERE name=?", ("phase20",))["id"]
+            prompts = [f"Summarize report {61 * i + 5} and include citations" if i % 2 else
+                       f"Explain change {i} to the billing job" for i in range(DASH_EXAMPLES)]
+            for i, p in enumerate(prompts):
+                await _dash_post(s, base_url, f"/datasets/{ds}/examples", {"app_id": f"eval-{i % 4}", "prompt": p})
+            want = warn_oracle(plat, prompts, fused_topk_reference)
+            seen = []
+            real = plat.warn_batch
+
+            def recording(reqs):
+                res = real(reqs)
+                seen.append(([r.prompt for r in reqs], res))
+                return res
+
+            plat.warn_batch = recording
+            try:
+                n0 = plat.gfkb.count
+                loc, _ = await _dash_post(s, base_url, f"/datasets/{ds}/eval", {})
+            finally:
+                del plat.warn_batch
+            if len(seen) != 1 or seen[0][0] != prompts:
+                raise AssertionError(f"phase 20 a eval: {len(seen)} warn_batch calls")
+            for j, (r, w) in enumerate(zip(seen[0][1], want)):
+                hold_warn(r.confidence, r.references[0].failure_id if r.references else None, w, threshold,
+                          f"phase 20 a eval example {j}")
+            ev = await _dash_page(s, base_url, loc, "pass rate", "p50")
+            run = db.one("SELECT total, passed, status FROM evaluation_runs WHERE id=?", (int(loc.rsplit("/", 1)[1]),))
+            n_res = db.one("SELECT COUNT(*) AS n FROM evaluation_results WHERE eval_run_id=?",
+                           (int(loc.rsplit("/", 1)[1]),))["n"]
+            if run["total"] != DASH_EXAMPLES or run["status"] != "done" or n_res != DASH_EXAMPLES:
+                raise AssertionError(f"phase 20 a eval: {dict(run)}, {n_res} results")
+            # The pages a user reads, from the rows just written.
+            trace = runs[0]["trace_id"]
+            await _dash_page(s, base_url, "/", "Failure intelligence overview")
+            await _dash_page(s, base_url, "/warnings", 'id="tile-total"', DASH_SCENARIOS[0][0])
+            await _dash_page(s, base_url, "/runs", "app-A")
+            await _dash_page(s, base_url, f"/runs/{trace}", "scenario.run", "warn_policy.call", "ingestion.ingest")
+            await _dash_page(s, base_url, f"/failures/{cited[0]}", cited[0])
+            await _dash_page(s, base_url, "/health-page?app_id=app-A", "app-A")
+            await _dash_page(s, base_url, "/admin/audit", "scenario.run", "eval.run")
+            out["a"] = dict(scenarios=held, cited=len(cited), eval_examples=DASH_EXAMPLES,
+                            eval_passed=run["passed"], eval_ingested=plat.gfkb.count - n0,
+                            launches=fused_topk.launches - mark, runtime=getattr(model, "name", None),
+                            eval_page_bytes=len(ev), wall_s=time.perf_counter() - t_phase)
+            if out["a"]["launches"] <= 0:
+                raise AssertionError("phase 20 a: the dashboard's warns never launched fused_topk")
+            log(f"phase 20 a: the dashboard beside the service over phase 8's Platform ({plat.gfkb.count} rows of "
+                f"{plat.gfkb._knn.capacity} x {plat.gfkb._emb.shape[1]} {str(plat.gfkb._emb.dtype)[6:]}), jinja2 {jinja2.__version__}, runtime {out['a']['runtime']}: {held} scenario "
+                f"warns (warn -> generate -> ingest), {len(cited)} citing a failure, and a {DASH_EXAMPLES}-example "
+                f"eval's warn_batch == fused_topk_reference's answers over the index at each warn; eval {run['passed']}"
+                f"/{run['total']} passed, {out['a']['eval_ingested']} rows ingested; 7 pages read back; "
+                f"fused_topk launches of the dashboard's requests: {out['a']['launches']} [{card}]")
+            # c, the agent echo app: registered, tested, invoked.
+            t_c = time.perf_counter()
+            waited = await _wait_echo(s, echo_url, echo, echo_log)
+            async with s.post(base_url + "/api/agents/register", json={"name": "echo", "base_url": echo_url}) as r:
+                if r.status != 200 or not (await r.json())["ok"]:
+                    raise AssertionError(f"agent register: {r.status}")
+            await _dash_page(s, base_url, "/admin/agents/echo/test", "Test: echo", "200 —", "healthy")
+            _, body = await _dash_post(s, base_url, "/playground/run",
+                                       {"prompt": "phase 20 echo", "target": "agent:echo"}, want=200)
+            events = json.loads(_pre_text(body, "playground agent:echo"))
+            if not (len(events) == 1 and events[0]["event_type"] == "echo"
+                    and events[0]["payload"]["received_payload"] == {"prompt": "phase 20 echo"}):
+                raise AssertionError(f"phase 20 c: the echo answered {events}")
+            out["c_agent"] = dict(echo_waited_s=waited, wall_s=time.perf_counter() - t_c)
+            log(f"phase 20 c: agent_echo (a child; {waited:.2f} s waited for its /health) registered through "
+                f"/api/agents/register; /admin/agents/echo/test answered 200 healthy; the playground's agent:echo "
+                f"target returned the echo of the prompt [{card}]")
+    finally:
+        await runner.cleanup()
+        del runner
+    return out
+
+
+def live_answers(gfkb) -> dict:
+    """Each live row's warn answer: its signature's top-1 score and the ids
+    within ATOL of it (``match_batch``, 64 a call)."""
+    tomb = gfkb._tombstoned  # slot -> reason
+    sigs = [r.signature_text for slot, r in enumerate(gfkb.list_failures()) if slot not in tomb]
+    out = {}
+    for lo in range(0, len(sigs), 64):
+        for sig, m in zip(sigs[lo : lo + 64], gfkb.match_batch(sigs[lo : lo + 64])):
+            out[sig] = (m[0].score, {x.failure_id for x in m if m[0].score - x.score <= ATOL})
+    return out
+
+
+def _cli_in_process(argv) -> tuple:
+    """``kakveda_tpu_torch.cli.main.main(argv)`` here, its stdout captured:
+    (rc, stdout)."""
+    import io
+
+    from kakveda_tpu_torch.cli.main import main as cli_main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(list(argv))
+    return rc, buf.getvalue()
+
+
+def phase_cli(base: Path, before: dict, card: str) -> dict:
+    """Phase 20 c's CLI part, after phase 8's Platform is closed, on the data
+    dir phase 20 a wrote (``base/service``, as ``--dir base/cli``'s
+    ``data``): ``status``, ``compact`` on the card (its GFKB's capacity the
+    next power of two over the rows), every live row's warn answer after it
+    against ``before`` (taken on phase 8's Platform), ``status`` again,
+    ``doctor``, which must name the card."""
+    from kakveda_tpu_torch.index.gfkb import GFKB
+
+    t0 = time.perf_counter()
+    root = base / "cli"
+    root.mkdir()
+    (root / "data").symlink_to(base / "service", target_is_directory=True)
+    rc, text = _cli_in_process(["status", "--dir", str(root)])
+    st0 = json.loads(text)
+    if rc != 0 or not st0["exists"] or st0["failures"] < len(before) or st0["server"]["running"]:
+        raise AssertionError(f"cli status: rc {rc}, {text[:500]}")
+    cap = max(1 << 14, 1 << (len(before) - 1).bit_length())
+    rc, text = _cli_in_process(["compact", "--dir", str(root), "--capacity", str(cap), "--dim", str(DIM)])
+    comp = json.loads(text[text.index("{"):])
+    if rc != 0 or not comp["compact"].get("compacted"):
+        raise AssertionError(f"cli compact: rc {rc}, {text[-1000:]}")
+    kb = GFKB(data_dir=root / "data", capacity=cap, dim=DIM)
+    try:
+        if kb.device.type != "cuda":
+            raise AssertionError(f"the compacted GFKB reopened on {kb.device}")
+        after = live_answers(kb)
+    finally:
+        kb.close()
+        del kb
+        torch.cuda.empty_cache()
+    if after.keys() != before.keys():
+        raise AssertionError(f"compact: {len(after)} live rows after, {len(before)} before")
+    for sig, (score, tied) in before.items():
+        score2, tied2 = after[sig]
+        if abs(score - score2) > ATOL or not (tied & tied2):
+            raise AssertionError(f"compact changed the warn answer of {sig!r}: {score} {sorted(tied)} -> "
+                                 f"{score2} {sorted(tied2)}")
+    rc, text = _cli_in_process(["status", "--dir", str(root)])
+    st1 = json.loads(text)
+    if rc != 0 or st1["durability"]["compact_generation"] < 1:
+        raise AssertionError(f"cli status after compact: {text[:500]}")
+    held_env = os.environ.get("KAKVEDA_DATA_DIR")
+    os.environ["KAKVEDA_DATA_DIR"] = str(root / "data")  # doctor's writable probe lands in the temp dir
+    try:
+        rc, doctor = _cli_in_process(["doctor", "--dir", str(root)])
+    finally:
+        if held_env is None:
+            os.environ.pop("KAKVEDA_DATA_DIR", None)
+        else:
+            os.environ["KAKVEDA_DATA_DIR"] = held_env
+    name = torch.cuda.get_device_name(0)
+    if rc != 0 or f"[ok] cuda: {name}" not in doctor or "[ok] kernel build:" not in doctor:
+        raise AssertionError(f"cli doctor: rc {rc}\n{doctor}")
+    out = dict(rows=len(before), capacity=cap, compact=comp["compact"], replay_estimate_s=comp["replay_estimate_s"],
+               status_failures=st0["failures"], wall_s=time.perf_counter() - t0)
+    log(f"phase 20 c: cli status ({st0['failures']} failure lines), compact on the card (capacity {cap}: "
+        f"{comp['compact']['bytes_before']} -> {comp['compact']['bytes_after']} log bytes, generation "
+        f"{comp['compact']['generation']}; replay estimate {comp['replay_estimate_s']}), every one of "
+        f"{len(before)} live rows' warn answers equal after it, status again, doctor naming {name} "
+        f"({out['wall_s']:.1f} s) [{card}]")
+    for line in doctor.splitlines():
+        log("  doctor " + line)
+    return out
+
+
+async def phase_playground(rt, card: str) -> dict:
+    """Phase 20 b: a dashboard over phase 6's ``LlamaRuntime`` (Llama-3-8B
+    width, LLAMA3_LAYERS layers, bf16) and a small Platform on the card. One
+    ``/playground/run`` and one ``/playground/stream`` of PLAYGROUND_PROMPT
+    at once, the bf16 flash launches counted over them; the run's text must
+    equal ``rt.generate`` (greedy) of the same prompt, and the stream's
+    deltas, joined, that text, or their tokens depart from generate's at a
+    near-tie (phase 6's ``margin_rule``: whether the two requests share a
+    chunk depends on timing, and bf16 sums over another batch shape may
+    flip a solo margin under MARGIN_TOL); ``/admin/serving`` shows the
+    engine."""
+    from kakveda_tpu_torch.platform import Platform
+    from kakveda_tpu_torch.service.main import mount_dashboard
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="kakveda-playground-") as d:
+        plat = Platform(data_dir=Path(d) / "data", capacity=1024, dim=DIM)
+        if plat.device.type != "cuda":
+            raise AssertionError(f"phase 20 b: Platform on {plat.device}")
+        port = _free_port()
+        base_url = f"http://127.0.0.1:{port}"
+        runner = await mount_dashboard(plat, "127.0.0.1", port, db_path=Path(d) / "dash.db", model=rt)
+        try:
+            async with _dash_session() as s:
+                await _dash_login(s, base_url)
+
+                async def stream():
+                    deltas = []
+                    async with s.post(base_url + "/playground/stream",
+                                      data={"prompt": PLAYGROUND_PROMPT, "target": "model"}) as r:
+                        if r.status != 200:
+                            raise AssertionError(f"/playground/stream: {r.status}")
+                        async for raw in r.content:
+                            line = raw.decode().strip()
+                            if line.startswith("data: "):
+                                ev = json.loads(line[6:])
+                                if "error" in ev:
+                                    raise AssertionError(f"/playground/stream: {ev}")
+                                if "delta" in ev:
+                                    deltas.append(ev["delta"])
+                    return deltas
+
+                tok = rt.tokenizer
+                n0 = len(tok.decoded)
+                mark = launch_counts()  # deltas: the run's zeroed counters keep their meaning
+                page, deltas = await asyncio.gather(
+                    _dash_post(s, base_url, "/playground/run", {"prompt": PLAYGROUND_PROMPT, "target": "model"},
+                               want=200),
+                    stream())
+                launches = {k: v - mark[k] for k, v in launch_counts().items()}
+                n1 = len(tok.decoded)
+                text = _pre_text(page[1], "playground run")
+                ref = (await asyncio.get_running_loop().run_in_executor(None, rt.generate, PLAYGROUND_PROMPT)).text
+                ref_ids = _decoded_ids(tok, tok.decoded[n1:], ref, "rt.generate")
+                departures = {}
+                for what, got in (("run", text), ("stream", "".join(deltas))):
+                    if got != ref:  # raises unless the tokens part at a near-tie
+                        departures[what] = margin_rule(
+                            rt.params, rt.cfg, tok, rt._encode(PLAYGROUND_PROMPT), ref_ids,
+                            _decoded_ids(tok, tok.decoded[n0:n1], got, f"/playground/{what}"),
+                            f"phase 20 b /playground/{what}", PLAYGROUND_TOKENS)
+                serving = await _dash_page(s, base_url, "/admin/serving", "slots ×", "submitted / completed")
+            if launches["bf16"] <= 0 or launches["int8"] or launches["f32"] or launches["grouped"]:
+                raise AssertionError(f"phase 20 b: launches {launches}")
+        finally:
+            await runner.cleanup()
+            del runner
+            plat.close()
+            del plat
+            rt.close()  # the engine the requests built: its loop thread would keep the weights on the card
+    _forget_apps()
+    out = dict(chars=len(ref), deltas=len(deltas), launches=launches["bf16"], serving_page_bytes=len(serving),
+               near_tie_departures=departures, wall_s=time.perf_counter() - t0)
+    held = "; ".join(f"/playground/{w} departs from it at a near-tie (solo margin {m:.4f})"
+                     for w, m in departures.items()) or "both equal it"
+    log(f"phase 20 b: a dashboard over phase 6's Llama-3-8B ({rt.cfg.n_layers} layers, bf16): /playground/run "
+        f"and /playground/stream ({len(deltas)} deltas) at once, held to rt.generate's text ({len(ref)} chars): "
+        f"{held}; /admin/serving shows the engine; bf16 flash launches of the two requests: {launches['bf16']} "
+        f"({out['wall_s']:.1f} s) [{card}]")
+    return out
+
+
+def _decoded_ids(tok, entries, text: str, what: str) -> list:
+    """The longest of ``entries`` (ids a ``RecordingTokenizer`` decoded)
+    that decodes to ``text``: the tokens behind a finished generation."""
+    hits = [e for e in entries if tok._tok.decode(e) == text]
+    if not hits:
+        raise AssertionError(f"phase 20 b: no decode of {what}'s tokens gives its text")
+    return max(hits, key=len)
+
+
+def phase_dashboard_alone(base: Path, fused_topk, fused_topk_reference, echo: tuple, card: str) -> dict:
+    """``--phases 20`` without 8: phase 8 a's Platform and ingest (8 x 512
+    traces), then 20 a and 20 c."""
+    from kakveda_tpu_torch.core.schemas import TracePayload
+    from kakveda_tpu_torch.platform import Platform
+
+    plat = Platform(data_dir=base / "service", capacity=ROWS, dim=DIM)
+    for lo in range(0, 4096, 512):
+        asyncio.run(plat.ingest_batch(_service_traces(TracePayload, lo, 512)))
+    out = asyncio.run(phase_dashboard(plat, base, fused_topk, fused_topk_reference, echo, card))
+    before = live_answers(plat.gfkb)
+    plat.close()
+    del plat
+    _forget_apps()
+    out["c_cli"] = phase_cli(base, before, card)
+    return out
+
+
+def playground_alone(card: str) -> dict:
+    """``--phases 20`` without 6: phase 6's runtime (its config, seed and
+    tokenizer), then 20 b."""
+    from kakveda_tpu_torch.models.generate import LlamaRuntime
+    from kakveda_tpu_torch.models.llama import LlamaConfig
+
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=LLAMA3_LAYERS)
+    rt = LlamaRuntime(cfg=cfg, seed=0, tokenizer=RecordingTokenizer())
+    try:
+        rt.generate(PROMPTS[0], max_tokens=8)  # the engine built, as phase 6 leaves it
+        return asyncio.run(phase_playground(rt, card))
+    finally:
+        rt.close()
+        del rt
+        log_held("phase 20 b")
+
+
+def phase20_wall(dash: dict, play: dict, card: str) -> float:
+    wall = dash["a"]["wall_s"] + dash["c_agent"]["wall_s"] + dash["c_cli"]["wall_s"] + play["wall_s"]
+    log(f"phase 20 wall: {wall:.1f} s (a {dash['a']['wall_s']:.1f}, b {play['wall_s']:.1f}, c "
+        f"{dash['c_agent']['wall_s'] + dash['c_cli']['wall_s']:.1f}; its limit {PHASE20_WALL_S:g}) [{card}]")
+    if wall > PHASE20_WALL_S:
+        raise AssertionError(f"phase 20 took {wall:.1f} s, past its {PHASE20_WALL_S:g} s")
+    return wall
+
+
 def log_held(after: str) -> None:
     gc.collect()
     torch.cuda.empty_cache()
@@ -8334,7 +8863,7 @@ def log_held(after: str) -> None:
 
 # The phases in the order a whole run takes them; ``--phases`` picks some
 # (the build, 1-2, always runs). Each id names the group its lap times.
-PHASE_ORDER = ("3", "4", "7", "8", "18", "19", "12", "11", "5", "6", "10", "9", "14", "16")
+PHASE_ORDER = ("3", "4", "7", "8", "18", "19", "12", "11", "5", "6", "10", "9", "14", "16", "20")
 
 
 def _phases_arg(argv) -> tuple:
@@ -8363,10 +8892,6 @@ def main() -> int:
     # Phase 12 c's probe: one try a second, so a disarmed drill unlatches
     # within 2 s. The latch is process-global and built at first use.
     os.environ["KAKVEDA_DEGRADED_PROBE"] = "1"
-    from kakveda_tpu_torch import native
-    from kakveda_tpu_torch.ops import _build
-    from kakveda_tpu_torch.ops.fused_topk import fused_topk, fused_topk_reference
-
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -8376,7 +8901,26 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on {name}; phases {','.join(phases)}")
 
-    t0 = t_lap = time.perf_counter()
+    t0 = time.perf_counter()
+    # Phase 20 c's agent echo app, a child process: its interpreter starts
+    # beside the build, and it idles until phase 20 calls it.
+    echo_dir = tempfile.TemporaryDirectory(prefix="kakveda-echo-") if "20" in phases else None
+    echo = start_agent_echo(Path(echo_dir.name) / "agent_echo.log") if echo_dir else None
+    try:
+        return _main(phases, every, card, name, t0, echo)
+    finally:
+        if echo is not None:
+            stop_agent_echo(echo)
+            echo_dir.cleanup()
+
+
+def _main(phases, every: bool, card: str, name: str, t0: float, echo: Optional[tuple]) -> int:
+    """``main`` from the build on; ``echo``: phase 20's agent echo child."""
+    from kakveda_tpu_torch import native
+    from kakveda_tpu_torch.ops import _build
+    from kakveda_tpu_torch.ops.fused_topk import fused_topk, fused_topk_reference
+
+    t_lap = t0
     walls = {}
 
     def lap(name: str) -> None:
@@ -8430,15 +8974,17 @@ def main() -> int:
         log_held("phase 7")
         lap("7 mining")
 
+    # Phase 20 rides on phases 8 (a, c) and 6 (b) when they run; alone,
+    # it builds what they would have (its lap, at the end, times that).
     if "8" in phases:
         with tempfile.TemporaryDirectory(prefix="kakveda-service-") as d:
-            done["8"] = phase_service(Path(d), fused_topk, card)
+            done["8"] = phase_service(Path(d), fused_topk, card, echo=echo)
         if done["8"]["launches_service"] <= 0:
             raise AssertionError("the service path never launched fused_topk")
         log(f"fused_topk launches of the service's requests (phase 8 a-e): {done['8']['launches_service']}")
         check_healthy("phase 8")
         log_held("phase 8")
-        lap("8, 17 a-d, 17 f service")
+        lap("8, 17 a-d, 17 f, 20 a, 20 c service" if "20" in phases else "8, 17 a-d, 17 f service")
 
     if "18" in phases:
         with tempfile.TemporaryDirectory(prefix="kakveda-fleet-") as d:
@@ -8499,9 +9045,9 @@ def main() -> int:
         lap("5 flash")
     held = torch.cuda.memory_allocated()
     if "6" in phases:
-        done["6"] = phase_model(card)
+        done["6"] = phase_model(card, playground="20" in phases)
         log_held("phase 6")
-        lap("6, 13, 15, 17 e model")
+        lap("6, 13, 15, 17 e, 20 b model" if "20" in phases else "6, 13, 15, 17 e model")
         if torch.cuda.memory_allocated() > held + 0.5e9:  # phases 10 and 9 need phase 6's 16 GB back
             raise AssertionError(f"phase 6 left {torch.cuda.memory_allocated() - held} bytes allocated")
     if "10" in phases:
@@ -8526,6 +9072,20 @@ def main() -> int:
             done["16"] = phase_gaps(Path(d), card)
         log_held("phase 16")
         lap("16 gaps")
+    if "20" in phases:
+        if "8" in phases:
+            dash = done["8"]["dashboard"]
+        else:
+            with tempfile.TemporaryDirectory(prefix="kakveda-dashboard-") as d:
+                dash = phase_dashboard_alone(Path(d), fused_topk, fused_topk_reference, echo, card)
+            log_held("phase 20 a, c")
+        if "6" in phases:
+            play = done["6"]["playground"]
+        else:
+            play = playground_alone(card)
+        done["20"] = dict(dashboard=dash, playground=play, wall_s=phase20_wall(dash, play, card))
+        check_healthy("phase 20")
+        lap("20 application layer (alone)" if not {"6", "8"} <= set(phases) else "20 (its parts ran in 8 and 6)")
     log(f"phase walls (s): {json.dumps(walls)}; {time.perf_counter() - t0:.1f} s in all [{card}]")
     # No warn served from the host and no latch outside the device-loss drills
     # (phase 19 a's storm, phase 12 c).
@@ -8600,6 +9160,9 @@ def main() -> int:
     kernels[0]["launches_replay"] = elastic["b"]["launches"]
     kernels[0]["launches_elastic"] = sum(elastic["c"]["launches"].values())
     kernels[0]["launches_elastic_per_replica"] = elastic["c"]["launches"]
+    # Phase 20: the dashboard's own requests (a), the playground's (b).
+    kernels[0]["launches_dashboard"] = done["20"]["dashboard"]["a"]["launches"]
+    kernels[1]["launches_dashboard"] = done["20"]["playground"]["launches"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -122,3 +122,11 @@ class ConfigStore:
         sect = self._section("health_score")
         return float(sect.get("base_score", 100))
 
+
+
+def write_default_config(path: str | Path) -> Path:
+    """Materialize the default config file (``cli init``)."""
+    p = Path(path)
+    p.parent.mkdir(parents=True, exist_ok=True)
+    p.write_text(yaml.safe_dump(DEFAULT_CONFIG, sort_keys=False), encoding="utf-8")
+    return p

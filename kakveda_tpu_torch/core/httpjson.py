@@ -1,8 +1,10 @@
 """Blocking JSON over HTTP from the standard library.
 
-The synchronous half of the fleet's HTTP: ``replay_dlq_file``'s one POST
+The synchronous half of the port's HTTP: ``replay_dlq_file``'s one POST
 per dead-lettered event, the range migration's export / ship / flip
-(``fleet/ownership.run_rebalance``) and the supervisor's readiness poll.
+(``fleet/ownership.run_rebalance``), the supervisor's readiness poll, the
+CLI's probes (``doctor``, ``status``) and the dashboard's calls to a
+registered agent (``/health``, ``/invoke``).
 The reference speaks these through ``httpx``; the port keeps to
 ``urllib`` so a machine without ``httpx`` runs the whole fleet (the async
 paths use aiohttp). Proxies from the environment are ignored: every
@@ -48,6 +50,18 @@ def request(
         raise HTTPStatusError(e.code, body, url) from None
     except http.client.HTTPException as e:  # a torn answer: a transport error
         raise ConnectionError(f"{type(e).__name__}: {e}") from e
+
+
+def answer(
+    method: str, url: str, obj: Any = None, timeout: float = 5.0
+) -> Tuple[int, bytes]:
+    """As :func:`request`, but any answer is returned, a non-2xx one too
+    (``httpx`` without ``raise_for_status``); only a request that got no
+    answer raises (an ``OSError``)."""
+    try:
+        return request(method, url, obj, timeout)
+    except HTTPStatusError as e:
+        return e.status, e.body
 
 
 def post_json(url: str, obj: Any, timeout: float = 5.0) -> Any:

@@ -3,9 +3,9 @@
 The port's own copy of ``kakveda_tpu/core/ratelimit.py``, in memory only.
 :class:`RateLimiter` counts per-key fixed windows, sweeping expired
 windows so keys derived from client IPs cannot grow without bound (the
-reference's Redis tier behind ``KAKVEDA_REDIS_URL`` is not ported: nothing
-in the port calls the limiter). :class:`TokenBucket` is the smooth-rate
-tier the service's ingest routes use (``KAKVEDA_RATELIMIT_RPS`` /
+reference's Redis tier behind ``KAKVEDA_REDIS_URL`` is not ported; its
+caller is the dashboard's ``RATE_LIMITER``). :class:`TokenBucket` is the
+smooth-rate tier the service's ingest routes use (``KAKVEDA_RATELIMIT_RPS`` /
 ``_BURST`` / ``_MAX_KEYS``).
 """
 

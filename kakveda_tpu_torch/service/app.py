@@ -83,6 +83,11 @@ replayable log (``KAKVEDA_TRAFFIC_CAPTURE=0`` turns it off,
 ``KAKVEDA_TRAFFIC_CAPTURE_N`` sizes the ring, default 2048). The
 reference's ``KAKVEDA_WARN_RTT_EMU_MS`` emulates a TPU tunnel's round trip
 and has no counterpart on a local card.
+
+:func:`make_agent_echo_app` is the reference's external-agent contract
+(``/health``, ``/capabilities``, ``/invoke``), which
+``python -m kakveda_tpu_torch.service.agent_echo`` serves on its own; the
+dashboard's agent registry and playground call it.
 """
 
 from __future__ import annotations
@@ -895,4 +900,44 @@ def make_app(
         ]
     )
     app.add_routes(metrics_routes())
+    return app
+
+
+def make_agent_echo_app(agent_name: str = "agent-echo") -> web.Application:
+    """The reference's external-agent contract: ``/health``,
+    ``/capabilities``, and ``/invoke`` echoing the event back."""
+    app = web.Application()
+
+    async def health(request):
+        return web.json_response({"ok": True, "service": agent_name, "status": "healthy"})
+
+    async def capabilities(request):
+        return web.json_response(
+            {
+                "name": agent_name,
+                "capabilities": ["echo"],
+                "events_in": ["*"],
+                "events_out": ["echo"],
+            }
+        )
+
+    async def invoke(request):
+        body = await request.json()
+        out = {
+            "event_type": "echo",
+            "payload": {
+                "received_event_type": str(body.get("event_type") or "unknown"),
+                "received_payload": body.get("payload"),
+                "agent": agent_name,
+            },
+        }
+        return web.json_response({"status": "ok", "events": [out]})
+
+    app.add_routes(
+        [
+            web.get("/health", health),
+            web.get("/capabilities", capabilities),
+            web.post("/invoke", invoke),
+        ]
+    )
     return app

@@ -1,10 +1,14 @@
 """Server entry point: ``python -m kakveda_tpu_torch.service``.
 
-Port of ``kakveda_tpu/service/main.py`` without the dashboard (ROADMAP
-Queue 1 item 8), multi-host init or the compile ledger. It reads ``data_dir`` and ``index_capacity`` from the runtime
-config (``KAKVEDA_DATA_DIR``, ``KAKVEDA_INDEX_CAPACITY``), loads the native
-library, builds the ``Platform`` on the card (or on ``device``) and serves
-the API until SIGINT or SIGTERM. On the way out it writes a GFKB snapshot
+Port of ``kakveda_tpu/service/main.py`` without multi-host init or the
+compile ledger (ROADMAP Queue 1 items 5 and 8). It reads ``data_dir`` and
+``index_capacity`` from the runtime config (``KAKVEDA_DATA_DIR``,
+``KAKVEDA_INDEX_CAPACITY``), loads the native library, builds the
+``Platform`` on the card (or on ``device``) and serves the API until
+SIGINT or SIGTERM. With ``dashboard_port`` it also serves the dashboard
+(``dashboard/app.py``) from the same process over the same ``Platform``:
+two listeners, one failure memory, as the reference's ``up`` does (its
+model runtime is ``KAKVEDA_MODEL_RUNTIME``'s, on the card for ``torch``). On the way out it writes a GFKB snapshot
 (best effort, as the reference does) and closes the GFKB so the buffered
 log lines reach the disk: the next start restores the snapshot, replays
 only the log tail, and serves its first mine incrementally. With
@@ -39,20 +43,42 @@ from kakveda_tpu_torch.service.app import make_app
 log = logging.getLogger("kakveda.service")
 
 
-async def _serve(plat: Platform, host: str, port: int) -> None:
+async def mount_dashboard(plat: Platform, host: str, port: int, **dashboard_kw) -> web.AppRunner:
+    """Serve the dashboard on ``host:port`` over ``plat`` (``up
+    --dashboard-port``); ``dashboard_kw`` go to ``make_dashboard_app``
+    (``db_path``, ``model``). The caller cleans the returned runner up."""
+    from kakveda_tpu_torch.dashboard.app import make_dashboard_app
+
+    runner = web.AppRunner(make_dashboard_app(platform=plat, **dashboard_kw))
+    await runner.setup()
+    try:
+        await web.TCPSite(runner, host, port).start()
+    except BaseException:
+        await runner.cleanup()
+        raise
+    log.info("dashboard on http://%s:%d", host, port)
+    return runner
+
+
+async def _serve(plat: Platform, host: str, port: int, dashboard_port: int | None = None) -> None:
     runner = web.AppRunner(make_app(plat))
     await runner.setup()
+    dash = None
     try:
         await web.TCPSite(runner, host, port).start()
         restore = plat.gfkb.lifecycle_info()["restore"]
         log.info("platform API on http://%s:%d (gfkb entries: %d, restored from a snapshot: %d, device %s)",
                  host, port, plat.gfkb.count, restore["rows"] if restore else 0, plat.device)
+        if dashboard_port:
+            dash = await mount_dashboard(plat, host, dashboard_port)
         stop = asyncio.Event()
         loop = asyncio.get_running_loop()
         for sig in (signal.SIGINT, signal.SIGTERM):
             loop.add_signal_handler(sig, stop.set)
         await stop.wait()
     finally:
+        if dash is not None:
+            await dash.cleanup()
         await runner.cleanup()
 
 
@@ -61,8 +87,10 @@ def run_server(
     port: int = 8100,
     data_dir: str | None = None,
     device: str | None = None,
+    dashboard_port: int | None = None,
 ) -> int:
-    """Serve until SIGINT/SIGTERM (from the main thread); returns 0."""
+    """Serve until SIGINT/SIGTERM (from the main thread); returns 0. A
+    ``dashboard_port`` serves the dashboard beside the API."""
     setup_logging(service_name="kakveda-tpu-torch")
     cfg = get_runtime_config(service_name="kakveda-tpu-torch")
     # Build the library before listening: never inside a request.
@@ -86,7 +114,7 @@ def run_server(
             plat.warn(probe)  # warm outside the trace
             with profiling.profile(logdir):
                 plat.warn(probe)
-        asyncio.run(_serve(plat, host, port))
+        asyncio.run(_serve(plat, host, port, dashboard_port))
     finally:
         # Graceful shutdown snapshot: the next start restores it instead of
         # re-embedding the whole GFKB and re-mining it.

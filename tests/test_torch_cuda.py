@@ -1888,3 +1888,63 @@ def test_two_replicas_on_the_card_behind_the_router_answer_as_one_platform(gen, 
         assert [x["score"] for x in body["references"]] == pytest.approx(
             [x.score for x in ref.references], abs=1e-4)
         assert body["confidence"] == pytest.approx(ref.confidence, abs=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the application layer on the card: chip_smoke.py's phase 20 at small sizes
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("preset", ["default", "llama3_heads"])
+def test_playground_run_and_stream_equal_generate_on_the_card(preset):
+    """Phase 20 b (``chip_smoke.phase_playground``) over a runtime on the
+    card: the default preset (head_dim 32), or Llama-3-8B's width at 2
+    layers (H 32, KV 8, D 128). ``/playground/run`` and
+    ``/playground/stream`` at once: the run's text == ``rt.generate``'s
+    (greedy), the stream's deltas joined == it (or departing at a near-tie
+    under phase 6's margin rule), ``/admin/serving`` shows the
+    engine, and the two requests launched the bf16 flash body and no other."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    import dataclasses
+
+    import chip_smoke
+    from kakveda_tpu_torch.models.generate import LlamaRuntime
+    from kakveda_tpu_torch.models.llama import LlamaConfig
+
+    cfg = LlamaConfig.tiny() if preset == "default" else dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=2)
+    rt = LlamaRuntime(cfg=cfg, seed=0, tokenizer=chip_smoke.RecordingTokenizer())
+    try:
+        out = asyncio.run(chip_smoke.phase_playground(rt, torch.cuda.get_device_name(0)))
+    finally:
+        rt.close()
+    assert out["launches"] > 0 and out["chars"] > 0
+
+
+def test_dashboard_warns_and_cli_compact_on_the_card(tmp_path):
+    """Phase 20 a and c (``chip_smoke.phase_dashboard``, ``phase_cli``) over a
+    Platform of 4,096 rows × 2048 on the card with 1,024 traces ingested: each
+    scenario warn's stored answer and the eval's ``warn_batch`` equal
+    ``fused_topk_reference``'s over the index at that warn, ``fused_topk``
+    launched; the agent echo child registered, tested and invoked; then
+    ``cli compact`` on the card keeps every live row's warn answer and
+    ``cli doctor`` names the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    import chip_smoke
+    from kakveda_tpu_torch.core.schemas import TracePayload
+    from kakveda_tpu_torch.platform import Platform
+
+    card = torch.cuda.get_device_name(0)
+    plat = Platform(data_dir=tmp_path / "service", capacity=4096, dim=2048, device="cuda")
+    asyncio.run(plat.ingest_batch(chip_smoke._service_traces(TracePayload, 0, 1024)))
+    echo = chip_smoke.start_agent_echo(tmp_path / "agent_echo.log")
+    try:
+        out = asyncio.run(chip_smoke.phase_dashboard(plat, tmp_path, fused_topk, fused_topk_reference, echo, card))
+    finally:
+        chip_smoke.stop_agent_echo(echo)
+    before = chip_smoke.live_answers(plat.gfkb)
+    plat.close()
+    cli = chip_smoke.phase_cli(tmp_path, before, card)
+    assert out["a"]["launches"] > 0 and out["a"]["scenarios"] == len(chip_smoke.DASH_SCENARIOS)
+    assert cli["rows"] == len(before) and cli["compact"]["compacted"]

@@ -468,10 +468,11 @@ def test_cli_parser_fleet_flags():
 
     argv = ["up", "--replicas", "4", "--port-base", "9000", "--dir", "/tmp/x"]
     args, jargs = build_parser().parse_args(argv), jparser().parse_args(argv)
-    for k in ("replicas", "port_base", "dir", "replica_index", "host", "port", "detach", "autoscale"):
+    for k in ("replicas", "port_base", "dir", "replica_index", "host", "port", "detach", "autoscale",
+              "dashboard_port"):
         assert getattr(args, k) == getattr(jargs, k), k
     assert args.replicas == 4 and args.port_base == 9000 and args.replica_index is None
-    assert args.device is None and args.dashboard_port == 0
+    assert args.device is None and args.dashboard_port == 8110
     down = build_parser().parse_args(["down", "--dir", "/tmp/x"])
     assert down.timeout == jparser().parse_args(["down", "--dir", "/tmp/x"]).timeout
 

@@ -35,7 +35,10 @@ def test_import_loads_no_jax_in_fresh_interpreter():
               "core.sanitize", "core.trace", "core.otel", "core.ratelimit", "core.httpjson", "events.bus",
               "fleet.hashring", "fleet.gossip", "fleet.ownership", "fleet.router", "fleet.supervisor",
               "fleet.autoscaler", "traffic", "traffic.capture", "traffic.scenarios", "traffic.replay",
-              "traffic.slo", "cli.main", "cli.__main__"):
+              "traffic.slo", "cli.main", "cli.__main__", "cli.wizard", "core.revocation", "service.agent_echo",
+              "dashboard", "dashboard.app", "dashboard.core", "dashboard.db", "dashboard.auth", "dashboard.rbac",
+              "dashboard.email", "dashboard.routes_main", "dashboard.routes_data", "dashboard.routes_admin",
+              "dashboard.routes_auth"):
         assert f"kakveda_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -93,6 +96,12 @@ def test_import_loads_no_jax_in_fresh_interpreter():
         ("kakveda_tpu_torch.traffic.replay", False),
         ("kakveda_tpu_torch.traffic.slo", False),
         ("kakveda_tpu_torch.cli.main", False),
+        ("kakveda_tpu_torch.cli.wizard", False),
+        ("kakveda_tpu_torch.core.revocation", False),
+        ("kakveda_tpu_torch.dashboard.db", False),
+        ("kakveda_tpu_torch.dashboard.auth", False),
+        ("kakveda_tpu_torch.dashboard.app", True),
+        ("kakveda_tpu_torch.service.agent_echo", True),
     ],
 )
 def test_module_loads_no_jax_and_only_the_service_loads_aiohttp(module, aiohttp_allowed):
